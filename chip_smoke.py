@@ -1,0 +1,529 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one CUDA card and hold its kernel
+against its plain version.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one report line each (every check raises on failure):
+
+1. versions, and the card's name and power limit from ``nvidia-smi``;
+2. build of ``src/repro_torch/csrc/maxplus_fold.cu`` for ``sm_90a``;
+3. the (max,+) fold kernel against ``maxplus_fold_ref`` on the card,
+   required equal by ``torch.equal``, in five variants (periodic,
+   periodic+energy, indexed, indexed+arrivals+extras,
+   indexed+energy+arrivals+extras), at a small shape here and at the
+   real size after phase 5;
+4. paper Tables 3/4/5 through the port's entry points on the card: each
+   cell through ``steady_bandwidth_mb_s`` (``scan`` engine) and through
+   ``Simulator.run(..., engine="cuda")``, agreeing within 1e-6 relative;
+   the Table 3 cells also through the periodic kernel branch
+   (``bandwidth_maxplus_mb_s``); the paper pins of the JAX package's
+   ``tests/test_sim_paper_tables.py``; Table 5 with scan / cuda / oracle
+   energy agreement under 1e-3;
+5. the real-size design-space sweep: one 65536-op mixed trace on 8
+   channels x 16 ways (N = 146, M = 512 combos) under 64 design-point
+   tables through ``sweep_tables(..., engine="cuda")``, checked bit-equal
+   to the plain version on the card and within 1e-5 of the numpy oracle
+   on two points, with the kernel's and the plain version's times.
+
+Phases 4 and 5 are the main path: the kernel's launch counts are reset
+just before them and read just after.  The line before the last is the
+JSON kernel report, the last line the JSON device summary.  Exits
+non-zero without a result when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and float32
+# (non-tensor-core) rate; the bound is the larger of bytes/rate and
+# operations/rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# The scan engine adds each op's offsets one float32 add at a time; the
+# (max,+) dictionary pre-sums them in float64 and rounds each entry once.
+# Both are exact float32 evaluations of the same recurrence that round
+# differently, so on a T-op trace they may drift apart by about T float32
+# half-ulps of the end time: the bar is T * 2**-24 relative (the JAX
+# package's own scan and pallas engines differ the same way).
+F32_DRIFT_PER_OP = 2.0 ** -24
+REL_TOL_ORACLE = 1e-5       # kernel vs oracle where float32 sums are exact
+DYADIC_US = 0.25            # timing quantum that makes every sum exact
+ENERGY_TOL = 1e-3           # Table 5 scan / cuda / oracle agreement
+# paper pins of tests/test_sim_paper_tables.py (JAX package)
+ANOMALIES = {("slc", "read", 2, "proposed")}
+T3_MEAN_TOL, T3_WORST_TOL, T4_MEAN_TOL = 0.04, 0.16, 0.05
+
+SWEEP_OPS, SWEEP_CHANNELS, SWEEP_WAYS, SWEEP_POINTS = 65536, 8, 16, 64
+TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
+                  "ctrl_us", "arb_us", "io_us")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 3, warmup: bool = True) -> float:
+    """Median CUDA-event time (ms) of ``fn`` over ``reps`` runs."""
+    import torch
+    if warmup:
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fold_work(mats, t_steps, extra_inputs, outputs) -> tuple[float, float]:
+    """(bytes, operations) of one fold: every input read once, every
+    output written once, 2*T*B*N^2 max/add operations."""
+    b, _, n, _ = mats.shape
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in (mats, *extra_inputs, *outputs) if x is not None)
+    return float(n_bytes), 2.0 * t_steps * b * n * n
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def variant_inputs(mats, t_steps, seed, device, gvec=None, wvec=None):
+    """Seeded side inputs for the five variants: indices, arrivals,
+    extras, energies, and arrival templates / written-rows masks where
+    the caller has none of its own."""
+    import numpy as np
+    import torch
+    from repro_torch.core.maxplus_form import NEG
+
+    b, m, n, _ = mats.shape
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    idx = torch.as_tensor(rng.integers(0, m, t_steps).astype(np.int32),
+                          device=device)
+    arrivals = f32(np.cumsum(rng.exponential(8.0, t_steps)))
+    extras = f32(np.where(rng.random(t_steps) < 0.1,
+                          rng.uniform(5.0, 50.0, t_steps), 0.0))
+    energy = f32(rng.uniform(0.0, 2.0, (b, m, 5)))
+    if gvec is None:
+        gvec = f32(np.where(rng.random((b, m, n)) < 0.2,
+                            rng.uniform(0.0, 30.0, (b, m, n)), NEG))
+    if wvec is None:
+        wvec = f32((rng.random((b, m, n)) < 0.1).astype(np.float32))
+    return idx, arrivals, extras, energy, gvec, wvec
+
+
+def check_variants(label, mats, s0, t_steps, inputs) -> float:
+    """Five kernel-vs-plain variants; returns the max abs difference
+    (0.0: every check is torch.equal)."""
+    import torch
+    from repro_torch.kernels.maxplus.kernel import maxplus_fold_kernel
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+
+    idx, arrivals, extras, energy, gvec, wvec = inputs
+    side = dict(arrivals=arrivals, gvec=gvec, extras=extras, wvec=wvec)
+    variants = {
+        "periodic": dict(),
+        "periodic+energy": dict(energy=energy),
+        "indexed": dict(idx=idx),
+        "indexed+arrivals+extras": dict(idx=idx, **side),
+        "indexed+energy+arrivals+extras": dict(idx=idx, energy=energy,
+                                               **side),
+    }
+    worst = 0.0
+    for name, kw in variants.items():
+        got = maxplus_fold_kernel(mats, s0, t_steps=t_steps, **kw)
+        want = maxplus_fold_ref(mats, s0, t_steps=t_steps, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                diff = float((g - w).abs().max())
+                raise AssertionError(f"{label} {name}: kernel != plain "
+                                     f"(max abs diff {diff})")
+            worst = max(worst, float((g - w).abs().max()))
+    log(f"[3] kernel == plain ({label}, B={mats.shape[0]} M={mats.shape[1]} "
+        f"N={mats.shape[2]} T={t_steps}): 5 variants torch.equal")
+    return worst
+
+
+def phase_small_variants(device) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core.maxplus_form import NEG
+
+    rng = np.random.default_rng(11)
+    b, m, n, t = 3, 7, 37, 301
+    mats = np.where(rng.random((b, m, n, n)) < 0.3,
+                    rng.uniform(0.0, 40.0, (b, m, n, n)), NEG)
+    mats[:, :, np.arange(n), np.arange(n)] = 0.0
+    mats = torch.as_tensor(mats.astype(np.float32), device=device)
+    s0 = torch.as_tensor(rng.uniform(0.0, 5.0, (b, n)).astype(np.float32),
+                         device=device)
+    check_variants("small", mats, s0, t, variant_inputs(mats, t, 12, device))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: Tables 3/4/5 through the port
+# ---------------------------------------------------------------------------
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def phase_tables() -> dict:
+    import numpy as np
+    from repro_torch.api import Simulator, steady_bandwidth_mb_s
+    from repro_torch.core.interface import make_interface
+    from repro_torch.core.nand import chip as nand_chip
+    from repro_torch.core.paper_tables import (INTERFACE_ORDER, TABLE3,
+                                               TABLE4)
+    from repro_torch.core.sim import page_op_params
+    from repro_torch.core.trace import READ, WRITE, steady_trace
+    from repro_torch.kernels.maxplus.ops import bandwidth_maxplus_mb_s
+    from repro_torch.tables import cell_config, run_table5
+
+    def both_engines(cell, mode, ways, kind, channels=1):
+        cfg = cell_config(cell, ways, kind, channels)
+        scan = steady_bandwidth_mb_s(cfg, mode)
+        trace = steady_trace(512, channels, ways,
+                             READ if mode == "read" else WRITE)
+        res = Simulator.for_config(cfg).run(trace, engine="cuda")
+        cuda = min(res.mb_s, cfg.sata_mb_s)
+        share = rel(cuda, scan) / (trace.n_ops * F32_DRIFT_PER_OP)
+        if share > 1.0:
+            raise AssertionError(f"{cfg.describe()} {mode}: cuda {cuda} vs "
+                                 f"scan {scan}")
+        return scan, share
+
+    t0 = time.perf_counter()
+    worst_engines = 0.0
+    t3_errs, t3_cells = [], []
+    for cell, by_mode in TABLE3.items():
+        for mode, by_ways in by_mode.items():
+            for ways, row in by_ways.items():
+                for kind, paper in zip(INTERFACE_ORDER, row):
+                    bw, d = both_engines(cell, mode, ways, kind)
+                    worst_engines = max(worst_engines, d)
+                    t3_cells.append((cell, mode, ways, kind, bw))
+                    if (cell, mode, ways, kind) not in ANOMALIES:
+                        t3_errs.append(rel(bw, paper))
+    mean3, worst3 = float(np.mean(t3_errs)), float(max(t3_errs))
+    if not (mean3 < T3_MEAN_TOL and worst3 < T3_WORST_TOL):
+        raise AssertionError(f"Table 3 pins: mean {mean3:.4f} (< "
+                             f"{T3_MEAN_TOL}), worst {worst3:.4f} (< "
+                             f"{T3_WORST_TOL})")
+    # the periodic kernel branch on the same cells (single channel, so no
+    # arbitration charge; every Table 3 bandwidth is below the SATA cap)
+    ops = [page_op_params(make_interface(kind), nand_chip(cell), mode, ways)
+           for cell, mode, ways, kind, _ in t3_cells]
+    periodic = bandwidth_maxplus_mb_s(ops, [c[2] for c in t3_cells],
+                                      n_pages=512)
+    worst_periodic = max(rel(float(p), c[4])
+                         for p, c in zip(periodic, t3_cells)) / (
+                             512 * F32_DRIFT_PER_OP)
+    if worst_periodic > 1.0:
+        raise AssertionError(f"periodic kernel vs scan on Table 3: "
+                             f"{worst_periodic:.2f} of the T*2^-24 bar")
+    log(f"[4] Table 3: {len(t3_cells)} cells; scan vs cuda engine at most "
+        f"{worst_engines:.2f} of the T*2^-24 bar, periodic kernel branch vs "
+        f"scan at most {worst_periodic:.2f}; paper mean rel err "
+        f"{mean3:.4f} (< "
+        f"{T3_MEAN_TOL}), worst {worst3:.4f} (< {T3_WORST_TOL})")
+
+    t4_errs, n4 = [], 0
+    for cell, by_mode in TABLE4.items():
+        for mode, by_cw in by_mode.items():
+            for (channels, ways), row in by_cw.items():
+                for kind, paper in zip(INTERFACE_ORDER, row):
+                    bw, d = both_engines(cell, mode, ways, kind, channels)
+                    worst_engines = max(worst_engines, d)
+                    n4 += 1
+                    if paper is None:          # the SATA2 300 MB/s cap
+                        if bw < 299.0:
+                            raise AssertionError(
+                                f"t4 {cell}/{mode}/{channels}x{ways}/{kind}"
+                                f" should hit the SATA cap, got {bw}")
+                    elif (cell, mode, ways, kind) not in ANOMALIES:
+                        t4_errs.append(rel(bw, paper))
+    mean4 = float(np.mean(t4_errs))
+    if not mean4 < T4_MEAN_TOL:
+        raise AssertionError(f"Table 4 mean rel err {mean4:.4f}")
+    log(f"[4] Table 4: {n4} cells; scan vs cuda at most "
+        f"{worst_engines:.2f} of the T*2^-24 bar; paper mean rel err {mean4:.4f} (< "
+        f"{T4_MEAN_TOL})")
+
+    rows = run_table5()        # asserts scan/cuda/oracle energy < 1e-3
+    agree = rows[-1]["value"]
+    t5 = [r["rel_err"] for r in rows[:-1]]
+    log(f"[4] Table 5: {len(t5)} cells, scan/cuda/oracle energy max rel "
+        f"diff {agree:.2e} (< {ENERGY_TOL}); paper mean |rel err| "
+        f"{float(np.mean(np.abs(t5))):.4f}; tables took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"table3_mean": mean3, "table3_worst": worst3,
+            "table4_mean": mean4, "energy_agreement": agree}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the real-size design-space sweep
+# ---------------------------------------------------------------------------
+
+
+def sweep_tables_inputs():
+    """The 65536-op mixed trace and 64 design-point tables: the six
+    cell x interface tables of the 8 x 16 geometry, timing columns scaled
+    by seeded factors in [0.8, 1.2]."""
+    import numpy as np
+    from repro_torch.core.interface import ALL_INTERFACES
+    from repro_torch.core.nand import CellType
+    from repro_torch.core.sim import SSDConfig
+    from repro_torch.core.trace import mixed_trace, op_class_table
+
+    trace = mixed_trace(SWEEP_OPS, channels=SWEEP_CHANNELS, ways=SWEEP_WAYS,
+                        read_fraction=0.7, seed=0)
+    bases = [op_class_table(SSDConfig(interface=k, cell=c,
+                                      channels=SWEEP_CHANNELS,
+                                      ways=SWEEP_WAYS))
+             for c in CellType for k in ALL_INTERFACES]
+    rng = np.random.default_rng(2024)
+    factors = rng.uniform(0.8, 1.2, (SWEEP_POINTS, len(TIMING_COLUMNS)))
+    tables = [timing_columns(bases[j % len(bases)],
+                             lambda q, c, f=factors[j]: c * f[q])
+              for j in range(SWEEP_POINTS)]
+    return trace, tables
+
+
+def timing_columns(table, fn, dtype=None):
+    """``table`` with its q-th timing column c replaced by ``fn(q, c)``
+    (c in float64; stored as float32 unless ``dtype`` says otherwise)."""
+    import dataclasses
+
+    import numpy as np
+    return dataclasses.replace(table, **{
+        name: np.asarray(fn(q, np.asarray(getattr(table, name), np.float64)),
+                         dtype or np.float32)
+        for q, name in enumerate(TIMING_COLUMNS)})
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import numpy as np
+    from repro_torch.api import sweep_tables
+    from repro_torch.core.maxplus_form import (combo_arrival_offsets,
+                                               combo_written_rows,
+                                               end_time_from_state)
+    from repro_torch.core.sim_ref import simulate_trace_ref
+    from repro_torch.kernels import build
+    from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.maxplus.ops import _combo_setup
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+
+    dev = resolve_device()
+    t_start = time.perf_counter()
+
+    # -- 1: versions and the card --------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].strip()
+    log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]}; device {torch.cuda.get_device_name(0)}")
+
+    # -- 2: build --------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path, ptxas = build.build(K.SOURCE)
+    K._library()
+    regs = [ln.strip() for ln in ptxas.splitlines()
+            if "registers" in ln or "spill" in ln]
+    log(f"[2] built {lib_path.name} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs)}")
+
+    # -- 3: kernel == plain at a small shape -----------------------------
+    phase_small_variants(dev)
+
+    # -- 4 + 5: the main path, with launch counts ------------------------
+    trace, tables = sweep_tables_inputs()
+    K.reset_launches()
+    tables_report = phase_tables()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ends = sweep_tables(tables, trace, engine="cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(K.LAUNCHES)
+    log(f"[5] sweep_tables(engine='cuda'): {len(tables)} design points x "
+        f"{trace.n_ops} ops on {trace.channels}x{trace.ways} in "
+        f"{sweep_s:.1f} s (dictionary build included); peak device memory "
+        f"{peak_gb:.2f} GB; main-path launches {launches}")
+    for branch, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{branch} kernel branch never launched on "
+                                 "the main path")
+    if not (ends.shape == (len(tables),) and np.all(np.isfinite(ends))
+            and np.all(ends > 0)):
+        raise AssertionError(f"sweep end times malformed: {ends}")
+
+    # -- 5: checks against the plain version and the oracle --------------
+    t0 = time.perf_counter()
+    layout, combos, idx, mats, s0, _, _, _, _ = _combo_setup(
+        tables, trace, "eager", dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b, m, n, _ = mats.shape
+    plain_state = maxplus_fold_ref(mats, s0, t_steps=trace.n_ops, idx=idx)
+    plain_ends = end_time_from_state(plain_state.cpu().numpy(), layout)
+    if not np.array_equal(plain_ends, ends):
+        raise AssertionError("sweep end times differ from the plain "
+                             f"version: max abs "
+                             f"{np.max(np.abs(plain_ends - ends))}")
+    kern_state = K.maxplus_fold_kernel(mats, s0, t_steps=trace.n_ops,
+                                       idx=idx)
+    if not torch.equal(kern_state, plain_state):
+        raise AssertionError("kernel state != plain state at real size")
+    # the numpy oracle on 2 points: in float64 the sweep drifts by float32
+    # rounding only (bar T * 2**-24); on timing quantised to DYADIC_US every
+    # float32 sum is exact, and the kernel must meet the oracle within 1e-5
+    drift = dyadic_err = 0.0
+    points = (0, 37 % len(tables))
+    exact = [timing_columns(tables[j], lambda q, c: np.round(c / DYADIC_US)
+                            * DYADIC_US) for j in points]
+    exact_ends = sweep_tables(exact, trace, engine="cuda")
+    for q, j in enumerate(points):
+        ref64 = simulate_trace_ref(timing_columns(tables[j], lambda q, c: c,
+                                                  dtype=np.float64), trace)
+        drift = max(drift, rel(float(ends[j]), ref64))
+        dyadic_err = max(dyadic_err, rel(float(exact_ends[q]),
+                                         simulate_trace_ref(exact[q], trace)))
+    if drift > trace.n_ops * F32_DRIFT_PER_OP or dyadic_err > REL_TOL_ORACLE:
+        raise AssertionError(f"kernel sweep vs oracle: float64 drift "
+                             f"{drift:.2e}, dyadic {dyadic_err:.2e}")
+    log(f"[5] real size: B={b} M={m} N={n} T={trace.n_ops}; end times "
+        f"bit-equal to the plain version on the card; vs the numpy oracle "
+        f"on 2 points: {dyadic_err:.2e} on {DYADIC_US} us-dyadic timing (< "
+        f"{REL_TOL_ORACLE}), float32 drift {drift:.2e} vs the float64 "
+        f"oracle (< T*2^-24 = {trace.n_ops * F32_DRIFT_PER_OP:.2e})")
+
+    # -- 3 at the real size: the same dictionary, five variants ---------
+    gvec = torch.as_tensor(np.stack([
+        combo_arrival_offsets(t, combos, layout) for t in tables]),
+        device=dev)
+    w = combo_written_rows(combos, layout)
+    wvec = torch.as_tensor(np.ascontiguousarray(
+        np.broadcast_to(w, (b,) + w.shape)), device=dev)
+    inputs = variant_inputs(mats, trace.n_ops, 13, dev, gvec=gvec, wvec=wvec)
+    inputs = (idx,) + inputs[1:]
+    real_err = check_variants("real size", mats, s0, trace.n_ops, inputs)
+
+    # -- timing: kernel, plain version, bound ---------------------------
+    def fold(fn):
+        return lambda: fn(mats, s0, t_steps=trace.n_ops, idx=idx)
+    k_ms = cuda_ms(fold(K.maxplus_fold_kernel))
+    p_ms = cuda_ms(fold(maxplus_fold_ref), warmup=False)
+    by, ops_ = fold_work(mats, trace.n_ops, (s0, idx), (kern_state,))
+    b_ms, b_by = bound_ms(by, ops_)
+    log(f"[5] indexed fold at real size: kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); host dictionary "
+        f"build + copy to the card {setup_s:.2f} s of the {sweep_s:.2f} s "
+        f"sweep; card: {smi}")
+
+    # periodic branch at the shape the main path gives it: all Table 3
+    # cells in one launch (B = 60, M = 32, N = 20, T = 512)
+    from repro_torch.core.interface import make_interface
+    from repro_torch.core.maxplus_form import init_state, transition_matrices
+    from repro_torch.core.nand import chip as nand_chip
+    from repro_torch.core.paper_tables import INTERFACE_ORDER, TABLE3
+    from repro_torch.core.sim import page_op_params
+    cells = [(c, md, wy, k) for c, bm in TABLE3.items()
+             for md, bw in bm.items() for wy in bw for k in INTERFACE_ORDER]
+    pmats = torch.as_tensor(np.stack([
+        transition_matrices(page_op_params(make_interface(k), nand_chip(c),
+                                           md, wy), wy)
+        for c, md, wy, k in cells]), device=dev)
+    ps0 = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+        init_state(), (len(cells), init_state().shape[0]))), device=dev)
+    pk = K.maxplus_fold_kernel(pmats, ps0, t_steps=512)
+    pp = maxplus_fold_ref(pmats, ps0, t_steps=512)
+    if not torch.equal(pk, pp):
+        raise AssertionError("periodic kernel != plain on the Table 3 batch")
+    pk_ms = cuda_ms(lambda: K.maxplus_fold_kernel(pmats, ps0, t_steps=512))
+    pp_ms = cuda_ms(lambda: maxplus_fold_ref(pmats, ps0, t_steps=512))
+    pby, pops = fold_work(pmats, 512, (ps0,), (pk,))
+    pb_ms, pb_by = bound_ms(pby, pops)
+    # periodic branch at the real size, for the record
+    rk_ms = cuda_ms(lambda: K.maxplus_fold_kernel(mats, s0,
+                                                  t_steps=trace.n_ops))
+    rby, rops = fold_work(mats, trace.n_ops, (s0,), (kern_state,))
+    rb_ms, rb_by = bound_ms(rby, rops)
+    log(f"[5] periodic fold on the Table 3 batch (B={len(cells)} M=32 N=20 "
+        f"T=512): kernel {pk_ms:.3f} ms, plain {pp_ms:.3f} ms, bound "
+        f"{pb_ms:.5f} ms ({pb_by}); at real size: kernel {rk_ms:.3f} ms, "
+        f"bound {rb_ms:.3f} ms ({rb_by})")
+
+    summary = {
+        "tables": tables_report, "sweep_s": sweep_s,
+        "dictionary_setup_s": setup_s,
+        "peak_device_gb": peak_gb, "oracle_rel_err_dyadic": dyadic_err,
+        "float32_drift_vs_float64_oracle": drift,
+        "periodic_real_size_ms": rk_ms, "periodic_real_size_bound_ms": rb_ms,
+        "seconds": time.perf_counter() - t_start,
+    }
+    log("[summary] " + json.dumps(summary))
+    log(smi)
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/maxplus_fold.cu",
+              "library_ms": None}
+    log(json.dumps({"kernels": [
+        {"name": "maxplus_fold (trace-indexed, K1)", **common,
+         "replaces": "src/repro/kernels/maxplus/kernel.py:426",
+         "launches": launches["indexed"], "max_abs_err": real_err,
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by},
+        {"name": "maxplus_fold (periodic, K2)", **common,
+         "replaces": "src/repro/kernels/maxplus/kernel.py:419",
+         "launches": launches["periodic"],
+         "max_abs_err": float((pk - pp).abs().max()),
+         "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": pb_ms,
+         "bound_by": pb_by},
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,74 @@
+"""Plain PyTorch version of the (max,+) trace-indexed fold.
+
+This is the CUDA kernel's plain version: the wrapper in ``kernel.py``
+runs it for tensors on the CPU, the tests hold it against the JAX
+package, and ``chip_smoke.py`` holds the kernel against it on the card.
+Every step is one correctly rounded float32 add per element followed by
+an exact max, and the energy accumulator sums in op order, so any
+implementation that keeps those operations reproduces it bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.maxplus_form import NEG
+
+
+def _host_indices(idx, t_steps: int, m: int) -> list[int]:
+    """Per-step matrix indices as host ints (one transfer, not one per
+    step); None = the periodic sequence t mod M."""
+    if idx is None:
+        return [t % m for t in range(t_steps)]
+    if isinstance(idx, torch.Tensor):
+        idx = idx.detach().cpu().numpy()
+    return np.asarray(idx)[:t_steps].astype(np.int64).tolist()
+
+
+def maxplus_fold_ref(mats: torch.Tensor, s0: torch.Tensor, *, t_steps: int,
+                     idx=None, energy: torch.Tensor | None = None,
+                     arrivals: torch.Tensor | None = None,
+                     gvec: torch.Tensor | None = None,
+                     extras: torch.Tensor | None = None,
+                     wvec: torch.Tensor | None = None):
+    """mats: [B, M, N, N]; s0: [B, N] -> [B, N] after t_steps ops.
+
+    ``idx`` [t_steps] selects the matrix per step; None = periodic.
+    ``arrivals`` [t_steps] + ``gvec`` [B, M, N] add the per-op
+    origin-column max-in of arrival-aware traces:
+    ``s' = max(A_i (x) s, gvec[i] + arrivals[t])``.
+    ``extras`` [t_steps] + ``wvec`` [B, M, N] add the per-op reliability
+    surcharge on the op's written rows: ``s'' = s' + wvec[i] * extras[t]``.
+    With either pair given, the other defaults to its identity (NEG
+    templates / zero arrivals, zero masks / zero extras).
+    ``energy`` [B, M, P] also returns the [B, P] accumulator
+    ``sum_t energy[:, idx[t]]``, summed in t order."""
+    b, m, n, _ = mats.shape
+    steps = _host_indices(idx, t_steps, m)
+    side = any(x is not None for x in (arrivals, gvec, extras, wvec))
+    if side:
+        def zeros_t():
+            return torch.zeros((t_steps,), dtype=s0.dtype, device=s0.device)
+        arr = zeros_t() if arrivals is None else arrivals[:t_steps]
+        ext = zeros_t() if extras is None else extras[:t_steps]
+        if gvec is None:
+            gvec = torch.full((b, m, n), NEG, dtype=s0.dtype,
+                              device=s0.device)
+        if wvec is None:
+            wvec = torch.zeros((b, m, n), dtype=s0.dtype, device=s0.device)
+    s = s0
+    acc = None
+    if energy is not None:
+        acc = torch.zeros((b, energy.shape[-1]), dtype=energy.dtype,
+                          device=energy.device)
+    for t, i in enumerate(steps):
+        s = torch.amax(mats[:, i] + s[:, None, :], dim=-1)
+        if side:
+            s = torch.maximum(s, gvec[:, i] + arr[t])
+            s = s + wvec[:, i] * ext[t]
+        if acc is not None:
+            acc = acc + energy[:, i]
+    if s is s0:
+        s = s0.clone()
+    return s if acc is None else (s, acc)

@@ -1,0 +1,185 @@
+"""The port's ``Simulator`` session against the JAX package's: the same
+request answers within 1e-6 relative on every field (the port's ``cuda``
+engine against JAX ``pallas``, ``scan`` against ``scan``, ``oracle``
+against ``oracle``), and the parts not ported yet raise
+``CapabilityError`` naming their slice."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro import api as japi
+from repro.core import sim as j_sim
+from repro.core import trace as j_trace
+from repro_torch import api
+from repro_torch.core import sim, trace
+
+REL = 1e-6
+ENGINES = (("scan", "scan"), ("cuda", "pallas"), ("oracle", "oracle"))
+ENERGY_FIELDS = ("cmd_j", "io_j", "ecc_j", "ctrl_j", "idle_j", "array_j",
+                 "end_us")
+
+
+def close(a, b):
+    return abs(a - b) <= REL * abs(b)
+
+
+def traces(channels, ways, side, seed):
+    t = trace.mixed_trace(200, channels, ways, 0.7, seed=seed)
+    arr = ext = None
+    if side:
+        rng = np.random.default_rng(seed)
+        arr = np.cumsum(rng.exponential(18.0, t.n_ops)).astype(np.float32)
+        ext = np.where(rng.random(t.n_ops) < 0.15, 11.0, 0.0
+                       ).astype(np.float32)
+    kw = dict(cls=t.cls, channel=t.channel, way=t.way, parity=t.parity,
+              channels=channels, ways=ways, arrival_us=arr, extra_us=ext)
+    return trace.OpTrace(**kw), j_trace.OpTrace(**kw)
+
+
+@pytest.mark.parametrize("engine,jengine", ENGINES)
+@pytest.mark.parametrize("channels,ways,cell,kind", [
+    (1, 4, "slc", "conv"), (2, 8, "mlc", "proposed"),
+    (4, 2, "slc", "sync_only")])
+@pytest.mark.parametrize("side", (False, True))
+def test_run_all_matches_jax(engine, jengine, channels, ways, cell, kind,
+                             side):
+    cfg = dict(interface=kind, cell=cell, channels=channels, ways=ways)
+    t, jt = traces(channels, ways, side, seed=channels + ways)
+    got = api.Simulator(sim.SSDConfig(**cfg), device="cpu").run(
+        t, objective="all", engine=engine)
+    want = japi.Simulator(j_sim.SSDConfig(**cfg)).run(
+        jt, objective="all", engine=jengine)
+    assert got.engine == engine and want.engine == jengine
+    assert close(got.end_us, want.end_us) and close(got.mb_s, want.mb_s)
+    assert (got.n_ops, got.payload_bytes) == (want.n_ops, want.payload_bytes)
+    assert np.array_equal(got.channel_busy_us, want.channel_busy_us)
+    for f in ENERGY_FIELDS:
+        assert close(getattr(got.energy, f), getattr(want.energy, f)), f
+    assert got.energy.payload_bytes == want.energy.payload_bytes
+    assert close(got.energy.nj_per_byte, want.energy.nj_per_byte)
+    bare = api.Simulator(sim.SSDConfig(**cfg), device="cpu").run(
+        t, engine=engine)
+    assert bare.end_us == got.end_us and bare.energy is None
+
+
+@pytest.mark.parametrize("engine,jengine", [("scan", "scan"),
+                                            ("cuda", "pallas")])
+@pytest.mark.parametrize("policy", ("eager", "batched"))
+def test_sweep_tables_matches_jax(engine, jengine, policy):
+    t, jt = traces(2, 4, True, seed=9)
+    tables, jtables = [], []
+    for kind in ("conv", "sync_only", "proposed"):
+        for cell in ("slc", "mlc"):
+            cfg = dict(interface=kind, cell=cell, channels=2, ways=4)
+            tables.append(trace.op_class_table(sim.SSDConfig(**cfg)))
+            jtables.append(j_trace.op_class_table(j_sim.SSDConfig(**cfg)))
+    got = api.sweep_tables(tables, t, policy=policy, engine=engine,
+                           device="cpu")
+    want = japi.sweep_tables(jtables, jt, policy=policy, engine=jengine,
+                             shard=False)
+    assert got.shape == (6,)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=REL, atol=0)
+
+
+@pytest.mark.parametrize("cell,kind,channels,ways,mode", [
+    ("slc", "proposed", 1, 16, "read"), ("mlc", "conv", 2, 8, "write"),
+    ("slc", "sync_only", 4, 4, "read"), ("mlc", "proposed", 4, 4, "write")])
+def test_steady_bandwidth_matches_jax(cell, kind, channels, ways, mode):
+    cfg = dict(interface=kind, cell=cell, channels=channels, ways=ways)
+    got = api.steady_bandwidth_mb_s(sim.SSDConfig(**cfg), mode, n_pages=128,
+                                    device="cpu")
+    want = japi.steady_bandwidth_mb_s(j_sim.SSDConfig(**cfg), mode,
+                                      n_pages=128)
+    assert close(got, want)
+    from repro.core.interface import make_interface as j_iface
+    from repro.core.nand import chip as j_chip
+    from repro_torch.core.interface import make_interface
+    from repro_torch.core.nand import chip
+    for policy in ("eager", "batched"):
+        op = sim.page_op_params(make_interface(kind), chip(cell), mode, ways)
+        jop = j_sim.page_op_params(j_iface(kind), j_chip(cell), mode, ways)
+        got = api.steady_channel_bandwidth_mb_s(op, ways, policy=policy,
+                                                n_pages=128, device="cpu")
+        want = japi.steady_channel_bandwidth_mb_s(jop, ways, policy=policy,
+                                                  n_pages=128)
+        assert close(got, float(want))
+
+
+@pytest.mark.parametrize("field,slice_", [
+    ("workload", "slice B"), ("sched_policy", "slice B"),
+    ("faults", "slice B"), ("ftl", "slice E")])
+def test_unported_request_fields_raise(field, slice_):
+    t = trace.steady_trace(8, 1, 1)
+    with pytest.raises(api.CapabilityError, match=slice_):
+        api.SimRequest(trace=t, **{field: object()})
+    s = api.Simulator(sim.SSDConfig(), device="cpu")
+    with pytest.raises(api.CapabilityError, match=slice_):
+        s.run(t, **{field: object()})
+
+
+@pytest.mark.parametrize("engine,slice_", [
+    ("prefix", "slice C"), ("squaring", "slice C"),
+    ("streaming", "slice D")])
+def test_unported_engines_raise(engine, slice_):
+    with pytest.raises(api.CapabilityError, match=slice_):
+        api.get_engine(engine)
+    with pytest.raises(api.CapabilityError, match=slice_):
+        api.Simulator(sim.SSDConfig(), device="cpu").run(
+            trace.steady_trace(8, 1, 1), engine=engine)
+    with pytest.raises(api.CapabilityError, match=slice_):
+        api.sweep_tables([trace.op_class_table(sim.SSDConfig())],
+                         trace.steady_trace(8, 1, 1), engine=engine,
+                         device="cpu")
+
+
+def test_registry_and_validation():
+    assert api.registered_engines() == ("cuda", "oracle", "scan")
+    caps = api.engine_capabilities()
+    assert caps["cuda"].batched_tables and not caps["oracle"].batched_tables
+    assert caps["scan"].describe() == "scan: batched_tables, energy"
+    with pytest.raises(ValueError, match="registered engines: cuda"):
+        api.get_engine("pallas")
+    with pytest.raises(api.CapabilityError, match="engines that do: cuda"):
+        api.sweep_tables([trace.op_class_table(sim.SSDConfig())],
+                         trace.steady_trace(8, 1, 1), engine="oracle",
+                         device="cpu")
+    with pytest.raises(ValueError, match="objective"):
+        api.SimRequest(trace=trace.steady_trace(8, 1, 1), objective="speed")
+    with pytest.raises(ValueError, match="bathced"):
+        api.SimRequest(trace=trace.steady_trace(8, 1, 1), policy="bathced")
+    with pytest.raises(ValueError, match="trace="):
+        api.SimRequest()
+    s = api.Simulator(table=trace.op_class_table(sim.SSDConfig()),
+                      device="cpu")
+    with pytest.raises(ValueError, match="interface kind"):
+        s.run(trace.steady_trace(8, 1, 1), objective="energy")
+    with pytest.raises(ValueError, match="empty trace"):
+        s.run(trace.OpTrace(cls=np.zeros(0, np.int32),
+                            channel=np.zeros(0, np.int32),
+                            way=np.zeros(0, np.int32),
+                            parity=np.zeros(0, np.int32), channels=1,
+                            ways=1))
+    res = s.run(trace.steady_trace(8, 1, 1))
+    assert res.describe().startswith("[scan] 8 ops")
+
+
+def test_simulator_defaults_to_the_card():
+    cfg = sim.SSDConfig(channels=2, ways=2)
+    if torch.cuda.is_available():
+        assert api.Simulator(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.Simulator(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.Simulator.for_config(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.steady_bandwidth_mb_s(cfg, "read")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.sweep_tables([trace.op_class_table(cfg)],
+                         trace.steady_trace(8, 2, 2))
+    s = api.Simulator.for_config(cfg, "cpu")
+    assert s is api.Simulator.for_config(dataclasses.replace(cfg), "cpu")
+    assert s.device.type == "cpu"
