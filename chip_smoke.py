@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one CUDA card and hold its kernel
-against its plain version.
+"""Drive the PyTorch/CUDA port on one CUDA card and hold its kernels
+against their plain versions.
 
 Run from the repository root with no arguments:
 
@@ -26,12 +26,34 @@ Phases, one report line each (every check raises on failure):
    channels x 16 ways (N = 146, M = 512 combos) under 64 design-point
    tables through ``sweep_tables(..., engine="cuda")``, checked bit-equal
    to the plain version on the card and within 1e-5 of the numpy oracle
-   on two points, with the kernel's and the plain version's times.
+   on two points, with the kernel's and the plain version's times;
 
-Phases 4 and 5 are the main path: the kernel's launch counts are reset
-just before them and read just after.  The line before the last is the
-JSON kernel report, the last line the JSON device summary.  Exits
-non-zero without a result when no CUDA device is present.
+3b. the many-trace kernel against ``maxplus_fold_many_ref``, required
+   equal by ``torch.equal``, in four variants (arrivals on/off x faults
+   on/off) at a small shape with mixed lane lengths;
+6. the fleet at full width: 512 mixed traces on 8 channels x 16 ways
+   (N = 146) of 4096-65536 ops, even lanes with Poisson arrivals at 80 %
+   of the drive's own rate, every fourth lane with read-retry-like
+   surcharges, plus 32 traces on 4 x 8, through
+   ``Simulator.run_many(engine="cuda")`` (one many-trace launch per
+   geometry): the kernel bit-equal to its plain version on the whole
+   fleet, bit-equal to per-trace ``run(engine="cuda")`` on 8 lanes, the
+   ``scan`` engine's ``run_many`` within T * 2^-24, 2 lanes exact against
+   the numpy oracle on 0.25 us-dyadic timing; kernel, plain and bound
+   times and the wall time of both engines' ``run_many``;
+7. sweeps, streaming and calibration: ``Simulator.sweep`` equal to phase
+   5's ``sweep_tables``; ``sweep_steady_bandwidth_mb_s`` equal to the
+   per-point channel bandwidth on the 15 Table 3 SLC write cells;
+   ``fit_slc`` equal to the JAX package's fit; the stripe exponents; a
+   65536-op ``mixed_trace_chunks`` stream on 4 x 8 MLC bit-equal to the
+   scan engine on the materialised trace, and a 262144-op stream timed,
+   with host and device memory peaks against the shorter stream's.
+
+Phases 4 and 5 are the main path of the per-design-point kernel, phase 6
+that of the many-trace kernel: the launch counts are reset just before
+each and read just after.  The line before the last is the JSON kernel
+report, the last line the JSON device summary.  Exits non-zero without a
+result when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -41,6 +63,7 @@ import statistics
 import subprocess
 import sys
 import time
+import tracemalloc
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -67,6 +90,19 @@ ANOMALIES = {("slc", "read", 2, "proposed")}
 T3_MEAN_TOL, T3_WORST_TOL, T4_MEAN_TOL = 0.04, 0.16, 0.05
 
 SWEEP_OPS, SWEEP_CHANNELS, SWEEP_WAYS, SWEEP_POINTS = 65536, 8, 16, 64
+# phase 6: the fleet (lengths 2**u, u uniform on FLEET_LOG2_OPS)
+FLEET_LANES, FLEET_CHANNELS, FLEET_WAYS = 512, 8, 16
+FLEET_SMALL_LANES, FLEET_SMALL_CHANNELS, FLEET_SMALL_WAYS = 32, 4, 8
+FLEET_LOG2_OPS = (12.0, 16.0)
+OFFERED_LOAD = 0.8          # arrival rate / the drive's rate on the trace
+FAULT_SHARE, FAULT_US = 0.02, (30.0, 120.0)
+# phase 7: streams on scale_bench's 4 x 8 MLC geometry
+STREAM_CHANNELS, STREAM_WAYS = 4, 8
+STREAM_CHECK_OPS, STREAM_CHECK_CHUNK = 65536, 8192
+STREAM_OPS, STREAM_CHUNK = 262144, 32768
+# what the JAX package's calibrate.fit_slc() returns (t_prog us, t_poll
+# cycles, write MAE); its frozen nand.SLC holds t_prog = 218 us
+REFERENCE_FIT_SLC = (217.0, 0.0, 0.026098169557506812)
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
 
@@ -335,6 +371,375 @@ def timing_columns(table, fn, dtype=None):
         for q, name in enumerate(TIMING_COLUMNS)})
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the many-trace kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def many_variants(label, args, lengths_note="") -> float:
+    """Four kernel-vs-plain variants of the many-trace fold on ``args``
+    (the keyword arguments of ``maxplus_fold_many_kernel``, with extras
+    and wvec present); returns the max abs difference (0.0: every check
+    is torch.equal)."""
+    import torch
+    from repro_torch.kernels.maxplus.kernel import maxplus_fold_many_kernel
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_many_ref
+
+    worst = 0.0
+    for with_arrivals in (False, True):
+        for with_faults in (False, True):
+            kw = dict(args, with_arrivals=with_arrivals)
+            if not with_faults:
+                kw.update(extras=None, wvec=None)
+            got = maxplus_fold_many_kernel(**kw)
+            want = maxplus_fold_many_ref(**kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{label} arrivals={with_arrivals} faults="
+                    f"{with_faults}: kernel != plain (max abs diff "
+                    f"{float((got - want).abs().max())})")
+            worst = max(worst, float((got - want).abs().max()))
+    b, t = args["idx"].shape
+    log(f"[3b] many-trace kernel == plain ({label}, B={b} "
+        f"M1={args['mats'].shape[0]} N={args['mats'].shape[1]} T={t}"
+        f"{lengths_note}): 4 variants torch.equal")
+    return worst
+
+
+def phase_small_many(device) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core.maxplus_form import NEG
+
+    rng = np.random.default_rng(21)
+    m, n = 9, 37
+    lengths = np.array([301, 1, 257, 33, 0, 300, 64], np.int32)
+    b, t = len(lengths), int(lengths.max())
+    mats = np.where(rng.random((m + 1, n, n)) < 0.3,
+                    rng.uniform(0.0, 40.0, (m + 1, n, n)), NEG)
+    mats[:, np.arange(n), np.arange(n)] = 0.0
+    mats[m] = NEG
+    mats[m, np.arange(n), np.arange(n)] = 0.0        # the identity pad op
+    gvec = np.where(rng.random((m + 1, n)) < 0.2,
+                    rng.uniform(0.0, 30.0, (m + 1, n)), NEG)
+    gvec[m] = NEG
+    wvec = (rng.random((m + 1, n)) < 0.1).astype(np.float32)
+    wvec[m] = 0.0
+    idx = np.full((b, t), m, np.int32)
+    for lane, ln in enumerate(lengths):
+        idx[lane, :ln] = rng.integers(0, m, ln)
+    arr = np.cumsum(rng.exponential(8.0, (b, t)), axis=1)
+    ext = np.where(rng.random((b, t)) < 0.1, rng.uniform(5.0, 50.0, (b, t)),
+                   0.0)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    args = dict(mats=f32(mats), gvec=f32(gvec), wvec=f32(wvec),
+                idx=torch.as_tensor(idx, device=device), arrivals=f32(arr),
+                extras=f32(ext), s0=f32(rng.uniform(0.0, 5.0, n)),
+                lengths=torch.as_tensor(lengths, device=device))
+    many_variants("small", args, f", lengths {lengths.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the fleet at full width
+# ---------------------------------------------------------------------------
+
+
+def fleet_traces(table, device):
+    """The 512 + 32 fleet traces: lengths round(2**u), u uniform, mixed
+    read/write traffic seeded per lane; even lanes get Poisson arrivals
+    whose mean gap is 1/OFFERED_LOAD times the lane's own back-to-back
+    time per op (so arrivals bind on part of each trace), lanes
+    i % 4 == 1 read-retry-like surcharges on FAULT_SHARE of their ops."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.trace import mixed_trace
+    from repro_torch.kernels.maxplus.ops import run_many_end_time_maxplus
+
+    groups = []
+    for g, (lanes, channels, ways) in enumerate((
+            (FLEET_LANES, FLEET_CHANNELS, FLEET_WAYS),
+            (FLEET_SMALL_LANES, FLEET_SMALL_CHANNELS, FLEET_SMALL_WAYS))):
+        u = np.random.default_rng(g).uniform(*FLEET_LOG2_OPS, lanes)
+        n_ops = np.round(2.0 ** u).astype(int)
+        seed0 = g * FLEET_LANES
+        base = [mixed_trace(int(n), channels, ways, 0.7, seed=seed0 + i)
+                for i, n in enumerate(n_ops)]
+        # the lanes' own back-to-back end times set their arrival rates
+        alone = run_many_end_time_maxplus(table, base, device=device)
+        out = []
+        for i, (tr, end) in enumerate(zip(base, alone)):
+            rng = np.random.default_rng(10_000 + seed0 + i)
+            arr = ext = None
+            if i % 2 == 0:
+                gap = end / tr.n_ops / OFFERED_LOAD
+                arr = np.cumsum(rng.exponential(gap, tr.n_ops)
+                                ).astype(np.float32)
+            if i % 4 == 1:
+                ext = np.where(rng.random(tr.n_ops) < FAULT_SHARE,
+                               rng.uniform(*FAULT_US, tr.n_ops),
+                               0.0).astype(np.float32)
+            out.append(dataclasses.replace(tr, arrival_us=arr, extra_us=ext))
+        groups.append(out)
+    return groups
+
+
+def many_work(args, out) -> tuple[float, float]:
+    """(bytes, operations) of one many-trace launch, counted for what
+    this run's data needs: the dictionary and its side rows, the index /
+    arrival / surcharge entries of the steps each lane folds, lengths,
+    s0 and the states; 2*N^2 max/add a step plus 2*N for the arrival
+    max-in and 2*N for the fault shift where present."""
+    m1, n, _ = args["mats"].shape
+    steps = float(args["lengths"].sum())
+    per_step = 4.0                                   # idx
+    ops_step = 2.0 * n * n
+    n_bytes = 4.0 * m1 * n * n + 4.0 * n + 4.0 * args["lengths"].numel()
+    if args["with_arrivals"]:
+        per_step += 4.0
+        ops_step += 2.0 * n
+        n_bytes += 4.0 * m1 * n
+    if args["extras"] is not None:
+        per_step += 4.0
+        ops_step += 2.0 * n
+        n_bytes += 4.0 * m1 * n
+    n_bytes += per_step * steps + out.numel() * out.element_size()
+    return n_bytes, ops_step * steps
+
+
+def phase_fleet(device) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Simulator
+    from repro_torch.core.interface import InterfaceKind
+    from repro_torch.core.nand import CellType
+    from repro_torch.core.sim import SSDConfig
+    from repro_torch.core.sim_ref import simulate_trace_ref
+    from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.kernels.maxplus.ops import _many_setup
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_many_ref
+
+    cfg = SSDConfig(cell=CellType.SLC, interface=InterfaceKind.PROPOSED,
+                    channels=FLEET_CHANNELS, ways=FLEET_WAYS)
+    sim = Simulator(cfg)
+    t0 = time.perf_counter()
+    groups = fleet_traces(sim.table, device)
+    fleet = [t for g in groups for t in g]
+    total_ops = sum(t.n_ops for t in fleet)
+    log(f"[6] fleet: {len(groups[0])} traces on {FLEET_CHANNELS}x"
+        f"{FLEET_WAYS} + {len(groups[1])} on {FLEET_SMALL_CHANNELS}x"
+        f"{FLEET_SMALL_WAYS}, {total_ops} ops "
+        f"({min(t.n_ops for t in fleet)}-{max(t.n_ops for t in fleet)} a "
+        f"trace), built in {time.perf_counter() - t0:.1f} s")
+
+    # -- the main path: one run_many, counts reset just before ----------
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    cuda_res = sim.run_many(fleet, engine="cuda")
+    torch.cuda.synchronize()
+    cuda_wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if launches["many"] != len(groups):
+        raise AssertionError(f"run_many(engine='cuda') made "
+                             f"{launches['many']} many-trace launches for "
+                             f"{len(groups)} geometry groups")
+    ends = np.array([r.end_us for r in cuda_res])
+    if not (np.all(np.isfinite(ends)) and np.all(ends > 0)
+            and len(ends) == len(fleet)):
+        raise AssertionError("fleet end times malformed")
+    log(f"[6] run_many(engine='cuda'): {len(fleet)} traces in "
+        f"{cuda_wall:.2f} s wall (union dictionaries built on the host); "
+        f"launches {launches}")
+
+    # -- the kernel against its plain version on the whole fleet --------
+    setups = [_many_setup(sim.table, g, "eager", device)[2] for g in groups]
+    kern = [K.maxplus_fold_many_kernel(**a) for a in setups]
+    k_ms = cuda_ms(lambda: [K.maxplus_fold_many_kernel(**a)
+                            for a in setups])
+    group_ms = [cuda_ms(lambda a=a: K.maxplus_fold_many_kernel(**a))
+                for a in setups]
+    plain = []
+    p_ms = cuda_ms(lambda: plain.append(
+        [maxplus_fold_many_ref(**a) for a in setups]), warmup=False)
+    for k, p_ in zip(kern, plain[0]):
+        if not torch.equal(k, p_):
+            raise AssertionError("many-trace kernel != plain on the fleet "
+                                 f"(max abs {float((k - p_).abs().max())})")
+    work = [many_work(a, k) for a, k in zip(setups, kern)]
+    b_ms, b_by = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+    for name, a, g_ms, w in zip(("8x16", "4x8"), setups, group_ms, work):
+        log(f"[6] {name} group: B={a['idx'].shape[0]} "
+            f"M1={a['mats'].shape[0]} N={a['mats'].shape[1]} "
+            f"T={a['idx'].shape[1]}, {int(a['lengths'].sum())} steps, "
+            f"dictionary {a['mats'].numel() * 4 / 1e6:.1f} MB, arrivals "
+            f"{a['with_arrivals']}, faults {a['extras'] is not None}; "
+            f"kernel {g_ms:.3f} ms, bound {bound_ms(*w)[0]:.4f} ms")
+    log(f"[6] many-trace kernel bit-equal to its plain version on the whole "
+        f"fleet; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+
+    # -- per-trace K1 on 8 lanes, the scan engine, the oracle -----------
+    lanes = list(range(8))
+    per = [sim.run(fleet[i], engine="cuda").end_us for i in lanes]
+    if per != [ends[i] for i in lanes]:
+        raise AssertionError(f"run_many(cuda) != per-trace run(cuda) on 8 "
+                             f"lanes: {per} vs {[ends[i] for i in lanes]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan_res = sim.run_many(fleet, engine="scan")
+    torch.cuda.synchronize()
+    scan_wall = time.perf_counter() - t0
+    shares = [abs(s_.end_us - e) / e / (t.n_ops * F32_DRIFT_PER_OP)
+              for s_, e, t in zip(scan_res, ends, fleet)]
+    if max(shares) > 1.0:
+        raise AssertionError(f"run_many scan vs cuda: {max(shares):.2f} of "
+                             "the T*2^-24 bar")
+    dyadic = timing_columns(sim.table, lambda q, c: np.round(c / DYADIC_US)
+                            * DYADIC_US)
+    exact = [dataclasses.replace(
+        fleet[i], **{f: (None if getattr(fleet[i], f) is None else
+                         (np.round(getattr(fleet[i], f) / DYADIC_US)
+                          * DYADIC_US).astype(np.float32))
+                     for f in ("arrival_us", "extra_us")}) for i in (0, 1)]
+    got = Simulator(table=dyadic).run_many(exact, engine="cuda")
+    oracle_err = max(rel(r.end_us, simulate_trace_ref(dyadic, t))
+                     for r, t in zip(got, exact))
+    if oracle_err > REL_TOL_ORACLE:
+        raise AssertionError(f"fleet lanes vs oracle: {oracle_err:.2e}")
+    log(f"[6] run_many(cuda) bit-equal to per-trace run(cuda) on lanes "
+        f"{lanes}; run_many(scan) {scan_wall:.1f} s wall, at most "
+        f"{max(shares):.2f} of the T*2^-24 bar from cuda; lanes 0 (arrivals)"
+        f" and 1 (surcharges) vs the numpy oracle on {DYADIC_US} us-dyadic "
+        f"timing: {oracle_err:.2e} (< {REL_TOL_ORACLE})")
+    return {"launches": launches["many"], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+            "group_ms": group_ms,
+            "cuda_wall_s": cuda_wall, "scan_wall_s": scan_wall,
+            "n_traces": len(fleet), "n_ops": total_ops,
+            "oracle_rel_err_dyadic": oracle_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: sweeps, streaming and calibration
+# ---------------------------------------------------------------------------
+
+
+def stream_peaks(sim, n_ops, chunk):
+    """(result, wall s, host peak bytes, device peak bytes) of one
+    ``run_stream`` over ``mixed_trace_chunks``; the device peak is counted
+    above what was allocated before the stream started, the host peak is
+    taken by tracemalloc in a second pass, so the wall time is
+    untraced."""
+    import torch
+    from repro_torch.core.trace import mixed_trace_chunks
+
+    def chunks():
+        return mixed_trace_chunks(n_ops, STREAM_CHANNELS, STREAM_WAYS, 0.7,
+                                  chunk_len=chunk, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = sim.run_stream(chunks())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev_peak = torch.cuda.max_memory_allocated() - before
+    tracemalloc.start()
+    again = sim.run_stream(chunks())
+    host_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    if again.end_us != res.end_us:
+        raise AssertionError("run_stream is not deterministic")
+    return res, wall, host_peak, dev_peak
+
+
+def phase_sweeps_streams(tables, trace, sweep_ends) -> dict:
+    import numpy as np
+    from repro_torch.api import (Simulator, steady_channel_bandwidth_mb_s,
+                                 sweep_steady_bandwidth_mb_s)
+    from repro_torch.core import calibrate
+    from repro_torch.core.interface import InterfaceKind, make_interface
+    from repro_torch.core.nand import MLC, SLC, CellType
+    from repro_torch.core.paper_tables import INTERFACE_ORDER
+    from repro_torch.core.sim import SSDConfig, page_op_params
+    from repro_torch.core.trace import mixed_trace
+
+    t0 = time.perf_counter()
+    sess = Simulator(SSDConfig(channels=SWEEP_CHANNELS, ways=SWEEP_WAYS))
+    again = sess.sweep(tables, trace)
+    if not np.array_equal(again, sweep_ends):
+        raise AssertionError("Simulator.sweep != phase 5's sweep_tables")
+    sweep_s = time.perf_counter() - t0
+
+    cells = [(w, k) for w in calibrate.WAYS for k in INTERFACE_ORDER]
+    ops = [page_op_params(make_interface(InterfaceKind(k)), SLC, "write", w)
+           for w, k in cells]
+    cols = [np.asarray([float(getattr(op, f)) for op in ops])
+            for f in calibrate._OP_FIELDS]
+    ways = np.asarray([w for w, _ in cells], np.int32)
+    swept = sweep_steady_bandwidth_mb_s(*cols, ways)
+    per = np.asarray([steady_channel_bandwidth_mb_s(op, w)
+                      for op, (w, _) in zip(ops, cells)], np.float32)
+    if not np.array_equal(swept, per):
+        raise AssertionError(f"sweep_steady_bandwidth_mb_s != per-point "
+                             f"channel bandwidth: {swept} vs {per}")
+    log(f"[7] Simulator.sweep == sweep_tables on {len(tables)} points "
+        f"({sweep_s:.1f} s); sweep_steady_bandwidth_mb_s == per-point "
+        f"steady_channel_bandwidth_mb_s (float32) on {len(cells)} Table 3 "
+        f"SLC write cells")
+
+    t0 = time.perf_counter()
+    fit = calibrate.fit_slc()
+    fit_s = time.perf_counter() - t0
+    if fit != REFERENCE_FIT_SLC:
+        raise AssertionError(f"fit_slc {fit} != the JAX package's "
+                             f"{REFERENCE_FIT_SLC}")
+    stripes = calibrate.stripe_crosscheck()
+    log(f"[7] fit_slc in {fit_s:.1f} s: t_prog {fit[0]} us, t_poll "
+        f"{fit[1]} cycles, write MAE {fit[2]:.4f} (the JAX package's fit; "
+        f"frozen nand.SLC t_prog {SLC.t_prog_lo_us} us); stripe exponents "
+        + ", ".join(f"{c}/{m} C**{x:.3f}" for (c, m), x in stripes.items()))
+
+    mlc = Simulator(SSDConfig(cell=CellType.MLC, channels=STREAM_CHANNELS,
+                              ways=STREAM_WAYS))
+    whole = mixed_trace(STREAM_CHECK_OPS, STREAM_CHANNELS, STREAM_WAYS, 0.7,
+                        seed=0)
+    t0 = time.perf_counter()
+    scan = mlc.run(whole, engine="scan")
+    scan_s = time.perf_counter() - t0
+    short, short_s, short_host, short_dev = stream_peaks(
+        mlc, STREAM_CHECK_OPS, STREAM_CHECK_CHUNK)
+    if short.end_us != scan.end_us or short.n_ops != STREAM_CHECK_OPS:
+        raise AssertionError(f"run_stream {short.end_us} != run(scan) "
+                             f"{scan.end_us} on {STREAM_CHECK_OPS} ops")
+    long_, long_s, long_host, long_dev = stream_peaks(
+        mlc, STREAM_OPS, STREAM_CHUNK)
+    if not (np.isfinite(long_.end_us) and long_.end_us > short.end_us
+            and long_.n_ops == STREAM_OPS):
+        raise AssertionError(f"long stream malformed: {long_.describe()}")
+    log(f"[7] run_stream on {STREAM_CHANNELS}x{STREAM_WAYS} "
+        f"{MLC.cell.value}: {STREAM_CHECK_OPS} ops (chunk "
+        f"{STREAM_CHECK_CHUNK}) bit-equal to run(scan) on the materialised "
+        f"trace ({short_s:.1f} s vs {scan_s:.1f} s); {STREAM_OPS} ops "
+        f"(chunk {STREAM_CHUNK}) in {long_s:.1f} s, "
+        f"{STREAM_OPS / long_s:.0f} ops/s; host peak "
+        f"{long_host / 1e6:.2f} MB vs {short_host / 1e6:.2f} MB, device "
+        f"peak {long_dev / 1e6:.2f} MB vs {short_dev / 1e6:.2f} MB")
+    return {"sweep_s": sweep_s, "fit_slc": list(fit), "fit_slc_s": fit_s,
+            "stripe": {f"{c}/{m}": x for (c, m), x in stripes.items()},
+            "stream_ops_per_s": STREAM_OPS / long_s,
+            "stream_wall_s": long_s, "stream_check_wall_s": short_s,
+            "scan_wall_s": scan_s,
+            "stream_host_peak_mb": [short_host / 1e6, long_host / 1e6],
+            "stream_device_peak_mb": [short_dev / 1e6, long_dev / 1e6]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -372,8 +777,9 @@ def main() -> int:
     log(f"[2] built {lib_path.name} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs)}")
 
-    # -- 3: kernel == plain at a small shape -----------------------------
+    # -- 3: kernels == plain at a small shape ----------------------------
     phase_small_variants(dev)
+    phase_small_many(dev)
 
     # -- 4 + 5: the main path, with launch counts ------------------------
     trace, tables = sweep_tables_inputs()
@@ -391,10 +797,10 @@ def main() -> int:
         f"{trace.n_ops} ops on {trace.channels}x{trace.ways} in "
         f"{sweep_s:.1f} s (dictionary build included); peak device memory "
         f"{peak_gb:.2f} GB; main-path launches {launches}")
-    for branch, n in launches.items():
-        if n < 1:
+    for branch in ("indexed", "periodic"):
+        if launches[branch] < 1:
             raise AssertionError(f"{branch} kernel branch never launched on "
-                                 "the main path")
+                                 "the main path of phases 4 and 5")
     if not (ends.shape == (len(tables),) and np.all(np.isfinite(ends))
             and np.all(ends > 0)):
         raise AssertionError(f"sweep end times malformed: {ends}")
@@ -495,12 +901,20 @@ def main() -> int:
         f"{pb_ms:.5f} ms ({pb_by}); at real size: kernel {rk_ms:.3f} ms, "
         f"bound {rb_ms:.3f} ms ({rb_by})")
 
+    # -- 6: the fleet; 7: sweeps, streaming, calibration ----------------
+    fleet = phase_fleet(dev)
+    streams = phase_sweeps_streams(tables, trace, ends)
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
         "peak_device_gb": peak_gb, "oracle_rel_err_dyadic": dyadic_err,
         "float32_drift_vs_float64_oracle": drift,
         "periodic_real_size_ms": rk_ms, "periodic_real_size_bound_ms": rb_ms,
+        "fleet": {k: v for k, v in fleet.items() if k not in (
+            "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
+        "streams": streams,
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))
@@ -518,6 +932,10 @@ def main() -> int:
          "max_abs_err": float((pk - pp).abs().max()),
          "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": pb_ms,
          "bound_by": pb_by},
+        {"name": "maxplus_fold_many (many-trace, K3)", **common,
+         "replaces": "src/repro/kernels/maxplus/kernel.py:293",
+         **{k: fleet[k] for k in ("launches", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "bound_by")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,11 @@ surface over every simulation engine.
   - ``cuda``   — the (max,+) matrix fold of ``repro_torch.kernels.maxplus``
     on the hand-written CUDA kernel (the JAX package's ``pallas``
     engine); on a CPU session it folds with the kernel's plain version;
-  - ``oracle`` — the plain-Python event loop of ``repro_torch.core.sim_ref``.
+  - ``oracle`` — the plain-Python event loop of ``repro_torch.core.sim_ref``;
+  - ``streaming`` — the scan step folded chunk by chunk from a carried
+    state (``repro_torch.core.sim.trace_chunk_fold``), bit-equal to
+    ``scan`` for any chunk length; :meth:`Simulator.run_stream` feeds it
+    chunk iterators that never hold the whole trace.
 
 * a **session object** — :class:`Simulator` binds an ``SSDConfig`` /
   ``OpClassTable`` and a device once and moves the timing table to that
@@ -27,12 +31,20 @@ surface over every simulation engine.
   :class:`SimResult` (end_us, per-channel bus occupancy, MB/s, optional
   ``EnergyBreakdown``) out, for every engine.
 
+* the **fleet and fan-out paths** — :meth:`Simulator.run_many` (many
+  traces, one design point: the ``scan`` engine steps each length bucket
+  as lanes of one masked fold, the ``cuda`` engine makes one many-trace
+  kernel launch per geometry), :meth:`Simulator.sweep` /
+  :func:`sweep_tables` (one trace, many design points),
+  :func:`sweep_steady_bandwidth_mb_s` (homogeneous single-channel design
+  points) and :meth:`Simulator.run_stream` (a trace as chunks).
+
 Request fields whose part of the system is not ported yet raise
 :class:`CapabilityError` naming the slice that brings it: ``workload``,
 ``sched_policy`` and ``faults`` (slice B), ``ftl`` (slice E), and the
-engines ``prefix`` and ``squaring`` (slice C) and ``streaming``
-(slice D).  Traces that already carry ``arrival_us`` / ``extra_us``
-are served by every engine here, since each folds them.
+engines ``prefix`` and ``squaring`` (slice C).  Traces that already
+carry ``arrival_us`` / ``extra_us`` are served by every engine here,
+since each folds them.
 """
 
 from __future__ import annotations
@@ -55,7 +67,8 @@ from repro_torch.core.sim_ref import (simulate_trace_energy_ref,
                                       simulate_trace_ref)
 from repro_torch.core.trace import OpClassTable, OpTrace, op_class_table
 from repro_torch.device import resolve_device
-from repro_torch.kernels.maxplus.ops import (trace_end_time_maxplus,
+from repro_torch.kernels.maxplus.ops import (run_many_end_time_maxplus,
+                                             trace_end_time_maxplus,
                                              trace_energy_maxplus)
 
 Objective = Literal["end_time", "bandwidth", "energy", "all"]
@@ -66,8 +79,7 @@ _TABLE_FIELDS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                  "ctrl_us", "arb_us")
 
 #: Engines of the JAX package not ported yet, by the slice that brings them.
-UNPORTED_ENGINES = {"prefix": "slice C", "squaring": "slice C",
-                    "streaming": "slice D"}
+UNPORTED_ENGINES = {"prefix": "slice C", "squaring": "slice C"}
 
 
 class CapabilityError(ValueError):
@@ -102,11 +114,11 @@ class Engine(Protocol):
     caps: EngineCaps
 
     def end_time(self, sim: "Simulator", trace: OpTrace, *,
-                 batched: bool) -> float: ...
+                 batched: bool, segment_len: int | None) -> float: ...
 
     def energy_sums(self, sim: "Simulator", trace: OpTrace,
-                    kind: InterfaceKind, *,
-                    batched: bool) -> tuple[float, np.ndarray]: ...
+                    kind: InterfaceKind, *, batched: bool,
+                    segment_len: int | None) -> tuple[float, np.ndarray]: ...
 
 
 _REGISTRY: dict[str, Engine] = {}
@@ -158,6 +170,41 @@ def _policy_name(batched: bool) -> str:
     return "batched" if batched else "eager"
 
 
+def _bucket_len(n: int, floor: int = 64) -> int:
+    """Trace lengths round up to power-of-two buckets; ``run_many``'s
+    scan path steps the traces of one bucket together."""
+    return max(floor, 1 << max(0, (n - 1).bit_length()))
+
+
+def _op_arrivals(trace: OpTrace) -> np.ndarray:
+    """Per-op arrival array for the engines (zeros = back-to-back)."""
+    if trace.arrival_us is None:
+        return np.zeros(trace.n_ops, np.float32)
+    return np.asarray(trace.arrival_us, np.float32)
+
+
+def _op_extras(trace: OpTrace) -> np.ndarray:
+    """Per-op reliability surcharge array (zeros = fault-free)."""
+    if trace.extra_us is None:
+        return np.zeros(trace.n_ops, np.float32)
+    return np.asarray(trace.extra_us, np.float32)
+
+
+def _pad_trace_np(trace: OpTrace, t_bucket: int):
+    """Zero-pad the per-op arrays to ``t_bucket`` plus the validity mask
+    consumed by the masked scan folds (padding ops are state no-ops)."""
+    pad = t_bucket - trace.n_ops
+    valid = np.zeros(t_bucket, bool)
+    valid[: trace.n_ops] = True
+    return (np.pad(np.asarray(trace.cls), (0, pad)),
+            np.pad(np.asarray(trace.channel), (0, pad)),
+            np.pad(np.asarray(trace.way), (0, pad)),
+            np.pad(np.asarray(trace.parity), (0, pad)),
+            np.pad(_op_arrivals(trace), (0, pad)),
+            np.pad(_op_extras(trace), (0, pad)),
+            valid)
+
+
 def _trace_arrays(trace: OpTrace):
     """The per-op host arrays the scan engine steps through."""
     return (trace.cls, trace.channel, trace.way, trace.parity,
@@ -195,17 +242,21 @@ class _EngineBase:
         self._unsupported("homogeneous single-channel patterns",
                           "steady_channel_end")
 
+    def sweep_steady(self, scalars, data_bytes, ways, *, n_pages: int,
+                     batched: bool, device) -> np.ndarray:
+        self._unsupported("homogeneous design-point sweeps", "sweep_steady")
+
 
 @register_engine("scan", batched_tables=True, energy=True)
 class ScanEngine(_EngineBase):
     """O(T) step loop over device state tensors — the default engine."""
 
-    def end_time(self, sim, trace, *, batched):
+    def end_time(self, sim, trace, *, batched, segment_len=None):
         return float(_sim.trace_end_time(
             *sim._targs, *_trace_arrays(trace), n_channels=trace.channels,
             batched=batched))
 
-    def energy_sums(self, sim, trace, kind, *, batched):
+    def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
         end, sums = _sim.trace_end_time_energy(
             *sim._targs, sim._energy_table(kind), *_trace_arrays(trace),
             n_channels=trace.channels, batched=batched)
@@ -229,6 +280,11 @@ class ScanEngine(_EngineBase):
             ((i // ways) % 2).astype(np.int32), n_channels=1,
             batched=batched))
 
+    def sweep_steady(self, scalars, data_bytes, ways, *, n_pages, batched,
+                     device):
+        return _sim._sweep_scan(*scalars, data_bytes, ways, n_pages=n_pages,
+                                batched=batched, device=device).cpu().numpy()
+
 
 @register_engine("cuda", batched_tables=True, energy=True)
 class CudaEngine(_EngineBase):
@@ -236,12 +292,12 @@ class CudaEngine(_EngineBase):
     package's ``pallas`` engine).  The step-matrix dictionary is built on
     the host per query and moved to the session's device."""
 
-    def end_time(self, sim, trace, *, batched):
+    def end_time(self, sim, trace, *, batched, segment_len=None):
         return float(trace_end_time_maxplus(
             sim.table, trace, policy=_policy_name(batched),
             device=sim.device))
 
-    def energy_sums(self, sim, trace, kind, *, batched):
+    def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
         end, sums = trace_energy_maxplus(
             sim.table, trace, kind, policy=_policy_name(batched),
             device=sim.device)
@@ -259,14 +315,66 @@ class OracleEngine(_EngineBase):
     test oracle, first-class behind the same request surface.  It runs
     on the host whatever the session's device."""
 
-    def end_time(self, sim, trace, *, batched):
+    def end_time(self, sim, trace, *, batched, segment_len=None):
         return float(simulate_trace_ref(sim.table, trace,
                                         _policy_name(batched)))
 
-    def energy_sums(self, sim, trace, kind, *, batched):
+    def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
         end, sums = simulate_trace_energy_ref(
             sim.table, trace, kind, _policy_name(batched))
         return float(end), np.asarray(sums, np.float64)
+
+
+@register_engine("streaming", batched_tables=False, energy=True)
+class StreamingEngine(_EngineBase):
+    """Constant-memory chunked fold: the trace streams through
+    ``sim.trace_chunk_fold`` chunk by chunk, with the occupancy state and
+    the phase-energy accumulator carried between chunks.  Every op runs
+    the scan engine's step, so any chunking reproduces ``scan`` bit for
+    bit while the host holds one chunk at a time.  ``segment_len`` is
+    the chunk length; :meth:`Simulator.run_stream` feeds this engine
+    chunk iterators that never materialise the trace.  Per-op
+    completions wait for the request layer (slice B)."""
+
+    def _fold(self, sim, chunks, *, batched, kind=None):
+        """Fold an iterator of ``OpTrace`` chunks; returns ``(end_us, [P]
+        energy sums, channels)``."""
+        e_tab = None if kind is None else sim._energy_table(kind)
+        carry = None
+        channels = None
+        end = None
+        for chunk in chunks:
+            if chunk.n_ops == 0:
+                continue
+            if channels is None:
+                channels = chunk.channels
+                carry = _sim.trace_chunk_init(
+                    channels, 0 if e_tab is None else e_tab.shape[-1],
+                    sim.device)
+            elif chunk.channels != channels:
+                raise ValueError(
+                    f"streaming chunks switched geometry mid-stream: "
+                    f"{chunk.channels} channels after {channels}")
+            state, acc, end = _sim.trace_chunk_fold(
+                *sim._targs, e_tab, *_trace_arrays(chunk), *carry[0],
+                carry[1], n_channels=channels, batched=batched)
+            carry = (state, acc)
+        if channels is None:
+            raise ValueError("empty trace: no ops to simulate")
+        return (float(end), carry[1].cpu().numpy().astype(np.float64),
+                channels)
+
+    def end_time(self, sim, trace, *, batched, segment_len=None):
+        end, _, _ = self._fold(
+            sim, _trace.iter_trace_chunks(trace, segment_len or 64),
+            batched=batched)
+        return end
+
+    def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
+        end, sums, _ = self._fold(
+            sim, _trace.iter_trace_chunks(trace, segment_len or 64),
+            batched=batched, kind=kind)
+        return end, sums
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +393,7 @@ class SimRequest:
     policy: Policy | None = None        # None -> the session's default
     objective: Objective = "end_time"
     engine: str | None = None           # None -> "scan"
+    segment_len: int | None = 64        # streaming-engine chunk length
     workload: object | None = None      # slice B
     sched_policy: str | None = None     # slice B
     faults: object | None = None        # slice B
@@ -369,6 +478,7 @@ class Simulator:
             torch.as_tensor(np.asarray(getattr(self.table, f), np.float32),
                             device=self.device) for f in _TABLE_FIELDS)
         self._e_tables: dict[InterfaceKind, torch.Tensor] = {}
+        self._e_tables_np: dict[InterfaceKind, np.ndarray] = {}
 
     @classmethod
     def for_config(cls, config: SSDConfig,
@@ -436,11 +546,179 @@ class Simulator:
         energy = None
         if request.objective in ("energy", "all"):
             end_us, sums = eng.energy_sums(self, trace, self.kind,
-                                           batched=batched)
+                                           batched=batched,
+                                           segment_len=request.segment_len)
             energy = self._breakdown(sums, end_us, trace)
         else:
-            end_us = eng.end_time(self, trace, batched=batched)
+            end_us = eng.end_time(self, trace, batched=batched,
+                                  segment_len=request.segment_len)
         return self._result(trace, end_us, eng.caps.name, energy)
+
+    def run_many(self, traces, *, policy: Policy | None = None,
+                 objective: Objective = "end_time",
+                 engine: str | None = None,
+                 segment_len: int | None = 64,
+                 shard: bool | None = None) -> list[SimResult]:
+        """The batched serving path: many traces under the bound design
+        point, results identical to per-trace :meth:`run`.
+
+        ``engine="scan"`` (the default) pads the traces to power-of-two
+        length buckets and steps each (channels, bucket) group as the
+        lanes of one masked fold (padding is a bitwise state no-op).
+        ``engine="cuda"`` evaluates each (channels, ways) group as ONE
+        many-trace kernel launch over the group's union combo dictionary
+        (``kernels.maxplus.ops.run_many_end_time_maxplus``).  Other
+        engines go through :meth:`run` trace by trace.  Energies are
+        summed per op on the host (energy is (+,+)-linear), exactly as
+        the JAX package does.  ``shard`` is accepted for the JAX
+        package's signature; the port runs on one device."""
+        if objective not in OBJECTIVES:
+            raise ValueError(f"unknown objective {objective!r} "
+                             f"(one of {', '.join(OBJECTIVES)})")
+        policy = policy or self.default_policy
+        batched = policy_is_batched(policy)
+        name = engine or "scan"
+        get_engine(name)            # raises on unknown / unported engines
+        traces = list(traces)
+        for t in traces:
+            if t.n_ops == 0:
+                raise ValueError("empty trace: no ops to simulate")
+            t.validate_against(self.table)
+        if name not in ("scan", "cuda"):
+            return [self.run(SimRequest(trace=t, policy=policy,
+                                        objective=objective, engine=name,
+                                        segment_len=segment_len))
+                    for t in traces]
+        if objective in ("energy", "all") and self.kind is None:
+            raise ValueError(
+                "energy query on a Simulator with no interface kind "
+                "(pass kind= or bind an SSDConfig)")
+        ends = np.empty(len(traces), np.float64)
+        groups: dict[tuple[int, int], list[int]] = {}
+        for i, t in enumerate(traces):
+            key = ((t.channels, t.ways) if name == "cuda"
+                   else (t.channels, _bucket_len(t.n_ops)))
+            groups.setdefault(key, []).append(i)
+        for (channels, t_b), idxs in groups.items():
+            if name == "cuda":
+                ends[idxs] = run_many_end_time_maxplus(
+                    self.table, [traces[i] for i in idxs],
+                    policy=_policy_name(batched), device=self.device)
+                continue
+            rows = [_pad_trace_np(traces[i], t_b) for i in idxs]
+            stacked = [np.stack(cols) for cols in zip(*rows)]
+            ends[idxs] = _sim.trace_end_time_masked_many(
+                *self._targs, *stacked, n_channels=channels,
+                batched=batched).cpu().numpy()
+        return self._many_results(traces, ends, name, objective)
+
+    def _linear_energy_sums(self, trace: OpTrace,
+                            kind: InterfaceKind) -> np.ndarray:
+        """[P] phase sums (uJ) by direct per-op summation in float64 —
+        energy is (+,+)-linear, so this is the engine-free evaluation the
+        packed serving path uses."""
+        e = self._e_tables_np.get(kind)
+        if e is None:
+            e = self._e_tables_np[kind] = np.asarray(
+                op_phase_energy_uj(self.table, kind), np.float64)
+        return e[np.asarray(trace.cls),
+                 np.asarray(trace.parity) % 2].sum(axis=0)
+
+    def _many_results(self, traces, ends, name: str,
+                      objective: Objective) -> list[SimResult]:
+        """Per-trace results of the packed serving paths, energies from
+        the engine-free per-op sum."""
+        results = []
+        for t, end in zip(traces, ends):
+            energy = None
+            if objective in ("energy", "all"):
+                energy = self._breakdown(
+                    self._linear_energy_sums(t, self.kind), float(end), t)
+            results.append(self._result(t, float(end), name, energy))
+        return results
+
+    def run_stream(self, chunks, *, policy: Policy | None = None,
+                   objective: Objective = "end_time", ftl=None,
+                   faults=None) -> SimResult:
+        """Constant-memory streaming query: fold an *iterator of OpTrace
+        chunks* (``trace.iter_trace_chunks``, the generator builder
+        ``trace.mixed_trace_chunks``, or any iterable) through the
+        streaming engine without ever holding the whole trace — payload
+        bytes, per-channel occupancy and the op count accumulate chunk by
+        chunk.  ``ftl=`` (request-stream chunks through the FTL) lands
+        with slice E; ``faults=`` needs ``ftl=``, as in the JAX
+        package."""
+        if objective not in OBJECTIVES:
+            raise ValueError(f"unknown objective {objective!r} "
+                             f"(one of {', '.join(OBJECTIVES)})")
+        if ftl is not None:
+            raise CapabilityError("run_stream(ftl=...) is not ported yet "
+                                  "(it lands with slice E)")
+        if faults is not None:
+            raise ValueError(
+                "run_stream(faults=...) needs ftl= (op-trace chunks are "
+                "already placed; apply sched.apply_faults per chunk "
+                "instead)")
+        batched = policy_is_batched(policy or self.default_policy)
+        kind = None
+        if objective in ("energy", "all"):
+            if self.kind is None:
+                raise ValueError(
+                    "energy query on a Simulator with no interface kind "
+                    "(pass kind= or bind an SSDConfig)")
+            kind = self.kind
+        stats = {"n_ops": 0, "payload": 0, "busy": None}
+        slot = np.asarray(self.table.slot_us, np.float64)
+
+        def tap(cs):
+            for c in cs:
+                if c.n_ops == 0:
+                    continue
+                c.validate_against(self.table)
+                if stats["busy"] is None:
+                    stats["busy"] = np.zeros(c.channels)
+                elif len(stats["busy"]) != c.channels:
+                    raise ValueError(
+                        f"streaming chunks switched geometry mid-stream: "
+                        f"{c.channels} channels after {len(stats['busy'])}")
+                stats["n_ops"] += c.n_ops
+                stats["payload"] += c.total_bytes(self.table)
+                stats["busy"] += np.bincount(
+                    np.asarray(c.channel), weights=slot[np.asarray(c.cls)],
+                    minlength=c.channels)
+                yield c
+
+        end, sums, channels = get_engine("streaming")._fold(
+            self, tap(chunks), batched=batched, kind=kind)
+        payload = stats["payload"]
+        energy = None
+        if kind is not None:
+            energy = breakdown_from_sums(
+                sums, end_us=end, payload_bytes=payload, kind=kind,
+                channels=channels)
+        return SimResult(
+            end_us=end, mb_s=(payload / end) if payload > 0 else None,
+            channel_busy_us=stats["busy"], energy=energy,
+            engine="streaming", n_ops=stats["n_ops"], payload_bytes=payload)
+
+    def sweep(self, tables, trace: OpTrace, *,
+              policy: Policy | None = None, engine: str = "cuda",
+              shard: bool | None = None, ftl=None) -> np.ndarray:
+        """[B] completion times of one trace under a batch of design-point
+        tables (``tables=None`` sweeps the bound table alone) — the
+        design-space fan-out direction of the serving path, through
+        :func:`sweep_tables` on the session's device.  The default engine
+        is ``cuda`` until the JAX package's default, ``prefix``, lands
+        with slice C.  ``ftl=`` (aged FTL design points) lands with
+        slice E; ``shard`` is accepted for the JAX package's signature
+        and means one device."""
+        if ftl is not None:
+            raise CapabilityError("sweep(ftl=...) is not ported yet (it "
+                                  "lands with slice E)")
+        return sweep_tables(
+            [self.table] if tables is None else tables, trace,
+            policy=policy or self.default_policy, engine=engine,
+            device=self.device)
 
 
 @functools.lru_cache(maxsize=128)
@@ -508,10 +786,30 @@ def steady_channel_bandwidth_mb_s(op: PageOpParams, ways: int,
     return (n_pages * op.data_bytes) / end
 
 
+def sweep_steady_bandwidth_mb_s(cmd_us, pre_us, slot_us, post_lo_us,
+                                post_hi_us, ctrl_us, data_bytes, ways,
+                                n_pages: int = 512, batched: bool = False,
+                                engine: str = "scan",
+                                shard: bool | None = None,
+                                device: torch.device | str | None = None
+                                ) -> np.ndarray:
+    """[B] single-channel steady bandwidths (MB/s, float32) of B design
+    points given as arrays of op-class scalars, payload bytes and way
+    counts, via an engine with the sweep capability (``scan``; the JAX
+    package's ``squaring`` lands with slice C) — the fan-out the
+    ``calibrate`` fitting grids ride.  ``shard`` is accepted for the JAX
+    package's signature and means one device."""
+    scalars = (cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us)
+    return get_engine(engine).sweep_steady(
+        scalars, data_bytes, ways, n_pages=n_pages, batched=batched,
+        device=resolve_device(device))
+
+
 __all__ = [
     "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
     "Policy", "SimRequest", "SimResult", "Simulator", "UNPORTED_ENGINES",
     "engine_capabilities", "get_engine", "register_engine",
     "registered_engines", "simulator_for", "steady_bandwidth_mb_s",
-    "steady_channel_bandwidth_mb_s", "sweep_tables",
+    "steady_channel_bandwidth_mb_s", "sweep_steady_bandwidth_mb_s",
+    "sweep_tables",
 ]

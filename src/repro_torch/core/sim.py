@@ -233,23 +233,25 @@ def _host_ops(cls, channel, way, parity, arrival_us, extra_us):
 
 
 def _fold(table, cls, channel, way, parity, arrival_us, extra_us,
-          n_channels, batched, e_op_uj=None):
-    """(end [B], energy sums [B, P] | None) of one trace under a [B, K]
-    stack of table columns."""
+          n_channels, batched, e_op_uj=None, state=None, acc=None):
+    """(end [B], energy sums [B, P] | None, state) of one trace under a
+    [B, K] stack of table columns.  ``state`` / ``acc`` start the fold
+    from a carried state, which is updated in place; by default it
+    starts from zero."""
     upd = _trace_step_fn(*table, batched)
     cmd = table[0]
-    state = _trace_scan_init(cmd.shape[0], n_channels, cmd.device)
-    acc = None
-    if e_op_uj is not None:
+    if state is None:
+        state = _trace_scan_init(cmd.shape[0], n_channels, cmd.device)
+    if e_op_uj is not None and acc is None:
         acc = torch.zeros((cmd.shape[0], e_op_uj.shape[-1]),
                           dtype=torch.float32, device=cmd.device)
     for op in _host_ops(cls, channel, way, parity, arrival_us, extra_us):
         state = upd(state, op)
-        if acc is not None:
+        if e_op_uj is not None:
             acc = acc + e_op_uj[:, op[0], op[3] % 2]
     bus_free, chip_free = state[0], state[1]
     end = torch.maximum(bus_free.amax(dim=1), chip_free.flatten(1).amax(dim=1))
-    return end, acc
+    return end, acc, state
 
 
 def trace_end_time(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
@@ -261,8 +263,8 @@ def trace_end_time(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
     runs the fold; the trace arrays are host (numpy) arrays."""
     table = tuple(x[None] for x in (cmd_us, pre_us, slot_us, post_lo_us,
                                     post_hi_us, ctrl_us, arb_us))
-    end, _ = _fold(table, cls, channel, way, parity, arrival_us, extra_us,
-                   n_channels, batched)
+    end, _, _ = _fold(table, cls, channel, way, parity, arrival_us,
+                      extra_us, n_channels, batched)
     return end[0]
 
 
@@ -276,8 +278,8 @@ def trace_end_time_energy(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
     summed in op order."""
     table = tuple(x[None] for x in (cmd_us, pre_us, slot_us, post_lo_us,
                                     post_hi_us, ctrl_us, arb_us))
-    end, acc = _fold(table, cls, channel, way, parity, arrival_us, extra_us,
-                     n_channels, batched, e_op_uj=e_op_uj[None])
+    end, acc, _ = _fold(table, cls, channel, way, parity, arrival_us,
+                        extra_us, n_channels, batched, e_op_uj=e_op_uj[None])
     return end[0], acc[0]
 
 
@@ -286,10 +288,196 @@ def trace_end_time_batch(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
                          arrival_us=None, extra_us=None, *, n_channels: int,
                          batched: bool) -> torch.Tensor:
     """[B] completion times of one trace under [B, K] stacked tables."""
-    end, _ = _fold((cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
-                    ctrl_us, arb_us), cls, channel, way, parity, arrival_us,
-                   extra_us, n_channels, batched)
+    end, _, _ = _fold((cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
+                       ctrl_us, arb_us), cls, channel, way, parity,
+                      arrival_us, extra_us, n_channels, batched)
     return end
+
+
+# ---------------------------------------------------------------------------
+# lane-batched masked folds: B independent traces stepped together
+# ---------------------------------------------------------------------------
+
+
+def _trace_end_time_masked_impl(cmd_us, pre_us, slot_us, post_lo_us,
+                                post_hi_us, ctrl_us, arb_us, cls, channel,
+                                way, parity, arrival, extra, valid,
+                                n_channels: int, batched: bool
+                                ) -> torch.Tensor:
+    """[B] completion times of B lanes, each folding its own op sequence.
+
+    Table columns are [K] (one table shared by every lane) or [B, K] (a
+    table per lane); the op arrays are [B, T] tensors on the table's
+    device.  Step t applies op t of every lane at once: the same float32
+    operations, in the same order, as ``_trace_step_fn``.  ``valid``
+    ([B, T] bool, or None for all valid) marks padding: an invalid op
+    writes back the old values through ``torch.where``, so the lane's
+    state stays bitwise unchanged.  The per-op table entries (and the
+    batched policy's ``(w + 1) * cmd``) are gathered once before the
+    loop; the state lives in [B, C] / [B, C * MAX_WAYS] tensors updated
+    in place."""
+    table = (cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us,
+             arb_us)
+    b, t_len = cls.shape
+    dev = cls.device
+    cls = cls.long()
+    channel = channel.long()
+    way = way.long()
+    cmd, pre, slot, lo, hi, ctrl, arb = (
+        torch.gather(x.expand(b, -1), 1, cls) for x in table)
+    if batched:
+        cmd = (way + 1).to(torch.float32) * cmd
+    post = torch.where(parity % 2 == 0, lo, hi)
+    arrival = arrival.to(torch.float32)
+    extra = extra.to(torch.float32)
+    chip_ix = channel * MAX_WAYS + way
+    first = way == 0
+
+    bus = torch.zeros((b, n_channels), dtype=torch.float32, device=dev)
+    chip = torch.zeros((b, n_channels * MAX_WAYS), dtype=torch.float32,
+                       device=dev)
+    ctrl_free = torch.zeros((b,), dtype=torch.float32, device=dev)
+    round_start = torch.zeros((b, n_channels), dtype=torch.float32,
+                              device=dev)
+
+    def put(dst, ix, new, old, ok):
+        dst.scatter_(1, ix, (new if ok is None
+                             else torch.where(ok, new, old))[:, None])
+
+    for t in range(t_len):
+        c = channel[:, t, None]
+        cw = chip_ix[:, t, None]
+        ok = None if valid is None else valid[:, t]
+        bus_c = torch.gather(bus, 1, c)[:, 0]
+        chip_old = torch.gather(chip, 1, cw)[:, 0]
+        if batched:
+            rs_old = torch.gather(round_start, 1, c)[:, 0]
+            rs = torch.where(first[:, t], bus_c, rs_old)
+            put(round_start, c, rs, rs_old, ok)
+            base = torch.maximum(rs, arrival[:, t])
+        else:
+            base = torch.maximum(chip_old, arrival[:, t])
+        ready = base + cmd[:, t] + pre[:, t]
+        start = (torch.maximum(torch.maximum(bus_c, ready), ctrl_free)
+                 + arb[:, t])
+        new_bus = start + slot[:, t]
+        put(bus, c, new_bus, bus_c, ok)
+        put(chip, cw, new_bus + post[:, t] + extra[:, t], chip_old, ok)
+        new_ctrl = start + ctrl[:, t]
+        ctrl_free = new_ctrl if ok is None else torch.where(ok, new_ctrl,
+                                                            ctrl_free)
+    return torch.maximum(bus.amax(dim=1), chip.amax(dim=1))
+
+
+def _lane_tensors(device, *arrays):
+    return tuple(torch.as_tensor(np.asarray(x), device=device)
+                 for x in arrays)
+
+
+def trace_end_time_masked(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
+                          ctrl_us, arb_us, cls, channel, way, parity,
+                          arrival_us, extra_us, valid, *, n_channels: int,
+                          batched: bool) -> torch.Tensor:
+    """``trace_end_time`` with a validity mask over [T] op arrays:
+    invalid (padding) ops leave the state bitwise unchanged, so a trace
+    padded to a length bucket gives the identical end time (0-d)."""
+    ops = _lane_tensors(cmd_us.device, cls, channel, way, parity,
+                        arrival_us, extra_us, valid)
+    return _trace_end_time_masked_impl(
+        cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us, arb_us,
+        *(x[None] for x in ops), n_channels, batched)[0]
+
+
+def trace_end_time_masked_many(cmd_us, pre_us, slot_us, post_lo_us,
+                               post_hi_us, ctrl_us, arb_us, cls, channel,
+                               way, parity, arrival_us, extra_us, valid, *,
+                               n_channels: int, batched: bool
+                               ) -> torch.Tensor:
+    """[B] completion times of a bucket of padded traces ([B, T] op
+    arrays, host or device) under one [K] timing table — the packed
+    serving path behind ``Simulator.run_many(engine="scan")``."""
+    ops = _lane_tensors(cmd_us.device, cls, channel, way, parity,
+                        arrival_us, extra_us, valid)
+    return _trace_end_time_masked_impl(
+        cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us, arb_us,
+        *ops, n_channels, batched)
+
+
+# ---------------------------------------------------------------------------
+# streaming: one chunk of a trace from a carried state
+# ---------------------------------------------------------------------------
+
+
+def trace_chunk_init(n_channels: int, n_phases: int, device=None):
+    """Initial carry for :func:`trace_chunk_fold`: the zero occupancy
+    state ``(bus [C], chip [C, MAX_WAYS], ctrl [], round_start [C])``
+    and a zero [P] phase-energy accumulator."""
+    state = tuple(x[0] for x in _trace_scan_init(1, n_channels, device))
+    return state, torch.zeros((n_phases,), dtype=torch.float32,
+                              device=device)
+
+
+def trace_chunk_fold(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
+                     ctrl_us, arb_us, e_op_uj, cls, channel, way, parity,
+                     arrival_us, extra_us, bus_free, chip_free, ctrl_free,
+                     round_start, energy_acc, *, n_channels: int,
+                     batched: bool):
+    """One chunk of the streaming engine: fold the chunk's ops starting
+    from the carried occupancy state and energy accumulator, and return
+    ``((bus, chip, ctrl, round_start), energy_acc, end_us)``.  Every op
+    runs the scan engine's step, so chaining chunks of any size
+    reproduces ``trace_end_time`` / ``trace_end_time_energy`` bit for
+    bit.  The op arrays are host arrays of the chunk's real ops: chunks
+    are not padded, since eager PyTorch has no compile to share.
+    ``e_op_uj`` ([K, 2, P]) may be None for an end-time-only fold (the
+    accumulator then passes through).  The carried tensors are not
+    modified: the fold works on copies.  Per-op completions wait for the
+    request layer (slice B)."""
+    table = tuple(x[None] for x in (cmd_us, pre_us, slot_us, post_lo_us,
+                                    post_hi_us, ctrl_us, arb_us))
+    state = tuple(x[None].clone() for x in (bus_free, chip_free, ctrl_free,
+                                            round_start))
+    acc = energy_acc[None]
+    end, acc, state = _fold(
+        table, cls, channel, way, parity, arrival_us, extra_us, n_channels,
+        batched, e_op_uj=None if e_op_uj is None else e_op_uj[None],
+        state=state, acc=acc)
+    return tuple(x[0] for x in state), acc[0], end[0]
+
+
+# ---------------------------------------------------------------------------
+# homogeneous design-point sweep
+# ---------------------------------------------------------------------------
+
+
+def _sweep_scan(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us,
+                data_bytes, ways, *, n_pages: int, batched: bool,
+                device) -> torch.Tensor:
+    """[B] single-channel steady bandwidths (MB/s) of B design points,
+    each its own op-class scalars and way count, folded as B lanes of
+    one ``n_pages`` round-robin stream.  Charges the shared-controller
+    occupancy ``ctrl_us`` exactly like the per-point channel path; no
+    arbitration (one channel).  Scalars become float32 and
+    ``data_bytes`` keeps an integer type as int32, as JAX does."""
+    cols = tuple(torch.as_tensor(np.asarray(x, np.float32), device=device)
+                 .reshape(-1, 1) for x in (cmd_us, pre_us, slot_us,
+                                           post_lo_us, post_hi_us, ctrl_us))
+    b = cols[0].shape[0]
+    arb = torch.zeros((b, 1), dtype=torch.float32, device=device)
+    nbytes = np.asarray(data_bytes)
+    nbytes = torch.as_tensor(nbytes.astype(
+        np.int32 if np.issubdtype(nbytes.dtype, np.integer) else np.float32),
+        device=device)
+    w = torch.as_tensor(np.asarray(ways, np.int32), device=device)
+    i = torch.arange(n_pages, dtype=torch.int32, device=device)
+    way = torch.remainder(i[None, :], w[:, None])
+    parity = (i[None, :] // w[:, None]) % 2
+    zeros_i = torch.zeros((b, n_pages), dtype=torch.int32, device=device)
+    zeros_f = torch.zeros((b, n_pages), dtype=torch.float32, device=device)
+    end = _trace_end_time_masked_impl(
+        *cols, arb, zeros_i, zeros_i, way, parity, zeros_f, zeros_f, None,
+        1, batched)
+    return (n_pages * nbytes) / end
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,9 @@ mapping class indices to scalar timing.  Builders cover the paper's
 steady streams, mixed read/write ratios and hot/cold skew; the same
 arguments and seeds give the same arrays as the JAX package's builders.
 
+``iter_trace_chunks`` and ``mixed_trace_chunks`` yield a trace as
+chunks for the streaming engine, the second without materialising it.
+
 ``from_reference_table`` builds an ``OpClassTable`` from plain numpy
 columns, which is how a table made elsewhere (for example by the JAX
 package, converted to numpy) enters the port.
@@ -232,6 +235,63 @@ def mixed_trace(n_ops: int, channels: int, ways: int, read_fraction: float,
     cls = np.where(rng.random(n_ops) < read_fraction, READ, WRITE)
     chan, way = _round_robin(n_ops, channels, ways)
     return _finalize(cls, chan, way, channels, ways)
+
+
+def _faults_not_ported(faults) -> None:
+    if faults is not None:
+        from repro_torch.core.api import CapabilityError
+        raise CapabilityError("faults= on chunk builders is not ported yet "
+                              "(FaultSampler lands with slice B)")
+
+
+def iter_trace_chunks(trace: OpTrace, chunk_len: int, *, faults=None):
+    """Yield ``trace`` as consecutive ``OpTrace`` chunks of at most
+    ``chunk_len`` ops — the materialised-trace adapter for the
+    constant-memory streaming engine.  Chunks carry the same geometry and
+    slice ``payload`` / ``arrival_us`` / ``extra_us`` alongside the op
+    arrays, so concatenating them reconstructs the trace exactly.
+    ``faults=`` (per-chunk fault sampling) lands with slice B."""
+    if chunk_len < 1:
+        raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+    _faults_not_ported(faults)
+    for lo in range(0, trace.n_ops, chunk_len):
+        hi = min(lo + chunk_len, trace.n_ops)
+        yield OpTrace(
+            cls=trace.cls[lo:hi], channel=trace.channel[lo:hi],
+            way=trace.way[lo:hi], parity=trace.parity[lo:hi],
+            channels=trace.channels, ways=trace.ways,
+            payload=None if trace.payload is None else trace.payload[lo:hi],
+            arrival_us=(None if trace.arrival_us is None
+                        else trace.arrival_us[lo:hi]),
+            extra_us=(None if trace.extra_us is None
+                      else trace.extra_us[lo:hi]))
+
+
+def mixed_trace_chunks(n_ops: int, channels: int, ways: int,
+                       read_fraction: float, *, chunk_len: int = 65536,
+                       seed: int = 0, faults=None):
+    """Generator twin of :func:`mixed_trace`: yields the *identical* op
+    stream (same rng draws, same round-robin placement, same per-chip
+    parity) in ``OpTrace`` chunks without ever materialising the whole
+    trace.  The PCG64 stream draws doubles sequentially, so chunked
+    ``random`` calls reproduce the single-shot draw; round-robin
+    placement revisits a chip every ``channels * ways`` ops, so the
+    per-chip parity counter of ``_finalize`` closes to
+    ``(t // (channels * ways)) % 2``.  ``faults=`` lands with slice B."""
+    if chunk_len < 1:
+        raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+    _faults_not_ported(faults)
+    rng = np.random.default_rng(seed)
+    period = channels * ways
+    for lo in range(0, n_ops, chunk_len):
+        hi = min(lo + chunk_len, n_ops)
+        t = np.arange(lo, hi)
+        cls = np.where(rng.random(hi - lo) < read_fraction, READ, WRITE)
+        yield OpTrace(cls=cls.astype(np.int32),
+                      channel=(t % channels).astype(np.int32),
+                      way=((t // channels) % ways).astype(np.int32),
+                      parity=((t // period) % 2).astype(np.int32),
+                      channels=channels, ways=ways)
 
 
 def hot_cold_trace(n_ops: int, channels: int, ways: int,

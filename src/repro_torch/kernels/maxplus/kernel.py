@@ -1,18 +1,21 @@
-"""(max,+) trace-indexed matrix fold — the hand-written CUDA kernel's wrapper.
+"""(max,+) matrix folds — the hand-written CUDA kernels' wrappers.
 
-Evaluates ``s_T = A_{idx[T-1]} ⊗ … ⊗ A_{idx[0]} ⊗ s_0`` for a batch of
-independent design points, where the A_i form a per-combo matrix
-dictionary (``repro_torch.core.maxplus_form``) and ``idx`` is the combo
-index sequence of a trace; ``idx=None`` is the periodic fold
-``idx[t] = t mod M`` of a homogeneous stream.  The kernel,
-``src/repro_torch/csrc/maxplus_fold.cu``, says which TPU kernel it
-replaces and what bounds it.
+``maxplus_fold_kernel`` evaluates ``s_T = A_{idx[T-1]} ⊗ … ⊗ A_{idx[0]}
+⊗ s_0`` for a batch of independent design points, where the A_i form a
+per-combo matrix dictionary (``repro_torch.core.maxplus_form``) and
+``idx`` is the combo index sequence of a trace; ``idx=None`` is the
+periodic fold ``idx[t] = t mod M`` of a homogeneous stream.
+``maxplus_fold_many_kernel`` folds a fleet of traces instead: each lane
+its own index sequence and length against one shared dictionary.  The
+kernels, in ``src/repro_torch/csrc/maxplus_fold.cu``, say which TPU
+kernels they replace and what bounds them.
 
-For tensors on the CPU the wrapper runs the plain version
-(``ref.maxplus_fold_ref``); for CUDA tensors it launches the kernel on the
-current stream or raises — a missing compiler or a refused launch is an
-error, never a fallback.  ``LAUNCHES`` counts the launches of each
-branch, so a run can show that its path went through the kernel.
+For tensors on the CPU a wrapper runs the plain version
+(``ref.maxplus_fold_ref`` / ``ref.maxplus_fold_many_ref``); for CUDA
+tensors it launches the kernel on the current stream or raises — a
+missing compiler or a refused launch is an error, never a fallback.
+``LAUNCHES`` counts the launches of each branch, so a run can show that
+its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ import torch
 
 from repro_torch.core.maxplus_form import NEG
 from repro_torch.kernels.build import load
-from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+from repro_torch.kernels.maxplus.ref import (maxplus_fold_many_ref,
+                                             maxplus_fold_ref)
 
 SOURCE = "maxplus_fold.cu"
 
 #: Kernel launches per branch since the last ``reset_launches()``.
-LAUNCHES = {"indexed": 0, "periodic": 0}
+LAUNCHES = {"indexed": 0, "periodic": 0, "many": 0}
 
 
 def reset_launches() -> None:
@@ -43,6 +47,9 @@ def _library() -> ctypes.CDLL:
         lib.maxplus_fold.argtypes = [ptr] * 10 + [ctypes.c_int] * 4 + [
             ctypes.c_longlong, ptr]
         lib.maxplus_fold.restype = ctypes.c_int
+        lib.maxplus_fold_many.argtypes = [ptr] * 9 + [ctypes.c_int] * 2 + [
+            ctypes.c_longlong, ptr]
+        lib.maxplus_fold_many.restype = ctypes.c_int
         lib.maxplus_fold_max_n.argtypes = []
         lib.maxplus_fold_max_n.restype = ctypes.c_int
         lib.maxplus_fold_error_string.argtypes = [ctypes.c_int]
@@ -136,18 +143,88 @@ def maxplus_fold_kernel(mats: torch.Tensor, s0: torch.Tensor, *,
     if b == 0:
         return out if acc is None else (out, acc)
 
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.maxplus_fold(
-            ptr(mats), ptr(s0), ptr(idx), ptr(gvec), ptr(arrivals), ptr(wvec),
-            ptr(extras), ptr(energy), ptr(out), ptr(acc), b, m, n, p, t_steps,
-            stream)
-    if rc != 0:
-        msg = lib.maxplus_fold_error_string(rc).decode()
-        raise RuntimeError(f"maxplus_fold kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+            _ptr(mats), _ptr(s0), _ptr(idx), _ptr(gvec), _ptr(arrivals),
+            _ptr(wvec), _ptr(extras), _ptr(energy), _ptr(out), _ptr(acc), b,
+            m, n, p, t_steps, stream)
+    _raise_on(lib, rc, "maxplus_fold")
     LAUNCHES["periodic" if idx is None else "indexed"] += 1
     return out if acc is None else (out, acc)
+
+
+def maxplus_fold_many_kernel(mats: torch.Tensor, gvec: torch.Tensor,
+                             idx: torch.Tensor, arrivals: torch.Tensor,
+                             s0: torch.Tensor, lengths: torch.Tensor, *,
+                             extras: torch.Tensor | None = None,
+                             wvec: torch.Tensor | None = None,
+                             with_arrivals: bool = True) -> torch.Tensor:
+    """Folded states [B, N] of B traces in one launch, one block per lane.
+
+    mats [M1, N, N] f32 (one dictionary shared by every lane), gvec [M1,
+    N] f32, idx [B, T] i32, arrivals [B, T] f32, s0 [N] f32, lengths [B]
+    i32 (each in [0, T]); ``extras`` [B, T] f32 with its ``wvec`` [M1, N]
+    written-rows mask adds the fault shift, and ``with_arrivals=False``
+    drops the arrival max-in.  Lane b folds its first ``lengths[b]``
+    steps; lanes sorted longest-first start their long chains first."""
+    if (extras is None) != (wvec is None):
+        raise ValueError("extras and wvec go together")
+    if mats.device.type == "cpu":
+        return maxplus_fold_many_ref(mats, gvec, idx, arrivals, s0, lengths,
+                                     extras=extras, wvec=wvec,
+                                     with_arrivals=with_arrivals)
+    if mats.device.type != "cuda":
+        raise ValueError(f"maxplus_fold_many_kernel runs on cuda or cpu "
+                         f"tensors, got {mats.device}")
+    if mats.dim() != 3 or mats.shape[1] != mats.shape[2]:
+        raise ValueError(f"mats must be [M1, N, N], got {tuple(mats.shape)}")
+    if idx.dim() != 2:
+        raise ValueError(f"idx must be [B, T], got {tuple(idx.shape)}")
+    m1, n, _ = mats.shape
+    b, t = idx.shape
+    dev = mats.device
+    _check("mats", mats, torch.float32, (m1, n, n), dev)
+    _check("gvec", gvec, torch.float32, (m1, n), dev)
+    _check("idx", idx, torch.int32, (b, t), dev)
+    _check("arrivals", arrivals, torch.float32, (b, t), dev)
+    _check("s0", s0, torch.float32, (n,), dev)
+    _check("lengths", lengths, torch.int32, (b,), dev)
+    if extras is not None:
+        _check("extras", extras, torch.float32, (b, t), dev)
+        _check("wvec", wvec, torch.float32, (m1, n), dev)
+    lib = _library()
+    if n > lib.maxplus_fold_max_n():
+        raise ValueError(f"state size {n} exceeds the kernel's "
+                         f"{lib.maxplus_fold_max_n()}")
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    lo, hi = (int(x) for x in torch.aminmax(lengths))
+    if lo < 0 or hi > t:
+        raise ValueError(f"lengths out of range: [{lo}, {hi}] for T = {t}")
+    if t:
+        lo, hi = (int(x) for x in torch.aminmax(idx))
+        if lo < 0 or hi >= m1:
+            raise ValueError(f"idx out of range: [{lo}, {hi}] for M1 = {m1}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.maxplus_fold_many(
+            _ptr(mats), _ptr(gvec) if with_arrivals else None, _ptr(wvec),
+            _ptr(idx), _ptr(arrivals) if with_arrivals else None,
+            _ptr(extras), _ptr(s0), _ptr(lengths), _ptr(out), b, n, t,
+            stream)
+    _raise_on(lib, rc, "maxplus_fold_many")
+    LAUNCHES["many"] += 1
+    return out
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.maxplus_fold_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")

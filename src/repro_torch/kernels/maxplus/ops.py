@@ -1,13 +1,15 @@
 """Public ops: SSD completion times via the (max,+) CUDA kernel.
 
-Two entry points mirror the two scan-engine paths in ``repro_torch.core``:
+Three entry points mirror the scan-engine paths in ``repro_torch.core``:
 
 * ``channel_end_time_maxplus`` — homogeneous single-channel design-point
   batches (periodic matrix form; ways must divide MAX_WAYS — the
   power-of-two sweep grid of the paper);
 * ``trace_end_time_maxplus`` — one heterogeneous ``OpTrace`` evaluated
   for a batch of design-point ``OpClassTable``s (the matrix-dictionary
-  form).
+  form);
+* ``run_many_end_time_maxplus`` — a fleet of traces under one table, one
+  many-trace kernel launch over the fleet's union dictionary.
 
 ``trace_energy_maxplus`` additionally accumulates the phase-resolved
 per-op energies ``E[idx[t]]`` inside the kernel's fold.
@@ -27,13 +29,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.energy import op_phase_energy_uj
-from repro_torch.core.maxplus_form import (StateLayout, combo_arrival_offsets,
+from repro_torch.core.maxplus_form import (NEG, StateLayout,
+                                           combo_arrival_offsets,
                                            combo_matrices, combo_written_rows,
                                            end_time_from_state, init_state,
-                                           trace_combos, transition_matrices)
+                                           maxplus_eye, trace_combos,
+                                           transition_matrices)
 from repro_torch.core.sim import PageOpParams
 from repro_torch.device import resolve_device
-from repro_torch.kernels.maxplus.kernel import maxplus_fold_kernel
+from repro_torch.kernels.maxplus.kernel import (maxplus_fold_kernel,
+                                                maxplus_fold_many_kernel)
 
 STRATEGIES = ("sequential",)
 
@@ -147,6 +152,94 @@ def trace_end_time_maxplus(
                          extras=extras, wvec=wvec)
     end = end_time_from_state(final.cpu().numpy(), layout)
     return end[0] if single else end
+
+
+def _many_setup(table, traces, policy, device):
+    """(layout, order, kernel arguments) of a fleet sharing one (C, W)
+    geometry: the fleet's union combo dictionary with the identity pad
+    row appended, and the per-lane index / arrival / surcharge arrays
+    with the lanes sorted longest-first (``order[lane]`` is the trace
+    index of each lane).  Arrival and fault operands are None when the
+    whole fleet has none, the same choice as the JAX package, so the same
+    operations run."""
+    geom = (traces[0].channels, traces[0].ways)
+    for tr in traces:
+        if (tr.channels, tr.ways) != geom:
+            raise ValueError(
+                "fused run_many needs one shared (channels, ways) geometry "
+                f"per call — got {geom} and {(tr.channels, tr.ways)}")
+    layout = StateLayout(*geom)
+    # union combo dictionary across the fleet: pack each op's (class,
+    # channel, way, parity) into one integer key and let np.unique build
+    # the dictionary and the per-op indices in one pass
+    keys = np.concatenate([
+        (np.asarray(tr.cls, np.int64) << 24)
+        | (np.asarray(tr.channel, np.int64) << 16)
+        | (np.asarray(tr.way, np.int64) << 8)
+        | (np.asarray(tr.parity, np.int64) & 1)
+        for tr in traces])
+    uniq, inv = np.unique(keys, return_inverse=True)
+    combos = [(int(k >> 24), int((k >> 16) & 0xFF),
+               int((k >> 8) & 0xFF), int(k & 1)) for k in uniq]
+    bounds = np.cumsum([0] + [tr.n_ops for tr in traces])
+    m = len(combos)
+    n = layout.n_state
+    mats = np.concatenate([combo_matrices(table, combos, layout, policy),
+                           maxplus_eye(n)[None]])
+    gvec = np.concatenate([combo_arrival_offsets(table, combos, layout,
+                                                 policy),
+                           np.full((1, n), NEG, np.float32)])
+    order = sorted(range(len(traces)), key=lambda i: -traces[i].n_ops)
+    b, t_max = len(traces), traces[order[0]].n_ops
+    idx = np.full((b, t_max), m, np.int32)
+    arr = np.zeros((b, t_max), np.float32)
+    ext = np.zeros((b, t_max), np.float32)
+    lengths = np.zeros((b,), np.int32)
+    for lane, i in enumerate(order):
+        tr = traces[i]
+        idx[lane, :tr.n_ops] = inv[bounds[i]:bounds[i + 1]]
+        if tr.arrival_us is not None:
+            arr[lane, :tr.n_ops] = np.asarray(tr.arrival_us, np.float32)
+        if tr.extra_us is not None:
+            ext[lane, :tr.n_ops] = np.asarray(tr.extra_us, np.float32)
+        lengths[lane] = tr.n_ops
+    extras = wvec = None
+    if ext.any():
+        wvec = _f32(np.concatenate([combo_written_rows(combos, layout),
+                                    np.zeros((1, n), np.float32)]), device)
+        extras = _f32(ext, device)
+    args = dict(mats=_f32(mats, device), gvec=_f32(gvec, device),
+                idx=torch.as_tensor(idx, device=device),
+                arrivals=_f32(arr, device),
+                s0=_f32(init_state(layout), device),
+                lengths=torch.as_tensor(lengths, device=device),
+                extras=extras, wvec=wvec, with_arrivals=bool(arr.any()))
+    return layout, order, args
+
+
+def run_many_end_time_maxplus(
+    table,                     # OpClassTable (one design point)
+    traces,                    # list[OpTrace], one shared (C, W) geometry
+    *,
+    policy: str = "eager",
+    device=None,
+) -> np.ndarray:
+    """End times (us) of B independent heterogeneous traces in ONE launch
+    of the many-trace kernel (``maxplus_fold_many_kernel``): lanes are
+    whole traces rather than design points, folding their own op
+    sequences against the *union* combo dictionary of the fleet.  An
+    appended (max,+) identity combo (NEG origin template, zero written
+    rows) pads short lanes in the index array as an exact no-op; lanes
+    sort longest-first and each stops at its own length."""
+    dev = resolve_device(device)
+    if not traces:
+        return np.zeros((0,), np.float64)
+    layout, order, args = _many_setup(table, traces, policy, dev)
+    final = maxplus_fold_many_kernel(**args)
+    end = end_time_from_state(final.cpu().numpy(), layout)
+    out = np.empty((len(traces),), np.float64)
+    out[np.asarray(order)] = end
+    return out
 
 
 def combo_energy_uj(table, combos, kind) -> np.ndarray:

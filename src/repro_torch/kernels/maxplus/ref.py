@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the (max,+) trace-indexed fold.
+"""Plain PyTorch versions of the (max,+) folds: per design point
+(``maxplus_fold_ref``) and per trace of a fleet (``maxplus_fold_many_ref``).
 
-This is the CUDA kernel's plain version: the wrapper in ``kernel.py``
-runs it for tensors on the CPU, the tests hold it against the JAX
-package, and ``chip_smoke.py`` holds the kernel against it on the card.
+These are the CUDA kernels' plain versions: the wrappers in ``kernel.py``
+run them for tensors on the CPU, the tests hold them against the JAX
+package, and ``chip_smoke.py`` holds the kernels against them on the card.
 Every step is one correctly rounded float32 add per element followed by
 an exact max, and the energy accumulator sums in op order, so any
 implementation that keeps those operations reproduces it bit for bit.
@@ -72,3 +73,50 @@ def maxplus_fold_ref(mats: torch.Tensor, s0: torch.Tensor, *, t_steps: int,
     if s is s0:
         s = s0.clone()
     return s if acc is None else (s, acc)
+
+
+def maxplus_fold_many_ref(mats: torch.Tensor, gvec: torch.Tensor,
+                          idx: torch.Tensor, arrivals: torch.Tensor,
+                          s0: torch.Tensor, lengths, *,
+                          extras: torch.Tensor | None = None,
+                          wvec: torch.Tensor | None = None,
+                          with_arrivals: bool = True) -> torch.Tensor:
+    """Many-trace fold: [B, N] states of B lanes, each folding its own
+    sequence against one shared dictionary.
+
+    mats [M1, N, N], gvec/wvec [M1, N], idx [B, T] int32, arrivals/extras
+    [B, T] float32, s0 [N], lengths [B] int32.  Lane b folds steps
+    ``t < lengths[b]``: ``s = max_c(mats[i, r, c] + s[c])`` with
+    ``i = idx[b, t]``, then ``max(s, gvec[i] + arrivals[b, t])`` if
+    ``with_arrivals``, then ``s + wvec[i] * extras[b, t]`` if ``extras``
+    is given — the order of the JAX megakernel's gather branch.  Steps
+    past a lane's length are not run: the JAX kernel folds the identity
+    op there, which leaves the state bitwise unchanged.  Lanes are taken
+    longest-first (inputs not already in that order are permuted once),
+    so each step works on the prefix of lanes still running."""
+    b = idx.shape[0]
+    lens = np.asarray(torch.as_tensor(lengths).cpu(), np.int64)
+    s = s0.to(torch.float32).expand(b, -1).clone()
+    if b == 0:
+        return s
+    order = np.argsort(-lens, kind="stable")
+    permuted = not np.array_equal(order, np.arange(b))
+    if permuted:
+        perm = torch.as_tensor(order, device=idx.device)
+        idx, arrivals = idx[perm], arrivals[perm]
+        extras = None if extras is None else extras[perm]
+    ends = lens[order]
+    for t in range(int(ends[0])):
+        n = int(np.count_nonzero(ends > t))
+        it = idx[:n, t].long()
+        x = torch.amax(mats[it] + s[:n, None, :], dim=-1)
+        if with_arrivals:
+            x = torch.maximum(x, gvec[it] + arrivals[:n, t, None])
+        if extras is not None:
+            x = x + wvec[it] * extras[:n, t, None]
+        s[:n] = x
+    if permuted:
+        out = torch.empty_like(s)
+        out[perm] = s
+        return out
+    return s

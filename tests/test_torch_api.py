@@ -121,8 +121,7 @@ def test_unported_request_fields_raise(field, slice_):
 
 
 @pytest.mark.parametrize("engine,slice_", [
-    ("prefix", "slice C"), ("squaring", "slice C"),
-    ("streaming", "slice D")])
+    ("prefix", "slice C"), ("squaring", "slice C")])
 def test_unported_engines_raise(engine, slice_):
     with pytest.raises(api.CapabilityError, match=slice_):
         api.get_engine(engine)
@@ -136,7 +135,8 @@ def test_unported_engines_raise(engine, slice_):
 
 
 def test_registry_and_validation():
-    assert api.registered_engines() == ("cuda", "oracle", "scan")
+    assert api.registered_engines() == ("cuda", "oracle", "scan",
+                                        "streaming")
     caps = api.engine_capabilities()
     assert caps["cuda"].batched_tables and not caps["oracle"].batched_tables
     assert caps["scan"].describe() == "scan: batched_tables, energy"

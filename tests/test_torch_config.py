@@ -29,6 +29,7 @@ def test_import_loads_neither_jax_nor_repro():
     code = ("import sys\n"
             "import repro_torch, repro_torch.api, repro_torch.tables\n"
             "import repro_torch.kernels.maxplus.ops\n"
+            "import repro_torch.core.calibrate\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(','.join(bad))\n")
@@ -105,3 +106,19 @@ def test_policy_validation():
     cfg = sim.SSDConfig(interface=interface.InterfaceKind.CONV,
                         cell=nand.CellType.MLC, channels=4, ways=4)
     assert cfg.describe() == "conv/mlc 4ch x 4way [eager]"
+
+
+def test_unported_paths_name_their_slice():
+    from repro_torch import api
+    from repro_torch.core import trace
+
+    assert "streaming" not in api.UNPORTED_ENGINES
+    assert set(api.UNPORTED_ENGINES) == {"prefix", "squaring"}
+    s = api.Simulator(sim.SSDConfig(channels=1, ways=2), device="cpu")
+    t = trace.steady_trace(8, 1, 2)
+    with pytest.raises(api.CapabilityError, match="slice C"):
+        s.run_many([t], engine="prefix")
+    with pytest.raises(api.CapabilityError, match="slice E"):
+        s.sweep(None, t, ftl=object())
+    with pytest.raises(api.CapabilityError, match="slice E"):
+        s.run_stream(iter([t]), ftl=object())

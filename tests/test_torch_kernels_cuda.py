@@ -1,5 +1,6 @@
-"""The hand-written CUDA (max,+) kernel against its plain version, on the
-card.  This file imports no JAX, so it runs on a machine that has only
+"""The hand-written CUDA (max,+) kernels (the per-design-point fold and
+the many-trace fold) against their plain versions, on the card.  This
+file imports no JAX, so it runs on a machine that has only
 PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
@@ -12,8 +13,11 @@ import torch
 
 from repro_torch.core import maxplus_form as mf
 from repro_torch.core import sim, trace
-from repro_torch.kernels.maxplus.kernel import maxplus_fold_kernel
-from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+from repro_torch.kernels.maxplus import ops
+from repro_torch.kernels.maxplus.kernel import (LAUNCHES, maxplus_fold_kernel,
+                                                maxplus_fold_many_kernel)
+from repro_torch.kernels.maxplus.ref import (maxplus_fold_many_ref,
+                                             maxplus_fold_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -89,3 +93,94 @@ def test_kernel_rejects_what_it_does_not_take(card):
         maxplus_fold_kernel(mats, s0.cpu(), t_steps=t)
     with pytest.raises(ValueError, match="out of range"):
         maxplus_fold_kernel(mats, s0, t_steps=t, idx=idx + mats.shape[1])
+
+
+# lengths 1 and 203 (not a multiple of 4), 0 (an empty lane), unsorted
+MANY_LENGTHS = (130, 1, 203, 64, 0, 77, 5, 130, 3)
+
+
+def many_inputs(card, seed=3, channels=4, ways=8):
+    """A fleet's union dictionary (plus the identity pad row) with
+    seeded per-lane sequences, arrivals and extras, on the card."""
+    rng = np.random.default_rng(seed)
+    b, t = len(MANY_LENGTHS), max(MANY_LENGTHS)
+    tr = trace.mixed_trace(400, channels, ways, 0.6, seed=seed)
+    layout = mf.StateLayout(channels, ways)
+    combos, _ = mf.trace_combos(tr)
+    table = trace.op_class_table(sim.SSDConfig(channels=channels, ways=ways))
+    m, n = len(combos), layout.n_state
+    mats = np.concatenate([mf.combo_matrices(table, combos, layout),
+                           mf.maxplus_eye(n)[None]])
+    gvec = np.concatenate([mf.combo_arrival_offsets(table, combos, layout),
+                           np.full((1, n), mf.NEG, np.float32)])
+    wvec = np.concatenate([mf.combo_written_rows(combos, layout),
+                           np.zeros((1, n), np.float32)])
+    idx = np.full((b, t), m, np.int32)
+    arr = np.zeros((b, t), np.float32)
+    ext = np.zeros((b, t), np.float32)
+    for lane, ln in enumerate(MANY_LENGTHS):
+        idx[lane, :ln] = rng.integers(0, m, ln)
+        arr[lane, :ln] = np.cumsum(rng.exponential(9.0, ln))
+        ext[lane, :ln] = np.where(rng.random(ln) < 0.15,
+                                  rng.uniform(30, 120, ln), 0.0)
+    d = dict(mats=mats, gvec=gvec, wvec=wvec, idx=idx, arrivals=arr,
+             extras=ext, s0=mf.init_state(layout),
+             lengths=np.asarray(MANY_LENGTHS, np.int32))
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=card)
+            for k, v in d.items()}
+
+
+@pytest.mark.parametrize("with_arrivals", (False, True))
+@pytest.mark.parametrize("with_faults", (False, True))
+def test_many_kernel_bit_equal_to_plain(card, with_arrivals, with_faults):
+    d = many_inputs(card)
+    args = [d[k] for k in ("mats", "gvec", "idx", "arrivals", "s0",
+                           "lengths")]
+    side = dict(extras=d["extras"], wvec=d["wvec"]) if with_faults else {}
+    before = LAUNCHES["many"]
+    got = maxplus_fold_many_kernel(*args, with_arrivals=with_arrivals,
+                                   **side)
+    want = maxplus_fold_many_ref(*args, with_arrivals=with_arrivals, **side)
+    torch.cuda.synchronize()
+    assert LAUNCHES["many"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got[MANY_LENGTHS.index(0)], d["s0"])
+
+
+def test_many_kernel_rejects_what_it_does_not_take(card):
+    d = many_inputs(card)
+    args = [d[k] for k in ("mats", "gvec", "idx", "arrivals", "s0",
+                           "lengths")]
+
+    def call(i, x):
+        a = list(args)
+        a[i] = x
+        return maxplus_fold_many_kernel(*a)
+
+    with pytest.raises(TypeError, match="float32"):
+        call(0, args[0].double())
+    with pytest.raises(TypeError, match="int32"):
+        call(2, args[2].long())
+    with pytest.raises(ValueError, match="shape"):
+        call(3, args[3][:, :5].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(3, args[3].t().contiguous().t())
+    with pytest.raises(ValueError, match="is on cpu"):
+        call(4, args[4].cpu())
+    with pytest.raises(ValueError, match="lengths out of range"):
+        call(5, args[5] + args[2].shape[1])
+    with pytest.raises(ValueError, match="idx out of range"):
+        call(2, args[2] + args[0].shape[0])
+    with pytest.raises(ValueError, match="together"):
+        maxplus_fold_many_kernel(*args, extras=d["extras"])
+
+
+def test_run_many_one_launch_equals_per_trace(card):
+    fleet = [trace.mixed_trace(n, 4, 8, 0.7, seed=n) for n in (300, 77, 5)]
+    table = trace.op_class_table(sim.SSDConfig(channels=4, ways=8))
+    before = LAUNCHES["many"]
+    got = ops.run_many_end_time_maxplus(table, fleet, device=card)
+    assert LAUNCHES["many"] == before + 1
+    want = [ops.trace_end_time_maxplus(table, t, device=card)
+            for t in fleet]
+    assert np.array_equal(got, np.asarray(want, np.float64))
