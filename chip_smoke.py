@@ -9,7 +9,9 @@ Run from the repository root with no arguments:
 Phases, one report line each (every check raises on failure):
 
 1. versions, and the card's name and power limit from ``nvidia-smi``;
-2. build of ``src/repro_torch/csrc/maxplus_fold.cu`` for ``sm_90a``;
+2. build of every kernel source under ``src/repro_torch/csrc``
+   (``maxplus_fold.cu``, ``flash_attention.cu``, ``rglru_scan.cu``) for
+   ``sm_90a``, one ``nvcc`` each, all started together;
 3. the (max,+) fold kernel against ``maxplus_fold_ref`` on the card,
    required equal by ``torch.equal``, in five variants (periodic,
    periodic+energy, indexed, indexed+arrivals+extras,
@@ -47,13 +49,29 @@ Phases, one report line each (every check raises on failure):
    ``fit_slc`` equal to the JAX package's fit; the stripe exponents; a
    65536-op ``mixed_trace_chunks`` stream on 4 x 8 MLC bit-equal to the
    scan engine on the materialised trace, and a 262144-op stream timed,
-   with host and device memory peaks against the shorter stream's.
+   with host and device memory peaks against the shorter stream's;
+8. LM serving on RecurrentGemma-9B: (8a) the flash-attention kernel
+   against ``attention_reference`` on 13 small shapes (the JAX package's
+   FLASH_CASES, ragged S, D = 256, MQA, S > window) within FLASH_TOL, the
+   RG-LRU scan kernel bit-equal to ``rglru_scan_ref`` on 6 (ragged S, R
+   not a multiple of 128, f32 and bf16), and the SMOKE model served on
+   the card token-identical to the CPU plain path; (8b) the full-width
+   model (8.6 B parameters, bf16) initialised on the card from a seed and
+   served through ``ServingEngine.generate`` — 4 prompts of 2560-4096
+   tokens left-padded to 4096 plus 32 greedy tokens — with one K4 launch
+   per attention layer (12) and one K5 launch per RG-LRU layer (26) in
+   the prefill, prefill seconds, decode tokens/s and peak device memory,
+   the first K4 and K5 launches of the prefill recorded and held against
+   their plain versions, and one ``score`` at B = 1, S = 1024; (8c) K4 and
+   K5 timed at the prefill shapes beside their plain versions, their
+   bounds and (K4) ``scaled_dot_product_attention`` with the window mask.
 
 Phases 4 and 5 are the main path of the per-design-point kernel, phase 6
-that of the many-trace kernel: the launch counts are reset just before
-each and read just after.  The line before the last is the JSON kernel
-report, the last line the JSON device summary.  Exits non-zero without a
-result when no CUDA device is present.
+that of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5:
+the launch counts are reset just before each and read just after.  The
+line before the last is the JSON kernel report, the last line the JSON
+device summary.  Exits non-zero without a result when no CUDA device is
+present.
 """
 
 from __future__ import annotations
@@ -64,6 +82,7 @@ import subprocess
 import sys
 import time
 import tracemalloc
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -74,6 +93,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # operations/rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
 
 # The scan engine adds each op's offsets one float32 add at a time; the
 # (max,+) dictionary pre-sums them in float64 and rounds each entry once.
@@ -103,6 +123,17 @@ STREAM_OPS, STREAM_CHUNK = 262144, 32768
 # what the JAX package's calibrate.fit_slc() returns (t_prog us, t_poll
 # cycles, write MAE); its frozen nand.SLC holds t_prog = 218 us
 REFERENCE_FIT_SLC = (217.0, 0.0, 0.026098169557506812)
+# phase 8: RecurrentGemma-9B served at full width: four prompts longer than
+# the 2048-token attention window, left-padded into one 4096-token wave (so
+# the ring of _ring_align wraps), 32 greedy tokens; scoring at B = 1
+LM_ARCH, LM_SEED = "recurrentgemma-9b", 0
+LM_PROMPT_LENS = (4096, 3584, 3072, 2560)
+LM_NEW_TOKENS, LM_MAX_SEQ = 32, 4128
+LM_SCORE = (1, 1024)
+# the flash-attention kernel against its plain version, relative to
+# max(1, max |plain|): float32 sums in another order; bfloat16 outputs
+# rounded to bf16 (an ulp is 2^-7 of the magnitude) after such sums
+FLASH_TOL = {"torch.float32": 5e-5, "torch.bfloat16": 2.5e-2}
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
 
@@ -128,9 +159,10 @@ def cuda_ms(fn, reps: int = 3, warmup: bool = True) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -740,6 +772,346 @@ def phase_sweeps_streams(tables, trace, sweep_ends) -> dict:
             "stream_device_peak_mb": [short_dev / 1e6, long_dev / 1e6]}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: LM serving — RecurrentGemma-9B through the flash-attention (K4)
+# and RG-LRU scan (K5) kernels
+# ---------------------------------------------------------------------------
+
+
+def flash_small_cases():
+    """(b, h, kvh, sq, sk, d, causal, window, dtype): the JAX package's
+    tests/test_kernels.py FLASH_CASES, then ragged S (100, 1000), D = 256
+    with MQA and S > window, queries offset past a window, and a window
+    without the causal mask."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [(2, 4, 2, 128, 128, 64, True, None, f32),
+            (1, 4, 1, 256, 256, 64, True, 64, f32),
+            (2, 2, 2, 128, 128, 32, False, None, bf16),
+            (1, 6, 2, 128, 256, 64, True, None, f32),
+            (1, 8, 8, 64, 64, 128, True, None, f32),
+            (1, 2, 1, 64, 64, 16, True, 16, bf16),
+            (2, 4, 1, 100, 100, 64, True, 37, f32),
+            (1, 3, 3, 1000, 1000, 128, True, None, bf16),
+            (2, 16, 1, 300, 300, 256, True, 128, bf16),
+            (1, 16, 1, 257, 257, 256, True, 64, f32),
+            (4, 16, 1, 1000, 1000, 256, True, 512, bf16),
+            (1, 4, 2, 70, 200, 64, True, 50, f32),
+            (1, 2, 1, 96, 96, 64, False, 20, f32)]
+
+
+def flash_err(got, want) -> float:
+    """max |kernel - plain| over max(1, max |plain|)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err / max(1.0, float(want.float().abs().max()))
+
+
+def phase_lm_small(device) -> dict:
+    """8a: K4 and K5 against their plain versions at small shapes, and
+    the SMOKE model served on the card against the CPU's plain path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.recurrentgemma_9b import SMOKE
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bhsd)
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.kernels.rglru.kernel import rglru_scan_kernel
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServingEngine
+
+    worst = {str(torch.float32): 0.0, str(torch.bfloat16): 0.0}
+    for i, (b, h, kvh, sq, sk, d, causal, window, dtype) in enumerate(
+            flash_small_cases()):
+        g = torch.Generator(device=device).manual_seed(i)
+        q, k, v = (torch.randn(shape, generator=g, device=device).to(dtype)
+                   for shape in ((b, h, sq, d), (b, kvh, sk, d),
+                                 (b, kvh, sk, d)))
+        off = sk - sq if causal else 0
+        got = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                   q_offset=off)
+        want = attention_reference(q, k, v, causal=causal, window=window,
+                                   q_offset=off)
+        torch.cuda.synchronize()
+        err = flash_err(got, want)
+        if err > FLASH_TOL[str(dtype)]:
+            raise AssertionError(
+                f"flash kernel case {i} (b {b} h {h} kvh {kvh} sq {sq} sk "
+                f"{sk} d {d} causal {causal} window {window} {dtype}): "
+                f"{err:.2e} > {FLASH_TOL[str(dtype)]}")
+        worst[str(dtype)] = max(worst[str(dtype)], err)
+    log(f"[8a] flash-attention kernel vs plain on "
+        f"{len(flash_small_cases())} shapes: worst relative error "
+        + ", ".join(f"{w:.2e} ({k}, bar {FLASH_TOL[k]})"
+                    for k, w in worst.items()))
+
+    scans = [(2, 512, 128, torch.float32), (3, 37, 100, torch.float32),
+             (2, 129, 200, torch.bfloat16), (1, 4096, 64, torch.float32),
+             (4, 1, 4096, torch.bfloat16), (2, 1000, 4096, torch.float32)]
+    for i, (b, s, r, dtype) in enumerate(scans):
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        a = (0.85 + 0.149 * torch.rand((b, s, r), generator=g,
+                                       device=device)).to(dtype)
+        x = torch.randn((b, s, r), generator=g, device=device).to(dtype)
+        if not torch.equal(rglru_scan_kernel(a, x), rglru_scan_ref(a, x)):
+            raise AssertionError(f"rglru kernel != plain at {(b, s, r, dtype)}")
+    log(f"[8a] RG-LRU scan kernel bit-equal to plain on {len(scans)} shapes "
+        "(ragged S, R not a multiple of 128, f32 and bf16)")
+
+    cfg = dataclasses.replace(SMOKE, compute_dtype="f32")
+    cpu_p = init_params(cfg, 0, device="cpu")
+    card_p = to_device(cpu_p, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (21, 17, 9)]
+    got = ServingEngine(cfg, card_p, max_seq=40).generate(prompts, 12)
+    want = ServingEngine(cfg, cpu_p, max_seq=40, device="cpu").generate(
+        prompts, 12)
+    lerr = float(np.max(np.abs(got.prefill_logits - want.prefill_logits)))
+    lscale = float(np.max(np.abs(want.prefill_logits)))
+    if not np.array_equal(got.tokens, want.tokens) or lerr > 1e-4 * lscale:
+        raise AssertionError(f"SMOKE served on the card differs from the CPU"
+                             f" plain path: logits {lerr:.2e} of {lscale:.1f}")
+    log(f"[8a] {cfg.name} (f32 compute) generate on the card: 12 greedy "
+        f"tokens x 3 prompts identical to the CPU plain path, prefill "
+        f"logits within {lerr:.2e} (bar 1e-4 x {lscale:.1f})")
+    return {"flash_small_worst_rel": worst}
+
+
+def to_device(tree, device):
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def valid_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
+    """(q, k) pairs the mask keeps, per (batch, head)."""
+    import numpy as np
+    q = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+class Recorder:
+    """Wraps a module's kernel entry point; keeps clones of the first
+    call's tensor arguments."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args = self.kwargs = None
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        if self.args is None:
+            self.args = [a.clone() for a in args]
+            self.kwargs = {k: v for k, v in kwargs.items() if k != "out"}
+        return self.fn(*args, **kwargs)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_lm_serve(device) -> dict:
+    """8b: RecurrentGemma-9B at full width served through ServingEngine;
+    the first K4 and K5 launches of the prefill recorded and held against
+    their plain versions; one score pass.  8c: K4 and K5 timed at the
+    prefill shapes beside their plain versions, their bounds and (K4) the
+    SDPA call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.models.transformer import init_params, param_count
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = get_arch(LM_ARCH).config
+    n_attn = cfg.num_units * sum(s.mixer == "attn" for s in cfg.pattern)
+    n_rglru = (cfg.num_units * sum(s.mixer == "rglru" for s in cfg.pattern)
+               + sum(s.mixer == "rglru" for s in cfg.tail))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    p_bytes = sum(x.numel() * x.element_size()
+                  for x in _leaves(params))
+    log(f"[8b] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+        f"{p_bytes / 1e9:.2f} GB on the card, initialised from seed {LM_SEED}"
+        f" in {init_s:.1f} s ({n_attn} attention + {n_rglru} RG-LRU layers)")
+
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LM_PROMPT_LENS]
+    eng = ServingEngine(cfg, params, max_seq=LM_MAX_SEQ)
+    prefill_s = []
+    real_prefill = engine_mod.prefill
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    rec_k4 = Recorder(flash_ops, "flash_attention_bhsd")
+    rec_k5 = Recorder(rglru_ops, "rglru_scan_kernel")
+    engine_mod.prefill = timed_prefill
+    try:
+        # -- the main path: counts reset just before, read just after ---
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FK.reset_launches()
+        RK.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, n_new=LM_NEW_TOKENS)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
+                    "rglru_scan": RK.LAUNCHES["rglru_scan"]}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        rec_k4.restore()
+        rec_k5.restore()
+        engine_mod.prefill = real_prefill
+    if launches != {"flash_attention": n_attn, "rglru_scan": n_rglru}:
+        raise AssertionError(f"one prefill launched {launches}, expected "
+                             f"{n_attn} flash-attention and {n_rglru} "
+                             "RG-LRU scans")
+    b = len(prompts)
+    toks, logits = res.tokens, res.prefill_logits
+    if not (toks.shape == (b, LM_NEW_TOKENS) and toks.min() >= 0
+            and toks.max() < cfg.vocab_size
+            and logits.shape == (b, cfg.padded_vocab)
+            and np.all(np.isfinite(logits[:, :cfg.vocab_size]))
+            and np.array_equal(toks[:, 0], logits.argmax(-1))):
+        raise AssertionError("generate returned malformed tokens or logits")
+    decode_s = gen_s - prefill_s[0]
+    decode_tps = b * (LM_NEW_TOKENS - 1) / decode_s
+    log(f"[8b] ServingEngine(max_seq={LM_MAX_SEQ}).generate: {b} prompts "
+        f"of {'/'.join(map(str, LM_PROMPT_LENS))} tokens left-padded to "
+        f"{max(LM_PROMPT_LENS)} + {LM_NEW_TOKENS} greedy tokens in "
+        f"{gen_s:.2f} s: prefill {prefill_s[0]:.3f} s, decode "
+        f"{decode_s:.3f} s ({decode_tps:.1f} tokens/s, "
+        f"{decode_s / (LM_NEW_TOKENS - 1) * 1e3:.1f} ms a step); peak device "
+        f"memory {peak_gb:.2f} GB; launches {launches}")
+
+    # -- the first launches of the prefill, against their plain versions
+    with torch.inference_mode():
+        q, k, v = rec_k4.args
+        kw = rec_k4.kwargs
+        k4_out = FK.flash_attention_bhsd(q, k, v, **kw)
+        k4_plain = attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        k4_err = float((k4_out.float() - k4_plain.float()).abs().max())
+        k4_rel = flash_err(k4_out, k4_plain)
+        del k4_plain
+        if k4_rel > FLASH_TOL[str(q.dtype)]:
+            raise AssertionError(f"flash kernel on the prefill's inputs: "
+                                 f"{k4_rel:.2e} > {FLASH_TOL[str(q.dtype)]}")
+        a, bb = rec_k5.args
+        k5_out = RK.rglru_scan_kernel(a, bb)
+        if not torch.equal(k5_out, rglru_scan_ref(a, bb)):
+            raise AssertionError("RG-LRU kernel != plain on the prefill's "
+                                 "inputs")
+    log(f"[8b] first prefill launches held against their plain versions: "
+        f"K4 q {tuple(q.shape)} {q.dtype} k/v {tuple(k.shape)} {kw}: max abs"
+        f" {k4_err:.3e} ({k4_rel:.2e} relative, bar "
+        f"{FLASH_TOL[str(q.dtype)]}); K5 a/b {tuple(a.shape)} {a.dtype}: "
+        "bit-equal")
+
+    # -- scoring: full logits at B = 1 ---------------------------------
+    score_toks = np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab_size, LM_SCORE).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = eng.score(score_toks)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    if not (lp.shape == (LM_SCORE[0], LM_SCORE[1] - 1)
+            and np.all(np.isfinite(lp)) and np.all(lp <= 0.0)):
+        raise AssertionError("score returned malformed log-probs")
+    log(f"[8b] score at B={LM_SCORE[0]} S={LM_SCORE[1]}: {score_s:.2f} s, "
+        f"mean log-prob {float(lp.mean()):.2f}")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # -- 8c: times at the prefill shapes --------------------------------
+    with torch.inference_mode():
+        def flash():
+            return FK.flash_attention_bhsd(q, k, v, **kw)
+        k4_ms = cuda_ms(flash)
+        k4_plain_ms = cuda_ms(lambda: attention_reference(q, k, v, **kw),
+                              warmup=False)
+        bq, hq, sq, d = q.shape
+        group = hq // k.shape[1]
+        k_rep = k.repeat_interleave(group, dim=1)
+        v_rep = v.repeat_interleave(group, dim=1)
+        pos = torch.arange(sq, device=device)
+        mask = pos[:, None] >= pos[None, :]
+        if kw.get("window"):
+            mask &= (pos[:, None] - pos[None, :]) < kw["window"]
+        try:
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k_rep, v_rep, attn_mask=mask))
+        except RuntimeError as exc:     # the yardstick only, never the path
+            log(f"[8c] SDPA yardstick failed: {exc}")
+            sdpa_ms = None
+        del k_rep, v_rep, mask
+        pairs = valid_pairs(sq, k.shape[2], kw.get("causal", True),
+                            kw.get("window"), kw.get("q_offset", 0))
+        k4_bytes = sum(x.numel() * x.element_size()
+                       for x in (q, k, v, k4_out))
+        k4_ops = 4.0 * d * pairs * bq * hq
+        k4_b, k4_by = bound_ms(k4_bytes, k4_ops, ops_per_s=(
+            BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S))
+        k5_ms = cuda_ms(lambda: RK.rglru_scan_kernel(a, bb))
+        k5_plain_ms = cuda_ms(lambda: rglru_scan_ref(a, bb), warmup=False)
+        k5_b, k5_by = bound_ms(3.0 * a.numel() * a.element_size(),
+                               2.0 * a.numel())
+    log(f"[8c] K4 flash attention at {tuple(q.shape)} {q.dtype}, window "
+        f"{kw.get('window')}: kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f}"
+        f" ms, SDPA {sdpa_ms if sdpa_ms is None else round(sdpa_ms, 3)} ms, "
+        f"bound {k4_b:.3f} ms ({k4_by}: {pairs} valid pairs per head, "
+        f"{k4_ops:.3e} flops, {k4_bytes / 1e6:.1f} MB)")
+    log(f"[8c] K5 RG-LRU scan at {tuple(a.shape)} {a.dtype}: kernel "
+        f"{k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms, bound {k5_b:.3f} ms "
+        f"({k5_by}: {3 * a.numel() * a.element_size() / 1e6:.1f} MB)")
+    return {
+        "k4": {"launches": launches["flash_attention"], "max_abs_err": k4_err,
+               "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_b,
+               "bound_by": k4_by, "library_ms": sdpa_ms},
+        "k5": {"launches": launches["rglru_scan"], "max_abs_err": 0.0,
+               "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_b,
+               "bound_by": k5_by, "library_ms": None},
+        "n_params": n_params, "param_gb": p_bytes / 1e9, "init_s": init_s,
+        "generate_s": gen_s, "prefill_s": prefill_s[0],
+        "decode_s": decode_s, "decode_tokens_per_s": decode_tps,
+        "peak_device_gb": peak_gb, "score_s": score_s,
+        "k4_rel_err": k4_rel, "k4_valid_pairs_per_head": pairs,
+    }
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -752,8 +1124,10 @@ def main() -> int:
                                                end_time_from_state)
     from repro_torch.core.sim_ref import simulate_trace_ref
     from repro_torch.kernels import build
-    from repro_torch.kernels.maxplus import kernel as K
     from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.maxplus.ops import _combo_setup
     from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
 
@@ -768,14 +1142,21 @@ def main() -> int:
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}; device {torch.cuda.get_device_name(0)}")
 
-    # -- 2: build --------------------------------------------------------
+    # -- 2: build every kernel source, one nvcc each, all at once -------
     t0 = time.perf_counter()
-    lib_path, ptxas = build.build(K.SOURCE)
+    sources = (K.SOURCE, FK.SOURCE, RK.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build.build, sources))
+    for lib_path, ptxas in built:
+        regs = [ln.strip() for ln in ptxas.splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"[2] built {lib_path.name} for sm_90a; ptxas: "
+            f"{' | '.join(regs)}")
     K._library()
-    regs = [ln.strip() for ln in ptxas.splitlines()
-            if "registers" in ln or "spill" in ln]
-    log(f"[2] built {lib_path.name} for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs)}")
+    FK._library()
+    RK._library()
+    log(f"[2] {len(sources)} sources built in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- 3: kernels == plain at a small shape ----------------------------
     phase_small_variants(dev)
@@ -905,6 +1286,10 @@ def main() -> int:
     fleet = phase_fleet(dev)
     streams = phase_sweeps_streams(tables, trace, ends)
 
+    # -- 8: LM serving through K4 and K5 ---------------------------------
+    lm_small = phase_lm_small(dev)
+    lm = phase_lm_serve(dev)
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -915,6 +1300,8 @@ def main() -> int:
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")},
         "streams": streams,
+        "lm": {**lm_small, **{k: v for k, v in lm.items()
+                              if k not in ("k4", "k5")}},
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))
@@ -936,6 +1323,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/maxplus/kernel.py:293",
          **{k: fleet[k] for k in ("launches", "max_abs_err", "ms",
                                   "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "flash_attention (causal / sliding-window GQA, K4)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         **lm["k4"]},
+        {"name": "rglru_scan (RG-LRU linear recurrence, K5)",
+         "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru/kernel.py:66", **lm["k5"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

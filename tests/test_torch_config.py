@@ -30,8 +30,14 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch, repro_torch.api, repro_torch.tables\n"
             "import repro_torch.kernels.maxplus.ops\n"
             "import repro_torch.core.calibrate\n"
+            "import repro_torch.models.transformer, repro_torch.models.convert\n"
+            "import repro_torch.serve, repro_torch.configs.registry\n"
+            "import repro_torch.configs.recurrentgemma_9b\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.kernels.rglru.ops\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+            "or m == 'ml_dtypes')\n"
             "print(','.join(bad))\n")
     src = str(PORT_SRC.parent)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -42,7 +48,8 @@ def test_import_loads_neither_jax_nor_repro():
 
 IMPORT_RE = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)"
-    r"|from\s+repro(\.|\s))", re.M)
+    r"|from\s+repro(\.|\s)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
+    re.M)
 
 
 @pytest.mark.parametrize("path", sorted(PORT_SRC.rglob("*.py")),
@@ -122,3 +129,103 @@ def test_unported_paths_name_their_slice():
         s.sweep(None, t, ftl=object())
     with pytest.raises(api.CapabilityError, match="slice E"):
         s.run_stream(iter([t]), ftl=object())
+
+
+def test_registry_resolves_the_ported_arch_and_names_the_slice():
+    from repro.configs import registry as j_registry
+    from repro_torch.configs import registry
+
+    assert registry.ARCH_IDS == j_registry.ARCH_IDS
+    arch = registry.get_arch("recurrentgemma-9b")
+    assert arch.config.name == "recurrentgemma-9b"
+    unported = [a for a in registry.ARCH_IDS if a != "recurrentgemma-9b"]
+    assert len(unported) == 9
+    for name in unported:
+        with pytest.raises(NotImplementedError, match="slice H item 21"):
+            registry.get_arch(name)
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_arch("gpt-5")
+
+
+def test_recurrentgemma_config_reads_as_the_jax_one():
+    from repro.configs import recurrentgemma_9b as j_rg
+    from repro_torch.configs import recurrentgemma_9b as rg
+
+    for name in ("CONFIG", "SMOKE"):
+        got = dataclasses.asdict(getattr(rg, name))
+        want = dataclasses.asdict(getattr(j_rg, name))
+        assert got == want
+    assert rg.ARCH.source == j_rg.ARCH.source
+    assert rg.ARCH.notes == j_rg.ARCH.notes
+    assert [dataclasses.asdict(s) for s in rg.ARCH.shapes] == \
+        [dataclasses.asdict(s) for s in j_rg.ARCH.shapes]
+    assert rg.CONFIG.num_units == 12 and rg.CONFIG.padded_vocab == 256000
+
+
+def _meta_qkv(spec, s):
+    q = torch.empty((1, s, spec.n_kv_heads, spec.q_groups, spec.head_dim),
+                    device="meta")
+    k = torch.empty((1, s, spec.n_kv_heads, spec.head_dim), device="meta")
+    return q, k, k
+
+
+def test_card_attention_path_raises_on_what_the_kernel_lacks():
+    """Off the CPU, attention goes to the flash-attention kernel, which
+    takes causal positions arange(S) and no soft cap: anything else raises
+    naming the later slice instead of taking a plain branch.  (Meta
+    tensors stand in for the card's: the checks run before any data.)"""
+    from repro_torch.models import attention
+
+    spec = attention.AttnSpec(n_heads=4, n_kv_heads=1, head_dim=16, window=8)
+    q, k, v = _meta_qkv(spec, 6)
+    shifted = torch.arange(6, dtype=torch.int32)[None] + 3
+    with pytest.raises(NotImplementedError, match="custom positions"):
+        attention.attend(spec, q, k, v, shifted)
+    text = torch.arange(6, dtype=torch.int32)[None]
+    ids = torch.stack([text, text, text + 1])
+    with pytest.raises(NotImplementedError, match="custom positions"):
+        attention.attend(spec, q, k, v, text, ids)
+    capped = dataclasses.replace(spec, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="soft-capping"):
+        attention.attend(capped, q, k, v, text)
+
+
+def test_lm_entry_points_default_to_the_card():
+    from repro_torch.configs.base import smoke_batch
+    from repro_torch.configs.recurrentgemma_9b import SMOKE
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.serve import ServingEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults resolve to it")
+    calls = [lambda: transformer.init_params(SMOKE, 0),
+             lambda: transformer.init_cache(SMOKE, 1, 8),
+             lambda: smoke_batch(SMOKE),
+             lambda: params_from_jax({}),
+             lambda: ServingEngine(SMOKE, {}, max_seq=8)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_smoke_batch_and_shape_grid():
+    from repro.configs import base as j_base
+    from repro_torch.configs import base
+    from repro_torch.configs.recurrentgemma_9b import ARCH, SMOKE
+
+    batch = base.smoke_batch(SMOKE, batch=3, seq=10, seed=4, device="cpu")
+    again = base.smoke_batch(SMOKE, batch=3, seq=10, seed=4, device="cpu")
+    assert batch["inputs"].shape == (3, 10)
+    assert batch["inputs"].dtype == torch.int32
+    assert torch.equal(batch["inputs"], again["inputs"])
+    assert int(batch["labels"].max()) < SMOKE.vocab_size
+    for long_context in (True, False):
+        got = [dataclasses.asdict(s)
+               for s in base.lm_shapes(long_context=long_context)]
+        want = [dataclasses.asdict(s)
+                for s in j_base.lm_shapes(long_context=long_context)]
+        assert got == want
+    assert ARCH.shape("decode_32k").global_batch == 128
+    with pytest.raises(KeyError, match="no shape"):
+        ARCH.shape("train_1m")

@@ -1,7 +1,8 @@
-"""The hand-written CUDA (max,+) kernels (the per-design-point fold and
-the many-trace fold) against their plain versions, on the card.  This
-file imports no JAX, so it runs on a machine that has only
-PyTorch and the CUDA toolkit:
+"""The hand-written CUDA kernels against their plain versions, on the
+card: the (max,+) kernels (the per-design-point fold and the many-trace
+fold), flash attention and the RG-LRU scan, and the LM serving path that
+runs the last two.  This file imports no JAX, so it runs on a machine
+that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
 
@@ -184,3 +185,197 @@ def test_run_many_one_launch_equals_per_trace(card):
     want = [ops.trace_end_time_maxplus(table, t, device=card)
             for t in fleet]
     assert np.array_equal(got, np.asarray(want, np.float64))
+
+
+
+# --- flash attention and the RG-LRU scan ------------------------------------
+
+# b, h, kvh, sq, sk, d, causal, window, dtype: tests/test_kernels.py's
+# FLASH_CASES, then ragged lengths, RecurrentGemma's D = 256 with MQA and
+# S > window, and a window with q_offset
+FLASH_GPU_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None, torch.float32),
+    (1, 4, 1, 256, 256, 64, True, 64, torch.float32),
+    (2, 2, 2, 128, 128, 32, False, None, torch.bfloat16),
+    (1, 6, 2, 128, 256, 64, True, None, torch.float32),
+    (1, 8, 8, 64, 64, 128, True, None, torch.float32),
+    (1, 2, 1, 64, 64, 16, True, 16, torch.bfloat16),
+    (2, 4, 1, 100, 100, 64, True, 37, torch.float32),
+    (1, 3, 3, 1000, 1000, 128, True, None, torch.bfloat16),
+    (2, 16, 1, 300, 300, 256, True, 128, torch.bfloat16),
+    (1, 16, 1, 257, 257, 256, True, 64, torch.float32),
+    (1, 4, 2, 70, 200, 64, True, 50, torch.float32),
+    (1, 2, 1, 96, 96, 64, False, 20, torch.float32),
+]
+# float32: sums in another order; bfloat16: outputs rounded to bf16 (an
+# ulp is 2^-7 of the magnitude) after sums in another order
+FLASH_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.5e-2}
+
+
+def flash_inputs(card, case, seed=0):
+    b, h, kvh, sq, sk, d, _, _, dtype = case
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=card).to(dtype)
+            for shape in ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))]
+
+
+@pytest.mark.parametrize("case", FLASH_GPU_CASES,
+                         ids=[str(i) for i in range(len(FLASH_GPU_CASES))])
+def test_flash_kernel_matches_plain(card, case):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    *_, causal, window, dtype = case
+    q, k, v = flash_inputs(card, case)
+    off = k.shape[2] - q.shape[2]
+    before = FK.LAUNCHES["flash_attention"]
+    got = FK.flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                  q_offset=off)
+    want = attention_reference(q, k, v, causal=causal, window=window,
+                               q_offset=off)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    assert err <= FLASH_TOL[dtype] * scale, err
+
+
+def test_flash_kernel_rows_without_a_valid_key(card):
+    """Queries past every key and its window: the reference averages v
+    uniformly over all keys, so the kernel visits every tile there."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    q, k, v = flash_inputs(card, (1, 2, 1, 80, 100, 64, True, 5,
+                                  torch.float32))
+    got = flash_attention_bhsd(q, k, v, window=5, q_offset=60)
+    want = attention_reference(q, k, v, window=5, q_offset=60)
+    assert float((got - want).abs().max()) <= FLASH_TOL[torch.float32]
+
+
+def test_flash_kernel_reads_the_grouped_layout_in_place(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    g = torch.Generator(device=card).manual_seed(1)
+    b, s, kvh, grp, d = 2, 190, 2, 3, 64
+    q = torch.randn((b, s, kvh, grp, d), generator=g, device=card)
+    k = torch.randn((b, s, kvh, d), generator=g, device=card)
+    v = torch.randn((b, s, kvh, d), generator=g, device=card)
+    got = flash_attention(q, k, v, causal=True, window=70)
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=70)
+    assert got.shape == q.shape
+    assert float((got.cpu() - want).abs().max()) <= FLASH_TOL[torch.float32]
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+
+    q, k, v = flash_inputs(card, (1, 2, 1, 64, 64, 64, True, None,
+                                  torch.float32))
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_bhsd(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_bhsd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bhsd(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_bhsd(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_bhsd(q, k, v, window=0)
+    with pytest.raises(ValueError, match="contiguous head"):
+        flash_attention_bhsd(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        flash_attention_bhsd(q, k.cpu(), v)
+
+
+# b, s, r, dtype: ragged S, R not a multiple of 128, f32 and bf16
+RGLRU_GPU_CASES = [(2, 512, 128, torch.float32), (3, 37, 100, torch.float32),
+                   (2, 129, 200, torch.bfloat16), (1, 4096, 64, torch.float32),
+                   (4, 1, 4096, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,s,r,dtype", RGLRU_GPU_CASES)
+def test_rglru_kernel_bit_equal_to_plain(card, b, s, r, dtype):
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    g = torch.Generator(device=card).manual_seed(s + r)
+    a = (0.85 + 0.149 * torch.rand((b, s, r), generator=g,
+                                   device=card)).to(dtype)
+    x = torch.randn((b, s, r), generator=g, device=card).to(dtype)
+    before = RK.LAUNCHES["rglru_scan"]
+    got = RK.rglru_scan_kernel(a, x)
+    want = rglru_scan_ref(a, x)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["rglru_scan"] == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_rglru_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.rglru.kernel import rglru_scan_kernel
+
+    a = torch.rand((2, 8, 16), device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rglru_scan_kernel(a, a.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        rglru_scan_kernel(a, a[:, :4])
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_kernel(a.transpose(0, 1), a.transpose(0, 1))
+    with pytest.raises(ValueError, match="is on cpu"):
+        rglru_scan_kernel(a, a.cpu())
+
+
+def test_smoke_model_on_the_card_runs_the_kernels(card):
+    """RecurrentGemma SMOKE at float32 compute: the card's prefill (one
+    attention and four RG-LRU layers, all through the kernels) and
+    decode against the CPU's plain path on the same parameters (bar 1e-4
+    of the largest logit: f32 sums in another order), and the card's
+    attention raising where the kernel has no branch."""
+    import dataclasses
+
+    from repro_torch.configs.recurrentgemma_9b import SMOKE
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.models import attention, transformer
+
+    cfg = dataclasses.replace(SMOKE, compute_dtype="f32")
+    cpu_p = transformer.init_params(cfg, 0, device="cpu")
+    card_p = _to(cpu_p, card)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 21)).astype(np.int32))
+    fk, rk = FK.LAUNCHES["flash_attention"], RK.LAUNCHES["rglru_scan"]
+    with torch.inference_mode():
+        got, gc = transformer.prefill(cfg, card_p, toks.to(card), max_seq=30)
+        assert FK.LAUNCHES["flash_attention"] == fk + 1
+        assert RK.LAUNCHES["rglru_scan"] == rk + 4
+        want, wc = transformer.prefill(cfg, cpu_p, toks, max_seq=30)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        for pos in range(21, 25):
+            tok = want.argmax(-1).to(torch.int32)
+            got, gc = transformer.decode_step(cfg, card_p, gc, tok.to(card),
+                                              pos)
+            want, wc = transformer.decode_step(cfg, cpu_p, wc, tok, pos)
+            assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        spec = cfg.attn_spec(8)
+        x = torch.randn((1, 6, cfg.d_model), device=card)
+        p = _unit(card_p["unit"]["layer2"]["mixer"], 0)
+        shifted = torch.arange(6, device=card, dtype=torch.int32)[None] + 2
+        with pytest.raises(NotImplementedError, match="custom positions"):
+            attention.attn_full(p, spec, x, shifted,
+                                compute_dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match="soft-capping"):
+            attention.attn_full(p, dataclasses.replace(spec, softcap=5.0), x,
+                                shifted - 2, compute_dtype=torch.float32)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _unit(tree, u):
+    return {k: _unit(v, u) if isinstance(v, dict) else v[u]
+            for k, v in tree.items()}
