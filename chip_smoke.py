@@ -28,7 +28,10 @@ Phases, one report line each (every check raises on failure):
    channels x 16 ways (N = 146, M = 512 combos) under 64 design-point
    tables through ``sweep_tables(..., engine="cuda")``, checked bit-equal
    to the plain version on the card and within 1e-5 of the numpy oracle
-   on two points, with the kernel's and the plain version's times;
+   on two points, with the kernel's and the plain version's times; and
+   the trace-indexed launches of phase 4 (one per Table 3/4/5 cell)
+   counted by geometry, one launch of each geometry timed, their sum,
+   bound and launches x (time - bound) reported apart from the sweep's;
 
 3b. the many-trace kernel against ``maxplus_fold_many_ref``, required
    equal by ``torch.equal``, in four variants (arrivals on/off x faults
@@ -50,21 +53,27 @@ Phases, one report line each (every check raises on failure):
    65536-op ``mixed_trace_chunks`` stream on 4 x 8 MLC bit-equal to the
    scan engine on the materialised trace, and a 262144-op stream timed,
    with host and device memory peaks against the shorter stream's;
-8. LM serving on RecurrentGemma-9B: (8a) the flash-attention kernel
+8. LM serving on RecurrentGemma-9B: (8a) the flash-attention kernels
    against ``attention_reference`` on 13 small shapes (the JAX package's
-   FLASH_CASES, ragged S, D = 256, MQA, S > window) within FLASH_TOL, the
+   FLASH_CASES, ragged S, D = 256, MQA, S > window) within FLASH_TOL, each
+   shape through both routes (bf16 inputs to the tensor-core kernel, f32
+   copies to the CUDA-core kernel, and the other way round), the
    RG-LRU scan kernel bit-equal to ``rglru_scan_ref`` on 6 (ragged S, R
    not a multiple of 128, f32 and bf16), and the SMOKE model served on
    the card token-identical to the CPU plain path; (8b) the full-width
    model (8.6 B parameters, bf16) initialised on the card from a seed and
    served through ``ServingEngine.generate`` — 4 prompts of 2560-4096
-   tokens left-padded to 4096 plus 32 greedy tokens — with one K4 launch
-   per attention layer (12) and one K5 launch per RG-LRU layer (26) in
-   the prefill, prefill seconds, decode tokens/s and peak device memory,
-   the first K4 and K5 launches of the prefill recorded and held against
-   their plain versions, and one ``score`` at B = 1, S = 1024; (8c) K4 and
-   K5 timed at the prefill shapes beside their plain versions, their
-   bounds and (K4) ``scaled_dot_product_attention`` with the window mask.
+   tokens left-padded to 4096 plus 32 greedy tokens — with one launch of
+   K4's tensor-core kernel per attention layer (12, none of the CUDA-core
+   one) and one K5 launch per RG-LRU layer (26) in the prefill, prefill
+   seconds, decode tokens/s and peak device memory, the first K4 and K5
+   launches of the prefill recorded and held against their plain
+   versions, and one ``score`` at B = 1, S = 1024; (8c) K4 and K5 timed at
+   the prefill shapes beside their plain versions, their bounds and (K4)
+   ``scaled_dot_product_attention`` with the window mask, the flops K4
+   computes (from its tile plan) and its TFLOP/s, K4's CUDA-core route
+   timed on f32 copies of the same inputs, and the ptxas registers and
+   shared memory of both routes.
 
 Phases 4 and 5 are the main path of the per-design-point kernel, phase 6
 that of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5:
@@ -814,36 +823,45 @@ def phase_lm_small(device) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs.recurrentgemma_9b import SMOKE
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bhsd)
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.kernels.rglru.kernel import rglru_scan_kernel
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import ServingEngine
 
+    # every case through both routes: its own dtype, and a copy in the
+    # other (bf16 -> the tensor-core kernel, f32 -> the CUDA-core kernel)
     worst = {str(torch.float32): 0.0, str(torch.bfloat16): 0.0}
+    FK.reset_launches()
     for i, (b, h, kvh, sq, sk, d, causal, window, dtype) in enumerate(
             flash_small_cases()):
         g = torch.Generator(device=device).manual_seed(i)
-        q, k, v = (torch.randn(shape, generator=g, device=device).to(dtype)
-                   for shape in ((b, h, sq, d), (b, kvh, sk, d),
-                                 (b, kvh, sk, d)))
+        xs = [torch.randn(shape, generator=g, device=device)
+              for shape in ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))]
         off = sk - sq if causal else 0
-        got = flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                                   q_offset=off)
-        want = attention_reference(q, k, v, causal=causal, window=window,
-                                   q_offset=off)
-        torch.cuda.synchronize()
-        err = flash_err(got, want)
-        if err > FLASH_TOL[str(dtype)]:
-            raise AssertionError(
-                f"flash kernel case {i} (b {b} h {h} kvh {kvh} sq {sq} sk "
-                f"{sk} d {d} causal {causal} window {window} {dtype}): "
-                f"{err:.2e} > {FLASH_TOL[str(dtype)]}")
-        worst[str(dtype)] = max(worst[str(dtype)], err)
-    log(f"[8a] flash-attention kernel vs plain on "
-        f"{len(flash_small_cases())} shapes: worst relative error "
+        for dt in (dtype, torch.bfloat16 if dtype == torch.float32
+                   else torch.float32):
+            q, k, v = (x.to(dtype).to(dt) for x in xs)
+            got = FK.flash_attention_bhsd(q, k, v, causal=causal,
+                                          window=window, q_offset=off)
+            want = attention_reference(q, k, v, causal=causal, window=window,
+                                       q_offset=off)
+            torch.cuda.synchronize()
+            err = flash_err(got, want)
+            if err > FLASH_TOL[str(dt)]:
+                raise AssertionError(
+                    f"flash kernel case {i} (b {b} h {h} kvh {kvh} sq {sq} "
+                    f"sk {sk} d {d} causal {causal} window {window} {dt}, "
+                    f"route {FK.route(dt)}): {err:.2e} > "
+                    f"{FLASH_TOL[str(dt)]}")
+            worst[str(dt)] = max(worst[str(dt)], err)
+    n_cases = len(flash_small_cases())
+    if FK.LAUNCHES != {FK.TC: n_cases, FK.F32: n_cases}:
+        raise AssertionError(f"8a launched {FK.LAUNCHES}, expected "
+                             f"{n_cases} of each route")
+    log(f"[8a] flash-attention kernels vs plain on {n_cases} shapes, each "
+        f"through both routes ({FK.LAUNCHES}): worst relative error "
         + ", ".join(f"{w:.2e} ({k}, bar {FLASH_TOL[k]})"
                     for k, w in worst.items()))
 
@@ -894,6 +912,69 @@ def valid_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+class CellLaunches:
+    """Wraps a module's trace-indexed fold entry point; counts its launches
+    by geometry (B, M, N, T, energy) and keeps clones of the first call's
+    arguments of each."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.by_shape = {}
+        setattr(module, name, self)
+
+    def __call__(self, mats, s0, **kwargs):
+        if kwargs.get("idx") is not None:
+            b, m, n, _ = mats.shape
+            key = (b, m, n, kwargs["t_steps"],
+                   kwargs.get("energy") is not None)
+            count, args, kw = self.by_shape.get(key, (0, None, None))
+            if args is None:
+                args = (mats.clone(), s0.clone())
+                kw = {k: v.clone() if hasattr(v, "clone") else v
+                      for k, v in kwargs.items()}
+            self.by_shape[key] = (count + 1, args, kw)
+        return self.fn(mats, s0, **kwargs)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def time_cell_launches(cells: "CellLaunches", expected: int) -> dict:
+    """One launch of each recorded geometry timed; their sum over all the
+    launches, bound and launches x (time - bound)."""
+    import torch
+    from repro_torch.kernels.maxplus import kernel as K
+    total = bound = loss = 0.0
+    geoms = []
+    for key, (count, args, kwargs) in sorted(cells.by_shape.items()):
+        def one():
+            return K.maxplus_fold_kernel(*args, **kwargs)
+        out = one()
+        g_ms = cuda_ms(one)
+        outs = out if isinstance(out, tuple) else (out,)
+        extra = [x for x in (*args[1:], *kwargs.values())
+                 if isinstance(x, torch.Tensor)]
+        g_by, g_ops = fold_work(args[0], kwargs["t_steps"], extra, outs)
+        g_b, _ = bound_ms(g_by, g_ops)
+        total += count * g_ms
+        bound += count * g_b
+        loss += count * (g_ms - g_b)
+        geoms.append(f"{count}x(B={key[0]} M={key[1]} N={key[2]} "
+                     f"T={key[3]}{' energy' if key[4] else ''}: "
+                     f"{g_ms:.3f} ms, bound {g_b:.5f})")
+    n = sum(c for c, _, _ in cells.by_shape.values())
+    if n != expected:
+        raise AssertionError(f"{n} Table-cell launches recorded, the "
+                             f"counter says {expected}")
+    log(f"[5] K1 Table-cell launches of phase 4: {n} in {len(geoms)} "
+        f"geometries, one of each timed: {total:.2f} ms in all, bound "
+        f"{bound:.4f} ms, launches x (time - bound) {loss:.2f} ms")
+    log("[5] K1 Table-cell geometries: " + "; ".join(geoms))
+    return {"launches": n, "geometries": len(geoms), "ms": total,
+            "bound_ms": bound, "loss_ms": loss}
+
+
 class Recorder:
     """Wraps a module's kernel entry point; keeps clones of the first
     call's tensor arguments."""
@@ -914,7 +995,24 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def phase_lm_serve(device) -> dict:
+def kernel_resources(ptxas: str, pattern: str) -> tuple[str, str]:
+    """(registers, spill line) that ptxas reported for the entry function
+    whose mangled name holds ``pattern``."""
+    lines = ptxas.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and pattern in ln:
+            regs = spill = "?"
+            for nxt in lines[i + 1:i + 6]:
+                if "spill" in nxt:
+                    spill = nxt.strip()
+                if "Used" in nxt and "registers" in nxt:
+                    regs = nxt.split("Used")[1].split("registers")[0].strip()
+                    break
+            return regs, spill
+    return "?", "?"
+
+
+def phase_lm_serve(device, flash_ptxas: str) -> dict:
     """8b: RecurrentGemma-9B at full width served through ServingEngine;
     the first K4 and K5 launches of the prefill recorded and held against
     their plain versions; one score pass.  8c: K4 and K5 timed at the
@@ -926,6 +1024,7 @@ def phase_lm_serve(device) -> dict:
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import tiles as flash_tiles
     from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rglru import ops as rglru_ops
@@ -979,17 +1078,16 @@ def phase_lm_serve(device) -> dict:
         res = eng.generate(prompts, n_new=LM_NEW_TOKENS)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
-        launches = {"flash_attention": FK.LAUNCHES["flash_attention"],
-                    "rglru_scan": RK.LAUNCHES["rglru_scan"]}
+        launches = {**FK.LAUNCHES, "rglru_scan": RK.LAUNCHES["rglru_scan"]}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         rec_k4.restore()
         rec_k5.restore()
         engine_mod.prefill = real_prefill
-    if launches != {"flash_attention": n_attn, "rglru_scan": n_rglru}:
+    if launches != {FK.TC: n_attn, FK.F32: 0, "rglru_scan": n_rglru}:
         raise AssertionError(f"one prefill launched {launches}, expected "
-                             f"{n_attn} flash-attention and {n_rglru} "
-                             "RG-LRU scans")
+                             f"{n_attn} tensor-core flash-attention and "
+                             f"{n_rglru} RG-LRU scans")
     b = len(prompts)
     toks, logits = res.tokens, res.prefill_logits
     if not (toks.shape == (b, LM_NEW_TOKENS) and toks.min() >= 0
@@ -1055,6 +1153,10 @@ def phase_lm_serve(device) -> dict:
         k4_ms = cuda_ms(flash)
         k4_plain_ms = cuda_ms(lambda: attention_reference(q, k, v, **kw),
                               warmup=False)
+        # the CUDA-core route on f32 copies of the same inputs, for the record
+        qf, kf, vf = q.float(), k.float(), v.float()
+        k4_f32_ms = cuda_ms(lambda: FK.flash_attention_bhsd(qf, kf, vf, **kw))
+        del qf, kf, vf
         bq, hq, sq, d = q.shape
         group = hq // k.shape[1]
         k_rep = k.repeat_interleave(group, dim=1)
@@ -1077,20 +1179,44 @@ def phase_lm_serve(device) -> dict:
         k4_ops = 4.0 * d * pairs * bq * hq
         k4_b, k4_by = bound_ms(k4_bytes, k4_ops, ops_per_s=(
             BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S))
+        plan = {"sq": sq, "sk": k.shape[2], "causal": kw.get("causal", True),
+                "window": kw.get("window"), "q_offset": kw.get("q_offset", 0)}
+        tc_bq, tc_bk = FK.tile(FK.TC, d)
+        k4_computed = flash_tiles.computed_flops(bq, hq, d, bq=tc_bq,
+                                                 bk=tc_bk, **plan)
+        f32_bq, f32_bk = FK.tile(FK.F32, d)
+        f32_computed = flash_tiles.computed_flops(bq, hq, d, bq=f32_bq,
+                                                  bk=f32_bk, **plan)
         k5_ms = cuda_ms(lambda: RK.rglru_scan_kernel(a, bb))
         k5_plain_ms = cuda_ms(lambda: rglru_scan_ref(a, bb), warmup=False)
         k5_b, k5_by = bound_ms(3.0 * a.numel() * a.element_size(),
                                2.0 * a.numel())
+    res = {name: kernel_resources(flash_ptxas, pattern)
+           for name, pattern in ((FK.TC, f"flash_fwd_tcILi{d}E"),
+                                 (FK.F32, f"flash_fwd_f32ILi{d}E"))}
     log(f"[8c] K4 flash attention at {tuple(q.shape)} {q.dtype}, window "
-        f"{kw.get('window')}: kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f}"
-        f" ms, SDPA {sdpa_ms if sdpa_ms is None else round(sdpa_ms, 3)} ms, "
-        f"bound {k4_b:.3f} ms ({k4_by}: {pairs} valid pairs per head, "
-        f"{k4_ops:.3e} flops, {k4_bytes / 1e6:.1f} MB)")
+        f"{kw.get('window')}: tensor-core kernel {k4_ms:.3f} ms "
+        f"({k4_computed:.4e} flops computed on {tc_bq}x{tc_bk} tiles: "
+        f"{k4_computed / k4_ms / 1e9:.1f} TFLOP/s; "
+        f"{k4_ops / k4_ms / 1e9:.1f} TFLOP/s on the {k4_ops:.4e} needed, "
+        f"{100 * k4_b / k4_ms:.1f} % of the bound), plain "
+        f"{k4_plain_ms:.3f} ms, SDPA "
+        f"{sdpa_ms if sdpa_ms is None else round(sdpa_ms, 3)} ms, bound "
+        f"{k4_b:.3f} ms ({k4_by}: {pairs} valid pairs per head, "
+        f"{k4_bytes / 1e6:.1f} MB)")
+    log(f"[8c] K4 CUDA-core route on f32 copies of the same inputs: "
+        f"{k4_f32_ms:.3f} ms ({f32_computed:.4e} flops computed on "
+        f"{f32_bq}x{f32_bk} tiles: {f32_computed / k4_f32_ms / 1e9:.1f} "
+        f"TFLOP/s)")
+    for name, (regs, spill) in res.items():
+        log(f"[8c] {name} at D={d}: ptxas {regs} registers, {spill}; "
+            f"{FK.smem_bytes(name, d)} bytes of dynamic shared memory a "
+            f"block")
     log(f"[8c] K5 RG-LRU scan at {tuple(a.shape)} {a.dtype}: kernel "
         f"{k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms, bound {k5_b:.3f} ms "
         f"({k5_by}: {3 * a.numel() * a.element_size() / 1e6:.1f} MB)")
     return {
-        "k4": {"launches": launches["flash_attention"], "max_abs_err": k4_err,
+        "k4": {"launches": launches[FK.TC], "max_abs_err": k4_err,
                "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_b,
                "bound_by": k4_by, "library_ms": sdpa_ms},
         "k5": {"launches": launches["rglru_scan"], "max_abs_err": 0.0,
@@ -1101,6 +1227,7 @@ def phase_lm_serve(device) -> dict:
         "decode_s": decode_s, "decode_tokens_per_s": decode_tps,
         "peak_device_gb": peak_gb, "score_s": score_s,
         "k4_rel_err": k4_rel, "k4_valid_pairs_per_head": pairs,
+        "k4_computed_flops": k4_computed, "k4_f32_route_ms": k4_f32_ms,
     }
 
 
@@ -1127,6 +1254,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.kernels.maxplus import ops as maxplus_ops
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.maxplus.ops import _combo_setup
     from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
@@ -1165,7 +1293,11 @@ def main() -> int:
     # -- 4 + 5: the main path, with launch counts ------------------------
     trace, tables = sweep_tables_inputs()
     K.reset_launches()
-    tables_report = phase_tables()
+    cell_calls = CellLaunches(maxplus_ops, "maxplus_fold_kernel")
+    try:
+        tables_report = phase_tables()
+    finally:
+        cell_calls.restore()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1282,13 +1414,18 @@ def main() -> int:
         f"{pb_ms:.5f} ms ({pb_by}); at real size: kernel {rk_ms:.3f} ms, "
         f"bound {rb_ms:.3f} ms ({rb_by})")
 
+    # the trace-indexed launches of phase 4 (one per Table 3/4/5 cell)
+    cell_report = time_cell_launches(cell_calls, launches["indexed"] - 1)
+    log(f"[5] the sweep launch apart: 1 x {k_ms:.3f} ms, bound {b_ms:.3f} "
+        "ms")
+
     # -- 6: the fleet; 7: sweeps, streaming, calibration ----------------
     fleet = phase_fleet(dev)
     streams = phase_sweeps_streams(tables, trace, ends)
 
     # -- 8: LM serving through K4 and K5 ---------------------------------
     lm_small = phase_lm_small(dev)
-    lm = phase_lm_serve(dev)
+    lm = phase_lm_serve(dev, built[1][1])
 
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
@@ -1296,6 +1433,7 @@ def main() -> int:
         "peak_device_gb": peak_gb, "oracle_rel_err_dyadic": dyadic_err,
         "float32_drift_vs_float64_oracle": drift,
         "periodic_real_size_ms": rk_ms, "periodic_real_size_bound_ms": rb_ms,
+        "k1_table_cells": cell_report,
         "fleet": {k: v for k, v in fleet.items() if k not in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")},

@@ -1,4 +1,6 @@
-// Causal / sliding-window GQA flash attention (forward) for Hopper.
+// Causal / sliding-window GQA flash attention (forward) for Hopper, in two
+// routes picked by dtype: a tensor-core kernel for bf16 and a CUDA-core kernel
+// for f32.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_bhsd, body _kernel): o = softmax(q k^T / sqrt(D) + mask) v
@@ -6,69 +8,770 @@
 // head h / (H / KVH), positions q_offset + i for queries and j for keys, the
 // mask q_pos >= k_pos (causal) and q_pos - k_pos < window (window > 0).
 //
-// Layout.  One block per (query tile of BQ rows, head, batch).  The TPU's
-// sequential kv grid axis becomes a loop inside the block over kv tiles of
-// BK keys; the online-softmax state (running max m, denominator l and the
-// [BQ, D] accumulator) stays on chip for the whole loop and the output tile
-// is written once.  K and V are read from their own kv head, never
-// replicated.  Every operand is addressed through (batch, head, sequence)
-// strides with a unit stride over D, so the model's grouped [B, S, kvH, G, D]
-// layout is read in place.  Ragged edges (Sq, Sk not multiples of the tiles)
-// are masked here: rows past Sq are computed on zeros and not stored, keys
-// past Sk get probability 0.
+// Common to both routes.  One block per (query tile, head, batch).  The TPU's
+// sequential kv grid axis becomes a loop inside the block over kv tiles; the
+// online-softmax state (running max m, denominator l and the accumulator)
+// stays on chip for the whole loop and the output tile is written once.  K and
+// V are read from their own kv head, never replicated.  Every operand is
+// addressed through (batch, head, sequence) strides with a unit stride over D,
+// so the model's grouped [B, S, kvH, G, D] layout is read and written in place.
+// Ragged edges are masked here: rows past Sq are computed on zeros and not
+// stored, keys past Sk get probability 0.
 //
-// Arithmetic.  bf16 or f32 in, f32 everywhere inside (the TPU kernel upcasts
-// its tiles too), q.dtype out.  Warp w owns rows w, w + 8, ... of the query
-// tile and lane j owns key j of the kv tile, so a row's max and sum are warp
-// shuffles; in the P.V product lane j owns columns j, j + 32, ... of the
-// accumulator and takes row i's probabilities from the other lanes by
-// shuffle.  Masked scores are NEG_INF = -1e30 (finite, as on the TPU): a row
-// whose first visited tiles are wholly masked builds up garbage in l and acc
+// Masked scores are NEG_INF = -1e30 (finite, as on the TPU): a row whose first
+// visited tiles are wholly masked builds up garbage in l and acc
 // (exp(NEG_INF - NEG_INF) = 1), and its first valid key resets both, since
 // alpha = exp(NEG_INF - m) = 0.  A -INFINITY sentinel would give NaN there.
 //
-// Tile skipping.  Tiles wholly above the causal diagonal are skipped, as on
-// the TPU.  By the same argument, so are tiles wholly left of the window when
-// every row of the query tile has at least one valid key: such a tile only
-// adds garbage that the first valid key resets, or exact zeros after it.
-// When some row has no valid key at all (q_pos - window + 1 > Sk - 1) the
-// reference averages v uniformly over all Sk keys, so the block then visits
-// every tile.  At S = 4096 and window 2048, with 64 x 32 tiles, the two
-// skips leave 3168 of the 8192 kv tiles of a (batch, head); the diagonal
-// alone would leave 4160.
+// Tile schedule (kv_range below; its Python twin is
+// kernels/flash_attention/tiles.py, which the wrapper and the tests use).
+// Tiles wholly above the causal diagonal are skipped, as on the TPU.  By the
+// same argument, so are tiles wholly left of the window when every row of the
+// query tile has at least one valid key: such a tile only adds garbage that
+// the first valid key resets, or exact zeros after it.  When some row has no
+// valid key at all (q_pos - window + 1 > Sk - 1) the reference averages v
+// uniformly over all Sk keys, so the block then visits every tile.
 //
-// Bound.  At the RecurrentGemma-9B prefill shape (B 4, H 16, KVH 1, S 4096,
-// D 256, window 2048) the valid (q, k) pairs need 4.1e11 flops against 0.29
-// GB of traffic, so the card's bf16 tensor-core rate bounds it (0.42 ms).
-// This first kernel uses f32 CUDA cores (67 TFLOP/s peak, about 6 ms for the
-// same flops); wgmma and TMA are later work.
+// Tensor-core route (bf16; flash_fwd_tc).  Warp-specialised: a producer
+// warpgroup and NC consumer warpgroups of 64 query rows each, so a block owns
+// BQ = 64 NC query rows and walks kv tiles of BK = 64 keys.  NC = 2 for
+// D <= 128 (384 threads); at D = 256 a consumer holds a 128-float O
+// accumulator, which does not fit beside the scores under the 168 registers
+// a thread of 384 may have (ptxas then spills and serialises every wgmma),
+// so NC = 1 there (256 threads, up to 255 registers: 212 used, no spills).
+//   - Loads: one producer thread issues TMA copies (4-D tensor maps over
+//     (D, S, heads, batch), so the strided grouped layout needs no copy) into
+//     shared memory swizzled for wgmma: Q once per block; K and V tiles into
+//     two rings of STAGES = 2 stages with their own full / empty mbarriers,
+//     so the next tiles load while the current ones compute.  K of a tile is
+//     released once its scores are done, V once its products are.
+//     Out-of-range rows are zero-filled by the TMA unit.
+//   - Q.K^T: wgmma m64n64k16, both operands from shared memory (K-major),
+//     bf16 in, f32 accumulators; the scale 1/sqrt(D) (times log2 e, for exp2)
+//     is applied to the f32 scores.
+//   - Softmax: online, in registers.  A thread holds 2 rows x 16 keys of the
+//     tile; a row's max and sum are two quad shuffles.  Only the tiles on the
+//     causal diagonal, on the window's left edge or past Sk take mask
+//     arithmetic (tile_masked); interior tiles take none.
+//   - P.V: P rounded to bf16 and fed from registers to wgmma m64nDk16 against
+//     V read MN-major from shared memory, into the f32 O accumulator.
+//   - Overlap: tile t's Q.K^T and tile t - 1's P.V are issued together, and
+//     the softmax of tile t runs on the CUDA cores while that P.V runs on the
+//     tensor cores.  P is packed into its bf16 fragments only after that
+//     P.V has finished: packing it while the P.V was pending made ptxas
+//     serialise every wgmma of the kernel (its warning C7513).
+//   - Budget at D = 256: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) = 161 KB
+//     of shared memory, one block per SM.  At D <= 128 the consumers are
+//     raised to 240 registers and the producer lowered to 24 (setmaxnreg).
+//   - Bound: at the RecurrentGemma-9B prefill shape (B 4, H 16, KVH 1, S 4096,
+//     D 256, window 2048) the valid (q, k) pairs need 4.12e11 flops against
+//     0.29 GB of traffic, so the bf16 tensor-core rate (989 TFLOP/s) bounds it
+//     at 0.42 ms.  The 64 x 64 tiles compute 4.25e11 flops.
+//
+// CUDA-core route (f32; flash_fwd_f32).  f32 everywhere (a bf16 or TF32
+// tensor-core product cannot meet the f32 bar of 5e-5).  64 x 32 tiles, 256
+// threads: warp w owns rows w, w + 8, ... of the query tile and lane j owns
+// key j of the kv tile, so a row's max and sum are warp shuffles; in the P.V
+// product lane j owns columns j, j + 32, ... of the accumulator and takes row
+// i's probabilities from the other lanes by shuffle.  Q, K and V tiles are
+// converted to f32 in shared memory and loaded synchronously; every visited
+// tile is masked.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// the tile schedule, shared by both routes
+// ---------------------------------------------------------------------------
+
+struct KvRange {
+  int begin;  // first key of the first kv tile (a multiple of bk)
+  int end;    // keys [begin, end) are visited, in tiles of bk
+  int q_lo, q_hi;  // positions of the block's first and last real query rows
+};
+
+__device__ __forceinline__ KvRange kv_range(int q0, int bq, int bk,
+                                                     int sq, int sk,
+                                                     int causal, int window,
+                                                     int q_offset) {
+  KvRange r;
+  r.q_lo = q_offset + q0;
+  r.q_hi = q_offset + min(q0 + bq, sq) - 1;
+  r.end = causal ? min(sk, r.q_hi + 1) : sk;
+  r.begin = 0;
+  // some row without a valid key: visit every tile (see the header)
+  if (window > 0 && r.q_hi - window + 1 <= sk - 1)
+    r.begin = max(0, r.q_lo - window + 1) / bk * bk;
+  return r;
+}
+
+// Does the kv tile at k0 hold a (real row, key) pair that the mask drops?
+__device__ __forceinline__ bool tile_masked(const KvRange& r, int k0,
+                                                     int bk, int sk,
+                                                     int causal, int window) {
+  return !(k0 + bk <= sk && (!causal || k0 + bk - 1 <= r.q_lo)
+           && (window <= 0 || r.q_hi - k0 < window));
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core route (bf16)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BK = 64;        // keys a kv tile
+constexpr int STAGES = 2;     // K and V rings
+
+// Shared-memory layout of a [rows, D] bf16 tile: D is cut into boxes of CH
+// columns (SW bytes a row, the swizzle span); each box holds rows x SW bytes,
+// swizzled by the TMA unit as wgmma's layout LAYOUT expects.
+template <int D>
+struct Cfg {
+  // consumer warpgroups: at D = 256 the 128-float O accumulator leaves no
+  // room for two under the 168 registers a thread of 384 may have
+  static constexpr int NC = D == 256 ? 1 : 2;
+  static constexpr int BQ = 64 * NC;                   // query rows a block
+  static constexpr int NTHREADS = 128 * (NC + 1);      // and the producer
+  static constexpr int CONSUMER_WARPS = 4 * NC;
+  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int CH = SW / 2;
+  static constexpr int NB = D / CH;
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int Q_BOX = BQ * SW;
+  static constexpr int KV_BOX = BK * SW;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.  No wait
+// of this kernel lasts longer than a tile's copy or compute; one that spins
+// 2^26 times is a fault, and traps rather than hangs the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+         | static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous region of a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Generated operand lists (one asm per shape): S = Q.K^T with both operands
+// in shared memory, K-major (first: D = A.B, the accumulator written, not
+// read), and O += P.V with P in registers and V MN-major in shared memory.
+template <int N> struct WgmmaSS;
+
+template <> struct WgmmaSS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+  static __device__ __forceinline__ void first(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(0));
+  }
+};
+
+template <int N> struct WgmmaRS;
+
+template <> struct WgmmaRS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t* a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t* a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t* a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t* a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<256> {
+  static __device__ __forceinline__ void run(float (&d)[128],
+                                             const uint32_t* a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+
+// S = Q K^T for one kv tile (issued, not waited for).  dq and dk describe
+// the first 16 columns of Q and K; a k-step moves the start address (the
+// low bits of the descriptor) to the next 16 columns: 32 bytes into the
+// swizzled row, or the next box.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2],
+                                         uint64_t dq, uint64_t dk) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int bx = kk * 16 / C::CH;
+    const int off = (kk * 16 % C::CH) * 2;
+    const uint64_t da = dq + ((bx * C::Q_BOX + off) >> 4);
+    const uint64_t db = dk + ((bx * C::KV_BOX + off) >> 4);
+    if (kk == 0)
+      WgmmaSS<BK>::first(sc, da, db);
+    else
+      WgmmaSS<BK>::run(sc, da, db);
+  }
+}
+
+// O += P V for one kv tile (issued, not waited for); a k-step moves dv
+// 16 keys (rows of the swizzled V tile) on.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[BK / 4],
+                                         uint64_t dv) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    WgmmaRS<D>::run(acc, pa + 4 * kk, dv + ((kk * 16 * C::SW) >> 4));
+}
+
+struct RowState {
+  float m0, m1, l0, l1;   // running max and sum of rows r and r + 8
+};
+
+// Online-softmax step on the f32 scores of one tile, in place: scale (with
+// log2 e, for exp2), mask (edge tiles only), new running max, p = 2^(s - m)
+// left in sc, and the factors alpha by which the old sums are rescaled.  A
+// thread holds rows r and r + 8 of the tile at keys 8 j + col, + 1.
+template <int NS>
+__device__ __forceinline__ void softmax(float (&sc)[NS], RowState& st,
+                                        float& alpha0, float& alpha1,
+                                        bool masked, int k0, int col,
+                                        int qp0, int sk, int causal,
+                                        int window, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int kp = k0 + 8 * (i / 4) + col + (i & 1);
+      const int qp = qp0 + ((i & 2) ? 8 : 0);
+      bool ok = true;
+      if (causal) ok = ok && qp >= kp;
+      if (window > 0) ok = ok && qp - kp < window;
+      // keys past Sk: -inf, so p = 0 even for a row without a valid key
+      sc[i] = kp >= sk ? -CUDART_INF_F : ok ? sc[i] : NEG_INF;
+    }
+  }
+  float mx0 = st.m0, mx1 = st.m1;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+  alpha0 = ex2(st.m0 - mx0);
+  alpha1 = ex2(st.m1 - mx1);
+  st.m0 = mx0;
+  st.m1 = mx1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    sc[4 * j] = ex2(sc[4 * j] - mx0);
+    sc[4 * j + 1] = ex2(sc[4 * j + 1] - mx0);
+    sc[4 * j + 2] = ex2(sc[4 * j + 2] - mx1);
+    sc[4 * j + 3] = ex2(sc[4 * j + 3] - mx1);
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  st.l0 = st.l0 * alpha0 + sum0;
+  st.l1 = st.l1 * alpha1 + sum1;
+}
+
+// P (f32, in the accumulator layout of S) rounded to bf16 A fragments:
+// k-step j / 2 takes rows (r, r + 8) x keys 8 (j % 2) + col, + 1
+template <int NS>
+__device__ __forceinline__ void pack_p(const float (&p)[NS],
+                                       uint32_t (&pa)[NS / 2]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    pa[4 * (j / 2) + 2 * (j % 2)] = pack_bf16(p[4 * j], p[4 * j + 1]);
+    pa[4 * (j / 2) + 2 * (j % 2) + 1] = pack_bf16(p[4 * j + 2], p[4 * j + 3]);
+  }
+}
+
+template <int NA>
+__device__ __forceinline__ void rescale(float (&acc)[NA], float a0,
+                                        float a1) {
+  if (__any_sync(FULL, a0 != 1.f || a1 != 1.f)) {
+#pragma unroll
+    for (int j = 0; j < NA / 4; ++j) {
+      acc[4 * j] *= a0;
+      acc[4 * j + 1] *= a0;
+      acc[4 * j + 2] *= a1;
+      acc[4 * j + 3] *= a1;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::NTHREADS, 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
+             int causal, int window, int q_offset, float scale_log2,
+             long long osb, long long osh, long long oss) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  // K and V rings with their own barriers: K of a tile is released once
+  // its scores are computed, V once its products are
+  __shared__ __align__(8) uint64_t full_k[STAGES], empty_k[STAGES];
+  __shared__ __align__(8) uint64_t full_v[STAGES], empty_v[STAGES];
+  __shared__ __align__(8) uint64_t q_bar;
+  // swizzle atoms need 1024-byte alignment
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_q = base;
+  uint8_t* s_k = s_q + C::Q_BYTES;
+  uint8_t* s_v = s_k + STAGES * C::KV_BYTES;
+
+  // the longest query tiles (most kv tiles) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const KvRange r = kv_range(q0, BQ, BK, sq, sk, causal, window, q_offset);
+  const int n_tiles = (r.end - r.begin + BK - 1) / BK;
+  // warpgroup index, uniform across the warp by construction (a shuffle),
+  // so the compiler gives each role's branch its own register count
+  const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], C::CONSUMER_WARPS);
+      mbar_init(&empty_v[s], C::CONSUMER_WARPS);
+    }
+    mbar_init(&q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy ----
+    if constexpr (C::NC == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      const int kvh = h / group;
+      mbar_expect_tx(&q_bar, C::Q_BYTES);
+#pragma unroll
+      for (int bx = 0; bx < C::NB; ++bx)
+        tma_load(s_q + bx * C::Q_BOX, &tq, &q_bar, bx * C::CH, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int k0 = r.begin + t * BK;
+        if (t >= STAGES) mbar_wait(&empty_k[s], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full_k[s], C::KV_BYTES);
+#pragma unroll
+        for (int bx = 0; bx < C::NB; ++bx)
+          tma_load(s_k + s * C::KV_BYTES + bx * C::KV_BOX, &tk, &full_k[s],
+                   bx * C::CH, k0, kvh, b);
+        if (t >= STAGES) mbar_wait(&empty_v[s], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full_v[s], C::KV_BYTES);
+#pragma unroll
+        for (int bx = 0; bx < C::NB; ++bx)
+          tma_load(s_v + s * C::KV_BYTES + bx * C::KV_BOX, &tv, &full_v[s],
+                   bx * C::CH, k0, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup w owns query rows q0 + 64 w .. + 63 ----
+    if constexpr (C::NC == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int w = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int row = 64 * w + 16 * (tid / 32) + lane / 4;  // and row + 8
+    const int col = 2 * (lane % 4);                        // and col + 1
+    const int qp0 = q_offset + q0 + row;
+    // K-major descriptors for Q (this warpgroup's 64 rows) and K, MN-major
+    // for V; a stage is KV_BYTES further on
+    const uint64_t dq = make_desc(smem_u32(s_q) + 64 * w * C::SW, 16,
+                                  8 * C::SW, C::LAYOUT);
+    const uint64_t dk = make_desc(smem_u32(s_k), 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t dv = make_desc(smem_u32(s_v), C::KV_BOX, 8 * C::SW,
+                                  C::LAYOUT);
+    constexpr uint64_t STAGE = C::KV_BYTES >> 4;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    RowState st = {NEG_INF, NEG_INF, 0.f, 0.f};
+    float sc[BK / 2];
+    uint32_t pa[BK / 4];
+    float alpha0, alpha1;
+
+    mbar_wait(&q_bar, 0);
+    // tile 0: scores only
+    mbar_wait(&full_k[0], 0);
+    wg_fence();
+    issue_qk<D>(sc, dq, dk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(&empty_k[0]);
+    softmax(sc, st, alpha0, alpha1,
+            tile_masked(r, r.begin, BK, sk, causal, window), r.begin, col,
+            qp0, sk, causal, window, scale_log2);
+    pack_p(sc, pa);
+    // tile t: its scores, then the products of tile t - 1 (after O is
+    // rescaled to tile t - 1's running max); the softmax of t runs while
+    // those products do, and its P is packed once they are done
+    for (int t = 1; t < n_tiles; ++t) {
+      const int s = t % STAGES, sp = (t - 1) % STAGES;
+      const int k0 = r.begin + t * BK;
+      mbar_wait(&full_k[s], (t / STAGES) & 1);
+      mbar_wait(&full_v[sp], ((t - 1) / STAGES) & 1);
+      fence_regs(sc);
+      wg_fence();
+      issue_qk<D>(sc, dq, dk + s * STAGE);
+      wg_commit();
+      rescale(acc, alpha0, alpha1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wg_fence();
+      issue_pv<D>(acc, pa, dv + sp * STAGE);
+      wg_commit();
+      wg_wait<1>();               // the scores
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(&empty_k[s]);
+      softmax(sc, st, alpha0, alpha1,
+              tile_masked(r, k0, BK, sk, causal, window), k0, col, qp0, sk,
+              causal, window, scale_log2);
+      wg_wait<0>();               // the products of tile t - 1
+      fence_regs(acc);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(&empty_v[sp]);
+      pack_p(sc, pa);
+    }
+    // the products of the last tile
+    const int sl = (n_tiles - 1) % STAGES;
+    mbar_wait(&full_v[sl], ((n_tiles - 1) / STAGES) & 1);
+    rescale(acc, alpha0, alpha1);
+    fence_regs(acc);
+    fence_regs(pa);
+    wg_fence();
+    issue_pv<D>(acc, pa, dv + sl * STAGE);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+
+    // normalise and store the rows this thread holds
+    float l0 = st.l0, l1 = st.l1;
+    l0 += __shfl_xor_sync(FULL, l0, 1);
+    l0 += __shfl_xor_sync(FULL, l0, 2);
+    l1 += __shfl_xor_sync(FULL, l1, 1);
+    l1 += __shfl_xor_sync(FULL, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* ob = o + b * osb + h * osh;
+    const int r0 = q0 + row;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (r0 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * oss + 8 * j + col) =
+            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (r0 + 8 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (r0 + 8) * oss + 8 * j
+                                           + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * inv1,
+                                  acc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its entry
+// point is fetched at run time, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over (D, S, heads, batch) of a bf16 tensor with element strides
+// (batch, head, seq); boxes of CH columns x rows.
+template <int D>
+CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
+                  int batch, int heads, int seq, const long long* st,
+                  int rows) {
+  using C = Cfg<D>;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(seq),
+                              cuuint64_t(heads), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(st[2]) * 2, cuuint64_t(st[1]) * 2,
+                                 cuuint64_t(st[0]) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(C::CH), cuuint32_t(rows), 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Error codes past the CUDA runtime's: no encoder, or a refused tensor map.
+constexpr int ERR_NO_ENCODER = 10000;
+constexpr int ERR_TENSOR_MAP = 10001;
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int h, int kvh, int sq, int sk, int causal, int window,
+           int q_offset, float scale, const long long* st, int n_q_tiles,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap tq, tk, tv;
+  if (make_map<D>(&tq, encode, q, b, h, sq, st, C::BQ) != CUDA_SUCCESS
+      || make_map<D>(&tk, encode, k, b, kvh, sk, st + 3, BK) != CUDA_SUCCESS
+      || make_map<D>(&tv, encode, v, b, kvh, sk, st + 6, BK) != CUDA_SUCCESS)
+    return ERR_TENSOR_MAP;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_q_tiles, h, b);
+  flash_fwd_tc<D><<<grid, C::NTHREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), h / kvh, sq, sk, causal,
+      window, q_offset, scale * 1.4426950408889634f, st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// CUDA-core route (f32)
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
 constexpr int BQ = 64;             // query rows per block
 constexpr int BK = 32;             // keys per kv tile (one per lane)
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int RPW = BQ / NWARPS;   // query rows per warp
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Q and K tiles are stored with a row stride of D + PAD floats: float4
 // aligned, and the eight lanes of a quarter-warp reading eight K rows at the
@@ -81,14 +784,15 @@ constexpr size_t smem_bytes() {
                           + size_t(BK) * D);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int group, int sq,
-          int sk, int causal, int window, int q_offset, float scale,
-          long long qsb, long long qsh, long long qss, long long ksb,
-          long long ksh, long long kss, long long vsb, long long vsh,
-          long long vss, long long osb, long long osh, long long oss) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int group,
+              int sq, int sk, int causal, int window, int q_offset,
+              float scale, long long qsb, long long qsh, long long qss,
+              long long ksb, long long ksh, long long kss, long long vsb,
+              long long vsh, long long vss, long long osb, long long osh,
+              long long oss) {
   constexpr int DP = D + PAD;
   constexpr int NC = (D + 31) / 32;  // accumulator columns per lane
   extern __shared__ float4 smem4[];
@@ -102,15 +806,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + (h / group) * ksh;
-  const T* vb = v + b * vsb + (h / group) * vsh;
-  T* ob = o + b * osb + h * osh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + (h / group) * ksh;
+  const float* vb = v + b * vsb + (h / group) * vsh;
+  float* ob = o + b * osb + h * osh;
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
     float x = 0.f;
-    if (q0 + r < sq) x = to_f32(qb[(q0 + r) * qss + d]) * scale;
+    if (q0 + r < sq) x = qb[(q0 + r) * qss + d] * scale;
     s_q[r * DP + d] = x;
   }
 
@@ -123,22 +827,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  // kv tiles this query tile needs
-  const int q_lo = q_offset + q0;
-  const int q_hi = q_offset + min(q0 + BQ, sq) - 1;
-  const int k_end = causal ? min(sk, q_hi + 1) : sk;
-  int k_begin = 0;
-  if (window > 0 && q_hi - window + 1 <= sk - 1)
-    k_begin = max(0, q_lo - window + 1) / BK * BK;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  const KvRange rng = kv_range(q0, BQ, BK, sq, sk, causal, window, q_offset);
+  const int q_lo = rng.q_lo;
+  for (int k0 = rng.begin; k0 < rng.end; k0 += BK) {
     __syncthreads();  // the previous tile's K/V (and, first, Q) are settled
     for (int i = tid; i < BK * D; i += NTHREADS) {
       const int j = i / D, d = i % D;
       float kx = 0.f, vx = 0.f;
       if (k0 + j < sk) {
-        kx = to_f32(kb[(k0 + j) * kss + d]);
-        vx = to_f32(vb[(k0 + j) * vss + d]);
+        kx = kb[(k0 + j) * kss + d];
+        vx = vb[(k0 + j) * vss + d];
       }
       s_k[j * DP + d] = kx;
       s_v[j * D + d] = vx;
@@ -218,72 +916,107 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
-      if (D % 32 == 0 || col < D) ob[r * oss + col] = from_f32<T>(acc[i][c] * inv);
+      if (D % 32 == 0 || col < D) ob[r * oss + col] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int h, int group, int sq, int sk, int causal,
-                   int window, int q_offset, float scale, const long long* st,
-                   cudaStream_t stream) {
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int h, int kvh, int sq, int sk, int causal, int window,
+           int q_offset, float scale, const long long* st, int n_q_tiles,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_fwd<T, D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), group, sq, sk, causal,
-      window, q_offset, scale, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11]);
+  const dim3 grid(n_q_tiles, h, b);
+  flash_fwd_f32<D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), h / kvh, sq, sk,
+      causal, window, q_offset, scale, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       void* o, int b, int h, int group, int sq, int sk,
-                       int causal, int window, int q_offset, float scale,
-                       const long long* st, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, h, group, sq, sk, causal, window, q_offset, scale, st, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, h, group, sq, sk, causal, window, q_offset, scale, st, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, h, group, sq, sk, causal, window, q_offset, scale, st, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, h, group, sq, sk, causal, window, q_offset, scale, st, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, h, group, sq, sk, causal, window, q_offset, scale, st, stream);
-    default: return cudaErrorInvalidValue;
+}  // namespace f32
+
+typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
+                      int, int, int, int, int, int, float, const long long*,
+                      int, cudaStream_t);
+
+Launch pick(int route, int d) {
+  if (route == 0) {
+    switch (d) {
+      case 16: return f32::launch<16>;
+      case 32: return f32::launch<32>;
+      case 64: return f32::launch<64>;
+      case 128: return f32::launch<128>;
+      case 256: return f32::launch<256>;
+    }
+  } else if (route == 1) {
+    switch (d) {
+      case 16: return tc::launch<16>;
+      case 32: return tc::launch<32>;
+      case 64: return tc::launch<64>;
+      case 128: return tc::launch<128>;
+      case 256: return tc::launch<256>;
+    }
   }
+  return nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  strides: 12
-// element strides, (batch, head, sequence) of q, k, v and o in turn; the
-// head-dim stride is 1.  window <= 0 means none.  Returns the CUDA error of
-// the launch (0 on success).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int b, int h, int kvh, int sq, int sk,
-                        int d, int causal, int window, int q_offset,
-                        float scale, const long long* strides,
-                        void* stream) {
+// route: 0 = the f32 CUDA-core kernel (q, k, v, o float32), 1 = the bf16
+// tensor-core kernel (all bfloat16).  bq, bk: the tile the caller planned
+// with, checked against the route's own.  n_q_tiles: blocks along the query
+// axis.  strides: 12 element strides, (batch, head, sequence) of q, k, v and o
+// in turn; the head-dim stride is 1.  window <= 0 means none.  Returns 0 on
+// success, else a CUDA error code (or one past them: see
+// flash_attention_error_string).
+int flash_attention_fwd(int route, const void* q, const void* k,
+                        const void* v, void* o, int b, int h, int kvh, int sq,
+                        int sk, int d, int causal, int window, int q_offset,
+                        float scale, const long long* strides, int bq, int bk,
+                        int n_q_tiles, void* stream) {
   if (kvh <= 0 || h % kvh != 0) return cudaErrorInvalidValue;
-  const int group = h / kvh;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, o, b, h, group, sq, sk, causal,
-                             window, q_offset, scale, strides, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, b, h, group, sq, sk,
-                                     causal, window, q_offset, scale, strides,
-                                     s);
-  return cudaErrorInvalidValue;
+  const bool tiles_ok =
+      route == 0 ? bq == f32::BQ && bk == f32::BK
+                 : bq == (d == 256 ? 64 : 128) && bk == tc::BK;
+  if (!tiles_ok || n_q_tiles != (sq + bq - 1) / bq) return cudaErrorInvalidValue;
+  Launch fn = pick(route, d);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return fn(q, k, v, o, b, h, kvh, sq, sk, causal, window, q_offset, scale,
+            strides, n_q_tiles, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a block of the route takes at head dim d (bytes;
+// 0 for a head dim the route does not serve).
+int flash_attention_smem_bytes(int route, int d) {
+  switch (route * 1000 + d) {
+    case 16: return static_cast<int>(f32::smem_bytes<16>());
+    case 32: return static_cast<int>(f32::smem_bytes<32>());
+    case 64: return static_cast<int>(f32::smem_bytes<64>());
+    case 128: return static_cast<int>(f32::smem_bytes<128>());
+    case 256: return static_cast<int>(f32::smem_bytes<256>());
+    case 1016: return static_cast<int>(tc::Cfg<16>::SMEM);
+    case 1032: return static_cast<int>(tc::Cfg<32>::SMEM);
+    case 1064: return static_cast<int>(tc::Cfg<64>::SMEM);
+    case 1128: return static_cast<int>(tc::Cfg<128>::SMEM);
+    case 1256: return static_cast<int>(tc::Cfg<256>::SMEM);
+  }
+  return 0;
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code == tc::ERR_NO_ENCODER)
+    return "cuTensorMapEncodeTiled not found in libcuda";
+  if (code == tc::ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map (alignment or strides)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -228,13 +228,14 @@ def test_flash_kernel_matches_plain(card, case):
     *_, causal, window, dtype = case
     q, k, v = flash_inputs(card, case)
     off = k.shape[2] - q.shape[2]
-    before = FK.LAUNCHES["flash_attention"]
+    before = dict(FK.LAUNCHES)
     got = FK.flash_attention_bhsd(q, k, v, causal=causal, window=window,
                                   q_offset=off)
     want = attention_reference(q, k, v, causal=causal, window=window,
                                q_offset=off)
     torch.cuda.synchronize()
-    assert FK.LAUNCHES["flash_attention"] == before + 1
+    assert FK.LAUNCHES == {**before, FK.route(dtype):
+                           before[FK.route(dtype)] + 1}
     assert got.dtype == dtype
     err = float((got.float() - want.float()).abs().max())
     scale = max(1.0, float(want.float().abs().max()))
@@ -287,6 +288,119 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
         flash_attention_bhsd(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="is on cpu"):
         flash_attention_bhsd(q, k.cpu(), v)
+
+
+# --- the tensor-core route (bfloat16) ---------------------------------------
+
+def tc_check(q, k, v, **kw):
+    """The bf16 kernel against attention_reference within the bf16 bar,
+    asserting one launch of the tensor-core route and none of the other."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    assert q.dtype == torch.bfloat16
+    before = dict(FK.LAUNCHES)
+    got = FK.flash_attention_bhsd(q, k, v, **kw)
+    want = attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES == {**before, FK.TC: before[FK.TC] + 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    assert err <= FLASH_TOL[torch.bfloat16] * scale, err
+
+
+TILE_EDGES = (1, 63, 64, 65, 127, 129, 1000)
+
+
+@pytest.mark.parametrize("sk", TILE_EDGES)
+@pytest.mark.parametrize("sq", TILE_EDGES)
+def test_flash_tc_at_tile_edges(card, sq, sk):
+    """Ragged Sq and Sk around the 64-row and 64-key tiles; queries end at
+    the last key (q_offset = Sk - Sq) or, for Sq > Sk, start at 0."""
+    q, k, v = flash_inputs(card, (1, 4, 2, sq, sk, 64, True, None,
+                                  torch.bfloat16), seed=sq * 7 + sk)
+    tc_check(q, k, v, causal=True, q_offset=max(sk - sq, 0))
+
+
+@pytest.mark.parametrize("d", (64, 128, 256))
+@pytest.mark.parametrize("window", (37, 2047))
+@pytest.mark.parametrize("kvh", (1, 2), ids=("mqa", "gqa"))
+def test_flash_tc_windows_not_aligned_to_a_tile(card, d, window, kvh):
+    q, k, v = flash_inputs(card, (2, 4, kvh, 2100, 2100, d, True, window,
+                                  torch.bfloat16), seed=d + window)
+    tc_check(q, k, v, causal=True, window=window)
+
+
+@pytest.mark.parametrize("sq,sk,window", [(1, 1000, None), (1, 1000, 37),
+                                          (17, 300, 64), (200, 700, None),
+                                          (129, 4100, 2047)])
+@pytest.mark.parametrize("d", (64, 128, 256))
+def test_flash_tc_query_offset(card, sq, sk, window, d):
+    """Decode-style Sq < Sk: the queries are the last Sq positions."""
+    q, k, v = flash_inputs(card, (2, 8, 2, sq, sk, d, True, window,
+                                  torch.bfloat16), seed=sq + sk + d)
+    tc_check(q, k, v, causal=True, window=window, q_offset=sk - sq)
+
+
+@pytest.mark.parametrize("d", (64, 256))
+def test_flash_tc_rows_without_a_valid_key(card, d):
+    """Queries past every key and its window, in bf16: such blocks visit
+    every tile and average v uniformly, as the reference does."""
+    q, k, v = flash_inputs(card, (1, 2, 1, 80, 100, d, True, 5,
+                                  torch.bfloat16), seed=3)
+    tc_check(q, k, v, window=5, q_offset=60)
+    tc_check(q, k, v, causal=False, window=5, q_offset=300)
+
+
+@pytest.mark.parametrize("d", (64, 128, 256))
+def test_flash_tc_reads_the_grouped_layout_in_place(card, d):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    g = torch.Generator(device=card).manual_seed(d)
+    b, s, kvh, grp = 2, 300, 2, 3
+    q, k, v = (torch.randn(shape, generator=g, device=card).bfloat16()
+               for shape in ((b, s, kvh, grp, d), (b, s, kvh, d),
+                             (b, s, kvh, d)))
+    before = FK.LAUNCHES[FK.TC]
+    got = flash_attention(q, k, v, causal=True, window=70)
+    want = flash_attention(q.cpu().float(), k.cpu().float(), v.cpu().float(),
+                           causal=True, window=70)
+    assert FK.LAUNCHES[FK.TC] == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    err = float((got.cpu().float() - want).abs().max())
+    assert err <= FLASH_TOL[torch.bfloat16] * max(1.0, float(want.abs().max()))
+
+
+def test_flash_f32_takes_the_cuda_core_route(card):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    q, k, v = flash_inputs(card, (1, 4, 1, 300, 300, 256, True, 128,
+                                  torch.float32))
+    before = dict(FK.LAUNCHES)
+    got = FK.flash_attention_bhsd(q, k, v, window=128)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES == {**before, FK.F32: before[FK.F32] + 1}
+    want = attention_reference(q, k, v, window=128)
+    assert float((got - want).abs().max()) <= FLASH_TOL[torch.float32] * max(
+        1.0, float(want.abs().max()))
+
+
+def test_flash_tc_rejects_strides_tma_cannot_take(card):
+    """TMA needs 16-byte strides: a sequence stride of 68 bf16 values (136
+    bytes) is refused before launch, never sent elsewhere."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v = flash_inputs(card, (1, 2, 1, 64, 64, 64, True, None,
+                                  torch.bfloat16))
+    wide = torch.zeros((1, 2, 64, 68), device=card, dtype=torch.bfloat16)
+    wide[..., :64] = q
+    before = dict(FK.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        FK.flash_attention_bhsd(wide[..., :64], k, v)
+    assert FK.LAUNCHES == before
 
 
 # b, s, r, dtype: ragged S, R not a multiple of 128, f32 and bf16
@@ -345,10 +459,10 @@ def test_smoke_model_on_the_card_runs_the_kernels(card):
     card_p = _to(cpu_p, card)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 21)).astype(np.int32))
-    fk, rk = FK.LAUNCHES["flash_attention"], RK.LAUNCHES["rglru_scan"]
+    fk, rk = FK.LAUNCHES[FK.F32], RK.LAUNCHES["rglru_scan"]
     with torch.inference_mode():
         got, gc = transformer.prefill(cfg, card_p, toks.to(card), max_seq=30)
-        assert FK.LAUNCHES["flash_attention"] == fk + 1
+        assert FK.LAUNCHES[FK.F32] == fk + 1     # f32 compute: CUDA cores
         assert RK.LAUNCHES["rglru_scan"] == rk + 4
         want, wc = transformer.prefill(cfg, cpu_p, toks, max_seq=30)
         scale = float(want.abs().max())

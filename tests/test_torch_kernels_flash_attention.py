@@ -68,11 +68,11 @@ def test_plain_version_matches_jax(case, against):
     else:
         want = j_reference(jq, jk, jv, causal=causal, window=window,
                            q_offset=off)
-    before = K.LAUNCHES["flash_attention"]
+    before = dict(K.LAUNCHES)
     got = flash_attention(*_port(xs, dt), causal=causal, window=window,
                           q_offset=off)
     assert got.dtype == TDT[dt] and got.shape == (b, h, sq, d)
-    assert K.LAUNCHES["flash_attention"] == before   # the CPU runs no kernel
+    assert K.LAUNCHES == before   # the CPU runs no kernel
     assert _err(got, want) < TOL[dt]
 
 
