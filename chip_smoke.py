@@ -15,8 +15,13 @@ Phases, one report line each (every check raises on failure):
 3. the (max,+) fold kernel against ``maxplus_fold_ref`` on the card,
    required equal by ``torch.equal``, in five variants (periodic,
    periodic+energy, indexed, indexed+arrivals+extras,
-   indexed+energy+arrivals+extras), at a small shape here and at the
-   real size after phase 5;
+   indexed+energy+arrivals+extras), each through both routes (the compact
+   route on a ``maxplus_form`` dictionary, the dense route on a random
+   dictionary the compact route's precondition refuses), at a small shape
+   here and at the real size after phase 5 (the dense route there on the
+   same dictionary with -0.0 in s0's origin row, which the precondition
+   refuses); the compact route's pre-pass against its CPU twin
+   (``kernels/maxplus/compact.py``), its records bit-equal;
 4. paper Tables 3/4/5 through the port's entry points on the card: each
    cell through ``steady_bandwidth_mb_s`` (``scan`` engine) and through
    ``Simulator.run(..., engine="cuda")``, agreeing within 1e-6 relative;
@@ -30,12 +35,15 @@ Phases, one report line each (every check raises on failure):
    to the plain version on the card and within 1e-5 of the numpy oracle
    on two points, with the kernel's and the plain version's times; and
    the trace-indexed launches of phase 4 (one per Table 3/4/5 cell)
-   counted by geometry, one launch of each geometry timed, their sum,
-   bound and launches x (time - bound) reported apart from the sweep's;
+   counted by geometry, one launch of each geometry timed (both routes,
+   the pre-pass alone), their sum, bound and launches x (time - bound)
+   reported apart from the sweep's; every launch of phases 4 and 5 must
+   take the compact route;
 
 3b. the many-trace kernel against ``maxplus_fold_many_ref``, required
    equal by ``torch.equal``, in four variants (arrivals on/off x faults
-   on/off) at a small shape with mixed lane lengths;
+   on/off), each through both routes, at a small shape with mixed lane
+   lengths;
 6. the fleet at full width: 512 mixed traces on 8 channels x 16 ways
    (N = 146) of 4096-65536 ops, even lanes with Poisson arrivals at 80 %
    of the drive's own rate, every fourth lane with read-retry-like
@@ -44,8 +52,10 @@ Phases, one report line each (every check raises on failure):
    geometry): the kernel bit-equal to its plain version on the whole
    fleet, bit-equal to per-trace ``run(engine="cuda")`` on 8 lanes, the
    ``scan`` engine's ``run_many`` within T * 2^-24, 2 lanes exact against
-   the numpy oracle on 0.25 us-dyadic timing; kernel, plain and bound
-   times and the wall time of both engines' ``run_many``;
+   the numpy oracle on 0.25 us-dyadic timing; both launches must take the
+   compact route; the dense route bit-equal to the plain version on the
+   whole fleet too; kernel (both routes, the pre-pass alone), plain and
+   bound times and the wall time of both engines' ``run_many``;
 7. sweeps, streaming and calibration: ``Simulator.sweep`` equal to phase
    5's ``sweep_tables``; ``sweep_steady_bandwidth_mb_s`` equal to the
    per-point channel bandwidth on the 15 Table 3 SLC write cells;
@@ -78,6 +88,11 @@ Phases, one report line each (every check raises on failure):
 Phases 4 and 5 are the main path of the per-design-point kernel, phase 6
 that of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5:
 the launch counts are reset just before each and read just after.  The
+bounds of the (max,+) kernels count what their inputs need (each input
+read once, the dense dictionary by the pre-pass; per step the add/max
+pairs of the kept entries and the side operations of the rows the op
+writes, read off the pre-pass's records); the dense count, 2*N^2 max/add
+operations a step, is printed beside them.  The
 line before the last is the JSON kernel report, the last line the JSON
 device summary.  Exits non-zero without a result when no CUDA device is
 present.
@@ -176,13 +191,58 @@ def bound_ms(n_bytes: float, n_ops: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def fold_work(mats, t_steps, extra_inputs, outputs) -> tuple[float, float]:
-    """(bytes, operations) of one fold: every input read once, every
-    output written once, 2*T*B*N^2 max/add operations."""
-    b, _, n, _ = mats.shape
+def record_ops(rec, sides: int):
+    """Operations one step of each combo needs, read off the compact
+    pre-pass's records [C, 32]: an add and a max per kept entry of each
+    written row (a short row's padding repeats an entry, so entries are
+    counted once), and 2 per written row for each of ``sides`` side
+    operations (arrival max-in: add, max; fault shift: mul, add)."""
+    import torch
+    c = rec.shape[0]
+    cols = rec[:, 24:28].contiguous().view(torch.uint8).reshape(c, 4, 4)
+    count = rec[:, 29].long()
+    eq = cols[..., :, None] == cols[..., None, :]
+    kept = (~torch.tril(eq, -1).any(-1)).sum(-1)              # [C, rows]
+    written = torch.arange(4, device=rec.device) < count[:, None]
+    return (2 * kept * written).sum(-1) + 2 * sides * count
+
+
+def fold_work(mats, t_steps, inputs, outputs, idx=None, gvec=None,
+              wvec=None, p=0) -> tuple[float, float, float]:
+    """(bytes, operations, the dense count's operations) of one K1/K2 fold,
+    counted for what these inputs need: every input read once (the dense
+    dictionary by the pre-pass), every output written once; per step the
+    ``record_ops`` of its combo and ``p`` energy adds.  The dense count
+    is 2*N^2 max/add a step per design point."""
+    import torch
+    from repro_torch.kernels.maxplus import kernel as K
+    b, m, n, _ = mats.shape
     n_bytes = sum(x.numel() * x.element_size()
-                  for x in (mats, *extra_inputs, *outputs) if x is not None)
-    return float(n_bytes), 2.0 * t_steps * b * n * n
+                  for x in (mats, gvec, wvec, *inputs, *outputs)
+                  if x is not None)
+    rec, _ = K.maxplus_compact_kernel(mats, gvec, wvec)
+    per = record_ops(rec, 2 if gvec is not None else 0).reshape(b, m) + p
+    steps = (idx[:t_steps].long() if idx is not None else
+             torch.arange(t_steps, device=mats.device) % m)
+    counts = torch.bincount(steps, minlength=m)
+    ops = float((per.double() * counts.double()).sum())
+    return float(n_bytes), ops, 2.0 * t_steps * b * n * n
+
+
+def refused_s0(s0):
+    """``s0`` with -0.0 in its origin row (the last): the compact route's
+    precondition refuses a set sign bit, so these otherwise equal inputs
+    take the dense route."""
+    s0 = s0.clone()
+    s0[..., -1] = -0.0
+    return s0
+
+
+def route_delta(before: dict, branch: str) -> dict:
+    """Fold launches of ``branch`` by route since ``before``."""
+    from repro_torch.kernels.maxplus import kernel as K
+    return {r: K.LAUNCHES[f"{branch}/{r}"] - before[f"{branch}/{r}"]
+            for r in K.ROUTES}
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +278,11 @@ def variant_inputs(mats, t_steps, seed, device, gvec=None, wvec=None):
     return idx, arrivals, extras, energy, gvec, wvec
 
 
-def check_variants(label, mats, s0, t_steps, inputs) -> float:
-    """Five kernel-vs-plain variants; returns the max abs difference
-    (0.0: every check is torch.equal)."""
+def check_variants(label, mats, s0, t_steps, inputs, route) -> float:
+    """Five kernel-vs-plain variants, each required to take ``route``;
+    returns the max abs difference (0.0: every check is torch.equal)."""
     import torch
+    from repro_torch.kernels.maxplus import kernel as K
     from repro_torch.kernels.maxplus.kernel import maxplus_fold_kernel
     from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
 
@@ -237,9 +298,14 @@ def check_variants(label, mats, s0, t_steps, inputs) -> float:
     }
     worst = 0.0
     for name, kw in variants.items():
+        before = dict(K.LAUNCHES)
         got = maxplus_fold_kernel(mats, s0, t_steps=t_steps, **kw)
+        taken = route_delta(before, "indexed" if "idx" in kw else "periodic")
         want = maxplus_fold_ref(mats, s0, t_steps=t_steps, **kw)
         torch.cuda.synchronize()
+        if taken != {r: int(r == route) for r in K.ROUTES}:
+            raise AssertionError(f"{label} {name}: took {taken}, expected "
+                                 f"the {route} route")
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
@@ -249,8 +315,51 @@ def check_variants(label, mats, s0, t_steps, inputs) -> float:
                                      f"(max abs diff {diff})")
             worst = max(worst, float((g - w).abs().max()))
     log(f"[3] kernel == plain ({label}, B={mats.shape[0]} M={mats.shape[1]} "
-        f"N={mats.shape[2]} T={t_steps}): 5 variants torch.equal")
+        f"N={mats.shape[2]} T={t_steps}): 5 variants torch.equal, all "
+        f"through the {route} route")
     return worst
+
+
+def small_dictionary(device, channels=4, ways=8, b=3, t=301, seed=11):
+    """(mats [B, M, N, N], gvec, wvec, idx) of a mixed trace's combo
+    dictionary under ``b`` seeded tables, on ``device``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import maxplus_form as mf
+    from repro_torch.core.trace import mixed_trace, op_class_table
+    from repro_torch.core.sim import SSDConfig
+
+    rng = np.random.default_rng(seed)
+    tr = mixed_trace(t, channels, ways, 0.6, seed=seed)
+    layout = mf.StateLayout(channels, ways)
+    combos, idx = mf.trace_combos(tr)
+    base = op_class_table(SSDConfig(channels=channels, ways=ways))
+    tabs = [timing_columns(base, lambda q, c, f=rng.uniform(0.8, 1.2, 8):
+                           c * f[q]) for _ in range(b)]
+    mats = np.stack([mf.combo_matrices(x, combos, layout) for x in tabs])
+    gvec = np.stack([mf.combo_arrival_offsets(x, combos, layout)
+                     for x in tabs])
+    w = mf.combo_written_rows(combos, layout)
+    wvec = np.ascontiguousarray(np.broadcast_to(w, (b,) + w.shape))
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (mats, gvec, wvec, idx))
+
+
+def check_prepass(label, mats, gvec, wvec, **values) -> None:
+    """The card's pre-pass against its twin (``compact.py``, plain torch
+    run on the same device): records bit-equal, both flags clear."""
+    import torch
+    from repro_torch.kernels.maxplus import compact
+    from repro_torch.kernels.maxplus import kernel as K
+
+    rec, flag = K.maxplus_compact_kernel(mats, gvec, wvec, **values)
+    twin, ok = compact.compact(mats, gvec, wvec)     # plain torch, same device
+    if not (ok and int(flag) == 0 and torch.equal(rec, compact.pack(twin))):
+        raise AssertionError(f"{label}: pre-pass != its CPU twin (flag "
+                             f"{int(flag)}, twin accepts {ok})")
+    log(f"[3] pre-pass == CPU twin ({label}, {rec.shape[0]} combos of "
+        f"N={mats.shape[-1]}): records bit-equal, precondition met, at most "
+        f"{int(twin.count.max())} rows a combo")
 
 
 def phase_small_variants(device) -> None:
@@ -266,7 +375,16 @@ def phase_small_variants(device) -> None:
     mats = torch.as_tensor(mats.astype(np.float32), device=device)
     s0 = torch.as_tensor(rng.uniform(0.0, 5.0, (b, n)).astype(np.float32),
                          device=device)
-    check_variants("small", mats, s0, t, variant_inputs(mats, t, 12, device))
+    check_variants("small, random dictionary", mats, s0, t,
+                   variant_inputs(mats, t, 12, device), "dense")
+    mats, gvec, wvec, idx = small_dictionary(device, b=b, t=t)
+    s0 = torch.as_tensor(rng.uniform(0.0, 5.0, (b, mats.shape[-1])).astype(
+        np.float32), device=device)
+    inputs = variant_inputs(mats, t, 12, device, gvec=gvec, wvec=wvec)
+    check_variants("small, 4x8 dictionary", mats, s0, t,
+                   (idx,) + inputs[1:], "compact")
+    check_prepass("small, 4x8 dictionary", mats, gvec, wvec, s0=s0,
+                  arrivals=inputs[1], extras=inputs[2])
 
 
 # ---------------------------------------------------------------------------
@@ -417,12 +535,13 @@ def timing_columns(table, fn, dtype=None):
 # ---------------------------------------------------------------------------
 
 
-def many_variants(label, args, lengths_note="") -> float:
+def many_variants(label, args, route, lengths_note="") -> float:
     """Four kernel-vs-plain variants of the many-trace fold on ``args``
     (the keyword arguments of ``maxplus_fold_many_kernel``, with extras
-    and wvec present); returns the max abs difference (0.0: every check
-    is torch.equal)."""
+    and wvec present), each required to take ``route``; returns the max
+    abs difference (0.0: every check is torch.equal)."""
     import torch
+    from repro_torch.kernels.maxplus import kernel as K
     from repro_torch.kernels.maxplus.kernel import maxplus_fold_many_kernel
     from repro_torch.kernels.maxplus.ref import maxplus_fold_many_ref
 
@@ -432,9 +551,15 @@ def many_variants(label, args, lengths_note="") -> float:
             kw = dict(args, with_arrivals=with_arrivals)
             if not with_faults:
                 kw.update(extras=None, wvec=None)
+            before = dict(K.LAUNCHES)
             got = maxplus_fold_many_kernel(**kw)
+            taken = route_delta(before, "many")
             want = maxplus_fold_many_ref(**kw)
             torch.cuda.synchronize()
+            if taken != {r: int(r == route) for r in K.ROUTES}:
+                raise AssertionError(
+                    f"{label} arrivals={with_arrivals} faults={with_faults}:"
+                    f" took {taken}, expected the {route} route")
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"{label} arrivals={with_arrivals} faults="
@@ -444,11 +569,14 @@ def many_variants(label, args, lengths_note="") -> float:
     b, t = args["idx"].shape
     log(f"[3b] many-trace kernel == plain ({label}, B={b} "
         f"M1={args['mats'].shape[0]} N={args['mats'].shape[1]} T={t}"
-        f"{lengths_note}): 4 variants torch.equal")
+        f"{lengths_note}): 4 variants torch.equal, all through the {route} "
+        "route")
     return worst
 
 
 def phase_small_many(device) -> None:
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.core.maxplus_form import NEG
@@ -480,7 +608,37 @@ def phase_small_many(device) -> None:
                 idx=torch.as_tensor(idx, device=device), arrivals=f32(arr),
                 extras=f32(ext), s0=f32(rng.uniform(0.0, 5.0, n)),
                 lengths=torch.as_tensor(lengths, device=device))
-    many_variants("small", args, f", lengths {lengths.tolist()}")
+    note = f", lengths {lengths.tolist()}"
+    many_variants("small, random dictionary", args, "dense", note)
+    # the union dictionary of a 4 x 8 trace with the identity pad appended
+    from repro_torch.core import maxplus_form as mf
+    from repro_torch.core.sim import SSDConfig
+    from repro_torch.core.trace import mixed_trace, op_class_table
+    from repro_torch.kernels.maxplus.ops import _many_setup
+    table = op_class_table(SSDConfig(channels=4, ways=8))
+    traces = [mixed_trace(int(ln), 4, 8, 0.6, seed=30 + i)
+              for i, ln in enumerate(lengths)]
+    for i, tr in enumerate(traces):
+        if i % 2 == 0:
+            traces[i] = dataclasses.replace(
+                tr, arrival_us=np.cumsum(rng.exponential(8.0, tr.n_ops)
+                                         ).astype(np.float32))
+        if i % 3 == 0:
+            traces[i] = dataclasses.replace(
+                traces[i], extra_us=np.where(
+                    rng.random(tr.n_ops) < 0.1,
+                    rng.uniform(30.0, 120.0, tr.n_ops), 0.0
+                ).astype(np.float32))
+    _, order, args = _many_setup(table, traces, "eager", device)
+    if args["extras"] is None or not args["with_arrivals"]:
+        raise AssertionError("the small fleet needs arrivals and surcharges")
+    args.pop("with_arrivals")
+    many_variants("small, 4x8 union dictionary", args, "compact",
+                  f", lengths {sorted(lengths.tolist(), reverse=True)}")
+    check_prepass("small, 4x8 union dictionary", args["mats"],
+                  args["gvec"], args["wvec"], s0=args["s0"],
+                  arrivals=args["arrivals"], extras=args["extras"],
+                  lengths=args["lengths"])
 
 
 # ---------------------------------------------------------------------------
@@ -528,27 +686,71 @@ def fleet_traces(table, device):
     return groups
 
 
-def many_work(args, out) -> tuple[float, float]:
-    """(bytes, operations) of one many-trace launch, counted for what
-    this run's data needs: the dictionary and its side rows, the index /
-    arrival / surcharge entries of the steps each lane folds, lengths,
-    s0 and the states; 2*N^2 max/add a step plus 2*N for the arrival
-    max-in and 2*N for the fault shift where present."""
+def many_work(args, out) -> tuple[float, float, float]:
+    """(bytes, operations, the dense count's operations) of one many-trace
+    launch, counted for what this run's data needs: the dictionary and its
+    side rows (read once, by the pre-pass), the index / arrival /
+    surcharge entries of the steps each lane folds, lengths, s0 and the
+    states; per step the ``record_ops`` of its combo.  The dense count is
+    2*N^2 max/add a step plus 2*N for each side operation."""
+    import torch
+    from repro_torch.kernels.maxplus import kernel as K
     m1, n, _ = args["mats"].shape
-    steps = float(args["lengths"].sum())
+    lengths = args["lengths"]
+    steps = float(lengths.sum())
     per_step = 4.0                                   # idx
-    ops_step = 2.0 * n * n
-    n_bytes = 4.0 * m1 * n * n + 4.0 * n + 4.0 * args["lengths"].numel()
+    old_step = 2.0 * n * n
+    n_bytes = 4.0 * m1 * n * n + 4.0 * n + 4.0 * lengths.numel()
+    sides = 0
     if args["with_arrivals"]:
         per_step += 4.0
-        ops_step += 2.0 * n
+        old_step += 2.0 * n
         n_bytes += 4.0 * m1 * n
+        sides += 1
     if args["extras"] is not None:
         per_step += 4.0
-        ops_step += 2.0 * n
+        old_step += 2.0 * n
         n_bytes += 4.0 * m1 * n
+        sides += 1
     n_bytes += per_step * steps + out.numel() * out.element_size()
-    return n_bytes, ops_step * steps
+    rec, _ = K.maxplus_compact_kernel(
+        args["mats"], args["gvec"] if args["with_arrivals"] else None,
+        args["wvec"])
+    idx = args["idx"]
+    folded = (torch.arange(idx.shape[1], device=idx.device)[None, :]
+              < lengths[:, None])
+    counts = torch.bincount(idx[folded].long(), minlength=m1)
+    ops = float((record_ops(rec, sides).double() * counts.double()).sum())
+    return n_bytes, ops, old_step * steps
+
+
+def time_many(args, out) -> dict:
+    """One many-trace launch on ``args`` timed through both routes (the
+    dense one on ``refused_s0``), the pre-pass alone, ns a step of the
+    longest lane after the pre-pass, and its bounds (``many_work``)."""
+    from repro_torch.kernels.maxplus import kernel as K
+    ms = cuda_ms(lambda: K.maxplus_fold_many_kernel(**args))
+    dense = dict(args, s0=refused_s0(args["s0"]))
+    dense_ms = cuda_ms(lambda: K.maxplus_fold_many_kernel(**dense))
+    arr = args["with_arrivals"]
+    def prepass():
+        return K.maxplus_compact_kernel(
+            args["mats"], args["gvec"] if arr else None, args["wvec"],
+            s0=args["s0"], arrivals=args["arrivals"] if arr else None,
+            extras=args["extras"], lengths=args["lengths"])
+    pre_ms = cuda_ms(prepass)
+    fold_ms = compact_many_ms(prepass()[0], args)
+    longest = int(args["lengths"].max())
+    by, ops_, old_ops = many_work(args, out)
+    b_ms, b_by = bound_ms(by, ops_)
+    return {"ms": ms, "dense_ms": dense_ms, "prepass_ms": pre_ms,
+            "fold_ms": fold_ms, "longest_lane": longest,
+            "ns_per_step": fold_ms * 1e6 / longest,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_dense_count": bound_ms(by, old_ops)[0],
+            "bytes": by, "operations": ops_, "operations_dense_count": old_ops,
+            "lane_warps": K._library().maxplus_fold_many_lane_warps(
+                args["idx"].shape[0])}
 
 
 def phase_fleet(device) -> dict:
@@ -590,6 +792,9 @@ def phase_fleet(device) -> dict:
         raise AssertionError(f"run_many(engine='cuda') made "
                              f"{launches['many']} many-trace launches for "
                              f"{len(groups)} geometry groups")
+    if launches["many/compact"] != len(groups):
+        raise AssertionError(f"run_many(engine='cuda') took the dense route "
+                             f"{launches['many/dense']} times")
     ends = np.array([r.end_us for r in cuda_res])
     if not (np.all(np.isfinite(ends)) and np.all(ends > 0)
             and len(ends) == len(fleet)):
@@ -600,30 +805,51 @@ def phase_fleet(device) -> dict:
 
     # -- the kernel against its plain version on the whole fleet --------
     setups = [_many_setup(sim.table, g, "eager", device)[2] for g in groups]
+    dense_setups = [dict(a, s0=refused_s0(a["s0"])) for a in setups]
+    before = dict(K.LAUNCHES)
     kern = [K.maxplus_fold_many_kernel(**a) for a in setups]
+    kern_dense = [K.maxplus_fold_many_kernel(**a) for a in dense_setups]
+    if route_delta(before, "many") != {"compact": len(groups),
+                                       "dense": len(groups)}:
+        raise AssertionError(f"fleet routes: {route_delta(before, 'many')}")
     k_ms = cuda_ms(lambda: [K.maxplus_fold_many_kernel(**a)
                             for a in setups])
-    group_ms = [cuda_ms(lambda a=a: K.maxplus_fold_many_kernel(**a))
-                for a in setups]
     plain = []
     p_ms = cuda_ms(lambda: plain.append(
         [maxplus_fold_many_ref(**a) for a in setups]), warmup=False)
-    for k, p_ in zip(kern, plain[0]):
-        if not torch.equal(k, p_):
-            raise AssertionError("many-trace kernel != plain on the fleet "
-                                 f"(max abs {float((k - p_).abs().max())})")
-    work = [many_work(a, k) for a, k in zip(setups, kern)]
-    b_ms, b_by = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
-    for name, a, g_ms, w in zip(("8x16", "4x8"), setups, group_ms, work):
+    plain_dense = [maxplus_fold_many_ref(**a) for a in dense_setups]
+    for route, got, want in (("compact", kern, plain[0]),
+                             ("dense", kern_dense, plain_dense)):
+        for k, p_ in zip(got, want):
+            if not torch.equal(k.view(torch.int32), p_.view(torch.int32)):
+                raise AssertionError(
+                    f"many-trace kernel ({route} route) != plain on the "
+                    f"fleet (max abs {float((k - p_).abs().max())})")
+    del plain_dense, kern_dense
+    groups_t = [time_many(a, k) for a, k in zip(setups, kern)]
+    b_ms, b_by = bound_ms(sum(g["bytes"] for g in groups_t),
+                          sum(g["operations"] for g in groups_t))
+    old_ms = bound_ms(sum(g["bytes"] for g in groups_t),
+                      sum(g["operations_dense_count"] for g in groups_t))[0]
+    for name, a, g in zip(("8x16", "4x8"), setups, groups_t):
         log(f"[6] {name} group: B={a['idx'].shape[0]} "
             f"M1={a['mats'].shape[0]} N={a['mats'].shape[1]} "
             f"T={a['idx'].shape[1]}, {int(a['lengths'].sum())} steps, "
             f"dictionary {a['mats'].numel() * 4 / 1e6:.1f} MB, arrivals "
             f"{a['with_arrivals']}, faults {a['extras'] is not None}; "
-            f"kernel {g_ms:.3f} ms, bound {bound_ms(*w)[0]:.4f} ms")
+            f"compact route {g['ms']:.3f} ms (pre-pass {g['prepass_ms']:.4f}"
+            f" ms, fold alone {g['fold_ms']:.3f} ms; {g['lane_warps']} lanes"
+            f" a block; longest lane "
+            f"{g['longest_lane']} steps at {g['ns_per_step']:.1f} ns a "
+            f"step), dense route {g['dense_ms']:.3f} ms; bound "
+            f"{g['bound_ms']:.4f} ms ({g['bound_by']}; the dense count "
+            f"{g['bound_ms_dense_count']:.4f} ms)")
     log(f"[6] many-trace kernel bit-equal to its plain version on the whole "
-        f"fleet; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"fleet through both routes; compact route {k_ms:.3f} ms for both "
+        f"launches, dense route {sum(g['dense_ms'] for g in groups_t):.3f} "
+        f"ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; the dense "
+        f"count {old_ms:.4f} ms)")
+    group_ms = [g["ms"] for g in groups_t]
 
     # -- per-trace K1 on 8 lanes, the scan engine, the oracle -----------
     lanes = list(range(8))
@@ -660,6 +886,19 @@ def phase_fleet(device) -> dict:
         f"timing: {oracle_err:.2e} (< {REL_TOL_ORACLE})")
     return {"launches": launches["many"], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+            "routes": {
+                "compact": {"launches": launches["many/compact"],
+                            "ms": k_ms,
+                            "prepass_ms": sum(g["prepass_ms"]
+                                              for g in groups_t),
+                            "fold_ms": sum(g["fold_ms"] for g in groups_t),
+                            "ns_per_step": [g["ns_per_step"]
+                                            for g in groups_t]},
+                "dense": {"launches": launches["many/dense"],
+                          "ms": sum(g["dense_ms"] for g in groups_t),
+                          "max_abs_err": 0.0}},
+            "bound_ms_dense_count": old_ms,
+            "groups": [{k: v for k, v in g.items()} for g in groups_t],
             "group_ms": group_ms,
             "cuda_wall_s": cuda_wall, "scan_wall_s": scan_wall,
             "n_traces": len(fleet), "n_ops": total_ops,
@@ -940,39 +1179,156 @@ class CellLaunches:
         setattr(self.module, self.name, self.fn)
 
 
-def time_cell_launches(cells: "CellLaunches", expected: int) -> dict:
-    """One launch of each recorded geometry timed; their sum over all the
-    launches, bound and launches x (time - bound)."""
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time (ms) of ``fn`` and a synchronise."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def compact_fold_ms(rec, mats, s0, kwargs) -> float:
+    """Device time of the compact K1/K2 fold alone, launched through the
+    C interface on the pre-pass's records ``rec`` (the wrapper adds the
+    pre-pass and the read of its flag)."""
     import torch
     from repro_torch.kernels.maxplus import kernel as K
-    total = bound = loss = 0.0
+    lib, ptr = K._library(), K._ptr
+    b, m, n, _ = mats.shape
+    t = kwargs["t_steps"]
+    idx, energy = kwargs.get("idx"), kwargs.get("energy")
+    idx = None if idx is None else idx[:t]
+    arr, ext = kwargs.get("arrivals"), kwargs.get("extras")
+    if any(kwargs.get(k) is not None for k in ("arrivals", "extras", "gvec",
+                                                 "wvec")):
+        zeros = torch.zeros((t,), device=mats.device)
+        arr = zeros if arr is None else arr[:t]
+        ext = zeros if ext is None else ext[:t]
+    p = 0 if energy is None else energy.shape[-1]
+    out = torch.empty((b, n), device=mats.device)
+    acc = torch.empty((b, max(p, 1)), device=mats.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.maxplus_fold_compact(
+            ptr(rec), ptr(s0), ptr(idx), ptr(arr), ptr(ext), ptr(energy),
+            ptr(out), ptr(acc) if p else None, b, m, n, p, t, stream)
+        K._raise_on(lib, rc, "maxplus_fold_compact")
+    return cuda_ms(launch)
+
+
+def compact_many_ms(rec, args) -> float:
+    """Device time of the compact K3 fold alone (see ``compact_fold_ms``)."""
+    import torch
+    from repro_torch.kernels.maxplus import kernel as K
+    lib, ptr = K._library(), K._ptr
+    m1, n, _ = args["mats"].shape
+    b, t = args["idx"].shape
+    out = torch.empty((b, n), device=args["mats"].device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.maxplus_fold_many_compact(
+            ptr(rec), ptr(args["idx"]),
+            ptr(args["arrivals"]) if args["with_arrivals"] else None,
+            ptr(args["extras"]), ptr(args["s0"]), ptr(args["lengths"]),
+            ptr(out), b, m1, n, t, stream)
+        K._raise_on(lib, rc, "maxplus_fold_many_compact")
+    return cuda_ms(launch)
+
+
+def time_fold(mats, s0, kwargs) -> dict:
+    """One K1/K2 launch of ``maxplus_fold_kernel(mats, s0, **kwargs)``
+    timed through both routes (the dense one on ``refused_s0(s0)``), the
+    pre-pass alone, the compact fold alone and its ns a step, the host
+    wall of one call and of the pre-pass with its flag read, and its
+    bounds: counted for what the inputs need and by the dense count."""
+    import torch
+    from repro_torch.kernels.maxplus import kernel as K
+    t = kwargs["t_steps"]
+    before = dict(K.LAUNCHES)
+    out = K.maxplus_fold_kernel(mats, s0, **kwargs)
+    branch = "periodic" if kwargs.get("idx") is None else "indexed"
+    if route_delta(before, branch)["compact"] != 1:
+        raise AssertionError(f"{branch} fold at B={mats.shape[0]} "
+                             f"M={mats.shape[1]} N={mats.shape[2]} T={t} "
+                             "did not take the compact route")
+    ms = cuda_ms(lambda: K.maxplus_fold_kernel(mats, s0, **kwargs))
+    dense_s0 = refused_s0(s0)
+    dense_ms = cuda_ms(lambda: K.maxplus_fold_kernel(mats, dense_s0,
+                                                     **kwargs))
+    side = {k: kwargs.get(k) for k in ("gvec", "wvec")}
+    values = {k: kwargs.get(k) for k in ("arrivals", "extras")}
+    if values["arrivals"] is not None:
+        values = {k: v[:t] for k, v in values.items()}
+    pre_ms = cuda_ms(lambda: K.maxplus_compact_kernel(mats, **side, s0=s0,
+                                                      **values))
+    flag_ms = wall_ms(lambda: int(K.maxplus_compact_kernel(
+        mats, **side, s0=s0, **values)[1]))
+    rec, _ = K.maxplus_compact_kernel(mats, **side, s0=s0, **values)
+    fold_ms = compact_fold_ms(rec, mats, s0, kwargs)
+    host_ms = wall_ms(lambda: K.maxplus_fold_kernel(mats, s0, **kwargs))
+    outs = out if isinstance(out, tuple) else (out,)
+    energy = kwargs.get("energy")
+    inputs = [x for x in (s0, kwargs.get("idx"), energy, *values.values())
+              if x is not None]
+    by, ops_, old_ops = fold_work(mats, t, inputs, outs, idx=kwargs.get("idx"),
+                                  p=0 if energy is None else energy.shape[-1],
+                                  **side)
+    b_ms, b_by = bound_ms(by, ops_)
+    old_ms, _ = bound_ms(by, old_ops)
+    return {"ms": ms, "dense_ms": dense_ms, "prepass_ms": pre_ms,
+            "fold_ms": fold_ms, "host_ms": host_ms, "flag_wall_ms": flag_ms,
+            "ns_per_step": fold_ms * 1e6 / t if t else None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_dense_count": old_ms,
+            "bytes": by, "operations": ops_, "operations_dense_count": old_ops,
+            "out": out}
+
+
+def time_cell_launches(cells: "CellLaunches", expected: int) -> dict:
+    """One launch of each recorded geometry timed (``time_fold``); their
+    sum over all the launches, bound and launches x (time - bound)."""
+    total = bound = loss = dense = pre = fold = old_bound = 0.0
     geoms = []
     for key, (count, args, kwargs) in sorted(cells.by_shape.items()):
-        def one():
-            return K.maxplus_fold_kernel(*args, **kwargs)
-        out = one()
-        g_ms = cuda_ms(one)
-        outs = out if isinstance(out, tuple) else (out,)
-        extra = [x for x in (*args[1:], *kwargs.values())
-                 if isinstance(x, torch.Tensor)]
-        g_by, g_ops = fold_work(args[0], kwargs["t_steps"], extra, outs)
-        g_b, _ = bound_ms(g_by, g_ops)
-        total += count * g_ms
-        bound += count * g_b
-        loss += count * (g_ms - g_b)
+        f = time_fold(*args, kwargs)
+        total += count * f["ms"]
+        dense += count * f["dense_ms"]
+        pre += count * f["prepass_ms"]
+        fold += count * f["fold_ms"]
+        bound += count * f["bound_ms"]
+        old_bound += count * f["bound_ms_dense_count"]
+        loss += count * (f["ms"] - f["bound_ms"])
         geoms.append(f"{count}x(B={key[0]} M={key[1]} N={key[2]} "
                      f"T={key[3]}{' energy' if key[4] else ''}: "
-                     f"{g_ms:.3f} ms, bound {g_b:.5f})")
+                     f"{f['ms']:.4f} ms (pre-pass {f['prepass_ms']:.4f}, "
+                     f"fold alone {f['fold_ms']:.4f}, "
+                     f"{f['ns_per_step']:.1f} ns a step; host wall "
+                     f"{f['host_ms']:.4f}, of the pre-pass and its flag "
+                     f"read {f['flag_wall_ms']:.4f}), dense "
+                     f"{f['dense_ms']:.3f}, "
+                     f"bound {f['bound_ms']:.6f} ({f['bound_by']}))")
     n = sum(c for c, _, _ in cells.by_shape.values())
     if n != expected:
         raise AssertionError(f"{n} Table-cell launches recorded, the "
                              f"counter says {expected}")
     log(f"[5] K1 Table-cell launches of phase 4: {n} in {len(geoms)} "
-        f"geometries, one of each timed: {total:.2f} ms in all, bound "
-        f"{bound:.4f} ms, launches x (time - bound) {loss:.2f} ms")
+        f"geometries, one of each timed: compact route {total:.3f} ms in "
+        f"all (pre-passes {pre:.3f} ms, folds alone {fold:.3f} ms), dense "
+        f"route {dense:.2f} ms; bound "
+        f"{bound:.5f} ms (the dense count: {old_bound:.5f}), launches x "
+        f"(time - bound) {loss:.3f} ms")
     log("[5] K1 Table-cell geometries: " + "; ".join(geoms))
     return {"launches": n, "geometries": len(geoms), "ms": total,
-            "bound_ms": bound, "loss_ms": loss}
+            "dense_ms": dense, "prepass_ms": pre, "fold_ms": fold,
+            "bound_ms": bound,
+            "bound_ms_dense_count": old_bound, "loss_ms": loss}
 
 
 class Recorder:
@@ -1314,6 +1670,10 @@ def main() -> int:
         if launches[branch] < 1:
             raise AssertionError(f"{branch} kernel branch never launched on "
                                  "the main path of phases 4 and 5")
+        if launches[f"{branch}/compact"] != launches[branch]:
+            raise AssertionError(f"{branch} kernel branch took the dense "
+                                 f"route {launches[f'{branch}/dense']} times "
+                                 "on the main path of phases 4 and 5")
     if not (ends.shape == (len(tables),) and np.all(np.isfinite(ends))
             and np.all(ends > 0)):
         raise AssertionError(f"sweep end times malformed: {ends}")
@@ -1335,6 +1695,7 @@ def main() -> int:
                                        idx=idx)
     if not torch.equal(kern_state, plain_state):
         raise AssertionError("kernel state != plain state at real size")
+    check_prepass("real size", mats, None, None, s0=s0)
     # the numpy oracle on 2 points: in float64 the sweep drifts by float32
     # rounding only (bar T * 2**-24); on timing quantised to DYADIC_US every
     # float32 sum is exact, and the kernel must meet the oracle within 1e-5
@@ -1367,17 +1728,24 @@ def main() -> int:
         np.broadcast_to(w, (b,) + w.shape)), device=dev)
     inputs = variant_inputs(mats, trace.n_ops, 13, dev, gvec=gvec, wvec=wvec)
     inputs = (idx,) + inputs[1:]
-    real_err = check_variants("real size", mats, s0, trace.n_ops, inputs)
+    real_err = check_variants("real size", mats, s0, trace.n_ops, inputs,
+                              "compact")
+    real_err = max(real_err, check_variants(
+        "real size, -0.0 in s0", mats, refused_s0(s0), trace.n_ops, inputs,
+        "dense"))
 
-    # -- timing: kernel, plain version, bound ---------------------------
-    def fold(fn):
-        return lambda: fn(mats, s0, t_steps=trace.n_ops, idx=idx)
-    k_ms = cuda_ms(fold(K.maxplus_fold_kernel))
-    p_ms = cuda_ms(fold(maxplus_fold_ref), warmup=False)
-    by, ops_ = fold_work(mats, trace.n_ops, (s0, idx), (kern_state,))
-    b_ms, b_by = bound_ms(by, ops_)
-    log(f"[5] indexed fold at real size: kernel {k_ms:.3f} ms, plain "
-        f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); host dictionary "
+    # -- timing: both routes, pre-pass, plain version, bound -------------
+    sweep_t = time_fold(mats, s0, dict(t_steps=trace.n_ops, idx=idx))
+    k_ms, b_ms, b_by = (sweep_t[k] for k in ("ms", "bound_ms", "bound_by"))
+    p_ms = cuda_ms(lambda: maxplus_fold_ref(mats, s0, t_steps=trace.n_ops,
+                                            idx=idx), warmup=False)
+    log(f"[5] indexed fold at real size: compact route {k_ms:.3f} ms "
+        f"(pre-pass {sweep_t['prepass_ms']:.3f} ms, fold alone "
+        f"{sweep_t['fold_ms']:.3f} ms, {sweep_t['ns_per_step']:.1f} ns a "
+        f"step), dense route "
+        f"{sweep_t['dense_ms']:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; the dense count "
+        f"{sweep_t['bound_ms_dense_count']:.3f} ms); host dictionary "
         f"build + copy to the card {setup_s:.2f} s of the {sweep_s:.2f} s "
         f"sweep; card: {smi}")
 
@@ -1398,25 +1766,56 @@ def main() -> int:
         init_state(), (len(cells), init_state().shape[0]))), device=dev)
     pk = K.maxplus_fold_kernel(pmats, ps0, t_steps=512)
     pp = maxplus_fold_ref(pmats, ps0, t_steps=512)
-    if not torch.equal(pk, pp):
+    pk_dense = K.maxplus_fold_kernel(pmats, refused_s0(ps0), t_steps=512)
+    if not (torch.equal(pk, pp) and torch.equal(
+            pk_dense, maxplus_fold_ref(pmats, refused_s0(ps0), t_steps=512))):
         raise AssertionError("periodic kernel != plain on the Table 3 batch")
-    pk_ms = cuda_ms(lambda: K.maxplus_fold_kernel(pmats, ps0, t_steps=512))
+    per_t = time_fold(pmats, ps0, dict(t_steps=512))
+    pk_ms, pb_ms, pb_by = (per_t[k] for k in ("ms", "bound_ms", "bound_by"))
     pp_ms = cuda_ms(lambda: maxplus_fold_ref(pmats, ps0, t_steps=512))
-    pby, pops = fold_work(pmats, 512, (ps0,), (pk,))
-    pb_ms, pb_by = bound_ms(pby, pops)
     # periodic branch at the real size, for the record
-    rk_ms = cuda_ms(lambda: K.maxplus_fold_kernel(mats, s0,
-                                                  t_steps=trace.n_ops))
-    rby, rops = fold_work(mats, trace.n_ops, (s0,), (kern_state,))
-    rb_ms, rb_by = bound_ms(rby, rops)
+    real_per = time_fold(mats, s0, dict(t_steps=trace.n_ops))
+    rk_ms, rb_ms, rb_by = (real_per[k] for k in ("ms", "bound_ms",
+                                                 "bound_by"))
     log(f"[5] periodic fold on the Table 3 batch (B={len(cells)} M=32 N=20 "
-        f"T=512): kernel {pk_ms:.3f} ms, plain {pp_ms:.3f} ms, bound "
-        f"{pb_ms:.5f} ms ({pb_by}); at real size: kernel {rk_ms:.3f} ms, "
-        f"bound {rb_ms:.3f} ms ({rb_by})")
+        f"T=512): compact route {pk_ms:.4f} ms (pre-pass "
+        f"{per_t['prepass_ms']:.4f} ms, fold alone {per_t['fold_ms']:.4f} "
+        f"ms, {per_t['ns_per_step']:.1f} ns a step; host wall of one call "
+        f"{per_t['host_ms']:.4f} ms, of the pre-pass and its flag read "
+        f"{per_t['flag_wall_ms']:.4f} ms), dense route "
+        f"{per_t['dense_ms']:.3f} ms, plain "
+        f"{pp_ms:.3f} ms, bound {pb_ms:.6f} ms ({pb_by}; the dense count "
+        f"{per_t['bound_ms_dense_count']:.5f} ms); at real size: compact "
+        f"{rk_ms:.3f} ms, dense {real_per['dense_ms']:.3f} ms, bound "
+        f"{rb_ms:.4f} ms ({rb_by})")
+
+    # registers (ptxas) and dynamic shared memory of the (max,+) kernels
+    # as the sweep and the fleet launch them
+    fleet_m1 = 1 + 2 * 2 * SWEEP_CHANNELS * SWEEP_WAYS   # read/write x parity
+    resources = {
+        name: (*kernel_resources(built[0][1], pattern), smem)
+        for name, pattern, smem in (
+            ("pre-pass", "22maxplus_compact_kernel", 0),
+            ("K1 compact, indexed", "27maxplus_fold_compact_kernelILb1ELb0ELb0E",
+             K.smem_bytes("indexed", m, n)),
+            ("K1 compact, indexed+energy+sides",
+             "27maxplus_fold_compact_kernelILb1ELb1ELb1E",
+             K.smem_bytes("indexed", m, n, p=5)),
+            ("K2 compact", "27maxplus_fold_compact_kernelILb0ELb0ELb0E",
+             K.smem_bytes("periodic", 32, 20)),
+            ("K3 compact, arrivals+faults",
+             "32maxplus_fold_many_compact_kernelILb1ELb1E",
+             K.smem_bytes("many", fleet_m1, n, lanes=FLEET_LANES)),
+            ("K1/K2 dense", "19maxplus_fold_kernel", 2 * 4 * n),
+            ("K3 dense", "24maxplus_fold_many_kernel", 2 * 4 * n))}
+    log("[5] ptxas registers / dynamic shared memory a block (N=146, M=512 "
+        "sweep, M1=513 fleet of 512 lanes; K2 at M=32 N=20): " + "; ".join(
+            f"{k}: {r} registers, {s} bytes ({spill})"
+            for k, (r, spill, s) in resources.items()))
 
     # the trace-indexed launches of phase 4 (one per Table 3/4/5 cell)
     cell_report = time_cell_launches(cell_calls, launches["indexed"] - 1)
-    log(f"[5] the sweep launch apart: 1 x {k_ms:.3f} ms, bound {b_ms:.3f} "
+    log(f"[5] the sweep launch apart: 1 x {k_ms:.3f} ms, bound {b_ms:.4f} "
         "ms")
 
     # -- 6: the fleet; 7: sweeps, streaming, calibration ----------------
@@ -1433,10 +1832,15 @@ def main() -> int:
         "peak_device_gb": peak_gb, "oracle_rel_err_dyadic": dyadic_err,
         "float32_drift_vs_float64_oracle": drift,
         "periodic_real_size_ms": rk_ms, "periodic_real_size_bound_ms": rb_ms,
+        "periodic_real_size_dense_ms": real_per["dense_ms"],
+        "k1_sweep": {k: v for k, v in sweep_t.items() if k != "out"},
+        "k2_table3": {k: v for k, v in per_t.items() if k != "out"},
         "k1_table_cells": cell_report,
+        "maxplus_resources": {k: {"registers": r, "dynamic_smem": s}
+                              for k, (r, _, s) in resources.items()},
         "fleet": {k: v for k, v in fleet.items() if k not in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
-            "max_abs_err")},
+            "max_abs_err", "routes")},
         "streams": streams,
         "lm": {**lm_small, **{k: v for k, v in lm.items()
                               if k not in ("k4", "k5")}},
@@ -1446,21 +1850,33 @@ def main() -> int:
     log(smi)
     common = {"route": "cuda", "source": "src/repro_torch/csrc/maxplus_fold.cu",
               "library_ms": None}
+    def routes(branch, f, err):
+        """Both routes of a K1/K2 launch: main-path launches, times."""
+        return {"compact": {"launches": launches[f"{branch}/compact"],
+                            "ms": f["ms"], "prepass_ms": f["prepass_ms"],
+                            "fold_ms": f["fold_ms"],
+                            "ns_per_step": f["ns_per_step"]},
+                "dense": {"launches": launches[f"{branch}/dense"],
+                          "ms": f["dense_ms"], "max_abs_err": err}}
     log(json.dumps({"kernels": [
         {"name": "maxplus_fold (trace-indexed, K1)", **common,
          "replaces": "src/repro/kernels/maxplus/kernel.py:426",
          "launches": launches["indexed"], "max_abs_err": real_err,
-         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by},
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "routes": routes("indexed", sweep_t, real_err),
+         "bound_ms_dense_count": sweep_t["bound_ms_dense_count"]},
         {"name": "maxplus_fold (periodic, K2)", **common,
          "replaces": "src/repro/kernels/maxplus/kernel.py:419",
          "launches": launches["periodic"],
          "max_abs_err": float((pk - pp).abs().max()),
          "ms": pk_ms, "plain_ms": pp_ms, "bound_ms": pb_ms,
-         "bound_by": pb_by},
+         "bound_by": pb_by, "routes": routes("periodic", per_t, 0.0),
+         "bound_ms_dense_count": per_t["bound_ms_dense_count"]},
         {"name": "maxplus_fold_many (many-trace, K3)", **common,
          "replaces": "src/repro/kernels/maxplus/kernel.py:293",
          **{k: fleet[k] for k in ("launches", "max_abs_err", "ms",
-                                  "plain_ms", "bound_ms", "bound_by")}},
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "routes", "bound_ms_dense_count")}},
         {"name": "flash_attention (causal / sliding-window GQA, K4)",
          "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:112",

@@ -14,8 +14,10 @@ import torch
 
 from repro_torch.core import maxplus_form as mf
 from repro_torch.core import sim, trace
-from repro_torch.kernels.maxplus import ops
-from repro_torch.kernels.maxplus.kernel import (LAUNCHES, maxplus_fold_kernel,
+from repro_torch.kernels.maxplus import compact, ops
+from repro_torch.kernels.maxplus.kernel import (LAUNCHES,
+                                                maxplus_compact_kernel,
+                                                maxplus_fold_kernel,
                                                 maxplus_fold_many_kernel)
 from repro_torch.kernels.maxplus.ref import (maxplus_fold_many_ref,
                                              maxplus_fold_ref)
@@ -187,6 +189,174 @@ def test_run_many_one_launch_equals_per_trace(card):
     assert np.array_equal(got, np.asarray(want, np.float64))
 
 
+
+# --- the two routes of the (max,+) kernels ----------------------------------
+# A real dictionary meets the compact route's precondition; the same
+# operands with -0.0 in s0's origin row (sign bit set) do not, so they take
+# the dense route.  Each route must give the plain version's bits.
+
+ROUTE_INPUTS = ("compact", "dense")
+
+
+def refused_s0(s0):
+    s0 = s0.clone()
+    s0[..., -1] = -0.0
+    return s0
+
+
+def route_delta(before, branch):
+    return {r: LAUNCHES[f"{branch}/{r}"] - before[f"{branch}/{r}"]
+            for r in ROUTE_INPUTS}
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("route", ROUTE_INPUTS)
+def test_kernel_routes_bit_equal_to_plain(card, route, variant):
+    d, t = inputs(card, seed=8)
+    kw = {}
+    if "indexed" in variant:
+        kw["idx"] = d["idx"]
+    if "energy" in variant:
+        kw["energy"] = d["energy"]
+    if "arrivals" in variant:
+        kw.update({k: d[k] for k in ("arrivals", "gvec", "extras", "wvec")})
+    s0 = d["s0"] + 1.5 if route == "compact" else refused_s0(d["s0"])
+    branch = "indexed" if "indexed" in variant else "periodic"
+    before = dict(LAUNCHES)
+    got = maxplus_fold_kernel(d["mats"], s0, t_steps=t, **kw)
+    want = maxplus_fold_ref(d["mats"], s0, t_steps=t, **kw)
+    torch.cuda.synchronize()
+    assert route_delta(before, branch) == {
+        r: int(r == route) for r in ROUTE_INPUTS}
+    assert LAUNCHES["prepass"] == before["prepass"] + 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("with_arrivals", (False, True))
+@pytest.mark.parametrize("with_faults", (False, True))
+@pytest.mark.parametrize("route", ROUTE_INPUTS)
+def test_many_kernel_routes_bit_equal_to_plain(card, route, with_arrivals,
+                                               with_faults):
+    d = many_inputs(card, seed=4)
+    if route == "dense":
+        d["s0"] = refused_s0(d["s0"])
+    args = [d[k] for k in ("mats", "gvec", "idx", "arrivals", "s0",
+                           "lengths")]
+    side = dict(extras=d["extras"], wvec=d["wvec"]) if with_faults else {}
+    before = dict(LAUNCHES)
+    got = maxplus_fold_many_kernel(*args, with_arrivals=with_arrivals,
+                                   **side)
+    want = maxplus_fold_many_ref(*args, with_arrivals=with_arrivals, **side)
+    torch.cuda.synchronize()
+    assert route_delta(before, "many") == {
+        r: int(r == route) for r in ROUTE_INPUTS}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[MANY_LENGTHS.index(0)], d["s0"])
+
+
+def test_many_compact_with_several_lanes_a_block(card):
+    """More lanes than SMs: a block of the compact many-trace fold then
+    holds several lanes (warps) sharing one copy of the dictionary."""
+    rng = np.random.default_rng(9)
+    d = many_inputs(card)
+    m1, t = d["mats"].shape[0], 40
+    b = 3 * torch.cuda.get_device_properties(card).multi_processor_count + 7
+    lengths = rng.integers(0, t + 1, b).astype(np.int32)
+    idx = np.full((b, t), m1 - 1, np.int32)
+    for lane, ln in enumerate(lengths):
+        idx[lane, :ln] = rng.integers(0, m1 - 1, ln)
+    arr = np.cumsum(rng.exponential(9.0, (b, t)), axis=1).astype(np.float32)
+    args = dict(mats=d["mats"], gvec=d["gvec"],
+                idx=torch.as_tensor(idx, device=card),
+                arrivals=torch.as_tensor(arr, device=card), s0=d["s0"],
+                lengths=torch.as_tensor(lengths, device=card))
+    before = LAUNCHES["many/compact"]
+    got = maxplus_fold_many_kernel(**args)
+    want = maxplus_fold_many_ref(**args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["many/compact"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_energy_with_more_than_32_phases_takes_the_dense_route(card):
+    d, t = inputs(card, b=2, t=64)
+    energy = torch.rand((2, d["mats"].shape[1], 40), device=card)
+    before = dict(LAUNCHES)
+    got = maxplus_fold_kernel(d["mats"], d["s0"], t_steps=t, idx=d["idx"],
+                              energy=energy)
+    want = maxplus_fold_ref(d["mats"], d["s0"], t_steps=t, idx=d["idx"],
+                            energy=energy)
+    torch.cuda.synchronize()
+    assert route_delta(before, "indexed") == {"compact": 0, "dense": 1}
+    assert LAUNCHES["prepass"] == before["prepass"]      # ruled out by shape
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("what", ("fold", "many"))
+def test_prepass_equals_twin(card, what):
+    if what == "fold":
+        d, t = inputs(card)
+        sides = dict(gvec=d["gvec"], wvec=d["wvec"])
+        checks = dict(s0=d["s0"], arrivals=d["arrivals"],
+                      extras=d["extras"])
+    else:
+        d = many_inputs(card)
+        sides = dict(gvec=d["gvec"], wvec=d["wvec"])
+        checks = dict(s0=d["s0"], arrivals=d["arrivals"],
+                      extras=d["extras"], lengths=d["lengths"])
+    before = LAUNCHES["prepass"]
+    rec, flag = maxplus_compact_kernel(d["mats"], **sides, **checks)
+    torch.cuda.synchronize()
+    assert LAUNCHES["prepass"] == before + 1
+    twin, ok = compact.compact(d["mats"].cpu(), *(sides[k].cpu()
+                                                  for k in ("gvec", "wvec")))
+    assert ok and int(flag) == 0
+    assert torch.equal(rec.cpu(), compact.pack(twin))
+
+
+@pytest.mark.parametrize("name", ("random dense dictionary",
+                                  "one negative entry",
+                                  "a row with five finite entries",
+                                  "an inf in extras", "-0.0 in s0",
+                                  "NaN in an arrival past a lane's end"))
+def test_prepass_refuses_what_the_twin_refuses(card, name):
+    d, t = inputs(card, b=1, t=40)
+    mats, extras, s0 = d["mats"].clone(), d["extras"].clone(), d["s0"]
+    lengths = arrivals = None
+    if name == "random dense dictionary":
+        mats = torch.rand_like(mats) * 50
+    elif name == "one negative entry":
+        mats[0, 0, 0, 0] = -1.0
+    elif name == "a row with five finite entries":
+        row = int(d["wvec"][0, 0].argmax())
+        spare = int((mats[0, 0, row] <= mf.NEG).nonzero()[0])
+        mats[0, 0, row, spare] = 3.0
+    elif name == "an inf in extras":
+        extras[5] = float("inf")
+    elif name == "-0.0 in s0":
+        s0 = refused_s0(s0)
+    else:                              # accepted: checked within lengths
+        m = many_inputs(card)
+        arrivals = m["arrivals"].clone()
+        lane = MANY_LENGTHS.index(5)
+        arrivals[lane, 5:] = float("nan")
+        mats, lengths = m["mats"], m["lengths"]
+        extras, s0 = m["extras"], m["s0"]
+    _, flag = maxplus_compact_kernel(
+        mats, d["gvec"] if lengths is None else None, None, s0=s0,
+        arrivals=d["arrivals"] if lengths is None else arrivals,
+        extras=extras, lengths=lengths)
+    _, twin_flag = maxplus_compact_kernel(
+        mats.cpu(), d["gvec"].cpu() if lengths is None else None, None,
+        s0=s0.cpu(), arrivals=(d["arrivals"] if lengths is None
+                               else arrivals).cpu(),
+        extras=extras.cpu(), lengths=None if lengths is None
+        else lengths.cpu())
+    torch.cuda.synchronize()
+    assert int(flag) == int(twin_flag) == (0 if lengths is not None else 1)
 
 # --- flash attention and the RG-LRU scan ------------------------------------
 
