@@ -68,22 +68,33 @@ Phases, one report line each (every check raises on failure):
    FLASH_CASES, ragged S, D = 256, MQA, S > window) within FLASH_TOL, each
    shape through both routes (bf16 inputs to the tensor-core kernel, f32
    copies to the CUDA-core kernel, and the other way round), the
-   RG-LRU scan kernel bit-equal to ``rglru_scan_ref`` on 6 (ragged S, R
-   not a multiple of 128, f32 and bf16), and the SMOKE model served on
+   RG-LRU scan kernel (K5) bit-equal to ``rglru_scan_ref`` through both
+   routes: the ring on 46 shapes at its edges (S = 1, Tc - 1, Tc, Tc + 1
+   and 5 stages plus a ragged tail; each channel tile C; R not a multiple
+   of C; B > 1; f32 and bf16) and the simple route on 4 inputs TMA
+   cannot read, each route's launches
+   counted; and the SMOKE model served on
    the card token-identical to the CPU plain path; (8b) the full-width
    model (8.6 B parameters, bf16) initialised on the card from a seed and
    served through ``ServingEngine.generate`` — 4 prompts of 2560-4096
    tokens left-padded to 4096 plus 32 greedy tokens — with one launch of
    K4's tensor-core kernel per attention layer (12, none of the CUDA-core
-   one) and one K5 launch per RG-LRU layer (26) in the prefill, prefill
-   seconds, decode tokens/s and peak device memory, the first K4 and K5
-   launches of the prefill recorded and held against their plain
-   versions, and one ``score`` at B = 1, S = 1024; (8c) K4 and K5 timed at
-   the prefill shapes beside their plain versions, their bounds and (K4)
-   ``scaled_dot_product_attention`` with the window mask, the flops K4
-   computes (from its tile plan) and its TFLOP/s, K4's CUDA-core route
-   timed on f32 copies of the same inputs, and the ptxas registers and
-   shared memory of both routes.
+   one) and one K5 launch per RG-LRU layer (26, all on the ring route) in
+   the prefill, prefill seconds, decode tokens/s and peak device memory,
+   the first K4 and K5 launches of the prefill recorded and held against
+   their plain versions, and one ``score`` at B = 1, S = 1024 (26 K5
+   launches, all on the ring, the first held bit-equal); (8c) K4 and K5
+   timed at the prefill shapes beside their plain versions, their bounds
+   and (K4) ``scaled_dot_product_attention`` with the window mask, the
+   flops K4 computes (from its tile plan) and its TFLOP/s, K4's CUDA-core
+   route timed on f32 copies of the same inputs, and the ptxas registers
+   and shared memory of both routes; K5 at the prefill and the score
+   shapes through the ring and the simple route, each as one call (the
+   measure of every kernel's ``ms``) and as one of K5_QUEUED queued
+   launches, with the share of its bytes bound, the ring's ptxas
+   registers and shared memory, and ``torch.add`` on the same tensors as
+   a yardstick of the bytes; where a shape's tensors fit in the L2 (the
+   score shape), the timed calls rotate over copies that do not.
 
 Phases 4 and 5 are the main path of the per-design-point kernel, phase 6
 that of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5:
@@ -158,6 +169,14 @@ LM_SCORE = (1, 1024)
 # max(1, max |plain|): float32 sums in another order; bfloat16 outputs
 # rounded to bf16 (an ulp is 2^-7 of the magnitude) after such sums
 FLASH_TOL = {"torch.float32": 5e-5, "torch.bfloat16": 2.5e-2}
+# K5's ``ms`` is one call between CUDA events, as for every kernel; beside
+# it, the device time of one of K5_QUEUED launches queued behind a kernel
+# that sleeps SLEEP_CYCLES (some 10 ms), which leaves out the wrapper's host
+# time.  Where a, b and h fit L2_ROTATE times over in the H100's 50 MB L2,
+# the timed calls rotate over copies of them, so each call reads its inputs
+# from device memory
+K5_QUEUED, SLEEP_CYCLES = 10, 20_000_000
+L2_BYTES, L2_ROTATE = 50 * 2 ** 20, 4
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
 
@@ -180,6 +199,27 @@ def cuda_ms(fn, reps: int = 3, warmup: bool = True) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, n: int = K5_QUEUED, reps: int = 3) -> float:
+    """Median over ``reps`` of the device time (ms) of one of ``n`` calls
+    of ``fn`` queued behind a sleeping kernel: the card starts the first
+    call only after the host has issued them all."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -1054,6 +1094,81 @@ def flash_err(got, want) -> float:
     return err / max(1.0, float(want.float().abs().max()))
 
 
+def rglru_ring_cases() -> list:
+    """(b, s, r, dtype) the ring route of K5 takes, at its edges: for each
+    (b, r, dtype), S = 1, Tc - 1, Tc, Tc + 1 and 5 stages plus a ragged
+    tail of 7, with Tc the plan's steps a stage; the channel tile C is
+    128, 64 and 32 in each dtype, and R is a multiple of C or not.  Then
+    six earlier shapes (ragged S, R not a multiple of 128)."""
+    import torch
+    from repro_torch.kernels.rglru import plan as RP
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for b, r, dtype in ((4, 4096, f32), (2, 4040, f32), (1, 4096, f32),
+                        (2, 200, f32), (40, 520, f32), (4, 4096, bf16),
+                        (2, 4040, bf16), (3, 200, bf16)):
+        tc = RP.ring_plan(b, 1, r, dtype.itemsize).steps
+        cases += [(b, s, r, dtype) for s in (1, tc - 1, tc, tc + 1,
+                                             5 * tc + 7)]
+    return cases + [(2, 512, 128, f32), (3, 37, 100, f32), (2, 129, 200, bf16),
+                    (1, 4096, 64, f32), (4, 1, 4096, bf16),
+                    (2, 1000, 4096, f32)]
+
+
+def rglru_inputs(b, s, r, dtype, seed, device, offset=0):
+    """a in [0.85, 0.999) and b normal, [b, s, r] in dtype; with
+    ``offset``, views that many elements into their storage."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    xs = [(0.85 + 0.149 * torch.rand((b, s, r), generator=g,
+                                     device=device)).to(dtype),
+          torch.randn((b, s, r), generator=g, device=device).to(dtype)]
+    if offset:
+        bufs = [torch.empty(b * s * r + offset, dtype=dtype, device=device)
+                for _ in xs]
+        xs = [buf[offset:].view(b, s, r).copy_(x) for buf, x in zip(bufs, xs)]
+    return xs
+
+
+def check_rglru_small(device) -> dict:
+    """8a for K5: both routes bit-equal to ``rglru_scan_ref``.  Through the
+    wrapper, the ring cases (``rglru_ring_cases``) must take the ring and
+    four inputs TMA cannot read must take the simple route (R * itemsize
+    not a multiple of 16 bytes; views at storage offset 1, in f32 and
+    bf16)."""
+    import torch
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import plan as RP
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    ring = rglru_ring_cases()
+    simple = [(2, 77, 37, torch.float32, 0), (2, 300, 100, torch.bfloat16, 0),
+              (2, 129, 64, torch.float32, 1), (3, 70, 4096, torch.bfloat16, 1)]
+    RK.reset_launches()
+    for i, (b, s, r, dtype, off) in enumerate(
+            [c + (0,) for c in ring] + simple):
+        a, x = rglru_inputs(b, s, r, dtype, 100 + i, device, off)
+        want = rglru_scan_ref(a, x)
+        if not torch.equal(RK.rglru_scan_kernel(a, x), want):
+            raise AssertionError(f"rglru kernel != plain at {(b, s, r, dtype)}"
+                                 f", storage offset {off}")
+    n_ring, n_simple = len(ring), len(simple)
+    want_launches = {RK.TOTAL: n_ring + n_simple,
+                     RK.ROUTE_KEYS[RP.RING]: n_ring,
+                     RK.ROUTE_KEYS[RP.SIMPLE]: n_simple}
+    if RK.LAUNCHES != want_launches:
+        raise AssertionError(f"8a launched {RK.LAUNCHES} RG-LRU scans, "
+                             f"expected {want_launches}")
+    log(f"[8a] RG-LRU scan kernel bit-equal to plain: the ring route on "
+        f"{len(ring)} shapes (S = 1, Tc - 1, Tc, Tc + 1, 5 Tc + 7; C = 128, "
+        f"64, 32; R ragged; B > 1; f32 and bf16), the simple route on "
+        f"{n_simple} "
+        f"inputs TMA cannot read (R = 37 f32, R = 100 bf16, storage offset "
+        f"1 in f32 and bf16); launches {RK.LAUNCHES}")
+    return {"ring_shapes": len(ring), "simple_inputs": n_simple,
+            "launches": dict(RK.LAUNCHES)}
+
+
 def phase_lm_small(device) -> dict:
     """8a: K4 and K5 against their plain versions at small shapes, and
     the SMOKE model served on the card against the CPU's plain path."""
@@ -1064,8 +1179,6 @@ def phase_lm_small(device) -> dict:
     from repro_torch.configs.recurrentgemma_9b import SMOKE
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_reference
-    from repro_torch.kernels.rglru.kernel import rglru_scan_kernel
-    from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import ServingEngine
 
@@ -1104,18 +1217,7 @@ def phase_lm_small(device) -> dict:
         + ", ".join(f"{w:.2e} ({k}, bar {FLASH_TOL[k]})"
                     for k, w in worst.items()))
 
-    scans = [(2, 512, 128, torch.float32), (3, 37, 100, torch.float32),
-             (2, 129, 200, torch.bfloat16), (1, 4096, 64, torch.float32),
-             (4, 1, 4096, torch.bfloat16), (2, 1000, 4096, torch.float32)]
-    for i, (b, s, r, dtype) in enumerate(scans):
-        g = torch.Generator(device=device).manual_seed(100 + i)
-        a = (0.85 + 0.149 * torch.rand((b, s, r), generator=g,
-                                       device=device)).to(dtype)
-        x = torch.randn((b, s, r), generator=g, device=device).to(dtype)
-        if not torch.equal(rglru_scan_kernel(a, x), rglru_scan_ref(a, x)):
-            raise AssertionError(f"rglru kernel != plain at {(b, s, r, dtype)}")
-    log(f"[8a] RG-LRU scan kernel bit-equal to plain on {len(scans)} shapes "
-        "(ragged S, R not a multiple of 128, f32 and bf16)")
+    k5 = check_rglru_small(device)
 
     cfg = dataclasses.replace(SMOKE, compute_dtype="f32")
     cpu_p = init_params(cfg, 0, device="cpu")
@@ -1134,7 +1236,7 @@ def phase_lm_small(device) -> dict:
     log(f"[8a] {cfg.name} (f32 compute) generate on the card: 12 greedy "
         f"tokens x 3 prompts identical to the CPU plain path, prefill "
         f"logits within {lerr:.2e} (bar 1e-4 x {lscale:.1f})")
-    return {"flash_small_worst_rel": worst}
+    return {"flash_small_worst_rel": worst, "k5_small": k5}
 
 
 def to_device(tree, device):
@@ -1368,12 +1470,61 @@ def kernel_resources(ptxas: str, pattern: str) -> tuple[str, str]:
     return "?", "?"
 
 
-def phase_lm_serve(device, flash_ptxas: str) -> dict:
+def ring_kernel_name(dtype, p) -> str:
+    """The part of K5's ring kernel's mangled name that ptxas reports for
+    the instantiation of plan ``p``."""
+    import torch
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    return f"rglru_scan_ringI{t}Li{p.channels}ELi{p.steps}ELi{p.stages}EE"
+
+
+def time_rglru(a, b) -> dict:
+    """K5 at one shape: the ring as planned, the simple route, and
+    ``torch.add(a, b, out=h)`` on the same tensors (the same bytes, not
+    the same function), each as one call (``cuda_ms``) and by
+    ``queued_ms``; the bytes bound.  Where a, b and h fit the L2
+    L2_ROTATE times over, the calls rotate over that many copies."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import plan as RP
+    shape, size = tuple(a.shape), a.element_size()
+    n_bytes = 3.0 * a.numel() * size
+    n_copies = max(1, -(-L2_ROTATE * L2_BYTES // int(n_bytes)))
+    sets = [(a, b, torch.empty_like(a))] + [
+        (a.clone(), b.clone(), torch.empty_like(a))
+        for _ in range(n_copies - 1)]
+    plans = {RP.plan(*shape, size, (x.data_ptr(), y.data_ptr(), h.data_ptr()))
+             for x, y, h in sets}
+    p = RP.ring_plan(*shape, size)
+    if plans != {p}:
+        raise AssertionError(f"K5 at {shape} planned {plans}, not the ring")
+
+    def rotated(fn):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+
+    t = {}
+    for name, q in (("ring", p), ("simple", RP.simple_plan(*shape))):
+        t[f"{name}_ms"] = cuda_ms(rotated(lambda x, y, h, q=q:
+                                          RK.launch(x, y, h, q)))
+        t[f"{name}_queued_ms"] = queued_ms(rotated(lambda x, y, h, q=q:
+                                                   RK.launch(x, y, h, q)))
+    add = rotated(lambda x, y, h: torch.add(x, y, out=h))
+    t["add_ms"], t["add_queued_ms"] = cuda_ms(add), queued_ms(add)
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, 2.0 * a.numel())
+    return {**t, "bytes": n_bytes, "plan": p, "copies": n_copies,
+            "shape": shape, "dtype": str(a.dtype)}
+
+
+def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
     """8b: RecurrentGemma-9B at full width served through ServingEngine;
     the first K4 and K5 launches of the prefill recorded and held against
-    their plain versions; one score pass.  8c: K4 and K5 timed at the
+    their plain versions; one score pass, its K5 launches counted and the
+    first held against the plain version.  8c: K4 and K5 timed at the
     prefill shapes beside their plain versions, their bounds and (K4) the
-    SDPA call."""
+    SDPA call; K5 also at the score shape, through both routes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1384,11 +1535,13 @@ def phase_lm_serve(device, flash_ptxas: str) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru import plan as RP
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.models.transformer import init_params, param_count
     from repro_torch.serve import ServingEngine
     from repro_torch.serve import engine as engine_mod
 
+    RK_RING, RK_SIMPLE = RK.ROUTE_KEYS[RP.RING], RK.ROUTE_KEYS[RP.SIMPLE]
     cfg = get_arch(LM_ARCH).config
     n_attn = cfg.num_units * sum(s.mixer == "attn" for s in cfg.pattern)
     n_rglru = (cfg.num_units * sum(s.mixer == "rglru" for s in cfg.pattern)
@@ -1434,16 +1587,17 @@ def phase_lm_serve(device, flash_ptxas: str) -> dict:
         res = eng.generate(prompts, n_new=LM_NEW_TOKENS)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
-        launches = {**FK.LAUNCHES, "rglru_scan": RK.LAUNCHES["rglru_scan"]}
+        launches = {**FK.LAUNCHES, **RK.LAUNCHES}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         rec_k4.restore()
         rec_k5.restore()
         engine_mod.prefill = real_prefill
-    if launches != {FK.TC: n_attn, FK.F32: 0, "rglru_scan": n_rglru}:
+    if launches != {FK.TC: n_attn, FK.F32: 0, RK.TOTAL: n_rglru,
+                    RK_RING: n_rglru, RK_SIMPLE: 0}:
         raise AssertionError(f"one prefill launched {launches}, expected "
                              f"{n_attn} tensor-core flash-attention and "
-                             f"{n_rglru} RG-LRU scans")
+                             f"{n_rglru} RG-LRU scans, all on the ring")
     b = len(prompts)
     toks, logits = res.tokens, res.prefill_logits
     if not (toks.shape == (b, LM_NEW_TOKENS) and toks.min() >= 0
@@ -1489,16 +1643,30 @@ def phase_lm_serve(device, flash_ptxas: str) -> dict:
     # -- scoring: full logits at B = 1 ---------------------------------
     score_toks = np.random.default_rng(LM_SEED + 1).integers(
         0, cfg.vocab_size, LM_SCORE).astype(np.int32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lp = eng.score(score_toks)
-    torch.cuda.synchronize()
-    score_s = time.perf_counter() - t0
+    rec_score = Recorder(rglru_ops, "rglru_scan_kernel")
+    try:
+        torch.cuda.synchronize()
+        RK.reset_launches()
+        t0 = time.perf_counter()
+        lp = eng.score(score_toks)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        score_launches = dict(RK.LAUNCHES)
+    finally:
+        rec_score.restore()
+    if score_launches != {RK.TOTAL: n_rglru, RK_RING: n_rglru, RK_SIMPLE: 0}:
+        raise AssertionError(f"score launched {score_launches} RG-LRU scans, "
+                             f"expected {n_rglru}, all on the ring")
+    sa, sb = rec_score.args
+    if not torch.equal(RK.rglru_scan_kernel(sa, sb), rglru_scan_ref(sa, sb)):
+        raise AssertionError("RG-LRU kernel != plain on score's inputs")
     if not (lp.shape == (LM_SCORE[0], LM_SCORE[1] - 1)
             and np.all(np.isfinite(lp)) and np.all(lp <= 0.0)):
         raise AssertionError("score returned malformed log-probs")
     log(f"[8b] score at B={LM_SCORE[0]} S={LM_SCORE[1]}: {score_s:.2f} s, "
-        f"mean log-prob {float(lp.mean()):.2f}")
+        f"mean log-prob {float(lp.mean()):.2f}; RG-LRU launches "
+        f"{score_launches}, the first bit-equal to plain on its inputs "
+        f"{tuple(sa.shape)} {sa.dtype}")
     del eng, params
     torch.cuda.empty_cache()
 
@@ -1543,10 +1711,8 @@ def phase_lm_serve(device, flash_ptxas: str) -> dict:
         f32_bq, f32_bk = FK.tile(FK.F32, d)
         f32_computed = flash_tiles.computed_flops(bq, hq, d, bq=f32_bq,
                                                   bk=f32_bk, **plan)
-        k5_ms = cuda_ms(lambda: RK.rglru_scan_kernel(a, bb))
+        k5 = {"prefill": time_rglru(a, bb), "score": time_rglru(sa, sb)}
         k5_plain_ms = cuda_ms(lambda: rglru_scan_ref(a, bb), warmup=False)
-        k5_b, k5_by = bound_ms(3.0 * a.numel() * a.element_size(),
-                               2.0 * a.numel())
     res = {name: kernel_resources(flash_ptxas, pattern)
            for name, pattern in ((FK.TC, f"flash_fwd_tcILi{d}E"),
                                  (FK.F32, f"flash_fwd_f32ILi{d}E"))}
@@ -1568,16 +1734,50 @@ def phase_lm_serve(device, flash_ptxas: str) -> dict:
         log(f"[8c] {name} at D={d}: ptxas {regs} registers, {spill}; "
             f"{FK.smem_bytes(name, d)} bytes of dynamic shared memory a "
             f"block")
-    log(f"[8c] K5 RG-LRU scan at {tuple(a.shape)} {a.dtype}: kernel "
-        f"{k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms, bound {k5_b:.3f} ms "
-        f"({k5_by}: {3 * a.numel() * a.element_size() / 1e6:.1f} MB)")
+    for shape, t in k5.items():
+        def share(ms):
+            return f"{100 * t['bound_ms'] / ms:.1f} %"
+        log(f"[8c] K5 RG-LRU scan at the {shape} shape {t['shape']} "
+            f"{t['dtype']}, inputs rotated over {t['copies']} copies: one "
+            f"call between CUDA events (device time of one of {K5_QUEUED} "
+            f"launches queued beside): ring {t['ring_ms']:.4f} ms "
+            f"({t['ring_queued_ms']:.4f}), {share(t['ring_ms'])} of the bound "
+            f"({share(t['ring_queued_ms'])}); simple route "
+            f"{t['simple_ms']:.4f} ms ({t['simple_queued_ms']:.4f}), "
+            f"{share(t['simple_ms'])} of the bound "
+            f"({share(t['simple_queued_ms'])}); bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB); "
+            f"torch.add(a, b, out=h), the same bytes but not the same "
+            f"function, {t['add_ms']:.4f} ms ({t['add_queued_ms']:.4f}); "
+            f"plan {t['plan']}")
+    regs, spill = kernel_resources(rglru_ptxas, ring_kernel_name(
+        a.dtype, k5["prefill"]["plan"]))
+    log(f"[8c] K5 ring kernel at the prefill shape: ptxas {regs} registers, "
+        f"{spill}; {k5['prefill']['plan'].smem_bytes} bytes of dynamic "
+        f"shared memory a block; plain version {k5_plain_ms:.3f} ms")
     return {
         "k4": {"launches": launches[FK.TC], "max_abs_err": k4_err,
                "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_b,
                "bound_by": k4_by, "library_ms": sdpa_ms},
-        "k5": {"launches": launches["rglru_scan"], "max_abs_err": 0.0,
-               "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_b,
-               "bound_by": k5_by, "library_ms": None},
+        "k5": {"launches": launches[RK.TOTAL], "max_abs_err": 0.0,
+               "ms": k5["prefill"]["ring_ms"], "plain_ms": k5_plain_ms,
+               "bound_ms": k5["prefill"]["bound_ms"],
+               "bound_by": k5["prefill"]["bound_by"], "library_ms": None,
+               "queued_ms": k5["prefill"]["ring_queued_ms"],
+               "routes": {
+                   route: {"launches": launches[RK.ROUTE_KEYS[route]],
+                           "score_launches":
+                               score_launches[RK.ROUTE_KEYS[route]],
+                           **{f"{shape}_{k}": t[f"{route}_{k}"]
+                              for shape, t in k5.items()
+                              for k in ("ms", "queued_ms")}}
+                   for route in (RP.RING, RP.SIMPLE)},
+               "ring_registers": regs,
+               "ring_dynamic_smem": k5["prefill"]["plan"].smem_bytes,
+               "same_bytes_torch_add_ms": {
+                   f"{shape}_{k}": t[f"add_{k}"] for shape, t in k5.items()
+                   for k in ("ms", "queued_ms")},
+               "score_shape_bound_ms": k5["score"]["bound_ms"]},
         "n_params": n_params, "param_gb": p_bytes / 1e9, "init_s": init_s,
         "generate_s": gen_s, "prefill_s": prefill_s[0],
         "decode_s": decode_s, "decode_tokens_per_s": decode_tps,
@@ -1824,7 +2024,7 @@ def main() -> int:
 
     # -- 8: LM serving through K4 and K5 ---------------------------------
     lm_small = phase_lm_small(dev)
-    lm = phase_lm_serve(dev, built[1][1])
+    lm = phase_lm_serve(dev, built[1][1], built[2][1])
 
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,

@@ -83,6 +83,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -127,6 +129,8 @@ __device__ __forceinline__ bool tile_masked(const KvRange& r, int k0,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BK = 64;        // keys a kv tile
 constexpr int STAGES = 2;     // K and V rings
 
@@ -151,52 +155,6 @@ struct Cfg {
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity.  No wait
-// of this kernel lasts longer than a tile's copy or compute; one that spins
-// 2^26 times is a fault, and traps rather than hangs the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units) and the swizzle layout.
@@ -544,7 +502,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       mbar_init(&empty_v[s], C::CONSUMER_WARPS);
     }
     mbar_init(&q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -557,7 +515,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(&q_bar, C::Q_BYTES);
 #pragma unroll
       for (int bx = 0; bx < C::NB; ++bx)
-        tma_load(s_q + bx * C::Q_BOX, &tq, &q_bar, bx * C::CH, q0, h, b);
+        tma_load_4d(s_q + bx * C::Q_BOX, &tq, &q_bar, bx * C::CH, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
         const int k0 = r.begin + t * BK;
@@ -565,14 +523,14 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(&full_k[s], C::KV_BYTES);
 #pragma unroll
         for (int bx = 0; bx < C::NB; ++bx)
-          tma_load(s_k + s * C::KV_BYTES + bx * C::KV_BOX, &tk, &full_k[s],
-                   bx * C::CH, k0, kvh, b);
+          tma_load_4d(s_k + s * C::KV_BYTES + bx * C::KV_BOX, &tk,
+                      &full_k[s], bx * C::CH, k0, kvh, b);
         if (t >= STAGES) mbar_wait(&empty_v[s], (t / STAGES - 1) & 1);
         mbar_expect_tx(&full_v[s], C::KV_BYTES);
 #pragma unroll
         for (int bx = 0; bx < C::NB; ++bx)
-          tma_load(s_v + s * C::KV_BYTES + bx * C::KV_BOX, &tv, &full_v[s],
-                   bx * C::CH, k0, kvh, b);
+          tma_load_4d(s_v + s * C::KV_BYTES + bx * C::KV_BOX, &tv,
+                      &full_v[s], bx * C::CH, k0, kvh, b);
       }
     }
   } else {
@@ -681,33 +639,6 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its entry
-// point is fetched at run time, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 4-D map over (D, S, heads, batch) of a bf16 tensor with element strides
 // (batch, head, seq); boxes of CH columns x rows.
 template <int D>
@@ -730,10 +661,6 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
-
-// Error codes past the CUDA runtime's: no encoder, or a refused tensor map.
-constexpr int ERR_NO_ENCODER = 10000;
-constexpr int ERR_TENSOR_MAP = 10001;
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
@@ -1013,11 +940,7 @@ int flash_attention_smem_bytes(int route, int d) {
 }
 
 const char* flash_attention_error_string(int code) {
-  if (code == tc::ERR_NO_ENCODER)
-    return "cuTensorMapEncodeTiled not found in libcuda";
-  if (code == tc::ERR_TENSOR_MAP)
-    return "cuTensorMapEncodeTiled refused a tensor map (alignment or strides)";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }
 
 }  // extern "C"

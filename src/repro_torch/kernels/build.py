@@ -3,7 +3,8 @@
 Each source under ``src/repro_torch/csrc`` has a plain C interface.  It
 is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under the repository's ``build/`` directory at first use, named by a hash
-of the source and the flags (so an edited source rebuilds), and loaded
+of the source, the shared headers (``csrc/*.cuh``) and the flags (so an
+edited source or header rebuilds), and loaded
 with ``ctypes``.  A missing ``nvcc`` or a failed build raises: nothing
 falls back to the CPU.
 """
@@ -42,14 +43,22 @@ def nvcc_path() -> str:
     return found
 
 
+def library_path(source: str) -> Path:
+    """Where ``csrc/<source>``'s library goes: named by a hash of the
+    source, every shared header ``csrc/*.cuh`` and the flags."""
+    src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
 def build(source: str) -> tuple[Path, str]:
     """Compile ``csrc/<source>`` unless its library is current; returns
     (library path, compiler log — the ptxas register/shared-memory
     report of a fresh build, read back from the log file otherwise)."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
+    lib = library_path(source)
     log = lib.with_suffix(".log")
     if lib.is_file():
         return lib, log.read_text() if log.is_file() else ""

@@ -1,11 +1,18 @@
 """RG-LRU linear recurrence ``h_t = a_t·h_{t-1} + b_t`` — the hand-written
-CUDA kernel's wrapper.
+CUDA kernels' wrapper.
 
-The kernel, in ``src/repro_torch/csrc/rglru_scan.cu``, says which TPU
-kernel it replaces and what bounds it.  For tensors on the CPU the wrapper
-runs the plain version (``ref.rglru_scan_ref``), which the kernel equals
-bit for bit; for CUDA tensors it launches the kernel on the current
-stream or raises — never a fallback.  ``LAUNCHES`` counts the launches.
+The kernels, in ``src/repro_torch/csrc/rglru_scan.cu``, say which TPU
+kernel they replace and what bounds them.  Two routes, chosen by the data
+alone (``plan.plan``): the ring kernel (TMA-fed, one consumer thread a
+channel) where TMA can read the tensors — 16-byte aligned bases and a
+row pitch that is a multiple of 16 bytes — and the simple kernel for
+every other input.  For tensors on the CPU the wrapper runs the plain
+version (``ref.rglru_scan_ref``), which both kernels equal bit for bit;
+for CUDA tensors it launches the route's kernel on the current stream or
+raises — a refused plan, tensor map or launch is an error, never a
+fallback to the other route.  ``LAUNCHES`` counts the launches, in all
+(``"rglru_scan"``) and per route (``"rglru_scan/ring"``,
+``"rglru_scan/simple"``).
 """
 
 from __future__ import annotations
@@ -15,17 +22,23 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.rglru import plan as rglru_plan
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
 SOURCE = "rglru_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TOTAL = "rglru_scan"
+ROUTE_KEYS = {rglru_plan.RING: "rglru_scan/ring",
+              rglru_plan.SIMPLE: "rglru_scan/simple"}
 
-#: Kernel launches since the last ``reset_launches()``.
-LAUNCHES = {"rglru_scan": 0}
+#: Kernel launches since the last ``reset_launches()``: in all, and per
+#: route.
+LAUNCHES = {TOTAL: 0, **{key: 0 for key in ROUTE_KEYS.values()}}
 
 
 def reset_launches() -> None:
-    LAUNCHES["rglru_scan"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -34,6 +47,9 @@ def _library() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         lib.rglru_scan_fwd.argtypes = [ptr] * 3 + [ctypes.c_int] * 4 + [ptr]
         lib.rglru_scan_fwd.restype = ctypes.c_int
+        lib.rglru_scan_ring_fwd.argtypes = ([ptr] * 3 + [ctypes.c_int] * 10
+                                            + [ptr])
+        lib.rglru_scan_ring_fwd.restype = ctypes.c_int
         lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
         lib.rglru_scan_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -58,18 +74,38 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"b is on {b.device}, a on {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
-    bsz, s, r = a.shape
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
+    p = rglru_plan.plan(*a.shape, a.element_size(),
+                        (a.data_ptr(), b.data_ptr(), out.data_ptr()))
+    return launch(a, b, out, p)
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+           p: rglru_plan.Plan) -> torch.Tensor:
+    """Launch the kernel of plan ``p`` on checked CUDA tensors a, b and
+    out [B, S, R] (``rglru_scan_kernel`` checks them and picks ``p``; a
+    caller may pass another plan of the same shape, as the timings do);
+    raises where the kernel refuses the plan."""
+    bsz, s, r = a.shape
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.rglru_scan_fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                _DTYPES[a.dtype], bsz, s, r, stream)
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), _DTYPES[a.dtype],
+                bsz, s, r)
+        if p.route == rglru_plan.RING:
+            rc = lib.rglru_scan_ring_fwd(
+                *args, p.channels, p.steps, p.stages, p.smem_bytes, *p.grid,
+                stream)
+        elif p.route == rglru_plan.SIMPLE:
+            rc = lib.rglru_scan_fwd(*args, stream)
+        else:
+            raise ValueError(f"unknown route {p.route!r}")
     if rc != 0:
         msg = lib.rglru_scan_error_string(rc).decode()
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
-    LAUNCHES["rglru_scan"] += 1
+        raise RuntimeError(f"rglru_scan {p.route} kernel launch failed: "
+                           f"error {rc} ({msg}); plan {p}")
+    LAUNCHES[TOTAL] += 1
+    LAUNCHES[ROUTE_KEYS[p.route]] += 1
     return out

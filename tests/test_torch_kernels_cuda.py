@@ -573,28 +573,104 @@ def test_flash_tc_rejects_strides_tma_cannot_take(card):
     assert FK.LAUNCHES == before
 
 
-# b, s, r, dtype: ragged S, R not a multiple of 128, f32 and bf16
+def _rglru_ring_edges():
+    """(b, s, r, dtype) at the ring route's edges: S = 1, Tc - 1, Tc,
+    Tc + 1 and 5 stages plus a ragged tail, for a channel tile C of 128,
+    64 and 32 in each dtype, R a multiple of C or not, B > 1."""
+    from repro_torch.kernels.rglru import plan as rglru_plan
+    cases = []
+    for b, r, dtype in ((4, 4096, torch.float32), (2, 4040, torch.float32),
+                        (1, 4096, torch.float32), (40, 520, torch.float32),
+                        (4, 4096, torch.bfloat16), (2, 4040, torch.bfloat16),
+                        (3, 200, torch.bfloat16)):
+        tc = rglru_plan.ring_plan(b, 1, r, dtype.itemsize).steps
+        cases += [(b, s, r, dtype) for s in (1, tc - 1, tc, tc + 1,
+                                             5 * tc + 7)]
+    return cases
+
+
+# b, s, r, dtype: ragged S, R not a multiple of 128, f32 and bf16, and the
+# ring's edges; R = 37 in f32 and R = 100 in bf16 (row pitches of 148 and
+# 200 bytes) take the simple route, every other case the ring
 RGLRU_GPU_CASES = [(2, 512, 128, torch.float32), (3, 37, 100, torch.float32),
                    (2, 129, 200, torch.bfloat16), (1, 4096, 64, torch.float32),
-                   (4, 1, 4096, torch.bfloat16)]
+                   (4, 1, 4096, torch.bfloat16), (2, 77, 37, torch.float32),
+                   (2, 300, 100, torch.bfloat16), *_rglru_ring_edges()]
+
+
+def _rglru_inputs(card, b, s, r, dtype, offset=0):
+    g = torch.Generator(device=card).manual_seed(s + r)
+    a = (0.85 + 0.149 * torch.rand((b, s, r), generator=g,
+                                   device=card)).to(dtype)
+    x = torch.randn((b, s, r), generator=g, device=card).to(dtype)
+    if offset:      # views ``offset`` elements into their storage
+        a, x = (torch.empty(t.numel() + offset, dtype=dtype, device=card)
+                [offset:].view(b, s, r).copy_(t) for t in (a, x))
+    return a, x
 
 
 @pytest.mark.parametrize("b,s,r,dtype", RGLRU_GPU_CASES)
 def test_rglru_kernel_bit_equal_to_plain(card, b, s, r, dtype):
     from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import plan as rglru_plan
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
-    g = torch.Generator(device=card).manual_seed(s + r)
-    a = (0.85 + 0.149 * torch.rand((b, s, r), generator=g,
-                                   device=card)).to(dtype)
-    x = torch.randn((b, s, r), generator=g, device=card).to(dtype)
-    before = RK.LAUNCHES["rglru_scan"]
+    a, x = _rglru_inputs(card, b, s, r, dtype)
+    route = (rglru_plan.RING if r * dtype.itemsize % 16 == 0
+             else rglru_plan.SIMPLE)
+    before = dict(RK.LAUNCHES)
     got = RK.rglru_scan_kernel(a, x)
     want = rglru_scan_ref(a, x)
     torch.cuda.synchronize()
-    assert RK.LAUNCHES["rglru_scan"] == before + 1
+    assert RK.LAUNCHES["rglru_scan"] == before["rglru_scan"] + 1
+    key = RK.ROUTE_KEYS[route]
+    assert RK.LAUNCHES[key] == before[key] + 1
     assert got.dtype == dtype
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_rglru_view_at_storage_offset_takes_the_simple_route(card, dtype):
+    """A contiguous view one element into its storage has a base TMA
+    cannot read: the data sends it to the simple kernel, bit-equal."""
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    a, x = _rglru_inputs(card, 2, 129, 4096, dtype, offset=1)
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    before = dict(RK.LAUNCHES)
+    got = RK.rglru_scan_kernel(a, x)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["rglru_scan/simple"] == before["rglru_scan/simple"] + 1
+    assert RK.LAUNCHES["rglru_scan/ring"] == before["rglru_scan/ring"]
+    assert torch.equal(got, rglru_scan_ref(a, x))
+
+
+def test_rglru_ring_raises_on_a_plan_it_does_not_have(card, monkeypatch):
+    """A ring plan the kernel was not built for (another Tc, shared memory
+    or grid) is refused and raises; nothing falls back to the simple
+    route, and no launch is counted."""
+    import dataclasses
+
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import plan as rglru_plan
+
+    a, x = _rglru_inputs(card, 2, 100, 4096, torch.float32)
+    p = rglru_plan.ring_plan(2, 100, 4096, 4)
+    before = dict(RK.LAUNCHES)
+    for bad in (dataclasses.replace(p, steps=p.steps // 2),
+                dataclasses.replace(p, smem_bytes=p.smem_bytes + 16),
+                dataclasses.replace(p, grid=(p.grid[0] + 1, p.grid[1])),
+                dataclasses.replace(p, stages=p.stages + 1)):
+        with pytest.raises(RuntimeError, match="plan matches no"):
+            RK.launch(a, x, torch.empty_like(a), bad)
+    # through the public wrapper: a planner that disagrees with the kernel
+    wrong = dataclasses.replace(p, steps=p.steps * 2)
+    monkeypatch.setattr(rglru_plan, "plan", lambda *args: wrong)
+    with pytest.raises(RuntimeError, match="ring kernel launch failed"):
+        RK.rglru_scan_kernel(a, x)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES == before
 
 
 def test_rglru_kernel_rejects_what_it_does_not_take(card):
