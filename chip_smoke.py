@@ -94,11 +94,30 @@ Phases, one report line each (every check raises on failure):
    launches, with the share of its bytes bound, the ring's ptxas
    registers and shared memory, and ``torch.add`` on the same tensors as
    a yardstick of the bytes; where a shape's tensors fit in the L2 (the
-   score shape), the timed calls rotate over copies that do not.
+   score shape), the timed calls rotate over copies that do not;
+9. request-level workloads on 8 channels x 16 ways (SLC, PROPOSED, N =
+   146), offered at 80 % of the drive's own rate for the mix (the stream
+   with zero arrivals on ``engine="cuda"``, ops over ``end_us``): (9a) a
+   65536-request, 4-page Poisson stream (70 % reads) with a
+   ``FaultSpec`` of read retries, jitter, program faults and 10 % hedged
+   reads through ``Simulator.run(..., objective="all")`` on ``cuda`` and
+   ``scan``: end times within T * 2^-24, energies within 1e-3, the
+   query's first K1 launch recorded and held bit-equal to
+   ``maxplus_fold_ref`` (its end time the query's), every K1 launch on
+   the compact route, ``n_remap_ops > 0``, ``retry_hist`` summing to the
+   read ops, scan's p50/p99/p99.9 within 1e-3 of the ``oracle``'s, and a
+   4096-request prefix's latencies on the card bit-equal to the CPU's;
+   (9b) a 16384-request, 2-page stream under the retry-storm spec plus
+   program and erase faults through both dynamic policies on ``scan``,
+   the card's placements, parities, completions and latencies bit-equal
+   to the CPU's and no op on a retired way.  Each query's wall and ops/s,
+   the host's lowering, hedging and fault sampling apart, K1's one call
+   beside its bound, the percentiles, ``retry_hist`` and ``n_remap_ops``.
 
-Phases 4 and 5 are the main path of the per-design-point kernel, phase 6
-that of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5:
-the launch counts are reset just before each and read just after.  The
+Phases 4 and 5 are the main path of the per-design-point kernel (with the
+workload query of 9a, whose K1 launches its report adds), phase 6 that
+of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5: the
+launch counts are reset just before each and read just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
 read once, the dense dictionary by the pre-pass; per step the add/max
 pairs of the kept entries and the side operations of the rows the op
@@ -177,6 +196,20 @@ FLASH_TOL = {"torch.float32": 5e-5, "torch.bfloat16": 2.5e-2}
 # from device memory
 K5_QUEUED, SLEEP_CYCLES = 10, 20_000_000
 L2_BYTES, L2_ROTATE = 50 * 2 ** 20, 4
+# phase 9: request-level workloads on the paper's widest geometry, offered
+# at OFFERED_LOAD of the drive's own rate for the mix.  9a: static stripe
+# with faults and hedges; 9b: dynamic dispatch under the reliability
+# bench's retry-storm spec plus program and erase faults (retired ways)
+WL_CHANNELS, WL_WAYS, WL_READ_FRACTION = 8, 16, 0.7
+WL_REQUESTS, WL_PAGES, WL_SEED, WL_PREFIX = 65536, 4, 0, 4096
+WL_STATIC_FAULTS = dict(wear=0.95, jitter_us=2.0, prog_fail_prob=0.02,
+                        hedge_fraction=0.1, seed=17)
+WL_DYN_REQUESTS, WL_DYN_PAGES, WL_DYN_SEED = 16384, 2, 1
+WL_DYN_FAULTS = dict(wear=1.0, rber_worn=3e-5, max_retries=4,
+                     retry_step_us=(500.0, 1000.0, 2000.0, 4000.0),
+                     prog_fail_prob=0.02, erase_fail_prob=0.05, seed=7)
+PERCENTILE_TOL = 1e-3       # scan vs oracle request-latency percentiles
+ENERGY_FIELDS = ("cmd_j", "io_j", "ecc_j", "ctrl_j", "idle_j", "array_j")
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
 
@@ -1345,12 +1378,13 @@ def compact_many_ms(rec, args) -> float:
     return cuda_ms(launch)
 
 
-def time_fold(mats, s0, kwargs) -> dict:
+def time_fold(mats, s0, kwargs, dense: bool = True) -> dict:
     """One K1/K2 launch of ``maxplus_fold_kernel(mats, s0, **kwargs)``
-    timed through both routes (the dense one on ``refused_s0(s0)``), the
-    pre-pass alone, the compact fold alone and its ns a step, the host
-    wall of one call and of the pre-pass with its flag read, and its
-    bounds: counted for what the inputs need and by the dense count."""
+    timed through both routes (the dense one on ``refused_s0(s0)``; not
+    with ``dense=False``), the pre-pass alone, the compact fold alone and
+    its ns a step, the host wall of one call and of the pre-pass with its
+    flag read, and its bounds: counted for what the inputs need and by
+    the dense count."""
     import torch
     from repro_torch.kernels.maxplus import kernel as K
     t = kwargs["t_steps"]
@@ -1363,8 +1397,8 @@ def time_fold(mats, s0, kwargs) -> dict:
                              "did not take the compact route")
     ms = cuda_ms(lambda: K.maxplus_fold_kernel(mats, s0, **kwargs))
     dense_s0 = refused_s0(s0)
-    dense_ms = cuda_ms(lambda: K.maxplus_fold_kernel(mats, dense_s0,
-                                                     **kwargs))
+    dense_ms = cuda_ms(lambda: K.maxplus_fold_kernel(
+        mats, dense_s0, **kwargs)) if dense else None
     side = {k: kwargs.get(k) for k in ("gvec", "wvec")}
     values = {k: kwargs.get(k) for k in ("arrivals", "extras")}
     if values["arrivals"] is not None:
@@ -1787,6 +1821,310 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: request-level workloads — scheduling, faults and hedges through
+# the port's Simulator, K1 pricing the fault-extended arrival traces
+# ---------------------------------------------------------------------------
+
+
+def offered_stream(sim, n_requests: int, pages: int, seed: int):
+    """``poisson_stream`` offered at OFFERED_LOAD of the drive's own rate
+    for its mix, and that rate (ops/us): the stream lowered with zero
+    arrivals by the static stripe scheduler on ``engine="cuda"``, ops over
+    ``end_us``, as phase 6 sets its arrivals.  numpy draws the gaps as
+    standard exponentials times the mean, so the probe's classes are the
+    stream's whatever the mean (checked)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.workload import poisson_stream
+
+    def build(gap):
+        return poisson_stream(n_requests, gap, read_fraction=WL_READ_FRACTION,
+                              pages_per_request=pages, seed=seed)
+    probe = build(1.0)
+    burst = sim.run(dataclasses.replace(
+        probe, arrival_us=np.zeros(n_requests, np.float32)), engine="cuda")
+    rate = burst.n_ops / burst.end_us
+    stream = build(pages / (OFFERED_LOAD * rate))
+    if not np.array_equal(stream.op_cls, probe.op_cls):
+        raise AssertionError("the offered stream's mix differs from the "
+                             "probe's")
+    return stream, rate
+
+
+def percentiles(res) -> dict:
+    return {q: getattr(res, q) for q in ("p50_us", "p99_us", "p99_9_us")}
+
+
+def phase_workloads(device) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.api import (DYNAMIC_POLICIES, FaultSampler, FaultSpec,
+                                 Simulator)
+    from repro_torch.core import sched, workload
+    from repro_torch.core import sim as core_sim
+    from repro_torch.core.interface import InterfaceKind
+    from repro_torch.core.maxplus_form import StateLayout, end_time_from_state
+    from repro_torch.core.nand import CellType
+    from repro_torch.core.sim import SSDConfig
+    from repro_torch.core.trace import READ
+    from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.kernels.maxplus import ops as maxplus_ops
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+
+    t_phase = time.perf_counter()
+    cfg = SSDConfig(interface=InterfaceKind.PROPOSED, cell=CellType.SLC,
+                    channels=WL_CHANNELS, ways=WL_WAYS)
+    sim = Simulator(cfg, device=device)
+    cpu = Simulator(cfg, device="cpu")
+    layout = StateLayout(WL_CHANNELS, WL_WAYS)
+
+    # -- 9a: static stripe, faults and hedges ---------------------------
+    stream, rate = offered_stream(sim, WL_REQUESTS, WL_PAGES, WL_SEED)
+    spec = FaultSpec(**WL_STATIC_FAULTS)
+    # the host's share, each step timed apart as the query runs it
+    t0 = time.perf_counter()
+    hedged = workload.with_hedges(stream, spec.hedge_fraction,
+                                  after_us=spec.hedge_after_us or 0.0,
+                                  seed=spec.seed)
+    t1 = time.perf_counter()
+    low = sched.lower_static(hedged, WL_CHANNELS, WL_WAYS)
+    t2 = time.perf_counter()
+    faulty, _, sampler = sched.apply_faults(low.trace, spec, sim.table,
+                                            request_id=low.request_id)
+    t3 = time.perf_counter()
+    host = {"hedge_s": t1 - t0, "lower_s": t2 - t1, "faults_s": t3 - t2}
+    n_reads = int(np.sum(low.trace.cls == READ))
+    log(f"[9a] {cfg.describe()}: poisson_stream({WL_REQUESTS}, "
+        f"{float(stream.arrival_us[-1]) / (WL_REQUESTS - 1):.4f} us mean "
+        f"gap, read_fraction={WL_READ_FRACTION}, pages_per_request="
+        f"{WL_PAGES}) offered at {OFFERED_LOAD} of the drive's "
+        f"{rate:.4f} ops/us for the mix; {hedged.n_requests - WL_REQUESTS} "
+        f"hedges, {faulty.n_ops} ops after {sampler.n_remap_ops} remaps; "
+        f"host: hedging {host['hedge_s']:.3f} s, stripe lowering "
+        f"{host['lower_s']:.3f} s, fault sampling {host['faults_s']:.3f} s")
+
+    # the main path: counts reset just before, read just after
+    torch.cuda.synchronize()
+    rec = Recorder(maxplus_ops, "maxplus_fold_kernel")
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res_cuda = sim.run(stream, faults=spec, objective="all",
+                           engine="cuda")
+        torch.cuda.synchronize()
+        cuda_wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        rec.restore()
+    if not (launches["indexed"] >= 1
+            and launches["indexed/compact"] == launches["indexed"]
+            and launches["periodic"] == launches["many"] == 0):
+        raise AssertionError(f"the workload query on cuda launched "
+                             f"{launches}: K1 on the compact route expected")
+    mats, s0 = rec.args
+    kw = rec.kwargs
+    k1_out = K.maxplus_fold_kernel(mats, s0, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k1_plain = maxplus_fold_ref(mats, s0, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(k1_out, k1_plain):
+        raise AssertionError(
+            f"K1 != plain on the workload query's inputs (max abs "
+            f"{float((k1_out - k1_plain).abs().max())})")
+    k1_end = float(end_time_from_state(k1_out.cpu().numpy(), layout)[0])
+    if k1_end != res_cuda.end_us or res_cuda.request_lat_us is not None:
+        raise AssertionError(f"cuda query end {res_cuda.end_us} != its "
+                             f"first K1 launch's {k1_end}")
+    k1 = time_fold(mats, s0, kw, dense=False)
+    del k1_plain, k1["out"]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_scan = sim.run(stream, faults=spec, objective="all", engine="scan")
+    torch.cuda.synchronize()
+    scan_wall = time.perf_counter() - t0
+    n_ops = res_scan.n_ops
+    drift = rel(res_scan.end_us, res_cuda.end_us)
+    e_err = max(rel(getattr(res_scan.energy, f), getattr(res_cuda.energy, f))
+                for f in ENERGY_FIELDS)
+    if not (n_ops == res_cuda.n_ops == faulty.n_ops
+            and drift <= n_ops * F32_DRIFT_PER_OP and e_err <= ENERGY_TOL):
+        raise AssertionError(f"scan vs cuda on the workload: {n_ops} / "
+                             f"{res_cuda.n_ops} ops, end {drift:.2e} (bar "
+                             f"{n_ops * F32_DRIFT_PER_OP:.2e}), energy "
+                             f"{e_err:.2e}")
+    for r in (res_scan, res_cuda):
+        if not (r.n_remap_ops == sampler.n_remap_ops > 0
+                and int(r.retry_hist.sum()) == n_reads
+                and np.array_equal(r.retry_hist, sampler.retry_hist)):
+            raise AssertionError(f"[{r.engine}] n_remap_ops {r.n_remap_ops},"
+                                 f" retry_hist {r.retry_hist} over "
+                                 f"{n_reads} reads")
+    lat = res_scan.request_lat_us
+    if not (len(lat) == WL_REQUESTS and np.all(np.isfinite(lat))
+            and np.all(lat > 0)):
+        raise AssertionError("scan's request latencies malformed")
+    t0 = time.perf_counter()
+    res_oracle = sim.run(stream, faults=spec, engine="oracle")
+    oracle_wall = time.perf_counter() - t0
+    pct, pct_oracle = percentiles(res_scan), percentiles(res_oracle)
+    pct_err = max(rel(pct[q], pct_oracle[q]) for q in pct)
+    if pct_err > PERCENTILE_TOL:
+        raise AssertionError(f"scan vs oracle percentiles: {pct} vs "
+                             f"{pct_oracle}")
+    prefix = dataclasses.replace(stream, **{
+        f: getattr(stream, f)[:WL_PREFIX]
+        for f in ("arrival_us", "op_cls", "n_pages", "stream")})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_card = sim.run(prefix, faults=spec)
+    torch.cuda.synchronize()
+    prefix_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre_cpu = cpu.run(prefix, faults=spec)
+    prefix_cpu_wall = time.perf_counter() - t0
+    if not (pre_card.end_us == pre_cpu.end_us and np.array_equal(
+            pre_card.request_lat_us, pre_cpu.request_lat_us)):
+        raise AssertionError(f"scan on the card != the CPU on the "
+                             f"{WL_PREFIX}-request prefix")
+    log(f"[9a] Simulator.run(stream, faults, objective='all'): cuda "
+        f"{cuda_wall:.2f} s wall ({n_ops / cuda_wall:.0f} ops/s; K1 "
+        f"{launches['indexed']} launches, all on the compact route), scan "
+        f"{scan_wall:.1f} s ({n_ops / scan_wall:.0f} ops/s: the completions "
+        f"and the energy folds), oracle {oracle_wall:.1f} s; scan vs cuda "
+        f"end {drift:.2e} (< T*2^-24 = {n_ops * F32_DRIFT_PER_OP:.2e}), "
+        f"energy {e_err:.2e} (< {ENERGY_TOL}); scan vs oracle percentiles "
+        f"{pct_err:.2e} (< {PERCENTILE_TOL}); {res_scan.describe()}")
+    log(f"[9a] p50 / p99 / p99.9 {pct['p50_us']:.2f} / {pct['p99_us']:.2f}"
+        f" / {pct['p99_9_us']:.2f} us; retry_hist "
+        f"{res_scan.retry_hist.tolist()} over {n_reads} reads; n_remap_ops "
+        f"{res_scan.n_remap_ops}; {WL_PREFIX}-request prefix "
+        f"({pre_card.n_ops} ops): card {prefix_wall:.2f} s, CPU "
+        f"{prefix_cpu_wall:.2f} s, latencies bit-equal")
+    log(f"[9a] first K1 launch of the query (B={mats.shape[0]} "
+        f"M={mats.shape[1]} N={mats.shape[2]} T={kw['t_steps']}, arrivals "
+        f"and surcharges) bit-equal to maxplus_fold_ref on the card (plain "
+        f"{plain_s:.1f} s), its end time the query's: compact route "
+        f"{k1['ms']:.3f} ms (pre-pass {k1['prepass_ms']:.3f} ms, fold alone "
+        f"{k1['fold_ms']:.3f} ms, {k1['ns_per_step']:.1f} ns a step; host "
+        f"wall of one call {k1['host_ms']:.3f} ms); bound "
+        f"{k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']}; the dense count "
+        f"{k1['bound_ms_dense_count']:.4f} ms)")
+
+    # -- 9b: dynamic dispatch with retired ways -------------------------
+    stream_b, rate_b = offered_stream(sim, WL_DYN_REQUESTS, WL_DYN_PAGES,
+                                      WL_DYN_SEED)
+    spec_b = FaultSpec(**WL_DYN_FAULTS)
+    t0 = time.perf_counter()
+    cls, _, _, _ = workload.request_ops(stream_b)
+    t1 = time.perf_counter()
+    smp = FaultSampler(spec_b, WL_CHANNELS, WL_WAYS, sim.table)
+    smp.sample(cls)
+    host_b = {"expand_s": t1 - t0, "faults_s": time.perf_counter() - t1}
+    if not smp.retired.any():
+        raise AssertionError("9b's fault spec retired no way")
+    captured = []
+    real = core_sim.dispatch_trace
+
+    def capture(*a, **k):
+        out = real(*a, **k)
+        captured.append(out)
+        return out
+    dyn = {}
+    core_sim.dispatch_trace = capture
+    try:
+        for rule in DYNAMIC_POLICIES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = sim.run(stream_b, sched_policy=rule, faults=spec_b,
+                           objective="all")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            host_res = cpu.run(stream_b, sched_policy=rule, faults=spec_b,
+                               objective="all")
+            dyn[rule] = {"card": card, "cpu": host_res, "wall_s": wall,
+                         "cpu_wall_s": time.perf_counter() - t0}
+    finally:
+        core_sim.dispatch_trace = real
+    if len(captured) != 2 * len(DYNAMIC_POLICIES):
+        raise AssertionError(f"{len(captured)} dispatch folds recorded")
+    for i, rule in enumerate(DYNAMIC_POLICIES):
+        on_card, on_cpu = captured[2 * i], captured[2 * i + 1]
+        if (on_card[1].device.type != sim.device.type
+                or on_cpu[1].device.type != "cpu"):
+            raise AssertionError(f"{rule}: the dispatch folds ran on "
+                                 f"{on_card[1].device} / {on_cpu[1].device}")
+        for name, a, b in zip(("end", "completions", "channels", "ways",
+                               "parities"), on_card, on_cpu):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{rule}: {name} on the card != CPU")
+        chan, way = on_cpu[2].numpy(), on_cpu[3].numpy()
+        if smp.retired[chan, way].any():
+            raise AssertionError(f"{rule} placed an op on a retired way")
+        r, h = dyn[rule]["card"], dyn[rule]["cpu"]
+        if not (r.end_us == h.end_us and np.array_equal(
+                r.request_lat_us, h.request_lat_us)
+                and r.energy.total_j == h.energy.total_j
+                and r.n_remap_ops == h.n_remap_ops > 0
+                and np.array_equal(r.retry_hist, h.retry_hist)):
+            raise AssertionError(f"{rule}: the card's result != the CPU's")
+        dyn[rule]["n_ops"] = r.n_ops
+        dyn[rule]["pct"] = percentiles(r)
+        log(f"[9b] {rule}: {r.n_ops} ops on the card in "
+            f"{dyn[rule]['wall_s']:.2f} s ({r.n_ops / dyn[rule]['wall_s']:.0f}"
+            f" ops/s), on the CPU {dyn[rule]['cpu_wall_s']:.2f} s; "
+            f"placements, parities, completions and latencies bit-equal, "
+            f"no op on the {int(smp.retired.sum())} retired ways; p50 / p99 "
+            f"/ p99.9 {r.p50_us:.2f} / {r.p99_us:.2f} / {r.p99_9_us:.2f} us; "
+            f"retry_hist {r.retry_hist.tolist()}; n_remap_ops "
+            f"{r.n_remap_ops}; {r.describe()}")
+    # the rules against each other: where every chosen chip is idle when
+    # its channel's bus frees, the way does not move a completion
+    (_, c_ll, ch_ll, w_ll, _), (_, c_er, ch_er, w_er, _) = (
+        captured[2 * i + 1] for i in range(2))
+    rules_apart = {"channel": int((ch_ll != ch_er).sum()),
+                   "way": int((w_ll != w_er).sum()),
+                   "completion": int((c_ll != c_er).sum())}
+    log(f"[9b] least_loaded vs earliest_ready: of {len(c_ll)} ops, "
+        f"{rules_apart['channel']} on another channel, {rules_apart['way']} "
+        f"on another way, {rules_apart['completion']} with another "
+        f"completion")
+    log(f"[9b] poisson_stream({WL_DYN_REQUESTS}, pages_per_request="
+        f"{WL_DYN_PAGES}) offered at {OFFERED_LOAD} of {rate_b:.4f} ops/us; "
+        f"host: request expansion {host_b['expand_s']:.3f} s, fault "
+        f"sampling {host_b['faults_s']:.3f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"[9] request-level workloads in {seconds:.1f} s")
+    return {"launches": launches, "k1": k1, "seconds": seconds,
+            "rate_ops_per_us": rate, "n_ops": n_ops, "host": host,
+            "cuda_wall_s": cuda_wall, "scan_wall_s": scan_wall,
+            "oracle_wall_s": oracle_wall, "plain_s": plain_s,
+            "scan_ops_per_s": n_ops / scan_wall,
+            "percentiles": pct, "percentiles_oracle": pct_oracle,
+            "retry_hist": res_scan.retry_hist.tolist(),
+            "n_remap_ops": res_scan.n_remap_ops,
+            "end_us": {"cuda": res_cuda.end_us, "scan": res_scan.end_us},
+            "prefix_wall_s": [prefix_wall, prefix_cpu_wall],
+            "dynamic": {
+                rule: {"wall_s": d["wall_s"], "cpu_wall_s": d["cpu_wall_s"],
+                       "n_ops": d["n_ops"], "percentiles": d["pct"],
+                       "ops_per_s": d["n_ops"] / d["wall_s"],
+                       "retry_hist": d["card"].retry_hist.tolist(),
+                       "n_remap_ops": d["card"].n_remap_ops}
+                for rule, d in dyn.items()},
+            "dynamic_rate_ops_per_us": rate_b, "dynamic_host": host_b,
+            "rules_apart": rules_apart,
+            "retired_ways": int(smp.retired.sum())}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2026,6 +2364,12 @@ def main() -> int:
     lm_small = phase_lm_small(dev)
     lm = phase_lm_serve(dev, built[1][1], built[2][1])
 
+    # -- 9: request-level workloads; K1's main path grows by its launches
+    wl = phase_workloads(dev)
+    phase9_launches = wl.pop("launches")
+    for key, n_wl in phase9_launches.items():
+        launches[key] += n_wl
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -2041,7 +2385,7 @@ def main() -> int:
         "fleet": {k: v for k, v in fleet.items() if k not in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "routes")},
-        "streams": streams,
+        "streams": streams, "workloads": wl,
         "lm": {**lm_small, **{k: v for k, v in lm.items()
                               if k not in ("k4", "k5")}},
         "seconds": time.perf_counter() - t_start,
@@ -2061,7 +2405,9 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "maxplus_fold (trace-indexed, K1)", **common,
          "replaces": "src/repro/kernels/maxplus/kernel.py:426",
-         "launches": launches["indexed"], "max_abs_err": real_err,
+         "launches": launches["indexed"],
+         "phase9_launches": phase9_launches["indexed"],
+         "max_abs_err": real_err,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "routes": routes("indexed", sweep_t, real_err),
          "bound_ms_dense_count": sweep_t["bound_ms_dense_count"]},

@@ -19,6 +19,17 @@ Quickstart::
     res = sim.run_stream(mixed_trace_chunks(1 << 18, 4, 8, 0.7,
                                             chunk_len=1 << 15))
 
+Latency under load and reliability (request-level workloads)::
+
+    from repro_torch.api import FaultSpec, poisson_stream
+
+    load = poisson_stream(512, mean_interarrival_us=40.0, seed=0)
+    res = sim.run(load, sched_policy="least_loaded")   # dynamic dispatch
+    print(res.p50_us, res.p99_us)
+    worn = FaultSpec(wear=0.8, hedge_fraction=0.3, seed=7)
+    res = sim.run(load, faults=worn)            # retries, remaps, hedges
+    print(res.p99_9_us, res.n_remap_ops, res.retry_hist)
+
 Engine names follow the JAX package's ``repro.api`` except that its
 ``pallas`` engine is ``cuda`` here.
 """
@@ -32,23 +43,49 @@ from repro_torch.core.api import (CapabilityError, Engine, EngineCaps,
                                   steady_channel_bandwidth_mb_s,
                                   sweep_steady_bandwidth_mb_s, sweep_tables)
 from repro_torch.core.energy import EnergyBreakdown
+from repro_torch.core.faults import FaultSampler, FaultSpec
 from repro_torch.core.interface import InterfaceKind
 from repro_torch.core.nand import CellType
-from repro_torch.core.sim import SSDConfig
-from repro_torch.core.trace import (OpClassTable, OpTrace,
+from repro_torch.core.sched import (DYNAMIC_POLICIES, LoweredWorkload,
+                                    SCHED_POLICIES, STATIC_POLICIES,
+                                    apply_faults, lower_ops, lower_ops_chunk,
+                                    lower_static, policy_is_dynamic)
+from repro_torch.core.sim import PageOpParams, SSDConfig
+from repro_torch.core.trace import (READ, WRITE, OpClassTable, OpTrace,
                                     from_reference_table, hot_cold_trace,
                                     iter_trace_chunks, mixed_trace,
                                     mixed_trace_chunks, op_class_table,
                                     steady_trace)
+from repro_torch.core.workload import (RequestStream, aging_stream,
+                                       build_workload, bursty_stream,
+                                       checkpoint_requests,
+                                       closed_loop_stream, datapipe_requests,
+                                       iter_request_chunks,
+                                       kvoffload_requests, multi_tenant,
+                                       overwrite_stream, poisson_stream,
+                                       request_lpns, with_hedges)
 
 __all__ = [
-    "CapabilityError", "CellType", "Engine", "EngineCaps", "EnergyBreakdown",
-    "InterfaceKind", "OBJECTIVES", "Objective", "OpClassTable", "OpTrace",
-    "Policy", "SSDConfig", "SimRequest", "SimResult", "Simulator",
-    "UNPORTED_ENGINES", "engine_capabilities", "from_reference_table",
-    "get_engine", "hot_cold_trace", "iter_trace_chunks", "mixed_trace",
-    "mixed_trace_chunks", "op_class_table", "register_engine",
+    # the session API proper
+    "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
+    "Policy", "SimRequest", "SimResult", "Simulator", "UNPORTED_ENGINES",
+    "engine_capabilities", "get_engine", "register_engine",
     "registered_engines", "simulator_for", "steady_bandwidth_mb_s",
-    "steady_channel_bandwidth_mb_s", "steady_trace",
-    "sweep_steady_bandwidth_mb_s", "sweep_tables",
+    "steady_channel_bandwidth_mb_s", "sweep_steady_bandwidth_mb_s",
+    "sweep_tables",
+    # the request-level workload + scheduler layer
+    "DYNAMIC_POLICIES", "LoweredWorkload", "RequestStream",
+    "SCHED_POLICIES", "STATIC_POLICIES", "aging_stream", "build_workload",
+    "bursty_stream", "checkpoint_requests", "closed_loop_stream",
+    "datapipe_requests", "iter_request_chunks", "kvoffload_requests",
+    "lower_ops", "lower_ops_chunk", "lower_static", "multi_tenant",
+    "overwrite_stream", "poisson_stream", "policy_is_dynamic",
+    "request_lpns",
+    # the reliability layer
+    "FaultSampler", "FaultSpec", "apply_faults", "with_hedges",
+    # the types a request/result is made of, and the trace builders
+    "CellType", "EnergyBreakdown", "InterfaceKind", "OpClassTable",
+    "OpTrace", "PageOpParams", "READ", "SSDConfig", "WRITE",
+    "from_reference_table", "hot_cold_trace", "iter_trace_chunks",
+    "mixed_trace", "mixed_trace_chunks", "op_class_table", "steady_trace",
 ]

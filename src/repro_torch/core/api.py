@@ -31,6 +31,17 @@ surface over every simulation engine.
   :class:`SimResult` (end_us, per-channel bus occupancy, MB/s, optional
   ``EnergyBreakdown``) out, for every engine.
 
+* **request-level workloads** (DESIGN.md §2.6, §2.8) — a ``SimRequest``
+  may carry a placement-free ``repro_torch.core.workload.RequestStream``
+  plus a ``sched_policy`` and a ``FaultSpec``: static policies lower
+  offline through ``repro_torch.core.sched`` and reach every engine;
+  dynamic policies need the ``dispatch`` capability (``scan``) and run
+  the joint dispatch+simulate fold on the session's device.  Engines that
+  emit per-op completions (``scan``, ``oracle``, ``streaming``) attach
+  per-request latencies (``SimResult.p50_us`` / ``p99_us`` /
+  ``p99_9_us``); the (max,+) ``cuda`` engine answers makespan and energy
+  only, as the JAX package's ``pallas`` does.
+
 * the **fleet and fan-out paths** — :meth:`Simulator.run_many` (many
   traces, one design point: the ``scan`` engine steps each length bucket
   as lanes of one masked fold, the ``cuda`` engine makes one many-trace
@@ -40,9 +51,8 @@ surface over every simulation engine.
   points) and :meth:`Simulator.run_stream` (a trace as chunks).
 
 Request fields whose part of the system is not ported yet raise
-:class:`CapabilityError` naming the slice that brings it: ``workload``,
-``sched_policy`` and ``faults`` (slice B), ``ftl`` (slice E), and the
-engines ``prefix`` and ``squaring`` (slice C).  Traces that already
+:class:`CapabilityError` naming the slice that brings it: ``ftl`` (slice
+E), and the engines ``prefix`` and ``squaring`` (slice C).  Traces that
 carry ``arrival_us`` / ``extra_us`` are served by every engine here,
 since each folds them.
 """
@@ -51,21 +61,28 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Literal, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
+from repro_torch.core import sched as _sched
 from repro_torch.core import sim as _sim
 from repro_torch.core import trace as _trace
+from repro_torch.core import workload as _workload
 from repro_torch.core.energy import (EnergyBreakdown, breakdown_from_sums,
                                      op_phase_energy_uj)
+from repro_torch.core.faults import FaultSampler, FaultSpec
 from repro_torch.core.interface import InterfaceKind
+from repro_torch.core.sched import LoweredWorkload
 from repro_torch.core.sim import (PageOpParams, Policy, SSDConfig,
                                   policy_is_batched)
-from repro_torch.core.sim_ref import (simulate_trace_energy_ref,
+from repro_torch.core.sim_ref import (simulate_trace_completions_ref,
+                                      simulate_trace_energy_ref,
                                       simulate_trace_ref)
 from repro_torch.core.trace import OpClassTable, OpTrace, op_class_table
+from repro_torch.core.workload import RequestStream, request_ops
 from repro_torch.device import resolve_device
 from repro_torch.kernels.maxplus.ops import (run_many_end_time_maxplus,
                                              trace_end_time_maxplus,
@@ -100,9 +117,12 @@ class EngineCaps:
     name: str
     batched_tables: bool  # one trace x stacked design-point tables
     energy: bool          # phase-resolved energy accumulation
+    arrivals: bool = False  # arrival-aware traces (request workloads)
+    dispatch: bool = False  # joint dispatch+simulate (dynamic sched policies)
 
     def describe(self) -> str:
-        flags = [k for k in ("batched_tables", "energy") if getattr(self, k)]
+        flags = [k for k in ("batched_tables", "energy", "arrivals",
+                             "dispatch") if getattr(self, k)]
         return f"{self.name}: {', '.join(flags) or 'none'}"
 
 
@@ -124,7 +144,8 @@ class Engine(Protocol):
 _REGISTRY: dict[str, Engine] = {}
 
 
-def register_engine(name: str, *, batched_tables: bool, energy: bool):
+def register_engine(name: str, *, batched_tables: bool, energy: bool,
+                    arrivals: bool = False, dispatch: bool = False):
     """Class decorator: instantiate and register an engine under ``name``
     with its declared capability row.  Names are unique."""
 
@@ -133,7 +154,8 @@ def register_engine(name: str, *, batched_tables: bool, energy: bool):
             raise ValueError(f"engine {name!r} is already registered")
         inst = cls()
         inst.caps = EngineCaps(name=name, batched_tables=batched_tables,
-                               energy=energy)
+                               energy=energy, arrivals=arrivals,
+                               dispatch=dispatch)
         _REGISTRY[name] = inst
         return cls
 
@@ -174,6 +196,29 @@ def _bucket_len(n: int, floor: int = 64) -> int:
     """Trace lengths round up to power-of-two buckets; ``run_many``'s
     scan path steps the traces of one bucket together."""
     return max(floor, 1 << max(0, (n - 1).bit_length()))
+
+
+def _payload_latencies(lowered: LoweredWorkload, completion_us,
+                       stream: RequestStream) -> np.ndarray:
+    """Per-request latencies restricted to *payload* requests: hedged
+    duplicates are transport, not requests — a duplicate queueing
+    behind its primary must not inflate the reported tail.  When the
+    stream links duplicates to their primaries (``hedge_of``, the
+    ``with_hedges`` builder), the first response wins: the primary is
+    credited with ``min(own done, duplicate done)`` (DESIGN.md §2.8).
+    Unlinked legacy duplicates keep the conservative bound (the
+    primary's own completion)."""
+    comp = np.asarray(completion_us, np.float64)
+    done = np.zeros(len(lowered.request_arrival_us), np.float64)
+    np.maximum.at(done, lowered.request_id, comp)
+    if stream.hedge_of is not None:
+        h = np.asarray(stream.hedge_of, np.int64)
+        link = h >= 0
+        if link.any():
+            np.minimum.at(done, h[link], done[link])
+    lat = done - np.asarray(lowered.request_arrival_us, np.float64)
+    pay = stream.payload_mask()
+    return lat if pay.all() else lat[pay]
 
 
 def _op_arrivals(trace: OpTrace) -> np.ndarray:
@@ -246,8 +291,27 @@ class _EngineBase:
                      batched: bool, device) -> np.ndarray:
         self._unsupported("homogeneous design-point sweeps", "sweep_steady")
 
+    def completions(self, sim: "Simulator", trace: OpTrace, *,
+                    batched: bool, segment_len: int | None = None
+                    ) -> tuple[float, np.ndarray]:
+        """(end_us, [T] per-op completion times) — what request-latency
+        percentiles are computed from.  ``segment_len`` is the chunk
+        length for chunked engines (others ignore it)."""
+        self._unsupported("per-op completion times", "completions")
 
-@register_engine("scan", batched_tables=True, energy=True)
+    def dispatch_run(self, sim: "Simulator", cls, arrival_us, *,
+                     n_channels: int, n_ways: int, rule: str,
+                     extra_us=None, retired=None):
+        """Joint dispatch+simulate under a dynamic sched policy; returns
+        (end_us, completion[T], channel[T], way[T], parity[T]).
+        ``extra_us`` / ``retired`` are the reliability-layer inputs:
+        per-op surcharges and the bad-block mask the dispatch rule must
+        never place an op on (DESIGN.md §2.8)."""
+        self._unsupported("dynamic dispatch policies", "dispatch_run")
+
+
+@register_engine("scan", batched_tables=True, energy=True, arrivals=True,
+                 dispatch=True)
 class ScanEngine(_EngineBase):
     """O(T) step loop over device state tensors — the default engine."""
 
@@ -255,6 +319,20 @@ class ScanEngine(_EngineBase):
         return float(_sim.trace_end_time(
             *sim._targs, *_trace_arrays(trace), n_channels=trace.channels,
             batched=batched))
+
+    def completions(self, sim, trace, *, batched, segment_len=None):
+        end, comp = _sim.trace_completions(
+            *sim._targs, *_trace_arrays(trace), n_channels=trace.channels,
+            batched=batched)
+        return float(end), comp.cpu().numpy().astype(np.float64)
+
+    def dispatch_run(self, sim, cls, arrival_us, *, n_channels, n_ways,
+                     rule, extra_us=None, retired=None):
+        end, comp, chan, way, par = _sim.dispatch_trace(
+            *sim._targs, cls, arrival_us, n_channels=n_channels,
+            n_ways=n_ways, rule=rule, extra_us=extra_us, retired=retired)
+        return (float(end), comp.cpu().numpy().astype(np.float64),
+                chan.cpu().numpy(), way.cpu().numpy(), par.cpu().numpy())
 
     def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
         end, sums = _sim.trace_end_time_energy(
@@ -286,7 +364,7 @@ class ScanEngine(_EngineBase):
                                 batched=batched, device=device).cpu().numpy()
 
 
-@register_engine("cuda", batched_tables=True, energy=True)
+@register_engine("cuda", batched_tables=True, energy=True, arrivals=True)
 class CudaEngine(_EngineBase):
     """The (max,+) matrix fold on the hand-written CUDA kernel (the JAX
     package's ``pallas`` engine).  The step-matrix dictionary is built on
@@ -309,7 +387,7 @@ class CudaEngine(_EngineBase):
             device=device))
 
 
-@register_engine("oracle", batched_tables=False, energy=True)
+@register_engine("oracle", batched_tables=False, energy=True, arrivals=True)
 class OracleEngine(_EngineBase):
     """The plain-Python event loop (``repro_torch.core.sim_ref``) — the
     test oracle, first-class behind the same request surface.  It runs
@@ -319,13 +397,19 @@ class OracleEngine(_EngineBase):
         return float(simulate_trace_ref(sim.table, trace,
                                         _policy_name(batched)))
 
+    def completions(self, sim, trace, *, batched, segment_len=None):
+        end, comp = simulate_trace_completions_ref(
+            sim.table, trace, _policy_name(batched))
+        return float(end), comp
+
     def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
         end, sums = simulate_trace_energy_ref(
             sim.table, trace, kind, _policy_name(batched))
         return float(end), np.asarray(sums, np.float64)
 
 
-@register_engine("streaming", batched_tables=False, energy=True)
+@register_engine("streaming", batched_tables=False, energy=True,
+                 arrivals=True)
 class StreamingEngine(_EngineBase):
     """Constant-memory chunked fold: the trace streams through
     ``sim.trace_chunk_fold`` chunk by chunk, with the occupancy state and
@@ -333,15 +417,16 @@ class StreamingEngine(_EngineBase):
     the scan engine's step, so any chunking reproduces ``scan`` bit for
     bit while the host holds one chunk at a time.  ``segment_len`` is
     the chunk length; :meth:`Simulator.run_stream` feeds this engine
-    chunk iterators that never materialise the trace.  Per-op
-    completions wait for the request layer (slice B)."""
+    chunk iterators that never materialise the trace."""
 
-    def _fold(self, sim, chunks, *, batched, kind=None):
+    def _fold(self, sim, chunks, *, batched, kind=None, want_comp=False):
         """Fold an iterator of ``OpTrace`` chunks; returns ``(end_us, [P]
-        energy sums, channels)``."""
+        energy sums, comp list | None, channels)``, the list holding each
+        chunk's per-op completions with ``want_comp``."""
         e_tab = None if kind is None else sim._energy_table(kind)
         carry = None
         channels = None
+        comps = [] if want_comp else None
         end = None
         for chunk in chunks:
             if chunk.n_ops == 0:
@@ -355,26 +440,37 @@ class StreamingEngine(_EngineBase):
                 raise ValueError(
                     f"streaming chunks switched geometry mid-stream: "
                     f"{chunk.channels} channels after {channels}")
-            state, acc, end = _sim.trace_chunk_fold(
+            state, acc, end, comp = _sim.trace_chunk_fold(
                 *sim._targs, e_tab, *_trace_arrays(chunk), *carry[0],
-                carry[1], n_channels=channels, batched=batched)
+                carry[1], n_channels=channels, batched=batched,
+                want_comp=want_comp)
             carry = (state, acc)
+            if want_comp:
+                comps.append(comp)
         if channels is None:
             raise ValueError("empty trace: no ops to simulate")
+        if want_comp:
+            comps = [c.cpu().numpy().astype(np.float64) for c in comps]
         return (float(end), carry[1].cpu().numpy().astype(np.float64),
-                channels)
+                comps, channels)
 
     def end_time(self, sim, trace, *, batched, segment_len=None):
-        end, _, _ = self._fold(
+        end, _, _, _ = self._fold(
             sim, _trace.iter_trace_chunks(trace, segment_len or 64),
             batched=batched)
         return end
 
     def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
-        end, sums, _ = self._fold(
+        end, sums, _, _ = self._fold(
             sim, _trace.iter_trace_chunks(trace, segment_len or 64),
             batched=batched, kind=kind)
         return end, sums
+
+    def completions(self, sim, trace, *, batched, segment_len=None):
+        end, _, comps, _ = self._fold(
+            sim, _trace.iter_trace_chunks(trace, segment_len or 64),
+            batched=batched, want_comp=True)
+        return end, np.concatenate(comps)
 
 
 # ---------------------------------------------------------------------------
@@ -385,30 +481,54 @@ class StreamingEngine(_EngineBase):
 @dataclasses.dataclass(frozen=True)
 class SimRequest:
     """One simulation query, validated once at construction: the policy
-    literal, the objective and the engine name.  ``workload``,
-    ``sched_policy``, ``faults`` and ``ftl`` mirror the JAX package's
-    request and raise :class:`CapabilityError` until their slices land."""
+    literals (issue *and* scheduler), the objective and the engine name.
+
+    Exactly one of ``trace`` (placed ops) or ``workload`` (a
+    placement-free ``RequestStream``) must be given.  A workload query
+    also accepts ``sched_policy``: static policies lower offline to a
+    trace any engine can evaluate; dynamic policies need an engine with
+    the ``dispatch`` capability and produce per-request latencies.
+
+    ``faults`` attaches a :class:`repro_torch.core.faults.FaultSpec`
+    (DESIGN.md §2.8): read-retry/jitter surcharges and program-fault
+    remap ops are sampled once, host-side, and rewritten into the placed
+    trace before the engine fold.  On workload queries a spec with
+    ``hedge_fraction > 0`` also hedges the stream
+    (``workload.with_hedges``) before lowering; a bare-trace query has
+    no requests to hedge.  ``ftl`` mirrors the JAX package's request and
+    raises :class:`CapabilityError` until slice E lands."""
 
     trace: OpTrace | None = None
     policy: Policy | None = None        # None -> the session's default
     objective: Objective = "end_time"
     engine: str | None = None           # None -> "scan"
     segment_len: int | None = 64        # streaming-engine chunk length
-    workload: object | None = None      # slice B
-    sched_policy: str | None = None     # slice B
-    faults: object | None = None        # slice B
+    workload: RequestStream | None = None
+    sched_policy: str | None = None     # None -> "stripe" (workload only)
+    faults: FaultSpec | None = None     # None -> fault-free
     ftl: object | None = None           # slice E
 
     def __post_init__(self):
-        for field, slice_ in (("workload", "slice B"),
-                              ("sched_policy", "slice B"),
-                              ("faults", "slice B"), ("ftl", "slice E")):
-            if getattr(self, field) is not None:
-                raise CapabilityError(
-                    f"SimRequest.{field} is not ported yet (it lands with "
-                    f"{slice_})")
-        if self.trace is None:
-            raise ValueError("SimRequest needs trace=")
+        if self.ftl is not None:
+            raise CapabilityError("SimRequest.ftl is not ported yet (it "
+                                  "lands with slice E)")
+        if (self.trace is None) == (self.workload is None):
+            raise ValueError("SimRequest needs exactly one of trace= or "
+                             "workload=")
+        if self.sched_policy is not None:
+            if self.workload is None:
+                raise ValueError("sched_policy applies to workload "
+                                 "requests (the trace is already placed)")
+            _sched.policy_is_dynamic(self.sched_policy)   # validates
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultSpec):
+            raise ValueError(
+                f"faults= takes a FaultSpec, got {type(self.faults).__name__}")
+        if (self.faults is not None and self.trace is not None
+                and self.trace.extra_us is not None):
+            raise ValueError(
+                "trace already carries extra_us — faults were already "
+                "applied (attach the FaultSpec OR pre-apply, not both)")
         if self.policy is not None:
             policy_is_batched(self.policy)
         if self.objective not in OBJECTIVES:
@@ -422,7 +542,19 @@ class SimRequest:
 class SimResult:
     """One simulation answer — the same shape for every engine and
     objective.  ``energy`` is populated for objective "energy"/"all";
-    ``mb_s`` is user-payload bandwidth (None for payload-free traces)."""
+    ``mb_s`` is user-payload bandwidth (None for payload-free traces).
+    Workload queries additionally carry per-request latencies when the
+    serving engine emits per-op completions (scan / oracle / streaming /
+    every dynamic dispatch; the (max,+) ``cuda`` engine answers makespan
+    only and leaves them None).  Fault-injected queries carry the
+    sampled ``retry_hist`` (retry-count histogram over read ops) and
+    ``n_remap_ops`` (program-fault remap writes inserted).
+
+    Percentile properties are guarded: a pN on fewer than
+    ``100 / (100 - N)`` requests (e.g. p99 on < 100, p99.9 on < 1000)
+    is below the percentile resolution — it clamps to the max observed
+    latency and emits a ``RuntimeWarning``; an empty latency stream
+    answers NaN."""
 
     end_us: float
     mb_s: float | None
@@ -431,17 +563,56 @@ class SimResult:
     engine: str
     n_ops: int
     payload_bytes: int
+    request_lat_us: np.ndarray | None = None   # [R] per-request latency
+    sched_policy: str | None = None            # workload queries only
+    retry_hist: np.ndarray | None = None       # [max_retries+1] counts
+    n_remap_ops: int = 0                       # program-fault remap writes
 
     @property
     def channel_occupancy(self) -> np.ndarray:
         """Per-channel bus busy fraction of the makespan."""
         return self.channel_busy_us / max(self.end_us, 1e-30)
 
+    def _latency_percentile(self, q: float) -> float | None:
+        """Guarded percentile (see class docstring)."""
+        if self.request_lat_us is None:
+            return None
+        lat = np.asarray(self.request_lat_us, np.float64)
+        if lat.size == 0:
+            return float("nan")
+        # resolving pN needs >= 100/(100-N) samples: below that the
+        # order statistic for the tail does not exist yet
+        if lat.size * (100.0 - q) < 100.0:
+            warnings.warn(
+                f"p{q:g} on {lat.size} request(s) is below the percentile "
+                "resolution — clamping to the max observed latency",
+                RuntimeWarning, stacklevel=3)
+            return float(np.max(lat))
+        return float(np.percentile(lat, q))
+
+    @property
+    def p50_us(self) -> float | None:
+        """Median request latency (workload queries with completions)."""
+        return self._latency_percentile(50)
+
+    @property
+    def p99_us(self) -> float | None:
+        """99th-percentile request latency."""
+        return self._latency_percentile(99)
+
+    @property
+    def p99_9_us(self) -> float | None:
+        """99.9th-percentile request latency — the retry-storm tail the
+        reliability layer exists to measure (DESIGN.md §2.8)."""
+        return self._latency_percentile(99.9)
+
     def describe(self) -> str:
         occ = "/".join(f"{x:.2f}" for x in self.channel_occupancy)
         bw = f"{self.mb_s:.1f} MB/s" if self.mb_s is not None else "no payload"
+        lat = ("" if self.request_lat_us is None else
+               f", p50/p99 {self.p50_us:.0f}/{self.p99_us:.0f} us")
         return (f"[{self.engine}] {self.n_ops} ops in "
-                f"{self.end_us / 1e3:.2f} ms, {bw}, occ {occ}")
+                f"{self.end_us / 1e3:.2f} ms, {bw}, occ {occ}{lat}")
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +666,7 @@ class Simulator:
 
     # -- queries ------------------------------------------------------------
 
-    def _resolve(self, request: SimRequest):
+    def _resolve(self, request: SimRequest, trace: OpTrace | None = None):
         policy = request.policy or self.default_policy
         batched = policy_is_batched(policy)
         eng = get_engine(request.engine or "scan")
@@ -507,10 +678,30 @@ class Simulator:
                 raise ValueError(
                     "energy query on a Simulator with no interface kind "
                     "(pass kind= or bind an SSDConfig)")
+        if (trace is not None and trace.arrival_us is not None
+                and np.any(trace.arrival_us > 0) and not eng.caps.arrivals):
+            okay = ", ".join(n for n in registered_engines()
+                             if _REGISTRY[n].caps.arrivals)
+            raise CapabilityError(
+                f"engine {eng.caps.name!r} cannot consume arrival-aware "
+                f"traces (engines that can: {okay})")
+        # faults ride the same per-op side-channel machinery as arrivals,
+        # so the capability row is shared
+        if ((request.faults is not None and not request.faults.is_zero
+             or trace is not None and trace.extra_us is not None
+             and np.any(trace.extra_us > 0)) and not eng.caps.arrivals):
+            okay = ", ".join(n for n in registered_engines()
+                             if _REGISTRY[n].caps.arrivals)
+            raise CapabilityError(
+                f"engine {eng.caps.name!r} cannot consume fault-extended "
+                f"traces (engines that can: {okay})")
         return eng, batched
 
     def _result(self, trace: OpTrace, end_us: float, engine: str,
-                energy: EnergyBreakdown | None) -> SimResult:
+                energy: EnergyBreakdown | None,
+                request_lat_us: np.ndarray | None = None,
+                sched_policy: str | None = None,
+                sampler: FaultSampler | None = None) -> SimResult:
         table = self.table
         payload = trace.total_bytes(table)
         busy = np.bincount(
@@ -522,7 +713,11 @@ class Simulator:
             end_us=end_us,
             mb_s=(payload / end_us) if payload > 0 else None,
             channel_busy_us=busy, energy=energy, engine=engine,
-            n_ops=trace.n_ops, payload_bytes=payload)
+            n_ops=trace.n_ops, payload_bytes=payload,
+            request_lat_us=request_lat_us, sched_policy=sched_policy,
+            retry_hist=(None if sampler is None
+                        else sampler.retry_hist.copy()),
+            n_remap_ops=0 if sampler is None else sampler.n_remap_ops)
 
     def _breakdown(self, sums, end_us: float, trace: OpTrace):
         return breakdown_from_sums(
@@ -530,19 +725,29 @@ class Simulator:
             payload_bytes=trace.total_bytes(self.table),
             kind=self.kind, channels=trace.channels)
 
-    def run(self, request: SimRequest | OpTrace, /,
+    def run(self, request: SimRequest | OpTrace | RequestStream, /,
             **overrides) -> SimResult:
-        """Answer one query: a :class:`SimRequest`, or a bare ``OpTrace``
-        plus request fields as keywords."""
-        if not isinstance(request, SimRequest):
+        """Answer one query.  Accepts a :class:`SimRequest`, a bare
+        ``OpTrace``, or a bare ``RequestStream`` (a workload query under
+        ``sched_policy``, default static stripe) plus request fields as
+        keywords."""
+        if isinstance(request, RequestStream):
+            request = SimRequest(workload=request, **overrides)
+        elif not isinstance(request, SimRequest):
             request = SimRequest(trace=request, **overrides)
         elif overrides:
             request = dataclasses.replace(request, **overrides)
+        if request.workload is not None:
+            return self._run_workload(request)
         trace = request.trace
         if trace.n_ops == 0:
             raise ValueError("empty trace: no ops to simulate")
         trace.validate_against(self.table)
-        eng, batched = self._resolve(request)
+        eng, batched = self._resolve(request, trace)
+        sampler = None
+        if request.faults is not None:
+            trace, _, sampler = _sched.apply_faults(
+                trace, request.faults, self.table)
         energy = None
         if request.objective in ("energy", "all"):
             end_us, sums = eng.energy_sums(self, trace, self.kind,
@@ -552,7 +757,128 @@ class Simulator:
         else:
             end_us = eng.end_time(self, trace, batched=batched,
                                   segment_len=request.segment_len)
-        return self._result(trace, end_us, eng.caps.name, energy)
+        return self._result(trace, end_us, eng.caps.name, energy,
+                            sampler=sampler)
+
+    def _run_workload(self, request: SimRequest) -> SimResult:
+        """Workload queries: lower the request stream through the
+        scheduler (static policies offline, dynamic policies as the
+        joint dispatch fold) and attach per-request latencies when the
+        engine emits per-op completions (DESIGN.md §2.6)."""
+        if self.config is None:
+            raise ValueError(
+                "workload queries need a Simulator bound to an SSDConfig "
+                "(the scheduler needs the channel/way geometry)")
+        stream = request.workload
+        if stream.n_requests == 0:
+            raise ValueError("empty workload: no requests to simulate")
+        if int(np.max(stream.op_cls)) >= self.table.n_classes:
+            # checked before the dispatch fold runs: a clamped-garbage
+            # simulation followed by a numpy IndexError is not a report
+            raise ValueError(
+                f"RequestStream.op_cls out of range: max "
+                f"{int(np.max(stream.op_cls))} >= table.n_classes "
+                f"{self.table.n_classes}")
+        spec = request.faults
+        if spec is not None and spec.hedge_fraction > 0.0:
+            # the spec's mitigation half: hedge payload reads before the
+            # scheduler sees the stream, so duplicates flow through the
+            # same lowering/dispatch as everything else
+            stream = _workload.with_hedges(
+                stream, spec.hedge_fraction,
+                after_us=spec.hedge_after_us or 0.0, seed=spec.seed)
+        policy_s = request.sched_policy or "stripe"
+        eng, batched = self._resolve(request)
+        channels, ways = self.config.channels, self.config.ways
+        if _sched.policy_is_dynamic(policy_s):
+            # engines without the dispatch capability raise
+            # CapabilityError naming the ones that have it
+            if batched:
+                raise ValueError(
+                    "dynamic dispatch is FCFS under the eager issue "
+                    "policy; 'batched' rounds are fixed at build time "
+                    "and only exist for static lowerings")
+            cls, arrival, req_id, payload = request_ops(stream)
+            extra = retired = sampler = None
+            if spec is not None:
+                # dynamic faults sample on the op-class sequence alone
+                # (placement is decided in-fold): retry/jitter surcharges
+                # ride extra_us, a program fault inserts its remap write
+                # right after the failed op, and retired blocks become a
+                # dispatch constraint via the retired mask
+                sampler = FaultSampler(spec, channels, ways, self.table)
+                extra, write_fail, _ = sampler.sample(cls)
+                fail = np.flatnonzero(write_fail)
+                if len(fail):
+                    ins = fail + 1
+                    n = len(cls)
+                    new_of_old = np.arange(n) + np.searchsorted(
+                        ins, np.arange(n), "right")
+                    cls = np.insert(cls, ins, cls[fail])
+                    arrival = np.insert(arrival, ins, arrival[fail])
+                    req_id = np.insert(req_id, ins, req_id[fail])
+                    extra = np.insert(extra, ins, 0.0).astype(np.float32)
+                    pay2 = np.insert(payload, ins, payload[fail])
+                    # the failed original keeps its bus/cell cost but the
+                    # byte credit moves to the remap — totals conserved
+                    pay2[new_of_old[fail]] = False
+                    payload = pay2
+                    sampler.n_remap_ops += len(fail)
+                if sampler.retired.any():
+                    retired = sampler.retired
+            end, comp, chan, way, par = eng.dispatch_run(
+                self, cls, arrival, n_channels=channels, n_ways=ways,
+                rule=policy_s, extra_us=extra, retired=retired)
+            trace = OpTrace(
+                cls=np.asarray(cls, np.int32), channel=chan, way=way,
+                parity=par, channels=channels, ways=ways,
+                payload=None if payload.all() else payload,
+                arrival_us=arrival,
+                extra_us=(None if extra is None
+                          else np.asarray(extra, np.float32)))
+            lowered = LoweredWorkload(
+                trace=trace, request_id=req_id,
+                request_arrival_us=np.asarray(stream.arrival_us,
+                                              np.float32))
+            lat = _payload_latencies(lowered, comp, stream)
+            energy = None
+            if request.objective in ("energy", "all"):
+                # energy is (+,+)-linear: the dispatched placement fixes
+                # the parity sequence, so the engine-free per-op sum is
+                # exact (DESIGN.md §2.4)
+                energy = self._breakdown(
+                    self._linear_energy_sums(trace, self.kind), end, trace)
+            return self._result(trace, end, eng.caps.name, energy,
+                                request_lat_us=lat, sched_policy=policy_s,
+                                sampler=sampler)
+        lowered = _sched.lower_static(stream, channels, ways, policy_s)
+        trace = lowered.trace
+        sampler = None
+        if spec is not None:
+            trace, rid2, sampler = _sched.apply_faults(
+                trace, spec, self.table, request_id=lowered.request_id)
+            lowered = LoweredWorkload(
+                trace=trace, request_id=rid2,
+                request_arrival_us=lowered.request_arrival_us)
+        trace.validate_against(self.table)
+        energy = None
+        lat = None
+        base = getattr(_EngineBase, "completions")
+        if getattr(type(eng), "completions", base) is not base:
+            end_us, comp = eng.completions(self, trace, batched=batched,
+                                           segment_len=request.segment_len)
+            lat = _payload_latencies(lowered, comp, stream)
+        else:   # makespan-only engines (the (max,+) fold)
+            end_us = eng.end_time(self, trace, batched=batched,
+                                  segment_len=request.segment_len)
+        if request.objective in ("energy", "all"):
+            end_e, sums = eng.energy_sums(
+                self, trace, self.kind, batched=batched,
+                segment_len=request.segment_len)
+            energy = self._breakdown(sums, end_e, trace)
+        return self._result(trace, end_us, eng.caps.name, energy,
+                            request_lat_us=lat, sched_policy=policy_s,
+                            sampler=sampler)
 
     def run_many(self, traces, *, policy: Policy | None = None,
                  objective: Objective = "end_time",
@@ -639,15 +965,18 @@ class Simulator:
 
     def run_stream(self, chunks, *, policy: Policy | None = None,
                    objective: Objective = "end_time", ftl=None,
-                   faults=None) -> SimResult:
+                   faults: FaultSpec | None = None,
+                   sched_policy: str = "stripe") -> SimResult:
         """Constant-memory streaming query: fold an *iterator of OpTrace
         chunks* (``trace.iter_trace_chunks``, the generator builder
         ``trace.mixed_trace_chunks``, or any iterable) through the
         streaming engine without ever holding the whole trace — payload
         bytes, per-channel occupancy and the op count accumulate chunk by
-        chunk.  ``ftl=`` (request-stream chunks through the FTL) lands
-        with slice E; ``faults=`` needs ``ftl=``, as in the JAX
-        package."""
+        chunk.  ``ftl=`` (request-stream chunks through the FTL, where
+        ``faults`` and ``sched_policy`` apply) lands with slice E;
+        without it ``faults=`` raises, as in the JAX package (op-trace
+        chunks are already placed: rewrite them with
+        ``iter_trace_chunks(faults=...)``)."""
         if objective not in OBJECTIVES:
             raise ValueError(f"unknown objective {objective!r} "
                              f"(one of {', '.join(OBJECTIVES)})")
@@ -688,7 +1017,7 @@ class Simulator:
                     minlength=c.channels)
                 yield c
 
-        end, sums, channels = get_engine("streaming")._fold(
+        end, sums, _, channels = get_engine("streaming")._fold(
             self, tap(chunks), batched=batched, kind=kind)
         payload = stats["payload"]
         energy = None
@@ -703,15 +1032,16 @@ class Simulator:
 
     def sweep(self, tables, trace: OpTrace, *,
               policy: Policy | None = None, engine: str = "cuda",
-              shard: bool | None = None, ftl=None) -> np.ndarray:
+              shard: bool | None = None, ftl=None,
+              sched_policy: str = "stripe") -> np.ndarray:
         """[B] completion times of one trace under a batch of design-point
         tables (``tables=None`` sweeps the bound table alone) — the
         design-space fan-out direction of the serving path, through
         :func:`sweep_tables` on the session's device.  The default engine
         is ``cuda`` until the JAX package's default, ``prefix``, lands
-        with slice C.  ``ftl=`` (aged FTL design points) lands with
-        slice E; ``shard`` is accepted for the JAX package's signature
-        and means one device."""
+        with slice C.  ``ftl=`` (aged FTL design points, the only sweep
+        ``sched_policy`` places) lands with slice E; ``shard`` is
+        accepted for the JAX package's signature and means one device."""
         if ftl is not None:
             raise CapabilityError("sweep(ftl=...) is not ported yet (it "
                                   "lands with slice E)")

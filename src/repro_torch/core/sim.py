@@ -17,7 +17,10 @@ This module holds the configuration layer (``SSDConfig``,
 forms) and the ``scan`` engine: a Python loop over the trace's ops that
 updates state tensors on the session's device.  Op fields are host
 integers read from the numpy trace, so a step never synchronises with
-the device.  The state carries a leading design-point axis [B], which is
+the device.  ``trace_completions`` emits each op's completion for
+request-latency percentiles, and ``dispatch_trace`` is the joint
+dispatch+simulate fold behind the dynamic scheduling policies of
+``repro_torch.core.sched``.  The state carries a leading design-point axis [B], which is
 how ``trace_end_time_batch`` evaluates one trace under a batch of timing
 tables.  The state tensors are updated in place (one allocation per
 fold, not per op).
@@ -233,11 +236,14 @@ def _host_ops(cls, channel, way, parity, arrival_us, extra_us):
 
 
 def _fold(table, cls, channel, way, parity, arrival_us, extra_us,
-          n_channels, batched, e_op_uj=None, state=None, acc=None):
+          n_channels, batched, e_op_uj=None, state=None, acc=None,
+          comp=None):
     """(end [B], energy sums [B, P] | None, state) of one trace under a
     [B, K] stack of table columns.  ``state`` / ``acc`` start the fold
     from a carried state, which is updated in place; by default it
-    starts from zero."""
+    starts from zero.  ``comp`` ([B, T], on the table's device) receives
+    each op's ``chip_free[c, w]`` after its step: one device copy an op,
+    read back by the caller once."""
     upd = _trace_step_fn(*table, batched)
     cmd = table[0]
     if state is None:
@@ -245,10 +251,13 @@ def _fold(table, cls, channel, way, parity, arrival_us, extra_us,
     if e_op_uj is not None and acc is None:
         acc = torch.zeros((cmd.shape[0], e_op_uj.shape[-1]),
                           dtype=torch.float32, device=cmd.device)
-    for op in _host_ops(cls, channel, way, parity, arrival_us, extra_us):
+    for t, op in enumerate(_host_ops(cls, channel, way, parity, arrival_us,
+                                     extra_us)):
         state = upd(state, op)
         if e_op_uj is not None:
             acc = acc + e_op_uj[:, op[0], op[3] % 2]
+        if comp is not None:
+            comp[:, t] = state[1][:, op[1], op[2]]
     bus_free, chip_free = state[0], state[1]
     end = torch.maximum(bus_free.amax(dim=1), chip_free.flatten(1).amax(dim=1))
     return end, acc, state
@@ -294,6 +303,24 @@ def trace_end_time_batch(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
     return end
 
 
+def trace_completions(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
+                      ctrl_us, arb_us, cls, channel, way, parity,
+                      arrival_us=None, extra_us=None, *, n_channels: int,
+                      batched: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(end_us, [T] per-op completion times), both on the table's device:
+    the scan recurrence emitting each op's ``chip_free[c, w]`` after its
+    step — bus drain for reads (data delivered), bus drain + t_PROG for
+    writes (page durable).  The latency-extraction fold behind per-request
+    percentiles; the end time is ``trace_end_time``'s."""
+    table = tuple(x[None] for x in (cmd_us, pre_us, slot_us, post_lo_us,
+                                    post_hi_us, ctrl_us, arb_us))
+    comp = torch.empty((1, len(cls)), dtype=torch.float32,
+                       device=cmd_us.device)
+    end, _, _ = _fold(table, cls, channel, way, parity, arrival_us,
+                      extra_us, n_channels, batched, comp=comp)
+    return end[0], comp[0]
+
+
 # ---------------------------------------------------------------------------
 # lane-batched masked folds: B independent traces stepped together
 # ---------------------------------------------------------------------------
@@ -302,8 +329,8 @@ def trace_end_time_batch(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
 def _trace_end_time_masked_impl(cmd_us, pre_us, slot_us, post_lo_us,
                                 post_hi_us, ctrl_us, arb_us, cls, channel,
                                 way, parity, arrival, extra, valid,
-                                n_channels: int, batched: bool
-                                ) -> torch.Tensor:
+                                n_channels: int, batched: bool,
+                                want_comp: bool = False):
     """[B] completion times of B lanes, each folding its own op sequence.
 
     Table columns are [K] (one table shared by every lane) or [B, K] (a
@@ -315,7 +342,9 @@ def _trace_end_time_masked_impl(cmd_us, pre_us, slot_us, post_lo_us,
     state stays bitwise unchanged.  The per-op table entries (and the
     batched policy's ``(w + 1) * cmd``) are gathered once before the
     loop; the state lives in [B, C] / [B, C * MAX_WAYS] tensors updated
-    in place."""
+    in place.  With ``want_comp`` it returns ``(end [B], comp [B, T])``,
+    ``comp[:, t]`` the lane's ``chip_free[c, w]`` after step t (for a
+    padding op, the unchanged value)."""
     table = (cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us,
              arb_us)
     b, t_len = cls.shape
@@ -340,9 +369,13 @@ def _trace_end_time_masked_impl(cmd_us, pre_us, slot_us, post_lo_us,
     round_start = torch.zeros((b, n_channels), dtype=torch.float32,
                               device=dev)
 
+    comp = (torch.empty((b, t_len), dtype=torch.float32, device=dev)
+            if want_comp else None)
+
     def put(dst, ix, new, old, ok):
-        dst.scatter_(1, ix, (new if ok is None
-                             else torch.where(ok, new, old))[:, None])
+        val = new if ok is None else torch.where(ok, new, old)
+        dst.scatter_(1, ix, val[:, None])
+        return val
 
     for t in range(t_len):
         c = channel[:, t, None]
@@ -362,11 +395,15 @@ def _trace_end_time_masked_impl(cmd_us, pre_us, slot_us, post_lo_us,
                  + arb[:, t])
         new_bus = start + slot[:, t]
         put(bus, c, new_bus, bus_c, ok)
-        put(chip, cw, new_bus + post[:, t] + extra[:, t], chip_old, ok)
+        chip_new = put(chip, cw, new_bus + post[:, t] + extra[:, t],
+                       chip_old, ok)
+        if comp is not None:
+            comp[:, t] = chip_new
         new_ctrl = start + ctrl[:, t]
         ctrl_free = new_ctrl if ok is None else torch.where(ok, new_ctrl,
                                                             ctrl_free)
-    return torch.maximum(bus.amax(dim=1), chip.amax(dim=1))
+    end = torch.maximum(bus.amax(dim=1), chip.amax(dim=1))
+    return end if comp is None else (end, comp)
 
 
 def _lane_tensors(device, *arrays):
@@ -403,6 +440,23 @@ def trace_end_time_masked_many(cmd_us, pre_us, slot_us, post_lo_us,
         *ops, n_channels, batched)
 
 
+def trace_completions_masked(cmd_us, pre_us, slot_us, post_lo_us,
+                             post_hi_us, ctrl_us, arb_us, cls, channel, way,
+                             parity, arrival_us, extra_us, valid, *,
+                             n_channels: int, batched: bool
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``trace_completions`` over a padded length bucket ([T] op arrays
+    and a validity mask): padding ops leave the state bitwise unchanged
+    and their emitted completions are trailing values the caller slices
+    off."""
+    ops = _lane_tensors(cmd_us.device, cls, channel, way, parity,
+                        arrival_us, extra_us, valid)
+    end, comp = _trace_end_time_masked_impl(
+        cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us, arb_us,
+        *(x[None] for x in ops), n_channels, batched, want_comp=True)
+    return end[0], comp[0]
+
+
 # ---------------------------------------------------------------------------
 # streaming: one chunk of a trace from a carried state
 # ---------------------------------------------------------------------------
@@ -421,28 +475,153 @@ def trace_chunk_fold(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
                      ctrl_us, arb_us, e_op_uj, cls, channel, way, parity,
                      arrival_us, extra_us, bus_free, chip_free, ctrl_free,
                      round_start, energy_acc, *, n_channels: int,
-                     batched: bool):
+                     batched: bool, want_comp: bool = False):
     """One chunk of the streaming engine: fold the chunk's ops starting
     from the carried occupancy state and energy accumulator, and return
-    ``((bus, chip, ctrl, round_start), energy_acc, end_us)``.  Every op
+    ``((bus, chip, ctrl, round_start), energy_acc, end_us, comp)``, where
+    ``comp`` is the chunk's [L] per-op completions with ``want_comp`` and
+    None without (a fold that needs none pays no copy an op).  Every op
     runs the scan engine's step, so chaining chunks of any size
     reproduces ``trace_end_time`` / ``trace_end_time_energy`` bit for
     bit.  The op arrays are host arrays of the chunk's real ops: chunks
     are not padded, since eager PyTorch has no compile to share.
     ``e_op_uj`` ([K, 2, P]) may be None for an end-time-only fold (the
     accumulator then passes through).  The carried tensors are not
-    modified: the fold works on copies.  Per-op completions wait for the
-    request layer (slice B)."""
+    modified: the fold works on copies."""
     table = tuple(x[None] for x in (cmd_us, pre_us, slot_us, post_lo_us,
                                     post_hi_us, ctrl_us, arb_us))
     state = tuple(x[None].clone() for x in (bus_free, chip_free, ctrl_free,
                                             round_start))
     acc = energy_acc[None]
+    comp = (torch.empty((1, len(cls)), dtype=torch.float32,
+                        device=cmd_us.device) if want_comp else None)
     end, acc, state = _fold(
         table, cls, channel, way, parity, arrival_us, extra_us, n_channels,
         batched, e_op_uj=None if e_op_uj is None else e_op_uj[None],
-        state=state, acc=acc)
-    return tuple(x[0] for x in state), acc[0], end[0]
+        state=state, acc=acc, comp=comp)
+    return (tuple(x[0] for x in state), acc[0], end[0],
+            None if comp is None else comp[0])
+
+
+# ---------------------------------------------------------------------------
+# dynamic dispatch: the placement decided inside the fold
+# ---------------------------------------------------------------------------
+
+#: Dynamic dispatch rules evaluated inside the joint fold (sched-layer
+#: names; the static policies lower offline in ``repro_torch.core.sched``).
+DISPATCH_RULES: tuple[str, ...] = ("least_loaded", "earliest_ready")
+
+
+def dispatch_trace(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us,
+                   arb_us, cls, arrival_us, *, n_channels: int, n_ways: int,
+                   rule: str = "least_loaded", extra_us=None, retired=None):
+    """Joint dispatch + simulate fold (DESIGN.md §2.6): the carried
+    occupancy row *drives* the channel/way assignment, one decision per
+    op inside the same loop that advances the timeline.
+
+    Rules:
+
+    * ``least_loaded``  — the op goes to the chip with the smallest busy
+      horizon ``max(bus_free[c], chip_free[c, w])`` (ties break to the
+      lowest flat index);
+    * ``earliest_ready`` — the op goes to the channel whose bus drains
+      first, then to that channel's least-loaded way.
+
+    Table columns are [K] float32 tensors on the device that runs the
+    fold; ``cls``, ``arrival_us`` and ``extra_us`` are host arrays [T]
+    (per-op host scalars, as in the scan engine), ``retired`` a [C, W]
+    bool mask of bad-block chips.  The decision stays on the device: the
+    chosen flat chip index is an ``argmin`` result that indexes the state
+    tensors (``index_select`` / ``index_copy_``), so no step waits for
+    the host.  Page parity comes from a carried per-chip op counter.
+
+    Each op computes, in this float32 order (the JAX package's):
+    ``ready = (max(chip_free[c, w], arr) + cmd) + pre``, ``start =
+    max(max(bus_free[c], ready), ctrl_free) + arb``, ``new_bus = start +
+    slot``, ``comp = (new_bus + post[parity]) + ext``.  ``extra_us``
+    extends the chip's occupancy only, never the bus or the controller;
+    a retired chip's horizon is +inf under ``least_loaded`` and its way
+    is masked out of ``earliest_ready``'s choice (each channel keeps a
+    live way, which the ``FaultSampler`` retirement draw guarantees).
+
+    Returns ``(end_us, completion[T], channel[T], way[T], parity[T])``
+    as tensors on the fold's device, filled in device buffers and meant
+    to be read back once."""
+    if rule not in DISPATCH_RULES:
+        raise ValueError(f"unknown dispatch rule {rule!r} "
+                         f"(one of {', '.join(DISPATCH_RULES)})")
+    least_loaded = rule == "least_loaded"
+    dev = cmd_us.device
+    n_chips = n_channels * n_ways
+    n = len(cls)
+    cls_h = np.asarray(cls).tolist()
+    arr_h = np.asarray(arrival_us, np.float32).tolist()
+    ext_h = ([0.0] * n if extra_us is None
+             else np.asarray(extra_us, np.float32).tolist())
+    ret = None
+    if retired is not None:
+        mask = np.asarray(torch.as_tensor(retired).cpu(), bool)
+        if mask.shape != (n_channels, n_ways):
+            raise ValueError(f"retired must be [{n_channels}, {n_ways}], "
+                             f"got {mask.shape}")
+        if mask.any():
+            ret = torch.as_tensor(mask, device=dev)
+    # per-class [1] views of the table, and [2] post times by parity
+    one = [[x[k:k + 1] for k in range(len(x))]
+           for x in (cmd_us, pre_us, slot_us, ctrl_us, arb_us)]
+    cmd, pre, slot, ctrl_k, arb = one
+    post = torch.stack([post_lo_us, post_hi_us], dim=1)
+    post_k = [post[k] for k in range(post.shape[0])]
+
+    def zeros(size, dtype=torch.float32):
+        return torch.zeros(size, dtype=dtype, device=dev)
+    bus = zeros(n_channels)
+    chip = zeros(n_chips)
+    chip2 = chip.view(n_channels, n_ways)
+    ctrl = zeros(1)
+    counts = zeros(n_chips, torch.int64)
+    inc = torch.ones(1, dtype=torch.int64, device=dev)
+    comp_buf = zeros(n)
+    flat_buf = zeros(n, torch.int64)
+    par_buf = zeros(n, torch.int64)
+    inf = float("inf")
+    for t in range(n):
+        k = cls_h[t]
+        if least_loaded:
+            horizon = torch.maximum(chip2, bus[:, None])
+            if ret is not None:
+                horizon.masked_fill_(ret, inf)
+            flat = horizon.view(-1).argmin().view(1)
+            c = torch.div(flat, n_ways, rounding_mode="floor")
+        else:
+            c = bus.argmin().view(1)
+            row = chip2.index_select(0, c).view(-1)
+            if ret is not None:
+                row = row.masked_fill(ret.index_select(0, c).view(-1), inf)
+            flat = c * n_ways + row.argmin()
+        par = counts.index_select(0, flat) & 1
+        ready = chip.index_select(0, flat)
+        if arr_h[t]:
+            ready = ready.clamp_min(arr_h[t])
+        ready = ready + cmd[k] + pre[k]
+        start = torch.maximum(torch.maximum(bus.index_select(0, c), ready),
+                              ctrl) + arb[k]
+        new_bus = start + slot[k]
+        done = new_bus + post_k[k].index_select(0, par)
+        if ext_h[t]:
+            done = done + ext_h[t]
+        bus.index_copy_(0, c, new_bus)
+        chip.index_copy_(0, flat, done)
+        ctrl = start + ctrl_k[k]
+        counts.index_add_(0, flat, inc)
+        comp_buf[t:t + 1] = done
+        flat_buf[t:t + 1] = flat
+        par_buf[t:t + 1] = par
+    end = torch.maximum(bus.max(), chip.max())
+    chan = torch.div(flat_buf, n_ways, rounding_mode="floor")
+    return (end, comp_buf, chan.to(torch.int32),
+            (flat_buf - chan * n_ways).to(torch.int32),
+            par_buf.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

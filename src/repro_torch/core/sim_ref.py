@@ -6,7 +6,8 @@ floats: the independent reference every engine of the port (the torch
 ``simulate_trace_ref`` walks a heterogeneous ``OpTrace`` against an
 ``OpClassTable`` with per-channel buses, the shared-controller occupancy
 row and the firmware arbitration charge; ``simulate_trace_energy_ref``
-also accumulates each op's phase energies.
+also accumulates each op's phase energies and
+``simulate_trace_completions_ref`` records each op's completion.
 """
 
 from __future__ import annotations
@@ -65,6 +66,20 @@ def _trace_event_loop(table, trace, policy, per_op=None) -> float:
 def simulate_trace_ref(table, trace, policy: str = "eager") -> float:
     """Completion time (us) of an OpTrace on C channels (trace oracle)."""
     return _trace_event_loop(table, trace, policy)
+
+
+def simulate_trace_completions_ref(table, trace, policy: str = "eager"
+                                   ) -> tuple[float, np.ndarray]:
+    """(end_us, [T] per-op completion times) — the oracle twin of
+    ``repro_torch.core.sim.trace_completions`` (latency extraction for
+    arrival-aware request workloads)."""
+    comp: list[float] = []
+
+    def per_op(k, par, done_us):
+        comp.append(float(done_us))
+
+    end = _trace_event_loop(table, trace, policy, per_op)
+    return end, np.asarray(comp, np.float64)
 
 
 def trace_bandwidth_ref_mb_s(table, trace, policy: str = "eager") -> float:

@@ -7,7 +7,10 @@ steady streams, mixed read/write ratios and hot/cold skew; the same
 arguments and seeds give the same arrays as the JAX package's builders.
 
 ``iter_trace_chunks`` and ``mixed_trace_chunks`` yield a trace as
-chunks for the streaming engine, the second without materialising it.
+chunks for the streaming engine, the second without materialising it;
+both can rewrite each chunk through one carried fault sampler.
+``checkpoint_trace``, ``datapipe_trace`` and ``kvoffload_trace`` are the
+storage tier's request streams lowered by the static stripe scheduler.
 
 ``from_reference_table`` builds an ``OpClassTable`` from plain numpy
 columns, which is how a table made elsewhere (for example by the JAX
@@ -237,39 +240,75 @@ def mixed_trace(n_ops: int, channels: int, ways: int, read_fraction: float,
     return _finalize(cls, chan, way, channels, ways)
 
 
-def _faults_not_ported(faults) -> None:
-    if faults is not None:
-        from repro_torch.core.api import CapabilityError
-        raise CapabilityError("faults= on chunk builders is not ported yet "
-                              "(FaultSampler lands with slice B)")
+def _rewrite_chunk(sampler, cls, channel, way, parity, channels, ways,
+                   payload, arrival) -> OpTrace:
+    """Run one chunk of op arrays through a carried ``FaultSampler`` and
+    pack the rewrite into an ``OpTrace`` (chunked == one-shot because the
+    sampler draws from one PCG64 stream regardless of chunk boundaries,
+    DESIGN.md §2.8)."""
+    if payload is None and sampler.spec.prog_fail_prob > 0.0:
+        # byte conservation needs an explicit mask once remaps can strip
+        # a failed write's credit — mirror sched.apply_faults exactly
+        payload = np.ones(len(cls), bool)
+    c2, ch2, w2, par2, arr2, ext2, pay2, _ = sampler.rewrite(
+        cls, channel, way, parity, arrival=arrival, payload=payload)
+    return OpTrace(
+        cls=np.asarray(c2, np.int32), channel=np.asarray(ch2, np.int32),
+        way=np.asarray(w2, np.int32), parity=np.asarray(par2, np.int32),
+        channels=channels, ways=ways, payload=pay2,
+        arrival_us=(None if arr2 is None
+                    else np.asarray(arr2, np.float32)),
+        extra_us=np.asarray(ext2, np.float32))
 
 
-def iter_trace_chunks(trace: OpTrace, chunk_len: int, *, faults=None):
+def iter_trace_chunks(trace: OpTrace, chunk_len: int, *, faults=None,
+                      table: OpClassTable | None = None):
     """Yield ``trace`` as consecutive ``OpTrace`` chunks of at most
     ``chunk_len`` ops — the materialised-trace adapter for the
     constant-memory streaming engine.  Chunks carry the same geometry and
     slice ``payload`` / ``arrival_us`` / ``extra_us`` alongside the op
     arrays, so concatenating them reconstructs the trace exactly.
-    ``faults=`` (per-chunk fault sampling) lands with slice B."""
+
+    With ``faults`` (a :class:`repro_torch.core.faults.FaultSpec`), each
+    chunk is rewritten through one carried sampler: the concatenated
+    chunks are bit-identical to ``repro_torch.core.sched.apply_faults``
+    applied to the whole trace (remap inserts may make a chunk longer
+    than ``chunk_len``).  ``table`` is required when the spec charges
+    retries as per-class re-reads (``retry_step_us=None``)."""
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
-    _faults_not_ported(faults)
+    sampler = None
+    if faults is not None:
+        if trace.extra_us is not None:
+            raise ValueError("trace already carries extra_us; refusing to "
+                             "re-apply faults")
+        from repro_torch.core.faults import FaultSampler
+        sampler = FaultSampler(faults, trace.channels, trace.ways,
+                               table=table)
     for lo in range(0, trace.n_ops, chunk_len):
         hi = min(lo + chunk_len, trace.n_ops)
+        payload = None if trace.payload is None else trace.payload[lo:hi]
+        arrival = (None if trace.arrival_us is None
+                   else trace.arrival_us[lo:hi])
+        if sampler is not None:
+            yield _rewrite_chunk(sampler, trace.cls[lo:hi],
+                                 trace.channel[lo:hi], trace.way[lo:hi],
+                                 trace.parity[lo:hi], trace.channels,
+                                 trace.ways, payload, arrival)
+            continue
         yield OpTrace(
             cls=trace.cls[lo:hi], channel=trace.channel[lo:hi],
             way=trace.way[lo:hi], parity=trace.parity[lo:hi],
             channels=trace.channels, ways=trace.ways,
-            payload=None if trace.payload is None else trace.payload[lo:hi],
-            arrival_us=(None if trace.arrival_us is None
-                        else trace.arrival_us[lo:hi]),
+            payload=payload, arrival_us=arrival,
             extra_us=(None if trace.extra_us is None
                       else trace.extra_us[lo:hi]))
 
 
 def mixed_trace_chunks(n_ops: int, channels: int, ways: int,
                        read_fraction: float, *, chunk_len: int = 65536,
-                       seed: int = 0, faults=None):
+                       seed: int = 0, faults=None,
+                       table: OpClassTable | None = None):
     """Generator twin of :func:`mixed_trace`: yields the *identical* op
     stream (same rng draws, same round-robin placement, same per-chip
     parity) in ``OpTrace`` chunks without ever materialising the whole
@@ -277,21 +316,35 @@ def mixed_trace_chunks(n_ops: int, channels: int, ways: int,
     ``random`` calls reproduce the single-shot draw; round-robin
     placement revisits a chip every ``channels * ways`` ops, so the
     per-chip parity counter of ``_finalize`` closes to
-    ``(t // (channels * ways)) % 2``.  ``faults=`` lands with slice B."""
+    ``(t // (channels * ways)) % 2``.
+
+    With ``faults`` attached, every chunk is additionally rewritten
+    through one carried :class:`repro_torch.core.faults.FaultSampler` —
+    the fault draws come from ``faults.seed``'s own PCG64 streams
+    (disjoint from the op-mix stream above), so the concatenated output
+    is bit-identical to ``apply_faults(mixed_trace(...), faults,
+    table)``."""
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
-    _faults_not_ported(faults)
     rng = np.random.default_rng(seed)
+    sampler = None
+    if faults is not None:
+        from repro_torch.core.faults import FaultSampler
+        sampler = FaultSampler(faults, channels, ways, table=table)
     period = channels * ways
     for lo in range(0, n_ops, chunk_len):
         hi = min(lo + chunk_len, n_ops)
         t = np.arange(lo, hi)
         cls = np.where(rng.random(hi - lo) < read_fraction, READ, WRITE)
-        yield OpTrace(cls=cls.astype(np.int32),
-                      channel=(t % channels).astype(np.int32),
-                      way=((t // channels) % ways).astype(np.int32),
-                      parity=((t // period) % 2).astype(np.int32),
-                      channels=channels, ways=ways)
+        chan = (t % channels).astype(np.int32)
+        way = ((t // channels) % ways).astype(np.int32)
+        par = ((t // period) % 2).astype(np.int32)
+        if sampler is not None:
+            yield _rewrite_chunk(sampler, cls.astype(np.int32), chan, way,
+                                 par, channels, ways, None, None)
+            continue
+        yield OpTrace(cls=cls.astype(np.int32), channel=chan, way=way,
+                      parity=par, channels=channels, ways=ways)
 
 
 def hot_cold_trace(n_ops: int, channels: int, ways: int,
@@ -308,3 +361,50 @@ def hot_cold_trace(n_ops: int, channels: int, ways: int,
     cls = np.where(rng.random(n_ops) < read_fraction, READ, WRITE)
     return _finalize(cls, chip % channels, (chip // channels) % ways,
                      channels, ways)
+
+
+def checkpoint_trace(nbytes: int, cfg: SSDConfig,
+                     max_ops: int = 4096) -> OpTrace:
+    """Checkpoint save: a pure write burst, chunk-striped across channels.
+    Long bursts are truncated to ``max_ops``; callers extrapolate by
+    bytes (the stream is steady-state).  The request stream of
+    ``repro_torch.core.workload.checkpoint_requests`` lowered by the
+    static ``stripe`` policy."""
+    from repro_torch.core import sched, workload
+    return sched.lower_static(
+        workload.checkpoint_requests(nbytes, cfg, max_ops=max_ops),
+        cfg.channels, cfg.ways).trace
+
+
+def datapipe_trace(nbytes: int, cfg: SSDConfig, hedge_fraction: float = 0.0,
+                   seed: int = 0, max_ops: int = 4096,
+                   hedge_after_us: float = 0.0) -> OpTrace:
+    """Data-pipeline refill: way-interleaved shard reads; a
+    ``hedge_fraction`` of reads is re-issued on the next channel after
+    ``hedge_after_us`` (straggler hedging duplicates traffic, it does
+    not replace it).  The request stream of
+    ``repro_torch.core.workload.datapipe_requests`` lowered by
+    ``stripe``."""
+    from repro_torch.core import sched, workload
+    return sched.lower_static(
+        workload.datapipe_requests(nbytes, cfg,
+                                   hedge_fraction=hedge_fraction,
+                                   seed=seed, max_ops=max_ops,
+                                   hedge_after_us=hedge_after_us),
+        cfg.channels, cfg.ways).trace
+
+
+def kvoffload_trace(read_bytes_per_token: int, cfg: SSDConfig,
+                    n_tokens: int = 8, append_bytes_per_token: int = 0,
+                    max_ops: int = 4096) -> OpTrace:
+    """Long-context decode: per token, a cold-KV read burst with the KV
+    append writes interleaved evenly (write-back caching overlaps the
+    append with the read stream), striped across channels.  The request
+    stream of ``repro_torch.core.workload.kvoffload_requests`` lowered by
+    ``stripe``."""
+    from repro_torch.core import sched, workload
+    return sched.lower_static(
+        workload.kvoffload_requests(
+            read_bytes_per_token, cfg, n_tokens=n_tokens,
+            append_bytes_per_token=append_bytes_per_token, max_ops=max_ops),
+        cfg.channels, cfg.ways).trace

@@ -2,7 +2,8 @@
 request answers within 1e-6 relative on every field (the port's ``cuda``
 engine against JAX ``pallas``, ``scan`` against ``scan``, ``oracle``
 against ``oracle``), and the parts not ported yet raise
-``CapabilityError`` naming their slice."""
+``CapabilityError`` naming their slice.  Request-level workloads are
+held against JAX in ``test_torch_sched_faults.py``."""
 
 import dataclasses
 
@@ -108,16 +109,57 @@ def test_steady_bandwidth_matches_jax(cell, kind, channels, ways, mode):
         assert close(got, float(want))
 
 
+def _request_field_query(field, pkg):
+    """The request of one ``SimRequest`` field that slice B brought, in
+    the port (``pkg == "torch"``) or the JAX package: a workload alone,
+    a workload under a dynamic policy, or a fault spec on a trace."""
+    if pkg == "torch":
+        from repro_torch.core import workload as w
+        mod, trace_mod = api, trace
+    else:
+        from repro.core import workload as w
+        mod, trace_mod = japi, j_trace
+    load = w.poisson_stream(64, 15.0, read_fraction=0.7,
+                            pages_per_request=2, seed=4)
+    if field == "workload":
+        return mod.SimRequest(workload=load, objective="all")
+    if field == "sched_policy":
+        return mod.SimRequest(workload=load, sched_policy="least_loaded",
+                              objective="all")
+    return mod.SimRequest(trace=trace_mod.mixed_trace(200, 2, 4, 0.7, seed=1),
+                          faults=mod.FaultSpec(wear=1.0, jitter_us=2.0,
+                                               prog_fail_prob=0.1, seed=3),
+                          objective="all")
+
+
 @pytest.mark.parametrize("field,slice_", [
     ("workload", "slice B"), ("sched_policy", "slice B"),
     ("faults", "slice B"), ("ftl", "slice E")])
 def test_unported_request_fields_raise(field, slice_):
+    """``ftl`` still raises naming slice E.  The fields slice B brought
+    (``workload``, ``sched_policy``, ``faults``) now run and answer as the
+    JAX package does, bit-equal on the scan engine."""
     t = trace.steady_trace(8, 1, 1)
-    with pytest.raises(api.CapabilityError, match=slice_):
-        api.SimRequest(trace=t, **{field: object()})
-    s = api.Simulator(sim.SSDConfig(), device="cpu")
-    with pytest.raises(api.CapabilityError, match=slice_):
-        s.run(t, **{field: object()})
+    s = api.Simulator(sim.SSDConfig(channels=2, ways=4, cell="mlc"),
+                      device="cpu")
+    if slice_ == "slice E":
+        with pytest.raises(api.CapabilityError, match=slice_):
+            api.SimRequest(trace=t, **{field: object()})
+        with pytest.raises(api.CapabilityError, match=slice_):
+            s.run(t, **{field: object()})
+        return
+    got = s.run(_request_field_query(field, "torch"))
+    want = japi.Simulator(j_sim.SSDConfig(channels=2, ways=4, cell="mlc")).run(
+        _request_field_query(field, "jax"))
+    assert got.end_us == want.end_us and got.n_ops == want.n_ops
+    assert got.energy.total_j == want.energy.total_j
+    assert (got.n_remap_ops, got.sched_policy) == (want.n_remap_ops,
+                                                  want.sched_policy)
+    for name in ("request_lat_us", "retry_hist"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        assert a is None or np.array_equal(a, b), name
+    assert (got.request_lat_us is None) == (field == "faults")
 
 
 @pytest.mark.parametrize("engine,slice_", [
@@ -139,7 +181,10 @@ def test_registry_and_validation():
                                         "streaming")
     caps = api.engine_capabilities()
     assert caps["cuda"].batched_tables and not caps["oracle"].batched_tables
-    assert caps["scan"].describe() == "scan: batched_tables, energy"
+    assert caps["scan"].describe() == ("scan: batched_tables, energy, "
+                                       "arrivals, dispatch")
+    assert [n for n, c in caps.items() if c.dispatch] == ["scan"]
+    assert all(c.arrivals for c in caps.values())
     with pytest.raises(ValueError, match="registered engines: cuda"):
         api.get_engine("pallas")
     with pytest.raises(api.CapabilityError, match="engines that do: cuda"):

@@ -30,6 +30,8 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch, repro_torch.api, repro_torch.tables\n"
             "import repro_torch.kernels.maxplus.ops\n"
             "import repro_torch.core.calibrate\n"
+            "import repro_torch.core.faults, repro_torch.core.workload\n"
+            "import repro_torch.core.sched\n"
             "import repro_torch.models.transformer, repro_torch.models.convert\n"
             "import repro_torch.serve, repro_torch.configs.registry\n"
             "import repro_torch.configs.recurrentgemma_9b\n"

@@ -739,3 +739,84 @@ def _to(tree, device):
 def _unit(tree, u):
     return {k: _unit(v, u) if isinstance(v, dict) else v[u]
             for k, v in tree.items()}
+
+
+# --- the request layer on the card -------------------------------------------
+# The dispatch and completion folds are torch step loops on the session's
+# device: on the card each must give the CPU's bits.  K1 prices the
+# fault-extended arrival traces that a RequestStream lowers to.
+
+
+def _faulty_ops(n_requests=1024, channels=8, ways=16, seed=1):
+    from repro_torch.core import faults, workload
+    load = workload.poisson_stream(n_requests, 3.0, read_fraction=0.7,
+                                   pages_per_request=2, seed=seed)
+    cls, arr, _, _ = workload.request_ops(load)
+    table = trace.op_class_table(sim.SSDConfig(channels=channels, ways=ways))
+    sampler = faults.FaultSampler(faults.FaultSpec(
+        wear=1.0, rber_worn=3e-5, max_retries=4,
+        retry_step_us=(500.0, 1000.0, 2000.0, 4000.0), jitter_us=1.0,
+        erase_fail_prob=0.1, seed=7), channels, ways, table)
+    ext, _, _ = sampler.sample(cls)
+    assert sampler.retired.any() and len(cls) == 2048
+    return table, cls, arr, ext, sampler.retired
+
+
+@pytest.mark.parametrize("rule", sim.DISPATCH_RULES)
+def test_dispatch_and_completions_on_the_card_equal_the_cpu(card, rule):
+    table, cls, arr, ext, retired = _faulty_ops()
+    cols = [np.asarray(getattr(table, f)) for f in (
+        "cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
+        "ctrl_us", "arb_us")]
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        outs.append(sim.dispatch_trace(
+            *(torch.as_tensor(c, device=dev) for c in cols), cls, arr,
+            n_channels=8, n_ways=16, rule=rule, extra_us=ext,
+            retired=retired))
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+    end, comp, chan, way, par = (x.cpu().numpy() for x in outs[0])
+    assert not retired[chan, way].any()
+    comps = []
+    for dev in (card, torch.device("cpu")):
+        comps.append(sim.trace_completions(
+            *(torch.as_tensor(c, device=dev) for c in cols), cls, chan, way,
+            par, arr, ext, n_channels=8, batched=False))
+    assert torch.equal(comps[0][0].cpu(), comps[1][0])
+    assert torch.equal(comps[0][1].cpu(), comps[1][1])
+    # the replay folds the dispatched placement: the same completions
+    assert np.array_equal(comps[1][1].numpy(), comp)
+
+
+def test_k1_on_a_fault_extended_arrival_trace(card):
+    """A RequestStream lowered by the stripe scheduler, with faults,
+    hedges and remaps applied: K1 on its dictionary, arrivals and
+    surcharges takes the compact route and gives the plain version's
+    bits, end time and energy."""
+    from repro_torch.core import faults, sched, workload
+    cfg = sim.SSDConfig(channels=8, ways=16)
+    table = trace.op_class_table(cfg)
+    spec = faults.FaultSpec(wear=0.95, jitter_us=2.0, prog_fail_prob=0.02,
+                            hedge_fraction=0.1, seed=17)
+    load = workload.with_hedges(workload.poisson_stream(
+        512, 1.5, read_fraction=0.7, pages_per_request=4, seed=0), 0.1,
+        seed=17)
+    low = sched.lower_static(load, 8, 16)
+    t, _, sampler = sched.apply_faults(low.trace, spec, table)
+    assert t.arrival_us is not None and t.extra_us is not None
+    assert sampler.n_remap_ops > 0
+    _, combos, idx, mats, s0, arrivals, gvec, extras, wvec = \
+        ops._combo_setup([table], t, "eager", card)
+    e = torch.as_tensor(np.stack([ops.combo_energy_uj(table, combos,
+                                                      "proposed")]),
+                        device=card)
+    kw = dict(t_steps=t.n_ops, idx=idx, arrivals=arrivals, gvec=gvec,
+              extras=extras, wvec=wvec)
+    before = dict(LAUNCHES)
+    got = maxplus_fold_kernel(mats, s0, **kw)
+    got_e = maxplus_fold_kernel(mats, s0, energy=e, **kw)
+    assert LAUNCHES["indexed/compact"] == before["indexed/compact"] + 2
+    assert torch.equal(got, maxplus_fold_ref(mats, s0, **kw))
+    for a, b in zip(got_e, maxplus_fold_ref(mats, s0, energy=e, **kw)):
+        assert torch.equal(a, b)

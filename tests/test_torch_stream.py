@@ -97,10 +97,34 @@ def test_chunk_builders_match_jax_and_the_one_shot_trace():
                               getattr(side, f))
     with pytest.raises(ValueError, match="chunk_len"):
         next(trace.iter_trace_chunks(whole, 0))
-    with pytest.raises(api.CapabilityError, match="slice B"):
-        next(trace.mixed_trace_chunks(10, 1, 1, 0.5, faults=object()))
-    with pytest.raises(api.CapabilityError, match="slice B"):
-        next(trace.iter_trace_chunks(whole, 8, faults=object()))
+    # faults= rewrites every chunk through one carried sampler, as JAX's
+    spec = dict(wear=1.0, jitter_us=2.0, prog_fail_prob=0.1,
+                erase_fail_prob=0.2, seed=5)
+    table = trace.op_class_table(sim.SSDConfig(**CFG))
+    for got, want in (
+            (trace.mixed_trace_chunks(N_OPS, CHANNELS, WAYS, 0.7,
+                                      chunk_len=64, seed=11,
+                                      faults=api.FaultSpec(**spec),
+                                      table=table),
+             j_trace.mixed_trace_chunks(N_OPS, CHANNELS, WAYS, 0.7,
+                                        chunk_len=64, seed=11,
+                                        faults=japi.FaultSpec(**spec),
+                                        table=table)),
+            (trace.iter_trace_chunks(whole, 8, faults=api.FaultSpec(**spec),
+                                     table=table),
+             j_trace.iter_trace_chunks(j_trace.mixed_trace(
+                 N_OPS, CHANNELS, WAYS, 0.7, seed=11), 8,
+                 faults=japi.FaultSpec(**spec), table=table))):
+        got, want = list(got), list(want)
+        assert [c.n_ops for c in got] == [c.n_ops for c in want]
+        assert sum(c.n_ops for c in got) > N_OPS          # remap inserts
+        for f in ("cls", "channel", "way", "parity", "extra_us"):
+            assert np.array_equal(
+                np.concatenate([getattr(c, f) for c in got]),
+                np.concatenate([getattr(c, f) for c in want]))
+        assert np.array_equal(np.concatenate([c.payload_mask() for c in got]),
+                              np.concatenate([c.payload_mask()
+                                              for c in want]))
 
 
 @pytest.mark.parametrize("batched", (False, True))
@@ -119,17 +143,23 @@ def test_chunk_fold_matches_jax_and_leaves_the_carry(batched):
         ops = (t.cls[lo:hi], t.channel[lo:hi], t.way[lo:hi],
                t.parity[lo:hi], t.arrival_us[lo:hi], t.extra_us[lo:hi])
         before = [x.clone() for x in carry[0]]
-        state, acc, end = sim.trace_chunk_fold(
+        state, acc, end, comp = sim.trace_chunk_fold(
             *(torch.as_tensor(c) for c in cols), torch.as_tensor(e), *ops,
-            *carry[0], carry[1], n_channels=CHANNELS, batched=batched)
+            *carry[0], carry[1], n_channels=CHANNELS, batched=batched,
+            want_comp=True)
         assert all(torch.equal(a, b) for a, b in zip(before, carry[0]))
-        jstate, jacc, jend, _ = j_sim.trace_chunk_fold(
+        jstate, jacc, jend, jcomp = j_sim.trace_chunk_fold(
             *cols, e, *ops, np.ones(hi - lo, bool), *jcarry[0], jcarry[1],
             n_channels=CHANNELS, batched=batched)
         for a, b in zip(state, jstate):
             assert np.array_equal(a.numpy(), np.asarray(b))
         assert np.array_equal(acc.numpy(), np.asarray(jacc))
         assert float(end) == float(jend)
+        assert np.array_equal(comp.numpy(), np.asarray(jcomp))
+        assert sim.trace_chunk_fold(
+            *(torch.as_tensor(c) for c in cols), torch.as_tensor(e), *ops,
+            *carry[0], carry[1], n_channels=CHANNELS,
+            batched=batched)[3] is None
         carry, jcarry = (state, acc), (jstate, jacc)
 
 
