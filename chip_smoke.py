@@ -112,7 +112,26 @@ Phases, one report line each (every check raises on failure):
    the card's placements, parities, completions and latencies bit-equal
    to the CPU's and no op on a retired way.  Each query's wall and ops/s,
    the host's lowering, hedging and fault sampling apart, K1's one call
-   beside its bound, the percentiles, ``retry_hist`` and ``n_remap_ops``.
+   beside its bound, the percentiles, ``retry_hist`` and ``n_remap_ops``;
+10. the log-depth engines, plain torch on the card (no kernel of ours;
+   none may launch): (10a) phase 5's sweep through ``sweep_tables`` on
+   its default engine, ``prefix`` (chain combine, segment_len 64), within
+   T * 2^-24 of phase 5's ``cuda`` ends and bit-equal to the CPU on 2
+   points, ``combine="assoc"`` on 4 points bit-equal to the CPU; its wall
+   (median of 3) beside phase 5's, the staging of its inputs apart, the
+   device time of its kernels by ``torch.profiler``, its peak memory;
+   (10b) ``sweep_steady_bandwidth_mb_s(engine="squaring")`` on the 30
+   Table 3/4 write points (ways 1-16) bit-equal to the CPU and within
+   T * 2^-24 of ``scan``, and ``Simulator.run(steady_trace,
+   engine="squaring", objective="all")`` on the 60 Table 3 cells within
+   T * 2^-24 of ``scan`` and against the paper pins; (10c) phase 9a's
+   workload query on ``prefix`` within T * 2^-24 of the ``cuda`` query's
+   end time and energy (the drift of cuda's one-add-an-op float32 energy
+   sum), and within 1e-3 of the float64 per-op energy sum of the same
+   trace, its wall; (10d) ``ops.maxplus_fold`` with
+   ``strategy="segmented"`` and ``"squaring"`` on phase 3's small
+   dictionaries within T * 2^-24 of K1's plain version.  Every fold of
+   10a-10c is checked to have run on the card.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds), phase 6 that
@@ -209,6 +228,9 @@ WL_DYN_FAULTS = dict(wear=1.0, rber_worn=3e-5, max_retries=4,
                      retry_step_us=(500.0, 1000.0, 2000.0, 4000.0),
                      prog_fail_prob=0.02, erase_fail_prob=0.05, seed=7)
 PERCENTILE_TOL = 1e-3       # scan vs oracle request-latency percentiles
+# phase 10: the prefix sweep held bit-equal to the CPU on these points,
+# combine="assoc" run on these
+PREFIX_CPU_POINTS, PREFIX_ASSOC_POINTS = (0, 37), (0, 13, 37, 63)
 ENERGY_FIELDS = ("cmd_j", "io_j", "ecc_j", "ctrl_j", "idle_j", "array_j")
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
@@ -435,7 +457,10 @@ def check_prepass(label, mats, gvec, wvec, **values) -> None:
         f"{int(twin.count.max())} rows a combo")
 
 
-def phase_small_variants(device) -> None:
+def small_cases(device) -> list:
+    """Phase 3's two small dictionaries as (label, mats, s0, t, inputs):
+    a random one (B=3 M=7 N=37) and a 4 x 8 ``maxplus_form`` one, each
+    with its seeded variant inputs."""
     import numpy as np
     import torch
     from repro_torch.core.maxplus_form import NEG
@@ -448,15 +473,22 @@ def phase_small_variants(device) -> None:
     mats = torch.as_tensor(mats.astype(np.float32), device=device)
     s0 = torch.as_tensor(rng.uniform(0.0, 5.0, (b, n)).astype(np.float32),
                          device=device)
-    check_variants("small, random dictionary", mats, s0, t,
-                   variant_inputs(mats, t, 12, device), "dense")
+    cases = [("small, random dictionary", mats, s0, t,
+              variant_inputs(mats, t, 12, device))]
     mats, gvec, wvec, idx = small_dictionary(device, b=b, t=t)
     s0 = torch.as_tensor(rng.uniform(0.0, 5.0, (b, mats.shape[-1])).astype(
         np.float32), device=device)
     inputs = variant_inputs(mats, t, 12, device, gvec=gvec, wvec=wvec)
-    check_variants("small, 4x8 dictionary", mats, s0, t,
-                   (idx,) + inputs[1:], "compact")
-    check_prepass("small, 4x8 dictionary", mats, gvec, wvec, s0=s0,
+    return cases + [("small, 4x8 dictionary", mats, s0, t,
+                     (idx,) + inputs[1:])]
+
+
+def phase_small_variants(device) -> None:
+    (rlabel, rmats, rs0, t, rin), (label, mats, s0, _, inputs) = \
+        small_cases(device)
+    check_variants(rlabel, rmats, rs0, t, rin, "dense")
+    check_variants(label, mats, s0, t, inputs, "compact")
+    check_prepass(label, mats, inputs[4], inputs[5], s0=s0,
                   arrivals=inputs[1], extras=inputs[2])
 
 
@@ -1025,7 +1057,7 @@ def phase_sweeps_streams(tables, trace, sweep_ends) -> dict:
 
     t0 = time.perf_counter()
     sess = Simulator(SSDConfig(channels=SWEEP_CHANNELS, ways=SWEEP_WAYS))
-    again = sess.sweep(tables, trace)
+    again = sess.sweep(tables, trace, engine="cuda")
     if not np.array_equal(again, sweep_ends):
         raise AssertionError("Simulator.sweep != phase 5's sweep_tables")
     sweep_s = time.perf_counter() - t0
@@ -2103,7 +2135,9 @@ def phase_workloads(device) -> dict:
         f"sampling {host_b['faults_s']:.3f} s")
     seconds = time.perf_counter() - t_phase
     log(f"[9] request-level workloads in {seconds:.1f} s")
-    return {"launches": launches, "k1": k1, "seconds": seconds,
+    return {"launches": launches,
+            "query": (stream, spec, res_cuda, faulty),
+            "k1": k1, "seconds": seconds,
             "rate_ops_per_us": rate, "n_ops": n_ops, "host": host,
             "cuda_wall_s": cuda_wall, "scan_wall_s": scan_wall,
             "oracle_wall_s": oracle_wall, "plain_s": plain_s,
@@ -2123,6 +2157,306 @@ def phase_workloads(device) -> dict:
             "dynamic_rate_ops_per_us": rate_b, "dynamic_host": host_b,
             "rules_apart": rules_apart,
             "retired_ways": int(smp.retired.sum())}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the log-depth engines (prefix, squaring) on the card
+# ---------------------------------------------------------------------------
+
+
+class DeviceLog:
+    """Wraps ``maxplus_form.structured_segment_products``, the fold every
+    ``prefix`` and ``squaring`` query runs, and records the device of
+    each product block it returns."""
+
+    def __init__(self):
+        from repro_torch.core import maxplus_form as mf
+        self.mf, self.fn = mf, mf.structured_segment_products
+        self.devices = []
+        mf.structured_segment_products = self
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.devices.append(out.device.type)
+        return out
+
+    def on_card(self, label, fn):
+        """``fn()``, required to have run its folds on the card."""
+        n = len(self.devices)
+        out = fn()
+        ran = self.devices[n:]
+        if not ran or any(d != "cuda" for d in ran):
+            raise AssertionError(f"{label}: folds ran on {ran}, not the card")
+        return out
+
+    def restore(self):
+        self.mf.structured_segment_products = self.fn
+
+
+def profiled(fn) -> dict:
+    """Device time and count of the CUDA kernels one call of ``fn`` runs,
+    by ``torch.profiler``; "not measured" where it records no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"device_ms": "not measured", "kernels": "not measured"}
+    return {"device_ms": sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3,
+            "kernels": len(kernels)}
+
+
+def timed(fn) -> tuple[float, object]:
+    """(synchronised wall seconds of one call of ``fn``, its result)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_logdepth(device, trace, tables, cuda_ends, cuda_sweep_s,
+                   cuda_setup_s, query) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.api import (Simulator, steady_bandwidth_mb_s,
+                                 sweep_steady_bandwidth_mb_s, sweep_tables)
+    from repro_torch.core import calibrate
+    from repro_torch.core.api import _table_tensors
+    from repro_torch.core.interface import InterfaceKind, make_interface
+    from repro_torch.core.nand import CellType
+    from repro_torch.core.nand import chip as nand_chip
+    from repro_torch.core.paper_tables import INTERFACE_ORDER, TABLE3
+    from repro_torch.core.sim import SSDConfig, page_op_params
+    from repro_torch.core.trace import READ, WRITE, steady_trace
+    from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.kernels.maxplus import ops as maxplus_ops
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+    from repro_torch.tables import cell_config
+
+    t_phase = time.perf_counter()
+    launches_before = dict(K.LAUNCHES)
+    log_ = DeviceLog()
+    try:
+        # -- 10a: the 64-point sweep on prefix ---------------------------
+        bar = trace.n_ops * F32_DRIFT_PER_OP
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ends = log_.on_card("prefix sweep",
+                            lambda: sweep_tables(tables, trace))
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        chain_s = wall_ms(lambda: sweep_tables(tables, trace)) / 1e3
+        stage_s = wall_ms(lambda: (_table_tensors(tables, device), [
+            torch.as_tensor(np.asarray(x), device=device) for x in (
+                trace.cls, trace.channel, trace.way, trace.parity)])) / 1e3
+        prof = profiled(lambda: sweep_tables(tables, trace))
+        drift = float(np.max(np.abs(ends - cuda_ends) / cuda_ends))
+        if not (ends.shape == cuda_ends.shape and drift <= bar):
+            raise AssertionError(f"prefix sweep vs cuda: {drift:.2e} (bar "
+                                 f"{bar:.2e})")
+        pts = list(PREFIX_CPU_POINTS)
+        t0 = time.perf_counter()
+        cpu_ends = sweep_tables([tables[j] for j in pts], trace,
+                                device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if not np.array_equal(cpu_ends, ends[pts]):
+            raise AssertionError(f"prefix sweep on the card != the CPU on "
+                                 f"points {pts}: {ends[pts]} vs {cpu_ends}")
+        apts = list(PREFIX_ASSOC_POINTS)
+        sub = [tables[j] for j in apts]
+        assoc_s, assoc = timed(lambda: log_.on_card(
+            "assoc sweep", lambda: sweep_tables(sub, trace,
+                                                combine="assoc")))
+        t0 = time.perf_counter()
+        assoc_cpu = sweep_tables(sub, trace, combine="assoc", device="cpu")
+        assoc_cpu_s = time.perf_counter() - t0
+        assoc_drift = float(np.max(np.abs(assoc - cuda_ends[apts])
+                                   / cuda_ends[apts]))
+        if not (np.array_equal(assoc, assoc_cpu) and assoc_drift <= bar):
+            raise AssertionError(f"assoc sweep: card {assoc}, CPU "
+                                 f"{assoc_cpu}, vs cuda {assoc_drift:.2e}")
+        log(f"[10a] sweep_tables(engine='prefix') (the default; chain, "
+            f"segment_len 64: S = {-(-trace.n_ops // 64)}) on phase 5's "
+            f"{len(tables)} points: {chain_s:.3f} s wall (median of 3; "
+            f"staging tables and trace on the card {stage_s * 1e3:.1f} ms; "
+            f"profiler: {prof['kernels']} kernels, {prof['device_ms']} ms "
+            f"on the device) against cuda's {cuda_sweep_s:.2f} s (host "
+            f"dictionary {cuda_setup_s:.2f} s); peak device memory "
+            f"{peak_gb:.2f} GB; vs cuda {drift:.2e} (< T*2^-24 = "
+            f"{bar:.2e}); points {pts} bit-equal to the CPU ({cpu_s:.1f} "
+            f"s there); combine='assoc' on points {apts}: {assoc_s:.3f} s, "
+            f"bit-equal to the CPU ({assoc_cpu_s:.1f} s), vs cuda "
+            f"{assoc_drift:.2e}")
+
+        # -- 10b: squaring on homogeneous streams ------------------------
+        cells = [(c, k, w) for c in ("slc", "mlc") for k in INTERFACE_ORDER
+                 for w in (1, 2, 4, 8, 16)]
+        ops = [page_op_params(make_interface(InterfaceKind(k)),
+                              nand_chip(CellType(c)), "write", w)
+               for c, k, w in cells]
+        cols = [np.asarray([float(getattr(op, f)) for op in ops])
+                for f in calibrate._OP_FIELDS]
+        ways = np.asarray([w for *_, w in cells], np.int32)
+        sq = log_.on_card("squaring sweep", lambda: (
+            sweep_steady_bandwidth_mb_s(*cols, ways, engine="squaring")))
+        sq_s = wall_ms(lambda: sweep_steady_bandwidth_mb_s(
+            *cols, ways, engine="squaring")) / 1e3
+        scan_bw = sweep_steady_bandwidth_mb_s(*cols, ways)
+        sq_cpu = sweep_steady_bandwidth_mb_s(*cols, ways, engine="squaring",
+                                             device="cpu")
+        sq_drift = float(np.max(np.abs(sq / scan_bw - 1.0)))
+        if not (np.array_equal(sq, sq_cpu)
+                and sq_drift <= 512 * F32_DRIFT_PER_OP):
+            raise AssertionError(f"squaring sweep: card vs CPU equal "
+                                 f"{np.array_equal(sq, sq_cpu)}, vs scan "
+                                 f"{sq_drift:.2e}")
+        t0 = time.perf_counter()
+        errs, worst_engines, n_cells = [], 0.0, 0
+        for cell, by_mode in TABLE3.items():
+            for mode, by_ways in by_mode.items():
+                for w, row in by_ways.items():
+                    for kind, paper in zip(INTERFACE_ORDER, row):
+                        cfg = cell_config(cell, w, kind)
+                        tr = steady_trace(512, 1, w,
+                                          READ if mode == "read" else WRITE)
+                        res = log_.on_card("squaring run", lambda: Simulator(
+                            cfg, device=device).run(
+                                tr, engine="squaring", objective="all"))
+                        bw = min(res.mb_s, cfg.sata_mb_s)
+                        scan = steady_bandwidth_mb_s(cfg, mode)
+                        worst_engines = max(worst_engines, rel(bw, scan))
+                        if not (res.energy.total_j > 0
+                                and np.isfinite(res.energy.nj_per_byte)):
+                            raise AssertionError(f"{cfg.describe()} "
+                                                 f"{mode}: energy malformed")
+                        n_cells += 1
+                        if (cell, mode, w, kind) not in ANOMALIES:
+                            errs.append(rel(bw, paper))
+        table_s = time.perf_counter() - t0
+        mean3, worst3 = float(np.mean(errs)), float(max(errs))
+        if not (mean3 < T3_MEAN_TOL and worst3 < T3_WORST_TOL
+                and worst_engines <= 512 * F32_DRIFT_PER_OP):
+            raise AssertionError(f"Table 3 on squaring: mean {mean3:.4f}, "
+                                 f"worst {worst3:.4f}, vs scan "
+                                 f"{worst_engines:.2e}")
+        log(f"[10b] sweep_steady_bandwidth_mb_s(engine='squaring') on "
+            f"{len(cells)} Table 3/4 write points (ways 1-16, n_pages 512): "
+            f"{sq_s * 1e3:.1f} ms, bit-equal to the CPU, vs scan "
+            f"{sq_drift:.2e} (< {512 * F32_DRIFT_PER_OP:.2e}); "
+            f"Simulator.run(steady_trace, engine='squaring', objective="
+            f"'all') on the {n_cells} Table 3 cells in {table_s:.1f} s "
+            f"(scan beside): vs scan {worst_engines:.2e}, paper mean rel "
+            f"err {mean3:.4f} (< {T3_MEAN_TOL}), worst {worst3:.4f} (< "
+            f"{T3_WORST_TOL})")
+
+        # -- 10c: phase 9a's workload query on prefix --------------------
+        stream, spec, res_cuda, faulty = query
+        sim = Simulator(SSDConfig(interface=InterfaceKind.PROPOSED,
+                                  cell=CellType.SLC, channels=WL_CHANNELS,
+                                  ways=WL_WAYS), device=device)
+        wl_s, res = timed(lambda: log_.on_card(
+            "prefix workload", lambda: sim.run(
+                stream, faults=spec, engine="prefix", objective="all")))
+        n_ops = res.n_ops
+        wl_drift = rel(res.end_us, res_cuda.end_us)
+        # energy: cuda's kernel (like scan) sums its T per-op energies one
+        # float32 add at a time, which drifts by up to T * 2^-24; prefix
+        # sums segments of 64, then the segment sums.  Both are held to
+        # that drift apart, and prefix to the float64 per-op sum of the
+        # same trace within ENERGY_TOL
+        exact = sim._breakdown(sim._linear_energy_sums(faulty, sim.kind),
+                               res.end_us, faulty)
+        wl_e = max(rel(getattr(res.energy, f), getattr(res_cuda.energy, f))
+                   for f in ENERGY_FIELDS)
+        wl_e64 = max(rel(getattr(res.energy, f), getattr(exact, f))
+                     for f in ENERGY_FIELDS)
+        cuda_e64 = max(rel(getattr(res_cuda.energy, f), getattr(exact, f))
+                       for f in ENERGY_FIELDS)
+        if not (n_ops == res_cuda.n_ops == faulty.n_ops
+                and res.request_lat_us is None
+                and wl_drift <= n_ops * F32_DRIFT_PER_OP
+                and wl_e <= n_ops * F32_DRIFT_PER_OP
+                and wl_e64 <= ENERGY_TOL
+                and res.n_remap_ops == res_cuda.n_remap_ops):
+            raise AssertionError(f"prefix workload query: end vs cuda "
+                                 f"{wl_drift:.2e}, energy vs cuda "
+                                 f"{wl_e:.2e}, vs the float64 sum "
+                                 f"{wl_e64:.2e}, {n_ops} / "
+                                 f"{res_cuda.n_ops} ops")
+        log(f"[10c] Simulator.run(stream, faults, engine='prefix', "
+            f"objective='all') on 9a's query ({n_ops} ops, S = "
+            f"{-(-n_ops // 64)} segments, two folds): {wl_s:.2f} s "
+            f"({n_ops / wl_s:.0f} ops/s); vs cuda end {wl_drift:.2e} "
+            f"(< T*2^-24 = {n_ops * F32_DRIFT_PER_OP:.2e}), energy "
+            f"{wl_e:.2e} (same bar); energy vs the float64 per-op sum: "
+            f"prefix {wl_e64:.2e} (< {ENERGY_TOL}), cuda {cuda_e64:.2e}; "
+            f"no latencies (makespan-only engine)")
+
+        # -- 10d: the strategies of ops.maxplus_fold ---------------------
+        worst_d = 0.0
+        (_, rmats, rs0, t, rin), (_, mats, s0, _, inputs) = \
+            small_cases(device)
+        idx, arrivals, extras, _, gvec, wvec = inputs
+        # arrivals enter through the origin column, which needs the origin
+        # row of a maxplus_form dictionary and s0 = 0 there
+        s0_origin = s0.clone()
+        s0_origin[..., -1] = 0.0
+        runs = [(m, s, strategy, kw)
+                for m, s, i in ((rmats, rs0, rin[0]), (mats, s0, idx))
+                for strategy, kw in (("segmented", {}), ("squaring", {}),
+                                     ("segmented", dict(idx=i)))]
+        runs.append((mats, s0_origin, "segmented", dict(
+            idx=idx, arrivals=arrivals, gvec=gvec, extras=extras,
+            wvec=wvec)))
+        for m, s, strategy, kw in runs:
+            label = f"B={m.shape[0]} M={m.shape[1]} N={m.shape[2]}"
+            got = maxplus_ops.maxplus_fold(m, s, t_steps=t,
+                                           strategy=strategy, **kw)
+            want = maxplus_fold_ref(m, s, t_steps=t, **kw)
+            err = float((got - want).abs().max() / want.abs().max())
+            if not (got.device.type == "cuda"
+                    and err <= t * F32_DRIFT_PER_OP):
+                raise AssertionError(f"{label} {strategy} {list(kw)}: "
+                                     f"{err:.2e} of the plain fold")
+            worst_d = max(worst_d, err)
+        log(f"[10d] ops.maxplus_fold(strategy='segmented' periodic and "
+            f"indexed, 'squaring' periodic) on phase 3's two dictionaries, "
+            f"'segmented' indexed+arrivals+extras on the 4x8 one, on the "
+            f"card: within {worst_d:.2e} of K1's plain version (< T*2^-24 "
+            f"= {t * F32_DRIFT_PER_OP:.2e})")
+    finally:
+        log_.restore()
+    launched = {k: v - launches_before[k] for k, v in K.LAUNCHES.items()
+                if v != launches_before[k]}
+    if launched:
+        raise AssertionError(f"phase 10 launched (max,+) kernels: {launched}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[10] log-depth engines in {seconds:.1f} s; no kernel launched")
+    return {"prefix_sweep_s": chain_s, "stage_s": stage_s,
+            "prefix_sweep_profile": prof, "peak_device_gb": peak_gb,
+            "prefix_vs_cuda": drift, "cpu_points_s": cpu_s,
+            "assoc_s": assoc_s, "assoc_cpu_s": assoc_cpu_s,
+            "assoc_vs_cuda": assoc_drift, "cuda_sweep_s": cuda_sweep_s,
+            "squaring_sweep_ms": sq_s * 1e3, "squaring_vs_scan": sq_drift,
+            "squaring_table3": {"mean": mean3, "worst": worst3,
+                                "vs_scan": worst_engines,
+                                "seconds": table_s},
+            "workload_s": wl_s, "workload_vs_cuda": wl_drift,
+            "workload_energy_vs_cuda": wl_e,
+            "workload_energy_vs_float64": {"prefix": wl_e64,
+                                           "cuda": cuda_e64},
+            "strategies_worst": worst_d,
+            "seconds": seconds}
 
 
 def _leaves(tree):
@@ -2370,6 +2704,10 @@ def main() -> int:
     for key, n_wl in phase9_launches.items():
         launches[key] += n_wl
 
+    # -- 10: the log-depth engines (plain torch, no kernel) --------------
+    logdepth = phase_logdepth(dev, trace, tables, ends, sweep_s, setup_s,
+                              wl.pop("query"))
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -2385,7 +2723,7 @@ def main() -> int:
         "fleet": {k: v for k, v in fleet.items() if k not in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "routes")},
-        "streams": streams, "workloads": wl,
+        "streams": streams, "workloads": wl, "logdepth": logdepth,
         "lm": {**lm_small, **{k: v for k, v in lm.items()
                               if k not in ("k4", "k5")}},
         "seconds": time.perf_counter() - t_start,

@@ -31,14 +31,15 @@ Latency under load and reliability (request-level workloads)::
     print(res.p99_9_us, res.n_remap_ops, res.retry_hist)
 
 Engine names follow the JAX package's ``repro.api`` except that its
-``pallas`` engine is ``cuda`` here.
+``pallas`` engine is ``cuda`` here; ``sweep_tables`` and
+``Simulator.sweep`` default to the log-depth ``prefix`` engine, as there.
 """
 
 from repro_torch.core.api import (CapabilityError, Engine, EngineCaps,
                                   OBJECTIVES, Objective, Policy, SimRequest,
-                                  SimResult, Simulator, UNPORTED_ENGINES,
-                                  engine_capabilities, get_engine,
-                                  register_engine, registered_engines,
+                                  SimResult, Simulator, engine_capabilities,
+                                  get_engine, register_engine,
+                                  registered_engines,
                                   simulator_for, steady_bandwidth_mb_s,
                                   steady_channel_bandwidth_mb_s,
                                   sweep_steady_bandwidth_mb_s, sweep_tables)
@@ -68,11 +69,10 @@ from repro_torch.core.workload import (RequestStream, aging_stream,
 __all__ = [
     # the session API proper
     "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
-    "Policy", "SimRequest", "SimResult", "Simulator", "UNPORTED_ENGINES",
-    "engine_capabilities", "get_engine", "register_engine",
-    "registered_engines", "simulator_for", "steady_bandwidth_mb_s",
-    "steady_channel_bandwidth_mb_s", "sweep_steady_bandwidth_mb_s",
-    "sweep_tables",
+    "Policy", "SimRequest", "SimResult", "Simulator", "engine_capabilities",
+    "get_engine", "register_engine", "registered_engines", "simulator_for",
+    "steady_bandwidth_mb_s", "steady_channel_bandwidth_mb_s",
+    "sweep_steady_bandwidth_mb_s", "sweep_tables",
     # the request-level workload + scheduler layer
     "DYNAMIC_POLICIES", "LoweredWorkload", "RequestStream",
     "SCHED_POLICIES", "STATIC_POLICIES", "aging_stream", "build_workload",

@@ -4,12 +4,16 @@ surface over every simulation engine.
 * an **engine registry** — every evaluation strategy registers once
   under a name with a declared :class:`EngineCaps` capability row.
   Unknown names raise one ``ValueError`` listing the registered engines;
-  a registered engine asked for something outside its capability row,
-  or an engine of the JAX package this port has not reached yet, raises
-  :class:`CapabilityError` (a ``ValueError``).  Registered here:
+  a registered engine asked for something outside its capability row
+  raises :class:`CapabilityError` (a ``ValueError``).  Registered here:
 
   - ``scan``   — the torch step loop of ``repro_torch.core.sim`` (the
-    default);
+    default of ``run``);
+  - ``prefix`` — the segmented parallel-prefix (max,+) fold, O(L + log T)
+    depth, in plain torch (the default of ``sweep_tables`` and
+    ``Simulator.sweep``, as in the JAX package);
+  - ``squaring`` — periodic (max,+) matrix squaring, O(log T) matmuls,
+    for homogeneous single-channel round-robin streams only;
   - ``cuda``   — the (max,+) matrix fold of ``repro_torch.kernels.maxplus``
     on the hand-written CUDA kernel (the JAX package's ``pallas``
     engine); on a CPU session it folds with the kernel's plain version;
@@ -39,8 +43,9 @@ surface over every simulation engine.
   the joint dispatch+simulate fold on the session's device.  Engines that
   emit per-op completions (``scan``, ``oracle``, ``streaming``) attach
   per-request latencies (``SimResult.p50_us`` / ``p99_us`` /
-  ``p99_9_us``); the (max,+) ``cuda`` engine answers makespan and energy
-  only, as the JAX package's ``pallas`` does.
+  ``p99_9_us``); the (max,+) engines (``cuda``, ``prefix``) answer
+  makespan and energy only, as the JAX package's ``pallas`` and
+  ``prefix`` do.
 
 * the **fleet and fan-out paths** — :meth:`Simulator.run_many` (many
   traces, one design point: the ``scan`` engine steps each length bucket
@@ -52,9 +57,8 @@ surface over every simulation engine.
 
 Request fields whose part of the system is not ported yet raise
 :class:`CapabilityError` naming the slice that brings it: ``ftl`` (slice
-E), and the engines ``prefix`` and ``squaring`` (slice C).  Traces that
-carry ``arrival_us`` / ``extra_us`` are served by every engine here,
-since each folds them.
+E).  Traces that carry ``arrival_us`` / ``extra_us`` are served by every
+engine here except ``squaring``, whose fixed period they would break.
 """
 
 from __future__ import annotations
@@ -95,9 +99,6 @@ OBJECTIVES: tuple[str, ...] = ("end_time", "bandwidth", "energy", "all")
 _TABLE_FIELDS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                  "ctrl_us", "arb_us")
 
-#: Engines of the JAX package not ported yet, by the slice that brings them.
-UNPORTED_ENGINES = {"prefix": "slice C", "squaring": "slice C"}
-
 
 class CapabilityError(ValueError):
     """A *registered* engine was asked for a query outside its declared
@@ -119,6 +120,7 @@ class EngineCaps:
     energy: bool          # phase-resolved energy accumulation
     arrivals: bool = False  # arrival-aware traces (request workloads)
     dispatch: bool = False  # joint dispatch+simulate (dynamic sched policies)
+    heterogeneous: bool = True  # arbitrary OpTrace (vs homogeneous periodic)
 
     def describe(self) -> str:
         flags = [k for k in ("batched_tables", "energy", "arrivals",
@@ -145,7 +147,8 @@ _REGISTRY: dict[str, Engine] = {}
 
 
 def register_engine(name: str, *, batched_tables: bool, energy: bool,
-                    arrivals: bool = False, dispatch: bool = False):
+                    arrivals: bool = False, dispatch: bool = False,
+                    heterogeneous: bool = True):
     """Class decorator: instantiate and register an engine under ``name``
     with its declared capability row.  Names are unique."""
 
@@ -155,7 +158,7 @@ def register_engine(name: str, *, batched_tables: bool, energy: bool,
         inst = cls()
         inst.caps = EngineCaps(name=name, batched_tables=batched_tables,
                                energy=energy, arrivals=arrivals,
-                               dispatch=dispatch)
+                               dispatch=dispatch, heterogeneous=heterogeneous)
         _REGISTRY[name] = inst
         return cls
 
@@ -173,16 +176,10 @@ def engine_capabilities() -> dict[str, EngineCaps]:
 
 
 def get_engine(name: str) -> Engine:
-    """Look up a registered engine.  Engines of the JAX package that the
-    port has not reached raise ``CapabilityError`` naming their slice;
-    unknown names raise ``ValueError`` listing the registered engines."""
+    """Look up a registered engine; unknown names raise ``ValueError``
+    listing the registered engines."""
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in UNPORTED_ENGINES:
-        raise CapabilityError(
-            f"engine {name!r} is not ported yet (it lands with "
-            f"{UNPORTED_ENGINES[name]}; registered engines: "
-            f"{', '.join(registered_engines())})")
     raise ValueError(
         f"unknown engine {name!r} (registered engines: "
         f"{', '.join(registered_engines())})")
@@ -263,6 +260,29 @@ def _table_tensors(tables, device) -> tuple[torch.Tensor, ...]:
         device=device) for f in _TABLE_FIELDS)
 
 
+def _op_scalars(op: PageOpParams, device) -> tuple[torch.Tensor, ...]:
+    """0-d float32 tensors of one op class: cmd, pre, slot, post lo/hi,
+    ctrl."""
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+                 for x in (op.cmd_us, op.pre_us, op.slot_us, op.post_lo_us,
+                           op.post_hi_us, op.ctrl_us))
+
+
+def _steady_table(op: PageOpParams, device) -> tuple[torch.Tensor, ...]:
+    """[1] table columns of one op class, arbitration zero (one channel)."""
+    return tuple(x[None] for x in _op_scalars(op, device)) + (
+        torch.zeros((1,), dtype=torch.float32, device=device),)
+
+
+def _steady_pattern(n_pages: int, ways: int):
+    """(cls, channel, way, parity) of a single-channel round-robin stream
+    over one op class."""
+    i = np.arange(n_pages)
+    zeros = np.zeros(n_pages, np.int32)
+    return (zeros, zeros, (i % ways).astype(np.int32),
+            ((i // ways) % 2).astype(np.int32))
+
+
 class _EngineBase:
     """Shared defaults: optional capabilities raise ``CapabilityError``
     naming the registered engines that *do* implement them."""
@@ -278,8 +298,11 @@ class _EngineBase:
             f"engine {self.caps.name!r} does not support {what} "
             f"(engines that do: {', '.join(supported)})")
 
-    def end_time_batch(self, tables, trace, *, batched,
-                       device) -> np.ndarray:
+    def end_time_batch(self, tables, trace, *, batched, device,
+                       segment_len: int | None = 64,
+                       combine: str = "chain") -> np.ndarray:
+        """[B] end times of one trace under a batch of tables;
+        ``segment_len`` and ``combine`` shape the ``prefix`` fold."""
         self._unsupported("batched design-point tables", "end_time_batch")
 
     def steady_channel_end(self, op: PageOpParams, ways: int, *,
@@ -340,28 +363,124 @@ class ScanEngine(_EngineBase):
             n_channels=trace.channels, batched=batched)
         return float(end), sums.cpu().numpy().astype(np.float64)
 
-    def end_time_batch(self, tables, trace, *, batched, device):
+    def end_time_batch(self, tables, trace, *, batched, device,
+                       segment_len=64, combine="chain"):
         end = _sim.trace_end_time_batch(
             *_table_tensors(tables, device), *_trace_arrays(trace),
             n_channels=trace.channels, batched=batched)
         return end.cpu().numpy()
 
     def steady_channel_end(self, op, ways, *, n_pages, batched, device):
-        i = np.arange(n_pages)
-        zeros = np.zeros(n_pages, np.int32)
-        cols = (op.cmd_us, op.pre_us, op.slot_us, op.post_lo_us,
-                op.post_hi_us, op.ctrl_us, 0.0)
-        table = tuple(torch.tensor([x], dtype=torch.float32, device=device)
-                      for x in cols)
         return float(_sim.trace_end_time(
-            *table, zeros, zeros, (i % ways).astype(np.int32),
-            ((i // ways) % 2).astype(np.int32), n_channels=1,
-            batched=batched))
+            *_steady_table(op, device), *_steady_pattern(n_pages, ways),
+            n_channels=1, batched=batched))
 
     def sweep_steady(self, scalars, data_bytes, ways, *, n_pages, batched,
                      device):
         return _sim._sweep_scan(*scalars, data_bytes, ways, n_pages=n_pages,
                                 batched=batched, device=device).cpu().numpy()
+
+
+@register_engine("prefix", batched_tables=True, energy=True, arrivals=True)
+class PrefixEngine(_EngineBase):
+    """Segmented parallel-prefix (max,+) fold, O(L + log T) depth; energy
+    rides the same chunking as segment sums.  ``segment_len`` is the
+    segment length L."""
+
+    def end_time(self, sim, trace, *, batched, segment_len=64):
+        return float(_sim.trace_end_time_prefix(
+            *sim._targs, *_trace_arrays(trace),
+            n_channels=trace.channels, n_ways=trace.ways, batched=batched,
+            segment_len=segment_len))
+
+    def energy_sums(self, sim, trace, kind, *, batched, segment_len=64):
+        end, sums = _sim.trace_end_time_prefix_energy(
+            *sim._targs, sim._energy_table(kind), *_trace_arrays(trace),
+            n_channels=trace.channels, n_ways=trace.ways, batched=batched,
+            segment_len=segment_len)
+        return float(end), sums.cpu().numpy().astype(np.float64)
+
+    def end_time_batch(self, tables, trace, *, batched, device,
+                       segment_len=64, combine="chain"):
+        end = _sim.trace_end_time_prefix_batch(
+            *_table_tensors(tables, device), *_trace_arrays(trace),
+            n_channels=trace.channels, n_ways=trace.ways, batched=batched,
+            segment_len=segment_len, combine=combine)
+        return end.cpu().numpy()
+
+    def steady_channel_end(self, op, ways, *, n_pages, batched, device):
+        return float(_sim.trace_end_time_prefix(
+            *_steady_table(op, device), *_steady_pattern(n_pages, ways),
+            n_channels=1, n_ways=_sim.MAX_WAYS, batched=batched))
+
+
+@register_engine("squaring", batched_tables=False, energy=True,
+                 heterogeneous=False)
+class SquaringEngine(_EngineBase):
+    """Periodic (max,+) matrix squaring, O(log T) matmuls.  Homogeneous
+    only: the trace must be a single-class, single-channel round-robin
+    stream with ways | MAX_WAYS.  Energy is (+,+)-linear in the ops, so on
+    that domain the accumulator is the exact per-op sum —
+    engine-independent by construction."""
+
+    def _periodic_form(self, sim, trace) -> tuple[int, int]:
+        t = np.arange(trace.n_ops)
+        cls = np.asarray(trace.cls)
+        if trace.arrival_us is not None and np.any(trace.arrival_us > 0):
+            okay = ", ".join(sorted(
+                n for n, e in _REGISTRY.items() if e.caps.arrivals))
+            raise CapabilityError(
+                "engine 'squaring' folds a fixed period matrix — per-op "
+                f"arrivals break periodicity (arrival-aware engines: {okay})")
+        if trace.extra_us is not None and np.any(trace.extra_us > 0):
+            okay = ", ".join(sorted(
+                n for n, e in _REGISTRY.items() if e.caps.arrivals))
+            raise CapabilityError(
+                "engine 'squaring' folds a fixed period matrix — per-op "
+                "reliability surcharges (extra_us) break periodicity "
+                f"(fault-aware engines: {okay})")
+        if (trace.channels != 1
+                or np.any(cls != cls[0])
+                or np.any(np.asarray(trace.channel) != 0)
+                or np.any(np.asarray(trace.way) != t % trace.ways)
+                or np.any(np.asarray(trace.parity)
+                          != (t // trace.ways) % 2)):
+            hetero = ", ".join(sorted(
+                n for n, e in _REGISTRY.items() if e.caps.heterogeneous))
+            raise CapabilityError(
+                "engine 'squaring' needs a homogeneous single-channel "
+                f"round-robin stream (heterogeneous engines: {hetero})")
+        _sim._validate_squaring_ways(trace.ways)
+        k = int(cls[0])
+        if float(np.asarray(sim.table.arb_us)[k]) != 0.0:
+            raise CapabilityError(
+                "engine 'squaring' models a dedicated single-channel "
+                "firmware loop (arb_us must be zero)")
+        return k, trace.ways
+
+    def end_time(self, sim, trace, *, batched, segment_len=None):
+        k, ways = self._periodic_form(sim, trace)
+        return float(_sim._squaring_end_time(
+            *(sim._targs[i][k] for i in range(6)), ways,
+            n_pages=trace.n_ops, batched=batched)[0])
+
+    def energy_sums(self, sim, trace, kind, *, batched, segment_len=None):
+        end = self.end_time(sim, trace, batched=batched,
+                            segment_len=segment_len)
+        return end, sim._linear_energy_sums(trace, kind)
+
+    def steady_channel_end(self, op, ways, *, n_pages, batched, device):
+        _sim._validate_squaring_ways(ways)
+        return float(_sim._squaring_end_time(
+            *_op_scalars(op, device), ways, n_pages=n_pages,
+            batched=batched)[0])
+
+    def sweep_steady(self, scalars, data_bytes, ways, *, n_pages, batched,
+                     device):
+        _sim._validate_squaring_ways(ways)
+        return _sim._sweep_squaring(*scalars, data_bytes, ways,
+                                    n_pages=n_pages, batched=batched,
+                                    device=device).cpu().numpy()
 
 
 @register_engine("cuda", batched_tables=True, energy=True, arrivals=True)
@@ -381,7 +500,8 @@ class CudaEngine(_EngineBase):
             device=sim.device)
         return float(end), np.asarray(sums, np.float64)
 
-    def end_time_batch(self, tables, trace, *, batched, device):
+    def end_time_batch(self, tables, trace, *, batched, device,
+                       segment_len=64, combine="chain"):
         return np.asarray(trace_end_time_maxplus(
             list(tables), trace, policy=_policy_name(batched),
             device=device))
@@ -545,10 +665,10 @@ class SimResult:
     ``mb_s`` is user-payload bandwidth (None for payload-free traces).
     Workload queries additionally carry per-request latencies when the
     serving engine emits per-op completions (scan / oracle / streaming /
-    every dynamic dispatch; the (max,+) ``cuda`` engine answers makespan
-    only and leaves them None).  Fault-injected queries carry the
-    sampled ``retry_hist`` (retry-count histogram over read ops) and
-    ``n_remap_ops`` (program-fault remap writes inserted).
+    every dynamic dispatch; the (max,+) ``cuda`` and ``prefix`` engines
+    answer makespan only and leave them None).  Fault-injected queries
+    carry the sampled ``retry_hist`` (retry-count histogram over read
+    ops) and ``n_remap_ops`` (program-fault remap writes inserted).
 
     Percentile properties are guarded: a pN on fewer than
     ``100 / (100 - N)`` requests (e.g. p99 on < 100, p99.9 on < 1000)
@@ -904,7 +1024,7 @@ class Simulator:
         policy = policy or self.default_policy
         batched = policy_is_batched(policy)
         name = engine or "scan"
-        get_engine(name)            # raises on unknown / unported engines
+        get_engine(name)            # raises on unknown engines
         traces = list(traces)
         for t in traces:
             if t.n_ops == 0:
@@ -1031,24 +1151,25 @@ class Simulator:
             engine="streaming", n_ops=stats["n_ops"], payload_bytes=payload)
 
     def sweep(self, tables, trace: OpTrace, *,
-              policy: Policy | None = None, engine: str = "cuda",
+              policy: Policy | None = None, engine: str = "prefix",
+              segment_len: int | None = 64, combine: str = "chain",
               shard: bool | None = None, ftl=None,
               sched_policy: str = "stripe") -> np.ndarray:
         """[B] completion times of one trace under a batch of design-point
         tables (``tables=None`` sweeps the bound table alone) — the
         design-space fan-out direction of the serving path, through
-        :func:`sweep_tables` on the session's device.  The default engine
-        is ``cuda`` until the JAX package's default, ``prefix``, lands
-        with slice C.  ``ftl=`` (aged FTL design points, the only sweep
-        ``sched_policy`` places) lands with slice E; ``shard`` is
-        accepted for the JAX package's signature and means one device."""
+        :func:`sweep_tables` on the session's device (default engine
+        ``prefix``, as in the JAX package).  ``ftl=`` (aged FTL design
+        points, the only sweep ``sched_policy`` places) lands with slice
+        E; ``shard`` is accepted for the JAX package's signature and
+        means one device."""
         if ftl is not None:
             raise CapabilityError("sweep(ftl=...) is not ported yet (it "
                                   "lands with slice E)")
         return sweep_tables(
             [self.table] if tables is None else tables, trace,
             policy=policy or self.default_policy, engine=engine,
-            device=self.device)
+            segment_len=segment_len, combine=combine, device=self.device)
 
 
 @functools.lru_cache(maxsize=128)
@@ -1063,13 +1184,17 @@ def simulator_for(config: SSDConfig, device: torch.device) -> Simulator:
 
 
 def sweep_tables(tables, trace: OpTrace, *, policy: Policy = "eager",
-                 engine: str = "cuda",
+                 engine: str = "prefix", segment_len: int | None = 64,
+                 combine: str = "chain",
                  device: torch.device | str | None = None) -> np.ndarray:
     """[B] completion times (us) of one trace under a batch of
     design-point tables, through an engine with the batched-tables
-    capability.  The default is the kernel engine, whose one launch folds
-    every design point (the JAX package defaults to its log-depth
-    ``prefix`` engine, which lands with slice C)."""
+    capability: ``prefix`` (the default, as in the JAX package; its
+    ``segment_len`` and ``combine`` shape the fold), ``scan`` or
+    ``cuda`` (one kernel launch folds every design point).  On
+    ``prefix``, ``segment_len=None`` holds one [N, N] product per op: at
+    64 design points x a 65536-op trace on 8 x 16 that is about 360 GB,
+    beyond one card (the default 64 holds 5.6 GB)."""
     dev = resolve_device(device)
     batched = policy_is_batched(policy)
     eng = get_engine(engine)
@@ -1078,7 +1203,8 @@ def sweep_tables(tables, trace: OpTrace, *, policy: Policy = "eager",
     tables = list(tables)
     for t in tables:
         trace.validate_against(t)
-    return eng.end_time_batch(tables, trace, batched=batched, device=dev)
+    return eng.end_time_batch(tables, trace, batched=batched, device=dev,
+                              segment_len=segment_len, combine=combine)
 
 
 @functools.lru_cache(maxsize=256)
@@ -1108,7 +1234,7 @@ def steady_channel_bandwidth_mb_s(op: PageOpParams, ways: int,
                                   ) -> float:
     """Steady-stream bandwidth of a single channel (MB/s) for one op-class
     design point, via an engine with the homogeneous-pattern capability
-    (scan)."""
+    (scan / prefix / squaring)."""
     batched = policy_is_batched(policy)
     end = get_engine(engine).steady_channel_end(
         op, int(ways), n_pages=n_pages, batched=batched,
@@ -1125,10 +1251,10 @@ def sweep_steady_bandwidth_mb_s(cmd_us, pre_us, slot_us, post_lo_us,
                                 ) -> np.ndarray:
     """[B] single-channel steady bandwidths (MB/s, float32) of B design
     points given as arrays of op-class scalars, payload bytes and way
-    counts, via an engine with the sweep capability (``scan``; the JAX
-    package's ``squaring`` lands with slice C) — the fan-out the
-    ``calibrate`` fitting grids ride.  ``shard`` is accepted for the JAX
-    package's signature and means one device."""
+    counts, via an engine with the sweep capability (``scan`` /
+    ``squaring``) — the fan-out the ``calibrate`` fitting grids ride.
+    ``shard`` is accepted for the JAX package's signature and means one
+    device."""
     scalars = (cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us)
     return get_engine(engine).sweep_steady(
         scalars, data_bytes, ways, n_pages=n_pages, batched=batched,
@@ -1137,9 +1263,9 @@ def sweep_steady_bandwidth_mb_s(cmd_us, pre_us, slot_us, post_lo_us,
 
 __all__ = [
     "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
-    "Policy", "SimRequest", "SimResult", "Simulator", "UNPORTED_ENGINES",
-    "engine_capabilities", "get_engine", "register_engine",
-    "registered_engines", "simulator_for", "steady_bandwidth_mb_s",
+    "Policy", "SimRequest", "SimResult", "Simulator", "engine_capabilities",
+    "get_engine", "register_engine", "registered_engines", "simulator_for",
+    "steady_bandwidth_mb_s",
     "steady_channel_bandwidth_mb_s", "sweep_steady_bandwidth_mb_s",
     "sweep_tables",
 ]

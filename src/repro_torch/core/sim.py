@@ -25,6 +25,13 @@ how ``trace_end_time_batch`` evaluates one trace under a batch of timing
 tables.  The state tensors are updated in place (one allocation per
 fold, not per op).
 
+The log-depth engines evaluate the same recurrence as (max,+) products
+(``repro_torch.core.maxplus_form``): ``trace_end_time_prefix[_energy,
+_batch]`` (the ``prefix`` engine: segment products by the structured row
+fold, combined by a matvec chain or a log-depth product tree) and
+``_squaring_end_time`` / ``_sweep_squaring`` (the ``squaring`` engine:
+one period block raised to the stream length by repeated squaring).
+
 Model structure (C channels, W ways each)
 -----------------------------------------
 READ  page:  pre = t_CMD + t_R   (off-bus: command latch + array fetch)
@@ -625,8 +632,194 @@ def dispatch_trace(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us,
 
 
 # ---------------------------------------------------------------------------
+# log-depth engines: segmented prefix and periodic squaring
+# ---------------------------------------------------------------------------
+
+COMBINES: tuple[str, ...] = ("chain", "assoc")
+
+
+def _trace_end_time_prefix_impl(table, cls, channel, way, parity, arrival,
+                                extra, n_channels: int, n_ways: int,
+                                batched: bool, segment_len, combine: str,
+                                valid=None) -> torch.Tensor:
+    """[B] completion times of one trace under [B, K] table columns."""
+    from repro_torch.core import maxplus_form as mf  # mf imports this module
+
+    if combine not in COMBINES:
+        raise ValueError(f"unknown combine {combine!r} "
+                         "(one of 'chain', 'assoc')")
+    prods = mf.structured_segment_products(
+        *table, cls, channel, way, parity, arrival, extra,
+        channels=n_channels, ways=n_ways, batched=batched,
+        segment_len=segment_len if segment_len is not None else 1,
+        valid=valid)                                   # [B, S, N, N]
+    layout = mf.StateLayout(n_channels, n_ways)
+    s0 = torch.zeros((prods.shape[0], layout.n_state), dtype=torch.float32,
+                     device=prods.device)
+    if combine == "assoc":        # log-depth dense combine
+        final = mf.maxplus_fold_assoc(prods.movedim(1, 0), s0)
+    else:                         # O(S) matvec chain: no dense matmuls
+        final = s0
+        for s in range(prods.shape[1]):
+            final = mf.maxplus_matvec(prods[:, s], final)
+    return final[:, :layout.n_completion_rows].amax(dim=1)
+
+
+def trace_end_time_prefix(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
+                          ctrl_us, arb_us, cls, channel, way, parity,
+                          arrival_us=None, extra_us=None, *, n_channels: int,
+                          n_ways: int, batched: bool,
+                          segment_len: int | None = 64,
+                          combine: str = "chain",
+                          valid=None) -> torch.Tensor:
+    """Same recurrence as ``trace_end_time`` (0-d tensor), evaluated in
+    O(L + S) depth (S = ceil(T/L)): the trace's S segment products come
+    from the structured row fold of
+    ``repro_torch.core.maxplus_form.structured_segment_products`` (the
+    scan recurrence on N-row-valued resource times — O(T·N) work, depth
+    L), then combine across segments.  ``combine="chain"`` folds the S
+    products into the initial state with O(S) (max,+) matvecs;
+    ``combine="assoc"`` combines them in a log-depth tree of dense
+    matmuls — O(L + log S) total depth.  Table columns are [K] float32
+    tensors on the device that runs the fold; the per-op arrays are host
+    arrays or tensors.
+
+    ``n_ways`` bounds the way indices and sets the state layout.
+    ``segment_len=None`` folds each op as its own segment — with
+    ``combine="assoc"`` the pure O(log T)-depth dense form, whose
+    [T, N, N] products do not fit one card at sweep size (a 65536-op
+    trace on 8 x 16 needs 5.6 GB a design point).  ``valid`` (optional
+    [T] bool) masks ops out of the product exactly."""
+    table = tuple(x[None] for x in (cmd_us, pre_us, slot_us, post_lo_us,
+                                    post_hi_us, ctrl_us, arb_us))
+    return _trace_end_time_prefix_impl(
+        table, cls, channel, way, parity, arrival_us, extra_us, n_channels,
+        n_ways, batched, segment_len, combine, valid)[0]
+
+
+def trace_end_time_prefix_energy(cmd_us, pre_us, slot_us, post_lo_us,
+                                 post_hi_us, ctrl_us, arb_us, e_op_uj, cls,
+                                 channel, way, parity, arrival_us=None,
+                                 extra_us=None, *, n_channels: int,
+                                 n_ways: int, batched: bool,
+                                 segment_len: int | None = 64,
+                                 combine: str = "chain"
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(end_us, [P] phase-energy sums in uJ) via the segmented prefix
+    engine: energy is (+, +)-linear in the ops, so it rides the same
+    segment chunking as a plain per-segment sum combined across
+    segments (``e_op_uj`` is [K, 2, P])."""
+    from repro_torch.core import maxplus_form as mf
+
+    end = trace_end_time_prefix(
+        cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us, arb_us,
+        cls, channel, way, parity, arrival_us, extra_us,
+        n_channels=n_channels, n_ways=n_ways, batched=batched,
+        segment_len=segment_len, combine=combine)
+    seg = mf.structured_segment_energy(
+        e_op_uj, cls, parity,
+        segment_len=segment_len if segment_len is not None else 1)
+    return end, seg.sum(dim=0)
+
+
+def trace_end_time_prefix_batch(cmd_us, pre_us, slot_us, post_lo_us,
+                                post_hi_us, ctrl_us, arb_us, cls, channel,
+                                way, parity, arrival_us=None, extra_us=None,
+                                *, n_channels: int, n_ways: int,
+                                batched: bool, segment_len: int | None = 64,
+                                combine: str = "chain") -> torch.Tensor:
+    """[B] completion times: one trace under [B, K] stacked design-point
+    tables.  The structured segment fold runs over B×S lanes in one pass
+    (the per-op indices are shared by the batch) — the sweep-scaling form
+    of the prefix engine.  At the 64-point, 65536-op 8 x 16 sweep it
+    holds [64, 1024, 147, 146] products (5.6 GB) with ``segment_len=64``;
+    ``segment_len=None`` there would need 64 times that."""
+    return _trace_end_time_prefix_impl(
+        (cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us, arb_us),
+        cls, channel, way, parity, arrival_us, extra_us, n_channels, n_ways,
+        batched, segment_len, combine)
+
+
+def _squaring_end_time(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
+                       ctrl_us, ways: int, *, n_pages: int,
+                       batched: bool) -> torch.Tensor:
+    """[B] homogeneous single-channel completion times of B design points
+    sharing one way count, via periodic matrix squaring: fold one
+    2·MAX_WAYS-op period block with the structured row fold, then square
+    to ``n_pages`` — O(log n_pages) dense (max,+) matmuls plus one
+    structured remainder fold.  The op-class scalars are [B] float32
+    tensors (or 0-d for one point).  Requires ways | MAX_WAYS so the block
+    is a whole number of true periods (the paper's power-of-two grid)."""
+    from repro_torch.core import maxplus_form as mf
+
+    cols = tuple(x.reshape(-1, 1) for x in (cmd_us, pre_us, slot_us,
+                                            post_lo_us, post_hi_us, ctrl_us))
+    table = cols + (torch.zeros_like(cols[0]),)
+
+    def block_product(n_ops: int) -> torch.Tensor:
+        i = np.arange(n_ops)
+        zeros = np.zeros(n_ops, np.int32)
+        return mf.structured_segment_products(
+            *table, zeros, zeros, (i % ways).astype(np.int32),
+            ((i // ways) % 2).astype(np.int32), channels=1, ways=MAX_WAYS,
+            batched=batched, segment_len=n_ops)[:, 0]
+
+    q, r = divmod(int(n_pages), 2 * MAX_WAYS)
+    if q:
+        total = mf.maxplus_matrix_power(block_product(2 * MAX_WAYS), q)
+        if r:
+            total = mf.maxplus_matmul(block_product(r), total)
+    else:
+        total = block_product(r)
+    s0 = torch.zeros((mf.N_STATE,), dtype=torch.float32, device=total.device)
+    final = mf.maxplus_matvec(total, s0)
+    return final[:, :mf.DEFAULT_LAYOUT.n_completion_rows].amax(dim=1)
+
+
+def _validate_squaring_ways(ways) -> None:
+    """engine="squaring" folds a 2·MAX_WAYS-op period block, which only
+    tiles the stream when ways | MAX_WAYS (the paper's power-of-two
+    grid) — reject anything else loudly rather than silently misalign."""
+    arr = np.asarray(ways)
+    if np.any(arr < 1) or np.any(MAX_WAYS % np.maximum(arr, 1) != 0):
+        raise ValueError(
+            f"engine='squaring' requires ways dividing {MAX_WAYS}, got "
+            f"{arr.tolist()}")
+
+
+# ---------------------------------------------------------------------------
 # homogeneous design-point sweep
 # ---------------------------------------------------------------------------
+
+
+def _sweep_inputs(scalars, data_bytes, device):
+    """[B] float32 op-class scalar tensors and the payload bytes, which
+    keep an integer type as int32, as JAX does."""
+    cols = tuple(torch.as_tensor(np.asarray(x, np.float32), device=device)
+                 .reshape(-1) for x in scalars)
+    nbytes = np.asarray(data_bytes)
+    nbytes = torch.as_tensor(nbytes.astype(
+        np.int32 if np.issubdtype(nbytes.dtype, np.integer) else np.float32),
+        device=device)
+    return cols, nbytes
+
+
+def _sweep_squaring(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us,
+                    ctrl_us, data_bytes, ways, *, n_pages: int, batched: bool,
+                    device) -> torch.Tensor:
+    """[B] single-channel steady bandwidths (MB/s) of B design points by
+    periodic squaring, each point in O(log n_pages) (max,+) matmuls; the
+    points are grouped by way count, one batched squaring a group.  Every
+    entry of ``ways`` must divide MAX_WAYS (the caller validates)."""
+    cols, nbytes = _sweep_inputs((cmd_us, pre_us, slot_us, post_lo_us,
+                                  post_hi_us, ctrl_us), data_bytes, device)
+    w = np.asarray(ways, np.int64).reshape(-1)
+    end = torch.empty_like(cols[0])
+    for ways_g in np.unique(w):
+        sel = torch.as_tensor(np.flatnonzero(w == ways_g), device=device)
+        end[sel] = _squaring_end_time(*(x[sel] for x in cols), int(ways_g),
+                                      n_pages=n_pages, batched=batched)
+    return (n_pages * nbytes) / end
 
 
 def _sweep_scan(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us,
@@ -636,17 +829,12 @@ def _sweep_scan(cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us,
     each its own op-class scalars and way count, folded as B lanes of
     one ``n_pages`` round-robin stream.  Charges the shared-controller
     occupancy ``ctrl_us`` exactly like the per-point channel path; no
-    arbitration (one channel).  Scalars become float32 and
-    ``data_bytes`` keeps an integer type as int32, as JAX does."""
-    cols = tuple(torch.as_tensor(np.asarray(x, np.float32), device=device)
-                 .reshape(-1, 1) for x in (cmd_us, pre_us, slot_us,
-                                           post_lo_us, post_hi_us, ctrl_us))
+    arbitration (one channel)."""
+    cols, nbytes = _sweep_inputs((cmd_us, pre_us, slot_us, post_lo_us,
+                                  post_hi_us, ctrl_us), data_bytes, device)
+    cols = tuple(x[:, None] for x in cols)
     b = cols[0].shape[0]
     arb = torch.zeros((b, 1), dtype=torch.float32, device=device)
-    nbytes = np.asarray(data_bytes)
-    nbytes = torch.as_tensor(nbytes.astype(
-        np.int32 if np.issubdtype(nbytes.dtype, np.integer) else np.float32),
-        device=device)
     w = torch.as_tensor(np.asarray(ways, np.int32), device=device)
     i = torch.arange(n_pages, dtype=torch.int32, device=device)
     way = torch.remainder(i[None, :], w[:, None])

@@ -15,12 +15,18 @@ Three entry points mirror the scan-engine paths in ``repro_torch.core``:
 per-op energies ``E[idx[t]]`` inside the kernel's fold.
 
 The matrix dictionaries are built on the host in numpy float32
-(``repro_torch.core.maxplus_form``), moved to ``device`` once, and folded
-by ``kernel.maxplus_fold_kernel`` — the CUDA kernel for a CUDA device,
-its plain version for the CPU.  Only ``strategy="sequential"`` exists so
-far; the log-depth strategies ("segmented", "squaring") come with the
-(max,+) matmul algebra.  Every entry point takes ``device`` (None =
-``cuda``, raising when there is no card).
+(``repro_torch.core.maxplus_form``) and moved to ``device`` once.  The
+entry points take a ``strategy``:
+
+* ``"sequential"`` — the O(T) matvec fold of ``kernel.maxplus_fold_kernel``:
+  the CUDA kernel for a CUDA device, its plain version for the CPU;
+* ``"segmented"`` — the segmented parallel-prefix matmul fold,
+  O(segment_len + log T) depth, in plain torch on ``device``;
+* ``"squaring"`` (homogeneous only) — periodic matrix squaring,
+  O(log n_pages) matmuls, in plain torch on ``device``.
+
+Every entry point takes ``device`` (None = ``cuda``, raising when there
+is no card).
 """
 
 from __future__ import annotations
@@ -33,24 +39,13 @@ from repro_torch.core.maxplus_form import (NEG, StateLayout,
                                            combo_arrival_offsets,
                                            combo_matrices, combo_written_rows,
                                            end_time_from_state, init_state,
-                                           maxplus_eye, trace_combos,
-                                           transition_matrices)
+                                           maxplus_eye, maxplus_fold_segmented,
+                                           periodic_fold_squaring,
+                                           trace_combos, transition_matrices)
 from repro_torch.core.sim import PageOpParams
 from repro_torch.device import resolve_device
 from repro_torch.kernels.maxplus.kernel import (maxplus_fold_kernel,
                                                 maxplus_fold_many_kernel)
-
-STRATEGIES = ("sequential",)
-
-
-def _check_strategy(strategy: str) -> None:
-    if strategy in ("segmented", "squaring"):
-        raise ValueError(f"strategy={strategy!r} is not ported yet: the "
-                         "log-depth (max,+) algebra lands with slice C")
-    if strategy not in STRATEGIES:
-        raise ValueError(f"unknown strategy {strategy!r} (one of "
-                         "'sequential', 'segmented', 'squaring')")
-
 
 def _f32(x, device) -> torch.Tensor:
     """Explicit float32 on ``device`` (numpy's float64 never leaks in)."""
@@ -58,14 +53,57 @@ def _f32(x, device) -> torch.Tensor:
                            device=device)
 
 
+def _augment_arrivals(mats, gvec, idx, arrivals, wvec=None, extras=None):
+    """[B, T, N, N] per-op matrices with the arrival origin column maxed
+    in and the fault surcharge added to the written rows — the dense
+    expansion the segmented strategy folds when a trace carries arrivals
+    or per-op extras (the sequential kernel keeps the compact per-combo
+    dictionary and applies ``gvec[idx[t]] + arrivals[t]`` /
+    ``wvec[idx[t]] * extras[t]`` per step instead).  The origin row is
+    the last layout row by construction.  Adding ``extras[t]`` uniformly
+    across a written row commutes bit-exactly with the row max (rounding
+    is monotone), so the dense form reproduces the per-step one."""
+    per = mats.index_select(1, idx)                         # [B, T, N, N]
+    if arrivals is not None:
+        cand = gvec.index_select(1, idx) + arrivals[None, :, None]
+        per[..., -1] = torch.maximum(per[..., -1], cand)
+    if extras is not None:
+        shift = wvec.index_select(1, idx) * extras[None, :, None]
+        per = per + shift[..., None]                        # all columns
+    return per
+
+
 def maxplus_fold(mats, s0, *, t_steps: int, idx=None,
-                 strategy: str = "sequential", arrivals=None, gvec=None,
-                 extras=None, wvec=None):
-    """Fold dispatch over ``strategy`` (only "sequential" so far).
-    ``arrivals`` [T] + ``gvec`` [B, M, N] make the fold arrival-aware;
-    ``extras`` [T] + ``wvec`` [B, M, N] add per-op reliability
-    surcharges on the written rows (trace-indexed path only)."""
-    _check_strategy(strategy)
+                 strategy: str = "sequential", segment_len: int | None = 64,
+                 arrivals=None, gvec=None, extras=None, wvec=None):
+    """Fold dispatch: ``strategy`` picks the evaluation shape (see module
+    docstring).  ``arrivals`` [T] + ``gvec`` [B, M, N] make the fold
+    arrival-aware; ``extras`` [T] + ``wvec`` [B, M, N] add per-op
+    reliability surcharges on the written rows (trace-indexed path
+    only).  The log-depth strategies run in plain torch on the device of
+    ``mats``; only "sequential" launches the kernel."""
+    if (arrivals is not None or extras is not None) and idx is None:
+        raise ValueError("arrivals/extras need the trace-indexed path "
+                         "(pass idx)")
+    if strategy == "segmented":
+        dev = mats.device
+        if idx is None:
+            idx = torch.arange(t_steps, device=dev) % mats.shape[-3]
+        idx = torch.as_tensor(idx, device=dev).long()[:t_steps]
+        if arrivals is not None or extras is not None:
+            mats = _augment_arrivals(mats, gvec, idx, arrivals, wvec, extras)
+            idx = torch.arange(t_steps, device=dev)
+        return maxplus_fold_segmented(mats, idx, s0,
+                                      segment_len=segment_len)
+    if strategy == "squaring":
+        if idx is not None:
+            raise ValueError(
+                "strategy='squaring' needs a periodic (homogeneous) "
+                "stream — got an explicit idx sequence")
+        return periodic_fold_squaring(mats, s0, t_steps)
+    if strategy != "sequential":
+        raise ValueError(f"unknown strategy {strategy!r} (one of "
+                         "'sequential', 'segmented', 'squaring')")
     return maxplus_fold_kernel(mats, s0, t_steps=t_steps, idx=idx,
                                arrivals=arrivals, gvec=gvec, extras=extras,
                                wvec=wvec)
@@ -136,20 +174,21 @@ def trace_end_time_maxplus(
     *,
     policy: str = "eager",
     strategy: str = "sequential",
+    segment_len: int | None = 64,
     device=None,
 ) -> np.ndarray:
     """Completion times (us) of one heterogeneous trace under a batch of
     design-point timing tables ([B], or scalar for a single table)."""
     dev = resolve_device(device)
-    _check_strategy(strategy)
     single = not isinstance(tables, (list, tuple))
     if single:
         tables = [tables]
     layout, _, idx, mats, s0, arrivals, gvec, extras, wvec = _combo_setup(
         tables, trace, policy, dev)
     final = maxplus_fold(mats, s0, t_steps=trace.n_ops, idx=idx,
-                         strategy=strategy, arrivals=arrivals, gvec=gvec,
-                         extras=extras, wvec=wvec)
+                         strategy=strategy, segment_len=segment_len,
+                         arrivals=arrivals, gvec=gvec, extras=extras,
+                         wvec=wvec)
     end = end_time_from_state(final.cpu().numpy(), layout)
     return end[0] if single else end
 
@@ -257,14 +296,19 @@ def trace_energy_maxplus(
     *,
     policy: str = "eager",
     strategy: str = "sequential",
+    segment_len: int | None = 64,
     device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """(end_us, phase-energy sums in uJ) of one trace under a batch of
     design points ([B] / [B, P], or scalar / [P] for a single table).
-    The kernel accumulates ``E[idx[t]]`` in op order next to the (max,+)
-    matvec."""
+    ``strategy="sequential"`` accumulates ``E[idx[t]]`` in op order in
+    the kernel next to the (max,+) matvec; the segmented strategy folds
+    the end time as usual and reduces the energy as the plain sum it
+    is."""
     dev = resolve_device(device)
-    _check_strategy(strategy)
+    if strategy not in ("sequential", "segmented"):
+        raise ValueError(f"unknown trace energy strategy {strategy!r} "
+                         "(one of 'sequential', 'segmented')")
     single = not isinstance(tables, (list, tuple))
     if single:
         tables, kinds = [tables], [kinds]
@@ -274,9 +318,16 @@ def trace_energy_maxplus(
         _combo_setup(tables, trace, policy, dev)
     e = _f32(np.stack([combo_energy_uj(table, combos, kind)
                        for table, kind in zip(tables, kinds)]), dev)
-    final, acc = maxplus_fold_kernel(
-        mats, s0, t_steps=trace.n_ops, idx=idx, energy=e, arrivals=arrivals,
-        gvec=gvec, extras=extras, wvec=wvec)
+    if strategy == "sequential":
+        final, acc = maxplus_fold_kernel(
+            mats, s0, t_steps=trace.n_ops, idx=idx, energy=e,
+            arrivals=arrivals, gvec=gvec, extras=extras, wvec=wvec)
+    else:
+        final = maxplus_fold(
+            mats, s0, t_steps=trace.n_ops, idx=idx, strategy="segmented",
+            segment_len=segment_len, arrivals=arrivals, gvec=gvec,
+            extras=extras, wvec=wvec)
+        acc = e.index_select(1, idx.long()).sum(dim=1)
     end = end_time_from_state(final.cpu().numpy(), layout)
     acc = acc.cpu().numpy()
     return (end[0], acc[0]) if single else (end, acc)

@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the (max,+) folds: per design point
-(``maxplus_fold_ref``) and per trace of a fleet (``maxplus_fold_many_ref``).
+(``maxplus_fold_ref``) and per trace of a fleet (``maxplus_fold_many_ref``),
+and the sequential matrix product ``maxplus_product_ref`` that the
+log-depth strategies are held against.
 
 These are the CUDA kernels' plain versions: the wrappers in ``kernel.py``
 run them for tensors on the CPU, the tests hold them against the JAX
@@ -120,3 +122,20 @@ def maxplus_fold_many_ref(mats: torch.Tensor, gvec: torch.Tensor,
         out[perm] = s
         return out
     return s
+
+
+def maxplus_product_ref(mats: torch.Tensor, idx) -> torch.Tensor:
+    """Sequential (max,+) *matrix* fold P = A_{idx[-1]} ⊗ … ⊗ A_{idx[0]}.
+
+    mats: [B, M, N, N] -> [B, N, N].  Independent reference for the
+    segmented/squaring strategies' matmul algebra: the product is
+    computed one matmul at a time, each as the full [B, N, N, N] sum
+    tensor and its max, with no chunking or squaring tricks."""
+    b, m, n, _ = mats.shape
+    eye = torch.full((n, n), NEG, dtype=mats.dtype, device=mats.device)
+    eye.fill_diagonal_(0.0)
+    p = eye.expand(b, n, n)
+    for i in _host_indices(idx, len(idx), m):
+        a = mats[:, i]                                       # [B, N, N]
+        p = torch.amax(a[:, :, :, None] + p[:, None, :, :], dim=-2)
+    return p

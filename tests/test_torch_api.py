@@ -2,7 +2,9 @@
 request answers within 1e-6 relative on every field (the port's ``cuda``
 engine against JAX ``pallas``, ``scan`` against ``scan``, ``oracle``
 against ``oracle``), and the parts not ported yet raise
-``CapabilityError`` naming their slice.  Request-level workloads are
+``CapabilityError`` naming their slice.  The log-depth engines
+(``prefix``, ``squaring``) are held against JAX in
+``test_torch_logdepth.py``.  Request-level workloads are
 held against JAX in ``test_torch_sched_faults.py``."""
 
 import dataclasses
@@ -162,29 +164,19 @@ def test_unported_request_fields_raise(field, slice_):
     assert (got.request_lat_us is None) == (field == "faults")
 
 
-@pytest.mark.parametrize("engine,slice_", [
-    ("prefix", "slice C"), ("squaring", "slice C")])
-def test_unported_engines_raise(engine, slice_):
-    with pytest.raises(api.CapabilityError, match=slice_):
-        api.get_engine(engine)
-    with pytest.raises(api.CapabilityError, match=slice_):
-        api.Simulator(sim.SSDConfig(), device="cpu").run(
-            trace.steady_trace(8, 1, 1), engine=engine)
-    with pytest.raises(api.CapabilityError, match=slice_):
-        api.sweep_tables([trace.op_class_table(sim.SSDConfig())],
-                         trace.steady_trace(8, 1, 1), engine=engine,
-                         device="cpu")
-
-
 def test_registry_and_validation():
-    assert api.registered_engines() == ("cuda", "oracle", "scan",
-                                        "streaming")
+    assert api.registered_engines() == ("cuda", "oracle", "prefix", "scan",
+                                        "squaring", "streaming")
     caps = api.engine_capabilities()
     assert caps["cuda"].batched_tables and not caps["oracle"].batched_tables
     assert caps["scan"].describe() == ("scan: batched_tables, energy, "
                                        "arrivals, dispatch")
     assert [n for n, c in caps.items() if c.dispatch] == ["scan"]
-    assert all(c.arrivals for c in caps.values())
+    assert [n for n, c in caps.items() if not c.arrivals] == ["squaring"]
+    assert [n for n, c in caps.items() if not c.heterogeneous] == [
+        "squaring"]
+    assert [n for n, c in caps.items() if c.batched_tables] == [
+        "cuda", "prefix", "scan"]
     with pytest.raises(ValueError, match="registered engines: cuda"):
         api.get_engine("pallas")
     with pytest.raises(api.CapabilityError, match="engines that do: cuda"):

@@ -121,12 +121,14 @@ def test_unported_paths_name_their_slice():
     from repro_torch import api
     from repro_torch.core import trace
 
-    assert "streaming" not in api.UNPORTED_ENGINES
-    assert set(api.UNPORTED_ENGINES) == {"prefix", "squaring"}
+    assert not hasattr(api, "UNPORTED_ENGINES")
     s = api.Simulator(sim.SSDConfig(channels=1, ways=2), device="cpu")
     t = trace.steady_trace(8, 1, 2)
-    with pytest.raises(api.CapabilityError, match="slice C"):
-        s.run_many([t], engine="prefix")
+    scan = s.run(t).end_us
+    for engine in ("prefix", "squaring"):       # slice C runs
+        (res,) = s.run_many([t], engine=engine)
+        assert res.engine == engine
+        assert abs(res.end_us - scan) <= t.n_ops * 2.0 ** -24 * scan
     with pytest.raises(api.CapabilityError, match="slice E"):
         s.sweep(None, t, ftl=object())
     with pytest.raises(api.CapabilityError, match="slice E"):

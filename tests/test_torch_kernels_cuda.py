@@ -820,3 +820,80 @@ def test_k1_on_a_fault_extended_arrival_trace(card):
     assert torch.equal(got, maxplus_fold_ref(mats, s0, **kw))
     for a, b in zip(got_e, maxplus_fold_ref(mats, s0, energy=e, **kw)):
         assert torch.equal(a, b)
+
+
+# --- the log-depth engines on the card (plain torch, no kernel) -------------
+
+
+def _prefix_inputs():
+    """A 4 x 8 mixed trace with arrivals and surcharges, and 6 tables."""
+    rng = np.random.default_rng(12)
+    t = trace.mixed_trace(3000, 4, 8, 0.6, seed=12)
+    t = trace.OpTrace(
+        cls=t.cls, channel=t.channel, way=t.way, parity=t.parity,
+        channels=4, ways=8,
+        arrival_us=np.cumsum(rng.exponential(3.0, t.n_ops)).astype(
+            np.float32),
+        extra_us=np.where(rng.random(t.n_ops) < 0.1, rng.uniform(
+            5, 60, t.n_ops), 0.0).astype(np.float32))
+    tables = [trace.op_class_table(sim.SSDConfig(
+        interface=k, cell=c, channels=4, ways=8))
+        for c in ("slc", "mlc") for k in ("conv", "sync_only", "proposed")]
+    return t, tables
+
+
+@pytest.mark.parametrize("combine", ("chain", "assoc"))
+@pytest.mark.parametrize("policy", ("eager", "batched"))
+def test_prefix_on_the_card_equals_the_cpu(card, combine, policy):
+    """End times bit-equal to the CPU (the same float32 adds, an exact
+    max), energies within 1e-6 (float32 sums in another order)."""
+    from repro_torch import api
+    t, tables = _prefix_inputs()
+    ends = [api.sweep_tables(tables, t, policy=policy, combine=combine,
+                             device=dev) for dev in (card, "cpu")]
+    assert np.array_equal(*ends)
+    res = [api.Simulator(sim.SSDConfig(cell="mlc", channels=4, ways=8,
+                                       policy=policy), device=dev).run(
+        t, engine="prefix", objective="all", segment_len=32)
+        for dev in (card, "cpu")]
+    assert res[0].end_us == res[1].end_us
+    for f in ("cmd_j", "io_j", "ecc_j", "ctrl_j", "idle_j", "array_j"):
+        a, b = getattr(res[0].energy, f), getattr(res[1].energy, f)
+        assert abs(a - b) <= 1e-6 * abs(b), f
+
+
+def test_maxplus_matmul_routes_on_the_card(card, monkeypatch):
+    """The running-max route (products too large for one sum tensor)
+    equals the one-piece route and the CPU."""
+    rng = np.random.default_rng(3)
+    a = torch.as_tensor((rng.random((64, 40, 40)) * 9).astype(np.float32))
+    b = torch.as_tensor((rng.random((64, 40, 40)) * 9).astype(np.float32))
+    cube = mf.maxplus_matmul(a.to(card), b.to(card))
+    monkeypatch.setattr(mf, "MATMUL_CUBE_ELEMS", 0)
+    loop = mf.maxplus_matmul(a.to(card), b.to(card))
+    assert torch.equal(cube, loop)
+    assert torch.equal(loop.cpu(), mf.maxplus_matmul(a, b))
+
+
+@pytest.mark.parametrize("policy", ("eager", "batched"))
+def test_squaring_on_the_card_equals_the_cpu(card, policy):
+    from repro_torch import api
+    from repro_torch.core.interface import make_interface
+    from repro_torch.core.nand import chip
+    grid = [sim.page_op_params(make_interface(k), chip(c), m, w)
+            for c in ("slc", "mlc") for k in ("conv", "proposed")
+            for m in ("read", "write") for w in (1, 2, 4, 8, 16)]
+    ways = np.asarray([1, 2, 4, 8, 16] * 8, np.int32)
+    args = tuple(np.asarray([getattr(op, f) for op in grid]) for f in (
+        "cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
+        "ctrl_us", "data_bytes"))
+    bw = [api.sweep_steady_bandwidth_mb_s(
+        *args, ways, n_pages=1000, batched=policy == "batched",
+        engine="squaring", device=dev) for dev in (card, "cpu")]
+    assert np.array_equal(*bw)
+    res = [api.Simulator(sim.SSDConfig(cell="mlc", channels=1, ways=8,
+                                       policy=policy), device=dev).run(
+        trace.steady_trace(777, 1, 8), engine="squaring", objective="all")
+        for dev in (card, "cpu")]
+    assert res[0].end_us == res[1].end_us
+    assert res[0].energy.total_j == res[1].energy.total_j

@@ -170,8 +170,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="trace-indexed"):
         maxplus_fold_kernel(mats, s0, t_steps=4,
                             arrivals=torch.zeros(4))
-    with pytest.raises(ValueError, match="slice C"):
-        ops.maxplus_fold(mats, s0, t_steps=4, strategy="segmented")
+    with pytest.raises(ValueError, match="periodic"):
+        ops.maxplus_fold(mats, s0, t_steps=4, strategy="squaring",
+                         idx=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="trace-indexed"):
+        ops.maxplus_fold(mats, s0, t_steps=4, strategy="segmented",
+                         extras=torch.zeros(4))
     with pytest.raises(ValueError, match="unknown strategy"):
         ops.maxplus_fold(mats, s0, t_steps=4, strategy="sideways")
     with pytest.raises(ValueError, match="cuda or cpu"):

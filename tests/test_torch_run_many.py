@@ -176,9 +176,14 @@ def test_sweep_steady_bit_equal_to_jax(policy):
         int(w), policy=policy, n_pages=128, device="cpu")
         for w, k in zip(ways, ("conv", "sync_only", "proposed") * 5)]
     assert np.array_equal(np.asarray(per, np.float32), got)
-    with pytest.raises(api.CapabilityError, match="slice C"):
-        api.sweep_steady_bandwidth_mb_s(*args, engine="squaring",
-                                        device="cpu")
+    squaring = api.sweep_steady_bandwidth_mb_s(
+        *args, n_pages=128, batched=batched, engine="squaring",
+        device="cpu")
+    want_sq = np.asarray(japi.sweep_steady_bandwidth_mb_s(
+        *args, n_pages=128, batched=batched, engine="squaring",
+        shard=False))
+    assert squaring.dtype == np.float32
+    assert np.array_equal(squaring, want_sq)
     with pytest.raises(api.CapabilityError, match="engines that do: scan"):
         api.sweep_steady_bandwidth_mb_s(*args, engine="cuda", device="cpu")
 
@@ -200,5 +205,8 @@ def test_simulator_sweep_matches_jax(engine, jengine):
     alone = s.sweep(None, pt[0], engine=engine)
     assert alone.shape == (1,)
     assert alone[0] == s.run(pt[0], engine=engine).end_us
+    # the default engine is JAX's default, prefix
+    assert np.array_equal(s.sweep(tables, pt[0]), np.asarray(
+        js.sweep(jtables, jt[0], shard=False)))
     assert np.array_equal(s.sweep(tables, pt[0]),
-                          s.sweep(tables, pt[0], engine="cuda"))
+                          s.sweep(tables, pt[0], engine="prefix"))

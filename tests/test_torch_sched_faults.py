@@ -488,7 +488,10 @@ def test_workload_query_validation():
     assert s.run_stream(iter([t]), sched_policy="least_loaded").end_us == \
         s.run(t).end_us
     assert s.sweep(None, t, sched_policy="round_robin")[0] == \
-        s.run(t, engine="cuda").end_us
+        s.run(t, engine="prefix").end_us == japi.Simulator(
+            j_sim.SSDConfig(cell="mlc", channels=2, ways=4)).sweep(
+                None, j_trace.mixed_trace(64, 2, 4, 0.5, seed=1),
+                shard=False)[0]
     with pytest.raises(ValueError, match="needs ftl="):
         s.run_stream(iter([t]), faults=fl.FaultSpec(wear=1.0))
     for call in (lambda: s.run_stream(iter([t]), ftl=object(),
