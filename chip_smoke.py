@@ -132,9 +132,38 @@ Phases, one report line each (every check raises on failure):
    ``strategy="segmented"`` and ``"squaring"`` on phase 3's small
    dictionaries within T * 2^-24 of K1's plain version.  Every fold of
    10a-10c is checked to have run on the card.
+11. the FTL (slice E) on 8 channels x 16 ways (SLC, PROPOSED): (11a) the
+   JAX package's default ``FTLSpec`` with 512 blocks of 64 pages (OP
+   0.25, greedy, preconditioned: 78642 silent writes) under a
+   saturating 32768-request overwrite stream (30 % reads) over 90 % of
+   the logical space: the card's ``translate_scan`` op-for-op equal to
+   the numpy ``ftl.translate`` (classes, payloads, request ids, GC flags,
+   arrivals, ``FTLStats`` and the final drive state), its steps, steps/s,
+   launches a step (``torch.profiler`` on eager steps) and idle share;
+   ``Simulator.run(stream, ftl=spec, objective="all")`` on ``cuda``,
+   ``scan`` and ``oracle``: cuda vs scan within T * 2^-24, each engine
+   within 1e-3 of the oracle, scan's p50/p99/p99.9 within 1e-3 of the
+   oracle's, ``gc_op_count > 0`` and ``mb_s < fresh_mb_s``, the query's
+   first K1 launch held bit-equal to ``maxplus_fold_ref`` (its route
+   reported, not forced), WAF beside ``analytic_waf``, and a
+   4096-request prefix priced on the card bit-equal to the CPU; (11b)
+   that prefix with program and erase failures (the host translator's
+   path) on ``cuda``: ``blocks_retired > 0``, ``retry_hist`` summing to
+   the read-class ops, bit-equal to a CPU session; (11c) ``run_stream``
+   over 4096-request chunks equal to 11a's one-shot ``scan`` query (end,
+   WAF, ``ftl_stats``, ops, bytes), and with per-op faults on the
+   4096-request prefix in chunks of 2048 equal to the one-shot query with
+   that spec;
+   (11d) the 16-point aged sweep (``ftl_bench._scan_vs_host``'s points)
+   within 1e-3 of per-point ``run`` (scan) on 4 points, bit-equal to the
+   CPU on 2, a warm second sweep equal to the first; (11e) greedy's WAF
+   on ``ftl_bench._waf_sweep``'s full-size spec within 10 % of
+   ``analytic_waf``.  Every translation, scan and sweep fold of the
+   phase is checked to have run on the card.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
-workload query of 9a, whose K1 launches its report adds), phase 6 that
+workload query of 9a, whose K1 launches its report adds, and the FTL
+query of 11a, reported as its own entry), phase 6 that
 of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5: the
 launch counts are reset just before each and read just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
@@ -231,6 +260,33 @@ PERCENTILE_TOL = 1e-3       # scan vs oracle request-latency percentiles
 # phase 10: the prefix sweep held bit-equal to the CPU on these points,
 # combine="assoc" run on these
 PREFIX_CPU_POINTS, PREFIX_ASSOC_POINTS = (0, 37), (0, 13, 37, 63)
+# phase 11: the FTL on 8 x 16 SLC.  11a: the JAX package's default spec
+# with blocks raised to FTL_BLOCKS (32768 pages: 1024 blocks took phase 11
+# past its 150 s, the time going to sequential translation steps and the
+# CPU's eager preconditioning), under a saturating
+# overwrite stream over 90 % of the logical space (ftl_bench's
+# _bandwidth_cliff); 11b its first FTL_PREFIX requests with block
+# failures; 11c in chunks of FTL_CHUNK requests (with per-op faults on
+# the first FTL_FAULT_CHUNKED requests, chunks of FTL_FAULT_CHUNK); 11d ftl_bench._scan_vs_host's 16
+# points; 11e ftl_bench._waf_sweep's full-size greedy point
+FTL_BLOCKS, FTL_PPB, FTL_OP = 512, 64, 0.25
+FTL_REQUESTS, FTL_READ_FRACTION, FTL_SEED = 32768, 0.3, 5
+FTL_PREFIX, FTL_CHUNK, FTL_FAULT_CHUNKED, FTL_FAULT_CHUNK = \
+    4096, 4096, 4096, 2048
+# program failures at 1e-4, not 1e-3: at 1e-3 the preconditioning's
+# ~2e5 programs (~4e5 at 1024 blocks) fail some 200 times, each marking
+# its block bad, and the retirements outrun the 102-block spare pool —
+# the drive dies before the stream starts (ftl.translate raises, in the
+# JAX package too)
+FTL_BLOCK_FAULTS = dict(wear=0.6, jitter_us=0.4, prog_fail_prob=1e-4,
+                        erase_fail_prob=1e-3, seed=13)
+FTL_OP_FAULTS = dict(wear=0.6, jitter_us=0.4, seed=13)
+FTL_AGREEMENT = 1e-3        # ftl_bench's engine agreement gate
+FTL_SWEEP_OPS = (0.12, 0.5, 16)      # np.linspace arguments
+FTL_SWEEP_REQUESTS, FTL_SWEEP_SEED = 6000, 7
+FTL_SWEEP_RUN_POINTS, FTL_SWEEP_CPU_POINTS = (0, 5, 10, 15), (0, 9)
+FTL_WAF_BLOCKS, FTL_WAF_REQUESTS, FTL_WAF_SEED, WAF_PIN_TOL = \
+    256, 60000, 11, 0.10
 ENERGY_FIELDS = ("cmd_j", "io_j", "ecc_j", "ctrl_j", "idle_j", "array_j")
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
@@ -2459,6 +2515,520 @@ def phase_logdepth(device, trace, tables, cuda_ends, cuda_sweep_s,
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the FTL (slice E) — translation on the card, GC-translated
+# traces priced by K1, aging streams and the aged sweep
+# ---------------------------------------------------------------------------
+
+
+class FoldLog:
+    """Wraps the folds of the FTL paths — the translation machine's step
+    loop (``_drive``), the scan engine's and the lane-batched masked fold —
+    and records the device each call ran on, with the translation's steps
+    and seconds."""
+
+    def __init__(self):
+        from repro_torch.core import ftl_scan
+        from repro_torch.core import sim as core_sim
+        self.targets = [(ftl_scan, "_drive", lambda a: a[1].h.device),
+                        (core_sim, "_fold", lambda a: a[0][0].device),
+                        (core_sim, "_trace_end_time_prefix_impl",
+                         lambda a: a[0][0].device),
+                        (core_sim, "_trace_end_time_masked_impl",
+                         lambda a: a[0].device)]
+        self.calls = []      # (name, device type, steps or None, seconds)
+        self.real = {}
+        for mod, name, dev in self.targets:
+            real = getattr(mod, name)
+            self.real[(mod, name)] = real
+            setattr(mod, name, self._wrap(name, real, dev))
+
+    def _wrap(self, name, real, dev):
+        import torch
+
+        def call(*args, **kwargs):
+            d = dev(args)
+            if name == "_drive" and d.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            if name == "_drive" and d.type == "cuda":
+                torch.cuda.synchronize()
+            self.calls.append((name, d.type,
+                               out[2] if name == "_drive" else None,
+                               time.perf_counter() - t0))
+            return out
+        return call
+
+    def on_card(self, label, fn, folds=("_drive",)):
+        """``fn()``, required to have run each of ``folds`` at least once,
+        and every fold it ran, on the card."""
+        n = len(self.calls)
+        out = fn()
+        ran = self.calls[n:]
+        names = {c[0] for c in ran}
+        if (any(c[1] != "cuda" for c in ran)
+                or not set(folds) <= names):
+            raise AssertionError(f"{label}: folds ran as "
+                                 f"{[(c[0], c[1]) for c in ran]}")
+        return out, ran
+
+    def restore(self):
+        for (mod, name), real in self.real.items():
+            setattr(mod, name, real)
+
+
+def translation_steps(ran) -> tuple[int, float]:
+    """(steps, seconds) of the translation-machine runs in ``ran``."""
+    drives = [c for c in ran if c[0] == "_drive"]
+    return sum(c[2] for c in drives), sum(c[3] for c in drives)
+
+
+def same_translation(got, want) -> list:
+    """The fields in which two translations differ (op stream, stats,
+    final drive state)."""
+    import numpy as np
+    bad = [f for f in ("op_cls", "arrival_us", "payload", "request_id", "gc")
+           if not np.array_equal(getattr(got, f), getattr(want, f))]
+    if got.stats != want.stats:
+        bad.append("stats")
+    bad += [f for f in ("l2p", "p2l", "valid_count", "full", "fill_seq",
+                        "erase_count")
+            if not np.array_equal(getattr(got.state, f),
+                                  getattr(want.state, f))]
+    if list(got.state.free) != list(want.state.free):
+        bad.append("free")
+    return bad
+
+
+def step_profile(spec, stream, device, pre_states, n_steps: int = 64) -> dict:
+    """Kernels a translation step launches and their device time (by
+    ``torch.profiler`` over ``n_steps`` eager steps of the stream's own
+    machine, from the preconditioned drive), the host wall of an eager
+    step, and one replay of the captured graph chunk: its device time
+    (CUDA events) and host wall."""
+    import torch
+    from repro_torch.core import ftl_scan
+    from repro_torch.core.trace import WRITE
+    from repro_torch.core.workload import request_lpns, request_ops
+    cls, arr, rid, pay = request_ops(stream)
+    lpns = request_lpns(stream, spec.logical_pages)
+    n = len(cls)
+    host = ftl_scan._host_arrays(cls, arr, pay, rid, lpns,
+                                 ftl_scan._bucket(n + spec.pages_per_block),
+                                 device)
+    m = ftl_scan._Machine(spec.blocks, spec.pages_per_block, 1,
+                          host[0] == WRITE, host[1], host[4], n,
+                          spec.gc_free_blocks, spec.gc_policy == "lru",
+                          device)
+    fs = ftl_scan.preconditioned_lanes([spec], device, pre_states)
+    rec = ftl_scan._records(1, 3 * n_steps, device)
+    for t in range(n_steps):
+        fs = m.step(fs, rec, t)
+    prof = profiled(lambda: [m.step(fs, rec, n_steps + t)
+                             for t in range(n_steps)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n_steps):
+        fs = m.step(fs, rec, 2 * n_steps + t)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / n_steps * 1e6
+    chunk = ftl_scan._GraphChunk(m, fs, True)
+    replay_ms = cuda_ms(chunk.replay, reps=3)
+    replay_wall_ms = wall_ms(chunk.replay)
+    out = {"eager_wall_us_per_step": wall_us,
+           "graph_steps": ftl_scan._GRAPH,
+           "graph_replay_device_ms": replay_ms,
+           "graph_replay_wall_ms": replay_wall_ms}
+    if prof["kernels"] == "not measured":
+        out.update(kernels_per_step="not measured",
+                   device_us_per_step="not measured")
+    else:
+        out.update(kernels_per_step=prof["kernels"] / n_steps,
+                   device_us_per_step=prof["device_ms"] * 1e3 / n_steps)
+    return out
+
+
+def time_ftl_fold(mats, s0, kw) -> dict:
+    """K1's FTL launch timed as the query takes it: its route (from the
+    launch counts), one call between CUDA events, and its bound (the
+    compact route's counted one; the dense count where the precondition
+    sends it dense)."""
+    from repro_torch.kernels.maxplus import kernel as K
+    before = dict(K.LAUNCHES)
+    K.maxplus_fold_kernel(mats, s0, **kw)
+    route = "compact" if route_delta(before, "indexed")["compact"] else "dense"
+    if route == "compact":
+        f = time_fold(mats, s0, kw, dense=False)
+        f.pop("out")
+    else:
+        ms = cuda_ms(lambda: K.maxplus_fold_kernel(mats, s0, **kw))
+        t = kw["t_steps"]
+        b, _, n, _ = mats.shape
+        inputs = [x for x in (s0, kw.get("idx"), kw.get("arrivals"),
+                              kw.get("extras"), kw.get("gvec"),
+                              kw.get("wvec")) if x is not None]
+        n_bytes = float(sum(x.numel() * x.element_size()
+                            for x in (mats, *inputs, s0)))
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * t * b * n * n)
+        f = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+             "bound_ms_dense_count": b_ms}
+    f["route"] = route
+    return f
+
+
+def phase_ftl(device) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.api import FaultSpec, Simulator
+    from repro_torch.core import ftl, ftl_scan
+    from repro_torch.core.interface import InterfaceKind
+    from repro_torch.core.maxplus_form import StateLayout, end_time_from_state
+    from repro_torch.core.nand import CellType
+    from repro_torch.core.sim import SSDConfig
+    from repro_torch.core.workload import (iter_request_chunks,
+                                           overwrite_stream)
+    from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.kernels.maxplus import ops as maxplus_ops
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+
+    t_phase = time.perf_counter()
+    cfg = SSDConfig(interface=InterfaceKind.PROPOSED, cell=CellType.SLC,
+                    channels=WL_CHANNELS, ways=WL_WAYS)
+    sim = Simulator(cfg, device=device)
+    cpu = Simulator(cfg, device="cpu")
+    layout = StateLayout(WL_CHANNELS, WL_WAYS)
+    spec = ftl.FTLSpec(blocks=FTL_BLOCKS, pages_per_block=FTL_PPB,
+                       overprovision=FTL_OP, gc_policy="greedy",
+                       precondition=True)
+    stream = overwrite_stream(FTL_REQUESTS, int(0.9 * spec.logical_pages),
+                              read_fraction=FTL_READ_FRACTION, seed=FTL_SEED)
+    prefix = dataclasses.replace(stream, **{
+        f: getattr(stream, f)[:FTL_PREFIX]
+        for f in ("arrival_us", "op_cls", "n_pages", "stream", "lpn")})
+    waf_u = ftl.analytic_waf(spec.utilization)
+    folds = FoldLog()
+    try:
+        # -- 11a: the translation alone, cold, against the numpy one ----
+        # the session's cache of preconditioned drives, empty here: the
+        # first translation ages the drive, later ones (and the queries)
+        # start from a copy
+        pre = sim._ftl_pre_states
+        (tr_s, tr), ran = folds.on_card("translate_scan", lambda: timed(
+            lambda: ftl_scan.translate_scan(stream, spec, device=device,
+                                            pre_states=pre)))
+        (pre_steps, pre_s), (win_steps, win_s) = (
+            (c[2], c[3]) for c in ran if c[0] == "_drive")
+        t0 = time.perf_counter()
+        host = ftl.translate(stream, spec)
+        host_s = time.perf_counter() - t0
+        bad = same_translation(tr, host)
+        if bad:
+            raise AssertionError(f"translate_scan on the card != "
+                                 f"ftl.translate in {bad}")
+        warm_s, _ = timed(lambda: folds.on_card(
+            "warm translate_scan",
+            lambda: ftl_scan.translate_scan(stream, spec, device=device,
+                                            pre_states=pre)))
+        steps_prof = step_profile(spec, stream, device, pre)
+        # the device's share of a translation: the kernels' own time a
+        # step (profiled eager; a graph replays the same kernels) times
+        # the steps, over the cold translation's wall
+        d_us = steps_prof["device_us_per_step"]
+        idle = ("not measured" if d_us == "not measured" else
+                1.0 - d_us * 1e-6 * (pre_steps + win_steps) / tr_s)
+        log(f"[11a] {cfg.describe()}: FTLSpec({spec.describe()}, "
+            f"precondition: {len(ftl.precondition_lpns(spec))} writes), "
+            f"overwrite_stream({FTL_REQUESTS}, {int(0.9 * spec.logical_pages)}"
+            f", read_fraction={FTL_READ_FRACTION}) -> {tr.n_ops} ops "
+            f"({tr.stats.gc_op_count} GC); translate_scan on the card "
+            f"{tr_s:.2f} s cold (preconditioning {pre_steps} steps in "
+            f"{pre_s:.2f} s = {pre_steps / pre_s:.0f} steps/s; the stream "
+            f"{win_steps} steps in {win_s:.2f} s = {win_steps / win_s:.0f} "
+            f"steps/s), {warm_s:.2f} s warm (the preconditioned drive "
+            f"memoised); ftl.translate (numpy) {host_s:.2f} s; op-for-op "
+            f"equal, stats and final drive state included; WAF "
+            f"{tr.stats.waf:.4f} vs analytic_waf(u={spec.utilization:.4f}) "
+            f"= {waf_u:.4f}")
+        log(f"[11a] a translation step: {steps_prof['kernels_per_step']} "
+            f"kernels, {steps_prof['device_us_per_step']} us of kernel time "
+            f"(torch.profiler, eager steps), "
+            f"{steps_prof['eager_wall_us_per_step']:.0f} us host wall eager;"
+            f" one replay of the {ftl_scan._GRAPH}-step graph: "
+            f"{steps_prof['graph_replay_device_ms']:.2f} ms device (CUDA "
+            f"events), {steps_prof['graph_replay_wall_ms']:.2f} ms wall; the "
+            f"device's idle share of the cold translation {idle}")
+
+        # -- 11a: the query on cuda (the main path of K1's FTL launches) -
+        torch.cuda.synchronize()
+        rec = Recorder(maxplus_ops, "maxplus_fold_kernel")
+        try:
+            K.reset_launches()
+            (cuda_s, res_cuda), ran = folds.on_card("cuda query", lambda: timed(
+                lambda: sim.run(stream, ftl=spec, engine="cuda",
+                                objective="all")))
+            launches = dict(K.LAUNCHES)
+        finally:
+            rec.restore()
+        if not (launches["indexed"] >= 1 and launches["periodic"]
+                == launches["many"] == 0):
+            raise AssertionError(f"the FTL query on cuda launched "
+                                 f"{launches}")
+        mats, s0 = rec.args
+        kw = rec.kwargs
+        k1_out = K.maxplus_fold_kernel(mats, s0, **kw)
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(maxplus_fold_ref(mats, s0,
+                                                                 **kw)),
+                           reps=1, warmup=False)
+        plain_s = plain_ms / 1e3
+        k1_plain = plain[0]
+        k1_err = float((k1_out - k1_plain).abs().max())
+        if not torch.equal(k1_out, k1_plain):
+            raise AssertionError(f"K1 != plain on the FTL query's inputs "
+                                 f"(max abs {k1_err})")
+        k1_end = float(end_time_from_state(k1_out.cpu().numpy(), layout)[0])
+        if k1_end != res_cuda.end_us:
+            raise AssertionError(f"cuda FTL query end {res_cuda.end_us} != "
+                                 f"its first K1 launch's {k1_end}")
+        k1 = time_ftl_fold(mats, s0, kw)
+        k1.update(plain_ms=plain_ms, max_abs_err=k1_err)
+        del k1_plain, plain
+
+        (scan_s, res_scan), _ = folds.on_card("scan query", lambda: timed(
+            lambda: sim.run(stream, ftl=spec, engine="scan",
+                            objective="all")), ("_drive", "_fold"))
+        (oracle_s, res_oracle), _ = folds.on_card(
+            "oracle query", lambda: timed(lambda: sim.run(
+                stream, ftl=spec, engine="oracle", objective="all")))
+        n_ops = res_scan.n_ops
+        drift = rel(res_cuda.end_us, res_scan.end_us)
+        agree = {r.engine: rel(r.end_us, res_oracle.end_us)
+                 for r in (res_cuda, res_scan)}
+        pct, pct_oracle = percentiles(res_scan), percentiles(res_oracle)
+        pct_err = max(rel(pct[q], pct_oracle[q]) for q in pct)
+        if not (n_ops == res_cuda.n_ops == res_oracle.n_ops == tr.n_ops
+                and drift <= n_ops * F32_DRIFT_PER_OP
+                and max(agree.values()) <= FTL_AGREEMENT
+                and pct_err <= PERCENTILE_TOL
+                and res_scan.gc_op_count > 0
+                and res_scan.mb_s < res_scan.fresh_mb_s
+                and res_cuda.waf == res_scan.waf == tr.stats.waf):
+            raise AssertionError(
+                f"FTL query: cuda vs scan {drift:.2e}, vs oracle {agree}, "
+                f"percentiles {pct} vs {pct_oracle}, {res_scan.describe()}, "
+                f"fresh {res_scan.fresh_mb_s}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre_card = sim.run(prefix, ftl=spec, engine="cuda")
+        torch.cuda.synchronize()
+        prefix_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pre_cpu = cpu.run(prefix, ftl=spec, engine="cuda")
+        prefix_cpu_s = time.perf_counter() - t0
+        if not (pre_card.end_us == pre_cpu.end_us
+                and pre_card.fresh_mb_s == pre_cpu.fresh_mb_s
+                and pre_card.ftl_stats == pre_cpu.ftl_stats):
+            raise AssertionError(f"the {FTL_PREFIX}-request FTL prefix on the "
+                                 f"card != the CPU: {pre_card.end_us} vs "
+                                 f"{pre_cpu.end_us}")
+        log(f"[11a] Simulator.run(stream, ftl=spec, objective='all'): cuda "
+            f"{cuda_s:.2f} s (K1 {launches['indexed']} launches: "
+            f"{launches['indexed/compact']} compact, "
+            f"{launches['indexed/dense']} dense), scan {scan_s:.2f} s, "
+            f"oracle {oracle_s:.2f} s; {n_ops} ops; cuda vs scan end "
+            f"{drift:.2e} (< T*2^-24 = {n_ops * F32_DRIFT_PER_OP:.2e}); vs "
+            f"the oracle {agree} (< {FTL_AGREEMENT}); scan vs oracle "
+            f"percentiles {pct_err:.2e} (< {PERCENTILE_TOL}); aged "
+            f"{res_scan.mb_s:.3f} MB/s vs fresh {res_scan.fresh_mb_s:.3f} "
+            f"MB/s; {res_scan.describe()}")
+        log(f"[11a] p50 / p99 / p99.9 {pct['p50_us']:.1f} / "
+            f"{pct['p99_us']:.1f} / {pct['p99_9_us']:.1f} us; "
+            f"{FTL_PREFIX}-request prefix ({pre_card.n_ops} ops) on cuda: "
+            f"card {prefix_s:.2f} s, CPU {prefix_cpu_s:.2f} s, bit-equal")
+        log(f"[11a] first K1 launch of the FTL query (B={mats.shape[0]} "
+            f"M={mats.shape[1]} N={mats.shape[2]} T={kw['t_steps']}, 7 op "
+            f"classes, arrivals) bit-equal to maxplus_fold_ref on the card "
+            f"(plain {plain_s:.1f} s), its end time the query's: "
+            f"{k1['route']} route {k1['ms']:.3f} ms"
+            + (f" (pre-pass {k1['prepass_ms']:.3f} ms, fold alone "
+               f"{k1['fold_ms']:.3f} ms, {k1['ns_per_step']:.1f} ns a step)"
+               if k1["route"] == "compact" else "")
+            + f", bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+
+        # -- 11b: block failures (the host translator's path) -----------
+        fspec = FaultSpec(**FTL_BLOCK_FAULTS)
+        k1_before = K.LAUNCHES["indexed"]
+        (fault_s, res_b), _ = folds.on_card("faulty query", lambda: timed(
+            lambda: sim.run(prefix, ftl=spec, faults=fspec, engine="cuda")),
+            ())
+        if K.LAUNCHES["indexed"] == k1_before:
+            raise AssertionError("11b priced its trace without K1")
+        t0 = time.perf_counter()
+        res_b_cpu = cpu.run(prefix, ftl=spec, faults=fspec, engine="cuda")
+        fault_cpu_s = time.perf_counter() - t0
+        tr_b = ftl.translate(prefix, spec,
+                             prog_fail_prob=fspec.prog_fail_prob,
+                             erase_fail_prob=fspec.erase_fail_prob,
+                             fault_seed=fspec.seed)
+        n_read = int(np.isin(tr_b.op_cls, (ftl.FTL_READ, ftl.GC_READ)).sum())
+        st_b = res_b.ftl_stats
+        if not (st_b.blocks_retired > 0
+                and int(res_b.retry_hist.sum()) == n_read
+                and res_b.end_us == res_b_cpu.end_us
+                and res_b.ftl_stats == res_b_cpu.ftl_stats
+                and np.array_equal(res_b.retry_hist, res_b_cpu.retry_hist)
+                and res_b.n_ops == tr_b.n_ops):
+            raise AssertionError(f"11b: {st_b}, retry_hist "
+                                 f"{res_b.retry_hist} over {n_read} reads, "
+                                 f"card {res_b.end_us} vs CPU "
+                                 f"{res_b_cpu.end_us}")
+        log(f"[11b] {FTL_PREFIX}-request prefix with FaultSpec("
+            f"{FTL_BLOCK_FAULTS}) on cuda (the numpy translator's path): "
+            f"{res_b.n_ops} ops, {st_b.prog_fails} program failures, "
+            f"{st_b.blocks_retired} blocks retired, WAF {res_b.waf:.4f}; "
+            f"retry_hist {res_b.retry_hist.tolist()} over {n_read} "
+            f"read-class ops; card {fault_s:.2f} s, CPU {fault_cpu_s:.2f} s,"
+            f" bit-equal")
+
+        # -- 11c: chunked aging ------------------------------------------
+        (chunk_s, rs), ran = folds.on_card("run_stream", lambda: timed(
+            lambda: sim.run_stream(iter_request_chunks(stream, FTL_CHUNK),
+                                   ftl=spec)), ("_drive", "_fold"))
+        if not (rs.end_us == res_scan.end_us and rs.waf == res_scan.waf
+                and rs.ftl_stats == res_scan.ftl_stats
+                and rs.n_ops == res_scan.n_ops
+                and rs.payload_bytes == res_scan.payload_bytes):
+            raise AssertionError(f"run_stream(ftl=) != the one-shot scan "
+                                 f"query: {rs.end_us} vs {res_scan.end_us}")
+        chunk_steps, chunk_tr_s = translation_steps(ran)
+        ospec = FaultSpec(**FTL_OP_FAULTS)
+        head = dataclasses.replace(stream, **{
+            f: getattr(stream, f)[:FTL_FAULT_CHUNKED]
+            for f in ("arrival_us", "op_cls", "n_pages", "stream", "lpn")})
+        (fchunk_s, rsf), _ = folds.on_card("run_stream faults", lambda: timed(
+            lambda: sim.run_stream(iter_request_chunks(head, FTL_FAULT_CHUNK),
+                                   ftl=spec, faults=ospec)),
+            ("_drive", "_fold"))
+        (fone_s, onef), _ = folds.on_card("one-shot faults", lambda: timed(
+            lambda: sim.run(head, ftl=spec, faults=ospec)),
+            ("_drive", "_fold"))
+        if not (rsf.end_us == onef.end_us and rsf.waf == onef.waf
+                and rsf.n_ops == onef.n_ops):
+            raise AssertionError(f"run_stream(ftl=, faults=) != one-shot: "
+                                 f"{rsf.end_us} vs {onef.end_us}")
+        log(f"[11c] run_stream(iter_request_chunks(stream, {FTL_CHUNK}), "
+            f"ftl=spec): {chunk_s:.2f} s ({chunk_steps} translation steps "
+            f"in {chunk_tr_s:.2f} s), equal to 11a's one-shot scan query "
+            f"(end, WAF, ftl_stats, {rs.n_ops} ops, {rs.payload_bytes} "
+            f"bytes); with FaultSpec({FTL_OP_FAULTS}) on the first "
+            f"{FTL_FAULT_CHUNKED} requests in chunks of {FTL_FAULT_CHUNK}: "
+            f"chunked {fchunk_s:.2f} s == "
+            f"one-shot {fone_s:.2f} s ({rsf.n_ops} ops)")
+
+        # -- 11d: the aged design-space sweep ----------------------------
+        ops_ = np.linspace(*FTL_SWEEP_OPS)
+        specs = [ftl.FTLSpec(blocks=128, pages_per_block=32,
+                             overprovision=float(op), precondition=True)
+                 for op in ops_]
+        aged = overwrite_stream(FTL_SWEEP_REQUESTS, specs[-1].logical_pages,
+                                read_fraction=0.5, seed=FTL_SWEEP_SEED)
+        (cold_s, ends), ran = folds.on_card("aged sweep", lambda: timed(
+            lambda: sim.sweep(None, aged, ftl=specs)),
+            ("_drive", "_trace_end_time_masked_impl"))
+        sweep_steps, sweep_tr_s = translation_steps(ran)
+        (warm_sweep_s, ends2), _ = folds.on_card("warm sweep", lambda: timed(
+            lambda: sim.sweep(None, aged, ftl=specs)),
+            ("_drive", "_trace_end_time_masked_impl"))
+        runs = {}
+        t0 = time.perf_counter()
+        for i in FTL_SWEEP_RUN_POINTS:
+            runs[i], _ = folds.on_card(f"point {i}", lambda: sim.run(
+                aged, ftl=specs[i], engine="prefix"),
+                ("_drive", "_trace_end_time_prefix_impl"))
+        runs_s = time.perf_counter() - t0
+        point_err = max(rel(ends[i], r.end_us) for i, r in runs.items())
+        point_exact = all(ends[i] == r.end_us for i, r in runs.items())
+        cpts = list(FTL_SWEEP_CPU_POINTS)
+        t0 = time.perf_counter()
+        ends_cpu = cpu.sweep(None, aged, ftl=[specs[i] for i in cpts])
+        sweep_cpu_s = time.perf_counter() - t0
+        if not (np.array_equal(ends, ends2) and np.array_equal(
+                ends_cpu, ends[cpts]) and point_err <= FTL_AGREEMENT):
+            raise AssertionError(f"aged sweep: warm == cold "
+                                 f"{np.array_equal(ends, ends2)}, CPU "
+                                 f"{ends_cpu} vs {ends[cpts]}, per point "
+                                 f"{point_err:.2e}")
+        log(f"[11d] sweep(None, overwrite_stream({FTL_SWEEP_REQUESTS}), "
+            f"ftl=16 points, OP {ops_[0]:.2f}..{ops_[-1]:.2f}, 128blk x "
+            f"32pg): cold {cold_s:.2f} s ({sweep_steps} batched translation "
+            f"steps in {sweep_tr_s:.2f} s), warm {warm_sweep_s:.2f} s, "
+            f"equal; vs per-point run (prefix) on points "
+            f"{list(FTL_SWEEP_RUN_POINTS)}: {point_err:.2e} (< "
+            f"{FTL_AGREEMENT}; bit-equal: {point_exact}), {runs_s:.1f} s; "
+            f"points {cpts} bit-equal to the CPU ({sweep_cpu_s:.1f} s); "
+            f"WAF {runs[FTL_SWEEP_RUN_POINTS[0]].waf:.3f} at OP "
+            f"{ops_[0]:.2f} .. {runs[FTL_SWEEP_RUN_POINTS[-1]].waf:.3f} at "
+            f"{ops_[-1]:.2f}")
+
+        # -- 11e: the WAF pin --------------------------------------------
+        pin = ftl.FTLSpec(blocks=FTL_WAF_BLOCKS, pages_per_block=64,
+                          overprovision=0.25, gc_free_blocks=1,
+                          precondition=True, precondition_passes=3.0)
+        (pin_s, tr_e), ran = folds.on_card("WAF pin", lambda: timed(
+            lambda: ftl_scan.translate_scan(
+                overwrite_stream(FTL_WAF_REQUESTS, pin.logical_pages,
+                                 seed=FTL_WAF_SEED), pin, device=device)))
+        pin_steps, _ = translation_steps(ran)
+        want = ftl.analytic_waf(pin.utilization)
+        pin_err = rel(tr_e.stats.waf, want)
+        if pin_err > WAF_PIN_TOL:
+            raise AssertionError(f"WAF pin: {tr_e.stats.waf} vs analytic "
+                                 f"{want}")
+        log(f"[11e] FTLSpec({pin.describe()}, gc_free_blocks=1, 3 "
+            f"preconditioning passes) under overwrite_stream("
+            f"{FTL_WAF_REQUESTS}): greedy WAF {tr_e.stats.waf:.4f} vs "
+            f"analytic_waf(u={pin.utilization:.4f}) = {want:.4f} ({pin_err:.2%}"
+            f" < {WAF_PIN_TOL:.0%}); {pin_steps} steps on the card in "
+            f"{pin_s:.2f} s")
+    finally:
+        folds.restore()
+    seconds = time.perf_counter() - t_phase
+    log(f"[11] FTL in {seconds:.1f} s")
+    return {"launches": launches, "k1": k1,
+            "k1_shape": list(mats.shape) + [kw["t_steps"]],
+            "seconds": seconds,
+            "translation": {"cold_s": tr_s, "warm_s": warm_s,
+                            "host_numpy_s": host_s,
+                            "precondition_steps": pre_steps,
+                            "precondition_s": pre_s,
+                            "stream_steps": win_steps, "stream_s": win_s,
+                            "idle_share": idle,
+                            **steps_prof},
+            "n_ops": n_ops, "gc_op_count": res_scan.gc_op_count,
+            "waf": tr.stats.waf, "analytic_waf": waf_u,
+            "mb_s": res_scan.mb_s, "fresh_mb_s": res_scan.fresh_mb_s,
+            "walls_s": {"cuda": cuda_s, "scan": scan_s, "oracle": oracle_s,
+                        "prefix_card": prefix_s, "prefix_cpu": prefix_cpu_s,
+                        "faults_card": fault_s, "faults_cpu": fault_cpu_s,
+                        "run_stream": chunk_s, "run_stream_faults": fchunk_s,
+                        "one_shot_faults": fone_s, "sweep_cold": cold_s,
+                        "sweep_warm": warm_sweep_s, "sweep_points": runs_s,
+                        "sweep_cpu": sweep_cpu_s, "waf_pin": pin_s},
+            "cuda_vs_scan": drift, "vs_oracle": agree,
+            "percentiles": pct, "percentiles_oracle": pct_oracle,
+            "k1_plain_s": plain_s,
+            "faults": {"blocks_retired": st_b.blocks_retired,
+                       "prog_fails": st_b.prog_fails,
+                       "retry_hist": res_b.retry_hist.tolist()},
+            "sweep": {"steps": sweep_steps, "translation_s": sweep_tr_s,
+                      "vs_points": point_err, "points_exact": point_exact},
+            "waf_pin": {"waf": tr_e.stats.waf, "analytic": want,
+                        "steps": pin_steps}}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2708,6 +3278,9 @@ def main() -> int:
     logdepth = phase_logdepth(dev, trace, tables, ends, sweep_s, setup_s,
                               wl.pop("query"))
 
+    # -- 11: the FTL; its K1 launches are their own report entry ---------
+    ftl_report = phase_ftl(dev)
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -2724,6 +3297,7 @@ def main() -> int:
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "routes")},
         "streams": streams, "workloads": wl, "logdepth": logdepth,
+        "ftl": ftl_report,
         "lm": {**lm_small, **{k: v for k, v in lm.items()
                               if k not in ("k4", "k5")}},
         "seconds": time.perf_counter() - t_start,
@@ -2749,6 +3323,18 @@ def main() -> int:
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "routes": routes("indexed", sweep_t, real_err),
          "bound_ms_dense_count": sweep_t["bound_ms_dense_count"]},
+        {"name": "maxplus_fold (trace-indexed, K1, FTL query)", **common,
+         "replaces": "src/repro/kernels/maxplus/kernel.py:426",
+         "launches": ftl_report["launches"]["indexed"],
+         "max_abs_err": ftl_report["k1"]["max_abs_err"],
+         "ms": ftl_report["k1"]["ms"],
+         "plain_ms": ftl_report["k1"]["plain_ms"],
+         "bound_ms": ftl_report["k1"]["bound_ms"],
+         "bound_by": ftl_report["k1"]["bound_by"],
+         "routes": {r: ftl_report["launches"][f"indexed/{r}"]
+                    for r in K.ROUTES},
+         "first_launch_route": ftl_report["k1"]["route"],
+         "shape_bmnt": ftl_report["k1_shape"]},
         {"name": "maxplus_fold (periodic, K2)", **common,
          "replaces": "src/repro/kernels/maxplus/kernel.py:419",
          "launches": launches["periodic"],

@@ -30,12 +30,26 @@ Latency under load and reliability (request-level workloads)::
     res = sim.run(load, faults=worn)            # retries, remaps, hedges
     print(res.p99_9_us, res.n_remap_ops, res.retry_hist)
 
+Aging and garbage collection (the FTL stage): the translation machine
+runs on the session's device, the translated stream prices on every
+engine but ``squaring``::
+
+    from repro_torch.api import FTLSpec, overwrite_stream
+
+    aged = sim.run(overwrite_stream(4096, footprint_pages=2048),
+                   ftl=FTLSpec(overprovision=0.25, precondition=True))
+    print(aged.waf, aged.mb_s, aged.fresh_mb_s)    # steady vs fresh
+    points = [FTLSpec(overprovision=op, gc_policy=g, precondition=True)
+              for op in (0.12, 0.25, 0.5) for g in ("greedy", "lru")]
+    ends = sim.sweep(None, overwrite_stream(4096, 2048), ftl=points)
+
 Engine names follow the JAX package's ``repro.api`` except that its
 ``pallas`` engine is ``cuda`` here; ``sweep_tables`` and
 ``Simulator.sweep`` default to the log-depth ``prefix`` engine, as there.
 """
 
-from repro_torch.core.api import (CapabilityError, Engine, EngineCaps,
+from repro_torch.core.api import (CacheInfo, CapabilityError, Engine,
+                                  EngineCaps,
                                   OBJECTIVES, Objective, Policy, SimRequest,
                                   SimResult, Simulator, engine_capabilities,
                                   get_engine, register_engine,
@@ -45,6 +59,12 @@ from repro_torch.core.api import (CapabilityError, Engine, EngineCaps,
                                   sweep_steady_bandwidth_mb_s, sweep_tables)
 from repro_torch.core.energy import EnergyBreakdown
 from repro_torch.core.faults import FaultSampler, FaultSpec
+from repro_torch.core.ftl import (FTL_LABELS, GC_POLICIES, FTLSpec, FTLStats,
+                                  FTLTranslation, analytic_waf,
+                                  ftl_op_class_table, precondition_lpns,
+                                  select_victim)
+from repro_torch.core.ftl import translate as ftl_translate
+from repro_torch.core.ftl_scan import translate_scan as ftl_translate_scan
 from repro_torch.core.interface import InterfaceKind
 from repro_torch.core.nand import CellType
 from repro_torch.core.sched import (DYNAMIC_POLICIES, LoweredWorkload,
@@ -68,7 +88,7 @@ from repro_torch.core.workload import (RequestStream, aging_stream,
 
 __all__ = [
     # the session API proper
-    "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
+    "CacheInfo", "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
     "Policy", "SimRequest", "SimResult", "Simulator", "engine_capabilities",
     "get_engine", "register_engine", "registered_engines", "simulator_for",
     "steady_bandwidth_mb_s", "steady_channel_bandwidth_mb_s",
@@ -83,6 +103,10 @@ __all__ = [
     "request_lpns",
     # the reliability layer
     "FaultSampler", "FaultSpec", "apply_faults", "with_hedges",
+    # the FTL stage
+    "FTLSpec", "FTLStats", "FTLTranslation", "FTL_LABELS", "GC_POLICIES",
+    "analytic_waf", "ftl_op_class_table", "ftl_translate",
+    "ftl_translate_scan", "precondition_lpns", "select_victim",
     # the types a request/result is made of, and the trace builders
     "CellType", "EnergyBreakdown", "InterfaceKind", "OpClassTable",
     "OpTrace", "PageOpParams", "READ", "SSDConfig", "WRITE",

@@ -55,14 +55,25 @@ surface over every simulation engine.
   :func:`sweep_steady_bandwidth_mb_s` (homogeneous single-channel design
   points) and :meth:`Simulator.run_stream` (a trace as chunks).
 
-Request fields whose part of the system is not ported yet raise
-:class:`CapabilityError` naming the slice that brings it: ``ftl`` (slice
-E).  Traces that carry ``arrival_us`` / ``extra_us`` are served by every
+* the **FTL stage** (DESIGN.md §2.10-§2.11) — a workload request may
+  carry an ``FTLSpec``: the stream runs through the L2P map and garbage
+  collection first (the torch translation machine of
+  ``repro_torch.core.ftl_scan`` on the session's device; the numpy host
+  translator of ``repro_torch.core.ftl`` when block-level program/erase
+  failures are on), and the translated stream — GC relocations and
+  erases included — lowers and prices on a sibling session over the
+  7-class FTL table.  ``run_stream(ftl=)`` translates chunk by chunk
+  carrying the drive, and ``sweep(None, stream, ftl=specs)`` is the aged
+  design-space sweep.  Every engine but ``squaring`` has the ``ftl``
+  capability.
+
+Traces that carry ``arrival_us`` / ``extra_us`` are served by every
 engine here except ``squaring``, whose fixed period they would break.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import warnings
@@ -71,6 +82,8 @@ from typing import Literal, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.core import ftl as _ftl
+from repro_torch.core import ftl_scan as _ftl_scan
 from repro_torch.core import sched as _sched
 from repro_torch.core import sim as _sim
 from repro_torch.core import trace as _trace
@@ -121,10 +134,11 @@ class EngineCaps:
     arrivals: bool = False  # arrival-aware traces (request workloads)
     dispatch: bool = False  # joint dispatch+simulate (dynamic sched policies)
     heterogeneous: bool = True  # arbitrary OpTrace (vs homogeneous periodic)
+    ftl: bool = False       # FTL-translated streams (GC/erase op classes)
 
     def describe(self) -> str:
         flags = [k for k in ("batched_tables", "energy", "arrivals",
-                             "dispatch") if getattr(self, k)]
+                             "dispatch", "ftl") if getattr(self, k)]
         return f"{self.name}: {', '.join(flags) or 'none'}"
 
 
@@ -148,7 +162,7 @@ _REGISTRY: dict[str, Engine] = {}
 
 def register_engine(name: str, *, batched_tables: bool, energy: bool,
                     arrivals: bool = False, dispatch: bool = False,
-                    heterogeneous: bool = True):
+                    heterogeneous: bool = True, ftl: bool = False):
     """Class decorator: instantiate and register an engine under ``name``
     with its declared capability row.  Names are unique."""
 
@@ -158,7 +172,8 @@ def register_engine(name: str, *, batched_tables: bool, energy: bool,
         inst = cls()
         inst.caps = EngineCaps(name=name, batched_tables=batched_tables,
                                energy=energy, arrivals=arrivals,
-                               dispatch=dispatch, heterogeneous=heterogeneous)
+                               dispatch=dispatch, heterogeneous=heterogeneous,
+                               ftl=ftl)
         _REGISTRY[name] = inst
         return cls
 
@@ -216,6 +231,14 @@ def _payload_latencies(lowered: LoweredWorkload, completion_us,
     lat = done - np.asarray(lowered.request_arrival_us, np.float64)
     pay = stream.payload_mask()
     return lat if pay.all() else lat[pay]
+
+
+def _read_write_view(op_cls: np.ndarray) -> np.ndarray:
+    """Host READ / WRITE classes of a translated FTL op stream (GC reads
+    retry like reads, GC writes and erases program like writes) — the
+    view the per-op fault sampler draws on."""
+    return np.where(np.isin(op_cls, (_ftl.FTL_READ, _ftl.GC_READ)),
+                    _trace.READ, _trace.WRITE).astype(np.int32)
 
 
 def _op_arrivals(trace: OpTrace) -> np.ndarray:
@@ -334,7 +357,7 @@ class _EngineBase:
 
 
 @register_engine("scan", batched_tables=True, energy=True, arrivals=True,
-                 dispatch=True)
+                 dispatch=True, ftl=True)
 class ScanEngine(_EngineBase):
     """O(T) step loop over device state tensors — the default engine."""
 
@@ -381,7 +404,8 @@ class ScanEngine(_EngineBase):
                                 batched=batched, device=device).cpu().numpy()
 
 
-@register_engine("prefix", batched_tables=True, energy=True, arrivals=True)
+@register_engine("prefix", batched_tables=True, energy=True, arrivals=True,
+                 ftl=True)
 class PrefixEngine(_EngineBase):
     """Segmented parallel-prefix (max,+) fold, O(L + log T) depth; energy
     rides the same chunking as segment sums.  ``segment_len`` is the
@@ -483,7 +507,8 @@ class SquaringEngine(_EngineBase):
                                     device=device).cpu().numpy()
 
 
-@register_engine("cuda", batched_tables=True, energy=True, arrivals=True)
+@register_engine("cuda", batched_tables=True, energy=True, arrivals=True,
+                 ftl=True)
 class CudaEngine(_EngineBase):
     """The (max,+) matrix fold on the hand-written CUDA kernel (the JAX
     package's ``pallas`` engine).  The step-matrix dictionary is built on
@@ -507,7 +532,8 @@ class CudaEngine(_EngineBase):
             device=device))
 
 
-@register_engine("oracle", batched_tables=False, energy=True, arrivals=True)
+@register_engine("oracle", batched_tables=False, energy=True, arrivals=True,
+                 ftl=True)
 class OracleEngine(_EngineBase):
     """The plain-Python event loop (``repro_torch.core.sim_ref``) — the
     test oracle, first-class behind the same request surface.  It runs
@@ -529,7 +555,7 @@ class OracleEngine(_EngineBase):
 
 
 @register_engine("streaming", batched_tables=False, energy=True,
-                 arrivals=True)
+                 arrivals=True, ftl=True)
 class StreamingEngine(_EngineBase):
     """Constant-memory chunked fold: the trace streams through
     ``sim.trace_chunk_fold`` chunk by chunk, with the occupancy state and
@@ -615,8 +641,16 @@ class SimRequest:
     trace before the engine fold.  On workload queries a spec with
     ``hedge_fraction > 0`` also hedges the stream
     (``workload.with_hedges``) before lowering; a bare-trace query has
-    no requests to hedge.  ``ftl`` mirrors the JAX package's request and
-    raises :class:`CapabilityError` until slice E lands."""
+    no requests to hedge.
+
+    ``ftl`` attaches a :class:`repro_torch.core.ftl.FTLSpec` (DESIGN.md
+    §2.10): the workload's logical addresses run through the L2P map
+    first, GC relocation and erase ops are injected into the stream, and
+    the translated stream lowers through the same scheduler and engines
+    as everything else — the result additionally reports ``waf`` /
+    ``gc_op_count`` / ``free_page_low_watermark`` / ``fresh_mb_s``.  FTL
+    queries need the ``ftl`` capability (the translated stream uses the
+    extended 7-class op table)."""
 
     trace: OpTrace | None = None
     policy: Policy | None = None        # None -> the session's default
@@ -626,15 +660,20 @@ class SimRequest:
     workload: RequestStream | None = None
     sched_policy: str | None = None     # None -> "stripe" (workload only)
     faults: FaultSpec | None = None     # None -> fault-free
-    ftl: object | None = None           # slice E
+    ftl: _ftl.FTLSpec | None = None     # None -> address-free (no FTL)
 
     def __post_init__(self):
-        if self.ftl is not None:
-            raise CapabilityError("SimRequest.ftl is not ported yet (it "
-                                  "lands with slice E)")
         if (self.trace is None) == (self.workload is None):
             raise ValueError("SimRequest needs exactly one of trace= or "
                              "workload=")
+        if self.ftl is not None:
+            if self.workload is None:
+                raise ValueError(
+                    "ftl= applies to workload requests (a placed trace "
+                    "has no logical addresses left to translate)")
+            if not isinstance(self.ftl, _ftl.FTLSpec):
+                raise ValueError(
+                    f"ftl= takes an FTLSpec, got {type(self.ftl).__name__}")
         if self.sched_policy is not None:
             if self.workload is None:
                 raise ValueError("sched_policy applies to workload "
@@ -687,6 +726,15 @@ class SimResult:
     sched_policy: str | None = None            # workload queries only
     retry_hist: np.ndarray | None = None       # [max_retries+1] counts
     n_remap_ops: int = 0                       # program-fault remap writes
+    # FTL queries only (DESIGN.md §2.10): write amplification, injected
+    # GC traffic, the free-pool low watermark, and the fresh-drive
+    # bandwidth of the same host stream (mb_s is the aged/steady-state
+    # number once GC competes for the bus)
+    waf: float | None = None                   # pages written / host pages
+    gc_op_count: int | None = None             # GC reads + writes + erases
+    free_page_low_watermark: int | None = None
+    fresh_mb_s: float | None = None            # host-only (GC-free) MB/s
+    ftl_stats: _ftl.FTLStats | None = None     # full FTL counter block
 
     @property
     def channel_occupancy(self) -> np.ndarray:
@@ -731,8 +779,22 @@ class SimResult:
         bw = f"{self.mb_s:.1f} MB/s" if self.mb_s is not None else "no payload"
         lat = ("" if self.request_lat_us is None else
                f", p50/p99 {self.p50_us:.0f}/{self.p99_us:.0f} us")
+        ftl = ("" if self.waf is None else
+               f", WAF {self.waf:.2f} ({self.gc_op_count} GC ops)")
         return (f"[{self.engine}] {self.n_ops} ops in "
-                f"{self.end_us / 1e3:.2f} ms, {bw}, occ {occ}{lat}")
+                f"{self.end_us / 1e3:.2f} ms, {bw}, occ {occ}{lat}{ftl}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheInfo:
+    """Counters of the FTL sub-session cache (the shape of the JAX
+    package's ``CacheInfo``)."""
+
+    hits: int
+    misses: int
+    entries: int
+    evictions: int = 0
+    max_entries: int | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -746,16 +808,22 @@ class Simulator:
     Binds an ``SSDConfig`` (or a raw ``OpClassTable``) once; the timing
     table's columns and, per interface kind, the phase-energy table are
     moved to the device once and reused by every query.  All registered
-    engines answer through :meth:`run`.
+    engines answer through :meth:`run`.  FTL queries run on a sibling
+    session over the 7-class FTL table, memoised per timing key (at most
+    ``max_ftl_sessions``, least recently used first out).
     """
 
     def __init__(self, config: SSDConfig | None = None, *,
                  table: OpClassTable | None = None,
                  kind: InterfaceKind | str | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 max_ftl_sessions: int | None = 8):
         if config is None and table is None:
             raise ValueError("Simulator needs an SSDConfig or an "
                              "OpClassTable")
+        if max_ftl_sessions is not None and max_ftl_sessions < 1:
+            raise ValueError("max_ftl_sessions must be >= 1 or None "
+                             f"(unbounded), got {max_ftl_sessions}")
         self.device = resolve_device(device)
         self.config = config
         self.table = table if table is not None else op_class_table(config)
@@ -770,6 +838,15 @@ class Simulator:
                             device=self.device) for f in _TABLE_FIELDS)
         self._e_tables: dict[InterfaceKind, torch.Tensor] = {}
         self._e_tables_np: dict[InterfaceKind, np.ndarray] = {}
+        self.max_ftl_sessions = max_ftl_sessions
+        self._ftl_sessions: collections.OrderedDict[tuple, Simulator] = \
+            collections.OrderedDict()
+        self._ftl_hits = self._ftl_misses = self._ftl_evictions = 0
+        # preconditioned drives per spec batch (a pure function of the
+        # specs: aged once, reused across calls), for the translation of
+        # single queries and streams (one-spec keys) and the aged sweep
+        self._ftl_pre_states: collections.OrderedDict[tuple, object] = \
+            collections.OrderedDict()
 
     @classmethod
     def for_config(cls, config: SSDConfig,
@@ -815,6 +892,12 @@ class Simulator:
             raise CapabilityError(
                 f"engine {eng.caps.name!r} cannot consume fault-extended "
                 f"traces (engines that can: {okay})")
+        if request.ftl is not None and not eng.caps.ftl:
+            okay = ", ".join(n for n in registered_engines()
+                             if _REGISTRY[n].caps.ftl)
+            raise CapabilityError(
+                f"engine {eng.caps.name!r} cannot consume FTL-translated "
+                f"streams (engines that can: {okay})")
         return eng, batched
 
     def _result(self, trace: OpTrace, end_us: float, engine: str,
@@ -880,6 +963,169 @@ class Simulator:
         return self._result(trace, end_us, eng.caps.name, energy,
                             sampler=sampler)
 
+    def _ftl_session(self, spec: _ftl.FTLSpec) -> "Simulator":
+        """Memoised sibling session over the 7-class FTL op table, on
+        this session's device (DESIGN.md §2.10) — keyed on the fields
+        that shape the table, so GC-policy / overprovisioning sweeps at
+        fixed timing share one session."""
+        key = (float(spec.map_us),
+               None if spec.erase_us is None else float(spec.erase_us))
+        sess = self._ftl_sessions.get(key)
+        if sess is None:
+            self._ftl_misses += 1
+            sess = self._ftl_sessions[key] = Simulator(
+                self.config, table=_ftl.ftl_op_class_table(self.config, spec),
+                device=self.device)
+            if (self.max_ftl_sessions is not None
+                    and len(self._ftl_sessions) > self.max_ftl_sessions):
+                self._ftl_sessions.popitem(last=False)
+                self._ftl_evictions += 1
+        else:
+            self._ftl_hits += 1
+            self._ftl_sessions.move_to_end(key)
+        return sess
+
+    def ftl_cache_info(self) -> CacheInfo:
+        """Counters for the FTL sub-session cache: one entry is a whole
+        sibling ``Simulator`` (its own 7-class table on the device), so
+        the bound is deliberately small."""
+        return CacheInfo(self._ftl_hits, self._ftl_misses,
+                         len(self._ftl_sessions), self._ftl_evictions,
+                         self.max_ftl_sessions)
+
+    def _run_workload_ftl(self, request: SimRequest) -> SimResult:
+        """FTL workload queries (DESIGN.md §2.10): the host stream runs
+        through the L2P translation stage first — GC relocation and
+        erase ops are injected on free-pool pressure and every op gets
+        an FTL op class carrying the firmware map cost — then the
+        translated stream lowers through the same scheduler / engine
+        machinery as any other workload (all ops, GC included, compete
+        for placement slots and bus time).  A second host-only pass over
+        the same translation prices the fresh-drive bandwidth, so the
+        aged-vs-fresh cliff is part of the one answer.
+
+        Block-level program/erase failures are *owned by the FTL
+        accounting* (bad blocks retire through the same valid-count
+        bookkeeping GC uses) and take the host translator; the fault
+        sampler here only prices the per-op retry/jitter surcharges,
+        against a read/write view of the translated classes."""
+        spec = request.ftl
+        stream = request.workload
+        fspec = request.faults
+        if fspec is not None and fspec.hedge_fraction > 0.0:
+            stream = _workload.with_hedges(
+                stream, fspec.hedge_fraction,
+                after_us=fspec.hedge_after_us or 0.0, seed=fspec.seed)
+        sess = self._ftl_session(spec)
+        eng, batched = sess._resolve(request)
+        policy_s = request.sched_policy or "stripe"
+        dynamic = _sched.policy_is_dynamic(policy_s)
+        if dynamic and batched:
+            raise ValueError(
+                "dynamic dispatch is FCFS under the eager issue "
+                "policy; 'batched' rounds are fixed at build time "
+                "and only exist for static lowerings")
+        channels, ways = self.config.channels, self.config.ways
+        if fspec is None or (fspec.prog_fail_prob == 0.0
+                             and fspec.erase_fail_prob == 0.0):
+            # default path: the torch translation machine on the
+            # session's device, op-for-op the host translator
+            translation = _ftl_scan.translate_scan(
+                stream, spec, device=self.device,
+                pre_states=self._ftl_pre_states)
+        else:
+            # block-level program/erase failures draw RNG per attempt:
+            # the host translator's path (the folds stay RNG-free)
+            translation = _ftl.translate(
+                stream, spec, prog_fail_prob=fspec.prog_fail_prob,
+                erase_fail_prob=fspec.erase_fail_prob,
+                fault_seed=fspec.seed)
+        extra = None
+        sampler = None
+        if fspec is not None:
+            # block-level failures were consumed by the translation; the
+            # per-op channel prices retries/jitter on a host-class view
+            # of the translated stream (GC reads retry like reads)
+            neutered = dataclasses.replace(
+                fspec, prog_fail_prob=0.0, erase_fail_prob=0.0)
+            if not neutered.is_zero:
+                sampler = FaultSampler(neutered, channels, ways, sess.table)
+                extra, _, _ = sampler.sample(_read_write_view(
+                    translation.op_cls))
+
+        def evaluate(mask=None, want_comp=False):
+            cls = translation.op_cls
+            arr = translation.arrival_us
+            pay = translation.payload
+            ext = extra
+            if mask is not None:
+                cls, arr, pay = cls[mask], arr[mask], pay[mask]
+                ext = None if ext is None else ext[mask]
+            if dynamic:
+                end, comp, chan, way, par = eng.dispatch_run(
+                    sess, cls, arr, n_channels=channels, n_ways=ways,
+                    rule=policy_s, extra_us=ext, retired=None)
+                tr = OpTrace(
+                    cls=np.asarray(cls, np.int32), channel=chan, way=way,
+                    parity=par, channels=channels, ways=ways,
+                    payload=None if pay.all() else pay,
+                    arrival_us=np.asarray(arr, np.float32),
+                    extra_us=(None if ext is None
+                              else np.asarray(ext, np.float32)))
+                return tr, end, comp
+            tr = _sched.lower_ops(cls, arr, channels, ways, policy_s,
+                                  payload=pay)
+            if ext is not None:
+                tr = dataclasses.replace(
+                    tr, extra_us=np.asarray(ext, np.float32))
+            tr.validate_against(sess.table)
+            base = getattr(_EngineBase, "completions")
+            if want_comp and getattr(type(eng), "completions",
+                                     base) is not base:
+                end, comp = eng.completions(
+                    sess, tr, batched=batched,
+                    segment_len=request.segment_len)
+                return tr, end, comp
+            end = eng.end_time(sess, tr, batched=batched,
+                               segment_len=request.segment_len)
+            return tr, end, None
+
+        trace, end_us, comp = evaluate(want_comp=True)
+        lat = None
+        if comp is not None:
+            # GC ops belong to no request (request_id -1): latency
+            # accounting sees host ops only — but over the *aged*
+            # completion times, so GC queueing is in the tail
+            host = translation.request_id >= 0
+            lowered = LoweredWorkload(
+                trace=trace, request_id=translation.request_id[host],
+                request_arrival_us=np.asarray(stream.arrival_us,
+                                              np.float32))
+            lat = _payload_latencies(lowered, np.asarray(comp)[host],
+                                     stream)
+        energy = None
+        if request.objective in ("energy", "all"):
+            # energy is (+,+)-linear, so the engine-free per-op sum is
+            # exact for the translated trace too (DESIGN.md §2.4)
+            energy = sess._breakdown(
+                sess._linear_energy_sums(trace, sess.kind), end_us, trace)
+        fresh_mb_s = None
+        if bool(translation.gc.any()):
+            # fresh-drive reference: the host ops alone (map cost still
+            # charged — FTL classes are kept), no GC competition
+            _, fresh_end, _ = evaluate(mask=~translation.gc)
+            fresh_payload = trace.total_bytes(sess.table)
+            if fresh_payload > 0:
+                fresh_mb_s = fresh_payload / fresh_end
+        stats = translation.stats
+        res = sess._result(trace, end_us, eng.caps.name, energy,
+                           request_lat_us=lat, sched_policy=policy_s,
+                           sampler=sampler)
+        return dataclasses.replace(
+            res, waf=stats.waf, gc_op_count=stats.gc_op_count,
+            free_page_low_watermark=stats.free_page_low_watermark,
+            fresh_mb_s=fresh_mb_s, ftl_stats=stats)
+
     def _run_workload(self, request: SimRequest) -> SimResult:
         """Workload queries: lower the request stream through the
         scheduler (static policies offline, dynamic policies as the
@@ -892,6 +1138,8 @@ class Simulator:
         stream = request.workload
         if stream.n_requests == 0:
             raise ValueError("empty workload: no requests to simulate")
+        if request.ftl is not None:
+            return self._run_workload_ftl(request)
         if int(np.max(stream.op_cls)) >= self.table.n_classes:
             # checked before the dispatch fold runs: a clamped-garbage
             # simulation followed by a numpy IndexError is not a report
@@ -1092,17 +1340,26 @@ class Simulator:
         ``trace.mixed_trace_chunks``, or any iterable) through the
         streaming engine without ever holding the whole trace — payload
         bytes, per-channel occupancy and the op count accumulate chunk by
-        chunk.  ``ftl=`` (request-stream chunks through the FTL, where
-        ``faults`` and ``sched_policy`` apply) lands with slice E;
-        without it ``faults=`` raises, as in the JAX package (op-trace
-        chunks are already placed: rewrite them with
-        ``iter_trace_chunks(faults=...)``)."""
+        chunk.
+
+        With ``ftl=`` (an :class:`FTLSpec`), ``chunks`` is instead an
+        iterator of host :class:`RequestStream` chunks: each chunk runs
+        the translation machine carrying the drive state, lowers at the
+        carried placement-slot offset (``sched.lower_ops_chunk``) and
+        feeds the same streaming fold, so the result (stats included)
+        equals the one-shot ``run(SimRequest(ftl=...))``.  ``faults``
+        prices per-op retry/jitter surcharges with one sequential sampler
+        across chunks; hedging and block-level program/erase failures are
+        one-shot-only.  Without ``ftl=``, ``faults=`` raises, as in the
+        JAX package (op-trace chunks are already placed: rewrite them
+        with ``iter_trace_chunks(faults=...)``)."""
         if objective not in OBJECTIVES:
             raise ValueError(f"unknown objective {objective!r} "
                              f"(one of {', '.join(OBJECTIVES)})")
         if ftl is not None:
-            raise CapabilityError("run_stream(ftl=...) is not ported yet "
-                                  "(it lands with slice E)")
+            return self._run_stream_ftl(
+                chunks, ftl, policy=policy, objective=objective,
+                faults=faults, sched_policy=sched_policy)
         if faults is not None:
             raise ValueError(
                 "run_stream(faults=...) needs ftl= (op-trace chunks are "
@@ -1150,6 +1407,74 @@ class Simulator:
             channel_busy_us=stats["busy"], energy=energy,
             engine="streaming", n_ops=stats["n_ops"], payload_bytes=payload)
 
+    def _run_stream_ftl(self, chunks, spec, *, policy: Policy | None,
+                        objective: Objective, faults: FaultSpec | None,
+                        sched_policy: str) -> SimResult:
+        """FTL-translating adapter for :meth:`run_stream`: a generator
+        turns each host ``RequestStream`` chunk into a placed ``OpTrace``
+        chunk — translation state, placement-slot offset and the fault
+        sampler all carry across chunks, so the chunked answer equals the
+        one-shot ``run(SimRequest(ftl=...))`` stream op for op.  The fold
+        itself is delegated to the FTL sub-session, whose 7-class table
+        owns chunk validation and byte accounting."""
+        if self.config is None:
+            raise ValueError(
+                "workload queries need a Simulator bound to an SSDConfig "
+                "(the scheduler needs the channel/way geometry)")
+        if _sched.policy_is_dynamic(sched_policy):
+            raise ValueError(
+                f"sched policy {sched_policy!r} is dynamic — streaming "
+                "chunks lower offline at a carried slot offset; dynamic "
+                "dispatch needs the one-shot run(SimRequest(ftl=...)) "
+                "path")
+        if faults is not None and (faults.hedge_fraction > 0.0
+                                   or faults.prog_fail_prob > 0.0
+                                   or faults.erase_fail_prob > 0.0):
+            raise ValueError(
+                "run_stream(ftl=...) prices per-op retry/jitter "
+                "surcharges only — hedging and block-level program/"
+                "erase failures rewrite the whole stream and need the "
+                "one-shot run(SimRequest(ftl=...)) path")
+        sess = self._ftl_session(spec)
+        C, W = self.config.channels, self.config.ways
+        carry: dict = {"state": None, "off": 0, "sampler": None,
+                       "stats": None}
+        if faults is not None and not faults.is_zero:
+            carry["sampler"] = FaultSampler(faults, C, W, sess.table)
+
+        def translated():
+            for st in chunks:
+                if st.n_requests == 0:
+                    continue
+                tr = _ftl_scan.translate_scan(
+                    st, spec, state=carry["state"], device=self.device,
+                    pre_states=self._ftl_pre_states)
+                carry["state"] = tr.state
+                carry["stats"] = tr.stats
+                ot, carry["off"] = _sched.lower_ops_chunk(
+                    tr.op_cls, tr.arrival_us, C, W, sched_policy,
+                    tr.payload, carry["off"])
+                if carry["sampler"] is not None:
+                    extra, _, _ = carry["sampler"].sample(
+                        _read_write_view(tr.op_cls))
+                    ot = dataclasses.replace(
+                        ot, extra_us=np.asarray(extra, np.float32))
+                yield ot
+
+        try:
+            res = sess.run_stream(translated(), policy=policy,
+                                  objective=objective)
+        except ValueError:
+            if carry["stats"] is None:     # no chunk carried a request
+                raise ValueError(
+                    "empty workload: no requests to translate") from None
+            raise
+        stats = carry["stats"]
+        return dataclasses.replace(
+            res, waf=stats.waf, gc_op_count=stats.gc_op_count,
+            free_page_low_watermark=stats.free_page_low_watermark,
+            ftl_stats=stats)
+
     def sweep(self, tables, trace: OpTrace, *,
               policy: Policy | None = None, engine: str = "prefix",
               segment_len: int | None = 64, combine: str = "chain",
@@ -1159,17 +1484,99 @@ class Simulator:
         tables (``tables=None`` sweeps the bound table alone) — the
         design-space fan-out direction of the serving path, through
         :func:`sweep_tables` on the session's device (default engine
-        ``prefix``, as in the JAX package).  ``ftl=`` (aged FTL design
-        points, the only sweep ``sched_policy`` places) lands with slice
-        E; ``shard`` is accepted for the JAX package's signature and
-        means one device."""
+        ``prefix``, as in the JAX package).  ``shard`` is accepted for
+        the JAX package's signature and means one device.
+
+        ``ftl=`` switches to the *aged* design-space direction (DESIGN.md
+        §2.11): ``trace`` is then a host :class:`RequestStream` and
+        ``ftl`` a sequence of :class:`FTLSpec` design points sharing one
+        geometry and timing — each point runs the whole
+        translate→lower→simulate chain (preconditioning included) as a
+        lane of one batched fold, placed by ``sched_policy``.  ``tables``
+        must be None (the FTL spec owns the 7-class table) and
+        ``engine``/``segment_len``/``combine`` are ignored — the fused
+        chain is the masked scan fold by construction."""
         if ftl is not None:
-            raise CapabilityError("sweep(ftl=...) is not ported yet (it "
-                                  "lands with slice E)")
+            if tables is not None:
+                raise ValueError(
+                    "sweep(ftl=...) sweeps FTL design points — the "
+                    "7-class table comes from the spec; tables must be "
+                    "None")
+            return self._sweep_ftl(trace, ftl,
+                                   policy=policy or self.default_policy,
+                                   sched_policy=sched_policy)
         return sweep_tables(
             [self.table] if tables is None else tables, trace,
             policy=policy or self.default_policy, engine=engine,
             segment_len=segment_len, combine=combine, device=self.device)
+
+    def _sweep_ftl(self, stream: RequestStream, specs, *, policy: Policy,
+                   sched_policy: str) -> np.ndarray:
+        """Fused aged sweep: precondition fold → window reset →
+        translation fold → compaction → closed-form static lowering →
+        masked end-time fold, the FTL design points as the lanes of each
+        fold.  Exactness leans on two invariants: the translation machine
+        is op-for-op the host translator, and the closed-form
+        slot/parity lowering is field-for-field ``lower_ops`` — so each
+        lane's end time is the scan engine's on the per-point
+        ``run(SimRequest(ftl=...))`` trace.
+
+        The preconditioned states are a pure function of the spec batch,
+        so they fold once and are reused across calls
+        (``_ftl_pre_states``, at most 4 batches).  Emission rows compact
+        into each lane's op sequence (``ftl_scan.translate_lanes``), so
+        the end-time fold runs over the longest lane's op count rather
+        than the raw emission buffer."""
+        if self.config is None:
+            raise ValueError(
+                "workload queries need a Simulator bound to an SSDConfig "
+                "(the scheduler needs the channel/way geometry)")
+        specs = list(specs)
+        if not specs:
+            raise ValueError("sweep(ftl=...) needs at least one FTLSpec")
+        if stream.n_requests == 0:
+            raise ValueError("empty workload: no requests to translate")
+        g0 = (specs[0].blocks, specs[0].pages_per_block,
+              float(specs[0].map_us), specs[0].erase_us)
+        for s in specs[1:]:
+            if (s.blocks, s.pages_per_block, float(s.map_us),
+                    s.erase_us) != g0:
+                raise ValueError(
+                    "sweep(ftl=...) points must share geometry and "
+                    "timing (blocks, pages_per_block, map_us, erase_us) "
+                    "— vary overprovision / gc_policy / gc_free_blocks / "
+                    "precondition per point")
+        if _sched.policy_is_dynamic(sched_policy):
+            raise ValueError(
+                f"sched policy {sched_policy!r} is dynamic — the fused "
+                "FTL sweep lowers placement in closed form; use "
+                "run(SimRequest(ftl=...)) per point")
+        batched = policy_is_batched(policy)
+        sess = self._ftl_session(specs[0])
+        if int(np.max(stream.op_cls)) > _trace.WRITE:
+            raise ValueError(
+                "FTL translation consumes host READ/WRITE streams only "
+                f"(got op class {int(np.max(stream.op_cls))})")
+        C, W = self.config.channels, self.config.ways
+        b = len(specs)
+        state = _ftl_scan.preconditioned_lanes(specs, self.device,
+                                               self._ftl_pre_states)
+        op_cls, arrival, n_ops = _ftl_scan.translate_lanes(specs, stream,
+                                                           state)
+        # compacted op i sits at slot i, so the closed-form static
+        # placement (`lower_ops` field-for-field) is shared by the lanes
+        slot = torch.arange(op_cls.shape[1], dtype=torch.int64,
+                            device=self.device)
+        if sched_policy == "stripe":
+            chan, way = slot % C, (slot // C) % W
+        else:                       # "round_robin": way-first
+            way, chan = slot % W, (slot // W) % C
+        par = (slot // (C * W)) % 2
+        end = _sim._trace_end_time_masked_impl(
+            *sess._targs, op_cls, chan.expand(b, -1), way.expand(b, -1),
+            par.expand(b, -1), arrival, torch.zeros_like(arrival),
+            slot < n_ops[:, None], C, batched)
+        return end.cpu().numpy().astype(np.float64)
 
 
 @functools.lru_cache(maxsize=128)
@@ -1262,7 +1669,7 @@ def sweep_steady_bandwidth_mb_s(cmd_us, pre_us, slot_us, post_lo_us,
 
 
 __all__ = [
-    "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
+    "CacheInfo", "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
     "Policy", "SimRequest", "SimResult", "Simulator", "engine_capabilities",
     "get_engine", "register_engine", "registered_engines", "simulator_for",
     "steady_bandwidth_mb_s",

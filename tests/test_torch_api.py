@@ -1,11 +1,12 @@
 """The port's ``Simulator`` session against the JAX package's: the same
 request answers within 1e-6 relative on every field (the port's ``cuda``
 engine against JAX ``pallas``, ``scan`` against ``scan``, ``oracle``
-against ``oracle``), and the parts not ported yet raise
-``CapabilityError`` naming their slice.  The log-depth engines
+against ``oracle``), and the request fields of later slices validate
+as the JAX package's do.  The log-depth engines
 (``prefix``, ``squaring``) are held against JAX in
 ``test_torch_logdepth.py``.  Request-level workloads are
-held against JAX in ``test_torch_sched_faults.py``."""
+held against JAX in ``test_torch_sched_faults.py``, FTL queries in
+``test_torch_ftl_api.py``."""
 
 import dataclasses
 
@@ -138,17 +139,33 @@ def _request_field_query(field, pkg):
     ("workload", "slice B"), ("sched_policy", "slice B"),
     ("faults", "slice B"), ("ftl", "slice E")])
 def test_unported_request_fields_raise(field, slice_):
-    """``ftl`` still raises naming slice E.  The fields slice B brought
-    (``workload``, ``sched_policy``, ``faults``) now run and answer as the
-    JAX package does, bit-equal on the scan engine."""
+    """Every field once refused now runs.  ``ftl`` (slice E) validates as
+    the JAX package's request does: a placed trace has no logical
+    addresses to translate, and only an ``FTLSpec`` is a spec.  The
+    fields slice B brought (``workload``, ``sched_policy``, ``faults``)
+    answer as the JAX package does, bit-equal on the scan engine."""
     t = trace.steady_trace(8, 1, 1)
     s = api.Simulator(sim.SSDConfig(channels=2, ways=4, cell="mlc"),
                       device="cpu")
     if slice_ == "slice E":
-        with pytest.raises(api.CapabilityError, match=slice_):
-            api.SimRequest(trace=t, **{field: object()})
-        with pytest.raises(api.CapabilityError, match=slice_):
-            s.run(t, **{field: object()})
+        from repro.core import ftl as j_ftl
+        from repro.core import workload as j_wl
+        from repro_torch.core import workload as w
+        jt = japi.build_workload("mixed", j_sim.SSDConfig(channels=2,
+                                                          ways=4))
+        for got, want, match in (
+                (lambda: api.SimRequest(trace=t, ftl=api.FTLSpec()),
+                 lambda: japi.SimRequest(trace=jt, ftl=j_ftl.FTLSpec()),
+                 "ftl= applies to workload requests"),
+                (lambda: s.run(w.overwrite_stream(10, 8), ftl=object()),
+                 lambda: japi.SimRequest(
+                     workload=j_wl.overwrite_stream(10, 8), ftl=object()),
+                 "ftl= takes an FTLSpec, got object")):
+            with pytest.raises(ValueError, match=match) as e:
+                got()
+            with pytest.raises(ValueError) as j:
+                want()
+            assert str(e.value) == str(j.value)
         return
     got = s.run(_request_field_query(field, "torch"))
     want = japi.Simulator(j_sim.SSDConfig(channels=2, ways=4, cell="mlc")).run(
@@ -170,7 +187,8 @@ def test_registry_and_validation():
     caps = api.engine_capabilities()
     assert caps["cuda"].batched_tables and not caps["oracle"].batched_tables
     assert caps["scan"].describe() == ("scan: batched_tables, energy, "
-                                       "arrivals, dispatch")
+                                       "arrivals, dispatch, ftl")
+    assert [n for n, c in caps.items() if not c.ftl] == ["squaring"]
     assert [n for n, c in caps.items() if c.dispatch] == ["scan"]
     assert [n for n, c in caps.items() if not c.arrivals] == ["squaring"]
     assert [n for n, c in caps.items() if not c.heterogeneous] == [

@@ -32,6 +32,7 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.core.calibrate\n"
             "import repro_torch.core.faults, repro_torch.core.workload\n"
             "import repro_torch.core.sched\n"
+            "import repro_torch.core.ftl, repro_torch.core.ftl_scan\n"
             "import repro_torch.models.transformer, repro_torch.models.convert\n"
             "import repro_torch.serve, repro_torch.configs.registry\n"
             "import repro_torch.configs.recurrentgemma_9b\n"
@@ -129,10 +130,15 @@ def test_unported_paths_name_their_slice():
         (res,) = s.run_many([t], engine=engine)
         assert res.engine == engine
         assert abs(res.end_us - scan) <= t.n_ops * 2.0 ** -24 * scan
-    with pytest.raises(api.CapabilityError, match="slice E"):
-        s.sweep(None, t, ftl=object())
-    with pytest.raises(api.CapabilityError, match="slice E"):
-        s.run_stream(iter([t]), ftl=object())
+    # slice E runs: the FTL entry points take request streams and specs
+    from repro_torch.core import ftl, workload
+    spec = ftl.FTLSpec(blocks=16, pages_per_block=8, overprovision=0.3)
+    load = workload.overwrite_stream(40, 30, seed=0)
+    one = s.run(load, ftl=spec)
+    assert one.waf >= 1.0 and one.engine == "scan"
+    assert s.run_stream(workload.iter_request_chunks(load, 16),
+                        ftl=spec).end_us == one.end_us
+    assert s.sweep(None, load, ftl=[spec])[0] == one.end_us
 
 
 def test_registry_resolves_the_ported_arch_and_names_the_slice():

@@ -897,3 +897,74 @@ def test_squaring_on_the_card_equals_the_cpu(card, policy):
         for dev in (card, "cpu")]
     assert res[0].end_us == res[1].end_us
     assert res[0].energy.total_j == res[1].energy.total_j
+
+
+# --- the FTL stage on the card ------------------------------------------------
+
+
+def test_ftl_translation_on_the_card_equals_the_cpu(card):
+    """The translation machine on the card (eager warm-up, then replays
+    of the captured graph chunk) op-for-op equal to the CPU's machine and
+    to the numpy host translator, stats and final drive state included."""
+    from repro_torch.core import ftl, ftl_scan, workload
+    for policy in ftl.GC_POLICIES:
+        spec = ftl.FTLSpec(blocks=64, pages_per_block=16, overprovision=0.25,
+                           gc_policy=policy, precondition=True)
+        load = workload.aging_stream(1500, 600, read_fraction=0.3,
+                                     mean_interarrival_us=2.0, seed=11)
+        got = ftl_scan.translate_scan(load, spec, device=card)
+        cpu = ftl_scan.translate_scan(load, spec, device="cpu")
+        host = ftl.translate(load, spec)
+        for want in (cpu, host):
+            for f in ("op_cls", "arrival_us", "payload", "request_id", "gc"):
+                assert np.array_equal(getattr(got, f), getattr(want, f)), f
+            assert got.stats == want.stats
+            for f in ("l2p", "p2l", "valid_count", "full", "fill_seq",
+                      "erase_count"):
+                assert np.array_equal(getattr(got.state, f),
+                                      getattr(want.state, f)), f
+            assert list(got.state.free) == list(want.state.free)
+
+
+def test_k1_on_an_ftl_trace(card, monkeypatch):
+    """An FTL query on ``engine="cuda"``: K1 prices the 7-class
+    GC-translated trace; its first launch gives the plain version's bits,
+    and the query answers as a CPU session does."""
+    from repro_torch import api
+    from repro_torch.core import ftl, workload
+    calls = []
+    real = ops.maxplus_fold_kernel
+
+    def record(mats, s0, **kw):
+        calls.append((mats.clone(), s0.clone(),
+                      {k: v for k, v in kw.items() if k != "out"}))
+        return real(mats, s0, **kw)
+    monkeypatch.setattr(ops, "maxplus_fold_kernel", record)
+    spec = ftl.FTLSpec(blocks=64, pages_per_block=32, overprovision=0.25,
+                       precondition=True)
+    load = workload.overwrite_stream(1200, 900, read_fraction=0.3, seed=7)
+    cfg = sim.SSDConfig(channels=8, ways=16)
+    got = api.Simulator(cfg, device=card).run(load, ftl=spec, engine="cuda",
+                                              objective="all")
+    want = api.Simulator(cfg, device="cpu").run(load, ftl=spec,
+                                                engine="cuda",
+                                                objective="all")
+    assert got.gc_op_count > 0 and got.fresh_mb_s is not None
+    assert (got.end_us, got.waf, got.fresh_mb_s) == (want.end_us, want.waf,
+                                                     want.fresh_mb_s)
+    mats, s0, kw = calls[0]
+    assert mats.device.type == "cuda" and mats.shape[1] > 1
+    assert torch.equal(real(mats, s0, **kw), maxplus_fold_ref(mats, s0, **kw))
+
+
+def test_ftl_sweep_on_the_card_equals_the_cpu(card):
+    from repro_torch import api
+    from repro_torch.core import ftl, workload
+    specs = [ftl.FTLSpec(blocks=64, pages_per_block=16, overprovision=op,
+                         gc_policy=g, precondition=True)
+             for op in (0.15, 0.3) for g in ftl.GC_POLICIES]
+    load = workload.overwrite_stream(500, 300, read_fraction=0.2, seed=5)
+    cfg = sim.SSDConfig(cell="mlc", channels=2, ways=4)
+    ends = [api.Simulator(cfg, device=dev).sweep(None, load, ftl=specs)
+            for dev in (card, "cpu")]
+    assert np.array_equal(*ends)

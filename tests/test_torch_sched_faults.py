@@ -483,7 +483,7 @@ def test_workload_query_validation():
     with pytest.raises(ValueError, match="SSDConfig"):
         bare.run(load)
     # run_stream / sweep take sched_policy= and faults=, which act only
-    # with ftl= (slice E), as in the JAX package
+    # with ftl=, as in the JAX package
     t = trace.mixed_trace(64, 2, 4, 0.5, seed=1)
     assert s.run_stream(iter([t]), sched_policy="least_loaded").end_us == \
         s.run(t).end_us
@@ -494,12 +494,27 @@ def test_workload_query_validation():
                 shard=False)[0]
     with pytest.raises(ValueError, match="needs ftl="):
         s.run_stream(iter([t]), faults=fl.FaultSpec(wear=1.0))
-    for call in (lambda: s.run_stream(iter([t]), ftl=object(),
-                                      faults=fl.FaultSpec(wear=1.0)),
-                 lambda: s.sweep(None, t, ftl=object(),
-                                 sched_policy="stripe")):
-        with pytest.raises(api.CapabilityError, match="slice E"):
-            call()
+    # with ftl= both act (slice E), equal to JAX: the chunked stream's
+    # surcharges, and the aged sweep's placement
+    from repro.core import ftl as j_ftl
+    from repro_torch.core import ftl
+    kw = dict(blocks=32, pages_per_block=8, overprovision=0.3)
+    aged = wl.overwrite_stream(150, 60, seed=3)
+    j_aged = j_wl.overwrite_stream(150, 60, seed=3)
+    js = japi.Simulator(j_sim.SSDConfig(cell="mlc", channels=2, ways=4))
+    got = s.run_stream(wl.iter_request_chunks(aged, 40), ftl=ftl.FTLSpec(**kw),
+                       faults=fl.FaultSpec(wear=1.0, seed=2))
+    want = js.run_stream(j_wl.iter_request_chunks(j_aged, 40),
+                         ftl=j_ftl.FTLSpec(**kw),
+                         faults=j_fl.FaultSpec(wear=1.0, seed=2))
+    assert got.end_us == want.end_us and got.waf == want.waf
+    assert got.end_us == s.run(aged, ftl=ftl.FTLSpec(**kw),
+                               faults=fl.FaultSpec(wear=1.0, seed=2)).end_us
+    got = s.sweep(None, aged, ftl=[ftl.FTLSpec(**kw)],
+                  sched_policy="round_robin")
+    want = js.sweep(None, j_aged, ftl=[j_ftl.FTLSpec(**kw)],
+                    sched_policy="round_robin", shard=False)
+    assert np.array_equal(got, want)
     res = s.run(load, sched_policy="least_loaded")
     with pytest.warns(RuntimeWarning, match="p99 on 50"):
         text = res.describe()
