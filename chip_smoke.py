@@ -160,10 +160,39 @@ Phases, one report line each (every check raises on failure):
    on ``ftl_bench._waf_sweep``'s full-size spec within 10 % of
    ``analytic_waf``.  Every translation, scan and sweep fold of the
    phase is checked to have run on the card.
+12. the storage tier (``repro_torch.storage``): (12a) phase 8b's full
+   model initialised on the card from the same seed, checkpointed by
+   ``CheckpointEngine(channels=4, ways=4)`` into a temporary directory
+   (the room it needs checked first: an error, not a skip, when it is
+   short), ``wait()`` returning this step's ``SaveResult``, its modeled
+   stall equal to a CPU session's, then ``restore(template=)`` and
+   ``place_on_device``: every leaf bit-equal on the card; then two
+   non-blocking saves of the model's first 1 GiB of leaves while the
+   card runs a loop of small bf16 matmuls, the first pricing its stall
+   on the writer thread, the second reusing it: the loop's ms a step
+   beside its ms alone; (12b) a
+   2^28-token ``StripedTokenStore`` over 8 shards read by
+   ``FileBackedTokens(batch=32, seq=4096, ways=4)``, 128 batches moved
+   to the card (tokens/s from the page cache: the store was just
+   written), a resume from ``PipeState`` giving the same batch, the
+   batches equal to numpy reads of the shards, ``pipeline_io_trace``
+   priced on the card equal to the CPU; (12c) ``plan_kv_offload`` at
+   524288 tokens for ``recurrentgemma-9b`` (inapplicable: its attention
+   is windowed) and for the same config with every window removed,
+   equal to the CPU; (12d) the planning flows of
+   ``examples/ssd_design_space.py`` (checkpoint-stall plans, the 10 GiB
+   dataloader refill planned by trace, by bytes and by energy,
+   ``compare_interfaces``), one plan and every comparison row equal to
+   a CPU session's, with the scan engine's ops/s and one estimate's
+   device busy share; (12e) the checkpoint, pipeline and KV traces
+   priced on ``engine="cuda"``: K1 on the compact route every launch,
+   end time and op energies within T * 2^-24 of ``scan``, the first
+   launch bit-equal to ``maxplus_fold_ref``.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
-query of 11a, reported as its own entry), phase 6 that
+query of 11a and the storage pricing of 12e, each reported as its own
+entry), phase 6 that
 of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5: the
 launch counts are reset just before each and read just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
@@ -287,6 +316,21 @@ FTL_SWEEP_REQUESTS, FTL_SWEEP_SEED = 6000, 7
 FTL_SWEEP_RUN_POINTS, FTL_SWEEP_CPU_POINTS = (0, 5, 10, 15), (0, 9)
 FTL_WAF_BLOCKS, FTL_WAF_REQUESTS, FTL_WAF_SEED, WAF_PIN_TOL = \
     256, 60000, 11, 0.10
+# phase 12: the storage tier.  12a checkpoints phase 8b's full model
+# (RecurrentGemma-9B, 17.16 GB bf16) through CheckpointEngine; 12b feeds
+# the card from a 1 GiB striped token store (a real corpus is terabytes;
+# the pipeline's shapes are the training stack's); 12c plans KV offload
+# at the 500k-token decode shape; 12d runs examples/ssd_design_space.py's
+# planning flows
+CKPT_CHANNELS, CKPT_WAYS, CKPT_STEP = 4, 4, 1
+PIPE_TOKENS, PIPE_SHARDS, PIPE_SEED = 1 << 28, 8, 3
+PIPE_BATCH, PIPE_SEQ, PIPE_WAYS, PIPE_BATCHES = 32, 4096, 4, 128
+PIPE_RESUME_AT, PIPE_CHECK_EVERY = 64, 16
+KV_SEQ = 524288
+OVERLAP_BYTES, OVERLAP_DIM, OVERLAP_STEPS = 1 << 30, 2048, 200
+PLAN_CKPT_BYTES = int(2.7e9 * 2 * 3)    # 2.7B params, bf16 + optimizer
+PLAN_BUDGETS, PLAN_CPU_BUDGET = (150.0, 95.0, 30.0), 150.0
+REFILL_BYTES = 10 << 30
 ENERGY_FIELDS = ("cmd_j", "io_j", "ecc_j", "ctrl_j", "idle_j", "array_j")
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
@@ -3029,6 +3073,476 @@ def phase_ftl(device) -> dict:
                         "steps": pin_steps}}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the storage tier
+# ---------------------------------------------------------------------------
+
+
+def bits_equal(a, b) -> bool:
+    """Two tensors equal bit for bit (through an integer view of their
+    width, so NaN payloads and signed zeros count)."""
+    import torch
+    raw = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    r = raw[a.element_size()]
+    return torch.equal(a.view(r), b.view(r))
+
+
+def storage_room(directory, need_disk: int, need_host: int) -> dict:
+    """Free disk under ``directory`` and available host memory; raises
+    when either is short of what phase 12 needs."""
+    import os
+    import shutil
+    disk = shutil.disk_usage(directory).free
+    host = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    if disk < need_disk or host < need_host:
+        raise RuntimeError(
+            f"phase 12 needs {need_disk / 1e9:.1f} GB of disk under "
+            f"{directory} (free: {disk / 1e9:.1f}) and {need_host / 1e9:.1f} "
+            f"GB of host memory (available: {host / 1e9:.1f})")
+    return {"disk_free_gb": disk / 1e9, "host_available_gb": host / 1e9}
+
+
+def card_steps(x, w, n: int, until=None) -> tuple[int, float]:
+    """A training-like loop on the card: ``n`` steps (or, with ``until``,
+    steps while ``until()`` holds), each eight small matmuls launched from
+    Python and a synchronise; returns (steps, seconds)."""
+    import torch
+    steps, t0 = 0, time.perf_counter()
+    while (steps < n) if until is None else until():
+        y = x
+        for _ in range(8):
+            y = torch.tanh(y @ w)
+        torch.cuda.synchronize()
+        steps += 1
+    return steps, time.perf_counter() - t0
+
+
+def phase_storage(device, smi: str) -> dict:
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Simulator
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.maxplus_form import StateLayout, end_time_from_state
+    from repro_torch.core.nand import CellType
+    from repro_torch.core.sched import lower_static
+    from repro_torch.core.sim import SSDConfig
+    from repro_torch.core.trace import checkpoint_trace
+    from repro_torch.core.workload import checkpoint_requests
+    from repro_torch.kernels.maxplus import kernel as K
+    from repro_torch.kernels.maxplus import ops as maxplus_ops
+    from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
+    from repro_torch.models.transformer import LayerSpec, init_params
+    from repro_torch.storage import (CheckpointEngine, FileBackedTokens,
+                                     PipeState, StripedTokenStore,
+                                     pipeline_io_trace, place_on_device,
+                                     plan_kv_offload)
+    from repro_torch.storage import ssd_model
+    from repro_torch.storage.checkpoint import _flatten
+    from repro_torch.storage.ssd_model import (compare_interfaces,
+                                               estimate_trace,
+                                               estimate_trace_interfaces,
+                                               plan_checkpoint_tier,
+                                               plan_refill)
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH).config
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 12a: checkpoint of the full RecurrentGemma-9B ---------------
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(
+            LM_SEED), device=device)
+        leaves = _flatten(params)
+        nbytes = sum(x.numel() * x.element_size() for x in leaves.values())
+        room = storage_room(tmp, nbytes + 2 * PIPE_TOKENS * 4 + (1 << 30),
+                            2 * nbytes + 2 * PIPE_TOKENS * 4)
+        eng = CheckpointEngine(Path(tmp) / "ckpt", channels=CKPT_CHANNELS,
+                               ways=CKPT_WAYS, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save(CKPT_STEP, params, extra={"seed": LM_SEED})
+        snap_s = time.perf_counter() - t0       # save returns after the snapshot
+        res = eng.wait()
+        save_s = time.perf_counter() - t0
+        if res is None or res.step != CKPT_STEP or res.nbytes != nbytes:
+            raise AssertionError(f"wait() after the save of step {CKPT_STEP} "
+                                 f"returned {res}")
+        manifest = json.loads((Path(tmp) / "ckpt" / f"step_{CKPT_STEP:08d}"
+                                / "MANIFEST.json").read_text())
+        n_chunks = sum(m["chunks"] for m in manifest["leaves"].values())
+        ck_trace = lower_static(checkpoint_requests(nbytes, eng.ssd),
+                                eng.ssd.channels, eng.ssd.ways).trace
+        cpu_modeled = {k: e.seconds for k, e in estimate_trace_interfaces(
+            ck_trace, eng.ssd, total_bytes=nbytes, device="cpu").items()}
+        if res.modeled != cpu_modeled:
+            raise AssertionError(f"modeled stall on the card {res.modeled} "
+                                 f"!= the CPU session's {cpu_modeled}")
+        t0 = time.perf_counter()
+        step, host, extra = eng.restore(template=params)
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        placed = place_on_device(host, device)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        got = _flatten(placed)
+        bad = [k for k, v in leaves.items()
+               if got[k].device != v.device or not bits_equal(got[k], v)]
+        if bad or list(got) != list(leaves) or step != CKPT_STEP \
+                or extra != {"seed": LM_SEED}:
+            raise AssertionError(f"restored checkpoint differs: {bad[:5]}, "
+                                 f"step {step}, extra {extra}")
+        del host, placed, got
+        torch.cuda.empty_cache()
+        shutil.rmtree(Path(tmp) / "ckpt")
+        # a non-blocking save of part of the model while the card runs a
+        # training-like loop: first at a new size (the stall is priced on
+        # the writer thread, on the card), then at the same size (priced
+        # once, reused)
+        part, part_bytes = {}, 0
+        for k, x in leaves.items():        # leaves in order to 1 GiB or more
+            if part_bytes >= OVERLAP_BYTES:
+                break
+            part[k] = x
+            part_bytes += x.numel() * x.element_size()
+        xw = torch.randn(OVERLAP_DIM, OVERLAP_DIM, device=device,
+                         dtype=torch.bfloat16,
+                         generator=torch.Generator(device=device).manual_seed(
+                             LM_SEED))
+        card_steps(xw, xw, 4)
+        alone_n, alone_s = card_steps(xw, xw, OVERLAP_STEPS)
+        eng2 = CheckpointEngine(Path(tmp) / "overlap", channels=CKPT_CHANNELS,
+                                ways=CKPT_WAYS, device=device)
+        overlap = {}
+        for k, label in enumerate(("priced", "reused")):
+            t0 = time.perf_counter()
+            eng2.save(CKPT_STEP + 1 + k, part)
+            snap = time.perf_counter() - t0
+            n_, s_ = card_steps(xw, xw, 0, until=eng2.writing)
+            r = eng2.wait()
+            if r is None or r.step != CKPT_STEP + 1 + k \
+                    or r.nbytes != part_bytes or n_ == 0:
+                raise AssertionError(f"overlapped save {label}: {r}, "
+                                     f"{n_} steps")
+            overlap[label] = {"snapshot_s": snap, "write_wall_s": r.wall_s,
+                              "steps": n_, "step_ms": s_ / n_ * 1e3,
+                              "modeled_s": r.modeled}
+        if overlap["reused"]["modeled_s"] != overlap["priced"]["modeled_s"]:
+            raise AssertionError(f"the reused stall differs: {overlap}")
+        n_part = len(part)
+        del params, leaves, part, xw
+        torch.cuda.empty_cache()
+        shutil.rmtree(Path(tmp) / "overlap")
+        alone_ms = alone_s / alone_n * 1e3
+        out["checkpoint"] = {
+            "bytes": nbytes, "leaves": len(manifest["leaves"]),
+            "chunks": n_chunks, "snapshot_s": snap_s,
+            "write_wall_s": res.wall_s, "save_to_wait_s": save_s,
+            "pricing_s": save_s - snap_s - res.wall_s,
+            "restore_s": restore_s, "place_s": place_s,
+            "modeled_s": res.modeled, **room,
+            "overlap": {"leaves": n_part, "bytes": part_bytes,
+                        "step_ms_alone": alone_ms, **overlap}}
+        log(f"[12a] CheckpointEngine(channels={CKPT_CHANNELS}, ways="
+            f"{CKPT_WAYS}, device='{device.type}').save({CKPT_STEP}, "
+            f"{LM_ARCH} params):"
+            f" {nbytes} bytes ({nbytes / 1e9:.2f} GB) in "
+            f"{len(manifest['leaves'])} leaves, {n_chunks} chunks over "
+            f"{CKPT_CHANNELS} channel directories; snapshot card -> host "
+            f"{snap_s:.2f} s ({nbytes / snap_s / 1e9:.2f} GB/s), write wall "
+            f"{res.wall_s:.2f} s ({nbytes / res.wall_s / 1e9:.2f} GB/s), "
+            f"save to wait() {save_s:.2f} s (the stall pricing on the "
+            f"writer thread about {save_s - snap_s - res.wall_s:.2f} s); "
+            f"wait() returned this step's "
+            f"SaveResult; restore {restore_s:.2f} s, place_on_device "
+            f"{place_s:.2f} s; every leaf bit-equal on the card; modeled "
+            f"stall on {eng.ssd.describe()} "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in res.modeled.items())
+            + f", equal to the CPU session's; disk free "
+            f"{room['disk_free_gb']:.1f} GB, host memory available "
+            f"{room['host_available_gb']:.1f} GB; card: {smi}")
+        log(f"[12a] non-blocking saves of the first {n_part} leaves "
+            f"({part_bytes / 1e9:.2f} GB) while the card runs a loop of 8 "
+            f"bf16 {OVERLAP_DIM}^2 matmuls a step: alone {alone_ms:.3f} ms a "
+            f"step; " + "; ".join(
+                f"stall {k} ({v['snapshot_s']:.2f} s snapshot, write "
+                f"{v['write_wall_s']:.2f} s): {v['steps']} steps at "
+                f"{v['step_ms']:.3f} ms ({v['step_ms'] / alone_ms:.2f}x)"
+                for k, v in overlap.items())
+            + f"; the reused stall equals the priced one; card: {smi}")
+
+        # -- 12b: the token pipeline feeding the card --------------------
+        t0 = time.perf_counter()
+        tokens = np.random.default_rng(PIPE_SEED).integers(
+            0, cfg.vocab_size, PIPE_TOKENS, dtype=np.int32)
+        store = StripedTokenStore.write(Path(tmp) / "tokens", tokens,
+                                        channels=PIPE_SHARDS)
+        del tokens
+        make_s = time.perf_counter() - t0
+        pipe = FileBackedTokens(store, PIPE_BATCH, PIPE_SEQ, ways=PIPE_WAYS)
+        it = iter(pipe)
+        blocked = 0.0
+        kept = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PIPE_BATCHES):
+            if i == PIPE_RESUME_AT:
+                resume = pipe.state()
+            t1 = time.perf_counter()
+            batch = next(it)
+            blocked += time.perf_counter() - t1
+            on_card = {k: v.to(device) for k, v in batch.items()}
+            if i % PIPE_CHECK_EVERY == 0 or i == PIPE_RESUME_AT:
+                kept[i] = batch
+        torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t0
+        pipe.close()
+        if on_card["inputs"].shape != (PIPE_BATCH, PIPE_SEQ):
+            raise AssertionError(f"batch shape {on_card['inputs'].shape}")
+        again = FileBackedTokens(store, PIPE_BATCH, PIPE_SEQ, ways=PIPE_WAYS)
+        again.restore(PipeState(resume.cursor))
+        first = next(iter(again))
+        again.close()
+        if not all(torch.equal(first[k], kept[PIPE_RESUME_AT][k])
+                   for k in first):
+            raise AssertionError("resume from PipeState gave another batch")
+        # each batch against plain numpy reads of the shards at the
+        # pipeline's offsets (a hedged row reads the next shard)
+        shards = [np.load(s, mmap_mode="r") for s in store.shards]
+        need, replica_rows = PIPE_SEQ + 1, 0
+        for i, batch in kept.items():
+            rows = batch["inputs"].numpy()
+            for b in range(PIPE_BATCH):
+                g = i * PIPE_BATCH + b
+                for hedge in (0, 1):
+                    m = shards[(g % PIPE_SHARDS + hedge) % PIPE_SHARDS]
+                    off = (g // PIPE_SHARDS) * need % max(1, len(m) - need)
+                    if np.array_equal(rows[b], m[off:off + need - 1]):
+                        replica_rows += hedge
+                        break
+                else:
+                    raise AssertionError(f"batch {i} row {b} is no read of "
+                                         "the store")
+        if replica_rows > pipe.hedged_reads:
+            raise AssertionError(f"{replica_rows} rows from replicas, "
+                                 f"{pipe.hedged_reads} hedged reads")
+        pipe_trace = pipeline_io_trace(pipe, PIPE_BATCHES)
+        pipe_ssd = SSDConfig(channels=pipe_trace.channels,
+                             ways=pipe_trace.ways)
+        pipe_bytes = PIPE_BATCHES * PIPE_BATCH * need * 4
+        t1 = time.perf_counter()
+        pipe_est = estimate_trace(pipe_trace, pipe_ssd, total_bytes=pipe_bytes,
+                                  device=device)
+        pipe_est_s = time.perf_counter() - t1
+        if pipe_est != estimate_trace(pipe_trace, pipe_ssd,
+                                      total_bytes=pipe_bytes, device="cpu"):
+            raise AssertionError("the pipeline's estimate on the card != the "
+                                 "CPU session's")
+        n_tok = PIPE_BATCHES * PIPE_BATCH * PIPE_SEQ
+        out["pipeline"] = {
+            "tokens": PIPE_TOKENS, "shards": PIPE_SHARDS,
+            "batches": PIPE_BATCHES, "make_store_s": make_s,
+            "feed_s": feed_s, "tokens_per_s_page_cached": n_tok / feed_s,
+            "next_blocked_s": blocked, "hedged_reads": pipe.hedged_reads,
+            "replica_rows": replica_rows, "estimate_s": pipe_est_s,
+            "modeled_s": pipe_est.seconds,
+            "modeled_mb_s": pipe_est.bandwidth_mb_s}
+        log(f"[12b] StripedTokenStore of {PIPE_TOKENS} int32 tokens "
+            f"({PIPE_TOKENS * 4 / 2**30:.0f} GiB) over {PIPE_SHARDS} shards "
+            f"(made and written in {make_s:.2f} s); FileBackedTokens(batch="
+            f"{PIPE_BATCH}, seq={PIPE_SEQ}, ways={PIPE_WAYS}): "
+            f"{PIPE_BATCHES} batches onto the card in {feed_s:.2f} s "
+            f"({n_tok / feed_s:.0f} tokens/s, an upper bound: the store was "
+            f"just written and is read from the page cache, not the disk), "
+            f"next() blocked {blocked:.3f} "
+            f"s in all, {pipe.hedged_reads} hedged reads; resume from "
+            f"PipeState({resume.cursor}) gave the same batch; {len(kept)} "
+            f"batches equal to numpy reads of the shards; "
+            f"pipeline_io_trace({PIPE_BATCHES}) ({pipe_trace.n_ops} ops on "
+            f"{pipe_ssd.describe()}) priced in {pipe_est_s:.2f} s on the card"
+            f", equal to the CPU session's: {pipe_est.describe()}")
+
+    # -- 12c: KV-offload planning ---------------------------------------
+    def unwindow(specs):
+        return tuple(LayerSpec(**{**dataclasses.asdict(s), "window": None})
+                     for s in specs)
+    global_cfg = dataclasses.replace(cfg, pattern=unwindow(cfg.pattern),
+                                     tail=unwindow(cfg.tail))
+    t0 = time.perf_counter()
+    local = plan_kv_offload(cfg, KV_SEQ, device=device)
+    t1 = time.perf_counter()
+    kv = plan_kv_offload(global_cfg, KV_SEQ, device=device)
+    kv_s = time.perf_counter() - t1
+    kv_cpu = plan_kv_offload(global_cfg, KV_SEQ, device="cpu")
+    n_global = sum(s.mixer == "attn" for s in global_cfg.pattern) \
+        * global_cfg.num_units
+    kv_token = 2 * cfg.n_kv_heads * cfg.hd * 2       # bf16 K and V
+    if not (not local.applicable and "inapplicable" in local.note
+            and kv.applicable and kv.tokens_per_s == kv_cpu.tokens_per_s
+            and kv.cold_bytes_per_seq == n_global * kv_token * KV_SEQ
+            and kv.tokens_per_s["proposed"] > kv.tokens_per_s["conv"]):
+        raise AssertionError(f"KV-offload plans: {local.note} / {kv.note}, "
+                             f"card {kv.tokens_per_s} vs CPU "
+                             f"{kv_cpu.tokens_per_s}")
+    out["kv_offload"] = {"local_note": local.note, "note": kv.note,
+                         "global_attention_layers": n_global,
+                         "cold_bytes_per_seq": kv.cold_bytes_per_seq,
+                         "tokens_per_s": kv.tokens_per_s, "plan_s": kv_s,
+                         "local_plan_s": t1 - t0}
+    log(f"[12c] plan_kv_offload({LM_ARCH}, {KV_SEQ}) on 4 x 8 MLC: "
+        f"{local.note} ({t1 - t0:.3f} s); with every attention window set "
+        f"to None ({n_global} global-attention layers, "
+        f"{kv.cold_bytes_per_seq // KV_SEQ} bytes a token, "
+        f"{kv.cold_bytes_per_seq / 1e9:.2f} GB a sequence): tokens/s "
+        + ", ".join(f"{k} {v:.4f}" for k, v in kv.tokens_per_s.items())
+        + f" ({kv.trace.n_ops}-op window, {kv_s:.2f} s on the card), equal "
+        "to the CPU session's")
+
+    # -- 12d: the example's planning flows ------------------------------
+    ssd_model.reset_estimates()
+    t0 = time.perf_counter()
+    stall = {b: plan_checkpoint_tier(PLAN_CKPT_BYTES, b, device=device)
+             for b in PLAN_BUDGETS}
+    stall_s = time.perf_counter() - t0
+    stall_n = dict(ssd_model.ESTIMATES)
+    ssd_model.reset_estimates()
+    t0 = time.perf_counter()
+    refill = {**plan_refill(REFILL_BYTES, 60.0, device=device),
+              "compare": compare_interfaces(REFILL_BYTES, "read",
+                                            device=device)}
+    refill_s = time.perf_counter() - t0
+    refill_n = dict(ssd_model.ESTIMATES)
+    ests, ops_, est_s = (stall_n[k] + refill_n[k]
+                         for k in ("calls", "ops", "seconds"))
+    # one 4096-op estimate alone, then profiled: the card's busy share of
+    # its wall
+    one_cfg = SSDConfig(cell=CellType.MLC, channels=4, ways=8)
+    one_tr = checkpoint_trace(PLAN_CKPT_BYTES, one_cfg)
+    prof_s, _ = timed(lambda: estimate_trace(one_tr, one_cfg, device=device))
+    prof = profiled(lambda: estimate_trace(one_tr, one_cfg, device=device))
+    t0 = time.perf_counter()
+    cpu_stall = plan_checkpoint_tier(PLAN_CKPT_BYTES, PLAN_CPU_BUDGET,
+                                     device="cpu")
+    cpu_compare = compare_interfaces(REFILL_BYTES, "read", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not (stall[PLAN_CPU_BUDGET] == cpu_stall
+            and refill["compare"] == cpu_compare):
+        raise AssertionError(f"12d on the card != the CPU: "
+                             f"{stall[PLAN_CPU_BUDGET]} vs {cpu_stall}")
+    if not (refill["trace"] and refill["bytes"] and refill["energy"]
+            and refill["energy"].energy_joules
+            <= refill["trace"].energy_joules):
+        raise AssertionError(f"refill plans {refill}")
+    busy = ("not measured" if prof["device_ms"] == "not measured"
+            else prof["device_ms"] / 1e3 / prof_s)
+    out["plans"] = {
+        "checkpoint_stall": {b: p and p.describe() for b, p in stall.items()},
+        "refill": {k: refill[k].describe() for k in ("trace", "bytes",
+                                                     "energy")},
+        "compare": {k: [e.seconds, e.energy_joules]
+                    for k, e in refill["compare"].items()},
+        "stall_s": stall_s, "refill_s": refill_s, "estimates": ests,
+        "estimate_ops": ops_, "estimate_s": est_s,
+        "scan_ops_per_s": ops_ / est_s, "one_estimate": {
+            "wall_s": prof_s, **prof, "device_busy_share": busy},
+        "cpu_check_s": cpu_s}
+    log(f"[12d] checkpoint-stall plans for {PLAN_CKPT_BYTES} bytes (MLC, then"
+        f" SLC): " + "; ".join(
+            f"{b:.0f} s -> {p.describe() if p else 'no geometry fits'}"
+            for b, p in stall.items())
+        + f" ({stall_s:.1f} s, {stall_n['calls']} estimates)")
+    log(f"[12d] {REFILL_BYTES >> 30} GiB dataloader refill: trace-planned "
+        f"{refill['trace'].describe()}; byte-planned "
+        f"{refill['bytes'].describe()}; min-energy "
+        f"{refill['energy'].describe()}; compare_interfaces: "
+        + ", ".join(f"{k} {e.seconds:.1f} s {e.energy_joules * 1e3:.1f} mJ"
+                    for k, e in refill["compare"].items())
+        + f" ({refill_s:.1f} s, {refill_n['calls']} estimates)")
+    log(f"[12d] {ests} estimate_trace calls on the card folded {ops_} ops "
+        f"on the scan engine in {est_s:.1f} s ({ops_ / est_s:.0f} ops/s); "
+        f"one 4096-op estimate: {prof_s:.3f} s wall, {prof['kernels']} "
+        f"kernels, {prof['device_ms']} ms device time (busy share {busy}); "
+        f"the {PLAN_CPU_BUDGET:.0f} s plan and every compare_interfaces row "
+        f"equal to a CPU session's ({cpu_s:.1f} s)")
+
+    # -- 12e: K1 on the storage traces (its main path here) --------------
+    priced = (("checkpoint", ck_trace, eng.ssd),
+              ("pipeline", pipe_trace, pipe_ssd),
+              ("kv_offload", kv.trace, SSDConfig(cell=CellType.MLC,
+                                                 channels=4, ways=8)))
+    rec = Recorder(maxplus_ops, "maxplus_fold_kernel")
+    try:
+        K.reset_launches()
+        cuda_res = {}
+        t0 = time.perf_counter()
+        for name, tr, ssd in priced:
+            cuda_res[name] = Simulator.for_config(ssd, device).run(
+                tr, engine="cuda", objective="all")
+        torch.cuda.synchronize()
+        k1_wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        rec.restore()
+    if not (launches["indexed"] >= len(priced)
+            and launches["indexed/compact"] == launches["indexed"]
+            and launches["periodic"] == launches["many"] == 0):
+        raise AssertionError(f"K1 on the storage traces launched {launches}")
+    drift = {}
+    for name, tr, ssd in priced:
+        scan = Simulator.for_config(ssd, device).run(tr, objective="all")
+        got = cuda_res[name]
+        errs = [rel(got.end_us, scan.end_us)] + [
+            rel(getattr(got.energy, f), getattr(scan.energy, f))
+            for f in ("cmd_j", "io_j", "ecc_j", "ctrl_j", "array_j")
+            if getattr(scan.energy, f) != 0.0]
+        drift[name] = max(errs)
+        if drift[name] > tr.n_ops * F32_DRIFT_PER_OP:
+            raise AssertionError(f"{name}: cuda vs scan {errs} (bar "
+                                 f"{tr.n_ops * F32_DRIFT_PER_OP:.2e})")
+    mats, s0 = rec.args
+    kw = rec.kwargs
+    k1_out = K.maxplus_fold_kernel(mats, s0, **kw)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(maxplus_fold_ref(mats, s0, **kw)),
+                       reps=1, warmup=False)
+    outs = k1_out if isinstance(k1_out, tuple) else (k1_out,)
+    plains = plain[0] if isinstance(plain[0], tuple) else (plain[0],)
+    k1_err = max(float((a - b).abs().max()) for a, b in zip(outs, plains))
+    if not all(torch.equal(a, b) for a, b in zip(outs, plains)):
+        raise AssertionError(f"K1 != plain on the checkpoint trace's inputs "
+                             f"(max abs {k1_err})")
+    layout = StateLayout(ck_trace.channels, ck_trace.ways)
+    k1_end = float(end_time_from_state(outs[0].cpu().numpy(), layout)[0])
+    if k1_end != cuda_res["checkpoint"].end_us:
+        raise AssertionError(f"checkpoint trace on cuda ends at "
+                             f"{cuda_res['checkpoint'].end_us}, its K1 "
+                             f"launch at {k1_end}")
+    k1 = time_ftl_fold(mats, s0, kw)
+    k1.update(plain_ms=plain_ms, max_abs_err=k1_err)
+    log(f"[12e] K1 on the storage traces (Simulator.run(engine='cuda', "
+        f"objective='all')): {launches['indexed']} launches, all compact, "
+        f"{k1_wall:.2f} s; cuda vs scan (end time and op energies) "
+        + ", ".join(f"{k} {v:.2e}" for k, v in drift.items())
+        + f" (< T*2^-24); the first launch (checkpoint trace, B="
+        f"{mats.shape[0]} M={mats.shape[1]} N={mats.shape[2]} "
+        f"T={kw['t_steps']}) bit-equal to maxplus_fold_ref (plain "
+        f"{plain_ms:.1f} ms), its end time the query's: {k1['route']} route "
+        f"{k1['ms']:.4f} ms, bound {k1['bound_ms']:.6f} ms "
+        f"({k1['bound_by']})")
+    seconds = time.perf_counter() - t_phase
+    log(f"[12] storage tier in {seconds:.1f} s")
+    return {"launches": launches, "k1": k1,
+            "k1_shape": list(mats.shape) + [kw["t_steps"]],
+            "k1_wall_s": k1_wall, "cuda_vs_scan": drift,
+            "seconds": seconds, **out}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3281,6 +3795,9 @@ def main() -> int:
     # -- 11: the FTL; its K1 launches are their own report entry ---------
     ftl_report = phase_ftl(dev)
 
+    # -- 12: the storage tier; K1's storage launches are their own entry --
+    storage = phase_storage(dev, smi)
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -3298,6 +3815,8 @@ def main() -> int:
             "max_abs_err", "routes")},
         "streams": streams, "workloads": wl, "logdepth": logdepth,
         "ftl": ftl_report,
+        "storage": {k: v for k, v in storage.items()
+                    if k not in ("launches", "k1")},
         "lm": {**lm_small, **{k: v for k, v in lm.items()
                               if k not in ("k4", "k5")}},
         "seconds": time.perf_counter() - t_start,
@@ -3335,6 +3854,18 @@ def main() -> int:
                     for r in K.ROUTES},
          "first_launch_route": ftl_report["k1"]["route"],
          "shape_bmnt": ftl_report["k1_shape"]},
+        {"name": "maxplus_fold (trace-indexed, K1, storage traces)", **common,
+         "replaces": "src/repro/kernels/maxplus/kernel.py:426",
+         "launches": storage["launches"]["indexed"],
+         "max_abs_err": storage["k1"]["max_abs_err"],
+         "ms": storage["k1"]["ms"],
+         "plain_ms": storage["k1"]["plain_ms"],
+         "bound_ms": storage["k1"]["bound_ms"],
+         "bound_by": storage["k1"]["bound_by"],
+         "routes": {r: storage["launches"][f"indexed/{r}"]
+                    for r in K.ROUTES},
+         "first_launch_route": storage["k1"]["route"],
+         "shape_bmnt": storage["k1_shape"]},
         {"name": "maxplus_fold (periodic, K2)", **common,
          "replaces": "src/repro/kernels/maxplus/kernel.py:419",
          "launches": launches["periodic"],

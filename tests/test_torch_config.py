@@ -38,6 +38,10 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.configs.recurrentgemma_9b\n"
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.rglru.ops\n"
+            "import repro_torch.storage, repro_torch.storage.ssd_model\n"
+            "import repro_torch.storage.kvoffload\n"
+            "import repro_torch.storage.datapipe\n"
+            "import repro_torch.storage.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
             "or m == 'ml_dtypes')\n"

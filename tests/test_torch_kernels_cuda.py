@@ -968,3 +968,70 @@ def test_ftl_sweep_on_the_card_equals_the_cpu(card):
     ends = [api.Simulator(cfg, device=dev).sweep(None, load, ftl=specs)
             for dev in (card, "cpu")]
     assert np.array_equal(*ends)
+
+
+# --- the storage tier on the card --------------------------------------------
+
+
+def test_storage_estimates_on_the_card_equal_the_cpu(card):
+    """``estimate_trace`` prices through the scan engine, so a card
+    session answers with the CPU session's bits, every field."""
+    from repro_torch.storage import ssd_model
+    cfg = sim.SSDConfig(cell="mlc", channels=2, ways=8)
+    t = trace.datapipe_trace(1 << 30, cfg, hedge_fraction=0.05)
+    got, want = (ssd_model.estimate_trace(t, cfg, total_bytes=1 << 30,
+                                          device=dev)
+                 for dev in (card, "cpu"))
+    assert got == want
+    io = [ssd_model.compare_interfaces(5 << 30, "write", channels=2, ways=8,
+                                       device=dev) for dev in (card, "cpu")]
+    assert io[0] == io[1]
+
+
+def test_checkpoint_of_card_tensors_restores_bit_equal(card, tmp_path):
+    from repro_torch.storage import checkpoint
+    gen = torch.Generator(device=card).manual_seed(3)
+    state = {"w": torch.randn(300, 70, device=card, generator=gen),
+             "h": torch.randn(5000, device=card, generator=gen).to(
+                 torch.bfloat16),
+             "layers": [{"k": torch.randn(8, 4, device=card, generator=gen
+                                          ).to(torch.bfloat16)},
+                        (torch.arange(7, dtype=torch.int32, device=card),)]}
+    eng = checkpoint.CheckpointEngine(tmp_path, channels=3, ways=2,
+                                      device=card)
+    saved_w = state["w"].clone()
+    eng.save(7, state)
+    state["w"].add_(1.0)            # after the snapshot: not written
+    res = eng.wait()
+    assert res.step == 7
+    step, host, _ = eng.restore(template=state)
+    placed = checkpoint.place_on_device(host, card)
+    want = checkpoint._flatten(state)
+    want["w"] = saved_w
+    raw = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+           torch.int32: torch.int32}
+    for k, v in checkpoint._flatten(placed).items():
+        assert v.device.type == "cuda" and v.dtype == want[k].dtype
+        assert torch.equal(v.view(raw[v.dtype]),
+                           want[k].view(raw[v.dtype])), k
+    cpu = checkpoint.CheckpointEngine(tmp_path / "cpu", channels=3, ways=2,
+                                      device="cpu")
+    cpu.save(7, host, blocking=True)
+    assert cpu.wait().modeled == res.modeled
+
+
+def test_k1_prices_a_storage_trace_within_drift_of_scan(card):
+    from repro_torch import api
+    cfg = sim.SSDConfig(cell="mlc", channels=4, ways=8)
+    t = trace.checkpoint_trace(3 << 30, cfg)
+    s = api.Simulator(cfg, device=card)
+    before = dict(LAUNCHES)
+    got = s.run(t, engine="cuda", objective="all")
+    assert LAUNCHES["indexed/compact"] > before["indexed/compact"]
+    assert LAUNCHES["indexed/dense"] == before["indexed/dense"]
+    want = s.run(t, objective="all")
+    bar = t.n_ops * 2.0 ** -24
+    assert abs(got.end_us - want.end_us) <= bar * want.end_us
+    for f in ("cmd_j", "io_j", "ecc_j", "ctrl_j", "array_j"):
+        a, b = getattr(got.energy, f), getattr(want.energy, f)
+        assert abs(a - b) <= bar * abs(b), f
