@@ -180,20 +180,48 @@ Phases, one report line each (every check raises on failure):
    524288 tokens for ``recurrentgemma-9b`` (inapplicable: its attention
    is windowed) and for the same config with every window removed,
    equal to the CPU; (12d) the planning flows of
-   ``examples/ssd_design_space.py`` (checkpoint-stall plans, the 10 GiB
+   ``examples/ssd_design_space.py`` (its KV-offload loop over qwen2-0.5b,
+   recurrentgemma-9b and xlstm-350m, checkpoint-stall plans, the 10 GiB
    dataloader refill planned by trace, by bytes and by energy,
    ``compare_interfaces``), one plan and every comparison row equal to
    a CPU session's, with the scan engine's ops/s and one estimate's
    device busy share; (12e) the checkpoint, pipeline and KV traces
    priced on ``engine="cuda"``: K1 on the compact route every launch,
    end time and op energies within T * 2^-24 of ``scan``, the first
-   launch bit-equal to ``maxplus_fold_ref``.
+   launch bit-equal to ``maxplus_fold_ref``;
+13. the rest of slice H's serving path: (13a) the SMOKE models of the
+   nine other configs at float32 compute, the same parameters on the
+   card and the CPU, through ``ServingEngine.generate`` (3 prompts, 12
+   greedy tokens, identical) or, for musicgen-medium, ``prefill`` and
+   ``decode_step`` on embeddings, and for qwen2-vl-2b also on non-text
+   M-RoPE ids, logits within 1e-4 of the largest; one launch of K4's
+   CUDA-core route per attention layer of a prefill (granite-3-2b at
+   D = 8, zero-padded to 16), none of K5; the MoE routing tables under
+   the margin rule (tokens whose k-th and (k+1)-th router logits differ
+   by more than 1e-5 of the largest: the same experts and slots, weights
+   within 2^-18; near ties under 1 %); (13b) qwen2-0.5b and (13c)
+   granite-moe-3b-a800m at full width and depth, initialised on the
+   card from a seed and served as phase 8b's wave (24 and 32 launches of
+   K4's tensor-core route, none of the CUDA-core one), the first K4
+   launch held within FLASH_TOL and timed as in 8c; 13c's dropped
+   (token, expert) pairs a prefill layer, and its first MoE layer on its
+   recorded input against the same layer on the CPU (routing under the
+   margin rule, outputs within 2^-5 of the largest); (13d) qwen2-vl-2b
+   at full width and depth, ``prefill`` at B = 2, S = 4096 on Qwen2-VL's
+   image layout of M-RoPE ids (64 text tokens, a 32 x 32 patch grid,
+   text resuming after the largest id), 28 tensor-core K4 launches at
+   D = 128, then 16 ``decode_step``s; (13e) xlstm-350m at full width and
+   depth served as the same wave with no K4 or K5 launch, its sLSTM
+   scans timed apart, and ``prefill`` of 4097 tokens against ``prefill``
+   of 4096 plus one ``decode_step`` (chunkwise against step) within 2^-5
+   of the largest logit.  Each full model is freed before the next.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
 query of 11a and the storage pricing of 12e, each reported as its own
 entry), phase 6 that
-of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5: the
+of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5 (and
+the prefills of 13b-13d, each reported as its own K4 entry): the
 launch counts are reset just before each and read just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
 read once, the dense dictionary by the pre-pass; per step the add/max
@@ -327,10 +355,27 @@ PIPE_TOKENS, PIPE_SHARDS, PIPE_SEED = 1 << 28, 8, 3
 PIPE_BATCH, PIPE_SEQ, PIPE_WAYS, PIPE_BATCHES = 32, 4096, 4, 128
 PIPE_RESUME_AT, PIPE_CHECK_EVERY = 64, 16
 KV_SEQ = 524288
+KV_ARCHS = ("qwen2-0.5b", "recurrentgemma-9b", "xlstm-350m")
+KV_FIELDS = ("applicable", "state_bytes_per_seq", "hot_bytes_per_seq",
+             "cold_bytes_per_seq", "read_mb_per_token", "tokens_per_s",
+             "note")
 OVERLAP_BYTES, OVERLAP_DIM, OVERLAP_STEPS = 1 << 30, 2048, 200
 PLAN_CKPT_BYTES = int(2.7e9 * 2 * 3)    # 2.7B params, bf16 + optimizer
 PLAN_BUDGETS, PLAN_CPU_BUDGET = (150.0, 95.0, 30.0), 150.0
 REFILL_BYTES = 10 << 30
+# phase 13: the rest of slice H.  13a the SMOKE models of the nine other
+# configs; 13b-13e four full configs on phase 8b's wave (13d on
+# Qwen2-VL's image layout instead, 13e adds a chunkwise-vs-step check).
+# MoE routing: the margin rule of ROUTE_TIE_REL, weights within
+# ROUTE_WEIGHT_TOL (float32 router sums in another order)
+H_SMOKES = ("qwen2-0.5b", "minicpm-2b", "granite-3-2b", "starcoder2-3b",
+            "llama4-maverick-400b-a17b", "granite-moe-3b-a800m",
+            "musicgen-medium", "qwen2-vl-2b", "xlstm-350m")
+ROUTE_TIE_REL, ROUTE_WEIGHT_TOL = 1e-5, 2.0 ** -18
+VL_BATCH, VL_SEQ, VL_TEXT, VL_GRID, VL_DECODE = 2, 4096, 64, 32, 16
+# chunkwise prefill vs step decode at bf16: 2^-5 of the largest logit,
+# the bf16 bar of tests/test_torch_models.py
+XL_BATCH, XL_SEQ, XL_TOL = 2, 4096, 2.0 ** -5
 ENERGY_FIELDS = ("cmd_j", "io_j", "ecc_j", "ctrl_j", "idle_j", "array_j")
 TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
                   "ctrl_us", "arb_us", "io_us")
@@ -1684,46 +1729,31 @@ def time_rglru(a, b) -> dict:
             "shape": shape, "dtype": str(a.dtype)}
 
 
-def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
-    """8b: RecurrentGemma-9B at full width served through ServingEngine;
-    the first K4 and K5 launches of the prefill recorded and held against
-    their plain versions; one score pass, its K5 launches counted and the
-    first held against the plain version.  8c: K4 and K5 timed at the
-    prefill shapes beside their plain versions, their bounds and (K4) the
-    SDPA call; K5 also at the score shape, through both routes."""
-    import numpy as np
+def lm_params(cfg, device) -> tuple:
+    """Random parameters of ``cfg`` on the card from LM_SEED; (params,
+    count, bytes, seconds)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention import tiles as flash_tiles
-    from repro_torch.kernels.flash_attention.ref import attention_reference
-    from repro_torch.kernels.rglru import kernel as RK
-    from repro_torch.kernels.rglru import ops as rglru_ops
-    from repro_torch.kernels.rglru import plan as RP
-    from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.models.transformer import init_params, param_count
-    from repro_torch.serve import ServingEngine
-    from repro_torch.serve import engine as engine_mod
-
-    RK_RING, RK_SIMPLE = RK.ROUTE_KEYS[RP.RING], RK.ROUTE_KEYS[RP.SIMPLE]
-    cfg = get_arch(LM_ARCH).config
-    n_attn = cfg.num_units * sum(s.mixer == "attn" for s in cfg.pattern)
-    n_rglru = (cfg.num_units * sum(s.mixer == "rglru" for s in cfg.pattern)
-               + sum(s.mixer == "rglru" for s in cfg.tail))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         LM_SEED), device=device)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = param_count(params)
-    p_bytes = sum(x.numel() * x.element_size()
-                  for x in _leaves(params))
-    log(f"[8b] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
-        f"{p_bytes / 1e9:.2f} GB on the card, initialised from seed {LM_SEED}"
-        f" in {init_s:.1f} s ({n_attn} attention + {n_rglru} RG-LRU layers)")
+    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    return params, param_count(params), n_bytes, time.perf_counter() - t0
+
+
+def serve_wave(cfg, params, device) -> dict:
+    """Phase 8b's wave through ``ServingEngine.generate`` with the launch
+    counts reset just before and read just after; the prefill timed
+    apart; the first K4 launch recorded."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve import engine as engine_mod
 
     rng = np.random.default_rng(LM_SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
@@ -1735,16 +1765,14 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
     def timed_prefill(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = real_prefill(*a, **kw)
+        res = real_prefill(*a, **kw)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t)
-        return out
+        return res
 
-    rec_k4 = Recorder(flash_ops, "flash_attention_bhsd")
-    rec_k5 = Recorder(rglru_ops, "rglru_scan_kernel")
+    rec = Recorder(flash_ops, "flash_attention_bhsd")
     engine_mod.prefill = timed_prefill
     try:
-        # -- the main path: counts reset just before, read just after ---
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         FK.reset_launches()
@@ -1756,14 +1784,8 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
         launches = {**FK.LAUNCHES, **RK.LAUNCHES}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
-        rec_k4.restore()
-        rec_k5.restore()
+        rec.restore()
         engine_mod.prefill = real_prefill
-    if launches != {FK.TC: n_attn, FK.F32: 0, RK.TOTAL: n_rglru,
-                    RK_RING: n_rglru, RK_SIMPLE: 0}:
-        raise AssertionError(f"one prefill launched {launches}, expected "
-                             f"{n_attn} tensor-core flash-attention and "
-                             f"{n_rglru} RG-LRU scans, all on the ring")
     b = len(prompts)
     toks, logits = res.tokens, res.prefill_logits
     if not (toks.shape == (b, LM_NEW_TOKENS) and toks.min() >= 0
@@ -1771,21 +1793,131 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
             and logits.shape == (b, cfg.padded_vocab)
             and np.all(np.isfinite(logits[:, :cfg.vocab_size]))
             and np.array_equal(toks[:, 0], logits.argmax(-1))):
-        raise AssertionError("generate returned malformed tokens or logits")
+        raise AssertionError(f"{cfg.name}: generate returned malformed "
+                             "tokens or logits")
     decode_s = gen_s - prefill_s[0]
-    decode_tps = b * (LM_NEW_TOKENS - 1) / decode_s
-    log(f"[8b] ServingEngine(max_seq={LM_MAX_SEQ}).generate: {b} prompts "
-        f"of {'/'.join(map(str, LM_PROMPT_LENS))} tokens left-padded to "
+    return {"launches": launches, "k4_args": rec.args,
+            "k4_kwargs": rec.kwargs, "generate_s": gen_s,
+            "prefill_s": prefill_s[0], "decode_s": decode_s,
+            "decode_tokens_per_s": b * (LM_NEW_TOKENS - 1) / decode_s,
+            "peak_device_gb": peak_gb}
+
+
+def log_wave(label: str, wave: dict) -> None:
+    log(f"[{label}] ServingEngine(max_seq={LM_MAX_SEQ}).generate: "
+        f"{len(LM_PROMPT_LENS)} prompts of "
+        f"{'/'.join(map(str, LM_PROMPT_LENS))} tokens left-padded to "
         f"{max(LM_PROMPT_LENS)} + {LM_NEW_TOKENS} greedy tokens in "
-        f"{gen_s:.2f} s: prefill {prefill_s[0]:.3f} s, decode "
-        f"{decode_s:.3f} s ({decode_tps:.1f} tokens/s, "
-        f"{decode_s / (LM_NEW_TOKENS - 1) * 1e3:.1f} ms a step); peak device "
-        f"memory {peak_gb:.2f} GB; launches {launches}")
+        f"{wave['generate_s']:.2f} s: prefill {wave['prefill_s']:.3f} s, "
+        f"decode {wave['decode_s']:.3f} s "
+        f"({wave['decode_tokens_per_s']:.1f} tokens/s, "
+        f"{wave['decode_s'] / (LM_NEW_TOKENS - 1) * 1e3:.1f} ms a step); "
+        f"peak device memory {wave['peak_device_gb']:.2f} GB; launches "
+        f"{wave['launches']}")
+
+
+def time_k4(q, k, v, kw, out) -> dict:
+    """K4 at one shape: one call between CUDA events (median of 3), its
+    plain version, the CUDA-core route on f32 copies of the inputs, and
+    ``scaled_dot_product_attention`` on the same inputs (kv heads repeated
+    to the query heads) with the mask as a boolean ``attn_mask`` and,
+    where there is no window, with ``is_causal=True``; the bound, for the
+    (q, k) pairs the mask keeps, and the flops each route's tile plan
+    computes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import tiles as flash_tiles
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    t = {"ms": cuda_ms(lambda: FK.flash_attention_bhsd(q, k, v, **kw)),
+         "plain_ms": cuda_ms(lambda: attention_reference(q, k, v, **kw),
+                             warmup=False)}
+    qf, kf, vf = q.float(), k.float(), v.float()
+    t["f32_route_ms"] = cuda_ms(lambda: FK.flash_attention_bhsd(qf, kf, vf,
+                                                                **kw))
+    del qf, kf, vf
+    bq, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    k_rep = k.repeat_interleave(group, dim=1)
+    v_rep = v.repeat_interleave(group, dim=1)
+    pos = torch.arange(sq, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if kw.get("window"):
+        mask &= (pos[:, None] - pos[None, :]) < kw["window"]
+    t["library_ms"] = t["sdpa_is_causal_ms"] = None
+    try:             # the yardstick only, never the path
+        t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k_rep, v_rep, attn_mask=mask))
+        if not kw.get("window"):
+            t["sdpa_is_causal_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                       is_causal=True))
+    except RuntimeError as exc:
+        log(f"SDPA yardstick failed: {exc}")
+    del k_rep, v_rep, mask
+    t["pairs"] = valid_pairs(sq, k.shape[2], kw.get("causal", True),
+                             kw.get("window"), kw.get("q_offset", 0))
+    t["bytes"] = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+    t["ops"] = 4.0 * d * t["pairs"] * bq * hq
+    t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"], ops_per_s=(
+        BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S))
+    plan = {"sq": sq, "sk": k.shape[2], "causal": kw.get("causal", True),
+            "window": kw.get("window"), "q_offset": kw.get("q_offset", 0)}
+    for key, name in (("computed_flops", FK.TC), ("f32_computed_flops",
+                                                  FK.F32)):
+        tq, tk = FK.tile(name, d)
+        t[key] = flash_tiles.computed_flops(bq, hq, d, bq=tq, bk=tk, **plan)
+    return t
+
+
+def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
+    """8b: RecurrentGemma-9B at full width served through ServingEngine;
+    the first K4 and K5 launches of the prefill recorded and held against
+    their plain versions; one score pass, its K5 launches counted and the
+    first held against the plain version.  8c: K4 and K5 timed at the
+    prefill shapes beside their plain versions, their bounds and (K4) the
+    SDPA call; K5 also at the score shape, through both routes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru import plan as RP
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.serve import ServingEngine
+
+    RK_RING, RK_SIMPLE = RK.ROUTE_KEYS[RP.RING], RK.ROUTE_KEYS[RP.SIMPLE]
+    cfg = get_arch(LM_ARCH).config
+    n_attn = cfg.num_units * sum(s.mixer == "attn" for s in cfg.pattern)
+    n_rglru = (cfg.num_units * sum(s.mixer == "rglru" for s in cfg.pattern)
+               + sum(s.mixer == "rglru" for s in cfg.tail))
+    params, n_params, p_bytes, init_s = lm_params(cfg, device)
+    log(f"[8b] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+        f"{p_bytes / 1e9:.2f} GB on the card, initialised from seed {LM_SEED}"
+        f" in {init_s:.1f} s ({n_attn} attention + {n_rglru} RG-LRU layers)")
+
+    # -- the main path: counts reset just before, read just after -------
+    rec_k5 = Recorder(rglru_ops, "rglru_scan_kernel")
+    try:
+        wave = serve_wave(cfg, params, device)
+    finally:
+        rec_k5.restore()
+    launches = wave["launches"]
+    if launches != {FK.TC: n_attn, FK.F32: 0, RK.TOTAL: n_rglru,
+                    RK_RING: n_rglru, RK_SIMPLE: 0}:
+        raise AssertionError(f"one prefill launched {launches}, expected "
+                             f"{n_attn} tensor-core flash-attention and "
+                             f"{n_rglru} RG-LRU scans, all on the ring")
+    log_wave("8b", wave)
 
     # -- the first launches of the prefill, against their plain versions
     with torch.inference_mode():
-        q, k, v = rec_k4.args
-        kw = rec_k4.kwargs
+        q, k, v = wave["k4_args"]
+        kw = wave["k4_kwargs"]
         k4_out = FK.flash_attention_bhsd(q, k, v, **kw)
         k4_plain = attention_reference(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1814,7 +1946,7 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
         torch.cuda.synchronize()
         RK.reset_launches()
         t0 = time.perf_counter()
-        lp = eng.score(score_toks)
+        lp = ServingEngine(cfg, params, max_seq=LM_MAX_SEQ).score(score_toks)
         torch.cuda.synchronize()
         score_s = time.perf_counter() - t0
         score_launches = dict(RK.LAUNCHES)
@@ -1833,50 +1965,20 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
         f"mean log-prob {float(lp.mean()):.2f}; RG-LRU launches "
         f"{score_launches}, the first bit-equal to plain on its inputs "
         f"{tuple(sa.shape)} {sa.dtype}")
-    del eng, params
+    del params
     torch.cuda.empty_cache()
 
     # -- 8c: times at the prefill shapes --------------------------------
     with torch.inference_mode():
-        def flash():
-            return FK.flash_attention_bhsd(q, k, v, **kw)
-        k4_ms = cuda_ms(flash)
-        k4_plain_ms = cuda_ms(lambda: attention_reference(q, k, v, **kw),
-                              warmup=False)
-        # the CUDA-core route on f32 copies of the same inputs, for the record
-        qf, kf, vf = q.float(), k.float(), v.float()
-        k4_f32_ms = cuda_ms(lambda: FK.flash_attention_bhsd(qf, kf, vf, **kw))
-        del qf, kf, vf
+        k4t = time_k4(q, k, v, kw, k4_out)
+        (k4_ms, k4_plain_ms, k4_f32_ms, sdpa_ms, pairs, k4_bytes, k4_ops,
+         k4_b, k4_by, k4_computed, f32_computed) = (k4t[x] for x in (
+             "ms", "plain_ms", "f32_route_ms", "library_ms", "pairs",
+             "bytes", "ops", "bound_ms", "bound_by", "computed_flops",
+             "f32_computed_flops"))
         bq, hq, sq, d = q.shape
-        group = hq // k.shape[1]
-        k_rep = k.repeat_interleave(group, dim=1)
-        v_rep = v.repeat_interleave(group, dim=1)
-        pos = torch.arange(sq, device=device)
-        mask = pos[:, None] >= pos[None, :]
-        if kw.get("window"):
-            mask &= (pos[:, None] - pos[None, :]) < kw["window"]
-        try:
-            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k_rep, v_rep, attn_mask=mask))
-        except RuntimeError as exc:     # the yardstick only, never the path
-            log(f"[8c] SDPA yardstick failed: {exc}")
-            sdpa_ms = None
-        del k_rep, v_rep, mask
-        pairs = valid_pairs(sq, k.shape[2], kw.get("causal", True),
-                            kw.get("window"), kw.get("q_offset", 0))
-        k4_bytes = sum(x.numel() * x.element_size()
-                       for x in (q, k, v, k4_out))
-        k4_ops = 4.0 * d * pairs * bq * hq
-        k4_b, k4_by = bound_ms(k4_bytes, k4_ops, ops_per_s=(
-            BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S))
-        plan = {"sq": sq, "sk": k.shape[2], "causal": kw.get("causal", True),
-                "window": kw.get("window"), "q_offset": kw.get("q_offset", 0)}
         tc_bq, tc_bk = FK.tile(FK.TC, d)
-        k4_computed = flash_tiles.computed_flops(bq, hq, d, bq=tc_bq,
-                                                 bk=tc_bk, **plan)
         f32_bq, f32_bk = FK.tile(FK.F32, d)
-        f32_computed = flash_tiles.computed_flops(bq, hq, d, bq=f32_bq,
-                                                  bk=f32_bk, **plan)
         k5 = {"prefill": time_rglru(a, bb), "score": time_rglru(sa, sb)}
         k5_plain_ms = cuda_ms(lambda: rglru_scan_ref(a, bb), warmup=False)
     res = {name: kernel_resources(flash_ptxas, pattern)
@@ -1945,9 +2047,9 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
                    for k in ("ms", "queued_ms")},
                "score_shape_bound_ms": k5["score"]["bound_ms"]},
         "n_params": n_params, "param_gb": p_bytes / 1e9, "init_s": init_s,
-        "generate_s": gen_s, "prefill_s": prefill_s[0],
-        "decode_s": decode_s, "decode_tokens_per_s": decode_tps,
-        "peak_device_gb": peak_gb, "score_s": score_s,
+        **{k: wave[k] for k in ("generate_s", "prefill_s", "decode_s",
+                                "decode_tokens_per_s", "peak_device_gb")},
+        "score_s": score_s,
         "k4_rel_err": k4_rel, "k4_valid_pairs_per_head": pairs,
         "k4_computed_flops": k4_computed, "k4_f32_route_ms": k4_f32_ms,
     }
@@ -3405,6 +3507,23 @@ def phase_storage(device, smi: str) -> dict:
         "to the CPU session's")
 
     # -- 12d: the example's planning flows ------------------------------
+    # its KV-offload loop (examples/ssd_design_space.py:188) over the
+    # three ids it names, each plan equal to a CPU session's
+    kv_loop = {}
+    for arch in KV_ARCHS:
+        t0 = time.perf_counter()
+        plan = plan_kv_offload(get_arch(arch).config, KV_SEQ, device=device)
+        plan_s = time.perf_counter() - t0
+        want = plan_kv_offload(get_arch(arch).config, KV_SEQ, device="cpu")
+        bad = [f for f in KV_FIELDS if getattr(plan, f) != getattr(want, f)]
+        if bad or plan.applicable != (arch == "qwen2-0.5b"):
+            raise AssertionError(f"12d KV offload of {arch} on the card != "
+                                 f"the CPU in {bad}: {plan.note}")
+        kv_loop[arch] = {"note": plan.note, "applicable": plan.applicable,
+                         "tokens_per_s": plan.tokens_per_s, "plan_s": plan_s}
+        log(f"[12d] plan_kv_offload({arch}, {KV_SEQ}) on the card "
+            f"({plan_s:.2f} s), equal to the CPU session's: {plan.note}")
+    out["kv_offload_loop"] = kv_loop
     ssd_model.reset_estimates()
     t0 = time.perf_counter()
     stall = {b: plan_checkpoint_tier(PLAN_CKPT_BYTES, b, device=device)
@@ -3541,6 +3660,481 @@ def phase_storage(device, smi: str) -> dict:
             "k1_shape": list(mats.shape) + [kw["t_steps"]],
             "k1_wall_s": k1_wall, "cuda_vs_scan": drift,
             "seconds": seconds, **out}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the rest of slice H's serving path — the nine other configs,
+# the MoE FFN and the xLSTM blocks — through the port's ServingEngine
+# ---------------------------------------------------------------------------
+
+
+def vl_position_ids(b: int, n_text: int, grid: int, n_after: int, device):
+    """[3, B, S] M-RoPE ids as Qwen2-VL's frontend lays them out:
+    ``n_text`` text tokens, a ``grid`` x ``grid`` patch grid at temporal
+    id ``n_text`` with its row and column added to the height and width
+    ids, then ``n_after`` text tokens from one past the largest id."""
+    import torch
+    text = torch.arange(n_text)
+    rows, cols = torch.arange(grid * grid) // grid, torch.arange(
+        grid * grid) % grid
+    image = torch.stack([torch.full((grid * grid,), n_text), n_text + rows,
+                         n_text + cols])
+    after = int(image.max()) + 1 + torch.arange(n_after)
+    ids = torch.cat([torch.stack([text] * 3), image,
+                     torch.stack([after] * 3)], dim=1)
+    return ids.to(torch.int32)[:, None].expand(3, b, ids.shape[1]).to(
+        device).contiguous()
+
+
+class RouteLog:
+    """Wraps ``moe.apply_moe`` and ``moe._routing_tables``.  For every
+    call: whether it was a prefill (S > 1), its groups, tokens a group,
+    top_k and the (token, expert) pairs kept; for the first ``keep``
+    calls (all with ``keep=None``) also the router, the layer's input as
+    grouped and the tables, as they were."""
+
+    def __init__(self, keep=None):
+        from repro_torch.models import moe
+        self.moe, self.keep = moe, keep
+        self.apply, self.tables = moe.apply_moe, moe._routing_tables
+        self.calls, self.kept = [], []
+        moe.apply_moe, moe._routing_tables = self._apply, self._tables
+
+    def _apply(self, p, spec, x, **kw):
+        b, s, d = x.shape
+        full = self.keep is None or len(self.calls) < self.keep
+        self.calls.append({"prefill": s > 1, "k": spec.top_k})
+        if full:
+            self.calls[-1].update(router=p["router"], x=(
+                x if s > 1 else x.reshape(1, b, d)).clone())
+        return self.apply(p, spec, x, **kw)
+
+    def _tables(self, ids, weights, spec, cap):
+        src, wtab = self.tables(ids, weights, spec, cap)
+        g, t, k = ids.shape
+        call = self.calls[-1]
+        call.update(groups=g, tokens=t, pairs=g * t * k,
+                    kept=int((src < t).sum()))
+        if "x" in call:
+            call.update(src=src, wtab=wtab)
+        return src, wtab
+
+    def restore(self):
+        self.moe.apply_moe, self.moe._routing_tables = self.apply, \
+            self.tables
+
+
+def hold_routes(card_call: dict, cpu_call: dict) -> int:
+    """The margin rule on one MoE call, card against CPU: tokens whose
+    k-th and (k+1)-th float32 router logits (the CPU's) differ by more
+    than ROUTE_TIE_REL of the largest |logit| have the same experts and
+    slots, weights within ROUTE_WEIGHT_TOL (the router's float32 sums run
+    in another order), and every group without a near-tie the same
+    ``src`` table; the near-tie tokens are counted, and must be under
+    1 %.  Returns (near ties, [G, T] near-tie mask)."""
+    import torch
+    from repro_torch.models import moe
+    logits = moe.router_logits(cpu_call["router"].cpu(),
+                               cpu_call["x"].cpu())
+    k = cpu_call["k"]
+    top = torch.sort(logits, dim=-1, descending=True).values
+    ties = top[..., k - 1] - top[..., k] <= ROUTE_TIE_REL * \
+        logits.abs().max()
+    t = logits.shape[1]
+    placed = []
+    for call in (card_call, cpu_call):
+        src, wtab = call["src"].cpu(), call["wtab"].cpu()
+        g, e, c = src.shape
+        slot = torch.zeros((g, t + 1, e), dtype=torch.int64)
+        w = torch.zeros((g, t + 1, e))
+        gi, ei, ci = torch.meshgrid(torch.arange(g), torch.arange(e),
+                                    torch.arange(c), indexing="ij")
+        slot[gi, src, ei] = ci + 1
+        w[gi, src, ei] = wtab
+        placed.append((slot[:, :t], w[:, :t], src))
+    (cs, cw, csrc), (ps, pw, psrc) = placed
+    ok = ~ties
+    w_err = float((cw - pw)[ok].abs().max()) if ok.any() else 0.0
+    clean = ~ties.any(1)
+    if not (torch.equal(cs[ok], ps[ok]) and w_err <= ROUTE_WEIGHT_TOL
+            and torch.equal(csrc[clean], psrc[clean])
+            and int(ties.sum()) < 0.01 * ties.numel()):
+        raise AssertionError(f"MoE routing on the card != the CPU beyond the"
+                             f" margin rule: weights {w_err:.2e}, "
+                             f"{int(ties.sum())} near ties")
+    return int(ties.sum()), ties
+
+
+def phase13_smoke(device) -> dict:
+    """13a: the nine SMOKE models at float32 compute, the same parameters
+    on the card and the CPU, against the CPU's plain path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill)
+    from repro_torch.serve import ServingEngine
+
+    out = {}
+    for arch in H_SMOKES:
+        cfg = dataclasses.replace(get_arch(arch).smoke, compute_dtype="f32")
+        cpu_p = init_params(cfg, 0, device="cpu")
+        card_p = to_device(cpu_p, device)
+        n_attn = cfg.num_units * sum(sp.mixer == "attn"
+                                     for sp in cfg.pattern)
+        rng = np.random.default_rng(0)
+        runs = {}
+        for name, dev, p in (("card", device, card_p),
+                             ("cpu", torch.device("cpu"), cpu_p)):
+            routes = RouteLog()
+            FK.reset_launches()
+            RK.reset_launches()
+            try:
+                with torch.inference_mode():
+                    if cfg.input_mode == "embeddings":
+                        emb = torch.as_tensor(np.random.default_rng(1)
+                                              .standard_normal((3, 25, cfg.d_model))
+                                              .astype(np.float32), device=dev)
+                        logits, cache = prefill(cfg, p, emb[:, :21],
+                                                max_seq=25)
+                        steps = [logits[:, -1].cpu()]
+                        for pos in range(21, 25):
+                            logits, cache = decode_step(
+                                cfg, p, cache, emb[:, pos:pos + 1], pos)
+                            steps.append(logits[:, -1].cpu())
+                        runs[name] = {"steps": torch.stack(steps, 1)}
+                    else:
+                        prompts = [np.random.default_rng(2).integers(
+                            0, cfg.vocab_size, n).tolist() for n in (21, 17, 9)]
+                        res = ServingEngine(cfg, p, max_seq=40,
+                                            device=dev).generate(prompts, 12)
+                        runs[name] = {"tokens": res.tokens,
+                                      "logits": res.prefill_logits}
+                    if cfg.rope_kind == "mrope":
+                        ids = vl_position_ids(2, 5, 4, 4, dev)
+                        toks = torch.as_tensor(np.random.default_rng(3)
+                                               .integers(0, cfg.vocab_size,
+                                                         (2, 25))
+                                               .astype(np.int32), device=dev)
+                        logits, cache = prefill(cfg, p, toks, max_seq=29,
+                                                position_ids=ids)
+                        steps = [logits[:, -1].cpu()]
+                        top = int(ids.max()) + 1
+                        for i in range(4):
+                            tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+                            step_ids = torch.full((3, 2, 1), top + i,
+                                                  dtype=torch.int32,
+                                                  device=dev)
+                            logits, cache = decode_step(
+                                cfg, p, cache, tok[:, None].to(torch.int32),
+                                25 + i, position_ids=step_ids)
+                            steps.append(logits[:, -1].cpu())
+                        runs[name]["vl_steps"] = torch.stack(steps, 1)
+            finally:
+                routes.restore()
+            runs[name]["routes"] = routes.calls
+            runs[name]["launches"] = {**FK.LAUNCHES, **RK.LAUNCHES}
+        card, cpu = runs["card"], runs["cpu"]
+        want_k4 = n_attn * (2 if cfg.rope_kind == "mrope" else 1)
+        launches = card["launches"]
+        if launches != {FK.TC: 0, FK.F32: want_k4, **{
+                key: 0 for key in RK.LAUNCHES}}:
+            raise AssertionError(f"{arch} SMOKE on the card launched "
+                                 f"{launches}, expected {want_k4} of "
+                                 f"{FK.F32} and nothing else")
+        errs = {}
+        for key in ("steps", "logits", "vl_steps"):
+            if key in cpu:
+                got, want = (torch.as_tensor(np.asarray(r[key]))
+                             [..., :cfg.vocab_size] for r in (card, cpu))
+                errs[key] = float((got - want).abs().max()) / float(
+                    want.abs().max())
+                if errs[key] > 1e-4 or not torch.equal(
+                        got.argmax(-1), want.argmax(-1)):
+                    raise AssertionError(f"{arch} SMOKE {key} on the card: "
+                                         f"{errs[key]:.2e} of the largest "
+                                         f"logit, or a greedy token differs")
+        if "tokens" in cpu and not np.array_equal(card["tokens"],
+                                                  cpu["tokens"]):
+            raise AssertionError(f"{arch} SMOKE: generated tokens differ")
+        ties = 0
+        if cfg.moe is not None:
+            if len(card["routes"]) != len(cpu["routes"]):
+                raise AssertionError(f"{arch}: MoE calls differ")
+            ties = sum(hold_routes(a, b)[0] for a, b in
+                       zip(card["routes"], cpu["routes"]))
+        out[arch] = {"k4_f32_launches": launches[FK.F32],
+                     "rel_err": max(errs.values()), "moe_calls":
+                     len(card["routes"]), "route_near_ties": ties}
+        log(f"[13a] {cfg.name} (f32 compute) on the card vs the CPU's "
+            f"plain path: " + ("generate 12 greedy tokens x 3 prompts "
+                               "identical, " if "tokens" in cpu else
+                               "prefill + 4 decode steps on embeddings, ")
+            + ("non-text M-RoPE ids prefill + 4 steps, "
+               if "vl_steps" in cpu else "")
+            + f"logits within {max(errs.values()):.2e} of the largest (bar "
+            f"1e-4); {launches[FK.F32]} launches of {FK.F32} (head dim "
+            f"{cfg.hd}{', zero-padded to 16' if cfg.hd < 16 else ''})"
+            + (f"; {len(card['routes'])} MoE calls, routing tables under "
+               f"the margin rule, {ties} near-tie tokens"
+               if cfg.moe is not None else ""))
+    return out
+
+
+def hold_k4(label, args, kwargs) -> dict:
+    """The first K4 launch of a prefill against its plain version within
+    FLASH_TOL, then timed (``time_k4``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    q, k, v = args
+    with torch.inference_mode():
+        got = FK.flash_attention_bhsd(q, k, v, **kwargs)
+        want = attention_reference(q, k, v, **kwargs)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rel_err = flash_err(got, want)
+        del want
+        if rel_err > FLASH_TOL[str(q.dtype)]:
+            raise AssertionError(f"{label}: flash kernel on the prefill's "
+                                 f"inputs {rel_err:.2e} > "
+                                 f"{FLASH_TOL[str(q.dtype)]}")
+        t = time_k4(q, k, v, kwargs, got)
+    return {"max_abs_err": err, "rel_err": rel_err, "shape": list(q.shape),
+            "kv_shape": list(k.shape), "dtype": str(q.dtype), **t}
+
+
+def log_k4(label: str, t: dict) -> None:
+    log(f"[{label}] K4 at q {tuple(t['shape'])} k/v {tuple(t['kv_shape'])} "
+        f"{t['dtype']}: first prefill launch within {t['max_abs_err']:.3e} "
+        f"({t['rel_err']:.2e} relative, bar "
+        f"{FLASH_TOL['torch.bfloat16']}) of its plain version; tensor-core "
+        f"kernel {t['ms']:.3f} ms ({t['computed_flops'] / t['ms'] / 1e9:.1f}"
+        f" TFLOP/s computed, {t['ops'] / t['ms'] / 1e9:.1f} needed, "
+        f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound), plain "
+        f"{t['plain_ms']:.3f} ms, CUDA-core route on f32 copies "
+        f"{t['f32_route_ms']:.3f} ms, SDPA with the causal mask "
+        f"{t['library_ms']} ms, SDPA is_causal {t['sdpa_is_causal_ms']} ms,"
+        f" bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+
+def phase_lm_configs(device) -> dict:
+    """13a-13e: the SMOKE models of the nine other configs against the
+    CPU; qwen2-0.5b, granite-moe-3b-a800m, qwen2-vl-2b and xlstm-350m at
+    full width and depth on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.models import moe
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.transformer import decode_step, prefill
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[13] device memory at the start: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    out = {"smoke": phase13_smoke(device)}
+
+    def full(arch, want_k4):
+        cfg = get_arch(arch).config
+        params, n, n_bytes, init_s = lm_params(cfg, device)
+        n_attn = cfg.num_units * sum(sp.mixer == "attn"
+                                     for sp in cfg.pattern)
+        if n_attn != want_k4:
+            raise AssertionError(f"{arch}: {n_attn} attention layers")
+        log(f"[13] {cfg.name}: {n / 1e9:.3f} B parameters, "
+            f"{n_bytes / 1e9:.2f} GB on the card, initialised from seed "
+            f"{LM_SEED} in {init_s:.1f} s")
+        return cfg, params, {"n_params": n, "param_gb": n_bytes / 1e9,
+                             "init_s": init_s}
+
+    def tc_only(label, wave, n):
+        want = {FK.TC: n, FK.F32: 0, **{key: 0 for key in RK.LAUNCHES}}
+        if wave["launches"] != want:
+            raise AssertionError(f"{label}: the prefill launched "
+                                 f"{wave['launches']}, expected {want}")
+
+    # -- 13b: qwen2-0.5b, dense GQA 14:2 at D = 64 ----------------------
+    cfg, params, stats = full("qwen2-0.5b", 24)
+    wave = serve_wave(cfg, params, device)
+    tc_only("13b", wave, 24)
+    log_wave("13b", wave)
+    del params
+    torch.cuda.empty_cache()
+    k4 = hold_k4("13b", wave.pop("k4_args"), wave.pop("k4_kwargs"))
+    log_k4("13b", k4)
+    out["qwen2-0.5b"] = {**stats, **wave, "k4": k4}
+
+    # -- 13c: granite-moe-3b-a800m, 40 experts top-8 --------------------
+    cfg, params, stats = full("granite-moe-3b-a800m", 32)
+    routes = RouteLog(keep=1)
+    try:
+        wave = serve_wave(cfg, params, device)
+    finally:
+        routes.restore()
+    tc_only("13c", wave, 32)
+    log_wave("13c", wave)
+    pre = [c for c in routes.calls if c["prefill"]]
+    if len(pre) != 32:
+        raise AssertionError(f"13c: {len(pre)} MoE calls in the prefill")
+    dropped = [1.0 - c["kept"] / c["pairs"] for c in pre]
+    first = routes.calls[0]
+    layer = {k: v[0] for k, v in params["unit"]["layer0"]["ffn"].items()}
+    with torch.inference_mode():
+        card_y = moe.apply_moe(layer, cfg.moe, first["x"],
+                               compute_dtype=cfg.cdtype).cpu()
+        t0 = time.perf_counter()
+        cpu_routes = RouteLog()
+        try:
+            cpu_y = moe.apply_moe({k: v.cpu() for k, v in layer.items()},
+                                  cfg.moe, first["x"].cpu(),
+                                  compute_dtype=cfg.cdtype)
+        finally:
+            cpu_routes.restore()
+        cpu_s = time.perf_counter() - t0
+    ties, tie_mask = hold_routes(first, cpu_routes.calls[0])
+    ok = ~tie_mask
+    y_err = float((card_y.float() - cpu_y.float())[ok].abs().max())
+    y_scale = float(cpu_y.float().abs().max())
+    if y_err > 2.0 ** -5 * y_scale:
+        raise AssertionError(f"13c: first MoE layer on the card vs the CPU "
+                             f"{y_err:.3e} of {y_scale:.3f}")
+    del params, layer, routes, first, cpu_routes
+    torch.cuda.empty_cache()
+    k4 = hold_k4("13c", wave.pop("k4_args"), wave.pop("k4_kwargs"))
+    log(f"[13c] dropped (token, expert) pairs a prefill layer: min "
+        f"{min(dropped):.4f}, mean {statistics.mean(dropped):.4f}, max "
+        f"{max(dropped):.4f} (capacity {moe.group_capacity(cfg.moe, 4, max(LM_PROMPT_LENS))} "
+        f"slots an expert a row); the first MoE layer on its recorded input"
+        f": routing tables under the margin rule ({ties} near-tie tokens of"
+        f" {tie_mask.numel()}), outputs within {y_err:.3e} of the CPU's "
+        f"(bar 2^-5 x {y_scale:.3f}; the CPU's layer {cpu_s:.1f} s)")
+    log_k4("13c", k4)
+    out["granite-moe-3b-a800m"] = {
+        **stats, **wave, "k4": k4, "dropped_share": dropped,
+        "route_near_ties": ties, "moe_layer_err": y_err,
+        "moe_layer_scale": y_scale}
+
+    # -- 13d: qwen2-vl-2b, D = 128, non-text M-RoPE ids -----------------
+    cfg, params, stats = full("qwen2-vl-2b", 28)
+    b, s = VL_BATCH, VL_SEQ
+    n_after = s - VL_TEXT - VL_GRID * VL_GRID
+    ids = vl_position_ids(b, VL_TEXT, VL_GRID, n_after, device)
+    toks = torch.as_tensor(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32), device=device)
+    rec = Recorder(flash_ops, "flash_attention_bhsd")
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            FK.reset_launches()
+            RK.reset_launches()
+            t0 = time.perf_counter()
+            logits, cache = prefill(cfg, params, toks,
+                                    max_seq=s + VL_DECODE,
+                                    position_ids=ids)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launches = {**FK.LAUNCHES, **RK.LAUNCHES}
+            top = int(ids.max()) + 1
+            t0 = time.perf_counter()
+            new = []
+            for i in range(VL_DECODE):
+                tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+                new.append(tok)
+                logits, cache = decode_step(
+                    cfg, params, cache, tok[:, None].to(torch.int32), s + i,
+                    position_ids=torch.full((3, b, 1), top + i,
+                                            dtype=torch.int32, device=device))
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            finite = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    finally:
+        rec.restore()
+    tc_only("13d", {"launches": launches}, 28)
+    if not finite or rec.args[0].shape[-1] != 128:
+        raise AssertionError(f"13d: logits finite {finite}, K4 head dim "
+                             f"{rec.args[0].shape[-1]}")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    k4 = hold_k4("13d", rec.args, rec.kwargs)
+    vl = {"prefill_s": prefill_s, "decode_s": decode_s,
+          "decode_tokens_per_s": b * VL_DECODE / decode_s,
+          "peak_device_gb": peak_gb, "launches": launches}
+    log(f"[13d] {cfg.name} prefill at B={b} S={s} with Qwen2-VL's M-RoPE "
+        f"ids ({VL_TEXT} text tokens, a {VL_GRID} x {VL_GRID} patch grid at "
+        f"one temporal id, {n_after} text tokens from id {top - n_after}): "
+        f"{prefill_s:.3f} s; {VL_DECODE} decode steps {decode_s:.3f} s "
+        f"({vl['decode_tokens_per_s']:.1f} tokens/s); peak device memory "
+        f"{peak_gb:.2f} GB; launches {launches}")
+    log_k4("13d", k4)
+    out["qwen2-vl-2b"] = {**stats, **vl, "k4": k4}
+
+    # -- 13e: xlstm-350m, 7:1 mLSTM:sLSTM, no attention -----------------
+    cfg, params, stats = full("xlstm-350m", 0)
+    scan_s = {"prefill": 0.0, "decode": 0.0}
+    real_scan = xlstm_mod._slstm_scan
+
+    def timed_scan(p, spec, x, xc, state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_scan(p, spec, x, xc, state)
+        torch.cuda.synchronize()
+        scan_s["prefill" if x.shape[1] > 1 else "decode"] += \
+            time.perf_counter() - t
+        return res
+
+    xlstm_mod._slstm_scan = timed_scan
+    try:
+        wave = serve_wave(cfg, params, device)
+        wave_scan = dict(scan_s)
+    finally:
+        xlstm_mod._slstm_scan = real_scan
+    tc_only("13e", wave, 0)
+    log_wave("13e", wave)
+    x = torch.as_tensor(np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab_size, (XL_BATCH, XL_SEQ + 1)).astype(np.int32),
+        device=device)
+    with torch.inference_mode():
+        whole, _ = prefill(cfg, params, x, max_seq=XL_SEQ + 1)
+        _, cache = prefill(cfg, params, x[:, :XL_SEQ], max_seq=XL_SEQ + 1)
+        step, _ = decode_step(cfg, params, cache, x[:, XL_SEQ:], XL_SEQ)
+        whole, step = (a[..., :cfg.vocab_size].float() for a in (whole,
+                                                                 step))
+        xl_err = float((whole - step).abs().max())
+        xl_scale = float(whole.abs().max())
+        same = float((whole.argmax(-1) == step.argmax(-1)).float().mean())
+    if not (np.isfinite(xl_err) and xl_err <= XL_TOL * xl_scale):
+        raise AssertionError(f"13e: prefill({XL_SEQ + 1}) vs prefill("
+                             f"{XL_SEQ}) + decode_step: {xl_err:.3e} of "
+                             f"{xl_scale:.3f}")
+    del params, cache, whole, step, x
+    torch.cuda.empty_cache()
+    n_slstm = cfg.num_units * sum(sp.mixer == "slstm" for sp in cfg.pattern)
+    log(f"[13e] the sLSTM scans (a Python step a token, {n_slstm} blocks) "
+        f"took {wave_scan['prefill']:.2f} s of the {wave['prefill_s']:.2f} s"
+        f" prefill and {wave_scan['decode']:.2f} s of the "
+        f"{wave['decode_s']:.2f} s decode; prefill of {XL_SEQ + 1} tokens "
+        f"vs prefill of {XL_SEQ} + one decode_step at B={XL_BATCH} "
+        f"(chunkwise vs step): logits within {xl_err:.3e} of "
+        f"{xl_scale:.3f} (bar {XL_TOL} of the largest), greedy tokens "
+        f"equal on {100 * same:.0f} % of rows")
+    out["xlstm-350m"] = {**stats, **wave, "slstm_scan_s": wave_scan,
+                         "chunkwise_vs_step_err": xl_err,
+                         "chunkwise_vs_step_scale": xl_scale}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[13] the rest of slice H's serving path in {out['seconds']:.1f} s")
+    return out
 
 
 def _leaves(tree):
@@ -3798,6 +4392,9 @@ def main() -> int:
     # -- 12: the storage tier; K1's storage launches are their own entry --
     storage = phase_storage(dev, smi)
 
+    # -- 13: the rest of slice H; K4's launches of 13b-13d are entries ---
+    lm_configs = phase_lm_configs(dev)
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -3819,6 +4416,9 @@ def main() -> int:
                     if k not in ("launches", "k1")},
         "lm": {**lm_small, **{k: v for k, v in lm.items()
                               if k not in ("k4", "k5")}},
+        "lm_configs": {arch: ({k: v for k, v in r.items() if k != "k4"}
+                              if isinstance(r, dict) else r)
+                       for arch, r in lm_configs.items()},
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))
@@ -3885,7 +4485,19 @@ def main() -> int:
         {"name": "rglru_scan (RG-LRU linear recurrence, K5)",
          "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru/kernel.py:66", **lm["k5"]},
-    ]}))
+    ] + [
+        {"name": f"flash_attention (K4, {arch} prefill, phase {label})",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         "launches": r["launches"][FK.TC],
+         **{k: r["k4"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "sdpa_is_causal_ms", "f32_route_ms", "shape",
+             "kv_shape")}}
+        for label, arch in (("13b", "qwen2-0.5b"),
+                            ("13c", "granite-moe-3b-a800m"),
+                            ("13d", "qwen2-vl-2b"))
+        for r in (lm_configs[arch],)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,2 +1,2 @@
 """Architecture configs of the port: the shape grid, ``Arch`` bundles and
-the ``--arch`` registry (only ``recurrentgemma-9b`` is ported so far)."""
+the ``--arch`` registry of all ten ids."""

@@ -8,6 +8,11 @@ against ``j`` and an optional sliding window.  The kernels, in
 ``src/repro_torch/csrc/flash_attention.cu``, say which TPU kernel they
 replace and what bounds them.
 
+Head dims below 16 (granite-3-2b's SMOKE config has 8) are zero-padded
+to 16 and launched there with the scale of the real head dim: the zero
+lanes add nothing to q·k, and the output's padded lanes are dropped.
+The padding copies q, k and v; the kernel still computes.
+
 Two routes, picked by dtype (``route``): bfloat16 goes to the tensor-core
 kernel (wgmma, TMA), float32 to the CUDA-core kernel, since a bf16 or TF32
 tensor-core product cannot meet the float32 bar.  For tensors on the CPU
@@ -24,6 +29,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention import tiles
@@ -82,7 +88,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v may be strided views (the grouped model layout is read in
     place) as long as the head dimension is contiguous; ``out`` is an
-    optional [B, H, Sq, D] destination view of the same kind."""
+    optional [B, H, Sq, D] destination view of the same kind.  D is one
+    of ``HEAD_DIMS``, or below the first of them (then zero-padded to
+    it, in copies)."""
     if q.device.type == "cpu":
         o = attention_reference(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
@@ -103,8 +111,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kvh == 0 or h % kvh:
         raise ValueError(f"{h} query heads are not a multiple of {kvh} kv "
                          "heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported (one of {HEAD_DIMS})")
+    if d not in HEAD_DIMS and not 0 < d < HEAD_DIMS[0]:
+        raise ValueError(f"head dim {d} not supported (one of {HEAD_DIMS}, "
+                         f"or below {HEAD_DIMS[0]}, zero-padded to it)")
     name = route(q.dtype)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -127,6 +136,22 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if sk == 0:
         raise ValueError("attention over zero keys")
+    scale = 1.0 / math.sqrt(d)
+    if d < HEAD_DIMS[0]:
+        pad = HEAD_DIMS[0] - d
+        qp, kp, vp = (F.pad(x, (0, pad)) for x in (q, k, v))
+        op = torch.empty(qp.shape, dtype=q.dtype, device=q.device)
+        _launch(name, qp, kp, vp, op, causal, window, q_offset, scale)
+        out.copy_(op[..., :d])
+        return out
+    _launch(name, q, k, v, out, causal, window, q_offset, scale)
+    return out
+
+
+def _launch(name, q, k, v, out, causal, window, q_offset, scale) -> None:
+    """One launch of route ``name``'s kernel on checked tensors."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
     strides = [s for x in (q, k, v, out) for s in _strides(x)]
     if name == TC:
         _check_tma(q, k, v, out, strides)
@@ -138,14 +163,13 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, h, kvh, sq, sk, d, int(causal),
             0 if window is None else int(window), int(q_offset),
-            1.0 / math.sqrt(d), (ctypes.c_longlong * 12)(*strides), bq, bk,
+            scale, (ctypes.c_longlong * 12)(*strides), bq, bk,
             tiles.n_q_tiles(sq, bq), stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: error {rc} "
                            f"({msg})")
     LAUNCHES[name] += 1
-    return out
 
 
 def smem_bytes(name: str, d: int) -> int:

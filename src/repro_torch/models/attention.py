@@ -12,8 +12,9 @@ Full-sequence attention takes one of three routes:
   from ``blockwise_threshold`` keys on; the flash-attention recurrence in
   plain torch;
 * on a CUDA tensor, the hand-written flash-attention kernel
-  (``repro_torch.kernels.flash_attention``), which takes causal positions
-  ``arange(S)`` only: anything else on the card raises.
+  (``repro_torch.kernels.flash_attention``), whose mask is causal on
+  positions ``arange(S)``: other positions on the card raise.  M-RoPE ids
+  only rotate q and k before attention, so any ids go through it.
 
 Decode (``attn_decode``) is a single-token query against a KV cache laid
 out ``[B, kvH, S_cache, Dh]``; sliding-window layers use a ring buffer
@@ -171,14 +172,16 @@ def _is_arange(positions: torch.Tensor) -> bool:
     return bool((positions == want).all())
 
 
-def attend(spec: AttnSpec, q, k, v, positions, position_ids=None):
+def attend(spec: AttnSpec, q, k, v, positions):
     """Causal self-attention of projected, rotated q [B, S, kvH, G, Dh]
     against k, v [B, S, kvH, Dh] at ``positions`` [B, S].
 
     On the CPU: the plain or blockwise path, as the JAX package picks them.
     On the card: the flash-attention kernel, which needs positions
     ``arange(S)`` in every row (prefill's and ``forward``'s default) and
-    no logit soft cap; anything else raises."""
+    no logit soft cap; anything else raises.  M-RoPE ids have rotated q
+    and k already and play no part in the mask, which reads ``positions``
+    alone, as in the JAX package."""
     if q.device.type == "cpu":
         if k.shape[1] >= spec.blockwise_threshold:
             return _attn_blockwise(spec, q, k, v, positions, positions)
@@ -187,8 +190,7 @@ def attend(spec: AttnSpec, q, k, v, positions, position_ids=None):
         raise NotImplementedError(
             "attention logit soft-capping on the card is not ported: the "
             "flash-attention kernel has no soft cap (a later slice H item)")
-    if not _is_arange(positions) or (
-            position_ids is not None and not _is_arange(position_ids)):
+    if not _is_arange(positions):
         raise NotImplementedError(
             "custom positions on the card are not ported: the flash-"
             "attention kernel takes causal positions arange(S) only (a "
@@ -210,7 +212,7 @@ def attn_full(
     x = x.to(compute_dtype)
     q, k, v = _project_qkv(p, spec, x, compute_dtype)
     q, k = _apply_positional(spec, q, k, positions, position_ids)
-    out = attend(spec, q, k, v, positions, position_ids)
+    out = attend(spec, q, k, v, positions)
     return _out_proj(p, out, compute_dtype)
 
 

@@ -1,7 +1,8 @@
 """Composable decoder-only LM: the port of the JAX package's model stack.
 
 A model is a repeating **pattern** of layers (e.g. RecurrentGemma's
-``(rglru, rglru, local-attn)``) applied ``num_units`` times, plus an
+``(rglru, rglru, local-attn)``, Llama-4's ``(dense-ffn, moe-ffn)``,
+xLSTM's ``(mlstm×7, slstm)``) applied ``num_units`` times, plus an
 optional ``tail``.  Per-layer parameters are stacked on a leading unit
 axis, with the JAX package's key paths (``unit/layer{i}/...``,
 ``tail/tail{i}/...``), so its parameters convert 1:1
@@ -15,34 +16,35 @@ Three execution modes share the same layer code:
 * ``decode_step``  — single token against the cache (serving); it updates
   the cache in place.
 
-Ported mixers: ``attn`` and ``rglru``; FFNs: ``dense`` and ``none``.  The
-``mlstm``/``slstm`` mixers, the ``moe`` FFN and ``loss_fn`` raise naming
-the slice that ports them.
+Mixers: ``attn``, ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``,
+``moe`` and ``none``.  Training (``mode="train"``, ``loss_fn``) raises
+naming the slice that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import AttnSpec
 from repro_torch.models.layers import (Params, apply_norm, embed,
                                        init_embedding, init_head, init_mlp,
                                        init_norm, logits_head, mlp)
+from repro_torch.models.moe import MoESpec
 from repro_torch.models.rglru import RGLRUSpec
 from repro_torch.models.rope import text_mrope_positions
+from repro_torch.models.xlstm import MLSTMSpec, SLSTMSpec
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f16": torch.float16}
 
-_XLSTM_SLICE = ("the {} mixer is not ported yet: models/xlstm.py lands with "
-                "slice H item 21 (the other nine configs)")
-_MOE_SLICE = ("the moe FFN is not ported yet: models/moe.py lands with slice "
-              "H item 21 (the other nine configs)")
+MIXERS = ("attn", "rglru", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +76,11 @@ class ModelConfig:
     act: str = "silu"
     ffn_gated: bool = True
     mlp_bias: bool = False
-    # sub-block specs (None when unused); moe/mlstm/slstm specs are not
-    # ported yet
-    moe: Any = None
+    # sub-block specs (None when unused)
+    moe: MoESpec | None = None
     rglru: RGLRUSpec | None = None
-    mlstm: Any = None
-    slstm: Any = None
+    mlstm: MLSTMSpec | None = None
+    slstm: SLSTMSpec | None = None
     # embeddings / head
     tie_embeddings: bool = False
     input_mode: str = "tokens"        # 'tokens' | 'embeddings' (modality stub)
@@ -137,15 +138,11 @@ class ModelConfig:
             window=window, softcap=self.attn_softcap)
 
 
-def _check_ported(spec: LayerSpec) -> None:
-    if spec.mixer in ("mlstm", "slstm"):
-        raise NotImplementedError(_XLSTM_SLICE.format(spec.mixer))
-    if spec.mixer not in ("attn", "rglru"):
-        raise ValueError(spec.mixer)
-    if spec.ffn == "moe":
-        raise NotImplementedError(_MOE_SLICE)
-    if spec.ffn not in ("dense", "none"):
-        raise ValueError(spec.ffn)
+def _check_layer(spec: LayerSpec) -> None:
+    if spec.mixer not in MIXERS:
+        raise ValueError(f"unknown mixer {spec.mixer!r} (one of {MIXERS})")
+    if spec.ffn not in FFNS:
+        raise ValueError(f"unknown ffn {spec.ffn!r} (one of {FFNS})")
 
 
 # ---------------------------------------------------------------------------
@@ -157,17 +154,23 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
                 device) -> Params:
     p: Params = {"norm1": init_norm(cfg.norm, cfg.d_model, torch.float32,
                                     device)}
+    d, dt = cfg.d_model, cfg.pdtype
     if spec.mixer == "attn":
         p["mixer"] = attn_mod.init_attention(
-            gen, cfg.d_model, cfg.attn_spec(spec.window), cfg.pdtype, device)
+            gen, d, cfg.attn_spec(spec.window), dt, device)
+    elif spec.mixer == "rglru":
+        p["mixer"] = rglru_mod.init_rglru_block(gen, d, cfg.rglru, dt, device)
+    elif spec.mixer == "mlstm":
+        p["mixer"] = xlstm_mod.init_mlstm_block(gen, d, cfg.mlstm, dt, device)
     else:
-        p["mixer"] = rglru_mod.init_rglru_block(gen, cfg.d_model, cfg.rglru,
-                                                cfg.pdtype, device)
+        p["mixer"] = xlstm_mod.init_slstm_block(gen, d, cfg.slstm, dt, device)
     if spec.ffn != "none":
-        p["norm2"] = init_norm(cfg.norm, cfg.d_model, torch.float32, device)
-        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, gated=cfg.ffn_gated,
-                            bias=cfg.mlp_bias, dtype=cfg.pdtype,
-                            device=device)
+        p["norm2"] = init_norm(cfg.norm, d, torch.float32, device)
+        if spec.ffn == "dense":
+            p["ffn"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.ffn_gated,
+                                bias=cfg.mlp_bias, dtype=dt, device=device)
+        else:
+            p["ffn"] = moe_mod.init_moe(gen, d, cfg.moe, dt, device)
     return p
 
 
@@ -195,7 +198,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | int,
     if isinstance(gen, int):
         gen = torch.Generator(device=device).manual_seed(gen)
     for spec in cfg.pattern + cfg.tail:
-        _check_ported(spec)
+        _check_layer(spec)
     params: Params = {}
     if cfg.input_mode == "tokens":
         params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
@@ -246,7 +249,7 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                  h: torch.Tensor, positions, position_ids, mode: str, cache,
                  index, max_seq):
     cd = cfg.cdtype
-    _check_ported(spec)
+    _check_layer(spec)
     if mode == "prefill":
         return _prefill_mixer(cfg, spec, p, h, positions, position_ids,
                               max_seq)
@@ -259,10 +262,16 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
         out = attn_mod.attn_full(p, aspec, h, positions,
                                  position_ids=position_ids, compute_dtype=cd)
         return out, None
+    block, step, sp = {
+        "rglru": (rglru_mod.rglru_block, rglru_mod.rglru_block_step,
+                  cfg.rglru),
+        "mlstm": (xlstm_mod.mlstm_block, xlstm_mod.mlstm_block_step,
+                  cfg.mlstm),
+        "slstm": (xlstm_mod.slstm_block, xlstm_mod.slstm_block_step,
+                  cfg.slstm)}[spec.mixer]
     if mode == "decode":
-        return rglru_mod.rglru_block_step(p, cfg.rglru, h, cache,
-                                          compute_dtype=cd)
-    return rglru_mod.rglru_block(p, cfg.rglru, h, compute_dtype=cd), None
+        return step(p, sp, h, cache, compute_dtype=cd)
+    return block(p, sp, h, compute_dtype=cd), None
 
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
@@ -278,7 +287,11 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
     x = x + rs * h
     if spec.ffn != "none":
         h = apply_norm(cfg.norm, p["norm2"], x)
-        h = mlp(p["ffn"], h, act=cfg.act, compute_dtype=cfg.cdtype)
+        if spec.ffn == "dense":
+            h = mlp(p["ffn"], h, act=cfg.act, compute_dtype=cfg.cdtype)
+        else:
+            h = moe_mod.apply_moe(p["ffn"], cfg.moe, h,
+                                  compute_dtype=cfg.cdtype)
         x = x + rs * h
     return x, new_cache
 
@@ -351,12 +364,16 @@ def loss_fn(cfg: ModelConfig, params: Params, batch):
 
 def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       max_seq: int, device):
-    _check_ported(spec)
+    _check_layer(spec)
     cd = cfg.cdtype
     if spec.mixer == "attn":
         return attn_mod.init_attn_cache(batch, cfg.attn_spec(spec.window),
                                         max_seq, cd, device)
-    return rglru_mod.init_rglru_cache(batch, cfg.rglru, cd, device)
+    if spec.mixer == "rglru":
+        return rglru_mod.init_rglru_cache(batch, cfg.rglru, cd, device)
+    if spec.mixer == "mlstm":
+        return xlstm_mod.init_mlstm_cache(batch, cfg.mlstm, cd, device)
+    return xlstm_mod.init_slstm_cache(batch, cfg.slstm, cd, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -469,12 +486,23 @@ def _prefill_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
         q, k, v = attn_mod._project_qkv(p, aspec, h.to(cd), cd)
         q, k = attn_mod._apply_positional(aspec, q, k, positions,
                                           position_ids)
-        out = attn_mod.attend(aspec, q, k, v, positions, position_ids)
+        out = attn_mod.attend(aspec, q, k, v, positions)
         y = attn_mod._out_proj(p, out, cd)
         slots = min(max_seq, aspec.window) if aspec.window else max_seq
         kr, vr, pr = _ring_align(k, v, positions, slots)
         cache = {"k": kr.transpose(1, 2), "v": vr.transpose(1, 2), "pos": pr}
         return y, cache
+    if spec.mixer == "mlstm":
+        y, (C, n, m), u = xlstm_mod.mlstm_prefill(p, cfg.mlstm, h,
+                                                  compute_dtype=cd)
+        # decode consumes the PRE-conv inputs u
+        return y, {"C": C, "n": n, "m": m,
+                   "conv": _conv_tail(u, cfg.mlstm.conv_width).clone()}
+    if spec.mixer == "slstm":
+        y, (c, n, hst, m) = xlstm_mod.slstm_prefill(p, cfg.slstm, h,
+                                                    compute_dtype=cd)
+        return y, {"c": c, "n": n, "h": hst, "m": m,
+                   "conv": _conv_tail(h.to(cd), cfg.slstm.conv_width).clone()}
     sp = cfg.rglru
     x = h.to(cd)
     xb_raw = x @ p["wx"].to(cd)

@@ -36,6 +36,9 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.models.transformer, repro_torch.models.convert\n"
             "import repro_torch.serve, repro_torch.configs.registry\n"
             "import repro_torch.configs.recurrentgemma_9b\n"
+            "import repro_torch.models.moe, repro_torch.models.xlstm\n"
+            "from repro_torch.configs.registry import all_arches\n"
+            "all_arches()\n"
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.rglru.ops\n"
             "import repro_torch.storage, repro_torch.storage.ssd_model\n"
@@ -146,17 +149,17 @@ def test_unported_paths_name_their_slice():
 
 
 def test_registry_resolves_the_ported_arch_and_names_the_slice():
+    """Every id of the JAX package resolves (all ten are ported); an
+    unknown id raises naming the available ones."""
     from repro.configs import registry as j_registry
     from repro_torch.configs import registry
 
     assert registry.ARCH_IDS == j_registry.ARCH_IDS
-    arch = registry.get_arch("recurrentgemma-9b")
-    assert arch.config.name == "recurrentgemma-9b"
-    unported = [a for a in registry.ARCH_IDS if a != "recurrentgemma-9b"]
-    assert len(unported) == 9
-    for name in unported:
-        with pytest.raises(NotImplementedError, match="slice H item 21"):
-            registry.get_arch(name)
+    assert len(registry.ARCH_IDS) == 10
+    for name in registry.ARCH_IDS:
+        arch = registry.get_arch(name)
+        assert arch.config.name == name
+        assert arch.smoke.name.startswith(name.split("-")[0])
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_arch("gpt-5")
 
@@ -186,8 +189,10 @@ def _meta_qkv(spec, s):
 def test_card_attention_path_raises_on_what_the_kernel_lacks():
     """Off the CPU, attention goes to the flash-attention kernel, which
     takes causal positions arange(S) and no soft cap: anything else raises
-    naming the later slice instead of taking a plain branch.  (Meta
-    tensors stand in for the card's: the checks run before any data.)"""
+    naming the later slice instead of taking a plain branch.  Non-text
+    M-RoPE ids rotate q and k before ``attend`` and pass its checks to the
+    kernel's wrapper.  (Meta tensors stand in for the card's: the checks
+    run before any data, and the wrapper then refuses the meta device.)"""
     from repro_torch.models import attention
 
     spec = attention.AttnSpec(n_heads=4, n_kv_heads=1, head_dim=16, window=8)
@@ -197,8 +202,12 @@ def test_card_attention_path_raises_on_what_the_kernel_lacks():
         attention.attend(spec, q, k, v, shifted)
     text = torch.arange(6, dtype=torch.int32)[None]
     ids = torch.stack([text, text, text + 1])
-    with pytest.raises(NotImplementedError, match="custom positions"):
-        attention.attend(spec, q, k, v, text, ids)
+    mspec = dataclasses.replace(spec, rope_kind="mrope",
+                                mrope_sections=(2, 3, 3))
+    mq, mk = attention._apply_positional(
+        mspec, torch.ones(q.shape), torch.ones(k.shape), text, ids)
+    with pytest.raises(ValueError, match="cuda or cpu tensors, got meta"):
+        attention.attend(mspec, mq.to("meta"), mk.to("meta"), v, text)
     capped = dataclasses.replace(spec, softcap=30.0)
     with pytest.raises(NotImplementedError, match="soft-capping"):
         attention.attend(capped, q, k, v, text)

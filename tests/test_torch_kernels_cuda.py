@@ -731,6 +731,166 @@ def test_smoke_model_on_the_card_runs_the_kernels(card):
                                 shifted - 2, compute_dtype=torch.float32)
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", [(2, 8, 2, 100, 100, True, None),
+                                  (1, 4, 1, 300, 300, True, 37),
+                                  (1, 2, 2, 70, 200, True, None)])
+def test_flash_head_dim_8_is_padded_and_launched(card, case, dtype):
+    """D = 8 (granite-3-2b SMOKE): zero-padded to 16 and launched there
+    with the scale of D = 8, one counted launch of the dtype's route."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    b, h, kvh, sq, sk, causal, window = case
+    q, k, v = flash_inputs(card, (b, h, kvh, sq, sk, 8, causal, window,
+                                  dtype), seed=sq + sk)
+    before = dict(FK.LAUNCHES)
+    kw = dict(causal=causal, window=window, q_offset=sk - sq)
+    got = FK.flash_attention_bhsd(q, k, v, **kw)
+    want = attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES == {**before, FK.route(dtype):
+                           before[FK.route(dtype)] + 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * max(1.0, float(want.float().abs().max()))
+
+
+SLICE_H_SMOKES = ("qwen2-0.5b", "minicpm-2b", "granite-3-2b",
+                  "starcoder2-3b", "llama4-maverick-400b-a17b",
+                  "granite-moe-3b-a800m", "musicgen-medium", "qwen2-vl-2b",
+                  "xlstm-350m")
+
+
+def _near_ties(logits, k, rel=1e-5):
+    top = torch.sort(logits, dim=-1, descending=True).values
+    return top[..., k - 1] - top[..., k] <= rel * logits.abs().max()
+
+
+def _placements(src, wtab, t):
+    """[G, T, E] slot + 1 and weight of each token at each expert."""
+    g, e, c = src.shape
+    slot = torch.zeros((g, t + 1, e), dtype=torch.int64)
+    w = torch.zeros((g, t + 1, e))
+    gi, ei, ci = torch.meshgrid(torch.arange(g), torch.arange(e),
+                                torch.arange(c), indexing="ij")
+    slot[gi, src, ei] = ci + 1
+    w[gi, src, ei] = wtab
+    return slot[:, :t], w[:, :t]
+
+
+def _hold_routes(card_calls, cpu_calls):
+    """The margin rule on each MoE call's routing tables, card against
+    CPU: on tokens whose k-th and (k+1)-th router logits differ by more
+    than 1e-5 of the largest |logit|, the same experts and slots and
+    weights within 2^-18; near-tie tokens under 1 %."""
+    from repro_torch.models import moe
+
+    assert len(card_calls) == len(cpu_calls) > 0
+    for (*_, csrc, cw), (k, router, x, src, w) in zip(card_calls,
+                                                       cpu_calls):
+        logits = moe.router_logits(router, x)
+        ties = _near_ties(logits, k)
+        cs, cwt = _placements(csrc.cpu(), cw.cpu(), x.shape[1])
+        ps, pwt = _placements(src, w, x.shape[1])
+        assert torch.equal(cs[~ties], ps[~ties])
+        assert float((cwt - pwt)[~ties].abs().max()) <= 2.0 ** -18
+        assert int(ties.sum()) < 0.01 * ties.numel()
+
+
+def _record_routes(monkeypatch):
+    """Wraps ``apply_moe`` and ``_routing_tables``: per call, top_k, the
+    router, the layer's input as grouped, and the tables."""
+    from repro_torch.models import moe
+
+    calls = []
+    real_apply, real_tables = moe.apply_moe, moe._routing_tables
+
+    def apply(p, spec, x, **kw):
+        b, s, d = x.shape
+        calls.append([spec.top_k, p["router"].cpu(),
+                      (x if s > 1 else x.reshape(1, b, d)).float().cpu()])
+        return real_apply(p, spec, x, **kw)
+
+    def tables(ids, weights, spec, cap):
+        out = real_tables(ids, weights, spec, cap)
+        calls[-1] += list(out)
+        return out
+
+    monkeypatch.setattr(moe, "apply_moe", apply)
+    monkeypatch.setattr(moe, "_routing_tables", tables)
+    return calls
+
+
+@pytest.mark.parametrize("arch", SLICE_H_SMOKES)
+def test_slice_h_smoke_models_on_the_card_match_the_cpu(card, arch,
+                                                        monkeypatch):
+    """Each SMOKE model at float32 compute, the same parameters on both
+    devices: prefill then four decode steps within 1e-4 of the largest
+    logit of the CPU's plain path, greedy tokens identical; one launch of
+    K4's CUDA-core route per attention layer of the prefill (granite-3-2b
+    at D = 8, padded), none of K5; the MoE routing tables under the
+    margin rule; qwen2-vl-2b with non-text M-RoPE ids."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_arch(arch).smoke, compute_dtype="f32")
+    cpu_p = transformer.init_params(cfg, 0, device="cpu")
+    card_p = _to(cpu_p, card)
+    rng = np.random.default_rng(1)
+    b, s = 2, 21
+    if cfg.input_mode == "embeddings":
+        x = torch.as_tensor(rng.standard_normal(
+            (b, s + 4, cfg.d_model)).astype(np.float32))
+    else:
+        x = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (b, s)).astype(np.int32))
+    ids = None
+    if cfg.rope_kind == "mrope":    # 5 text tokens, a 4 x 4 patch grid
+        text = torch.arange(5)
+        rows, cols = torch.arange(16) // 4, torch.arange(16) % 4
+        grid = torch.stack([torch.full((16,), 5), 5 + rows, 5 + cols])
+        ids = torch.cat([torch.stack([text] * 3), grid],
+                        dim=1).to(torch.int32)[:, None].expand(3, b, s)
+    n_attn = cfg.num_units * sum(sp.mixer == "attn" for sp in cfg.pattern)
+    calls = _record_routes(monkeypatch)
+    with torch.inference_mode():
+        fk, rk = dict(FK.LAUNCHES), dict(RK.LAUNCHES)
+        got, gc = transformer.prefill(
+            cfg, card_p, x[:, :s].to(card), max_seq=s + 4,
+            position_ids=None if ids is None else ids.to(card))
+        assert FK.LAUNCHES == {**fk, FK.F32: fk[FK.F32] + n_attn}
+        assert RK.LAUNCHES == rk
+        card_calls, calls[:] = list(calls), []
+        want, wc = transformer.prefill(cfg, cpu_p, x[:, :s], max_seq=s + 4,
+                                       position_ids=ids)
+        if cfg.moe is not None:
+            _hold_routes(card_calls, calls)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        top = int(ids.max()) + 1 if ids is not None else s
+        for pos in range(s, s + 4):
+            if cfg.input_mode == "embeddings":
+                nxt = x[:, pos:pos + 1]
+            else:
+                tok = want[:, -1, :cfg.vocab_size].argmax(-1)
+                assert torch.equal(
+                    got[:, -1, :cfg.vocab_size].argmax(-1).cpu(), tok)
+                nxt = tok[:, None].to(torch.int32)
+            step_ids = (None if ids is None else torch.full(
+                (3, b, 1), top + pos - s, dtype=torch.int32))
+            got, gc = transformer.decode_step(
+                cfg, card_p, gc, nxt.to(card), pos,
+                position_ids=None if ids is None else step_ids.to(card))
+            want, wc = transformer.decode_step(cfg, cpu_p, wc, nxt, pos,
+                                               position_ids=step_ids)
+            assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}

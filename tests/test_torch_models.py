@@ -352,16 +352,29 @@ def test_init_cache_matches_jax_layout():
 
 
 def test_unported_mixers_and_training_name_their_slice():
+    """Every mixer and FFN of the JAX package is ported: the xLSTM and
+    MoE layers initialise and run (``test_torch_xlstm.py`` and
+    ``test_torch_moe.py`` hold them against JAX); unknown names raise;
+    training still raises naming its slice."""
+    from repro_torch.models.moe import MoESpec
+    from repro_torch.models.xlstm import MLSTMSpec
+
     cfg = dataclasses.replace(
-        SMOKE, pattern=(transformer.LayerSpec(mixer="mlstm"),), tail=(),
-        n_layers=2)
-    with pytest.raises(NotImplementedError, match="slice H"):
-        transformer.init_params(cfg, 0, device="cpu")
-    cfg = dataclasses.replace(
-        SMOKE, pattern=(transformer.LayerSpec(ffn="moe"),), tail=(),
-        n_layers=2)
-    with pytest.raises(NotImplementedError, match="slice H"):
-        transformer.init_params(cfg, 0, device="cpu")
+        SMOKE, pattern=(transformer.LayerSpec(mixer="mlstm", ffn="moe"),),
+        tail=(), n_layers=2, compute_dtype="f32",
+        mlstm=MLSTMSpec(d_inner=64, n_heads=2, chunk=4),
+        moe=MoESpec(n_experts=4, top_k=2, d_ff=32))
+    params = transformer.init_params(cfg, 0, device="cpu")
+    assert params["unit"]["layer0"]["ffn"]["wi"].shape == (2, 4, 64, 32)
+    logits, aux = transformer.forward(
+        cfg, params, torch.as_tensor(tokens(2, 6, 3)))
+    assert logits.shape == (2, 6, cfg.padded_vocab) and float(aux) == 0.0
+    for bad in (transformer.LayerSpec(mixer="mamba"),
+                transformer.LayerSpec(ffn="glu")):
+        cfg = dataclasses.replace(SMOKE, pattern=(bad,), tail=(),
+                                  n_layers=2)
+        with pytest.raises(ValueError, match="unknown"):
+            transformer.init_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="slice H"):
         transformer.forward(SMOKE, None, torch.zeros((1, 2), dtype=torch.int32),
                             mode="train")

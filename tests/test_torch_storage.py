@@ -19,11 +19,11 @@ from repro.core.nand import CellType as JCell
 from repro.core.sim import SSDConfig as JConfig
 from repro.storage import kvoffload as j_kv
 from repro.storage import ssd_model as j_ssd
+from repro_torch.configs.registry import get_arch as p_get_arch
 from repro_torch.core import trace
 from repro_torch.core.interface import InterfaceKind
 from repro_torch.core.nand import CellType
 from repro_torch.core.sim import SSDConfig
-from repro_torch.models import rglru as p_rglru
 from repro_torch.models import transformer as p_tf
 from repro_torch.storage import kvoffload, ssd_model
 
@@ -248,27 +248,6 @@ def test_estimates_are_counted():
 
 # -- KV offload -------------------------------------------------------------
 
-def port_config(jcfg, **changes):
-    """The JAX package's ModelConfig carried into the port's field by
-    field: layer specs as the port's ``LayerSpec``, the RG-LRU spec as the
-    port's ``RGLRUSpec``, the sub-block specs the port has not ported as
-    plain dicts."""
-    names = [f.name for f in dataclasses.fields(p_tf.ModelConfig)]
-    assert names == [f.name for f in dataclasses.fields(jcfg)]
-    kw = {}
-    for name in names:
-        v = getattr(jcfg, name)
-        if name in ("pattern", "tail"):
-            v = tuple(p_tf.LayerSpec(**dataclasses.asdict(s)) for s in v)
-        elif name == "rglru" and v is not None:
-            v = p_rglru.RGLRUSpec(**dataclasses.asdict(v))
-        elif dataclasses.is_dataclass(v):
-            v = dataclasses.asdict(v)
-        kw[name] = v
-    kw.update(changes)
-    return p_tf.ModelConfig(**kw)
-
-
 def global_attention(cfg_cls, spec_cls, cfg):
     """``cfg`` with every attention window removed."""
     def unwindow(specs):
@@ -295,7 +274,7 @@ def assert_same_plan(got, want):
     ("recurrentgemma-9b", False)])
 def test_plan_kv_offload_matches_jax(arch, windows):
     jcfg = get_arch(arch).config
-    cfg = port_config(jcfg)
+    cfg = p_get_arch(arch).config
     if not windows:
         from repro.models import transformer as j_tf
         jcfg = global_attention(j_tf.ModelConfig, j_tf.LayerSpec, jcfg)
