@@ -215,14 +215,39 @@ Phases, one report line each (every check raises on failure):
    scans timed apart, and ``prefill`` of 4097 tokens against ``prefill``
    of 4096 plus one ``decode_step`` (chunkwise against step) within 2^-5
    of the largest logit.  Each full model is freed before the next.
+14. training on the card (``phase_train``): (14a) K4's forward with the
+   rows' log-sum-exp (its output unchanged) and its backward kernels
+   against ``attention_lse_reference`` / ``attention_backward_reference``
+   on phase 8a's self-attention cases and the slice's shapes (D 8 -> 16,
+   64, 128, 256; no window, window 2048; groups 1-16; S 100, 1000, 2100;
+   both dtypes) within FLASH_BWD_TOL and LSE_TOL, two calls bit-equal;
+   K5's backward (K5 on reversed, shifted inputs) bit-equal to
+   ``rglru_scan_backward_ref`` on both routes; (14b) qwen2-0.5b
+   ``CONFIG`` at full width and depth, train state from seed 0, one
+   step's loss and every gradient leaf with the kernels against the same
+   step with their plain versions on the card (TRAIN_*_TOL), then one
+   ``make_train_step`` step (2 x 4096 tokens, ``grad_accum=2``, remat
+   full) with its K4 forward and backward launches; (14c)
+   ``Trainer.run()`` from that state: 8 steps, WSD, a checkpoint every 4,
+   a failure injected at step 6, one restart, the replayed steps against
+   their first pass, step times alone and during a save, tokens/s, model
+   flops over 989 TFLOP/s, peak memory, snapshot / write / restore
+   seconds; (14d) recurrentgemma-9b at full width, depth cut to 5 layers
+   (2.05 B parameters), int8 moments: loss and gradients against the
+   plain versions, two steps with K5's ring and K4's D = 256 windowed
+   launches counted; K4's backward timed at 14b's and 14d's shapes beside
+   its plain version, its operations bound and SDPA's backward, and K5's
+   at 14d's shape beside its bytes bound.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
 query of 11a and the storage pricing of 12e, each reported as its own
 entry), phase 6 that
 of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5 (and
-the prefills of 13b-13d, each reported as its own K4 entry): the
-launch counts are reset just before each and read just after.  The
+the prefills of 13b-13d, each reported as its own K4 entry),
+``Trainer.run()`` in 14c that of K4's backward and 14d's two steps that
+of K5's: the launch counts are reset just before each and read just
+after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
 read once, the dense dictionary by the pre-pass; per step the add/max
 pairs of the kept entries and the side operations of the rows the op
@@ -236,6 +261,7 @@ present.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -289,6 +315,34 @@ LM_ARCH, LM_SEED = "recurrentgemma-9b", 0
 LM_PROMPT_LENS = (4096, 3584, 3072, 2560)
 LM_NEW_TOKENS, LM_MAX_SEQ = 32, 4128
 LM_SCORE = (1, 1024)
+# phase 14: training on the card.  qwen2-0.5b at full width and depth on
+# TRAIN_4K's sequence, its global batch of 256 cut to TRAIN_BATCH (one
+# card), in TRAIN_ACCUM microbatches; the Trainer's run: TRAIN_STEPS
+# steps, WSD (warmup 1, stable 5, decay 2), a checkpoint every
+# TRAIN_CKPT_EVERY, a failure injected at step TRAIN_FAIL_AT
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 2, 4096, 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+TRAIN_WSD = (3e-4, 1, 5, 2)
+# recurrentgemma-9b at full width, its 38 layers cut to one unit and the
+# (R, R) tail: the train state of 8.58 B parameters does not fit one card
+RG_LAYERS, RG_BATCH, RG_STEPS = 5, 1, 2
+# K4's backward against its plain version, relative to each output's
+# largest magnitude: float32 sums in another order; in bf16 each output
+# is rounded to bf16 (half an ulp is 2^-9 of an element); the forward's
+# lse relative to its largest magnitude
+FLASH_BWD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
+LSE_TOL = 1e-5
+# a step's loss and gradients with the kernels against the same step with
+# their plain versions on the card, at bf16 compute: the kernel and the
+# plain attention round their bf16 outputs and gradients at other places,
+# and the backward carries those roundings through every layer.  The loss
+# relative, the global gradient norm relative, each leaf's relative L2
+# distance
+TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_LEAF_TOL = 1e-3, 2e-2, 0.1
+LEAF_FLOOR = 1e-3
+# a replayed step against its first pass where they are not bit-equal
+REPLAY_TOL = 1e-3
 # the flash-attention kernel against its plain version, relative to
 # max(1, max |plain|): float32 sums in another order; bfloat16 outputs
 # rounded to bf16 (an ulp is 2^-7 of the magnitude) after such sums
@@ -1646,7 +1700,8 @@ def time_cell_launches(cells: "CellLaunches", expected: int) -> dict:
 
 class Recorder:
     """Wraps a module's kernel entry point; keeps clones of the first
-    call's tensor arguments."""
+    call's tensor arguments and its keywords but the destination and the
+    lse request (the calls it is replayed with take neither)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -1657,7 +1712,8 @@ class Recorder:
     def __call__(self, *args, **kwargs):
         if self.args is None:
             self.args = [a.clone() for a in args]
-            self.kwargs = {k: v for k, v in kwargs.items() if k != "out"}
+            self.kwargs = {k: v for k, v in kwargs.items()
+                           if k not in ("out", "with_lse")}
         return self.fn(*args, **kwargs)
 
     def restore(self):
@@ -4137,6 +4193,600 @@ def phase_lm_configs(device) -> dict:
     return out
 
 
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want| (float32)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def bwd_small_cases():
+    """(b, h, kvh, s, d, causal, window, dtype) of 14a: phase 8a's small
+    cases with Sq = Sk (the backward takes self-attention only), then the
+    slice's shape classes in both dtypes: D 8 (zero-padded to 16), 64,
+    128, 256; no window and window 2048 (biting at S = 2100); groups 1,
+    7, 12, 16; ragged S 100 and 1000."""
+    import torch
+    cases = [(b, h, kvh, sq, d, causal, window, dt)
+             for b, h, kvh, sq, sk, d, causal, window, dt
+             in flash_small_cases() if sq == sk]
+    for dt in (torch.float32, torch.bfloat16):
+        cases += [(1, 7, 1, 100, 8, True, None, dt),
+                  (1, 14, 2, 1000, 64, True, None, dt),
+                  (1, 12, 1, 1000, 128, True, 2048, dt),
+                  (1, 16, 1, 1000, 256, True, 2048, dt),
+                  (1, 16, 1, 2100, 256, True, 2048, dt)]
+    return cases
+
+
+def check_flash_bwd(device) -> dict:
+    """14a for K4: the forward's lse against ``attention_lse_reference``
+    (and its output unchanged by asking for lse), dq, dk, dv of the
+    backward kernels against ``attention_backward_reference`` within
+    FLASH_BWD_TOL, two calls bit-equal; one backward call counted each."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference)
+    cases = bwd_small_cases()
+    worst = {str(torch.float32): 0.0, str(torch.bfloat16): 0.0}
+    lse_worst = 0.0
+    FK.reset_launches()
+    for i, (b, h, kvh, s, d, causal, window, dt) in enumerate(cases):
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dt)
+                       for shape in ((b, h, s, d), (b, kvh, s, d),
+                                     (b, kvh, s, d), (b, h, s, d)))
+        kw = dict(causal=causal, window=window)
+        o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+        if not torch.equal(o, FK.flash_attention_bhsd(q, k, v, **kw)):
+            raise AssertionError(f"14a case {i}: asking for lse changed the "
+                                 "forward's output")
+        got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+        again = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+        want = attention_backward_reference(q, k, v, o, do, **kw)
+        want_lse = attention_lse_reference(q, k, **kw)
+        torch.cuda.synchronize()
+        lse_err = rel_max(lse, want_lse)
+        errs = [rel_max(x, y) for x, y in zip(got, want)]
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"14a case {i} {cases[i]}: two backward "
+                                 "calls differ")
+        if lse_err > LSE_TOL or max(errs) > FLASH_BWD_TOL[str(dt)]:
+            raise AssertionError(f"14a case {i} {cases[i]}: lse {lse_err:.2e}"
+                                 f" (bar {LSE_TOL}), dq/dk/dv {errs} (bar "
+                                 f"{FLASH_BWD_TOL[str(dt)]})")
+        worst[str(dt)] = max(worst[str(dt)], max(errs))
+        lse_worst = max(lse_worst, lse_err)
+    n_bwd = FK.BACKWARD_LAUNCHES[FK.BWD]
+    if n_bwd != 2 * len(cases):
+        raise AssertionError(f"14a: {n_bwd} backward calls counted, "
+                             f"expected {2 * len(cases)}")
+    log(f"[14a] K4 backward on {len(cases)} cases (D 8-256, groups 1-16, "
+        f"S 64-2100, windows none-2048, both dtypes): dq/dk/dv within "
+        f"{worst[str(torch.float32)]:.2e} (f32, bar "
+        f"{FLASH_BWD_TOL[str(torch.float32)]}) and "
+        f"{worst[str(torch.bfloat16)]:.2e} (bf16, bar "
+        f"{FLASH_BWD_TOL[str(torch.bfloat16)]}) of the largest magnitude, "
+        f"lse within {lse_worst:.2e} (bar {LSE_TOL}); two calls bit-equal; "
+        f"{n_bwd} backward calls, forward launches {dict(FK.LAUNCHES)}")
+    return {"cases": len(cases), "rel_err": worst, "lse_rel_err": lse_worst}
+
+
+def check_rglru_bwd(device) -> dict:
+    """14a for K5: ``rglru_scan_backward`` (K5 on flip(dh) and flip(a
+    shifted left)) bit-equal to ``rglru_scan_backward_ref`` on both
+    routes: R = 37 f32 and R = 100 bf16 row pitches TMA cannot read take
+    the simple kernel, the rest (14d's [1, 4096, 4096] among them) the
+    ring."""
+    import torch
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import plan as RP
+    from repro_torch.kernels.rglru.ref import rglru_scan_backward_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((3, 37, 37, f32), RP.SIMPLE), ((2, 129, 100, bf16), RP.SIMPLE),
+             ((2, 300, 4096, f32), RP.RING), ((2, 129, 200, bf16), RP.RING),
+             ((1, 4096, 4096, f32), RP.RING), ((4, 1, 520, f32), RP.RING)]
+    routes = {RP.RING: 0, RP.SIMPLE: 0}
+    for i, ((b, s, r, dt), route) in enumerate(cases):
+        a, x = rglru_inputs(b, s, r, dt, 200 + i, device)
+        h = RK.rglru_scan_kernel(a, x)
+        dh = torch.randn(a.shape, generator=torch.Generator(
+            device=device).manual_seed(300 + i), device=device).to(dt)
+        before = dict(RK.LAUNCHES)
+        da, db = RK.rglru_scan_backward(a, h, dh)
+        torch.cuda.synchronize()
+        key = RK.ROUTE_KEYS[route]
+        if RK.LAUNCHES[key] != before[key] + 1:
+            raise AssertionError(f"14a K5 backward {cases[i]}: route counts "
+                                 f"{before} -> {RK.LAUNCHES}")
+        want_da, want_db = rglru_scan_backward_ref(a, h, dh)
+        if not (torch.equal(da, want_da) and torch.equal(db, want_db)):
+            raise AssertionError(f"14a K5 backward {cases[i]} differs from "
+                                 "its plain version")
+        routes[route] += 1
+    log(f"[14a] K5 backward bit-equal to rglru_scan_backward_ref on "
+        f"{len(cases)} shapes ({routes[RP.RING]} on the ring, "
+        f"{routes[RP.SIMPLE]} on the simple route)")
+    return {"cases": len(cases), "routes": routes}
+
+
+class plain_kernels:
+    """While active, the model's attention and RG-LRU scan run the
+    kernels' plain versions, differentiable: ``attention_reference``
+    under autograd, the plain scan with its plain backward.  The
+    yardstick of 14b and 14d, never the path."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.flash_attention.ref import attention_reference
+        from repro_torch.kernels.rglru import ops as rglru_ops
+        from repro_torch.kernels.rglru.ref import (rglru_scan_backward_ref,
+                                                   rglru_scan_ref)
+        from repro_torch.models import attention as attn_mod
+
+        class PlainScan(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, a, b):
+                h = rglru_scan_ref(a, b)
+                ctx.save_for_backward(a, h)
+                return h
+
+            @staticmethod
+            def backward(ctx, dh):
+                return rglru_scan_backward_ref(*ctx.saved_tensors,
+                                               dh.contiguous())
+
+        def attend(spec, q, k, v, positions):
+            b, s, kvh, g, d = q.shape
+            o = attention_reference(q.reshape(b, s, kvh * g, d).transpose(1, 2),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    causal=True, window=spec.window)
+            return o.transpose(1, 2).reshape(q.shape)
+
+        self.saved = (attn_mod, attn_mod.attend, rglru_ops,
+                      rglru_ops.rglru_linear_scan)
+        attn_mod.attend = attend
+        rglru_ops.rglru_linear_scan = lambda a, b: PlainScan.apply(
+            a.contiguous(), b.contiguous())
+        return self
+
+    def __exit__(self, *exc):
+        attn_mod, attend, rglru_ops, scan = self.saved
+        attn_mod.attend = attend
+        rglru_ops.rglru_linear_scan = scan
+        return False
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    return {**FK.LAUNCHES, **FK.BACKWARD_LAUNCHES, **RK.LAUNCHES,
+            **RK.BACKWARD_LAUNCHES}
+
+
+def reset_kernel_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    FK.reset_launches()
+    RK.reset_launches()
+
+
+def grads_against_plain(label, cfg, params, batch, accum) -> dict:
+    """Loss and gradients of one step's batch with the kernels, then with
+    their plain versions on the card (no kernel launched), compared: the
+    loss, the global norm and every leaf (relative L2 distance)."""
+    import torch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.train.optimizer import global_norm, tree_paths
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(cfg, params, batch, accum)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    norm = float(global_norm(grads))
+    t0 = time.perf_counter()
+    with plain_kernels():
+        ploss, _, pgrads = loss_and_grads(cfg, params, batch, accum)
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if kernel_counts() != counts:
+        raise AssertionError(f"{label}: the plain step launched a kernel")
+    pnorm = float(global_norm(pgrads))
+    leaf_err, worst_leaf = 0.0, None
+    for (path, g), (_, p) in zip(tree_paths(grads), tree_paths(pgrads)):
+        # relative to the leaf's norm, or to LEAF_FLOOR of the global norm
+        # where the leaf's gradient is smaller (the key bias: a row's
+        # softmax cannot see it, so its gradient is rounding noise)
+        e = float(torch.linalg.vector_norm(g.float() - p.float())
+                  / max(float(torch.linalg.vector_norm(p.float())),
+                        LEAF_FLOOR * pnorm))
+        if e > leaf_err:
+            leaf_err, worst_leaf = e, "/".join(path)
+    n_leaves = len(list(tree_paths(grads)))
+    del grads, pgrads
+    out = {"loss": float(loss), "plain_loss": float(ploss),
+           "grad_norm": norm, "plain_grad_norm": pnorm,
+           "loss_rel": abs(float(loss) - float(ploss)) / abs(float(ploss)),
+           "norm_rel": abs(norm - pnorm) / pnorm, "leaf_rel": leaf_err,
+           "worst_leaf": worst_leaf, "leaves": n_leaves,
+           "kernel_s": kernel_s, "plain_s": plain_s, "launches": counts}
+    if not (math.isfinite(out["loss"]) and math.isfinite(norm)):
+        raise AssertionError(f"{label}: loss {loss} / grad norm {norm}")
+    if (out["loss_rel"] > TRAIN_LOSS_TOL or out["norm_rel"] > TRAIN_NORM_TOL
+            or leaf_err > TRAIN_LEAF_TOL):
+        raise AssertionError(f"{label}: kernels vs plain versions: {out}")
+    log(f"[{label}] loss {out['loss']:.6f} vs plain {out['plain_loss']:.6f} "
+        f"({out['loss_rel']:.2e}, bar {TRAIN_LOSS_TOL}); grad norm "
+        f"{norm:.6f} vs {pnorm:.6f} ({out['norm_rel']:.2e}, bar "
+        f"{TRAIN_NORM_TOL}); worst of {n_leaves} gradient leaves "
+        f"{leaf_err:.2e} relative L2 ({worst_leaf}; bar {TRAIN_LEAF_TOL}, "
+        f"floor {LEAF_FLOOR} of the global norm); "
+        f"{kernel_s:.2f} s with the kernels ({counts}), {plain_s:.2f} s "
+        "plain")
+    return out
+
+
+def time_k4_bwd(q, k, v, window) -> dict:
+    """K4's backward at one shape: one call between CUDA events (median
+    of 3), its plain version, the error against it, SDPA's backward
+    (forward plus backward minus forward; ``is_causal`` without a window,
+    the boolean mask with one) on the same inputs with the kv heads
+    repeated, and the operations bound: five products over the kept
+    pairs, 10 D flops a pair; and the forward with ``lse`` that the
+    step runs before it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference)
+    b, h, s, d = q.shape
+    o, lse = FK.flash_attention_bhsd(q, k, v, window=window, with_lse=True)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=q.device).manual_seed(7), device=q.device).to(q.dtype)
+    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, window=window)
+    want = attention_backward_reference(q, k, v, o, do, window=window)
+    torch.cuda.synchronize()
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(got, want))
+    rel = max(rel_max(x, y) for x, y in zip(got, want))
+    if rel > FLASH_BWD_TOL[str(q.dtype)]:
+        raise AssertionError(f"K4 backward at {tuple(q.shape)}: {rel:.2e}")
+    del got, want
+    t = {"max_abs_err": err, "rel_err": rel, "shape": list(q.shape),
+         "kv_shape": list(k.shape), "window": window,
+         "ms": cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
+             q, k, v, o, do, lse, window=window)),
+         "fwd_lse_ms": cuda_ms(lambda: FK.flash_attention_bhsd(
+             q, k, v, window=window, with_lse=True)),
+         "plain_ms": cuda_ms(lambda: attention_backward_reference(
+             q, k, v, o, do, window=window), warmup=False)}
+    group = h // k.shape[1]
+    xs = [x.detach().requires_grad_(True) for x in (
+        q, k.repeat_interleave(group, dim=1), v.repeat_interleave(group, 1))]
+    if window:
+        pos = torch.arange(s, device=q.device)
+        kw = {"attn_mask": (pos[:, None] >= pos[None, :])
+              & (pos[:, None] - pos[None, :] < window)}
+    else:
+        kw = {"is_causal": True}
+    t["library_ms"] = None
+    try:             # the yardstick only, never the path
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*xs, **kw))
+        both = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*xs, **kw), xs, do))
+        t["library_ms"] = both - fwd
+        t["library_fwd_ms"] = fwd
+    except RuntimeError as exc:
+        log(f"SDPA backward yardstick failed: {exc}")
+    del xs
+    t["pairs"] = valid_pairs(s, s, True, window, 0)
+    t["ops"] = 10.0 * d * t["pairs"] * b * h
+    t["bytes"] = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + lse.numel() * 4
+    t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"], ops_per_s=(
+        BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S))
+    return t
+
+
+def time_k5_bwd(a, h) -> dict:
+    """K5's backward at one shape: ``rglru_scan_backward`` (flips, the
+    scan, the product) as one call between CUDA events, its plain
+    version, the bytes bound (a, h and dh read, da and db written), and
+    the one K5 launch inside it alone, on the flipped inputs it gets."""
+    import torch
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_scan_backward_ref
+    dh = torch.randn(a.shape, generator=torch.Generator(
+        device=a.device).manual_seed(8), device=a.device).to(a.dtype)
+    t = {"ms": cuda_ms(lambda: RK.rglru_scan_backward(a, h, dh)),
+         "plain_ms": cuda_ms(lambda: rglru_scan_backward_ref(a, h, dh),
+                             warmup=False),
+         "bytes": 5.0 * a.numel() * a.element_size(), "shape": list(a.shape)}
+    t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], 3.0 * a.numel())
+    a_rev = torch.cat([a[:, 1:], a.new_zeros(a[:, :1].shape)], 1).flip(1)
+    dh_rev = dh.flip(1)
+    t["scan_ms"] = cuda_ms(lambda: RK.rglru_scan_kernel(a_rev, dh_rev))
+    return t
+
+
+def train_run(cfg, device) -> dict:
+    """14c: ``Trainer.run()`` from a fresh state (seed LM_SEED, 14b's):
+    TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_ACCUM microbatches, WSD, a
+    checkpoint every TRAIN_CKPT_EVERY steps, a failure injected before
+    step TRAIN_FAIL_AT + 1, one restart; each step timed (and whether a
+    save was being written), the saves' snapshots and the restore timed."""
+    import tempfile
+
+    import torch
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.dryrun import model_flops
+    from repro_torch.launch.steps import abstract_train_state
+    from repro_torch.storage.datapipe import SyntheticTokens
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.schedules import wsd
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    state_bytes = sum(x.numel() * x.element_size() for x in _leaves(
+        abstract_train_state(cfg, OptConfig())))
+    with tempfile.TemporaryDirectory() as tmp:
+        room = storage_room(tmp, 3 * state_bytes, 2 * state_bytes)
+        data = SyntheticTokens(cfg.vocab_size, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, seed=LM_SEED)
+        tr = Trainer(cfg, TrainerConfig(
+            steps=TRAIN_STEPS, log_every=1, ckpt_every=TRAIN_CKPT_EVERY,
+            ckpt_dir=tmp, grad_accum=TRAIN_ACCUM), data, ocfg=OptConfig(),
+            schedule=wsd(*TRAIN_WSD),
+            injector=FailureInjector(fail_at_steps=(TRAIN_FAIL_AT,)),
+            device=device)
+        steps, saves, restores = [], [], []
+        step_fn, save_fn = tr._step, tr.ckpt.save
+        restore_fn = tr.ckpt.restore
+
+        def timed_step(st, batch):
+            writing = tr.ckpt.writing()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(st, batch)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0, writing))
+            return out
+
+        def timed_save(*args, **kw):
+            t0 = time.perf_counter()
+            save_fn(*args, **kw)
+            saves.append(time.perf_counter() - t0)
+
+        def timed_restore(*args, **kw):
+            t0 = time.perf_counter()
+            out = restore_fn(*args, **kw)
+            restores.append(time.perf_counter() - t0)
+            return out
+
+        tr._step, tr.ckpt.save, tr.ckpt.restore = (timed_step, timed_save,
+                                                   timed_restore)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        res = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del tr
+    hist = res["history"]
+    n_first = TRAIN_FAIL_AT
+    replay = hist[n_first:n_first + TRAIN_FAIL_AT - TRAIN_CKPT_EVERY]
+    first = {h["step"]: h for h in hist[:n_first]}
+    if not (res["final_step"] == TRAIN_STEPS and res["restarts"] == 1):
+        raise AssertionError(f"14c: final step {res['final_step']}, "
+                             f"restarts {res['restarts']}")
+    want_steps = (list(range(1, TRAIN_FAIL_AT + 1))
+                  + list(range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)))
+    if [h["step"] for h in hist] != want_steps:
+        raise AssertionError(f"14c: logged steps {[h['step'] for h in hist]}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"14c: losses {[h['loss'] for h in hist]}")
+    replay_diff = {k: max(abs(h[k] - first[h["step"]][k])
+                          / max(abs(first[h["step"]][k]), 1e-30)
+                          for h in replay) for k in ("loss", "grad_norm")}
+    replay_exact = all(h == first[h["step"]] for h in replay)
+    if not replay_exact and max(replay_diff.values()) > REPLAY_TOL:
+        raise AssertionError(f"14c: replayed steps {replay} differ from "
+                             f"their first pass beyond {REPLAY_TOL}")
+    if counts[FK.TC] < 1 or counts[FK.BWD] < 1:
+        raise AssertionError(f"14c: K4 launches {counts}")
+    n_exec = len(hist)
+    want_bwd = n_exec * TRAIN_ACCUM * cfg.num_units
+    if counts[FK.BWD] != want_bwd or counts[FK.TC] != 2 * want_bwd:
+        raise AssertionError(f"14c: K4 launches {counts}, expected "
+                             f"{2 * want_bwd} forward and {want_bwd} "
+                             "backward (remat runs each forward twice)")
+    alone = [s for s, w in steps if not w][1:]     # the first step warms up
+    during = [s for s, w in steps if w]
+    step_s = statistics.median(alone)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, "train", TRAIN_SEQ, TRAIN_BATCH)
+    out = {"final_step": res["final_step"], "restarts": res["restarts"],
+           "losses": [h["loss"] for h in hist], "wall_s": wall,
+           "step_s_alone": alone, "step_s_during_save": during,
+           "step_s": step_s, "tokens_per_s": tokens / step_s,
+           "model_flops": flops, "mfu": flops / step_s / BF16_OPS_PER_S,
+           "peak_gb": peak, "state_gb": state_bytes / 1e9,
+           "snapshot_s": saves, "write_s": res["last_ckpt"]["wall_s"],
+           "restore_s": restores, "replay_exact": replay_exact,
+           "replay_rel": replay_diff, "launches": counts, **room}
+    log(f"[14c] Trainer.run(): {res['final_step']} steps, "
+        f"{res['restarts']} restart, {n_exec} steps run in {wall:.1f} s; "
+        f"losses {[round(x, 4) for x in out['losses']]}; replayed steps "
+        f"{'bit-equal to' if replay_exact else 'within ' + str(replay_diff) + ' of'}"
+        f" their first pass; a step {step_s:.3f} s alone (median of "
+        f"{len(alone)}), {[round(s, 3) for s in during]} s during a save; "
+        f"{out['tokens_per_s']:.0f} tokens/s, model flops "
+        f"{flops / 1e12:.2f} TFLOP a step = {100 * out['mfu']:.1f} % of 989 "
+        f"TFLOP/s; peak {peak:.2f} GB; train state {state_bytes / 1e9:.2f} "
+        f"GB: snapshot {[round(s, 2) for s in saves]} s, last write "
+        f"{out['write_s']:.2f} s, restore {[round(s, 2) for s in restores]} "
+        f"s; launches {counts}")
+    return out
+
+
+def phase_train(device) -> dict:
+    """14: training on the card (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
+                                          to_device as batch_to)
+    from repro_torch.storage.datapipe import SyntheticTokens
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.schedules import wsd
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[14] device memory at the start: {start_gb:.2f} GB allocated "
+        "(the peak counter is reset for each part)")
+    out = {"flash_bwd": check_flash_bwd(device),
+           "rglru_bwd": check_rglru_bwd(device)}
+
+    # -- 14b: one train step of qwen2-0.5b, kernels against plain --------
+    cfg = get_arch(TRAIN_ARCH).config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, OptConfig(), torch.Generator(
+        device=device).manual_seed(LM_SEED), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = batch_to(next(iter(SyntheticTokens(
+        cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=LM_SEED))),
+        device)
+    out["14b"] = grads_against_plain("14b", cfg, state["params"], batch,
+                                     TRAIN_ACCUM)
+    step = make_train_step(cfg, OptConfig(), wsd(*TRAIN_WSD),
+                           grad_accum=TRAIN_ACCUM)
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    del new_state
+    want = TRAIN_ACCUM * cfg.num_units
+    if counts[FK.BWD] != want or counts[FK.TC] != 2 * want:
+        raise AssertionError(f"14b: a step launched {counts}")
+    out["14b"].update(init_s=init_s, step_s=step_s, step_launches=counts,
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      metrics={k: float(v) for k, v in metrics.items()})
+    log(f"[14b] {cfg.name}: train state initialised in {init_s:.1f} s; one "
+        f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_ACCUM} "
+        f"microbatches, remat {cfg.remat}: {step_s:.2f} s (the first); K4 "
+        f"{counts[FK.TC]} forward launches (each run again by remat) and "
+        f"{counts[FK.BWD]} backward calls a step; metrics "
+        f"{out['14b']['metrics']}; peak {out['14b']['peak_gb']:.2f} GB")
+
+    # -- 14c: Trainer.run(), from the same fresh state -------------------
+    del state, batch
+    torch.cuda.empty_cache()
+    out["14c"] = train_run(cfg, device)
+
+    # -- 14d: recurrentgemma-9b at full width, depth cut ----------------
+    rg = dataclasses.replace(get_arch("recurrentgemma-9b").config,
+                             n_layers=RG_LAYERS)
+    ocfg = OptConfig(moment_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(rg, ocfg, torch.Generator(
+        device=device).manual_seed(LM_SEED), device=device)
+    n_params = sum(x.numel() for x in _leaves(state["params"]))
+    it = iter(SyntheticTokens(rg.vocab_size, batch=RG_BATCH, seq=TRAIN_SEQ,
+                              seed=LM_SEED + 1))
+    batch = batch_to(next(it), device)
+    out["14d"] = grads_against_plain("14d", rg, state["params"], batch, 1)
+    step = make_train_step(rg, ocfg, wsd(*TRAIN_WSD))
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(RG_STEPS):
+        state, metrics = step(state, batch if i == 0 else
+                              batch_to(next(it), device))
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    rg_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    # remat runs a unit's forwards twice; the tail's once
+    n_unit = sum(sp.mixer == "rglru" for sp in rg.pattern) * rg.num_units
+    n_tail = sum(sp.mixer == "rglru" for sp in rg.tail)
+    n_attn = sum(sp.mixer == "attn" for sp in rg.pattern) * rg.num_units
+    k5_step = 3 * n_unit + 2 * n_tail
+    want = {FK.TC: 2 * n_attn * RG_STEPS, FK.F32: 0,
+            FK.BWD: n_attn * RG_STEPS, RK.TOTAL: k5_step * RG_STEPS,
+            RK.ROUTE_KEYS["ring"]: k5_step * RG_STEPS,
+            RK.ROUTE_KEYS["simple"]: 0, RK.BWD: (n_unit + n_tail) * RG_STEPS}
+    if counts != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"14d: launches {counts} (expected {want}), "
+                             f"losses {losses}")
+    out["14d"].update(n_params=n_params, steps_s=rg_s, losses=losses,
+                      step_launches=counts,
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[14d] {rg.name} cut to {RG_LAYERS} layers: {n_params / 1e9:.3f} B "
+        f"parameters, int8 moments; {RG_STEPS} steps of {RG_BATCH} x "
+        f"{TRAIN_SEQ} in {rg_s:.2f} s, losses {losses}; launches {counts} "
+        f"(K5 ring: {k5_step} a step, of them {n_unit + n_tail} backward; K4 at "
+        f"D = {rg.hd}, window {rg.pattern[-1].window}: {2 * n_attn} forward, "
+        f"{n_attn} backward a step); peak {out['14d']['peak_gb']:.2f} GB")
+    del state, batch
+
+    # -- kernel times at 14b's and 14d's shapes -------------------------
+    g = torch.Generator(device=device).manual_seed(9)
+    hd, kvh, h = cfg.hd, cfg.n_kv_heads, cfg.n_heads
+    qwen = [torch.randn(shape, generator=g, device=device).bfloat16()
+            for shape in ((1, h, TRAIN_SEQ, hd), (1, kvh, TRAIN_SEQ, hd),
+                          (1, kvh, TRAIN_SEQ, hd))]
+    out["k4_bwd"] = time_k4_bwd(*qwen, None)
+    del qwen
+    win = rg.pattern[-1].window
+    rgq = [torch.randn(shape, generator=g, device=device).bfloat16()
+           for shape in ((1, rg.n_heads, TRAIN_SEQ, rg.hd),
+                         (1, rg.n_kv_heads, TRAIN_SEQ, rg.hd),
+                         (1, rg.n_kv_heads, TRAIN_SEQ, rg.hd))]
+    out["k4_bwd_rg"] = time_k4_bwd(*rgq, win)
+    del rgq
+    a, x = rglru_inputs(1, TRAIN_SEQ, rg.rglru.d_rnn, torch.float32, 10,
+                        device)
+    out["k5_bwd"] = time_k5_bwd(a, RK.rglru_scan_kernel(a, x))
+    del a, x
+    for key in ("k4_bwd", "k4_bwd_rg"):
+        t = out[key]
+        log(f"[14] K4 backward at q {tuple(t['shape'])} k/v "
+            f"{tuple(t['kv_shape'])} bf16, window {t['window']}: "
+            f"{t['ms']:.3f} ms ({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s of "
+            f"the kept pairs, {100 * t['bound_ms'] / t['ms']:.1f} % of the "
+            f"bound {t['bound_ms']:.4f} ms, {t['bound_by']}), plain "
+            f"{t['plain_ms']:.3f} ms, SDPA backward {t['library_ms']} ms "
+            f"(its forward {t.get('library_fwd_ms')} ms); K4's forward "
+            f"with lse {t['fwd_lse_ms']:.3f} ms; within "
+            f"{t['rel_err']:.2e} of the plain version")
+    t = out["k5_bwd"]
+    log(f"[14] K5 backward at {tuple(t['shape'])} f32: {t['ms']:.3f} ms "
+        f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}; its K5 launch "
+        f"alone {t['scan_ms']:.3f} ms, the rest torch copies), plain "
+        f"{t['plain_ms']:.1f} ms")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[14] phase 14 in {out['seconds']:.1f} s")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4395,6 +5045,9 @@ def main() -> int:
     # -- 13: the rest of slice H; K4's launches of 13b-13d are entries ---
     lm_configs = phase_lm_configs(dev)
 
+    # -- 14: training through K4 and K5, forwards and backwards ---------
+    train = phase_train(dev)
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -4419,6 +5072,7 @@ def main() -> int:
         "lm_configs": {arch: ({k: v for k, v in r.items() if k != "k4"}
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
+        "train": train,
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))
@@ -4497,7 +5151,26 @@ def main() -> int:
         for label, arch in (("13b", "qwen2-0.5b"),
                             ("13c", "granite-moe-3b-a800m"),
                             ("13d", "qwen2-vl-2b"))
-        for r in (lm_configs[arch],)]}))
+        for r in (lm_configs[arch],)] + [
+        {"name": "flash_attention_bwd (K4 backward: dq, dk, dv from lse)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         "launches": train["14c"]["launches"][FK.BWD],
+         **{k: train["k4_bwd"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "fwd_lse_ms", "shape", "kv_shape")},
+         "at_14d": {k: train["k4_bwd_rg"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "fwd_lse_ms", "shape", "kv_shape", "window")},
+         "launches_14d": train["14d"]["step_launches"][FK.BWD]},
+        {"name": "rglru_scan backward (K5 run backwards in time)",
+         "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru/kernel.py:66",
+         "launches": train["14d"]["step_launches"][RK.BWD],
+         "max_abs_err": 0.0, "library_ms": None,
+         **{k: train["k5_bwd"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "scan_ms",
+             "shape")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

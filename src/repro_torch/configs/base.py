@@ -6,8 +6,9 @@ Every ported architecture file exposes:
 * ``SMOKE``   — a reduced same-family config for CPU smoke tests,
 * ``ARCH``    — an :class:`Arch` bundle tying config + shape grid + notes.
 
-The JAX package's ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins for
-its dry run) waits for slice H's ``launch/`` item.
+``input_specs`` gives the inputs of an (arch x shape) cell as tensors on
+the meta device (shapes and dtypes, no data), where the JAX package gives
+``jax.ShapeDtypeStruct`` stand-ins for its dry run.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import ModelConfig
+from repro_torch.models.transformer import ModelConfig, init_cache
 
 # The assigned LM shape grid (seq_len, global_batch).
 TRAIN_4K = ("train_4k", "train", 4096, 256)
@@ -59,6 +60,54 @@ def lm_shapes(*, long_context: bool, skip_reason: str = "full-attention O(S²) "
     cells.append(ShapeSpec(*LONG_500K) if long_context
                  else ShapeSpec(*LONG_500K[:4], skip=skip_reason))
     return tuple(cells)
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs (meta-device tensors only — never allocates)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _token_spec(b: int, s: int) -> torch.Tensor:
+    return _spec((b, s), torch.int32)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta-device stand-ins for every input of this (arch x shape)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        if cfg.input_mode == "embeddings":
+            batch = {"inputs": _spec((b, s, cfg.d_model), cfg.cdtype),
+                     "labels": _token_spec(b, s)}
+        else:
+            batch = {"inputs": _token_spec(b, s), "labels": _token_spec(b, s)}
+        if cfg.rope_kind == "mrope":
+            batch["position_ids"] = _spec((3, b, s), torch.int32)
+        return {"batch": batch}
+    if shape.kind == "prefill":
+        if cfg.input_mode == "embeddings":
+            inputs = _spec((b, s, cfg.d_model), cfg.cdtype)
+        else:
+            inputs = _token_spec(b, s)
+        out = {"inputs": inputs}
+        if cfg.rope_kind == "mrope":
+            out["position_ids"] = _spec((3, b, s), torch.int32)
+        return out
+    # decode: one new token against a cache of seq_len positions
+    cache = init_cache(cfg, b, s, device=META)
+    if cfg.input_mode == "embeddings":
+        inputs = _spec((b, 1, cfg.d_model), cfg.cdtype)
+    else:
+        inputs = _spec((b, 1), torch.int32)
+    out = {"inputs": inputs, "cache": cache, "index": _spec((), torch.int32)}
+    if cfg.rope_kind == "mrope":
+        out["position_ids"] = _spec((3, b, 1), torch.int32)
+    return out
 
 
 def smoke_batch(cfg: ModelConfig, *, batch: int = 2, seq: int = 16,

@@ -1,6 +1,7 @@
-// Causal / sliding-window GQA flash attention (forward) for Hopper, in two
-// routes picked by dtype: a tensor-core kernel for bf16 and a CUDA-core kernel
-// for f32.
+// Causal / sliding-window GQA flash attention for Hopper: the forward in two
+// routes picked by dtype (a tensor-core kernel for bf16 and a CUDA-core kernel
+// for f32), each writing the rows' log-sum-exp when asked, and the backward
+// (see "backward" below).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_bhsd, body _kernel): o = softmax(q k^T / sqrt(D) + mask) v
@@ -82,12 +83,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "tma.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -468,7 +471,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tv,
              __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
              int causal, int window, int q_offset, float scale_log2,
-             long long osb, long long osh, long long oss) {
+             long long osb, long long osh, long long oss,
+             float* __restrict__ lse) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ;
   extern __shared__ uint8_t smem_raw[];
@@ -625,6 +629,12 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
     __nv_bfloat16* ob = o + b * osb + h * osh;
     const int r0 = q0 + row;
+    if (lse != nullptr && col == 0) {
+      // m + log l per row, in natural units (m and l are base 2 here)
+      float* lb = lse + (static_cast<long long>(b) * gridDim.y + h) * sq;
+      if (r0 < sq) lb[r0] = (st.m0 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+      if (r0 + 8 < sq) lb[r0 + 8] = (st.m1 + log2f(fmaxf(l1, 1e-30f))) * LN2;
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       if (r0 < sq)
@@ -666,7 +676,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int kvh, int sq, int sk, int causal, int window,
            int q_offset, float scale, const long long* st, int n_q_tiles,
-           cudaStream_t stream) {
+           float* lse, cudaStream_t stream) {
   using C = Cfg<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return ERR_NO_ENCODER;
@@ -682,7 +692,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(n_q_tiles, h, b);
   flash_fwd_tc<D><<<grid, C::NTHREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), h / kvh, sq, sk, causal,
-      window, q_offset, scale * 1.4426950408889634f, st[9], st[10], st[11]);
+      window, q_offset, scale * 1.4426950408889634f, st[9], st[10], st[11],
+      lse);
   return cudaGetLastError();
 }
 
@@ -719,7 +730,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               float scale, long long qsb, long long qsh, long long qss,
               long long ksb, long long ksh, long long kss, long long vsb,
               long long vsh, long long vss, long long osb, long long osh,
-              long long oss) {
+              long long oss, float* __restrict__ lse) {
   constexpr int DP = D + PAD;
   constexpr int NC = (D + 31) / 32;  // accumulator columns per lane
   extern __shared__ float4 smem4[];
@@ -840,6 +851,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + warp + NWARPS * i;
     if (r >= sq) continue;
     const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * sq + r] =
+          m_run[i] + logf(fmaxf(l_run[i], 1e-30f));
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
@@ -852,7 +866,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int kvh, int sq, int sk, int causal, int window,
            int q_offset, float scale, const long long* st, int n_q_tiles,
-           cudaStream_t stream) {
+           float* lse, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -863,15 +877,378 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), h / kvh, sq, sk,
       causal, window, q_offset, scale, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], lse);
   return cudaGetLastError();
 }
 
 }  // namespace f32
 
+
+// ---------------------------------------------------------------------------
+// backward (both dtypes, CUDA cores)
+// ---------------------------------------------------------------------------
+//
+// The TPU package has no backward kernel (XLA differentiates its plain
+// attention); this one gives K4 its gradient, FA2-style, from q, k, v, o, the
+// output's gradient do and the forward's lse:
+//   P = exp(q k^T scale - lse)   (0 where the mask drops the pair)
+//   delta_i = sum_d do_id o_id,  dS = P (do v^T - delta)
+//   dv = P^T do,  dk = scale dS^T q,  dq = scale dS k.
+// Three kernels: flash_bwd_delta (one warp a row); flash_bwd_dkdv, one block
+// a (key tile of BK keys, kv head, batch), which walks the query tiles of
+// every head of its group that can see its keys and keeps dk and dv in f32
+// registers; flash_bwd_dq, one block a (query tile, head, batch), which walks
+// the kv tiles of the forward's schedule (kv_range).  Each tile recomputes P
+// from lse.  Every output element is summed by one thread in a fixed order
+// (the GQA sum over the group inside one block): no atomics, so two calls
+// give the same bits.  bf16 or f32 in and out, f32 inside.  Causal masks and
+// windows as the forward's, with q_offset 0 and Sq = Sk (the wrapper refuses
+// the rest), so every row has a valid key.
+//
+// Layout: 256 threads; warp w holds query rows w, w + 8, ... of a tile and
+// lane j key j of a kv tile for the scores (Q, K, V and dO tiles are f32 in
+// shared memory, padded as the f32 forward's).  BQ = 64 rows (32 at D = 256,
+// for shared memory).  Bound: five products over the valid pairs (q.k, do.v,
+// P^T do, dS^T q, dS k: 10 D flops a pair), which CUDA cores at 67 TFLOP/s
+// (f32) take far longer than the bytes.  Redesigning it for the tensor cores
+// (wgmma) is later work.
+
+namespace bwd {
+
+constexpr int BK = 32;
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int PAD = 4;
+constexpr int PS = BK + 1;   // row stride of the P and dS tiles (no conflicts)
+
+template <int D>
+struct Shape {
+  static constexpr int BQ = D == 256 ? 32 : 64;
+  static constexpr int RPW = BQ / NWARPS;     // rows a warp in the scores
+  static constexpr int DP = D + PAD;
+  // dkdv: K, V, Q, dO, P, dS, lse, delta; dq: the same without P
+  static constexpr size_t SMEM_KV =
+      sizeof(float) * (2 * size_t(BK) * DP + 2 * size_t(BQ) * DP
+                       + 2 * size_t(BQ) * PS + 2 * size_t(BQ));
+  static constexpr size_t SMEM_Q =
+      sizeof(float) * (2 * size_t(BK) * DP + 2 * size_t(BQ) * DP
+                       + size_t(BQ) * PS + 2 * size_t(BQ));
+};
+
+// (batch, head, sequence) element strides of each tensor
+struct Strides {
+  long long q[3], k[3], v[3], o[3], g[3], dq[3], dk[3], dv[3];
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ bool pair_ok(int qp, int kp, int s, int causal,
+                                        int window) {
+  return qp < s && kp < s && (!causal || qp >= kp)
+         && (window <= 0 || qp - kp < window);
+}
+
+// delta = rowsum(do * o), one warp a row of [B, H, S]
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
+                float* __restrict__ delta, int h, int s, int d,
+                long long rows, Strides st) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * NWARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int i = static_cast<int>(row % s);
+  const long long bh = row / s;
+  const int hh = static_cast<int>(bh % h);
+  const int bb = static_cast<int>(bh / h);
+  const T* orow = o + bb * st.o[0] + hh * st.o[1] + i * st.o[2];
+  const T* grow = g + bb * st.g[0] + hh * st.g[1] + i * st.g[2];
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32)
+    acc = fmaf(to_f(orow[c]), to_f(grow[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(FULL, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// Loads rows [r0, r0 + n) of a [S, D] slice (element stride ss) into a
+// padded f32 tile; rows past s are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long ss, int r0, int n,
+                                          int s) {
+  for (int i = threadIdx.x; i < n * D; i += NTHREADS) {
+    const int r = i / D, c = i % D;
+    dst[r * (D + PAD) + c] = r0 + r < s ? to_f(src[(r0 + r) * ss + c]) : 0.f;
+  }
+}
+
+// Scores and dP of the rows warp + NWARPS i of the query tile against key
+// `lane` of the kv tile: s_ij = q_i . k_j, dp_ij = do_i . v_j.
+template <int D, int RPW>
+__device__ __forceinline__ void scores(const float* s_q, const float* s_g,
+                                       const float* s_k, const float* s_v,
+                                       float (&sc)[RPW], float (&dp)[RPW]) {
+  constexpr int DP = D + PAD;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) sc[i] = dp[i] = 0.f;
+  const float4* k4 = reinterpret_cast<const float4*>(s_k + lane * DP);
+  const float4* v4 = reinterpret_cast<const float4*>(s_v + lane * DP);
+#pragma unroll 2
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 kk = k4[d4], vv = v4[d4];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const float4 qq =
+          reinterpret_cast<const float4*>(s_q + (warp + NWARPS * i) * DP)[d4];
+      const float4 gg =
+          reinterpret_cast<const float4*>(s_g + (warp + NWARPS * i) * DP)[d4];
+      sc[i] = fmaf(qq.x, kk.x, sc[i]);
+      sc[i] = fmaf(qq.y, kk.y, sc[i]);
+      sc[i] = fmaf(qq.z, kk.z, sc[i]);
+      sc[i] = fmaf(qq.w, kk.w, sc[i]);
+      dp[i] = fmaf(gg.x, vv.x, dp[i]);
+      dp[i] = fmaf(gg.y, vv.y, dp[i]);
+      dp[i] = fmaf(gg.z, vv.z, dp[i]);
+      dp[i] = fmaf(gg.w, vv.w, dp[i]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ g,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, int h, int group,
+               int s, int causal, int window, float scale, Strides st) {
+  using Sh = Shape<D>;
+  constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
+  constexpr int NCOL = D / 8;     // columns of dk and dv a thread holds
+  extern __shared__ float4 smem4[];
+  float* s_k = reinterpret_cast<float*>(smem4);
+  float* s_v = s_k + BK * DP;
+  float* s_q = s_v + BK * DP;
+  float* s_g = s_q + BQ * DP;
+  float* s_p = s_g + BQ * DP;
+  float* s_ds = s_p + BQ * PS;
+  float* s_lse = s_ds + BQ * PS;
+  float* s_dl = s_lse + BQ;
+
+  const int k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  load_tile<T, D>(s_k, k + b * st.k[0] + kvh * st.k[1], st.k[2], k0, BK, s);
+  load_tile<T, D>(s_v, v + b * st.v[0] + kvh * st.v[1], st.v[2], k0, BK, s);
+
+  // this thread's share of dk and dv: key kj, columns c0 + 8 m
+  const int kj = tid / 8, c0 = tid % 8;
+  float acc_k[NCOL], acc_v[NCOL];
+#pragma unroll
+  for (int m = 0; m < NCOL; ++m) acc_k[m] = acc_v[m] = 0.f;
+
+  // the query rows that can see a key of this tile
+  const int q_begin = causal ? k0 / BQ * BQ : 0;
+  const int q_end = window > 0 ? min(s, k0 + BK - 1 + window) : s;
+  const int kp = k0 + lane;
+  for (int hg = 0; hg < group; ++hg) {
+    const int hh = kvh * group + hg;
+    const T* qb = q + b * st.q[0] + hh * st.q[1];
+    const T* gb = g + b * st.g[0] + hh * st.g[1];
+    const long long rb = (static_cast<long long>(b) * h + hh) * s;
+    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
+      __syncthreads();   // the previous tile is read (first: K, V loaded)
+      load_tile<T, D>(s_q, qb, st.q[2], q0, BQ, s);
+      load_tile<T, D>(s_g, gb, st.g[2], q0, BQ, s);
+      for (int r = tid; r < BQ; r += NTHREADS) {
+        s_lse[r] = q0 + r < s ? lse[rb + q0 + r] : 0.f;
+        s_dl[r] = q0 + r < s ? delta[rb + q0 + r] : 0.f;
+      }
+      __syncthreads();
+      float sc[RPW], dp[RPW];
+      scores<D, RPW>(s_q, s_g, s_k, s_v, sc, dp);
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int r = warp + NWARPS * i;
+        const bool ok = pair_ok(q0 + r, kp, s, causal, window);
+        const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
+        s_p[r * PS + lane] = p;
+        s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
+      }
+      __syncthreads();
+      // dv += P^T dO, dk += dS^T Q over the tile's rows, in row order
+      for (int r = 0; r < BQ; ++r) {
+        const float pr = s_p[r * PS + kj], dsr = s_ds[r * PS + kj];
+        const float* qr = s_q + r * DP;
+        const float* gr = s_g + r * DP;
+#pragma unroll
+        for (int m = 0; m < NCOL; ++m) {
+          acc_v[m] = fmaf(pr, gr[c0 + 8 * m], acc_v[m]);
+          acc_k[m] = fmaf(dsr, qr[c0 + 8 * m], acc_k[m]);
+        }
+      }
+    }
+  }
+  if (k0 + kj < s) {
+    T* dkr = dk + b * st.dk[0] + kvh * st.dk[1] + (k0 + kj) * st.dk[2];
+    T* dvr = dv + b * st.dv[0] + kvh * st.dv[1] + (k0 + kj) * st.dv[2];
+#pragma unroll
+    for (int m = 0; m < NCOL; ++m) {
+      dkr[c0 + 8 * m] = from_f<T>(acc_k[m] * scale);
+      dvr[c0 + 8 * m] = from_f<T>(acc_v[m]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ g,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int h, int group, int s, int causal,
+             int window, float scale, Strides st) {
+  using Sh = Shape<D>;
+  constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
+  constexpr int TPR = NTHREADS / BQ;   // threads a row of dq
+  constexpr int NCOL = D / TPR;        // columns of dq a thread holds
+  extern __shared__ float4 smem4[];
+  float* s_k = reinterpret_cast<float*>(smem4);
+  float* s_v = s_k + BK * DP;
+  float* s_q = s_v + BK * DP;
+  float* s_g = s_q + BQ * DP;
+  float* s_ds = s_g + BQ * DP;
+  float* s_lse = s_ds + BQ * PS;
+  float* s_dl = s_lse + BQ;
+
+  // the longest query tiles (most kv tiles) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int hh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = hh / group;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  load_tile<T, D>(s_q, q + b * st.q[0] + hh * st.q[1], st.q[2], q0, BQ, s);
+  load_tile<T, D>(s_g, g + b * st.g[0] + hh * st.g[1], st.g[2], q0, BQ, s);
+  const long long rb = (static_cast<long long>(b) * h + hh) * s;
+  for (int r = tid; r < BQ; r += NTHREADS) {
+    s_lse[r] = q0 + r < s ? lse[rb + q0 + r] : 0.f;
+    s_dl[r] = q0 + r < s ? delta[rb + q0 + r] : 0.f;
+  }
+  const T* kb = k + b * st.k[0] + kvh * st.k[1];
+  const T* vb = v + b * st.v[0] + kvh * st.v[1];
+
+  // this thread's share of dq: row qr, columns c0 + TPR m
+  const int qr = tid / TPR, c0 = tid % TPR;
+  float acc[NCOL];
+#pragma unroll
+  for (int m = 0; m < NCOL; ++m) acc[m] = 0.f;
+
+  const KvRange rng = kv_range(q0, BQ, BK, s, s, causal, window, 0);
+  for (int k0 = rng.begin; k0 < rng.end; k0 += BK) {
+    __syncthreads();   // the previous tile is read (first: Q, dO loaded)
+    load_tile<T, D>(s_k, kb, st.k[2], k0, BK, s);
+    load_tile<T, D>(s_v, vb, st.v[2], k0, BK, s);
+    __syncthreads();
+    float sc[RPW], dp[RPW];
+    scores<D, RPW>(s_q, s_g, s_k, s_v, sc, dp);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + NWARPS * i;
+      const bool ok = pair_ok(q0 + r, k0 + lane, s, causal, window);
+      const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
+      s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
+    }
+    __syncthreads();
+    // dq += dS K over the tile's keys, in key order
+    for (int j = 0; j < BK; ++j) {
+      const float dsv = s_ds[qr * PS + j];
+      const float* kr = s_k + j * DP;
+#pragma unroll
+      for (int m = 0; m < NCOL; ++m)
+        acc[m] = fmaf(dsv, kr[c0 + TPR * m], acc[m]);
+    }
+  }
+  if (q0 + qr < s) {
+    T* dqr = dq + b * st.dq[0] + hh * st.dq[1] + (q0 + qr) * st.dq[2];
+#pragma unroll
+    for (int m = 0; m < NCOL; ++m) dqr[c0 + TPR * m] = from_f<T>(acc[m] * scale);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* g, const float* lse, float* delta, void* dq, void* dk,
+           void* dv, int b, int h, int kvh, int s, int causal, int window,
+           float scale, const Strides& st, cudaStream_t stream) {
+  using Sh = Shape<D>;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tg = static_cast<const T*>(g);
+  const long long rows = static_cast<long long>(b) * h * s;
+  flash_bwd_delta<T><<<static_cast<unsigned>((rows + NWARPS - 1) / NWARPS),
+                       NTHREADS, 0, stream>>>(
+      static_cast<const T*>(o), tg, delta, h, s, D, rows, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Sh::SMEM_KV));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Sh::SMEM_Q));
+  if (err != cudaSuccess) return err;
+  const int group = h / kvh;
+  flash_bwd_dkdv<T, D><<<dim3((s + BK - 1) / BK, kvh, b), NTHREADS,
+                         Sh::SMEM_KV, stream>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      h, group, s, causal, window, scale, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq<T, D><<<dim3((s + Sh::BQ - 1) / Sh::BQ, h, b), NTHREADS,
+                       Sh::SMEM_Q, stream>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), h, group, s, causal,
+      window, scale, st);
+  return cudaGetLastError();
+}
+
+typedef int (*Launch)(const void*, const void*, const void*, const void*,
+                      const void*, const float*, float*, void*, void*, void*,
+                      int, int, int, int, int, int, float, const Strides&,
+                      cudaStream_t);
+
+template <typename T>
+Launch pick(int d) {
+  switch (d) {
+    case 16: return launch<T, 16>;
+    case 32: return launch<T, 32>;
+    case 64: return launch<T, 64>;
+    case 128: return launch<T, 128>;
+    case 256: return launch<T, 256>;
+  }
+  return nullptr;
+}
+
+}  // namespace bwd
+
 typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
                       int, int, int, int, int, int, float, const long long*,
-                      int, cudaStream_t);
+                      int, float*, cudaStream_t);
 
 Launch pick(int route, int d) {
   if (route == 0) {
@@ -902,14 +1279,15 @@ extern "C" {
 // tensor-core kernel (all bfloat16).  bq, bk: the tile the caller planned
 // with, checked against the route's own.  n_q_tiles: blocks along the query
 // axis.  strides: 12 element strides, (batch, head, sequence) of q, k, v and o
-// in turn; the head-dim stride is 1.  window <= 0 means none.  Returns 0 on
-// success, else a CUDA error code (or one past them: see
-// flash_attention_error_string).
+// in turn; the head-dim stride is 1.  window <= 0 means none.  lse: null, or
+// a contiguous float32 [B, H, Sq] that receives m + log l of each query row
+// (natural units; the backward's input).  Returns 0 on success, else a CUDA
+// error code (or one past them: see flash_attention_error_string).
 int flash_attention_fwd(int route, const void* q, const void* k,
                         const void* v, void* o, int b, int h, int kvh, int sq,
                         int sk, int d, int causal, int window, int q_offset,
                         float scale, const long long* strides, int bq, int bk,
-                        int n_q_tiles, void* stream) {
+                        int n_q_tiles, void* lse, void* stream) {
   if (kvh <= 0 || h % kvh != 0) return cudaErrorInvalidValue;
   const bool tiles_ok =
       route == 0 ? bq == f32::BQ && bk == f32::BK
@@ -918,7 +1296,8 @@ int flash_attention_fwd(int route, const void* q, const void* k,
   Launch fn = pick(route, d);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return fn(q, k, v, o, b, h, kvh, sq, sk, causal, window, q_offset, scale,
-            strides, n_q_tiles, static_cast<cudaStream_t>(stream));
+            strides, n_q_tiles, static_cast<float*>(lse),
+            static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory a block of the route takes at head dim d (bytes;
@@ -937,6 +1316,29 @@ int flash_attention_smem_bytes(int route, int d) {
     case 1256: return static_cast<int>(tc::Cfg<256>::SMEM);
   }
   return 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do and dq, dk, dv alike).
+// lse: the forward's [B, H, S] float32; delta: float32 [B, H, S] scratch.
+// strides: 24 element strides, (batch, head, sequence) of q, k, v, o, do, dq,
+// dk and dv in turn; the head-dim stride is 1.  Sq = Sk = s, q_offset 0.
+// Launches the three kernels on `stream`; returns 0 or an error code.
+int flash_attention_bwd(int dtype, const void* q, const void* k,
+                        const void* v, const void* o, const void* g,
+                        const void* lse, void* delta, void* dq, void* dk,
+                        void* dv, int b, int h, int kvh, int s, int d,
+                        int causal, int window, float scale,
+                        const long long* strides, void* stream) {
+  if (kvh <= 0 || h % kvh != 0 || s <= 0) return cudaErrorInvalidValue;
+  bwd::Launch fn = dtype == 0 ? bwd::pick<float>(d)
+                   : dtype == 1 ? bwd::pick<__nv_bfloat16>(d) : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  bwd::Strides st;
+  static_assert(sizeof(st) == 24 * sizeof(long long), "24 strides");
+  memcpy(&st, strides, sizeof(st));
+  return fn(q, k, v, o, g, static_cast<const float*>(lse),
+            static_cast<float*>(delta), dq, dk, dv, b, h, kvh, s, causal,
+            window, scale, st, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {

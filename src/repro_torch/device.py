@@ -3,7 +3,8 @@
 The port's entry points run on the card unless the caller asks for the
 CPU: ``device=None`` means ``"cuda"``, and with no CUDA device that
 raises instead of carrying on silently on the CPU.  Tests pass
-``device="cpu"`` explicitly.
+``device="cpu"`` explicitly.  ``"meta"`` builds shapes without data
+(``launch.steps.abstract_train_state``, ``configs.base.input_specs``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,6 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available: the port runs on the card by "
             "default; pass device='cpu' to run it on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev} (cuda, cpu or meta)")
     return dev

@@ -21,6 +21,13 @@ CUDA tensors it launches the route's kernel on the current stream or
 raises — a missing compiler or a refused launch is an error, never a
 fallback.  ``LAUNCHES`` counts the launches of each route, so a run can
 show which kernel its path went through.
+
+Asked for it (``with_lse=True``), the forward also writes each query
+row's log-sum-exp ``m + log l`` [B, H, Sq] in float32, which
+``flash_attention_bwd_bhsd`` — the backward kernels, CUDA cores in both
+dtypes — takes with q, k, v, o and the output's gradient to give dq, dk
+and dv (``BACKWARD_LAUNCHES`` counts its calls; on the CPU it runs
+``ref.attention_backward_reference``).
 """
 
 from __future__ import annotations
@@ -33,20 +40,28 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention import tiles
-from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.flash_attention.ref import (
+    attention_backward_reference, attention_lse_reference,
+    attention_reference)
 
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC, F32 = "flash_attention_tc", "flash_attention_f32"
 _KERNEL_IDS = {F32: 0, TC: 1}     # the route's number in the C interface
 
+BWD = "flash_attention_bwd"
+_DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}   # the backward's dtypes
+
 #: Kernel launches of each route since the last ``reset_launches()``.
 LAUNCHES = {TC: 0, F32: 0}
+#: Calls of the backward kernels (three launches each: delta, dk/dv, dq).
+BACKWARD_LAUNCHES = {BWD: 0}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def tile(name: str, d: int) -> tuple[int, int]:
@@ -70,8 +85,12 @@ def _library() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         lib.flash_attention_fwd.argtypes = (
             [ctypes.c_int] + [ptr] * 4 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ptr] + [ctypes.c_int] * 3 + [ptr])
+            + [ctypes.c_float, ptr] + [ctypes.c_int] * 3 + [ptr, ptr])
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_bwd.argtypes = (
+            [ctypes.c_int] + [ptr] * 10 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ptr, ptr])
+        lib.flash_attention_bwd.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -83,8 +102,10 @@ def _library() -> ctypes.CDLL:
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          q_offset: int = 0,
-                         out: torch.Tensor | None = None) -> torch.Tensor:
-    """[B, H, Sq, D] attention output in q.dtype.
+                         out: torch.Tensor | None = None,
+                         with_lse: bool = False):
+    """[B, H, Sq, D] attention output in q.dtype; with ``with_lse`` the
+    pair (output, lse [B, H, Sq] float32).
 
     q, k, v may be strided views (the grouped model layout is read in
     place) as long as the head dimension is contiguous; ``out`` is an
@@ -94,10 +115,13 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         o = attention_reference(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
-        if out is None:
+        if out is not None:
+            out.copy_(o)
+            o = out
+        if not with_lse:
             return o
-        out.copy_(o)
-        return out
+        return o, attention_lse_reference(q, k, causal=causal, window=window,
+                                          q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bhsd runs on cuda or cpu tensors, "
                          f"got {q.device}")
@@ -132,8 +156,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for arg, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         if x.stride(3) != 1:
             raise ValueError(f"{arg} needs a contiguous head dimension")
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b == 0 or h == 0 or sq == 0:
-        return out
+        return (out, lse) if with_lse else out
     if sk == 0:
         raise ValueError("attention over zero keys")
     scale = 1.0 / math.sqrt(d)
@@ -141,14 +167,15 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pad = HEAD_DIMS[0] - d
         qp, kp, vp = (F.pad(x, (0, pad)) for x in (q, k, v))
         op = torch.empty(qp.shape, dtype=q.dtype, device=q.device)
-        _launch(name, qp, kp, vp, op, causal, window, q_offset, scale)
+        _launch(name, qp, kp, vp, op, causal, window, q_offset, scale, lse)
         out.copy_(op[..., :d])
-        return out
-    _launch(name, q, k, v, out, causal, window, q_offset, scale)
-    return out
+    else:
+        _launch(name, q, k, v, out, causal, window, q_offset, scale, lse)
+    return (out, lse) if with_lse else out
 
 
-def _launch(name, q, k, v, out, causal, window, q_offset, scale) -> None:
+def _launch(name, q, k, v, out, causal, window, q_offset, scale,
+            lse=None) -> None:
     """One launch of route ``name``'s kernel on checked tensors."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
@@ -164,12 +191,117 @@ def _launch(name, q, k, v, out, causal, window, q_offset, scale) -> None:
             out.data_ptr(), b, h, kvh, sq, sk, d, int(causal),
             0 if window is None else int(window), int(q_offset),
             scale, (ctypes.c_longlong * 12)(*strides), bq, bk,
-            tiles.n_q_tiles(sq, bq), stream)
+            tiles.n_q_tiles(sq, bq), None if lse is None else lse.data_ptr(),
+            stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: error {rc} "
                            f"({msg})")
     LAUNCHES[name] += 1
+
+
+def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None,
+                             dq: torch.Tensor | None = None,
+                             dk: torch.Tensor | None = None,
+                             dv: torch.Tensor | None = None):
+    """(dq, dk, dv) of ``flash_attention_bhsd`` for the output gradient
+    ``do``, from its output ``o`` and ``lse`` (``with_lse=True``).
+
+    q, o, do [B, H, S, D]; k, v [B, KVH, S, D]; lse [B, H, S] float32;
+    all one dtype (float32 or bfloat16), strided views allowed as long as
+    the head dimension is contiguous (``dq``, ``dk``, ``dv``: optional
+    destination views of the same kind).  Self-attention only: queries
+    at positions 0..S-1 over as many keys (Sq == Sk); anything else
+    raises."""
+    if q.device.type == "cpu":
+        grads = attention_backward_reference(q, k, v, o, do, lse,
+                                             causal=causal, window=window)
+        return tuple(g if dst is None else dst.copy_(g)
+                     for g, dst in zip(grads, (dq, dk, dv)))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_bhsd runs on cuda or cpu "
+                         f"tensors, got {q.device}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q, k, v, o, do must be [B, H, S, D]")
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    if k.shape[2] != s:
+        raise ValueError(f"the backward takes self-attention only (Sq == "
+                         f"Sk), got Sq {s}, Sk {k.shape[2]}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} kv "
+                         "heads")
+    if q.dtype not in _DTYPE_IDS:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS and not 0 < d < HEAD_DIMS[0]:
+        raise ValueError(f"head dim {d} not supported (one of {HEAD_DIMS}, "
+                         f"or below {HEAD_DIMS[0]}, zero-padded to it)")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if dq is None:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dk is None:
+        dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    if dv is None:
+        dv = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    for arg, x, shape in (("k", k, (b, kvh, s, d)), ("v", v, (b, kvh, s, d)),
+                          ("o", o, (b, h, s, d)), ("do", do, (b, h, s, d)),
+                          ("dq", dq, (b, h, s, d)), ("dk", dk, (b, kvh, s, d)),
+                          ("dv", dv, (b, kvh, s, d))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{arg} has shape {tuple(x.shape)}, expected "
+                             f"{shape}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{arg} is {x.dtype}, q is {q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{arg} is on {x.device}, q on {q.device}")
+    for arg, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+                   ("dq", dq), ("dk", dk), ("dv", dv)):
+        if x.stride(3) != 1:
+            raise ValueError(f"{arg} needs a contiguous head dimension")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, s)} "
+                         f"tensor on {q.device}")
+    if b == 0 or h == 0 or s == 0:
+        return dq, dk, dv
+    scale = 1.0 / math.sqrt(d)
+    if d < HEAD_DIMS[0]:
+        pad = HEAD_DIMS[0] - d
+        padded = [F.pad(x, (0, pad)) for x in (q, k, v, o, do)]
+        outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                for x in padded[:3]]
+        _launch_bwd(*padded, lse, *outs, causal, window, scale)
+        for dst, src in zip((dq, dk, dv), outs):
+            dst.copy_(src[..., :d])
+    else:
+        _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window, scale)
+    return dq, dk, dv
+
+
+def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
+                scale) -> None:
+    """One call of the backward kernels on checked tensors."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = [st for x in (q, k, v, o, do, dq, dk, dv) for st in _strides(x)]
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            _DTYPE_IDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d,
+            int(causal), 0 if window is None else int(window), scale,
+            (ctypes.c_longlong * 24)(*strides), stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"{BWD} kernel launch failed: error {rc} ({msg})")
+    BACKWARD_LAUNCHES[BWD] += 1
 
 
 def smem_bytes(name: str, d: int) -> int:

@@ -13,6 +13,17 @@ raises — a refused plan, tensor map or launch is an error, never a
 fallback to the other route.  ``LAUNCHES`` counts the launches, in all
 (``"rglru_scan"``) and per route (``"rglru_scan/ring"``,
 ``"rglru_scan/simple"``).
+
+The gradient needs no kernel of its own: with g_t = dh_t + a_{t+1} g_{t+1},
+db = g and da_t = g_t h_{t-1}, and g is the same scan run backwards in
+time.  ``rglru_scan_backward`` launches K5 on flip(dh) and flip(a shifted
+one step left) (counted in ``LAUNCHES`` like any launch, and once more in
+``BACKWARD_LAUNCHES``), flips g back and multiplies by h_{t-1}; it equals
+``ref.rglru_scan_backward_ref`` bit for bit, as the forward equals
+``rglru_scan_ref``.  The shift, the three flips and the product are
+plain torch copies around the one launch, and take most of the
+backward's time (PERF.md); a reverse mode of the kernel that reads a,
+h and dh once and writes da and db would take them out.
 """
 
 from __future__ import annotations
@@ -23,7 +34,8 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.rglru import plan as rglru_plan
-from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.kernels.rglru.ref import (rglru_scan_backward_ref,
+                                           rglru_scan_ref)
 
 SOURCE = "rglru_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,14 +43,19 @@ TOTAL = "rglru_scan"
 ROUTE_KEYS = {rglru_plan.RING: "rglru_scan/ring",
               rglru_plan.SIMPLE: "rglru_scan/simple"}
 
+BWD = "rglru_scan_bwd"
+
 #: Kernel launches since the last ``reset_launches()``: in all, and per
 #: route.
 LAUNCHES = {TOTAL: 0, **{key: 0 for key in ROUTE_KEYS.values()}}
+#: Calls of ``rglru_scan_backward`` on the card (one K5 launch each).
+BACKWARD_LAUNCHES = {BWD: 0}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -80,6 +97,29 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     p = rglru_plan.plan(*a.shape, a.element_size(),
                         (a.data_ptr(), b.data_ptr(), out.data_ptr()))
     return launch(a, b, out, p)
+
+
+def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
+                        dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(da, db) of h = scan(a, b) for the output gradient dh; a, h, dh
+    [B, S, R] in one dtype (h the forward's output)."""
+    if a.device.type == "cpu":
+        return rglru_scan_backward_ref(a, h, dh)
+    if tuple(h.shape) != tuple(a.shape) or tuple(dh.shape) != tuple(a.shape):
+        raise ValueError(f"a, h and dh must be one [B, S, R] shape, got "
+                         f"{tuple(a.shape)}, {tuple(h.shape)} and "
+                         f"{tuple(dh.shape)}")
+    if h.dtype != a.dtype or dh.dtype != a.dtype:
+        raise TypeError(f"a, h and dh must be one dtype, got {a.dtype}, "
+                        f"{h.dtype} and {dh.dtype}")
+    zero = a.new_zeros((a.shape[0], 1, a.shape[2]))
+    a_next = torch.cat([a[:, 1:], zero], dim=1)
+    g = rglru_scan_kernel(a_next.flip(1), dh.flip(1)).flip(1)
+    BACKWARD_LAUNCHES[BWD] += 1
+    da = torch.empty_like(a)        # g_t h_{t-1}, written in place
+    da[:, :1] = torch.mul(g[:, :1].float(), zero.float()).to(a.dtype)
+    da[:, 1:] = torch.mul(g[:, 1:].float(), h[:, :-1].float()).to(a.dtype)
+    return da, g
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,

@@ -11,21 +11,28 @@ Python loop over that axis here.
 
 Three execution modes share the same layer code:
 
-* ``forward``      — full-sequence scoring forward (logits).
+* ``forward``      — full-sequence train / scoring forward (logits);
+  ``mode="train"`` (the default, as in JAX) adds the MoE load-balance
+  term, and where gradients are on each unit is recomputed in the
+  backward as ``cfg.remat`` asks (JAX's ``jax.checkpoint`` per unit).
 * ``prefill``      — full sequence + per-layer cache extraction.
 * ``decode_step``  — single token against the cache (serving); it updates
   the cache in place.
 
-Mixers: ``attn``, ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``,
-``moe`` and ``none``.  Training (``mode="train"``, ``loss_fn``) raises
-naming the slice that ports it.
+``loss_fn`` is next-token cross entropy plus the MoE term.  Mixers:
+``attn``, ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``, ``moe``
+and ``none``.  On the card, attention and the RG-LRU scan run the
+hand-written kernels forwards and backwards (their ops' autograd
+Functions).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -277,23 +284,28 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                  x: torch.Tensor, positions, position_ids, mode: str, cache,
                  index, max_seq=None):
-    """One residual layer.  Returns (x, the layer's cache): the updated
-    cache in ``decode`` mode, the filled one in ``prefill`` mode, None
-    otherwise."""
+    """One residual layer.  Returns (x, the layer's cache, aux): the
+    updated cache in ``decode`` mode, the filled one in ``prefill`` mode,
+    None otherwise; aux the MoE load-balance loss of a MoE layer in
+    ``train`` mode, None otherwise (JAX's zero, which adds nothing)."""
     rs = cfg.residual_scale if cfg.residual_scale is not None else 1.0
     h = apply_norm(cfg.norm, p["norm1"], x)
     h, new_cache = _apply_mixer(cfg, spec, p["mixer"], h, positions,
                                 position_ids, mode, cache, index, max_seq)
     x = x + rs * h
+    aux = None
     if spec.ffn != "none":
         h = apply_norm(cfg.norm, p["norm2"], x)
         if spec.ffn == "dense":
             h = mlp(p["ffn"], h, act=cfg.act, compute_dtype=cfg.cdtype)
         else:
+            if mode == "train":
+                aux = moe_mod.aux_load_balance_loss(p["ffn"]["router"], h,
+                                                    cfg.moe)
             h = moe_mod.apply_moe(p["ffn"], cfg.moe, h,
                                   compute_dtype=cfg.cdtype)
         x = x + rs * h
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -325,36 +337,90 @@ def _default_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+#: the products whose outputs ``remat="dots"`` keeps (JAX's
+#: ``checkpoint_dots`` keeps the outputs of its dot products)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` recomputed in the backward as ``cfg.remat`` asks: nothing
+    kept (``"full"``), the matmul outputs kept (``"dots"``), or run as it
+    is (``"none"``, or no gradient being taken)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r} (none, full or dots)")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    return functools.partial(torch_checkpoint.checkpoint, fn,
+                             use_reentrant=False, **kw)
+
+
 def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
             positions: torch.Tensor | None = None,
             position_ids: torch.Tensor | None = None,
-            mode: str = "eval") -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits [B,S,V] fp32, moe_aux scalar)."""
-    if mode == "train":
-        raise NotImplementedError("training is not ported yet: train/ lands "
-                                  "with slice H item 22")
+            mode: str = "train") -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits [B,S,V] fp32, moe_aux scalar).
+
+    ``mode="train"`` (JAX's default) sums the MoE load-balance loss into
+    moe_aux; ``"eval"`` scores without it."""
     b, s = inputs.shape[:2]
     if positions is None:
         positions = _default_positions(b, s, inputs.device)
     if cfg.rope_kind == "mrope" and position_ids is None:
         position_ids = text_mrope_positions(positions)
     x = _embed_inputs(cfg, params, inputs)
-    for u in range(cfg.num_units):
-        unit_p = _unit_slice(params["unit"], u)
+
+    def unit_fn(x, aux, unit_p):
         for i, spec in enumerate(cfg.pattern):
-            x, _ = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x, positions,
-                                position_ids, mode, None, None)
-    for i, spec in enumerate(cfg.tail):
-        x, _ = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x,
-                            positions, position_ids, mode, None, None)
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+            x, _, a = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x,
+                                   positions, position_ids, mode, None, None)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    unit_fn = _remat(cfg, unit_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for u in range(cfg.num_units):
+        x, aux = unit_fn(x, aux, _unit_slice(params["unit"], u))
+    for i, spec in enumerate(cfg.tail):
+        x, _, a = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x,
+                               positions, position_ids, mode, None, None)
+        if a is not None:
+            aux = aux + a
+    x = apply_norm(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x), aux
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch):
-    raise NotImplementedError("loss_fn is not ported yet: train/ lands with "
-                              "slice H item 22")
+def loss_fn(cfg: ModelConfig, params: Params, batch
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ MoE aux). batch: inputs, labels[, mask]."""
+    logits, aux = forward(cfg, params, batch["inputs"],
+                          batch.get("positions"), batch.get("position_ids"),
+                          mode="train")
+    labels = batch["labels"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.to(torch.float32)
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    ce = torch.sum(nll * mask) / denom
+    total = ce + cfg.moe_aux_weight * aux
+    return total, {"ce": ce, "moe_aux": aux,
+                   "tokens": torch.sum(mask).to(torch.int32)}
 
 
 # ---------------------------------------------------------------------------
@@ -411,13 +477,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         unit_p = _unit_slice(params["unit"], u)
         unit_c = _unit_slice(cache["unit"], u)
         for i, spec in enumerate(cfg.pattern):
-            x, _ = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x, None,
-                                position_ids, "decode", unit_c[f"layer{i}"],
-                                index)
+            x, _, _ = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x, None,
+                                   position_ids, "decode",
+                                   unit_c[f"layer{i}"], index)
     for i, spec in enumerate(cfg.tail):
-        x, _ = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x, None,
-                            position_ids, "decode",
-                            cache["tail"][f"tail{i}"], index)
+        x, _, _ = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x,
+                               None, position_ids, "decode",
+                               cache["tail"][f"tail{i}"], index)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x), cache
 
@@ -443,9 +509,9 @@ def prefill(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
         caches = {}
         for i, spec in enumerate(cfg.pattern):
             name = f"layer{i}"
-            x, caches[name] = _apply_layer(cfg, spec, unit_p[name], x,
-                                           positions, position_ids,
-                                           "prefill", None, None, max_seq)
+            x, caches[name], _ = _apply_layer(cfg, spec, unit_p[name], x,
+                                              positions, position_ids,
+                                              "prefill", None, None, max_seq)
         if unit_cache is None:
             unit_cache = _stacked_like(caches, cfg.num_units)
         _copy_into(unit_cache, caches, u)
@@ -454,7 +520,7 @@ def prefill(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
         cache["tail"] = {}
         for i, spec in enumerate(cfg.tail):
             name = f"tail{i}"
-            x, cache["tail"][name] = _apply_layer(
+            x, cache["tail"][name], _ = _apply_layer(
                 cfg, spec, params["tail"][name], x, positions, position_ids,
                 "prefill", None, None, max_seq)
     x = apply_norm(cfg.norm, params["final_norm"], x[:, -1:])

@@ -1,0 +1,187 @@
+"""AdamW with fp32 master weights and quantised moment storage.
+
+The port of the JAX package's ``repro.train.optimizer``, with its state
+layout, so a JAX train state carries across
+(``repro_torch.models.convert.train_state_from_jax``):
+
+* **fp32 master** — model params live in bf16 for compute; the optimizer
+  keeps the fp32 copy.
+* **Moment dtypes** — ``f32`` (default), ``bf16``, or ``int8`` with
+  per-row (last-axis) fp32 scales ``{"q", "scale"}``.  Quantisation is
+  stateless (re-quantised each step).
+* Global-norm clipping, decoupled weight decay, bias correction; the step
+  ``count`` is int32, as in JAX.
+
+Trees are nested dicts of tensors; leaves are visited in the JAX
+package's order (dict keys sorted), which fixes the order of the
+global-norm sum.  Each leaf's update is one plain elementwise torch
+expression on the leaf's device, in JAX's order of operations (no
+``torch.optim``, no foreach or fused kernels: they round differently).
+The update returns new tensors; the state it was given is not changed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float | None = 1.0
+    moment_dtype: str = "f32"      # 'f32' | 'bf16' | 'int8'
+    master: bool = True
+
+
+def _is_q(x) -> bool:
+    return isinstance(x, dict) and set(x) == {"q", "scale"}
+
+
+def tree_paths(tree, prefix: tuple = (), *, is_leaf=None):
+    """(path, leaf) pairs in JAX's leaf order: dict keys sorted."""
+    if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], prefix + (k,), is_leaf=is_leaf)
+    else:
+        yield prefix, tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the trees ``rest`` of the
+    same structure), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_from_paths(items) -> dict:
+    """The nested dict of (path, leaf) pairs (``tree_paths``' inverse)."""
+    tree: dict = {}
+    for path, leaf in items:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+# --- int8 per-row quantisation ---------------------------------------------
+
+
+def _quantize(x: torch.Tensor) -> dict[str, torch.Tensor]:
+    xf = x.to(torch.float32)
+    if xf.dim() == 0:
+        xf = xf[None]
+        scale = torch.clamp_min(xf.abs(), 1e-20) / 127.0
+    else:
+        scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True),
+                                1e-20) / 127.0
+    return {"q": torch.round(xf / scale).to(torch.int8), "scale": scale}
+
+
+def _dequantize(d: dict[str, torch.Tensor]) -> torch.Tensor:
+    return d["q"].to(torch.float32) * d["scale"]
+
+
+def _store_moment(x: torch.Tensor, dtype: str):
+    if dtype == "int8":
+        return _quantize(x)
+    return x.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+
+
+def _load_moment(x, dtype: str) -> torch.Tensor:
+    if dtype == "int8":
+        return _dequantize(x)
+    return x.to(torch.float32)
+
+
+# --- state ------------------------------------------------------------------
+
+
+def adamw_init(cfg: OptConfig, params: Params) -> Params:
+    def zeros(p):
+        return _store_moment(torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), cfg.moment_dtype)
+    device = next(leaf for _, leaf in tree_paths(params)).device
+    state: dict[str, Any] = {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if cfg.master:
+        state["master"] = tree_map(lambda p: p.to(torch.float32, copy=True),
+                                   params)
+    return state
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.to(torch.float32)))
+              for _, x in tree_paths(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def adamw_update(
+    cfg: OptConfig,
+    schedule: Callable[[torch.Tensor], torch.Tensor],
+    params: Params,
+    grads: Params,
+    state: Params,
+) -> tuple[Params, Params, dict[str, torch.Tensor]]:
+    """Returns (new_params, new_state, info)."""
+    count = state["count"] + 1
+    lr = schedule(count)
+
+    gnorm = global_norm(grads)
+    if cfg.clip_norm is not None:
+        scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
+                                1.0)
+    else:
+        scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+
+    countf = count.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                       device=countf.device), countf)
+    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                       device=countf.device), countf)
+    md = cfg.moment_dtype
+
+    def upd(p, g, m, v, master):
+        g = g.to(torch.float32) * scale
+        mf = cfg.b1 * _load_moment(m, md) + (1 - cfg.b1) * g
+        vf = cfg.b2 * _load_moment(v, md) + (1 - cfg.b2) * torch.square(g)
+        step = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+        base = master if master is not None else p.to(torch.float32)
+        new_master = base - lr * (step + cfg.weight_decay * base)
+        return (new_master.to(p.dtype), _store_moment(mf, md),
+                _store_moment(vf, md), new_master)
+
+    paths = [path for path, _ in tree_paths(params)]
+    out = [upd(_get(params, path), _get(grads, path), _get(state["m"], path),
+               _get(state["v"], path),
+               _get(state["master"], path) if cfg.master else None)
+           for path in paths]
+    new_params = tree_from_paths((path, o[0]) for path, o in zip(paths, out))
+    new_state: dict[str, Any] = {
+        "m": tree_from_paths((path, o[1]) for path, o in zip(paths, out)),
+        "v": tree_from_paths((path, o[2]) for path, o in zip(paths, out)),
+        "count": count,
+    }
+    if cfg.master:
+        new_state["master"] = tree_from_paths(
+            (path, o[3]) for path, o in zip(paths, out))
+    return new_params, new_state, {"lr": lr, "grad_norm": gnorm}

@@ -108,7 +108,7 @@ def test_forward_matches_jax(arch, dt, monkeypatch):
     x = inputs(tcfg, 2, 21, 1)
     ties = router_near_ties(monkeypatch, 2.0 ** -7)
     want, jaux = j_tf.forward(jcfg, jp, jnp.asarray(x), mode="eval")
-    got, aux = transformer.forward(tcfg, tp, torch.as_tensor(x))
+    got, aux = transformer.forward(tcfg, tp, torch.as_tensor(x), mode="eval")
     assert float(aux) == float(jaux) == 0.0     # no aux outside training
     v = tcfg.vocab_size
     got, want = got[..., :v].numpy(), np.asarray(want)[..., :v]
@@ -221,10 +221,11 @@ def test_qwen2_vl_non_text_ids_match_jax():
     want, _ = j_tf.forward(jcfg, jp, jnp.asarray(x),
                            position_ids=jnp.asarray(ids), mode="eval")
     got, _ = transformer.forward(tcfg, tp, torch.as_tensor(x),
-                                 position_ids=torch.as_tensor(ids))
+                                 position_ids=torch.as_tensor(ids),
+                                 mode="eval")
     v = tcfg.vocab_size
     close(got[..., :v], np.asarray(want)[..., :v])
-    text, _ = transformer.forward(tcfg, tp, torch.as_tensor(x))
+    text, _ = transformer.forward(tcfg, tp, torch.as_tensor(x), mode="eval")
     assert float((text - got).abs().max()) > 1e-3  # the ids matter
     want_t, want_l = jax_greedy(jcfg, jp, x, 8, ids)
     got_t, got_l = port_greedy(tcfg, tp, x, 8, ids)

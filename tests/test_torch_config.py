@@ -45,6 +45,13 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.storage.kvoffload\n"
             "import repro_torch.storage.datapipe\n"
             "import repro_torch.storage.checkpoint\n"
+            "import repro_torch.train, repro_torch.train.optimizer\n"
+            "import repro_torch.train.schedules, repro_torch.train.trainer\n"
+            "import repro_torch.launch, repro_torch.launch.steps\n"
+            "import repro_torch.launch.dryrun\n"
+            "import repro_torch.distributed, repro_torch.distributed.fault\n"
+            "import repro_torch.distributed.compression\n"
+            "import repro_torch.configs.base\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
             "or m == 'ml_dtypes')\n"

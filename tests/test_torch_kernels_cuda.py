@@ -1195,3 +1195,149 @@ def test_k1_prices_a_storage_trace_within_drift_of_scan(card):
     for f in ("cmd_j", "io_j", "ecc_j", "ctrl_j", "array_j"):
         a, b = getattr(got.energy, f), getattr(want.energy, f)
         assert abs(a - b) <= bar * abs(b), f
+
+
+# --- the gradients: K4's backward kernels, K5 run backwards ------------------
+
+# b, h, kvh, s, d, window, dtype: the small cases of 8a's kind and the
+# slice's shape classes (D 8 -> 16, 64, 128, 256; no window and windows
+# within S; groups 1, 7, 12, 16; ragged S 100 and 1000)
+FLASH_BWD_CASES = [
+    (2, 4, 2, 128, 64, None, torch.float32),
+    (1, 4, 1, 256, 64, 64, torch.float32),
+    (2, 2, 2, 128, 32, None, torch.bfloat16),
+    (1, 8, 8, 64, 128, None, torch.float32),
+    (1, 2, 1, 64, 16, 16, torch.bfloat16),
+    (2, 4, 1, 100, 8, 37, torch.float32),
+    (1, 14, 2, 1000, 64, None, torch.bfloat16),
+    (1, 14, 2, 1000, 64, None, torch.float32),
+    (1, 12, 1, 100, 128, None, torch.bfloat16),
+    (1, 16, 1, 1000, 256, 300, torch.bfloat16),
+    (1, 16, 1, 100, 256, None, torch.float32),
+]
+# relative to each output's largest magnitude.  float32: sums in another
+# order; bfloat16: every output rounded to bf16 (half an ulp is 2^-9 of an
+# element), after the forward's bf16 output and lse
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def flash_bwd_inputs(card, case, seed=0):
+    b, h, kvh, s, d, window, dtype = case
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dtype)
+                   for shape in ((b, h, s, d), (b, kvh, s, d), (b, kvh, s, d),
+                                 (b, h, s, d)))
+    return q, k, v, do
+
+
+def rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=[str(i) for i in range(len(FLASH_BWD_CASES))])
+def test_flash_backward_matches_plain(card, case):
+    """lse and dq, dk, dv of the backward kernels against the plain
+    versions (lse from q and k alone), and two calls bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference)
+
+    *_, window, dtype = case
+    q, k, v, do = flash_bwd_inputs(card, case)
+    o, lse = FK.flash_attention_bhsd(q, k, v, window=window, with_lse=True)
+    assert torch.equal(o, FK.flash_attention_bhsd(q, k, v, window=window))
+    assert rel_err(lse, attention_lse_reference(q, k, window=window)) < 1e-5
+    before = FK.BACKWARD_LAUNCHES[FK.BWD]
+    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, window=window)
+    again = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, window=window)
+    want = attention_backward_reference(q, k, v, o, do, window=window)
+    torch.cuda.synchronize()
+    assert FK.BACKWARD_LAUNCHES[FK.BWD] == before + 2
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
+        assert x.dtype == dtype and x.shape == z.shape
+        assert torch.equal(x, y), name
+        assert rel_err(x, z) < FLASH_BWD_TOL[dtype], (name, rel_err(x, z))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_gradient_through_the_grouped_layout(card, dtype):
+    """``ops.flash_attention`` with autograd on the model's grouped layout:
+    the Function's gradients on the card against the CPU's plain ones."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g, device=card).to(dtype)
+               for shape in ((2, 150, 2, 3, 64), (2, 150, 2, 64),
+                             (2, 150, 2, 64)))
+    do = torch.randn(q.shape, generator=g, device=card).to(dtype)
+    before = FK.BACKWARD_LAUNCHES[FK.BWD]
+    grads = []
+    for xs in ((q, k, v), tuple(x.cpu().float() for x in (q, k, v))):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        out = flash_attention(*xs, window=70)
+        grads.append(torch.autograd.grad(out, xs, do.to(out)))
+    torch.cuda.synchronize()
+    for x, y in zip(*grads):
+        assert x.shape == y.shape
+        assert rel_err(x.cpu(), y) < FLASH_BWD_TOL[dtype]
+    assert FK.BACKWARD_LAUNCHES[FK.BWD] == before + 1
+
+
+def test_flash_backward_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, do = flash_bwd_inputs(card, (1, 2, 1, 64, 64, None,
+                                          torch.float32))
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="self-attention"):
+        FK.flash_attention_bwd_bhsd(q[:, :, :32], k, v, o[:, :, :32],
+                                    do[:, :, :32], lse[:, :, :32])
+    with pytest.raises(TypeError, match="is torch.bfloat16"):
+        FK.flash_attention_bwd_bhsd(q, k, v, o, do.bfloat16(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse.double())
+
+
+@pytest.mark.parametrize("b,s,r,dtype", RGLRU_GPU_CASES[:8])
+def test_rglru_backward_bit_equal_to_plain(card, b, s, r, dtype):
+    """K5 run backwards on flip(dh) and flip(a shifted left), both routes
+    (R = 37 f32 and R = 100 bf16 take the simple one), bit-equal to the
+    plain backward."""
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import plan as rglru_plan
+    from repro_torch.kernels.rglru.ref import rglru_scan_backward_ref
+
+    a, x = _rglru_inputs(card, b, s, r, dtype)
+    h = RK.rglru_scan_kernel(a, x)
+    dh = torch.randn(a.shape, device=card).to(dtype)
+    route = (rglru_plan.RING if r * dtype.itemsize % 16 == 0
+             else rglru_plan.SIMPLE)
+    before = dict(RK.LAUNCHES)
+    bwd = RK.BACKWARD_LAUNCHES[RK.BWD]
+    da, db = RK.rglru_scan_backward(a, h, dh)
+    want_da, want_db = rglru_scan_backward_ref(a, h, dh)
+    torch.cuda.synchronize()
+    key = RK.ROUTE_KEYS[route]
+    assert RK.LAUNCHES[key] == before[key] + 1
+    assert RK.BACKWARD_LAUNCHES[RK.BWD] == bwd + 1
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
+
+
+def test_rglru_gradient_through_the_op(card):
+    """``ops.rglru_linear_scan`` with autograd: the card's gradients
+    bit-equal to the CPU's plain ones."""
+    from repro_torch.kernels.rglru.ops import rglru_linear_scan
+
+    a, x = _rglru_inputs(card, 2, 300, 256, torch.float32)
+    dh = torch.randn(a.shape, device=card)
+    grads = []
+    for aa, xx, gg in ((a, x, dh), (a.cpu(), x.cpu(), dh.cpu())):
+        aa, xx = aa.clone().requires_grad_(True), xx.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(rglru_linear_scan(aa, xx), (aa, xx),
+                                         gg))
+    for got, want in zip(*grads):
+        assert torch.equal(got.cpu(), want)

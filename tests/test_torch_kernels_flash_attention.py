@@ -6,6 +6,7 @@ Bars are those of ``tests/test_kernels.py``: 5e-5 in float32 (sums in
 another order), 2.5e-2 in bfloat16 (outputs rounded to bf16, whose half
 ulp near 1 is 4e-3, after sums in another order)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,3 +99,100 @@ def test_ragged_lengths_match_jax_reference():
     want = j_reference(*(jnp.asarray(x) for x in xs), causal=True, window=37)
     got = attention_reference(*_port(xs, F32), causal=True, window=37)
     assert _err(got, want) < TOL[F32]
+
+
+# --- the gradient: the plain backward (and lse) the kernels are held to -----
+# bars relative to each gradient's largest magnitude: float32 sums in
+# another order (1e-4); bfloat16 inputs and outputs rounded to bf16 (2.5e-2)
+BWD_TOL = {F32: 1e-4, BF16: 2.5e-2}
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want).astype(np.float32)
+    return float(np.max(np.abs(got.float().numpy() - want))
+                 / max(float(np.max(np.abs(want))), 1e-30))
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(i) for i in range(len(CASES))])
+def test_backward_plain_version_matches_jax_grad(case):
+    """``attention_backward_reference`` against ``jax.vjp`` of the JAX
+    package's ``attention_reference`` with the same output gradient."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference)
+    b, h, kvh, sq, sk, d, causal, window, dt, _, _ = case
+    xs = _inputs(case, seed=sq + sk + d + 1)
+    do = np.random.default_rng(d).standard_normal((b, h, sq, d)).astype(
+        np.float32)
+    off = sk - sq
+    jx = [jnp.asarray(x, JDT[dt]) for x in xs]
+    jo, vjp = jax.vjp(lambda q, k, v: j_reference(
+        q, k, v, causal=causal, window=window, q_offset=off), *jx)
+    want = vjp(jnp.asarray(do, JDT[dt]))
+    q, k, v = _port(xs, dt)
+    o = attention_reference(q, k, v, causal=causal, window=window,
+                            q_offset=off)
+    got = attention_backward_reference(q, k, v, o, torch.as_tensor(do).to(
+        TDT[dt]), causal=causal, window=window, q_offset=off)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == TDT[dt] and tuple(g.shape) == w.shape
+        assert _rel(g, w) < BWD_TOL[dt], (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("window", (None, 5, 40))
+@pytest.mark.parametrize("q_offset", (0, 24))
+def test_backward_plain_version_matches_autograd(window, q_offset):
+    """The plain backward (lse from the forward's formula) against
+    ``torch.autograd`` of the port's plain forward, GQA and rows without
+    a kept key included (window 5 at q_offset 24 over 40 keys)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            requires_grad=True)
+               for s in ((2, 6, 40 - q_offset, 16), (2, 2, 40, 16),
+                         (2, 2, 40, 16)))
+    do = torch.as_tensor(rng.standard_normal(q.shape).astype(np.float32))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    o = attention_reference(q, k, v, **kw)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    lse = attention_lse_reference(q.detach(), k.detach(), **kw)
+    got = attention_backward_reference(q.detach(), k.detach(), v.detach(),
+                                       o.detach(), do, lse, **kw)
+    for g, w in zip(got, want):
+        assert _rel(g, w.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("layout", ("grouped", "bhsd"))
+def test_gradient_goes_through_the_function(layout):
+    """With gradients on, ``ops.flash_attention`` runs the autograd
+    Function; on the CPU its backward is the plain backward, in the
+    layout it was given, and no kernel is counted."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference)
+    rng = np.random.default_rng(4)
+    shapes = (((2, 50, 2, 3, 16), (2, 50, 2, 16), (2, 50, 2, 16))
+              if layout == "grouped" else
+              ((2, 6, 50, 16), (2, 2, 50, 16), (2, 2, 50, 16)))
+    xs = [torch.tensor(rng.standard_normal(s).astype(np.float32),
+                       requires_grad=True) for s in shapes]
+    out = flash_attention(*xs, window=9)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    do = torch.as_tensor(rng.standard_normal(out.shape).astype(np.float32))
+    before = (dict(K.LAUNCHES), dict(K.BACKWARD_LAUNCHES))
+    got = torch.autograd.grad(out, xs, do)
+    assert (dict(K.LAUNCHES), dict(K.BACKWARD_LAUNCHES)) == before
+    if layout == "grouped":
+        b, s, kvh, g, d = shapes[0]
+        q = xs[0].detach().reshape(b, s, kvh * g, d).transpose(1, 2)
+        k, v = (x.detach().transpose(1, 2) for x in xs[1:])
+        o = out.detach().reshape(b, s, kvh * g, d).transpose(1, 2)
+        dd = do.reshape(b, s, kvh * g, d).transpose(1, 2)
+        want = attention_backward_reference(q, k, v, o, dd, window=9)
+        want = (want[0].transpose(1, 2).reshape(shapes[0]),
+                want[1].transpose(1, 2), want[2].transpose(1, 2))
+    else:
+        want = attention_backward_reference(
+            *(x.detach() for x in xs), out.detach(), do, window=9)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.allclose(g, w, atol=1e-6)

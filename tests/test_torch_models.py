@@ -300,7 +300,8 @@ def test_forward(smoke_models, dt):
     jcfg, tcfg, jp, tp = smoke_models[dt]
     toks = tokens(2, 20, 16)
     want, _ = j_tf.forward(jcfg, jp, jnp.asarray(toks), mode="eval")
-    got, aux = transformer.forward(tcfg, tp, torch.as_tensor(toks))
+    got, aux = transformer.forward(tcfg, tp, torch.as_tensor(toks),
+                                   mode="eval")
     assert got.shape == (2, 20, tcfg.padded_vocab) and float(aux) == 0.0
     assert_close(got, want, dt)
 
@@ -355,7 +356,8 @@ def test_unported_mixers_and_training_name_their_slice():
     """Every mixer and FFN of the JAX package is ported: the xLSTM and
     MoE layers initialise and run (``test_torch_xlstm.py`` and
     ``test_torch_moe.py`` hold them against JAX); unknown names raise;
-    training still raises naming its slice."""
+    training is ported too (``test_torch_train_step.py`` holds it against
+    JAX): ``mode="train"`` sums the MoE term and ``loss_fn`` runs."""
     from repro_torch.models.moe import MoESpec
     from repro_torch.models.xlstm import MLSTMSpec
 
@@ -367,16 +369,19 @@ def test_unported_mixers_and_training_name_their_slice():
     params = transformer.init_params(cfg, 0, device="cpu")
     assert params["unit"]["layer0"]["ffn"]["wi"].shape == (2, 4, 64, 32)
     logits, aux = transformer.forward(
-        cfg, params, torch.as_tensor(tokens(2, 6, 3)))
+        cfg, params, torch.as_tensor(tokens(2, 6, 3)), mode="eval")
     assert logits.shape == (2, 6, cfg.padded_vocab) and float(aux) == 0.0
+    moe_cfg, moe_params = cfg, params
     for bad in (transformer.LayerSpec(mixer="mamba"),
                 transformer.LayerSpec(ffn="glu")):
         cfg = dataclasses.replace(SMOKE, pattern=(bad,), tail=(),
                                   n_layers=2)
         with pytest.raises(ValueError, match="unknown"):
             transformer.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice H"):
-        transformer.forward(SMOKE, None, torch.zeros((1, 2), dtype=torch.int32),
-                            mode="train")
-    with pytest.raises(NotImplementedError, match="slice H"):
-        transformer.loss_fn(SMOKE, None, {})
+    toks = torch.as_tensor(tokens(2, 6, 3))
+    _, aux = transformer.forward(moe_cfg, moe_params, toks, mode="train")
+    assert float(aux) > 0.0
+    loss, metrics = transformer.loss_fn(moe_cfg, moe_params,
+                                         {"inputs": toks, "labels": toks})
+    assert torch.isfinite(loss) and int(metrics["tokens"]) == 12
+    assert float(metrics["moe_aux"]) == float(aux)
