@@ -219,11 +219,14 @@ Phases, one report line each (every check raises on failure):
    rows' log-sum-exp (its output unchanged) and its backward kernels
    against ``attention_lse_reference`` / ``attention_backward_reference``
    on phase 8a's self-attention cases and the slice's shapes (D 8 -> 16,
-   64, 128, 256; no window, window 2048; groups 1-16; S 100, 1000, 2100;
-   both dtypes) within FLASH_BWD_TOL and LSE_TOL, two calls bit-equal;
-   K5's backward (K5 on reversed, shifted inputs) bit-equal to
-   ``rglru_scan_backward_ref`` on both routes; (14b) qwen2-0.5b
-   ``CONFIG`` at full width and depth, train state from seed 0, one
+   64, 128, 256; no window, windows 300 and 2048; groups 1-16; S 100,
+   1000, 2100; both dtypes) within FLASH_BWD_TOL and LSE_TOL, two calls
+   bit-equal, each through its dtype's route (bf16 the tensor-core
+   kernels, f32 the CUDA-core ones, asserted by the per-route counts),
+   and the gradient of ``ops.flash_attention`` on the grouped layout at
+   B = 2 against the CPU's plain one; K5's reverse mode bit-equal to
+   ``rglru_scan_backward_ref`` on both routes, one launch a call; (14b)
+   qwen2-0.5b ``CONFIG`` at full width and depth, train state from seed 0, one
    step's loss and every gradient leaf with the kernels against the same
    step with their plain versions on the card (TRAIN_*_TOL), then one
    ``make_train_step`` step (2 x 4096 tokens, ``grad_accum=2``, remat
@@ -237,7 +240,10 @@ Phases, one report line each (every check raises on failure):
    plain versions, two steps with K5's ring and K4's D = 256 windowed
    launches counted; K4's backward timed at 14b's and 14d's shapes beside
    its plain version, its operations bound and SDPA's backward, and K5's
-   at 14d's shape beside its bytes bound.
+   reverse mode at 14d's shape beside its bytes bound; one more step of
+   14b and of 14d profiled by kernel name (``step_split``: the port's
+   kernels' device time a step among the rest); every K4 backward of
+   14b, 14c and 14d must take the tensor-core route.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -2451,25 +2457,36 @@ class DeviceLog:
         self.mf.structured_segment_products = self.fn
 
 
-def profiled(fn) -> dict:
+def profiled(fn, cpu: bool = True) -> dict:
     """Device time and count of the CUDA kernels one call of ``fn`` runs,
-    by ``torch.profiler``; "not measured" where it records no device
-    event."""
+    and their device time (ms) by kernel name (template arguments and
+    parameters cut), by ``torch.profiler`` (tracing the CPU's ops too
+    where ``cpu``); "not measured" where it records no device event."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        return {"device_ms": "not measured", "kernels": "not measured"}
-    return {"device_ms": sum(e.time_range.elapsed_us()
-                             for e in kernels) / 1e3,
-            "kernels": len(kernels)}
+        return {"device_ms": "not measured", "kernels": "not measured",
+                "by_name": "not measured"}
+    by_name = {}
+    for e in kernels:
+        # "void (anonymous namespace)::tcb::flash_bwd_dq_tc<64>(...)"
+        m = re.search(r"(\w+)(?:<[^()]*>)?\(",
+                      e.name.replace("(anonymous namespace)", ""))
+        name = m[1] if m else e.name
+        by_name[name] = (by_name.get(name, 0.0)
+                         + e.time_range.elapsed_us() / 1e3)
+    return {"device_ms": sum(by_name.values()), "kernels": len(kernels),
+            "by_name": by_name}
 
 
 def timed(fn) -> tuple[float, object]:
@@ -4204,8 +4221,8 @@ def bwd_small_cases():
     """(b, h, kvh, s, d, causal, window, dtype) of 14a: phase 8a's small
     cases with Sq = Sk (the backward takes self-attention only), then the
     slice's shape classes in both dtypes: D 8 (zero-padded to 16), 64,
-    128, 256; no window and window 2048 (biting at S = 2100); groups 1,
-    7, 12, 16; ragged S 100 and 1000."""
+    128, 256; no window and windows 300 and 2048 (biting at S = 1000 and
+    2100); groups 1, 7, 12, 16; ragged S 100 and 1000."""
     import torch
     cases = [(b, h, kvh, sq, d, causal, window, dt)
              for b, h, kvh, sq, sk, d, causal, window, dt
@@ -4213,6 +4230,7 @@ def bwd_small_cases():
     for dt in (torch.float32, torch.bfloat16):
         cases += [(1, 7, 1, 100, 8, True, None, dt),
                   (1, 14, 2, 1000, 64, True, None, dt),
+                  (1, 14, 2, 1000, 64, True, 300, dt),
                   (1, 12, 1, 1000, 128, True, 2048, dt),
                   (1, 16, 1, 1000, 256, True, 2048, dt),
                   (1, 16, 1, 2100, 256, True, 2048, dt)]
@@ -4223,9 +4241,12 @@ def check_flash_bwd(device) -> dict:
     """14a for K4: the forward's lse against ``attention_lse_reference``
     (and its output unchanged by asking for lse), dq, dk, dv of the
     backward kernels against ``attention_backward_reference`` within
-    FLASH_BWD_TOL, two calls bit-equal; one backward call counted each."""
+    FLASH_BWD_TOL, two calls bit-equal, each counted once in all and once
+    on its dtype's route; then ``ops.flash_attention``'s gradient on the
+    grouped layout (B = 2, bf16) against the CPU's plain one."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_reference, attention_lse_reference)
     cases = bwd_small_cases()
@@ -4233,6 +4254,7 @@ def check_flash_bwd(device) -> dict:
     lse_worst = 0.0
     FK.reset_launches()
     for i, (b, h, kvh, s, d, causal, window, dt) in enumerate(cases):
+        routes = dict(FK.BACKWARD_LAUNCHES)
         g = torch.Generator(device=device).manual_seed(100 + i)
         q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dt)
                        for shape in ((b, h, s, d), (b, kvh, s, d),
@@ -4244,6 +4266,11 @@ def check_flash_bwd(device) -> dict:
                                  "forward's output")
         got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
         again = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+        key = FK.BWD_ROUTES[FK.route(dt)]
+        if FK.BACKWARD_LAUNCHES != {**routes, FK.BWD: routes[FK.BWD] + 2,
+                                    key: routes[key] + 2}:
+            raise AssertionError(f"14a case {i} {cases[i]}: backward routes "
+                                 f"{routes} -> {FK.BACKWARD_LAUNCHES}")
         want = attention_backward_reference(q, k, v, o, do, **kw)
         want_lse = attention_lse_reference(q, k, **kw)
         torch.cuda.synchronize()
@@ -4262,23 +4289,44 @@ def check_flash_bwd(device) -> dict:
     if n_bwd != 2 * len(cases):
         raise AssertionError(f"14a: {n_bwd} backward calls counted, "
                              f"expected {2 * len(cases)}")
+    by_route = {k: v for k, v in FK.BACKWARD_LAUNCHES.items() if k != FK.BWD}
+    # ops.flash_attention's Function on the grouped layout [B, S, kvH, G, D]
+    g = torch.Generator(device=device).manual_seed(99)
+    xs = [torch.randn(shape, generator=g, device=device).bfloat16()
+          for shape in ((2, 300, 2, 7, 64), (2, 300, 2, 64), (2, 300, 2, 64))]
+    do = torch.randn(xs[0].shape, generator=g, device=device).bfloat16()
+    grads = []
+    for ins in (xs, [x.cpu().float() for x in xs]):
+        ins = [x.clone().requires_grad_(True) for x in ins]
+        out = flash_attention(*ins, window=100)
+        grads.append(torch.autograd.grad(out, ins, do.to(out)))
+    torch.cuda.synchronize()
+    grouped = max(rel_max(x.cpu(), y) for x, y in zip(*grads))
+    if (grouped > FLASH_BWD_TOL[str(torch.bfloat16)]
+            or FK.BACKWARD_LAUNCHES[FK.BWD_ROUTES[FK.TC]]
+            != by_route[FK.BWD_ROUTES[FK.TC]] + 1):
+        raise AssertionError(f"14a grouped layout: {grouped:.2e} (bar "
+                             f"{FLASH_BWD_TOL[str(torch.bfloat16)]}), "
+                             f"launches {FK.BACKWARD_LAUNCHES}")
     log(f"[14a] K4 backward on {len(cases)} cases (D 8-256, groups 1-16, "
-        f"S 64-2100, windows none-2048, both dtypes): dq/dk/dv within "
+        f"S 64-2100, windows none-2048, both dtypes; routes {by_route}): "
+        f"grouped layout through ops.flash_attention within "
+        f"{grouped:.2e}; dq/dk/dv within "
         f"{worst[str(torch.float32)]:.2e} (f32, bar "
         f"{FLASH_BWD_TOL[str(torch.float32)]}) and "
         f"{worst[str(torch.bfloat16)]:.2e} (bf16, bar "
         f"{FLASH_BWD_TOL[str(torch.bfloat16)]}) of the largest magnitude, "
         f"lse within {lse_worst:.2e} (bar {LSE_TOL}); two calls bit-equal; "
         f"{n_bwd} backward calls, forward launches {dict(FK.LAUNCHES)}")
-    return {"cases": len(cases), "rel_err": worst, "lse_rel_err": lse_worst}
+    return {"cases": len(cases), "rel_err": worst, "lse_rel_err": lse_worst,
+            "routes": by_route, "grouped_rel_err": grouped}
 
 
 def check_rglru_bwd(device) -> dict:
-    """14a for K5: ``rglru_scan_backward`` (K5 on flip(dh) and flip(a
-    shifted left)) bit-equal to ``rglru_scan_backward_ref`` on both
-    routes: R = 37 f32 and R = 100 bf16 row pitches TMA cannot read take
-    the simple kernel, the rest (14d's [1, 4096, 4096] among them) the
-    ring."""
+    """14a for K5: ``rglru_scan_backward`` (one launch of K5's reverse
+    mode) bit-equal to ``rglru_scan_backward_ref`` on both routes: R = 37
+    f32 and R = 100 bf16 row pitches TMA cannot read take the simple
+    kernel, the rest (14d's [1, 4096, 4096] among them) the ring."""
     import torch
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rglru import plan as RP
@@ -4297,7 +4345,8 @@ def check_rglru_bwd(device) -> dict:
         da, db = RK.rglru_scan_backward(a, h, dh)
         torch.cuda.synchronize()
         key = RK.ROUTE_KEYS[route]
-        if RK.LAUNCHES[key] != before[key] + 1:
+        if RK.LAUNCHES != {**before, key: before[key] + 1,
+                           RK.TOTAL: before[RK.TOTAL] + 1}:
             raise AssertionError(f"14a K5 backward {cases[i]}: route counts "
                                  f"{before} -> {RK.LAUNCHES}")
         want_da, want_db = rglru_scan_backward_ref(a, h, dh)
@@ -4305,9 +4354,9 @@ def check_rglru_bwd(device) -> dict:
             raise AssertionError(f"14a K5 backward {cases[i]} differs from "
                                  "its plain version")
         routes[route] += 1
-    log(f"[14a] K5 backward bit-equal to rglru_scan_backward_ref on "
-        f"{len(cases)} shapes ({routes[RP.RING]} on the ring, "
-        f"{routes[RP.SIMPLE]} on the simple route)")
+    log(f"[14a] K5 backward (one reverse launch a call) bit-equal to "
+        f"rglru_scan_backward_ref on {len(cases)} shapes ({routes[RP.RING]} "
+        f"on the ring, {routes[RP.SIMPLE]} on the simple route)")
     return {"cases": len(cases), "routes": routes}
 
 
@@ -4429,6 +4478,37 @@ def grads_against_plain(label, cfg, params, batch, accum) -> dict:
     return out
 
 
+#: the port's kernels a training step runs, as ``profiled`` names them
+STEP_KERNELS = ("flash_fwd_tc", "flash_bwd_prep", "flash_bwd_dkdv_tc",
+                "flash_bwd_sum", "flash_bwd_dq_tc", "rglru_scan_ring",
+                "rglru_scan_ring_bwd")
+
+
+def step_split(label, fn, step_s) -> dict:
+    """Where one training step's device time goes: every kernel of one
+    call of ``fn`` by name (``profiled``, device activity only), the
+    port's own (STEP_KERNELS) apart.  (A window holding only the port's
+    ctypes-launched kernels, timed alone after other profiler sessions
+    in the process, was seen to record no device event; a whole step's
+    window records them.)"""
+    t0 = time.perf_counter()
+    split = profiled(fn, cpu=False)["by_name"]
+    profiled_s = time.perf_counter() - t0
+    if not isinstance(split, dict):
+        log(f"[{label}] one step's kernels: not measured")
+        return {}
+    out = {"step_device_ms": sum(split.values()),
+           "step_kernels_ms": dict(sorted(split.items(),
+                                          key=lambda kv: -kv[1])[:12]),
+           "step_ours_ms": {k: split[k] for k in STEP_KERNELS
+                            if k in split}}
+    log(f"[{label}] one step's kernels by torch.profiler ({profiled_s:.2f} "
+        f"s with the profiler): {out['step_device_ms']:.1f} ms of device "
+        f"time against the step's {1e3 * step_s:.1f} ms; the port's "
+        f"{out['step_ours_ms']} ms; the largest {out['step_kernels_ms']} ms")
+    return out
+
+
 def time_k4_bwd(q, k, v, window) -> dict:
     """K4's backward at one shape: one call between CUDA events (median
     of 3), its plain version, the error against it, SDPA's backward
@@ -4492,12 +4572,14 @@ def time_k4_bwd(q, k, v, window) -> dict:
 
 
 def time_k5_bwd(a, h) -> dict:
-    """K5's backward at one shape: ``rglru_scan_backward`` (flips, the
-    scan, the product) as one call between CUDA events, its plain
-    version, the bytes bound (a, h and dh read, da and db written), and
-    the one K5 launch inside it alone, on the flipped inputs it gets."""
+    """K5's backward at one shape: ``rglru_scan_backward`` (its outputs
+    allocated, then one reverse launch) as one call between CUDA events,
+    its plain version, the bytes bound (a, h and dh read, da and db
+    written), and the reverse kernel's launch alone into outputs made
+    beforehand (``scan_ms``)."""
     import torch
     from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import plan as RP
     from repro_torch.kernels.rglru.ref import rglru_scan_backward_ref
     dh = torch.randn(a.shape, generator=torch.Generator(
         device=a.device).manual_seed(8), device=a.device).to(a.dtype)
@@ -4506,9 +4588,11 @@ def time_k5_bwd(a, h) -> dict:
                              warmup=False),
          "bytes": 5.0 * a.numel() * a.element_size(), "shape": list(a.shape)}
     t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], 3.0 * a.numel())
-    a_rev = torch.cat([a[:, 1:], a.new_zeros(a[:, :1].shape)], 1).flip(1)
-    dh_rev = dh.flip(1)
-    t["scan_ms"] = cuda_ms(lambda: RK.rglru_scan_kernel(a_rev, dh_rev))
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    p = RP.plan_bwd(*a.shape, a.element_size(),
+                    [x.data_ptr() for x in (a, h, dh, da, db)])
+    t["route"] = p.route
+    t["scan_ms"] = cuda_ms(lambda: RK.launch_bwd(a, h, dh, da, db, p))
     return t
 
 
@@ -4603,10 +4687,12 @@ def train_run(cfg, device) -> dict:
         raise AssertionError(f"14c: K4 launches {counts}")
     n_exec = len(hist)
     want_bwd = n_exec * TRAIN_ACCUM * cfg.num_units
-    if counts[FK.BWD] != want_bwd or counts[FK.TC] != 2 * want_bwd:
+    if (counts[FK.BWD] != want_bwd or counts[FK.TC] != 2 * want_bwd
+            or counts[FK.BWD_ROUTES[FK.TC]] != want_bwd):
         raise AssertionError(f"14c: K4 launches {counts}, expected "
                              f"{2 * want_bwd} forward and {want_bwd} "
-                             "backward (remat runs each forward twice)")
+                             "backward, all on the tensor cores (remat runs "
+                             "each forward twice)")
     alone = [s for s, w in steps if not w][1:]     # the first step warms up
     during = [s for s, w in steps if w]
     step_s = statistics.median(alone)
@@ -4659,8 +4745,46 @@ def phase_train(device) -> dict:
     out = {"flash_bwd": check_flash_bwd(device),
            "rglru_bwd": check_rglru_bwd(device)}
 
-    # -- 14b: one train step of qwen2-0.5b, kernels against plain --------
+    # -- kernel times at 14b's and 14d's shapes -------------------------
+    g = torch.Generator(device=device).manual_seed(9)
     cfg = get_arch(TRAIN_ARCH).config
+    rg = dataclasses.replace(get_arch("recurrentgemma-9b").config,
+                             n_layers=RG_LAYERS)
+    hd, kvh, h = cfg.hd, cfg.n_kv_heads, cfg.n_heads
+    qwen = [torch.randn(shape, generator=g, device=device).bfloat16()
+            for shape in ((1, h, TRAIN_SEQ, hd), (1, kvh, TRAIN_SEQ, hd),
+                          (1, kvh, TRAIN_SEQ, hd))]
+    out["k4_bwd"] = time_k4_bwd(*qwen, None)
+    del qwen
+    win = rg.pattern[-1].window
+    rgq = [torch.randn(shape, generator=g, device=device).bfloat16()
+           for shape in ((1, rg.n_heads, TRAIN_SEQ, rg.hd),
+                         (1, rg.n_kv_heads, TRAIN_SEQ, rg.hd),
+                         (1, rg.n_kv_heads, TRAIN_SEQ, rg.hd))]
+    out["k4_bwd_rg"] = time_k4_bwd(*rgq, win)
+    del rgq
+    a, x = rglru_inputs(1, TRAIN_SEQ, rg.rglru.d_rnn, torch.float32, 10,
+                        device)
+    out["k5_bwd"] = time_k5_bwd(a, RK.rglru_scan_kernel(a, x))
+    del a, x
+    for key in ("k4_bwd", "k4_bwd_rg"):
+        t = out[key]
+        log(f"[14] K4 backward at q {tuple(t['shape'])} k/v "
+            f"{tuple(t['kv_shape'])} bf16, window {t['window']}: "
+            f"{t['ms']:.3f} ms ({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s of "
+            f"the kept pairs, {100 * t['bound_ms'] / t['ms']:.1f} % of the "
+            f"bound {t['bound_ms']:.4f} ms, {t['bound_by']}), plain "
+            f"{t['plain_ms']:.3f} ms, SDPA backward {t['library_ms']} ms "
+            f"(its forward {t.get('library_fwd_ms')} ms); K4's forward "
+            f"with lse {t['fwd_lse_ms']:.3f} ms; within {t['rel_err']:.2e} "
+            "of the plain version")
+    t = out["k5_bwd"]
+    log(f"[14] K5 backward at {tuple(t['shape'])} f32: {t['ms']:.3f} ms "
+        f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}; the reverse "
+        f"{t['route']} launch alone, outputs made beforehand, "
+        f"{t['scan_ms']:.3f} ms), plain {t['plain_ms']:.1f} ms")
+
+    # -- 14b: one train step of qwen2-0.5b, kernels against plain --------
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(cfg, OptConfig(), torch.Generator(
@@ -4683,11 +4807,15 @@ def phase_train(device) -> dict:
     counts = kernel_counts()
     del new_state
     want = TRAIN_ACCUM * cfg.num_units
-    if counts[FK.BWD] != want or counts[FK.TC] != 2 * want:
+    if (counts[FK.BWD] != want or counts[FK.TC] != 2 * want
+            or counts[FK.BWD_ROUTES[FK.TC]] != want):
         raise AssertionError(f"14b: a step launched {counts}")
     out["14b"].update(init_s=init_s, step_s=step_s, step_launches=counts,
                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                       metrics={k: float(v) for k, v in metrics.items()})
+    # where a step's device time goes: one more step (on the same state;
+    # its result is dropped)
+    out["14b"].update(step_split("14b", lambda: step(state, batch), step_s))
     log(f"[14b] {cfg.name}: train state initialised in {init_s:.1f} s; one "
         f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_ACCUM} "
         f"microbatches, remat {cfg.remat}: {step_s:.2f} s (the first); K4 "
@@ -4701,8 +4829,6 @@ def phase_train(device) -> dict:
     out["14c"] = train_run(cfg, device)
 
     # -- 14d: recurrentgemma-9b at full width, depth cut ----------------
-    rg = dataclasses.replace(get_arch("recurrentgemma-9b").config,
-                             n_layers=RG_LAYERS)
     ocfg = OptConfig(moment_dtype="int8")
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(rg, ocfg, torch.Generator(
@@ -4730,7 +4856,9 @@ def phase_train(device) -> dict:
     n_attn = sum(sp.mixer == "attn" for sp in rg.pattern) * rg.num_units
     k5_step = 3 * n_unit + 2 * n_tail
     want = {FK.TC: 2 * n_attn * RG_STEPS, FK.F32: 0,
-            FK.BWD: n_attn * RG_STEPS, RK.TOTAL: k5_step * RG_STEPS,
+            FK.BWD: n_attn * RG_STEPS,
+            FK.BWD_ROUTES[FK.TC]: n_attn * RG_STEPS, FK.BWD_ROUTES[FK.F32]: 0,
+            RK.TOTAL: k5_step * RG_STEPS,
             RK.ROUTE_KEYS["ring"]: k5_step * RG_STEPS,
             RK.ROUTE_KEYS["simple"]: 0, RK.BWD: (n_unit + n_tail) * RG_STEPS}
     if counts != want or not all(math.isfinite(x) for x in losses):
@@ -4739,6 +4867,9 @@ def phase_train(device) -> dict:
     out["14d"].update(n_params=n_params, steps_s=rg_s, losses=losses,
                       step_launches=counts,
                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # one more step's kernels (its result dropped), as 14b's
+    out["14d"].update(step_split("14d", lambda: step(state, batch),
+                                 rg_s / RG_STEPS))
     log(f"[14d] {rg.name} cut to {RG_LAYERS} layers: {n_params / 1e9:.3f} B "
         f"parameters, int8 moments; {RG_STEPS} steps of {RG_BATCH} x "
         f"{TRAIN_SEQ} in {rg_s:.2f} s, losses {losses}; launches {counts} "
@@ -4747,41 +4878,6 @@ def phase_train(device) -> dict:
         f"{n_attn} backward a step); peak {out['14d']['peak_gb']:.2f} GB")
     del state, batch
 
-    # -- kernel times at 14b's and 14d's shapes -------------------------
-    g = torch.Generator(device=device).manual_seed(9)
-    hd, kvh, h = cfg.hd, cfg.n_kv_heads, cfg.n_heads
-    qwen = [torch.randn(shape, generator=g, device=device).bfloat16()
-            for shape in ((1, h, TRAIN_SEQ, hd), (1, kvh, TRAIN_SEQ, hd),
-                          (1, kvh, TRAIN_SEQ, hd))]
-    out["k4_bwd"] = time_k4_bwd(*qwen, None)
-    del qwen
-    win = rg.pattern[-1].window
-    rgq = [torch.randn(shape, generator=g, device=device).bfloat16()
-           for shape in ((1, rg.n_heads, TRAIN_SEQ, rg.hd),
-                         (1, rg.n_kv_heads, TRAIN_SEQ, rg.hd),
-                         (1, rg.n_kv_heads, TRAIN_SEQ, rg.hd))]
-    out["k4_bwd_rg"] = time_k4_bwd(*rgq, win)
-    del rgq
-    a, x = rglru_inputs(1, TRAIN_SEQ, rg.rglru.d_rnn, torch.float32, 10,
-                        device)
-    out["k5_bwd"] = time_k5_bwd(a, RK.rglru_scan_kernel(a, x))
-    del a, x
-    for key in ("k4_bwd", "k4_bwd_rg"):
-        t = out[key]
-        log(f"[14] K4 backward at q {tuple(t['shape'])} k/v "
-            f"{tuple(t['kv_shape'])} bf16, window {t['window']}: "
-            f"{t['ms']:.3f} ms ({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s of "
-            f"the kept pairs, {100 * t['bound_ms'] / t['ms']:.1f} % of the "
-            f"bound {t['bound_ms']:.4f} ms, {t['bound_by']}), plain "
-            f"{t['plain_ms']:.3f} ms, SDPA backward {t['library_ms']} ms "
-            f"(its forward {t.get('library_fwd_ms')} ms); K4's forward "
-            f"with lse {t['fwd_lse_ms']:.3f} ms; within "
-            f"{t['rel_err']:.2e} of the plain version")
-    t = out["k5_bwd"]
-    log(f"[14] K5 backward at {tuple(t['shape'])} f32: {t['ms']:.3f} ms "
-        f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}; its K5 launch "
-        f"alone {t['scan_ms']:.3f} ms, the rest torch copies), plain "
-        f"{t['plain_ms']:.1f} ms")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[14] phase 14 in {out['seconds']:.1f} s")
     return out
@@ -5152,24 +5248,32 @@ def main() -> int:
                             ("13c", "granite-moe-3b-a800m"),
                             ("13d", "qwen2-vl-2b"))
         for r in (lm_configs[arch],)] + [
-        {"name": "flash_attention_bwd (K4 backward: dq, dk, dv from lse)",
+        {"name": "flash_attention_bwd (K4 backward: dq, dk, dv from lse; "
+                 "bf16 tensor-core route flash_bwd_prep / flash_bwd_dkdv_tc "
+                 "/ flash_bwd_sum / flash_bwd_dq_tc)",
          "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
          "launches": train["14c"]["launches"][FK.BWD],
+         "routes": {r: train["14c"]["launches"][r]
+                    for r in FK.BWD_ROUTES.values()},
+         "routes_14a": train["flash_bwd"]["routes"],
          **{k: train["k4_bwd"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "fwd_lse_ms", "shape", "kv_shape")},
+         "step_device_ms_14b": train["14b"].get("step_ours_ms"),
          "at_14d": {k: train["k4_bwd_rg"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "fwd_lse_ms", "shape", "kv_shape", "window")},
+         "step_device_ms_14d": train["14d"].get("step_ours_ms"),
          "launches_14d": train["14d"]["step_launches"][FK.BWD]},
-        {"name": "rglru_scan backward (K5 run backwards in time)",
+        {"name": "rglru_scan backward (K5 reverse mode: rglru_scan_ring_bwd "
+                 "/ rglru_scan_bwd)",
          "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru/kernel.py:66",
          "launches": train["14d"]["step_launches"][RK.BWD],
          "max_abs_err": 0.0, "library_ms": None,
          **{k: train["k5_bwd"][k] for k in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "scan_ms",
+             "ms", "plain_ms", "bound_ms", "bound_by", "scan_ms", "route",
              "shape")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

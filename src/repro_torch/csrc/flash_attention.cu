@@ -239,6 +239,31 @@ template <> struct WgmmaSS<64> {
   }
 };
 
+template <> struct WgmmaSS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+  static __device__ __forceinline__ void first(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(0));
+  }
+};
+
 template <int N> struct WgmmaRS;
 
 template <> struct WgmmaRS<16> {
@@ -349,36 +374,45 @@ template <> struct WgmmaRS<256> {
 };
 
 
-// S = Q K^T for one kv tile (issued, not waited for).  dq and dk describe
-// the first 16 columns of Q and K; a k-step moves the start address (the
-// low bits of the descriptor) to the next 16 columns: 32 bytes into the
-// swizzled row, or the next box.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2],
-                                         uint64_t dq, uint64_t dk) {
-  using C = Cfg<D>;
+// A B^T for a 64-row A tile and an N-row B tile, both [rows, D] K-major in
+// shared memory, A_BOX and B_BOX bytes apart box to box (issued, not waited
+// for).  da and db describe the first 16 columns; a k-step moves the start
+// address (the low bits of the descriptor) to the next 16 columns: 32 bytes
+// into the swizzled row, or the next box.
+template <int D, int A_BOX, int B_BOX, int N = BK>
+__device__ __forceinline__ void issue_ss(float (&sc)[N / 2],
+                                         uint64_t da, uint64_t db) {
+  constexpr int CH = Cfg<D>::CH;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int bx = kk * 16 / C::CH;
-    const int off = (kk * 16 % C::CH) * 2;
-    const uint64_t da = dq + ((bx * C::Q_BOX + off) >> 4);
-    const uint64_t db = dk + ((bx * C::KV_BOX + off) >> 4);
+    const int bx = kk * 16 / CH;
+    const int off = (kk * 16 % CH) * 2;
+    const uint64_t a = da + ((bx * A_BOX + off) >> 4);
+    const uint64_t b = db + ((bx * B_BOX + off) >> 4);
     if (kk == 0)
-      WgmmaSS<BK>::first(sc, da, db);
+      WgmmaSS<N>::first(sc, a, b);
     else
-      WgmmaSS<BK>::run(sc, da, db);
+      WgmmaSS<N>::run(sc, a, b);
   }
 }
 
-// O += P V for one kv tile (issued, not waited for); a k-step moves dv
-// 16 keys (rows of the swizzled V tile) on.
+// S = Q K^T for one kv tile
 template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2],
+                                         uint64_t dq, uint64_t dk) {
+  issue_ss<D, Cfg<D>::Q_BOX, Cfg<D>::KV_BOX>(sc, dq, dk);
+}
+
+// O += P V for one kv tile (issued, not waited for); a k-step moves dv
+// 16 keys (rows of the swizzled V tile) on.  The backward uses it for every
+// register-A product against a 64-row tile read MN-major.
+template <int D, int KSTEPS = BK / 16>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[BK / 4],
+                                         const uint32_t (&pa)[4 * KSTEPS],
                                          uint64_t dv) {
   using C = Cfg<D>;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
+  for (int kk = 0; kk < KSTEPS; ++kk)
     WgmmaRS<D>::run(acc, pa + 4 * kk, dv + ((kk * 16 * C::SW) >> 4));
 }
 
@@ -665,11 +699,8 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
   const CUtensorMapSwizzle swz =
       C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, estride,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_map(encode, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                    const_cast<void*>(ptr), dims, strides, box, estride, swz);
 }
 
 template <int D>
@@ -885,33 +916,75 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 
 // ---------------------------------------------------------------------------
-// backward (both dtypes, CUDA cores)
+// backward: a tensor-core route (bf16) and a CUDA-core route (f32)
 // ---------------------------------------------------------------------------
 //
-// The TPU package has no backward kernel (XLA differentiates its plain
-// attention); this one gives K4 its gradient, FA2-style, from q, k, v, o, the
-// output's gradient do and the forward's lse:
+// No TPU kernel is replaced: the TPU package has no backward kernel (XLA
+// differentiates its plain attention).  These give K4 its gradient,
+// FA2-style, from q, k, v, o, the output's gradient do and the forward's lse:
 //   P = exp(q k^T scale - lse)   (0 where the mask drops the pair)
 //   delta_i = sum_d do_id o_id,  dS = P (do v^T - delta)
 //   dv = P^T do,  dk = scale dS^T q,  dq = scale dS k.
-// Three kernels: flash_bwd_delta (one warp a row); flash_bwd_dkdv, one block
-// a (key tile of BK keys, kv head, batch), which walks the query tiles of
-// every head of its group that can see its keys and keeps dk and dv in f32
-// registers; flash_bwd_dq, one block a (query tile, head, batch), which walks
-// the kv tiles of the forward's schedule (kv_range).  Each tile recomputes P
-// from lse.  Every output element is summed by one thread in a fixed order
-// (the GQA sum over the group inside one block): no atomics, so two calls
-// give the same bits.  bf16 or f32 in and out, f32 inside.  Causal masks and
+// Each route runs three kernels: a row pass (delta), a dk/dv kernel, one
+// block a (key tile, kv head, batch), which walks the query tiles of every
+// head of its group that can see its keys and keeps dk and dv in f32
+// registers, and a dq kernel, one block a (query tile, head, batch), which
+// walks the kv tiles of the forward's schedule (kv_range).  Each tile
+// recomputes P from lse.  Every output element is summed in one fixed order
+// (the GQA sum over the group inside one block, heads then query tiles in
+// order): no atomics, so two calls give the same bits.  Causal masks and
 // windows as the forward's, with q_offset 0 and Sq = Sk (the wrapper refuses
 // the rest), so every row has a valid key.
 //
-// Layout: 256 threads; warp w holds query rows w, w + 8, ... of a tile and
-// lane j key j of a kv tile for the scores (Q, K, V and dO tiles are f32 in
-// shared memory, padded as the f32 forward's).  BQ = 64 rows (32 at D = 256,
-// for shared memory).  Bound: five products over the valid pairs (q.k, do.v,
-// P^T do, dS^T q, dS k: 10 D flops a pair), which CUDA cores at 67 TFLOP/s
-// (f32) take far longer than the bytes.  Redesigning it for the tensor cores
-// (wgmma) is later work.
+// Bound: five products over the kept pairs (q.k and do.v recomputed, P^T do,
+// dS^T q, dS k: 10 D flops a pair); at qwen2-0.5b's shape (H 14, KVH 2,
+// S 4096, D 64, causal) 7.5e10 flops, 0.076 ms at the bf16 tensor-core rate
+// of 989 TFLOP/s, against 0.010 ms for the bytes.  So the products must run
+// on the tensor cores, fed without stalls.
+//
+// Tensor-core route (bf16; namespace tcb).  The forward's machinery: 4-D TMA
+// maps over (D, S, heads, batch), so the grouped strided layout is read in
+// place, tiles swizzled for wgmma, kv_range / tile_masked, and WgmmaSS /
+// WgmmaRS.  One producer warp (its first lane issues every copy) beside
+// the consumer warpgroups, so that a consumer may hold 224 registers (a
+// producer warpgroup would cap every thread at 168).
+//   - flash_bwd_prep, one warp a row: delta, and lse times log2 e, into a
+//     scratch padded to a multiple of 128 rows (zeros past S), so a tile's
+//     rows are one 16-byte aligned bulk copy.
+//   - flash_bwd_dkdv_tc: 64 keys a block; K and V loaded once; the query
+//     tiles (64 rows of Q and dO, their lse and delta) stream through a
+//     ring of STAGES = 2.  Two consumer warpgroups split the work so that
+//     each holds one D-wide f32 accumulator (at D = 256, dk and dv together
+//     would be 256 registers a thread): the first computes S^T = K Q^T
+//     (wgmma, both operands in shared memory, K-major; keys as M), P^T,
+//     hands P^T (f32, in its accumulator layout) to the second through one
+//     of two exchange buffers guarded by mbarriers, and adds P^T dO to dv
+//     (P^T rounded to bf16 A fragments in registers, dO read MN-major); the
+//     second computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) and adds
+//     dS^T Q to dk.  Only tiles on the diagonal, on the window's edge or
+//     past S take mask arithmetic (dkdv_masked).  At D = 256: K + V 64 KB,
+//     the ring 129 KB, the exchange 32 KB, 226 KB of shared memory; nine
+//     warps leave a thread 168 registers, of which dk or dv take 128, so a
+//     warpgroup holds half of S^T (32 query columns) at a time there.  At
+//     D <= 64 two blocks share an SM (96 registers a thread, 84 KB each),
+//     so one block's waits on its products hide behind the other's work.
+//   - The grid: one block a key tile and kv head has the most causal work
+//     at the first key tiles, and at D = 256 with one kv head only 64
+//     blocks.  So a group's heads are cut into runs (dkdv_splits in
+//     tiles.py: about 264 blocks), one block each, which write f32 sums;
+//     flash_bwd_sum adds them in run order, so the bits stay fixed.
+//   - flash_bwd_dq_tc: the forward's block (64 query rows a consumer
+//     warpgroup, two at D <= 128, one at D = 256); Q and dO loaded once, K
+//     and V through a ring of STAGES = 2; S = Q K^T and dP = dO V^T issued
+//     together, P then dS on the CUDA cores while dP runs, dS rounded to
+//     bf16 fragments and dq += dS K with K read MN-major.
+//
+// CUDA-core route (f32; namespace bwd).  f32 everywhere (a bf16 or TF32
+// tensor-core product cannot meet the f32 bar of 1e-4).  256 threads; warp w
+// holds query rows w, w + 8, ... of a tile and lane j key j of a kv tile for
+// the scores (Q, K, V and dO tiles are f32 in shared memory, padded as the
+// f32 forward's, loaded synchronously).  BQ = 64 rows (32 at D = 256, for
+// shared memory).  Every product is a scalar FMA with a shared-memory load.
 
 namespace bwd {
 
@@ -921,9 +994,12 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int PAD = 4;
 constexpr int PS = BK + 1;   // row stride of the P and dS tiles (no conflicts)
 
+// query rows of a tile (fewer at D = 256, for shared memory)
+constexpr int bq_rows(int d) { return d == 256 ? 32 : 64; }
+
 template <int D>
 struct Shape {
-  static constexpr int BQ = D == 256 ? 32 : 64;
+  static constexpr int BQ = bq_rows(D);
   static constexpr int RPW = BQ / NWARPS;     // rows a warp in the scores
   static constexpr int DP = D + PAD;
   // dkdv: K, V, Q, dO, P, dS, lse, delta; dq: the same without P
@@ -940,18 +1016,6 @@ struct Strides {
   long long q[3], k[3], v[3], o[3], g[3], dq[3], dk[3], dv[3];
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool pair_ok(int qp, int kp, int s, int causal,
                                         int window) {
@@ -960,9 +1024,8 @@ __device__ __forceinline__ bool pair_ok(int qp, int kp, int s, int causal,
 }
 
 // delta = rowsum(do * o), one warp a row of [B, H, S]
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ g,
                 float* __restrict__ delta, int h, int s, int d,
                 long long rows, Strides st) {
   const long long row =
@@ -973,11 +1036,10 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
   const long long bh = row / s;
   const int hh = static_cast<int>(bh % h);
   const int bb = static_cast<int>(bh / h);
-  const T* orow = o + bb * st.o[0] + hh * st.o[1] + i * st.o[2];
-  const T* grow = g + bb * st.g[0] + hh * st.g[1] + i * st.g[2];
+  const float* orow = o + bb * st.o[0] + hh * st.o[1] + i * st.o[2];
+  const float* grow = g + bb * st.g[0] + hh * st.g[1] + i * st.g[2];
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32)
-    acc = fmaf(to_f(orow[c]), to_f(grow[c]), acc);
+  for (int c = lane; c < d; c += 32) acc = fmaf(orow[c], grow[c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(FULL, acc, off);
@@ -985,14 +1047,14 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
 }
 
 // Loads rows [r0, r0 + n) of a [S, D] slice (element stride ss) into a
-// padded f32 tile; rows past s are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// padded tile; rows past s are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long ss, int r0, int n,
                                           int s) {
   for (int i = threadIdx.x; i < n * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
-    dst[r * (D + PAD) + c] = r0 + r < s ? to_f(src[(r0 + r) * ss + c]) : 0.f;
+    dst[r * (D + PAD) + c] = r0 + r < s ? src[(r0 + r) * ss + c] : 0.f;
   }
 }
 
@@ -1029,12 +1091,13 @@ __device__ __forceinline__ void scores(const float* s_q, const float* s_g,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int h, int group,
+               float* __restrict__ dk, float* __restrict__ dv, int h,
+               int group,
                int s, int causal, int window, float scale, Strides st) {
   using Sh = Shape<D>;
   constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
@@ -1053,8 +1116,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  load_tile<T, D>(s_k, k + b * st.k[0] + kvh * st.k[1], st.k[2], k0, BK, s);
-  load_tile<T, D>(s_v, v + b * st.v[0] + kvh * st.v[1], st.v[2], k0, BK, s);
+  load_tile<D>(s_k, k + b * st.k[0] + kvh * st.k[1], st.k[2], k0, BK, s);
+  load_tile<D>(s_v, v + b * st.v[0] + kvh * st.v[1], st.v[2], k0, BK, s);
 
   // this thread's share of dk and dv: key kj, columns c0 + 8 m
   const int kj = tid / 8, c0 = tid % 8;
@@ -1068,13 +1131,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int kp = k0 + lane;
   for (int hg = 0; hg < group; ++hg) {
     const int hh = kvh * group + hg;
-    const T* qb = q + b * st.q[0] + hh * st.q[1];
-    const T* gb = g + b * st.g[0] + hh * st.g[1];
+    const float* qb = q + b * st.q[0] + hh * st.q[1];
+    const float* gb = g + b * st.g[0] + hh * st.g[1];
     const long long rb = (static_cast<long long>(b) * h + hh) * s;
     for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
       __syncthreads();   // the previous tile is read (first: K, V loaded)
-      load_tile<T, D>(s_q, qb, st.q[2], q0, BQ, s);
-      load_tile<T, D>(s_g, gb, st.g[2], q0, BQ, s);
+      load_tile<D>(s_q, qb, st.q[2], q0, BQ, s);
+      load_tile<D>(s_g, gb, st.g[2], q0, BQ, s);
       for (int r = tid; r < BQ; r += NTHREADS) {
         s_lse[r] = q0 + r < s ? lse[rb + q0 + r] : 0.f;
         s_dl[r] = q0 + r < s ? delta[rb + q0 + r] : 0.f;
@@ -1105,22 +1168,22 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (k0 + kj < s) {
-    T* dkr = dk + b * st.dk[0] + kvh * st.dk[1] + (k0 + kj) * st.dk[2];
-    T* dvr = dv + b * st.dv[0] + kvh * st.dv[1] + (k0 + kj) * st.dv[2];
+    float* dkr = dk + b * st.dk[0] + kvh * st.dk[1] + (k0 + kj) * st.dk[2];
+    float* dvr = dv + b * st.dv[0] + kvh * st.dv[1] + (k0 + kj) * st.dv[2];
 #pragma unroll
     for (int m = 0; m < NCOL; ++m) {
-      dkr[c0 + 8 * m] = from_f<T>(acc_k[m] * scale);
-      dvr[c0 + 8 * m] = from_f<T>(acc_v[m]);
+      dkr[c0 + 8 * m] = acc_k[m] * scale;
+      dvr[c0 + 8 * m] = acc_v[m];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ g,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int h, int group, int s, int causal,
+             float* __restrict__ dq, int h, int group, int s, int causal,
              int window, float scale, Strides st) {
   using Sh = Shape<D>;
   constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
@@ -1141,15 +1204,15 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = hh / group;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  load_tile<T, D>(s_q, q + b * st.q[0] + hh * st.q[1], st.q[2], q0, BQ, s);
-  load_tile<T, D>(s_g, g + b * st.g[0] + hh * st.g[1], st.g[2], q0, BQ, s);
+  load_tile<D>(s_q, q + b * st.q[0] + hh * st.q[1], st.q[2], q0, BQ, s);
+  load_tile<D>(s_g, g + b * st.g[0] + hh * st.g[1], st.g[2], q0, BQ, s);
   const long long rb = (static_cast<long long>(b) * h + hh) * s;
   for (int r = tid; r < BQ; r += NTHREADS) {
     s_lse[r] = q0 + r < s ? lse[rb + q0 + r] : 0.f;
     s_dl[r] = q0 + r < s ? delta[rb + q0 + r] : 0.f;
   }
-  const T* kb = k + b * st.k[0] + kvh * st.k[1];
-  const T* vb = v + b * st.v[0] + kvh * st.v[1];
+  const float* kb = k + b * st.k[0] + kvh * st.k[1];
+  const float* vb = v + b * st.v[0] + kvh * st.v[1];
 
   // this thread's share of dq: row qr, columns c0 + TPR m
   const int qr = tid / TPR, c0 = tid % TPR;
@@ -1160,8 +1223,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const KvRange rng = kv_range(q0, BQ, BK, s, s, causal, window, 0);
   for (int k0 = rng.begin; k0 < rng.end; k0 += BK) {
     __syncthreads();   // the previous tile is read (first: Q, dO loaded)
-    load_tile<T, D>(s_k, kb, st.k[2], k0, BK, s);
-    load_tile<T, D>(s_v, vb, st.v[2], k0, BK, s);
+    load_tile<D>(s_k, kb, st.k[2], k0, BK, s);
+    load_tile<D>(s_v, vb, st.v[2], k0, BK, s);
     __syncthreads();
     float sc[RPW], dp[RPW];
     scores<D, RPW>(s_q, s_g, s_k, s_v, sc, dp);
@@ -1183,46 +1246,47 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (q0 + qr < s) {
-    T* dqr = dq + b * st.dq[0] + hh * st.dq[1] + (q0 + qr) * st.dq[2];
+    float* dqr = dq + b * st.dq[0] + hh * st.dq[1] + (q0 + qr) * st.dq[2];
 #pragma unroll
-    for (int m = 0; m < NCOL; ++m) dqr[c0 + TPR * m] = from_f<T>(acc[m] * scale);
+    for (int m = 0; m < NCOL; ++m) dqr[c0 + TPR * m] = acc[m] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* g, const float* lse, float* delta, void* dq, void* dk,
            void* dv, int b, int h, int kvh, int s, int causal, int window,
            float scale, const Strides& st, cudaStream_t stream) {
   using Sh = Shape<D>;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tg = static_cast<const T*>(g);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tg = static_cast<const float*>(g);
   const long long rows = static_cast<long long>(b) * h * s;
-  flash_bwd_delta<T><<<static_cast<unsigned>((rows + NWARPS - 1) / NWARPS),
+  flash_bwd_delta<<<static_cast<unsigned>((rows + NWARPS - 1) / NWARPS),
                        NTHREADS, 0, stream>>>(
-      static_cast<const T*>(o), tg, delta, h, s, D, rows, st);
+      static_cast<const float*>(o), tg, delta, h, s, D, rows, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Sh::SMEM_KV));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Sh::SMEM_Q));
   if (err != cudaSuccess) return err;
   const int group = h / kvh;
-  flash_bwd_dkdv<T, D><<<dim3((s + BK - 1) / BK, kvh, b), NTHREADS,
+  flash_bwd_dkdv<D><<<dim3((s + BK - 1) / BK, kvh, b), NTHREADS,
                          Sh::SMEM_KV, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      tq, tk, tv, tg, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv),
       h, group, s, causal, window, scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<T, D><<<dim3((s + Sh::BQ - 1) / Sh::BQ, h, b), NTHREADS,
+  flash_bwd_dq<D><<<dim3((s + Sh::BQ - 1) / Sh::BQ, h, b), NTHREADS,
                        Sh::SMEM_Q, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), h, group, s, causal,
+      tq, tk, tv, tg, lse, delta, static_cast<float*>(dq), h, group, s, causal,
       window, scale, st);
   return cudaGetLastError();
 }
@@ -1232,19 +1296,649 @@ typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       int, int, int, int, int, int, float, const Strides&,
                       cudaStream_t);
 
-template <typename T>
 Launch pick(int d) {
   switch (d) {
-    case 16: return launch<T, 16>;
-    case 32: return launch<T, 32>;
-    case 64: return launch<T, 64>;
-    case 128: return launch<T, 128>;
-    case 256: return launch<T, 256>;
+    case 16: return launch<16>;
+    case 32: return launch<32>;
+    case 64: return launch<64>;
+    case 128: return launch<128>;
+    case 256: return launch<256>;
   }
   return nullptr;
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// backward, tensor-core route (bf16)
+// ---------------------------------------------------------------------------
+
+namespace tcb {
+
+using namespace hopper;
+using tc::BK;
+using tc::Cfg;
+using tc::STAGES;
+using tc::ex2;
+using tc::fence_regs;
+using tc::issue_pv;
+using tc::issue_ss;
+using tc::make_desc;
+using tc::pack_p;
+using tc::wg_commit;
+using tc::wg_fence;
+using tc::wg_wait;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BQ_KV = 64;       // query rows of a tile the dk/dv kernel walks
+constexpr int PAD_ROWS = 128;   // rows of the lse / delta scratch, padded
+constexpr int PRODUCER = 32;    // one producer warp, after the consumers
+
+template <int D>
+struct Bwd {
+  using C = Cfg<D>;
+  static constexpr int TILE = C::KV_BYTES;    // a [64, D] tile
+  static constexpr int BOX = C::KV_BOX;       // its boxes' stride
+  static constexpr int VEC = BQ_KV * 4;       // lse or delta of a query tile
+  static constexpr int EX = 32 * 128 * 4;     // one P^T exchange buffer
+  // query columns of S^T a dk/dv warpgroup holds at once: half the tile at
+  // D = 256, where the D-wide accumulator takes 128 of its 168 registers
+  static constexpr int QN = D == 256 ? 32 : 64;
+  // dk/dv blocks an SM holds: two at D <= 64, where 96 registers a thread
+  // do without spilling and two blocks' shared memory fits (the dq kernel
+  // spills at 96, so it keeps one)
+  static constexpr int KV_MIN_BLOCKS = D <= 64 ? 2 : 1;
+  // dk/dv: K, V; a ring of (Q, dO, lse, delta); two exchange buffers
+  static constexpr int KV_THREADS = 256 + PRODUCER;
+  static constexpr size_t KV_SMEM =
+      1024 + 2 * TILE + STAGES * (2 * TILE + 2 * VEC) + 2 * EX;
+  // dq: Q and dO of the block's rows; a ring of (K, V)
+  static constexpr int Q_THREADS = 128 * C::NC + PRODUCER;
+  static constexpr size_t Q_SMEM = 1024 + 2 * C::Q_BYTES + STAGES * 2 * TILE;
+  static_assert(KV_SMEM <= 232448 - 128 && Q_SMEM <= 232448 - 128,
+                "shared memory a block may take");
+};
+
+// The query rows [begin, end) that can see a key of the tile at k0 (tiles
+// of BQ_KV rows from begin on).
+struct QRange {
+  int begin, end;
+};
+
+__device__ __forceinline__ QRange dkdv_range(int k0, int s, int causal,
+                                             int window) {
+  QRange r;
+  r.begin = causal ? k0 / BQ_KV * BQ_KV : 0;
+  r.end = window > 0 ? min(s, k0 + BK - 1 + window) : s;
+  return r;
+}
+
+// Does the (key tile k0, query tile q0) pair hold a pair the mask drops, or
+// a key or query past S?
+__device__ __forceinline__ bool dkdv_masked(int k0, int q0, int s,
+                                            int causal, int window) {
+  return !(q0 + BQ_KV <= s && k0 + BK <= s
+           && (!causal || q0 >= k0 + BK - 1)
+           && (window <= 0 || q0 + BQ_KV - 1 - k0 < window));
+}
+
+__device__ __forceinline__ bool kept(int qp, int kp, int s, int causal,
+                                     int window) {
+  return qp < s && kp < s && (!causal || qp >= kp)
+         && (window <= 0 || qp - kp < window);
+}
+
+// delta = rowsum(do * o) and lse log2 e, one warp a row of [B, H, sp]
+// (zeros in the rows past s)
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
+               const __nv_bfloat16* __restrict__ g,
+               const float* __restrict__ lse, float* __restrict__ lse2,
+               float* __restrict__ delta, int h, int s, int sp, int d,
+               long long rows, bwd::Strides st) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int i = static_cast<int>(row % sp);
+  const long long bh = row / sp;
+  float acc = 0.f;
+  if (i < s) {
+    const int hh = static_cast<int>(bh % h);
+    const int bb = static_cast<int>(bh / h);
+    const __nv_bfloat16* orow = o + bb * st.o[0] + hh * st.o[1] + i * st.o[2];
+    const __nv_bfloat16* grow = g + bb * st.g[0] + hh * st.g[1] + i * st.g[2];
+    for (int c = lane; c < d; c += 32)
+      acc = fmaf(__bfloat162float(orow[c]), __bfloat162float(grow[c]), acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(FULL, acc, off);
+  }
+  if (lane == 0) {
+    delta[row] = acc;
+    lse2[row] = i < s ? lse[bh * s + i] * LOG2E : 0.f;
+  }
+}
+
+// One block a (key tile of BK keys, kv head, batch, part of the group):
+// warpgroup 0 computes S^T, P^T and dv, warpgroup 1 dP^T, dS^T and dk, a
+// query tile QN columns at a time; warp 8 loads.  With splits > 1 the
+// group's heads are cut into `splits` runs of consecutive heads, one a
+// block, and each block writes its f32 sums into `part`
+// ([splits, 2 (dk, dv), B, KVH, S, D]) for flash_bwd_sum; else it writes
+// dk and dv.
+template <int D>
+__global__ void __launch_bounds__(Bwd<D>::KV_THREADS, Bwd<D>::KV_MIN_BLOCKS)
+flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tg,
+                  const float* __restrict__ lse2,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                  int h, int group, int splits, int s, int sp, int causal,
+                  int window, float scale_log2, float scale,
+                  bwd::Strides st) {
+  using C = Cfg<D>;
+  using G = Bwd<D>;
+  constexpr int QN = G::QN;
+  constexpr int PARTS = BQ_KV / QN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_bar, full[STAGES], empty[STAGES];
+  // P^T from warpgroup 0 to warpgroup 1, double-buffered
+  __shared__ __align__(8) uint64_t ex_full[2], ex_empty[2];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_k = base;
+  uint8_t* s_v = s_k + G::TILE;
+  uint8_t* s_ring = s_v + G::TILE;             // a stage: Q, then dO
+  float* s_vec = reinterpret_cast<float*>(s_ring + STAGES * 2 * G::TILE);
+  float* s_ex = s_vec + STAGES * 2 * BQ_KV;    // a stage: lse, then delta
+
+  const int k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int per = (group + splits - 1) / splits;
+  const int hg0 = split * per;
+  const int n_heads = min(group, hg0 + per) - hg0;
+  const QRange qr = dkdv_range(k0, s, causal, window);
+  const int nq = (qr.end - qr.begin + BQ_KV - 1) / BQ_KV;
+  const int n_tiles = nq * n_heads;   // heads in order, then query tiles
+  const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_bar, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    for (int e = 0; e < 2; ++e) {
+      mbar_init(&ex_full[e], 128);
+      mbar_init(&ex_empty[e], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy ----
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(&kv_bar, 2 * G::TILE);
+#pragma unroll
+      for (int bx = 0; bx < C::NB; ++bx) {
+        tma_load_4d(s_k + bx * G::BOX, &tk, &kv_bar, bx * C::CH, k0, kvh, b);
+        tma_load_4d(s_v + bx * G::BOX, &tv, &kv_bar, bx * C::CH, k0, kvh, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int hh = kvh * group + hg0 + n / nq;
+        const int q0 = qr.begin + (n % nq) * BQ_KV;
+        const int i = n % STAGES;
+        if (n >= STAGES) mbar_wait(&empty[i], (n / STAGES - 1) & 1);
+        mbar_expect_tx(&full[i], 2 * G::TILE + 2 * G::VEC);
+        uint8_t* sq = s_ring + i * 2 * G::TILE;
+#pragma unroll
+        for (int bx = 0; bx < C::NB; ++bx) {
+          tma_load_4d(sq + bx * G::BOX, &tq, &full[i], bx * C::CH, q0, hh, b);
+          tma_load_4d(sq + G::TILE + bx * G::BOX, &tg, &full[i], bx * C::CH,
+                      q0, hh, b);
+        }
+        const long long row = (static_cast<long long>(b) * h + hh) * sp + q0;
+        bulk_load(s_vec + i * 2 * BQ_KV, lse2 + row, G::VEC, &full[i]);
+        bulk_load(s_vec + i * 2 * BQ_KV + BQ_KV, delta + row, G::VEC,
+                  &full[i]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: a thread holds key rows kr, kr + 8 of the tile and
+  // query columns 8 j + col, + 1 of a QN-column part of S^T / dP^T ----
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int kr = 16 * (tid / 32) + lane / 4;
+  const int col = 2 * (lane % 4);
+  constexpr uint64_t STAGE = (2 * G::TILE) >> 4;
+  constexpr uint64_t PART = (QN * C::SW) >> 4;   // QN rows of a tile on
+  const uint32_t ring = smem_u32(s_ring);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[QN / 2];
+  uint32_t pa[QN / 4];
+  mbar_wait(&kv_bar, 0);
+
+  if (wg == 0) {
+    // S^T = K Q^T (both K-major), P^T, dv += P^T dO (dO MN-major)
+    const uint64_t dka = make_desc(smem_u32(s_k), 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t dqb = make_desc(ring, 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t dgmn =
+        make_desc(ring + G::TILE, G::BOX, 8 * C::SW, C::LAYOUT);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int i = n % STAGES;
+      const int q0 = qr.begin + (n % nq) * BQ_KV;
+      const bool masked = dkdv_masked(k0, q0, s, causal, window);
+      mbar_wait(&full[i], (n / STAGES) & 1);
+#pragma unroll
+      for (int pt = 0; pt < PARTS; ++pt) {
+        fence_regs(sc);
+        wg_fence();
+        issue_ss<D, G::BOX, G::BOX, QN>(sc, dka, dqb + i * STAGE + pt * PART);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(sc);
+        const int c0 = pt * QN;           // first column of the part
+        const float* ls = s_vec + i * 2 * BQ_KV + c0;
+#pragma unroll
+        for (int j = 0; j < QN / 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = sc[4 * j + e];
+            x = ex2(x * scale_log2 - ((e & 1) ? l.y : l.x));
+            if (masked && !kept(q0 + c0 + 8 * j + col + (e & 1),
+                                k0 + kr + ((e & 2) ? 8 : 0), s, causal,
+                                window))
+              x = 0.f;
+          }
+        }
+        // hand P^T to warpgroup 1: thread t's values go to thread t
+        const int xi = n * PARTS + pt;
+        const int xb = xi & 1;
+        if (xi >= 2) mbar_wait(&ex_empty[xb], ((xi >> 1) - 1) & 1);
+        float* ex = s_ex + xb * 32 * 128 + tid;
+#pragma unroll
+        for (int x = 0; x < QN / 2; ++x) ex[x * 128] = sc[x];
+        mbar_arrive(&ex_full[xb]);
+        pack_p(sc, pa);
+        fence_regs(acc);
+        fence_regs(pa);
+        wg_fence();
+        issue_pv<D, QN / 16>(acc, pa, dgmn + i * STAGE + pt * PART);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+      }
+      if (lane == 0) mbar_arrive(&empty[i]);
+    }
+  } else {
+    // dP^T = V dO^T (both K-major), dS^T, dk += dS^T Q (Q MN-major)
+    const uint64_t dva = make_desc(smem_u32(s_v), 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t dgb = make_desc(ring + G::TILE, 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t dqmn = make_desc(ring, G::BOX, 8 * C::SW, C::LAYOUT);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int i = n % STAGES;
+      mbar_wait(&full[i], (n / STAGES) & 1);
+#pragma unroll
+      for (int pt = 0; pt < PARTS; ++pt) {
+        fence_regs(sc);
+        wg_fence();
+        issue_ss<D, G::BOX, G::BOX, QN>(sc, dva, dgb + i * STAGE + pt * PART);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(sc);
+        const float* dl = s_vec + i * 2 * BQ_KV + BQ_KV + pt * QN;
+        const int xi = n * PARTS + pt;
+        const int xb = xi & 1;
+        mbar_wait(&ex_full[xb], (xi >> 1) & 1);
+        const float* ex = s_ex + xb * 32 * 128 + tid;
+#pragma unroll
+        for (int j = 0; j < QN / 8; ++j) {
+          const float2 dd =
+              *reinterpret_cast<const float2*>(dl + 8 * j + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = ex[(4 * j + e) * 128]
+                            * (sc[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+        }
+        mbar_arrive(&ex_empty[xb]);
+        pack_p(sc, pa);
+        fence_regs(acc);
+        fence_regs(pa);
+        wg_fence();
+        issue_pv<D, QN / 16>(acc, pa, dqmn + i * STAGE + pt * PART);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+      }
+      if (lane == 0) mbar_arrive(&empty[i]);
+    }
+  }
+
+  // dv (warpgroup 0) or scale dk (warpgroup 1), the rows below S: in the
+  // dtype, or f32 sums of this block's heads into `part`
+  const float mul = wg == 0 ? 1.f : scale;
+  const int r0 = k0 + kr;
+  if (splits > 1) {
+    const int nb = gridDim.z / splits;
+    const int which = 1 - wg;        // 0 dk, 1 dv
+    float* out = part + (((static_cast<long long>(split) * 2 + which) * nb + b)
+                         * gridDim.y + kvh) * s * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (r0 < s)
+        *reinterpret_cast<float2*>(out + r0 * D + 8 * j + col) =
+            make_float2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+      if (r0 + 8 < s)
+        *reinterpret_cast<float2*>(out + (r0 + 8) * D + 8 * j + col) =
+            make_float2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+    }
+    return;
+  }
+  const long long os = wg == 0 ? st.dv[2] : st.dk[2];
+  __nv_bfloat16* out = wg == 0 ? dv + b * st.dv[0] + kvh * st.dv[1]
+                               : dk + b * st.dk[0] + kvh * st.dk[1];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (r0 < s)
+      *reinterpret_cast<__nv_bfloat162*>(out + r0 * os + 8 * j + col) =
+          __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (r0 + 8 < s)
+      *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * os + 8 * j
+                                         + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+// dk and dv from the dk/dv blocks' partial sums: part[0] + part[1] + ...
+// in that order, rounded to bf16; one thread a column pair of a row.
+__global__ void __launch_bounds__(256)
+flash_bwd_sum(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, int splits, int kvh, int s,
+              int d, long long pairs, bwd::Strides st) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= pairs) return;        // pairs = 2 (dk, dv) x B x KVH x S x D / 2
+  const long long per = pairs / 2;   // column pairs of dk (or dv)
+  const int which = static_cast<int>(i / per);   // 0 dk, 1 dv
+  const long long e = 2 * (i % per);             // element of [B, KVH, S, D]
+  const int c = static_cast<int>(e % d);
+  const long long r = e / d;
+  const int row = static_cast<int>(r % s);
+  const int hh = static_cast<int>((r / s) % kvh);
+  const int bb = static_cast<int>(r / s / kvh);
+  float2 sum = make_float2(0.f, 0.f);
+  for (int k = 0; k < splits; ++k) {
+    const float2 x = *reinterpret_cast<const float2*>(
+        part + (static_cast<long long>(k) * 2 + which) * 2 * per + e);
+    sum.x += x.x;
+    sum.y += x.y;
+  }
+  __nv_bfloat16* out =
+      which == 0 ? dk + bb * st.dk[0] + hh * st.dk[1] + row * st.dk[2]
+                 : dv + bb * st.dv[0] + hh * st.dv[1] + row * st.dv[2];
+  *reinterpret_cast<__nv_bfloat162*>(out + c) =
+      __floats2bfloat162_rn(sum.x, sum.y);
+}
+
+// One block a (query tile, head, batch): consumer warpgroup w owns query
+// rows q0 + 64 w .. + 63; the last warp loads.
+template <int D>
+__global__ void __launch_bounds__(Bwd<D>::Q_THREADS, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tg,
+                const float* __restrict__ lse2,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int group, int s, int sp,
+                int causal, int window, float scale_log2, float scale,
+                long long dsb, long long dsh, long long dss) {
+  using C = Cfg<D>;
+  using G = Bwd<D>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_bar, full[STAGES], empty[STAGES];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_q = base;
+  uint8_t* s_g = s_q + C::Q_BYTES;
+  uint8_t* s_k = s_g + C::Q_BYTES;
+  uint8_t* s_v = s_k + STAGES * G::TILE;
+
+  // the longest query tiles (most kv tiles) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const KvRange r = kv_range(q0, BQ, BK, s, s, causal, window, 0);
+  const int n_tiles = (r.end - r.begin + BK - 1) / BK;
+  const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_bar, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], C::CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == C::NC) {
+    // ---- producer ----
+    if (threadIdx.x == 128 * C::NC) {
+      const int kvh = h / group;
+      mbar_expect_tx(&q_bar, 2 * C::Q_BYTES);
+#pragma unroll
+      for (int bx = 0; bx < C::NB; ++bx) {
+        tma_load_4d(s_q + bx * C::Q_BOX, &tq, &q_bar, bx * C::CH, q0, h, b);
+        tma_load_4d(s_g + bx * C::Q_BOX, &tg, &q_bar, bx * C::CH, q0, h, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int i = t % STAGES;
+        const int k0 = r.begin + t * BK;
+        if (t >= STAGES) mbar_wait(&empty[i], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full[i], 2 * G::TILE);
+#pragma unroll
+        for (int bx = 0; bx < C::NB; ++bx) {
+          tma_load_4d(s_k + i * G::TILE + bx * G::BOX, &tk, &full[i],
+                      bx * C::CH, k0, kvh, b);
+          tma_load_4d(s_v + i * G::TILE + bx * G::BOX, &tv, &full[i],
+                      bx * C::CH, k0, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: a thread holds query rows row, row + 8 and key columns
+  // 8 j + col, + 1 of S / dP ----
+  const int w = wg;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row = 64 * w + 16 * (tid / 32) + lane / 4;
+  const int col = 2 * (lane % 4);
+  const int qp0 = q0 + row;
+  const long long rb = (static_cast<long long>(b) * gridDim.y + h) * sp + qp0;
+  const float l0 = lse2[rb], l1 = lse2[rb + 8];
+  const float d0 = delta[rb], d1 = delta[rb + 8];
+  const uint64_t dqa =
+      make_desc(smem_u32(s_q) + 64 * w * C::SW, 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t dga =
+      make_desc(smem_u32(s_g) + 64 * w * C::SW, 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t dkb = make_desc(smem_u32(s_k), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t dvb = make_desc(smem_u32(s_v), 16, 8 * C::SW, C::LAYOUT);
+  const uint64_t dkmn =
+      make_desc(smem_u32(s_k), G::BOX, 8 * C::SW, C::LAYOUT);
+  constexpr uint64_t STAGE = G::TILE >> 4;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2], dp[BK / 2];
+  uint32_t pa[BK / 4];
+  mbar_wait(&q_bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int i = t % STAGES;
+    const int k0 = r.begin + t * BK;
+    mbar_wait(&full[i], (t / STAGES) & 1);
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+    issue_ss<D, C::Q_BOX, G::BOX>(sc, dqa, dkb + i * STAGE);
+    wg_commit();
+    issue_ss<D, C::Q_BOX, G::BOX>(dp, dga, dvb + i * STAGE);
+    wg_commit();
+    wg_wait<1>();                 // S; P on the CUDA cores while dP runs
+    fence_regs(sc);
+    const bool masked = tile_masked(r, k0, BK, s, causal, window);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = sc[4 * j + e];
+        x = ex2(x * scale_log2 - ((e & 2) ? l1 : l0));
+        if (masked && !kept(qp0 + ((e & 2) ? 8 : 0),
+                            k0 + 8 * j + col + (e & 1), s, causal, window))
+          x = 0.f;
+      }
+    }
+    wg_wait<0>();                 // dP
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      sc[4 * j] *= dp[4 * j] - d0;
+      sc[4 * j + 1] *= dp[4 * j + 1] - d0;
+      sc[4 * j + 2] *= dp[4 * j + 2] - d1;
+      sc[4 * j + 3] *= dp[4 * j + 3] - d1;
+    }
+    pack_p(sc, pa);
+    fence_regs(acc);
+    fence_regs(pa);
+    wg_fence();
+    issue_pv<D>(acc, pa, dkmn + i * STAGE);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[i]);
+  }
+
+  __nv_bfloat16* ob = dq + b * dsb + h * dsh;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (qp0 < s)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qp0 * dss + 8 * j + col) =
+          __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    if (qp0 + 8 < s)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (qp0 + 8) * dss + 8 * j
+                                         + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * scale,
+                                acc[4 * j + 3] * scale);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* g, const float* lse, float* scratch, void* dq,
+           void* dk, void* dv, int b, int h, int kvh, int s, int sp,
+           int splits, int causal, int window, float scale,
+           const bwd::Strides& st, cudaStream_t stream) {
+  using C = Cfg<D>;
+  using G = Bwd<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  // Q and dO in 64-row boxes (dk/dv) and in the dq block's rows
+  CUtensorMap tq, tg, tqb, tgb, tk, tv;
+  if (tc::make_map<D>(&tq, encode, q, b, h, s, st.q, BQ_KV) != CUDA_SUCCESS
+      || tc::make_map<D>(&tg, encode, g, b, h, s, st.g, BQ_KV) != CUDA_SUCCESS
+      || tc::make_map<D>(&tqb, encode, q, b, h, s, st.q, C::BQ)
+             != CUDA_SUCCESS
+      || tc::make_map<D>(&tgb, encode, g, b, h, s, st.g, C::BQ)
+             != CUDA_SUCCESS
+      || tc::make_map<D>(&tk, encode, k, b, kvh, s, st.k, BK) != CUDA_SUCCESS
+      || tc::make_map<D>(&tv, encode, v, b, kvh, s, st.v, BK) != CUDA_SUCCESS)
+    return ERR_TENSOR_MAP;
+  const long long rows = static_cast<long long>(b) * h * sp;
+  float* lse2 = scratch;
+  float* delta = scratch + rows;
+  float* part = splits > 1 ? scratch + 2 * rows : nullptr;
+  __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
+  flash_bwd_prep<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(g), lse, lse2, delta, h, s, sp, D,
+      rows, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(G::KV_SMEM));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(G::Q_SMEM));
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * LOG2E;
+  flash_bwd_dkdv_tc<D><<<dim3((s + BK - 1) / BK, kvh, b * splits),
+                         G::KV_THREADS, G::KV_SMEM, stream>>>(
+      tq, tk, tv, tg, lse2, delta, dk_, dv_, part, h, h / kvh, splits, s, sp,
+      causal, window, scale_log2, scale, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    const long long pairs = static_cast<long long>(b) * kvh * s * D;
+    flash_bwd_sum<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0,
+                    stream>>>(part, dk_, dv_, splits, kvh, s, D, pairs, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  flash_bwd_dq_tc<D><<<dim3((s + C::BQ - 1) / C::BQ, h, b), G::Q_THREADS,
+                       G::Q_SMEM, stream>>>(
+      tqb, tk, tv, tgb, lse2, delta, static_cast<__nv_bfloat16*>(dq),
+      h / kvh, s, sp, causal, window, scale_log2, scale, st.dq[0], st.dq[1],
+      st.dq[2]);
+  return cudaGetLastError();
+}
+
+typedef int (*Launch)(const void*, const void*, const void*, const void*,
+                      const void*, const float*, float*, void*, void*, void*,
+                      int, int, int, int, int, int, int, int, float,
+                      const bwd::Strides&, cudaStream_t);
+
+Launch pick(int d) {
+  switch (d) {
+    case 16: return launch<16>;
+    case 32: return launch<32>;
+    case 64: return launch<64>;
+    case 128: return launch<128>;
+    case 256: return launch<256>;
+  }
+  return nullptr;
+}
+
+// Dynamic shared memory of the dk/dv (which 0) or dq (1) kernel at head dim
+// d; 0 for a head dim the route does not serve.
+int smem_bytes(int which, int d) {
+  switch (d) {
+#define BWD_SMEM(D) \
+  case D: return static_cast<int>(which ? Bwd<D>::Q_SMEM : Bwd<D>::KV_SMEM);
+    BWD_SMEM(16) BWD_SMEM(32) BWD_SMEM(64) BWD_SMEM(128) BWD_SMEM(256)
+#undef BWD_SMEM
+  }
+  return 0;
+}
+
+}  // namespace tcb
 
 typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
                       int, int, int, int, int, int, float, const long long*,
@@ -1301,7 +1995,9 @@ int flash_attention_fwd(int route, const void* q, const void* k,
 }
 
 // Dynamic shared memory a block of the route takes at head dim d (bytes;
-// 0 for a head dim the route does not serve).
+// 0 for a head dim the route does not serve).  route: 0 and 1 the forward's
+// (as flash_attention_fwd), 2 the tensor-core backward's dk/dv kernel, 3 its
+// dq kernel.
 int flash_attention_smem_bytes(int route, int d) {
   switch (route * 1000 + d) {
     case 16: return static_cast<int>(f32::smem_bytes<16>());
@@ -1315,30 +2011,61 @@ int flash_attention_smem_bytes(int route, int d) {
     case 1128: return static_cast<int>(tc::Cfg<128>::SMEM);
     case 1256: return static_cast<int>(tc::Cfg<256>::SMEM);
   }
+  if (route == 2 || route == 3) return tcb::smem_bytes(route - 2, d);
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do and dq, dk, dv alike).
-// lse: the forward's [B, H, S] float32; delta: float32 [B, H, S] scratch.
-// strides: 24 element strides, (batch, head, sequence) of q, k, v, o, do, dq,
-// dk and dv in turn; the head-dim stride is 1.  Sq = Sk = s, q_offset 0.
-// Launches the three kernels on `stream`; returns 0 or an error code.
-int flash_attention_bwd(int dtype, const void* q, const void* k,
+// route: 0 = the f32 CUDA-core kernels (q, k, v, o, do and dq, dk, dv all
+// float32), 1 = the bf16 tensor-core kernels (all bfloat16).  lse: the
+// forward's [B, H, S] float32.  scratch: float32, [B, H, s_pad] for route 0
+// (delta; s_pad = s, splits = 1), 2 x [B, H, s_pad] for route 1 (lse log2 e,
+// then delta; s_pad a multiple of 128, at least s), then, when splits > 1,
+// the dk/dv blocks' partial sums [splits, 2, B, KVH, S, D].  splits: the
+// runs of consecutive heads a group is cut into (one dk/dv block each; none
+// empty).  strides: 24 element strides,
+// (batch, head, sequence) of q, k, v, o, do, dq, dk and dv in turn; the
+// head-dim stride is 1.  tiles: the (query rows, keys) of a dq block and the
+// (keys, query rows) of a dk/dv block's tiles the caller planned with,
+// checked against the route's own.  Sq = Sk = s, q_offset 0.  Launches the
+// three kernels on `stream`; returns 0 or an error code.
+int flash_attention_bwd(int route, const void* q, const void* k,
                         const void* v, const void* o, const void* g,
-                        const void* lse, void* delta, void* dq, void* dk,
+                        const void* lse, void* scratch, void* dq, void* dk,
                         void* dv, int b, int h, int kvh, int s, int d,
                         int causal, int window, float scale,
-                        const long long* strides, void* stream) {
+                        const long long* strides, const int* tiles,
+                        int s_pad, int splits, void* stream) {
   if (kvh <= 0 || h % kvh != 0 || s <= 0) return cudaErrorInvalidValue;
-  bwd::Launch fn = dtype == 0 ? bwd::pick<float>(d)
-                   : dtype == 1 ? bwd::pick<__nv_bfloat16>(d) : nullptr;
-  if (fn == nullptr) return cudaErrorInvalidValue;
   bwd::Strides st;
   static_assert(sizeof(st) == 24 * sizeof(long long), "24 strides");
   memcpy(&st, strides, sizeof(st));
-  return fn(q, k, v, o, g, static_cast<const float*>(lse),
-            static_cast<float*>(delta), dq, dk, dv, b, h, kvh, s, causal,
-            window, scale, st, static_cast<cudaStream_t>(stream));
+  const float* l = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    const int bq = bwd::bq_rows(d);
+    bwd::Launch fn = bwd::pick(d);
+    if (fn == nullptr || tiles[0] != bq || tiles[1] != bwd::BK
+        || tiles[2] != bwd::BK || tiles[3] != bq || s_pad != s
+        || splits != 1)
+      return cudaErrorInvalidValue;
+    return fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, causal, window,
+              scale, st, stream_);
+  }
+  if (route == 1) {
+    tcb::Launch fn = tcb::pick(d);
+    const int group = h / kvh;
+    const int per = splits > 0 ? (group + splits - 1) / splits : 0;
+    if (fn == nullptr || tiles[0] != (d == 256 ? 64 : 128)
+        || tiles[1] != tc::BK || tiles[2] != tc::BK
+        || tiles[3] != tcb::BQ_KV || s_pad < s
+        || s_pad % tcb::PAD_ROWS != 0 || splits < 1 || splits > group
+        || (splits - 1) * per >= group)
+      return cudaErrorInvalidValue;
+    return fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, s_pad, splits,
+              causal, window, scale, st, stream_);
+  }
+  return cudaErrorInvalidValue;
 }
 
 const char* flash_attention_error_string(int code) {

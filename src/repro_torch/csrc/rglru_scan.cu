@@ -52,6 +52,17 @@
 //   - The wrapper passes its plan (C, Tc, STAGES, shared memory, grid);
 //     rglru_scan_ring_fwd launches only an instantiation that matches it
 //     exactly and refuses any other.
+//
+// Reverse mode (the gradient; no TPU kernel: XLA differentiates the Pallas
+// scan's plain version).  g_t = a_{t+1} g_{t+1} + dh_t from t = S - 1 down,
+// with a_S = 0, then db_t = g_t and da_t = g_t h_{t-1} with h_{-1} = 0: each
+// route steps it in reverse (rglru_scan_bwd, rglru_scan_ring_bwd) with the
+// same two rounded operations as the plain backward
+// (kernels/rglru/ref.py: rglru_scan_backward_ref), so it is bit-equal to it.
+// Bound: a, h and dh read once, da and db written once, 5 x 67 MB = 335 MB
+// at RecurrentGemma-9B's training shape ([1, 4096, 4096] f32), 0.100 ms.
+// The ring's stage carries three boxes (a one step ahead, dh, h one step
+// behind), so its Tc is STAGE_BYTES / 3 boxes, rounded down.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -126,6 +137,64 @@ cudaError_t launch(const void* a, const void* b, void* h, int batch, int s,
   rglru_scan<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(h),
       s, r);
+  return cudaGetLastError();
+}
+
+// Reverse mode (rglru_scan_bwd): thread ch steps g_t = a_{t+1} g_{t+1} +
+// dh_t from t = S - 1 down, with a_S = 0 and h_{-1} = 0, writing db = g and
+// da_t = g_t h_{t-1} (g rounded to the dtype first, as the plain backward).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+rglru_scan_bwd(const T* __restrict__ a, const T* __restrict__ h,
+               const T* __restrict__ dh, T* __restrict__ da,
+               T* __restrict__ db, int s, int r) {
+  const int ch = blockIdx.x * THREADS + threadIdx.x;
+  if (ch >= r) return;
+  const long long base = static_cast<long long>(blockIdx.y) * s * r + ch;
+  const T* ap = a + base;
+  const T* hp = h + base;
+  const T* gp = dh + base;
+  T* dap = da + base;
+  T* dbp = db + base;
+  float g = 0.f;
+  int t = s - 1;
+  for (; t + 1 >= UNROLL; t -= UNROLL) {
+    float an[UNROLL], dv[UNROLL], hv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long off = static_cast<long long>(t - u) * r;
+      an[u] = t - u + 1 < s ? to_f32(ap[off + r]) : 0.f;
+      dv[u] = to_f32(gp[off]);
+      hv[u] = t - u > 0 ? to_f32(hp[off - r]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long off = static_cast<long long>(t - u) * r;
+      g = step(an[u], g, dv[u]);
+      const T gt = from_f32<T>(g);
+      dbp[off] = gt;
+      dap[off] = from_f32<T>(__fmul_rn(to_f32(gt), hv[u]));
+    }
+  }
+  for (; t >= 0; --t) {
+    const long long off = static_cast<long long>(t) * r;
+    g = step(t + 1 < s ? to_f32(ap[off + r]) : 0.f, g, to_f32(gp[off]));
+    const T gt = from_f32<T>(g);
+    dbp[off] = gt;
+    dap[off] = from_f32<T>(
+        __fmul_rn(to_f32(gt), t > 0 ? to_f32(hp[off - r]) : 0.f));
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* a, const void* h, const void* dh,
+                       void* da, void* db, int batch, int s, int r,
+                       cudaStream_t stream) {
+  const dim3 grid((r + THREADS - 1) / THREADS, batch);
+  rglru_scan_bwd<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(h),
+      static_cast<const T*>(dh), static_cast<T*>(da), static_cast<T*>(db), s,
+      r);
   return cudaGetLastError();
 }
 
@@ -231,6 +300,130 @@ rglru_scan_ring(const __grid_constant__ CUtensorMap ta,
   if (c == 0) bulk_wait_all();
 }
 
+// Reverse mode of the ring (rglru_scan_ring_bwd): a stage carries three
+// boxes of TC steps, a at rows k TC + 1 .., dh at k TC .. and h at
+// k TC - 1 .., and the producer issues them from the last sequence tile down
+// to the first; rows past S or below 0 are zero-filled by the TMA unit, which
+// gives a_S = 0 and h_{-1} = 0.  Thread c steps g down through its column of
+// the stage and writes db = g and da = g h_{t-1} into two tiles, sent by TMA
+// stores, double-buffered as the forward's h tile.
+template <typename T, int C, int TC, int STAGES>
+struct RingBwd {
+  static constexpr int NTHREADS = C + 32;
+  static constexpr int BOX = TC * C;
+  static constexpr int BOX_BYTES = BOX * static_cast<int>(sizeof(T));
+  static constexpr int STAGE_BYTES = 3 * BOX_BYTES;   // a, dh, h
+  static constexpr int SMEM =
+      SMEM_ALIGN + STAGES * STAGE_BYTES + H_TILES * 2 * BOX_BYTES;
+  static_assert(C % 32 == 0 && C * sizeof(T) % 16 == 0 && C <= 256
+                    && TC <= 256 && BOX_BYTES % SMEM_ALIGN == 0,
+                "TMA box limits");
+  static_assert(SMEM <= 232448, "shared memory a block may take");
+};
+
+template <typename T, int C, int TC, int STAGES>
+__global__ void __launch_bounds__(C + 32, 1)
+rglru_scan_ring_bwd(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap th,
+                    const __grid_constant__ CUtensorMap tg,
+                    const __grid_constant__ CUtensorMap tda,
+                    const __grid_constant__ CUtensorMap tdb, int s) {
+  using G = RingBwd<T, C, TC, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + SMEM_ALIGN - 1)
+      & ~uintptr_t(SMEM_ALIGN - 1));
+  // output tiles: (da, db) of buffer 0, then of buffer 1
+  T* s_out = reinterpret_cast<T*>(base + STAGES * G::STAGE_BYTES);
+
+  const int c0 = blockIdx.x * C;
+  const int row = blockIdx.y;
+  const int n_tiles = (s + TC - 1) / TC;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < STAGES; ++k) {
+      mbar_init(&full[k], 1);
+      mbar_init(&empty[k], C / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C) {
+    // ---- producer: tiles from the last to the first ----
+    if (threadIdx.x == C) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int k = n_tiles - 1 - j;
+        const int st = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[st], (j / STAGES - 1) & 1);
+        mbar_expect_tx(&full[st], G::STAGE_BYTES);
+        uint8_t* dst = base + st * G::STAGE_BYTES;
+        tma_load_3d(dst, &ta, &full[st], c0, k * TC + 1, row);
+        tma_load_3d(dst + G::BOX_BYTES, &tg, &full[st], c0, k * TC, row);
+        tma_load_3d(dst + 2 * G::BOX_BYTES, &th, &full[st], c0, k * TC - 1,
+                    row);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: thread c steps channel c0 + c backwards ----
+  const int c = threadIdx.x;
+  float g = 0.f;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k = n_tiles - 1 - j;
+    const int st = j % STAGES;
+    mbar_wait(&full[st], (j / STAGES) & 1);
+    const T* sa = reinterpret_cast<const T*>(base + st * G::STAGE_BYTES) + c;
+    const T* sg = sa + G::BOX;
+    const T* sh = sa + 2 * G::BOX;
+    const int t0 = k * TC;
+    const int n = min(TC, s - t0);
+    T* oa = s_out + (j % H_TILES) * 2 * G::BOX + c;
+    T* ob = oa + G::BOX;
+    // UNROLL steps at a time: their loads first, into registers (the
+    // compiler cannot move a load of the stage above a store to the
+    // output tiles on its own), then the chain
+    int t = n - 1;
+    for (; t + 1 >= UNROLL; t -= UNROLL) {
+      float av[UNROLL], gv[UNROLL], hv[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        av[u] = to_f32(sa[(t - u) * C]);
+        gv[u] = to_f32(sg[(t - u) * C]);
+        hv[u] = to_f32(sh[(t - u) * C]);
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        g = step(av[u], g, gv[u]);
+        const T gt = from_f32<T>(g);
+        ob[(t - u) * C] = gt;
+        oa[(t - u) * C] = from_f32<T>(__fmul_rn(to_f32(gt), hv[u]));
+      }
+    }
+    for (; t >= 0; --t) {
+      g = step(to_f32(sa[t * C]), g, to_f32(sg[t * C]));
+      const T gt = from_f32<T>(g);
+      ob[t * C] = gt;
+      oa[t * C] = from_f32<T>(__fmul_rn(to_f32(gt), to_f32(sh[t * C])));
+    }
+    __syncwarp();
+    if (c % 32 == 0) mbar_arrive(&empty[st]);
+    // the tiles are sent after every consumer wrote them; the pair the next
+    // stage writes (sent one stage ago) must have been read by then
+    async_proxy_fence();
+    if (c == 0) bulk_wait_read();
+    asm volatile("bar.sync 1, %0;\n" :: "n"(C) : "memory");
+    if (c == 0) {
+      tma_store_3d(&tda, s_out + (j % H_TILES) * 2 * G::BOX, c0, t0, row);
+      tma_store_3d(&tdb, s_out + (j % H_TILES) * 2 * G::BOX + G::BOX, c0, t0,
+                   row);
+    }
+  }
+  if (c == 0) bulk_wait_all();
+}
+
 // A 3-D map over (R, S, B) of a contiguous [B, S, R] tensor, box
 // [1, TC, C] (no swizzle: a consumer reads its own column).
 template <typename T>
@@ -242,12 +435,11 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
                                  cuuint64_t(s) * cuuint64_t(r) * sizeof(T)};
   const cuuint32_t box[3] = {cuuint32_t(c), cuuint32_t(tc), 1};
   const cuuint32_t estride[3] = {1, 1, 1};
-  return encode(map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                3, const_cast<void*>(ptr), dims, strides, box, estride,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_map(encode, map,
+                    sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    3, const_cast<void*>(ptr), dims, strides, box, estride,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <typename T, int C, int TC, int STAGES>
@@ -271,6 +463,32 @@ int launch_ring(const void* a, const void* b, void* h, int batch, int s,
   rglru_scan_ring<T, C, TC, STAGES>
       <<<dim3(grid_x, grid_y), G::NTHREADS, G::SMEM, stream>>>(
           ta, tb, th, s);
+  return cudaGetLastError();
+}
+
+template <typename T, int C, int TC, int STAGES>
+int launch_ring_bwd(const void* a, const void* h, const void* dh, void* da,
+                    void* db, int batch, int s, int r, int smem, int grid_x,
+                    int grid_y, cudaStream_t stream) {
+  using G = RingBwd<T, C, TC, STAGES>;
+  if (smem != G::SMEM || grid_x != (r + C - 1) / C || grid_y != batch)
+    return ERR_PLAN;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap ta, th, tg, tda, tdb;
+  if (make_map<T>(&ta, encode, a, batch, s, r, C, TC) != CUDA_SUCCESS
+      || make_map<T>(&th, encode, h, batch, s, r, C, TC) != CUDA_SUCCESS
+      || make_map<T>(&tg, encode, dh, batch, s, r, C, TC) != CUDA_SUCCESS
+      || make_map<T>(&tda, encode, da, batch, s, r, C, TC) != CUDA_SUCCESS
+      || make_map<T>(&tdb, encode, db, batch, s, r, C, TC) != CUDA_SUCCESS)
+    return ERR_TENSOR_MAP;
+  cudaError_t err = cudaFuncSetAttribute(
+      rglru_scan_ring_bwd<T, C, TC, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return err;
+  rglru_scan_ring_bwd<T, C, TC, STAGES>
+      <<<dim3(grid_x, grid_y), G::NTHREADS, G::SMEM, stream>>>(
+          ta, th, tg, tda, tdb, s);
   return cudaGetLastError();
 }
 
@@ -309,6 +527,42 @@ int rglru_scan_ring_fwd(const void* a, const void* b, void* h, int dtype,
   RGLRU_RING(__nv_bfloat16, 1, 64, 128)
   RGLRU_RING(__nv_bfloat16, 1, 32, 256)
 #undef RGLRU_RING
+  return ERR_PLAN;
+}
+
+// Reverse mode: (da, db) of h = scan(a, b) for the output gradient dh; a,
+// h, dh, da, db contiguous [batch, s, r] of one dtype.  The simple route.
+int rglru_scan_bwd(const void* a, const void* h, const void* dh, void* da,
+                   void* db, int dtype, int batch, int s, int r,
+                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(a, h, dh, da, db, batch, s, r, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(a, h, dh, da, db, batch, s, r, st);
+  return cudaErrorInvalidValue;
+}
+
+// The reverse ring on the plan of kernels/rglru/plan.py's ring_bwd_plan;
+// ERR_PLAN where no instantiation matches it.  Every pointer 16-byte
+// aligned and r * itemsize a multiple of 16.
+int rglru_scan_ring_bwd_launch(const void* a, const void* h, const void* dh,
+                               void* da, void* db, int dtype, int batch,
+                               int s, int r, int channels, int steps,
+                               int stages, int smem, int grid_x, int grid_y,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stages != 4) return ERR_PLAN;
+#define RGLRU_RING_BWD(T, DT, C, TC)                                        \
+  if (dtype == DT && channels == C && steps == TC)                          \
+    return launch_ring_bwd<T, C, TC, 4>(a, h, dh, da, db, batch, s, r,      \
+                                        smem, grid_x, grid_y, st);
+  RGLRU_RING_BWD(float, 0, 128, 21)
+  RGLRU_RING_BWD(float, 0, 64, 42)
+  RGLRU_RING_BWD(float, 0, 32, 85)
+  RGLRU_RING_BWD(__nv_bfloat16, 1, 128, 42)
+  RGLRU_RING_BWD(__nv_bfloat16, 1, 64, 85)
+  RGLRU_RING_BWD(__nv_bfloat16, 1, 32, 170)
+#undef RGLRU_RING_BWD
   return ERR_PLAN;
 }
 

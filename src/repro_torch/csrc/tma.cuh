@@ -8,6 +8,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace hopper {
 
@@ -80,6 +81,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device into shared memory, completing on the barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // A box of shared memory into a 3-D tensor map, as one bulk group of the
 // issuing thread; the part of the box outside the tensor is not written.
 // The threads that wrote the box call async_proxy_fence() first.
@@ -116,8 +129,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its entry
-// point is fetched at run time, so the library needs no -lcuda.
+// point is fetched at run time, so the library needs no -lcuda.  It also
+// needs a current context, which a thread that has made no runtime call yet
+// lacks (autograd runs a backward on a thread of its own, and refuses a map
+// there with CUDA_ERROR_INVALID_CONTEXT): cudaSetDevice makes the device's
+// primary context current first.
 inline EncodeTiled encode_tiled() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -135,12 +154,48 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// What libcuda was last asked for when it refused a tensor map.
+inline char* refused_map() {
+  static char text[320] = "";
+  return text;
+}
+
+// encode(...), noting the request in refused_map() when it is refused.
+inline CUresult encode_map(EncodeTiled encode, CUtensorMap* map,
+                           CUtensorMapDataType type, cuuint32_t rank,
+                           void* ptr, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box,
+                           const cuuint32_t* estride,
+                           CUtensorMapSwizzle swizzle) {
+  const CUresult r = encode(map, type, rank, ptr, dims, strides, box, estride,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS)
+    snprintf(refused_map(), 320,
+             "CUresult %d; rank %u, base %p, map at %p, dims %llu %llu %llu, "
+             "byte strides %llu %llu, box %u %u %u",
+             static_cast<int>(r), rank, ptr, static_cast<void*>(map),
+             static_cast<unsigned long long>(dims[0]),
+             static_cast<unsigned long long>(dims[1]),
+             static_cast<unsigned long long>(dims[2]),
+             static_cast<unsigned long long>(strides[0]),
+             static_cast<unsigned long long>(strides[1]), box[0], box[1],
+             box[2]);
+  return r;
+}
+
 // The error string of a code the runtime does not know.
 inline const char* error_string(int code) {
   if (code == ERR_NO_ENCODER)
     return "cuTensorMapEncodeTiled not found in libcuda";
-  if (code == ERR_TENSOR_MAP)
-    return "cuTensorMapEncodeTiled refused a tensor map (alignment or strides)";
+  if (code == ERR_TENSOR_MAP) {
+    static char text[400];
+    snprintf(text, sizeof(text),
+             "cuTensorMapEncodeTiled refused a tensor map (alignment or "
+             "strides): %s", refused_map());
+    return text;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

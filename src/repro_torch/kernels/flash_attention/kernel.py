@@ -24,10 +24,12 @@ show which kernel its path went through.
 
 Asked for it (``with_lse=True``), the forward also writes each query
 row's log-sum-exp ``m + log l`` [B, H, Sq] in float32, which
-``flash_attention_bwd_bhsd`` — the backward kernels, CUDA cores in both
-dtypes — takes with q, k, v, o and the output's gradient to give dq, dk
-and dv (``BACKWARD_LAUNCHES`` counts its calls; on the CPU it runs
-``ref.attention_backward_reference``).
+``flash_attention_bwd_bhsd`` takes with q, k, v, o and the output's
+gradient to give dq, dk and dv, in two routes picked by dtype as the
+forward's: bfloat16 through the tensor-core backward (wgmma, TMA),
+float32 through the CUDA-core one.  ``BACKWARD_LAUNCHES`` counts its
+calls in all (``BWD``) and per route; on the CPU it runs
+``ref.attention_backward_reference``.
 """
 
 from __future__ import annotations
@@ -50,12 +52,15 @@ TC, F32 = "flash_attention_tc", "flash_attention_f32"
 _KERNEL_IDS = {F32: 0, TC: 1}     # the route's number in the C interface
 
 BWD = "flash_attention_bwd"
-_DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}   # the backward's dtypes
+#: the backward's route of each forward route
+BWD_ROUTES = {TC: "flash_attention_bwd/tc", F32: "flash_attention_bwd/f32"}
+_BWD_SMEM_IDS = {"dkdv": 2, "dq": 3}   # the tensor-core backward's kernels
 
 #: Kernel launches of each route since the last ``reset_launches()``.
 LAUNCHES = {TC: 0, F32: 0}
-#: Calls of the backward kernels (three launches each: delta, dk/dv, dq).
-BACKWARD_LAUNCHES = {BWD: 0}
+#: Calls of the backward kernels (a row pass, dk/dv, on the tensor cores
+#: the sum of a split group's partials, dq), in all and per route.
+BACKWARD_LAUNCHES = {BWD: 0, **{key: 0 for key in BWD_ROUTES.values()}}
 
 
 def reset_launches() -> None:
@@ -89,7 +94,7 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = (
             [ctypes.c_int] + [ptr] * 10 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ptr, ptr])
+            + [ctypes.c_float, ptr, ptr, ctypes.c_int, ctypes.c_int, ptr])
         lib.flash_attention_bwd.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
@@ -181,7 +186,7 @@ def _launch(name, q, k, v, out, causal, window, q_offset, scale,
     kvh, sk = k.shape[1], k.shape[2]
     strides = [s for x in (q, k, v, out) for s in _strides(x)]
     if name == TC:
-        _check_tma(q, k, v, out, strides)
+        _check_tma((("q", q), ("k", k), ("v", v)), (("out", out),))
     bq, bk = tile(name, d)
     lib = _library()
     with torch.cuda.device(q.device):
@@ -215,7 +220,8 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     the head dimension is contiguous (``dq``, ``dk``, ``dv``: optional
     destination views of the same kind).  Self-attention only: queries
     at positions 0..S-1 over as many keys (Sq == Sk); anything else
-    raises."""
+    raises.  bfloat16 takes the tensor-core kernels, which read q, k, v
+    and do through TMA: a layout TMA cannot read raises."""
     if q.device.type == "cpu":
         grads = attention_backward_reference(q, k, v, o, do, lse,
                                              causal=causal, window=window)
@@ -234,8 +240,7 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     if kvh == 0 or h % kvh:
         raise ValueError(f"{h} query heads are not a multiple of {kvh} kv "
                          "heads")
-    if q.dtype not in _DTYPE_IDS:
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    route(q.dtype)      # float32 or bfloat16, else TypeError
     if d not in HEAD_DIMS and not 0 < d < HEAD_DIMS[0]:
         raise ValueError(f"head dim {d} not supported (one of {HEAD_DIMS}, "
                          f"or below {HEAD_DIMS[0]}, zero-padded to it)")
@@ -284,24 +289,40 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
 
 def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
                 scale) -> None:
-    """One call of the backward kernels on checked tensors."""
+    """One call of the route's backward kernels on checked tensors."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    name = route(q.dtype)
+    tensor_cores = name == TC
+    if tensor_cores:
+        _check_tma((("q", q), ("k", k), ("v", v), ("do", do)),
+                   (("dq", dq), ("dk", dk), ("dv", dv)))
+    s_pad = tiles.bwd_pad_rows(s) if tensor_cores else s
+    splits = tiles.dkdv_splits(b, kvh, s, h // kvh) if tensor_cores else 1
+    # delta (and, for the tensor cores, lse log2 e before it; then the
+    # dk/dv blocks' partial sums when a group is split)
+    n = (2 if tensor_cores else 1) * b * h * s_pad
+    if splits > 1:
+        n += splits * 2 * b * kvh * s * d
+    scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
     strides = [st for x in (q, k, v, o, do, dq, dk, dv) for st in _strides(x)]
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd(
-            _DTYPE_IDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d,
             int(causal), 0 if window is None else int(window), scale,
-            (ctypes.c_longlong * 24)(*strides), stream)
+            (ctypes.c_longlong * 24)(*strides),
+            (ctypes.c_int * 4)(*tiles.bwd_tiles(tensor_cores, d)), s_pad,
+            splits, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"{BWD} kernel launch failed: error {rc} ({msg})")
+        raise RuntimeError(f"{BWD_ROUTES[name]} kernel launch failed: error "
+                           f"{rc} ({msg})")
     BACKWARD_LAUNCHES[BWD] += 1
+    BACKWARD_LAUNCHES[BWD_ROUTES[name]] += 1
 
 
 def smem_bytes(name: str, d: int) -> int:
@@ -310,22 +331,31 @@ def smem_bytes(name: str, d: int) -> int:
     return _library().flash_attention_smem_bytes(_KERNEL_IDS[name], d)
 
 
+def bwd_smem_bytes(d: int) -> tuple[int, int]:
+    """Dynamic shared memory of a dk/dv block and of a dq block of the
+    tensor-core backward at head dim d (builds the kernels)."""
+    lib = _library()
+    return tuple(lib.flash_attention_smem_bytes(_BWD_SMEM_IDS[k], d)
+                 for k in ("dkdv", "dq"))
+
+
 def _strides(x: torch.Tensor) -> list[int]:
     """(batch, head, sequence) element strides; a dimension of size 1 is
     never stepped, so it gets 8 (16 bytes in bf16, as TMA asks)."""
     return [s if n > 1 else 8 for n, s in zip(x.shape[:3], x.stride()[:3])]
 
 
-def _check_tma(q, k, v, out, strides) -> None:
-    """The tensor-core kernel reads q, k and v through TMA, which needs
-    16-byte aligned bases and strides, and stores bf16 pairs of out."""
-    for i, (arg, x) in enumerate((("q", q), ("k", k), ("v", v))):
-        if x.data_ptr() % 16 or any(s * 2 % 16 for s in strides[3 * i:
-                                                                3 * i + 3]):
+def _check_tma(read, written) -> None:
+    """The tensor-core kernels read their inputs ``read`` ((name, tensor)
+    pairs) through TMA, which needs 16-byte aligned bases and strides, and
+    store bf16 pairs of their outputs ``written``."""
+    for arg, x in read:
+        if x.data_ptr() % 16 or any(s * 2 % 16 for s in _strides(x)):
             raise ValueError(
                 f"{arg} needs a 16-byte aligned base and (batch, head, "
                 f"sequence) strides that are multiples of 8 elements for the "
                 f"tensor-core kernel, got strides {tuple(x.stride())}")
-    if out.data_ptr() % 4 or any(s % 2 for s in strides[9:]):
-        raise ValueError(f"out needs a 4-byte aligned base and even strides, "
-                         f"got {tuple(out.stride())}")
+    for arg, x in written:
+        if x.data_ptr() % 4 or any(s % 2 for s in _strides(x)):
+            raise ValueError(f"{arg} needs a 4-byte aligned base and even "
+                             f"strides, got {tuple(x.stride())}")

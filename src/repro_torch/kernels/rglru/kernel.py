@@ -14,16 +14,13 @@ fallback to the other route.  ``LAUNCHES`` counts the launches, in all
 (``"rglru_scan"``) and per route (``"rglru_scan/ring"``,
 ``"rglru_scan/simple"``).
 
-The gradient needs no kernel of its own: with g_t = dh_t + a_{t+1} g_{t+1},
-db = g and da_t = g_t h_{t-1}, and g is the same scan run backwards in
-time.  ``rglru_scan_backward`` launches K5 on flip(dh) and flip(a shifted
-one step left) (counted in ``LAUNCHES`` like any launch, and once more in
-``BACKWARD_LAUNCHES``), flips g back and multiplies by h_{t-1}; it equals
-``ref.rglru_scan_backward_ref`` bit for bit, as the forward equals
-``rglru_scan_ref``.  The shift, the three flips and the product are
-plain torch copies around the one launch, and take most of the
-backward's time (PERF.md); a reverse mode of the kernel that reads a,
-h and dh once and writes da and db would take them out.
+The gradient is the same recurrence run backwards in time: with g_t =
+dh_t + a_{t+1} g_{t+1}, db = g and da_t = g_t h_{t-1}.
+``rglru_scan_backward`` launches the reverse mode of the route the data
+picks (``plan.plan_bwd``): one launch that reads a, h and dh once and
+writes da and db, counted in ``LAUNCHES`` like any launch and once more
+in ``BACKWARD_LAUNCHES``.  It equals ``ref.rglru_scan_backward_ref`` bit
+for bit, as the forward equals ``rglru_scan_ref``.
 """
 
 from __future__ import annotations
@@ -48,7 +45,7 @@ BWD = "rglru_scan_bwd"
 #: Kernel launches since the last ``reset_launches()``: in all, and per
 #: route.
 LAUNCHES = {TOTAL: 0, **{key: 0 for key in ROUTE_KEYS.values()}}
-#: Calls of ``rglru_scan_backward`` on the card (one K5 launch each).
+#: Launches of the reverse kernel (``rglru_scan_backward`` on the card).
 BACKWARD_LAUNCHES = {BWD: 0}
 
 
@@ -67,6 +64,11 @@ def _library() -> ctypes.CDLL:
         lib.rglru_scan_ring_fwd.argtypes = ([ptr] * 3 + [ctypes.c_int] * 10
                                             + [ptr])
         lib.rglru_scan_ring_fwd.restype = ctypes.c_int
+        lib.rglru_scan_bwd.argtypes = [ptr] * 5 + [ctypes.c_int] * 4 + [ptr]
+        lib.rglru_scan_bwd.restype = ctypes.c_int
+        lib.rglru_scan_ring_bwd_launch.argtypes = (
+            [ptr] * 5 + [ctypes.c_int] * 10 + [ptr])
+        lib.rglru_scan_ring_bwd_launch.restype = ctypes.c_int
         lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
         lib.rglru_scan_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -102,24 +104,61 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
                         dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(da, db) of h = scan(a, b) for the output gradient dh; a, h, dh
-    [B, S, R] in one dtype (h the forward's output)."""
+    [B, S, R] in one dtype, contiguous (h the forward's output)."""
     if a.device.type == "cpu":
         return rglru_scan_backward_ref(a, h, dh)
-    if tuple(h.shape) != tuple(a.shape) or tuple(dh.shape) != tuple(a.shape):
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan_backward runs on cuda or cpu tensors, "
+                         f"got {a.device}")
+    if (a.dim() != 3 or tuple(h.shape) != tuple(a.shape)
+            or tuple(dh.shape) != tuple(a.shape)):
         raise ValueError(f"a, h and dh must be one [B, S, R] shape, got "
                          f"{tuple(a.shape)}, {tuple(h.shape)} and "
                          f"{tuple(dh.shape)}")
-    if h.dtype != a.dtype or dh.dtype != a.dtype:
-        raise TypeError(f"a, h and dh must be one dtype, got {a.dtype}, "
-                        f"{h.dtype} and {dh.dtype}")
-    zero = a.new_zeros((a.shape[0], 1, a.shape[2]))
-    a_next = torch.cat([a[:, 1:], zero], dim=1)
-    g = rglru_scan_kernel(a_next.flip(1), dh.flip(1)).flip(1)
+    if a.dtype not in _DTYPES or h.dtype != a.dtype or dh.dtype != a.dtype:
+        raise TypeError(f"a, h and dh must be one dtype, float32 or "
+                        f"bfloat16, got {a.dtype}, {h.dtype} and {dh.dtype}")
+    if h.device != a.device or dh.device != a.device:
+        raise ValueError(f"h is on {h.device}, dh on {dh.device}, a on "
+                         f"{a.device}")
+    if not (a.is_contiguous() and h.is_contiguous() and dh.is_contiguous()):
+        raise ValueError("a, h and dh must be contiguous")
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, db
+    p = rglru_plan.plan_bwd(*a.shape, a.element_size(),
+                            tuple(x.data_ptr() for x in (a, h, dh, da, db)))
+    return launch_bwd(a, h, dh, da, db, p)
+
+
+def launch_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+               da: torch.Tensor, db: torch.Tensor,
+               p: rglru_plan.Plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the reverse kernel of plan ``p`` (``plan.plan_bwd``'s) on
+    checked CUDA tensors, into da and db; raises where the kernel refuses
+    the plan."""
+    bsz, s, r = a.shape
+    lib = _library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        args = (a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+                db.data_ptr(), _DTYPES[a.dtype], bsz, s, r)
+        if p.route == rglru_plan.RING:
+            rc = lib.rglru_scan_ring_bwd_launch(
+                *args, p.channels, p.steps, p.stages, p.smem_bytes, *p.grid,
+                stream)
+        elif p.route == rglru_plan.SIMPLE:
+            rc = lib.rglru_scan_bwd(*args, stream)
+        else:
+            raise ValueError(f"unknown route {p.route!r}")
+    if rc != 0:
+        msg = lib.rglru_scan_error_string(rc).decode()
+        raise RuntimeError(f"rglru_scan {p.route} reverse kernel launch "
+                           f"failed: error {rc} ({msg}); plan {p}")
+    LAUNCHES[TOTAL] += 1
+    LAUNCHES[ROUTE_KEYS[p.route]] += 1
     BACKWARD_LAUNCHES[BWD] += 1
-    da = torch.empty_like(a)        # g_t h_{t-1}, written in place
-    da[:, :1] = torch.mul(g[:, :1].float(), zero.float()).to(a.dtype)
-    da[:, 1:] = torch.mul(g[:, 1:].float(), h[:, :-1].float()).to(a.dtype)
-    return da, g
+    return da, db
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,

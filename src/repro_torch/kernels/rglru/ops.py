@@ -1,8 +1,8 @@
 """Public op for the RG-LRU linear scan: the tensor's device picks the
 CUDA kernel or its plain version.  Where a gradient is wanted (grad mode
 on and a or b requiring it) the call goes through ``LinearScan``, a
-``torch.autograd.Function`` that saves a and h and whose backward is K5
-again, run backwards in time (``kernel.rglru_scan_backward``; the plain
+``torch.autograd.Function`` that saves a and h and whose backward is K5's
+reverse mode, one launch (``kernel.rglru_scan_backward``; the plain
 backward on the CPU)."""
 
 from __future__ import annotations

@@ -13,10 +13,19 @@ chosen by the data alone:
 - **simple**: every other input, through the one-thread-a-channel kernel
   that was the first port (64 threads a block, 16 steps a group).
 
-``plan`` returns the route with its tile, ring depth, dynamic shared
-memory and grid.  The wrapper (``kernel.py``) passes them to the C
-function, which checks them against its compile-time instantiations and
-refuses a launch that disagrees; ``tests/test_torch_rglru_plan.py`` holds
+The gradient has the same two routes in reverse mode (``plan_bwd``): g_t
+= a_{t+1} g_{t+1} + dh_t stepped from the last step down, db = g and da_t
+= g_t h_{t-1}.  A reverse ring stage carries three boxes of Tc steps — a
+one step ahead, dh, h one step behind (``bwd_box_rows``) — issued from the
+last sequence tile to the first; the rows past S and below 0 that the
+boxes reach are zero-filled by TMA, which gives a_S = 0 and h_{-1} = 0.
+Its Tc follows from the same STAGE_BYTES over three boxes, and da and db
+leave through two double-buffered tiles.
+
+``plan`` (``plan_bwd``) returns the route with its tile, ring depth,
+dynamic shared memory and grid.  The wrapper (``kernel.py``) passes them
+to the C function, which checks them against its compile-time
+instantiations and refuses a launch that disagrees; ``tests/test_torch_rglru_plan.py`` holds
 the plan to the limits of TMA and of shared memory.
 """
 
@@ -44,6 +53,10 @@ SIMPLE_THREADS, SIMPLE_UNROLL = 64, 16
 
 #: TMA's alignment of base pointers and row pitches (bytes)
 TMA_ALIGN = 16
+#: boxes a reverse ring stage carries: a, dh and h
+BWD_BOXES = 3
+#: output tiles of a reverse ring buffer: da and db
+BWD_OUTPUTS = 2
 
 
 @dataclass(frozen=True)
@@ -103,3 +116,34 @@ def plan(batch: int, s: int, r: int, itemsize: int, ptrs) -> Plan:
         return ring_plan(batch, s, r, itemsize)
     return simple_plan(batch, s, r)
 
+
+def ring_bwd_smem_bytes(channels: int, steps: int, itemsize: int,
+                        stages: int) -> int:
+    box = steps * channels * itemsize
+    return (SMEM_ALIGN + stages * BWD_BOXES * box
+            + H_TILES * BWD_OUTPUTS * box)
+
+
+def ring_bwd_plan(batch: int, s: int, r: int, itemsize: int) -> Plan:
+    """The reverse ring's plan: the forward's channel tile and depth, a
+    stage of STAGE_BYTES (rounded down) holding Tc steps of C channels of
+    a, dh and h."""
+    c = ring_channels(batch, r)
+    steps = STAGE_BYTES // (BWD_BOXES * c * itemsize)
+    return Plan(RING, c, steps, RING_STAGES,
+                ring_bwd_smem_bytes(c, steps, itemsize, RING_STAGES),
+                (-(-r // c), batch))
+
+
+def bwd_box_rows(k: int, steps: int) -> tuple[int, int, int]:
+    """First sequence rows of the a, dh and h boxes of reverse tile k."""
+    return k * steps + 1, k * steps, k * steps - 1
+
+
+def plan_bwd(batch: int, s: int, r: int, itemsize: int, ptrs) -> Plan:
+    """The route and launch of the reverse scan: the ring where TMA can
+    read and write every tensor (``ptrs``: a, h, dh, da and db), the
+    simple kernel else."""
+    if ring_aligned(r, itemsize, ptrs):
+        return ring_bwd_plan(batch, s, r, itemsize)
+    return simple_plan(batch, s, r)

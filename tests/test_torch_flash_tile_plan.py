@@ -1,6 +1,8 @@
 """The flash-attention kernels' tile schedule (``kernels/flash_attention/
 tiles.py``) against the mask of ``attention_reference``, and the route
-each dtype takes.  Pure Python and the CPU plain version: no card.
+each dtype takes; the backward's two walks (dk/dv blocks over query tiles,
+dq blocks over kv tiles) the same way, with its tiles, head splits and
+shared memory.  Pure Python and the CPU plain version: no card.
 
 The mask is read off the plain version itself: with q = 0 every valid key
 of a row gets the same weight, and with v the identity the output row is
@@ -9,10 +11,12 @@ entries (every key, uniformly, for a row without a valid key)."""
 
 import functools
 import itertools
+import re
 
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import tiles
 from repro_torch.kernels.flash_attention.ref import attention_reference
@@ -115,3 +119,117 @@ def test_route_by_dtype():
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             K.route(dtype)
+
+
+# --- the backward's schedule (``dkdv_range`` / ``dkdv_tile_masked`` and the
+# dq blocks' ``kv_range``), tiles and shared memory -----------------------
+
+FLASH_SOURCE = (build.CSRC_DIR / "flash_attention.cu").read_text()
+# shared memory a block of the H100 may take (bytes)
+SMEM_LIMIT = 232_448
+
+
+def bwd_cases():
+    """(s, causal, window) of self-attention, the backward's only kind."""
+    return [(s, causal, window) for s in LENGTHS for causal in (True, False)
+            for window in WINDOWS]
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("window", WINDOWS)
+def test_dkdv_schedule_visits_every_kept_pair_once(window, causal):
+    """The dk/dv blocks' query tiles (one walk a head of the group) hold
+    every pair the reference keeps exactly once; a tile with a dropped
+    pair, or a key or query past S, is masked, and only such tiles are."""
+    bk, bq = tiles.BWD_KV_TILE
+    for s in LENGTHS:
+        ok = valid_pairs(s, s, causal, window, 0)
+        attended = reference_weights(s, s, causal, window, 0) > 0
+        assert torch.equal(attended, ok)   # every row keeps a key
+        visits = torch.zeros((s, s), dtype=torch.int64)
+        plan = tiles.dkdv_schedule(s=s, causal=causal, window=window, bk=bk,
+                                   bq=bq)
+        assert len(plan) == -(-s // bk)
+        for t, row in enumerate(plan):
+            k0 = t * bk
+            for q0, masked in row:
+                pad = torch.zeros((bq, bk), dtype=torch.bool)
+                pad[:min(bq, s - q0), :min(bk, s - k0)] = ok[q0:q0 + bq,
+                                                            k0:k0 + bk]
+                assert masked == (not bool(pad.all())), (s, k0, q0)
+                assert bool(pad.any()), (s, k0, q0)   # no idle tile
+                visits[q0:q0 + bq, k0:k0 + bk] += 1
+        assert torch.equal(visits[ok], torch.ones(int(ok.sum()),
+                                                  dtype=torch.int64))
+        assert int(visits.max()) <= 1
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("d", (64, 256))
+def test_dq_schedule_visits_every_kept_pair_once(d, window, causal):
+    """The dq blocks (the tensor-core forward's rows, q_offset 0, Sq = Sk)
+    visit every kept pair exactly once, masking the tiles that need it."""
+    bq, bk = tiles.bwd_tiles(True, d)[:2]
+    for s in LENGTHS:
+        ok = valid_pairs(s, s, causal, window, 0)
+        visits = torch.zeros((s, s), dtype=torch.int64)
+        for t, row in enumerate(tiles.schedule(
+                sq=s, sk=s, causal=causal, window=window, q_offset=0, bq=bq,
+                bk=bk)):
+            q0 = t * bq
+            for k0, masked in row:
+                block = ok[q0:q0 + bq, k0:k0 + bk]
+                full = k0 + bk <= s and bool(block.all())
+                assert masked == (not full), (s, q0, k0)
+                visits[q0:q0 + bq, k0:k0 + bk] += 1
+        assert bool((visits[ok] == 1).all())
+
+
+@pytest.mark.parametrize("b,kvh,s,group", [
+    (1, 2, 4096, 7), (1, 1, 4096, 16), (4, 1, 4096, 16), (2, 2, 150, 3),
+    (1, 1, 100, 16), (1, 2, 1000, 7), (2, 4, 200, 1), (1, 14, 4096, 1),
+    (1, 8, 100, 2), (1, 1, 1, 5), (3, 2, 700, 12)])
+def test_dkdv_splits_cover_the_group(b, kvh, s, group):
+    """A group's heads cut into runs, one dk/dv block each: every head in
+    exactly one run, in order, none empty; runs are added only where the
+    key tiles alone give fewer blocks than the target."""
+    splits = tiles.dkdv_splits(b, kvh, s, group)
+    runs = tiles.split_heads(group, splits)
+    assert 1 <= splits <= group and len(runs) == splits
+    assert [h for r in runs for h in r] == list(range(group))
+    assert all(len(r) > 0 for r in runs)
+    blocks = -(-s // tiles.BWD_KV_TILE[0]) * kvh * b
+    if blocks >= tiles.BWD_TARGET_BLOCKS:
+        assert splits == 1
+    assert (splits - 1) * -(-group // splits) < group   # as the C side asks
+
+
+@pytest.mark.parametrize("d", K.HEAD_DIMS)
+def test_backward_tiles_and_shared_memory(d):
+    """Both routes' backward tiles, and the tensor-core kernels' shared
+    memory within the H100's 232,448 bytes a block (less the static
+    barriers), from the constants of ``csrc/flash_attention.cu``."""
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             FLASH_SOURCE)[1])
+    assert tiles.BWD_KV_TILE == (const("BK"), const("BQ_KV")) == (64, 64)
+    assert tiles.BWD_STAGES == const("STAGES")
+    assert tiles.BWD_PAD_ROWS == const("PAD_ROWS")
+    assert tiles.bwd_tiles(True, d) == (*tiles.tc_tile(d), 64, 64)
+    bq = 32 if d == 256 else 64
+    assert tiles.bwd_tiles(False, d) == (bq, 32, 32, bq)
+    assert "d == 256 ? 32 : 64" in FLASH_SOURCE      # bwd::bq_rows
+    dkdv, dq = tiles.tc_bwd_smem_bytes(d)
+    assert max(dkdv, dq) <= SMEM_LIMIT - 128
+    assert dkdv == 1024 + 2 * 128 * d + 2 * (2 * 128 * d + 512) + 32768
+    assert (dkdv, dq) == {16: (47104, 17408), 64: (83968, 66560),
+                          256: (231424, 197632)}.get(d, (dkdv, dq))
+    assert tiles.bwd_pad_rows(1) == 128 and tiles.bwd_pad_rows(256) == 256
+    assert tiles.bwd_pad_rows(257) == 384
+
+
+def test_backward_routes_by_dtype():
+    assert K.BWD_ROUTES == {K.TC: "flash_attention_bwd/tc",
+                            K.F32: "flash_attention_bwd/f32"}
+    assert set(K.BACKWARD_LAUNCHES) == {K.BWD, *K.BWD_ROUTES.values()}

@@ -1199,21 +1199,33 @@ def test_k1_prices_a_storage_trace_within_drift_of_scan(card):
 
 # --- the gradients: K4's backward kernels, K5 run backwards ------------------
 
-# b, h, kvh, s, d, window, dtype: the small cases of 8a's kind and the
-# slice's shape classes (D 8 -> 16, 64, 128, 256; no window and windows
-# within S; groups 1, 7, 12, 16; ragged S 100 and 1000)
+# b, h, kvh, s, d, causal, window, dtype: the small cases of 8a's kind and
+# the slice's shape classes (D 8 -> 16, 64, 128, 256; no window and windows
+# within S; groups 1, 7, 12, 16; ragged S 100 and 1000), then bf16 cases of
+# the tensor-core route at every head dim: causal and not, windows that
+# bite, ragged S, S = 1, groups 1-16, B = 2
 FLASH_BWD_CASES = [
-    (2, 4, 2, 128, 64, None, torch.float32),
-    (1, 4, 1, 256, 64, 64, torch.float32),
-    (2, 2, 2, 128, 32, None, torch.bfloat16),
-    (1, 8, 8, 64, 128, None, torch.float32),
-    (1, 2, 1, 64, 16, 16, torch.bfloat16),
-    (2, 4, 1, 100, 8, 37, torch.float32),
-    (1, 14, 2, 1000, 64, None, torch.bfloat16),
-    (1, 14, 2, 1000, 64, None, torch.float32),
-    (1, 12, 1, 100, 128, None, torch.bfloat16),
-    (1, 16, 1, 1000, 256, 300, torch.bfloat16),
-    (1, 16, 1, 100, 256, None, torch.float32),
+    (2, 4, 2, 128, 64, True, None, torch.float32),
+    (1, 4, 1, 256, 64, True, 64, torch.float32),
+    (2, 2, 2, 128, 32, True, None, torch.bfloat16),
+    (1, 8, 8, 64, 128, True, None, torch.float32),
+    (1, 2, 1, 64, 16, True, 16, torch.bfloat16),
+    (2, 4, 1, 100, 8, True, 37, torch.float32),
+    (1, 14, 2, 1000, 64, True, None, torch.bfloat16),
+    (1, 14, 2, 1000, 64, True, None, torch.float32),
+    (1, 12, 1, 100, 128, True, None, torch.bfloat16),
+    (1, 16, 1, 1000, 256, True, 300, torch.bfloat16),
+    (1, 16, 1, 100, 256, True, None, torch.float32),
+    (2, 4, 4, 200, 16, False, None, torch.bfloat16),
+    (1, 8, 2, 130, 32, True, 50, torch.bfloat16),
+    (1, 4, 1, 96, 32, False, 20, torch.bfloat16),
+    (2, 14, 2, 1000, 64, True, 300, torch.bfloat16),
+    (1, 16, 1, 333, 64, True, None, torch.bfloat16),
+    (1, 1, 1, 1, 64, True, None, torch.bfloat16),
+    (1, 6, 3, 257, 128, True, 100, torch.bfloat16),
+    (1, 2, 2, 300, 128, False, None, torch.bfloat16),
+    (1, 4, 1, 65, 256, True, None, torch.bfloat16),
+    (2, 2, 1, 200, 256, False, 64, torch.bfloat16),
 ]
 # relative to each output's largest magnitude.  float32: sums in another
 # order; bfloat16: every output rounded to bf16 (half an ulp is 2^-9 of an
@@ -1222,7 +1234,7 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def flash_bwd_inputs(card, case, seed=0):
-    b, h, kvh, s, d, window, dtype = case
+    b, h, kvh, s, d, _, _, dtype = case
     g = torch.Generator(device=card).manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dtype)
                    for shape in ((b, h, s, d), (b, kvh, s, d), (b, kvh, s, d),
@@ -1240,22 +1252,26 @@ def rel_err(got, want) -> float:
                          ids=[str(i) for i in range(len(FLASH_BWD_CASES))])
 def test_flash_backward_matches_plain(card, case):
     """lse and dq, dk, dv of the backward kernels against the plain
-    versions (lse from q and k alone), and two calls bit-equal."""
+    versions (lse from q and k alone), two calls bit-equal, each through
+    the dtype's route."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_reference, attention_lse_reference)
 
-    *_, window, dtype = case
+    *_, causal, window, dtype = case
+    kw = dict(causal=causal, window=window)
     q, k, v, do = flash_bwd_inputs(card, case)
-    o, lse = FK.flash_attention_bhsd(q, k, v, window=window, with_lse=True)
-    assert torch.equal(o, FK.flash_attention_bhsd(q, k, v, window=window))
-    assert rel_err(lse, attention_lse_reference(q, k, window=window)) < 1e-5
-    before = FK.BACKWARD_LAUNCHES[FK.BWD]
-    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, window=window)
-    again = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, window=window)
-    want = attention_backward_reference(q, k, v, o, do, window=window)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    assert torch.equal(o, FK.flash_attention_bhsd(q, k, v, **kw))
+    assert rel_err(lse, attention_lse_reference(q, k, **kw)) < 1e-5
+    before = dict(FK.BACKWARD_LAUNCHES)
+    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    again = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    want = attention_backward_reference(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
-    assert FK.BACKWARD_LAUNCHES[FK.BWD] == before + 2
+    key = FK.BWD_ROUTES[FK.route(dtype)]
+    assert FK.BACKWARD_LAUNCHES == {**before, FK.BWD: before[FK.BWD] + 2,
+                                    key: before[key] + 2}
     for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
         assert x.dtype == dtype and x.shape == z.shape
         assert torch.equal(x, y), name
@@ -1287,10 +1303,50 @@ def test_flash_gradient_through_the_grouped_layout(card, dtype):
     assert FK.BACKWARD_LAUNCHES[FK.BWD] == before + 1
 
 
+def test_flash_backward_route_by_dtype(card):
+    """bfloat16 goes through the tensor-core backward, float32 through the
+    CUDA-core one, as the per-route counts show; the twin's shared memory
+    is the kernels' own."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import tiles
+
+    for dtype, name in ((torch.bfloat16, FK.TC), (torch.float32, FK.F32)):
+        q, k, v, do = flash_bwd_inputs(card, (1, 4, 2, 150, 64, True, 40,
+                                              dtype))
+        o, lse = FK.flash_attention_bhsd(q, k, v, window=40, with_lse=True)
+        before = dict(FK.BACKWARD_LAUNCHES)
+        FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, window=40)
+        torch.cuda.synchronize()
+        other = FK.BWD_ROUTES[FK.F32 if name == FK.TC else FK.TC]
+        assert FK.BACKWARD_LAUNCHES[FK.BWD_ROUTES[name]] == (
+            before[FK.BWD_ROUTES[name]] + 1)
+        assert FK.BACKWARD_LAUNCHES[other] == before[other]
+        assert FK.BACKWARD_LAUNCHES[FK.BWD] == before[FK.BWD] + 1
+    for d in FK.HEAD_DIMS:
+        assert FK.bwd_smem_bytes(d) == tiles.tc_bwd_smem_bytes(d)
+
+
+def test_flash_backward_tc_rejects_strides_tma_cannot_take(card):
+    """A bf16 do whose sequence stride is 68 values (136 bytes) cannot be
+    read by TMA: the backward raises before any launch, never sending it
+    to the CUDA-core kernels."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, do = flash_bwd_inputs(card, (1, 2, 1, 64, 64, True, None,
+                                          torch.bfloat16))
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True)
+    wide = torch.zeros((1, 2, 64, 68), device=card, dtype=torch.bfloat16)
+    wide[..., :64] = do
+    before = dict(FK.BACKWARD_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        FK.flash_attention_bwd_bhsd(q, k, v, o, wide[..., :64], lse)
+    assert FK.BACKWARD_LAUNCHES == before
+
+
 def test_flash_backward_rejects_what_it_does_not_take(card):
     from repro_torch.kernels.flash_attention import kernel as FK
 
-    q, k, v, do = flash_bwd_inputs(card, (1, 2, 1, 64, 64, None,
+    q, k, v, do = flash_bwd_inputs(card, (1, 2, 1, 64, 64, True, None,
                                           torch.float32))
     o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True)
     with pytest.raises(ValueError, match="self-attention"):
@@ -1304,9 +1360,9 @@ def test_flash_backward_rejects_what_it_does_not_take(card):
 
 @pytest.mark.parametrize("b,s,r,dtype", RGLRU_GPU_CASES[:8])
 def test_rglru_backward_bit_equal_to_plain(card, b, s, r, dtype):
-    """K5 run backwards on flip(dh) and flip(a shifted left), both routes
-    (R = 37 f32 and R = 100 bf16 take the simple one), bit-equal to the
-    plain backward."""
+    """K5's reverse mode, one launch of the route the data picks (R = 37
+    f32 and R = 100 bf16 take the simple one), bit-equal to the plain
+    backward."""
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rglru import plan as rglru_plan
     from repro_torch.kernels.rglru.ref import rglru_scan_backward_ref
@@ -1322,8 +1378,64 @@ def test_rglru_backward_bit_equal_to_plain(card, b, s, r, dtype):
     want_da, want_db = rglru_scan_backward_ref(a, h, dh)
     torch.cuda.synchronize()
     key = RK.ROUTE_KEYS[route]
-    assert RK.LAUNCHES[key] == before[key] + 1
+    assert RK.LAUNCHES == {**before, key: before[key] + 1,
+                           RK.TOTAL: before[RK.TOTAL] + 1}
     assert RK.BACKWARD_LAUNCHES[RK.BWD] == bwd + 1
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
+
+
+def _rglru_reverse_ring_edges():
+    """(b, s, r, dtype) at the reverse ring's edges: S = 1, Tc - 1, Tc,
+    Tc + 1 and 5 stages plus a ragged tail for its own Tc (a stage of
+    three boxes), the forward edges' (b, r, dtype)."""
+    from repro_torch.kernels.rglru import plan as rglru_plan
+    cases = []
+    for b, r, dtype in ((4, 4096, torch.float32), (2, 4040, torch.float32),
+                        (1, 4096, torch.float32), (40, 520, torch.float32),
+                        (4, 4096, torch.bfloat16), (2, 4040, torch.bfloat16),
+                        (3, 200, torch.bfloat16)):
+        tc = rglru_plan.ring_bwd_plan(b, 1, r, dtype.itemsize).steps
+        cases += [(b, s, r, dtype) for s in (1, tc - 1, tc, tc + 1,
+                                             5 * tc + 7)]
+    return cases
+
+
+@pytest.mark.parametrize("b,s,r,dtype", _rglru_reverse_ring_edges())
+def test_rglru_backward_at_the_reverse_ring_edges(card, b, s, r, dtype):
+    """The reverse ring (boxes from the last tile down, zero-filled rows
+    past S and below 0) bit-equal to the plain backward at its edges."""
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_scan_backward_ref
+
+    a, x = _rglru_inputs(card, b, s, r, dtype)
+    h = RK.rglru_scan_kernel(a, x)
+    dh = torch.randn(a.shape, device=card).to(dtype)
+    ring = RK.LAUNCHES["rglru_scan/ring"]
+    da, db = RK.rglru_scan_backward(a, h, dh)
+    want_da, want_db = rglru_scan_backward_ref(a, h, dh)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["rglru_scan/ring"] == ring + 1
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_rglru_backward_view_at_storage_offset_takes_the_simple_route(
+        card, dtype):
+    """dh one element into its storage: TMA cannot read it, so the
+    reverse mode takes the simple kernel, bit-equal all the same."""
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_scan_backward_ref
+
+    a, x = _rglru_inputs(card, 2, 129, 4096, dtype)
+    h = RK.rglru_scan_kernel(a, x)
+    dh = torch.empty(a.numel() + 1, dtype=dtype, device=card)[1:].view(
+        a.shape).copy_(torch.randn(a.shape, device=card))
+    before = dict(RK.LAUNCHES)
+    da, db = RK.rglru_scan_backward(a, h, dh)
+    want_da, want_db = rglru_scan_backward_ref(a, h, dh)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["rglru_scan/simple"] == before["rglru_scan/simple"] + 1
+    assert RK.LAUNCHES["rglru_scan/ring"] == before["rglru_scan/ring"]
     assert torch.equal(da, want_da) and torch.equal(db, want_db)
 
 

@@ -2,13 +2,17 @@
 CPU: the route each input takes, the ring's tile and depth against the
 limits of TMA and of the H100's shared memory, the grid at the shapes the
 LM path gives it, and each plan against the instantiations and constants
-of ``csrc/rglru_scan.cu``.  The kernels themselves, and their stepping of
-exactly S rows of the zero-filled boxes, run only on the card
+of ``csrc/rglru_scan.cu``; the same for the reverse mode (the gradient),
+with a CPU twin of the reverse ring's walk over its zero-filled boxes held
+bit-equal to the plain backward.  The kernels themselves, and their
+stepping of exactly S rows of the zero-filled boxes, run only on the card
 (``tests/test_torch_kernels_cuda.py``)."""
 
 import re
 
+import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rglru import plan as P
@@ -154,3 +158,118 @@ def test_build_hashes_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "tma.cuh").write_text("// two\n")
     assert build.library_path("k.cu") != first
     assert build.library_path("k.cu").parent == build.BUILD_DIR
+
+
+# --- the reverse mode (the gradient): its ring plan, box rows and a CPU
+# twin of the reverse ring's walk -----------------------------------------
+
+REVERSE_INSTANTIATIONS = {tuple(map(int, m)) for m in re.findall(
+    r"RGLRU_RING_BWD\(\w+, (\d), (\d+), (\d+)\)", SOURCE)}
+
+
+@pytest.mark.parametrize("shape,dt", RING_CASES)
+def test_reverse_ring_plan_within_the_limits(shape, dt):
+    """Three boxes a stage (a, dh, h) of the forward's channel tile, Tc
+    from the same STAGE_BYTES, each box on a 128-byte boundary, two pairs
+    of output tiles, within TMA's box limits and the shared memory."""
+    b, s, r = shape
+    size = ITEMSIZE[dt]
+    p = P.ring_bwd_plan(b, s, r, size)
+    assert p.route == P.RING and p.stages == P.RING_STAGES
+    assert p.channels == P.ring_plan(b, s, r, size).channels
+    assert p.steps == P.STAGE_BYTES // (3 * p.channels * size)
+    assert p.steps <= TMA_BOX_MAX and (p.channels * size) % TMA_UNIT == 0
+    box = p.steps * p.channels * size
+    assert box % P.SMEM_ALIGN == 0
+    assert 3 * box <= P.STAGE_BYTES
+    assert p.smem_bytes == (P.SMEM_ALIGN + p.stages * 3 * box
+                            + P.H_TILES * 2 * box) <= SMEM_LIMIT
+    assert p.grid == (-(-r // p.channels), b)
+    assert P.plan_bwd(b, s, r, size, (0, 256, 4096, 8192, 12288)) == p
+    assert (DTYPE_CODE[dt], p.channels, p.steps) in REVERSE_INSTANTIATIONS
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_reverse_takes_the_simple_route_where_tma_cannot_read(which):
+    """Any of a, h, dh, da, db off the 16-byte grid (or a row pitch TMA
+    refuses) sends the reverse mode to the simple kernel."""
+    ptrs = [4096 * (i + 1) for i in range(5)]
+    ptrs[which] += 4
+    assert P.plan_bwd(2, 100, 4096, 4, ptrs) == P.simple_plan(2, 100, 4096)
+    assert P.plan_bwd(2, 100, 100, 2, [4096] * 5).route == P.SIMPLE
+
+
+def test_reverse_constants_match_the_kernel_source():
+    """The stage's three boxes, the two output pairs, the depth the C side
+    accepts, one instantiation a (dtype, C), and the box rows the producer
+    asks for."""
+    assert "static constexpr int STAGE_BYTES = 3 * BOX_BYTES;" in SOURCE
+    assert "SMEM_ALIGN + STAGES * STAGE_BYTES + H_TILES * 2 * BOX_BYTES" \
+        in SOURCE
+    assert SOURCE.count(f"if (stages != {P.RING_STAGES}) return ERR_PLAN;") \
+        == 2
+    assert P.BWD_BOXES == 3 and P.BWD_OUTPUTS == 2
+    assert len(REVERSE_INSTANTIATIONS) == 2 * len(P.RING_CHANNELS)
+    for code, size in ((0, 4), (1, 2)):
+        assert sorted(c for k, c, _ in REVERSE_INSTANTIATIONS if k == code) \
+            == sorted(P.RING_CHANNELS)
+        for k, c, tc in REVERSE_INSTANTIATIONS:
+            if k == code:
+                assert tc == P.STAGE_BYTES // (3 * c * size)
+    for rows in ("k * TC + 1, row", "k * TC, row", "k * TC - 1,"):
+        assert rows in SOURCE
+    assert P.bwd_box_rows(0, 21) == (1, 0, -1)
+    assert P.bwd_box_rows(3, 85) == (256, 255, 254)
+
+
+def reverse_ring_walk(a, h, dh, steps):
+    """The reverse ring kernel's walk on the CPU: tiles of ``steps`` rows
+    from the last to the first, each a box of a (one step ahead), dh and
+    h (one step behind) with rows outside [0, S) zero-filled, stepped from
+    the tile's last real row down in float32, g rounded to the dtype
+    before it multiplies h."""
+    bsz, s, r = a.shape
+
+    def box(x, row0):
+        out = torch.zeros((bsz, steps, r), dtype=x.dtype)
+        lo, hi = max(row0, 0), min(row0 + steps, s)
+        if lo < hi:
+            out[:, lo - row0:hi - row0] = x[:, lo:hi]
+        return out
+
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = torch.zeros((bsz, r), dtype=torch.float32)
+    for k in range(-(-s // steps) - 1, -1, -1):
+        ra, rg, rh = P.bwd_box_rows(k, steps)
+        ba, bg, bh = box(a, ra), box(dh, rg), box(h, rh)
+        t0 = k * steps
+        for t in range(min(steps, s - t0) - 1, -1, -1):
+            g = torch.add(torch.mul(ba[:, t].float(), g), bg[:, t].float())
+            gt = g.to(a.dtype)
+            db[:, t0 + t] = gt
+            da[:, t0 + t] = torch.mul(gt.float(), bh[:, t].float()).to(
+                a.dtype)
+    return da, db
+
+
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+@pytest.mark.parametrize("b,s,r", [(2, 1, 64), (1, 20, 32), (2, 21, 32),
+                                   (3, 22, 40), (1, 107, 32), (2, 200, 48)])
+def test_reverse_ring_walk_equals_the_plain_backward(b, s, r, dt):
+    """The CPU twin of the reverse ring, at the f32 C = 128 plan's Tc of
+    21 steps (one tile, a tile and one row, several tiles with a ragged
+    first tile), bit-equal to ``rglru_scan_backward_ref``: the zero-filled
+    rows past S and below 0 are exactly a_S = 0 and h_{-1} = 0."""
+    from repro_torch.kernels.rglru.ref import (rglru_scan_backward_ref,
+                                               rglru_scan_ref)
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    rng = np.random.default_rng(s * 100 + r)
+    a = torch.from_numpy(rng.uniform(0.85, 0.999, (b, s, r))).to(dtype)
+    x = torch.from_numpy(rng.standard_normal((b, s, r))).to(dtype)
+    dh = torch.from_numpy(rng.standard_normal((b, s, r))).to(dtype)
+    h = rglru_scan_ref(a, x)
+    steps = P.ring_bwd_plan(4, s, 4096, 4).steps
+    assert steps == 21
+    got = reverse_ring_walk(a, h, dh, steps)
+    want = rglru_scan_backward_ref(a, h, dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
