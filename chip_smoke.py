@@ -244,6 +244,19 @@ Phases, one report line each (every check raises on failure):
    14b and of 14d profiled by kernel name (``step_split``: the port's
    kernels' device time a step among the rest); every K4 backward of
    14b, 14c and 14d must take the tensor-core route.
+15. the dry run against the card (``phase_dryrun``): (15a) for the calls
+   phases 8b and 13b (the wave's prefill) and 14b and 14d (one train
+   step) measured with ``CallMemory`` — the bytes of their argument
+   tensors and their rise of allocated memory, this script's clones
+   taken out — ``launch.steps.plan_cell`` and ``launch.dryrun.run_meta``
+   on the ``card`` mesh: the planned argument bytes equal, the predicted
+   peak within DRYRUN_PEAK_TOL of the rise; (15b) all ten ids'
+   ``train_4k`` through ``dryrun.run_cell`` on the 16 x 16 and
+   2 x 16 x 16 meshes, every sharded dim dividing, llama4's per-device
+   train state printed; (15c) ``make_dp_grad_sync`` on a one-rank NCCL
+   group (a ``FileStore`` in a temporary directory) over 14b's gradients,
+   compressed and not, bit-equal to the int8 quantise / dequantise done
+   leaf by leaf in plain torch.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -266,6 +279,7 @@ present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -349,6 +363,10 @@ TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_LEAF_TOL = 1e-3, 2e-2, 0.1
 LEAF_FLOOR = 1e-3
 # a replayed step against its first pass where they are not bit-equal
 REPLAY_TOL = 1e-3
+# phase 15a: the dry run's predicted peak (the meta run's storages, charged
+# as the caching allocator charges a block) against the rise a call of
+# phases 8b, 13b, 14b and 14d measured, relative to the measured rise
+DRYRUN_PEAK_TOL = 0.15
 # the flash-attention kernel against its plain version, relative to
 # max(1, max |plain|): float32 sums in another order; bfloat16 outputs
 # rounded to bf16 (an ulp is 2^-7 of the magnitude) after such sums
@@ -1704,6 +1722,57 @@ def time_cell_launches(cells: "CellLaunches", expected: int) -> dict:
             "bound_ms_dense_count": old_bound, "loss_ms": loss}
 
 
+class CallMemory:
+    """Device memory of one call, for phase 15a: the bytes its argument
+    tensors hold (numel x element size) and the call's own rise, the peak
+    of ``memory_allocated`` after a ``reset_peak_memory_stats()`` just
+    before the call less what was allocated just before.  Clones that this
+    script's recorders make during the call (``instrument()``) are taken
+    out exactly: the rise is the largest of the peak before each clone and
+    the final peak, each less the clones held by then.  ``prior_peak`` is
+    the peak before the reset, so that a phase's own peak can still span
+    the call."""
+
+    active = None
+
+    def __init__(self, *args):
+        import torch
+        from torch.utils._pytree import tree_leaves
+        self.arg_bytes = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(args)
+                             if isinstance(t, torch.Tensor))
+        torch.cuda.synchronize()
+        self.prior_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.base = torch.cuda.memory_allocated()
+        self.held, self.peaks = 0, []
+        CallMemory.active = self
+
+    @staticmethod
+    @contextlib.contextmanager
+    def instrument():
+        """Allocations made inside are the script's, not the call's."""
+        import torch
+        mem = CallMemory.active
+        if mem is None:
+            yield
+            return
+        mem.peaks.append(torch.cuda.max_memory_allocated() - mem.held)
+        before = torch.cuda.memory_allocated()
+        yield
+        mem.held += torch.cuda.memory_allocated() - before
+
+    def done(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        CallMemory.active = None
+        peak = torch.cuda.max_memory_allocated()
+        return {"arg_bytes": self.arg_bytes,
+                "rise": max(self.peaks + [peak - self.held]) - self.base,
+                "instrument_bytes": self.held,
+                "peak_gb": max(self.prior_peak, peak) / 1e9}
+
+
 class Recorder:
     """Wraps a module's kernel entry point; keeps clones of the first
     call's tensor arguments and its keywords but the destination and the
@@ -1717,7 +1786,8 @@ class Recorder:
 
     def __call__(self, *args, **kwargs):
         if self.args is None:
-            self.args = [a.clone() for a in args]
+            with CallMemory.instrument():
+                self.args = [a.clone() for a in args]
             self.kwargs = {k: v for k, v in kwargs.items()
                            if k not in ("out", "with_lse")}
         return self.fn(*args, **kwargs)
@@ -1821,15 +1891,16 @@ def serve_wave(cfg, params, device) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in LM_PROMPT_LENS]
     eng = ServingEngine(cfg, params, max_seq=LM_MAX_SEQ)
-    prefill_s = []
+    prefill_s, prefill_mem = [], []
     real_prefill = engine_mod.prefill
 
     def timed_prefill(*a, **kw):
-        torch.cuda.synchronize()
+        mem = CallMemory(a, kw)
         t = time.perf_counter()
         res = real_prefill(*a, **kw)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t)
+        prefill_mem.append(mem.done())
         return res
 
     rec = Recorder(flash_ops, "flash_attention_bhsd")
@@ -1844,8 +1915,11 @@ def serve_wave(cfg, params, device) -> dict:
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         launches = {**FK.LAUNCHES, **RK.LAUNCHES}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the peak of the whole wave (the prefill's reset folded back in)
+        peak_gb = max(prefill_mem[0]["peak_gb"],
+                      torch.cuda.max_memory_allocated() / 1e9)
     finally:
+        CallMemory.active = None
         rec.restore()
         engine_mod.prefill = real_prefill
     b = len(prompts)
@@ -1862,7 +1936,7 @@ def serve_wave(cfg, params, device) -> dict:
             "k4_kwargs": rec.kwargs, "generate_s": gen_s,
             "prefill_s": prefill_s[0], "decode_s": decode_s,
             "decode_tokens_per_s": b * (LM_NEW_TOKENS - 1) / decode_s,
-            "peak_device_gb": peak_gb}
+            "peak_device_gb": peak_gb, "prefill_memory": prefill_mem[0]}
 
 
 def log_wave(label: str, wave: dict) -> None:
@@ -2110,7 +2184,8 @@ def phase_lm_serve(device, flash_ptxas: str, rglru_ptxas: str) -> dict:
                "score_shape_bound_ms": k5["score"]["bound_ms"]},
         "n_params": n_params, "param_gb": p_bytes / 1e9, "init_s": init_s,
         **{k: wave[k] for k in ("generate_s", "prefill_s", "decode_s",
-                                "decode_tokens_per_s", "peak_device_gb")},
+                                "decode_tokens_per_s", "peak_device_gb",
+                                "prefill_memory")},
         "score_s": score_s,
         "k4_rel_err": k4_rel, "k4_valid_pairs_per_head": pairs,
         "k4_computed_flops": k4_computed, "k4_f32_route_ms": k4_f32_ms,
@@ -4799,11 +4874,12 @@ def phase_train(device) -> dict:
     step = make_train_step(cfg, OptConfig(), wsd(*TRAIN_WSD),
                            grad_accum=TRAIN_ACCUM)
     reset_kernel_counts()
-    torch.cuda.synchronize()
+    mem = CallMemory(state, batch)
     t0 = time.perf_counter()
     new_state, metrics = step(state, batch)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
+    step_mem = mem.done()
     counts = kernel_counts()
     del new_state
     want = TRAIN_ACCUM * cfg.num_units
@@ -4811,7 +4887,7 @@ def phase_train(device) -> dict:
             or counts[FK.BWD_ROUTES[FK.TC]] != want):
         raise AssertionError(f"14b: a step launched {counts}")
     out["14b"].update(init_s=init_s, step_s=step_s, step_launches=counts,
-                      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      peak_gb=step_mem["peak_gb"], memory=step_mem,
                       metrics={k: float(v) for k, v in metrics.items()})
     # where a step's device time goes: one more step (on the same state;
     # its result is dropped)
@@ -4840,12 +4916,14 @@ def phase_train(device) -> dict:
     out["14d"] = grads_against_plain("14d", rg, state["params"], batch, 1)
     step = make_train_step(rg, ocfg, wsd(*TRAIN_WSD))
     reset_kernel_counts()
-    torch.cuda.synchronize()
+    mem = CallMemory(state, batch)
     t0 = time.perf_counter()
     losses = []
     for i in range(RG_STEPS):
         state, metrics = step(state, batch if i == 0 else
                               batch_to(next(it), device))
+        if i == 0:
+            step_mem = mem.done()
         losses.append(float(metrics["loss"]))
     torch.cuda.synchronize()
     rg_s = time.perf_counter() - t0
@@ -4865,8 +4943,9 @@ def phase_train(device) -> dict:
         raise AssertionError(f"14d: launches {counts} (expected {want}), "
                              f"losses {losses}")
     out["14d"].update(n_params=n_params, steps_s=rg_s, losses=losses,
-                      step_launches=counts,
-                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                      step_launches=counts, memory=step_mem,
+                      peak_gb=max(step_mem["peak_gb"],
+                                  torch.cuda.max_memory_allocated() / 1e9))
     # one more step's kernels (its result dropped), as 14b's
     out["14d"].update(step_split("14d", lambda: step(state, batch),
                                  rg_s / RG_STEPS))
@@ -4880,6 +4959,189 @@ def phase_train(device) -> dict:
 
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[14] phase 14 in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dry run (``launch.dryrun``) against the card
+# ---------------------------------------------------------------------------
+
+
+def dryrun_cells() -> dict:
+    """The four cells of phase 15a as (config, shape, optimizer config,
+    grad_accum): the calls phases 8b, 13b, 14b and 14d measure."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train.optimizer import OptConfig
+
+    wave = ShapeSpec("wave", "prefill", max(LM_PROMPT_LENS),
+                     len(LM_PROMPT_LENS))
+    rg = get_arch(LM_ARCH).config
+    qwen = get_arch(TRAIN_ARCH).config
+    return {
+        "8b": (rg, wave, OptConfig(), 1),
+        "13b": (get_arch("qwen2-0.5b").config, wave, OptConfig(), 1),
+        "14b": (qwen, ShapeSpec("step", "train", TRAIN_SEQ, TRAIN_BATCH),
+                OptConfig(), TRAIN_ACCUM),
+        "14d": (dataclasses.replace(rg, n_layers=RG_LAYERS),
+                ShapeSpec("step", "train", TRAIN_SEQ, RG_BATCH),
+                OptConfig(moment_dtype="int8"), 1)}
+
+
+def phase_dryrun(device, measured: dict) -> dict:
+    """15: (15a) ``plan_cell`` + the meta run of each cell measured in
+    phases 8b, 13b, 14b and 14d on the ``card`` mesh: argument bytes equal
+    to the real tensors', the predicted peak within DRYRUN_PEAK_TOL of
+    the call's measured rise; (15b) the per-device argument bytes of all
+    ten ids' ``train_4k`` on the production meshes through ``run_cell``
+    (every sharded dim divides, or the plan raises); (15c)
+    ``make_dp_grad_sync`` on a one-rank NCCL group (a ``FileStore`` in a
+    temporary directory) over 14b's gradients, bit-equal to the int8
+    quantise / dequantise done leaf by leaf in plain torch on the card."""
+    import os
+    import pathlib
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+    from repro_torch.distributed.compression import make_dp_grad_sync
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import H100_TOTAL_MEMORY, make_card_mesh
+    from repro_torch.launch.steps import (init_train_state, loss_and_grads,
+                                          plan_cell, to_device as batch_to)
+    from repro_torch.storage.datapipe import SyntheticTokens
+    from repro_torch.train.optimizer import OptConfig, tree_paths
+
+    t_phase = time.perf_counter()
+    mesh = make_card_mesh(device)
+    out = {"device_memory": mesh.device_memory, "cells": {}}
+    log(f"[15] planning on the card mesh: {mesh.memory_source}, "
+        f"total_memory {mesh.device_memory} B (without a card the plans "
+        f"take launch.mesh.H100_TOTAL_MEMORY = {H100_TOTAL_MEMORY} B)")
+
+    # -- 15a: predicted against measured --------------------------------
+    for label, (cfg, shape, ocfg, accum) in dryrun_cells().items():
+        t0 = time.perf_counter()
+        plan = plan_cell(cfg, shape, mesh, ocfg=ocfg, grad_accum=accum)
+        args = dryrun.arg_bytes(plan, mesh)
+        m = dryrun.run_meta(plan, mesh)
+        got = measured[label]
+        ratio = m.peak_alloc_bytes / got["rise"]
+        cell = {"arg_bytes": args["total"],
+                "measured_arg_bytes": got["arg_bytes"],
+                "predicted_peak": m.peak_alloc_bytes,
+                "predicted_peak_raw": m.peak_bytes,
+                "measured_rise": got["rise"],
+                "instrument_bytes": got["instrument_bytes"],
+                "ratio": ratio,
+                "fits": args["total"] + m.peak_alloc_bytes
+                <= mesh.device_memory,
+                "dot_flops": m.dot_flops, "traffic_bytes": m.traffic_bytes,
+                "aten_ops": m.ops, "meta_run_s": m.seconds,
+                "plan_s": time.perf_counter() - t0}
+        out["cells"][label] = cell
+        log(f"[15a] {label} {cfg.name} {shape.kind} {shape.global_batch} x "
+            f"{shape.seq_len} (grad_accum {accum}, remat {cfg.remat}, "
+            f"{ocfg.moment_dtype} moments): arguments {args['total']} B "
+            f"planned, {got['arg_bytes']} B on the card; peak predicted "
+            f"{m.peak_alloc_bytes / 1e9:.3f} GB, measured rise "
+            f"{got['rise'] / 1e9:.3f} GB (less "
+            f"{got['instrument_bytes'] / 1e9:.3f} GB of this script's "
+            f"clones), predicted / measured {ratio:.4f}; dot flops "
+            f"{m.dot_flops / 1e12:.3f} TFLOP, traffic "
+            f"{m.traffic_bytes / 1e9:.1f} GB, {m.ops} aten ops, meta run "
+            f"{m.seconds:.1f} s")
+        if args["total"] != got["arg_bytes"]:
+            raise AssertionError(f"15a {label}: planned argument bytes "
+                                 f"{args['total']} != {got['arg_bytes']}")
+        if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"15a {label}: predicted peak off the "
+                                 f"measured rise by {ratio:.4f} (bar "
+                                 f"{DRYRUN_PEAK_TOL})")
+
+    # -- 15b: the production meshes -------------------------------------
+    t0 = time.perf_counter()
+    prod = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in ARCH_IDS:
+            for mesh_name in ("single", "multi"):
+                rec = dryrun.run_cell(arch, "train_4k", mesh_name,
+                                      pathlib.Path(tmp), force=True)
+                if rec["status"] != "ok":
+                    raise AssertionError(f"15b {arch} {mesh_name}: "
+                                         f"{rec.get('error')}")
+                prod[f"{arch}/{mesh_name}"] = rec["arg_bytes_per_device"]
+    out["production"] = prod
+    out["production_s"] = time.perf_counter() - t0
+    llama = "llama4-maverick-400b-a17b"
+    for mesh_name in ("single", "multi"):
+        a = prod[f"{llama}/{mesh_name}"]
+        log(f"[15b] {llama} train_4k on {mesh_name}: per device "
+            f"params {a['params'] / 1e9:.3f} GB + optimizer "
+            f"{a['opt'] / 1e9:.3f} GB (int8 moments, ZeRO-1) = train "
+            f"state {(a['params'] + a['opt']) / 1e9:.3f} GB, batch "
+            f"{a['batch'] / 1e6:.3f} MB")
+    log(f"[15b] all {len(ARCH_IDS)} ids' train_4k planned on the 16 x 16 "
+        f"and 2 x 16 x 16 meshes, every sharded dim dividing, in "
+        f"{out['production_s']:.1f} s")
+
+    # -- 15c: the gradient sync on a one-rank NCCL group ----------------
+    cfg = get_arch(TRAIN_ARCH).config
+    state = init_train_state(cfg, OptConfig(), torch.Generator(
+        device=device).manual_seed(LM_SEED), device=device)
+    batch = batch_to(next(iter(SyntheticTokens(
+        cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=LM_SEED))),
+        device)
+    _, _, grads = loss_and_grads(cfg, state["params"], batch, TRAIN_ACCUM)
+    del state, batch
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(
+            "nccl", store=store, rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            res = {}
+            for compress in (True, False):
+                sync = make_dp_grad_sync(compress=compress)
+                sync(grads)                                # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                synced = sync(grads)
+                torch.cuda.synchronize()
+                res[compress] = (synced, time.perf_counter() - t0)
+        finally:
+            dist.destroy_process_group()
+    n_leaves = unequal = 0
+    wire = 0
+    for (path, g), (_, s8), (_, s32) in zip(
+            tree_paths(grads), tree_paths(res[True][0]),
+            tree_paths(res[False][0])):
+        g32 = g.to(torch.float32)
+        scale = torch.clamp_min(g32.abs().amax(), 1e-20) / 127.0
+        q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
+        want = (q.to(torch.float32) * scale) / 1.0
+        n_leaves += 1
+        unequal += not torch.equal(s8, want)
+        unequal += not torch.equal(s32, g32 / 1.0)
+        wire += q.numel()
+    out["sync"] = {"leaves": n_leaves, "unequal": unequal,
+                   "int8_elements": wire,
+                   "compressed_s": res[True][1], "plain_s": res[False][1]}
+    log(f"[15c] make_dp_grad_sync on a one-rank NCCL group over 14b's "
+        f"{n_leaves} gradient leaves ({wire / 1e6:.1f} M elements): int8 "
+        f"sync {res[True][1] * 1e3:.2f} ms, plain {res[False][1] * 1e3:.2f} "
+        f"ms; {'bit-equal' if not unequal else f'{unequal} leaves differ'} "
+        "to the quantise / dequantise in plain torch")
+    if unequal:
+        raise AssertionError(f"15c: {unequal} synced leaves differ from "
+                             "their plain quantise / dequantise")
+    del grads, res
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[15] phase 15 in {out['seconds']:.1f} s")
     return out
 
 
@@ -5144,6 +5406,12 @@ def main() -> int:
     # -- 14: training through K4 and K5, forwards and backwards ---------
     train = phase_train(dev)
 
+    # -- 15: the dry run's plan against the card -------------------------
+    dry = phase_dryrun(dev, {
+        "8b": lm["prefill_memory"],
+        "13b": lm_configs["qwen2-0.5b"]["prefill_memory"],
+        "14b": train["14b"]["memory"], "14d": train["14d"]["memory"]})
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -5168,7 +5436,7 @@ def main() -> int:
         "lm_configs": {arch: ({k: v for k, v in r.items() if k != "k4"}
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
-        "train": train,
+        "train": train, "dryrun": dry,
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))

@@ -1,1 +1,2 @@
-"""Fault tolerance and gradient compression for the port's trainer."""
+"""Partition rules and activation-sharding hints, fault tolerance, and the
+data-parallel gradient sync for the port's trainer."""

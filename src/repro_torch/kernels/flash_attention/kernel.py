@@ -30,6 +30,13 @@ forward's: bfloat16 through the tensor-core backward (wgmma, TMA),
 float32 through the CUDA-core one.  ``BACKWARD_LAUNCHES`` counts its
 calls in all (``BWD``) and per route; on the CPU it runs
 ``ref.attention_backward_reference``.
+
+On meta tensors (the dry run's plan of the card's path) both wrappers
+check their arguments and make the allocations they make on the card —
+the output, the lse when asked, the backward's delta / lse scratch and
+its per-split dk / dv partial sums — then skip the launch and report its
+flops and bytes to ``kernels.work``: the forward ``tiles.computed_flops``,
+the backward ``bwd_flops``.  No launch is counted.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention import tiles
 from repro_torch.kernels.flash_attention.ref import (
@@ -127,9 +135,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return o
         return o, attention_lse_reference(q, k, causal=causal, window=window,
                                           q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bhsd runs on cuda or cpu tensors, "
-                         f"got {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_bhsd runs on cuda, cpu or meta "
+                         f"tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
     b, h, sq, d = q.shape
@@ -181,13 +189,20 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(name, q, k, v, out, causal, window, q_offset, scale,
             lse=None) -> None:
-    """One launch of route ``name``'s kernel on checked tensors."""
+    """One launch of route ``name``'s kernel on checked tensors (on meta
+    tensors: its work reported, no launch)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    bq, bk = tile(name, d)
+    if q.device.type == "meta":
+        work.report(name, tiles.computed_flops(
+            b, h, d, sq=sq, sk=sk, causal=causal, window=window,
+            q_offset=q_offset, bq=bq, bk=bk),
+            work.tensor_bytes(q, k, v, out, *(() if lse is None else (lse,))))
+        return
     strides = [s for x in (q, k, v, out) for s in _strides(x)]
     if name == TC:
         _check_tma((("q", q), ("k", k), ("v", v)), (("out", out),))
-    bq, bk = tile(name, d)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -227,9 +242,9 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                                              causal=causal, window=window)
         return tuple(g if dst is None else dst.copy_(g)
                      for g, dst in zip(grads, (dq, dk, dv)))
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_bhsd runs on cuda or cpu "
-                         f"tensors, got {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_bwd_bhsd runs on cuda, cpu or "
+                         f"meta tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q, k, v, o, do must be [B, H, S, D]")
     b, h, s, d = q.shape
@@ -289,12 +304,14 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
 
 def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
                 scale) -> None:
-    """One call of the route's backward kernels on checked tensors."""
+    """One call of the route's backward kernels on checked tensors (on
+    meta tensors: the scratch allocated and the work reported, no
+    launch)."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     name = route(q.dtype)
     tensor_cores = name == TC
-    if tensor_cores:
+    if tensor_cores and q.device.type != "meta":
         _check_tma((("q", q), ("k", k), ("v", v), ("do", do)),
                    (("dq", dq), ("dk", dk), ("dv", dv)))
     s_pad = tiles.bwd_pad_rows(s) if tensor_cores else s
@@ -305,6 +322,11 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
     if splits > 1:
         n += splits * 2 * b * kvh * s * d
     scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        work.report(BWD_ROUTES[name], bwd_flops(b, h, s, d, causal, window,
+                                                tensor_cores),
+                    work.tensor_bytes(q, k, v, o, do, lse, dq, dk, dv))
+        return
     strides = [st for x in (q, k, v, o, do, dq, dk, dv) for st in _strides(x)]
     lib = _library()
     with torch.cuda.device(q.device):
@@ -323,6 +345,17 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
                            f"{rc} ({msg})")
     BACKWARD_LAUNCHES[BWD] += 1
     BACKWARD_LAUNCHES[BWD_ROUTES[name]] += 1
+
+
+def bwd_flops(b: int, h: int, s: int, d: int, causal: bool,
+              window: int | None, tensor_cores: bool) -> float:
+    """Matrix-product flops of one backward call: 10 d for every (query,
+    key) pair of the dk/dv blocks' visited tiles (q·kᵀ again, dO·vᵀ, pᵀ·dO,
+    dsᵀ·q and ds·k), over batch and heads."""
+    _, _, bk, bq = tiles.bwd_tiles(tensor_cores, d)
+    visited = sum(len(row) for row in tiles.dkdv_schedule(
+        s=s, causal=causal, window=window, bk=bk, bq=bq))
+    return 10.0 * d * bk * bq * visited * b * h
 
 
 def smem_bytes(name: str, d: int) -> int:

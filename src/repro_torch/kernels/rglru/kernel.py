@@ -21,6 +21,11 @@ picks (``plan.plan_bwd``): one launch that reads a, h and dh once and
 writes da and db, counted in ``LAUNCHES`` like any launch and once more
 in ``BACKWARD_LAUNCHES``.  It equals ``ref.rglru_scan_backward_ref`` bit
 for bit, as the forward equals ``rglru_scan_ref``.
+
+On meta tensors (the dry run's plan of the card's path) both wrappers
+check their arguments and allocate their outputs as on the card (h; da
+and db), then skip the launch and report the bytes it moves to
+``kernels.work``.  No launch is counted.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import load
 from repro_torch.kernels.rglru import plan as rglru_plan
 from repro_torch.kernels.rglru.ref import (rglru_scan_backward_ref,
@@ -80,9 +86,9 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     contiguous, one dtype); the carry is float32."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan_kernel runs on cuda or cpu tensors, "
-                         f"got {a.device}")
+    if a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rglru_scan_kernel runs on cuda, cpu or meta "
+                         f"tensors, got {a.device}")
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
         raise ValueError(f"a and b must be one [B, S, R] shape, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -96,6 +102,9 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
+    if a.device.type == "meta":
+        work.report(TOTAL, 0.0, work.tensor_bytes(a, b, out))
+        return out
     p = rglru_plan.plan(*a.shape, a.element_size(),
                         (a.data_ptr(), b.data_ptr(), out.data_ptr()))
     return launch(a, b, out, p)
@@ -107,9 +116,9 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
     [B, S, R] in one dtype, contiguous (h the forward's output)."""
     if a.device.type == "cpu":
         return rglru_scan_backward_ref(a, h, dh)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan_backward runs on cuda or cpu tensors, "
-                         f"got {a.device}")
+    if a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rglru_scan_backward runs on cuda, cpu or meta "
+                         f"tensors, got {a.device}")
     if (a.dim() != 3 or tuple(h.shape) != tuple(a.shape)
             or tuple(dh.shape) != tuple(a.shape)):
         raise ValueError(f"a, h and dh must be one [B, S, R] shape, got "
@@ -125,6 +134,9 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
         raise ValueError("a, h and dh must be contiguous")
     da, db = torch.empty_like(a), torch.empty_like(a)
     if a.numel() == 0:
+        return da, db
+    if a.device.type == "meta":
+        work.report(BWD, 0.0, work.tensor_bytes(a, h, dh, da, db))
         return da, db
     p = rglru_plan.plan_bwd(*a.shape, a.element_size(),
                             tuple(x.data_ptr() for x in (a, h, dh, da, db)))

@@ -1,1 +1,2 @@
-"""Train / serve steps and the model-size arithmetic of the dry run."""
+"""Train / serve steps, device meshes, and the dry run that plans each
+(arch x shape x mesh) cell on the meta device."""

@@ -1,0 +1,121 @@
+"""Device meshes for planning: the production meshes, the host's cards and
+one H100.
+
+The port's counterpart of the JAX package's ``repro.launch.mesh``.  A
+``MeshSpec`` names the mesh's axes and their sizes, and, where known, the
+memory of one of its devices; it stands in for ``jax.sharding.Mesh`` /
+``AbstractMesh`` in the partition rules (``distributed.partitioning``)
+and the dry run (``launch.dryrun``), and needs no process group: a plan is
+made without the devices it describes.
+
+* ``make_production_mesh``: the 16 x 16 ``("data", "model")`` pod, or
+  2 x 16 x 16 ``("pod", "data", "model")``;
+* ``make_host_mesh``: ``(cards // model, model)`` over this host's cards;
+* ``make_points_mesh``: the 1-D ``("points",)`` sweep mesh, ``None`` with
+  fewer than two cards (the sweeps then stay on their one-device path);
+* ``make_card_mesh``: one card, 1 x 1, with its memory.
+
+Nothing here touches the card when the module is imported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+
+#: ``torch.cuda.get_device_properties(0).total_memory`` of the card the
+#: plans are checked on, "NVIDIA H100 80GB HBM3, 700.00 W" (``nvidia-smi
+#: --query-gpu=name,power.limit --format=csv,noheader``), as read by
+#: ``chip_smoke.py``'s phase 15; ``make_card_mesh`` uses it where no card
+#: is present.
+H100_TOTAL_MEMORY = 85_017_493_504
+H100_NAME = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+MESH_NAMES = ("card", "single", "multi")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A named device mesh: axis names, their sizes, and the memory of one
+    device where it is known (``None`` for the production meshes, whose
+    devices the port does not model)."""
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+    device_memory: int | None = None
+    memory_source: str = ""
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"{len(self.axis_names)} axis names for "
+                             f"{len(self.sizes)} sizes")
+        if any(n < 1 for n in self.sizes):
+            raise ValueError(f"mesh sizes must be >= 1, got {self.sizes}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """16x16 single-pod (256 devices) or 2x16x16 multi-pod (512)."""
+    if multi_pod:
+        return MeshSpec(("pod", "data", "model"), (2, 16, 16))
+    return MeshSpec(("data", "model"), (16, 16))
+
+
+def make_host_mesh(model: int = 1, device=None) -> MeshSpec:
+    """``(cards // model, model)`` over ``("data", "model")``: 1 x 1 on a
+    one-card machine.  Raises where no card is present unless the caller
+    asks for the CPU (``device="cpu"``: one device)."""
+    dev = resolve_device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if model < 1 or n % model:
+        raise ValueError(f"{n} devices do not split into model={model}")
+    return MeshSpec(("data", "model"), (n // model, model))
+
+
+def make_points_mesh() -> MeshSpec | None:
+    """1-D ``("points",)`` mesh over every card, the design-point axis of
+    the simulator sweeps; ``None`` with fewer than two cards, so that the
+    sweeps keep their one-device path."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        return None
+    return MeshSpec(("points",), (n,))
+
+
+def make_card_mesh(device=None) -> MeshSpec:
+    """One card, 1 x 1 ``("data", "model")``, with its memory: read from the
+    card on ``cuda`` (``device=None``), else ``H100_TOTAL_MEMORY``
+    (``device="cpu"`` or ``"meta"``: planning without a card)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        index = dev.index if dev.index is not None else 0
+        return MeshSpec(("data", "model"), (1, 1),
+                        torch.cuda.get_device_properties(index).total_memory,
+                        torch.cuda.get_device_name(index))
+    return MeshSpec(("data", "model"), (1, 1), H100_TOTAL_MEMORY, H100_NAME)
+
+
+def make_mesh(name: str) -> MeshSpec:
+    """The dry run's ``--mesh``: ``"single"`` or ``"multi"``, or ``"card"``
+    planned with the card's own memory where a card is present, else with
+    ``H100_TOTAL_MEMORY``."""
+    if name == "card":
+        return make_card_mesh("cuda" if torch.cuda.is_available() else "meta")
+    if name in ("single", "multi"):
+        return make_production_mesh(multi_pod=name == "multi")
+    raise ValueError(f"unknown mesh {name!r} (one of {MESH_NAMES})")
+
+
+def mesh_chip_count(mesh: MeshSpec) -> int:
+    return mesh.size

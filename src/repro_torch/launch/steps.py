@@ -1,11 +1,15 @@
-"""Train / prefill / decode steps.
+"""Train / prefill / decode steps, their state's partition specs, and the
+plan of one (arch x shape) cell on a mesh.
 
-The port of the JAX package's ``repro.launch.steps`` for one device: the
-exact computations the trainer and the serving engine execute.
+The port of the JAX package's ``repro.launch.steps``: the exact
+computations the trainer and the serving engine execute.
 ``train_step`` is forward + backward (+ microbatch accumulation) + AdamW
 update; ``serve_decode`` one token against the cache, ``serve_prefill``
-the batched prompt pass.  The mesh machinery (``train_state_pspecs``,
-``lower_cell``) stays with the JAX package.
+the batched prompt pass.  ``train_state_pspecs`` gives the train state's
+specs on a mesh (``distributed.partitioning``), and ``plan_cell`` — the
+counterpart of JAX's ``lower_cell`` — the cell's meta-device arguments,
+their specs and the step that would run on them; it lowers nothing (the
+dry run, ``launch.dryrun``, runs the step on meta).
 
 Gradients come from ``torch.autograd``; on the card they run through the
 hand-written attention and RG-LRU kernels forwards and backwards.  The
@@ -14,11 +18,14 @@ step returns a new state; the state it was given is left as it was.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.configs.base import ShapeSpec, input_specs
 from repro_torch.device import resolve_device
+from repro_torch.distributed import partitioning as part
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_params, loss_fn, prefill)
 from repro_torch.train.optimizer import (OptConfig, adamw_init, adamw_update,
@@ -47,6 +54,38 @@ def abstract_train_state(cfg: ModelConfig, ocfg: OptConfig) -> Params:
     tensors (no data)."""
     return init_train_state(cfg, ocfg, torch.Generator().manual_seed(0),
                             device="meta")
+
+
+def train_state_pspecs(cfg: ModelConfig, ocfg: OptConfig, mesh,
+                       state_shape: Params, *, zero1: bool = True) -> Params:
+    """PartitionSpecs for the {'params', 'opt'} train state: the moments
+    and master follow their parameter's spec (an int8 moment's ``q`` too,
+    its ``scale`` replicated on the last dim), then, with ``zero1``, shard
+    their first free divisible dim over ``data``; ``count`` replicates."""
+    pspecs = part.param_pspecs(cfg, mesh, state_shape["params"])
+    zdiv = part.axis_size(mesh, part.FSDP_AXIS)
+    flat_specs = {"/".join(p): v for p, v in tree_paths(pspecs)}
+    flat_shapes = {"/".join(p): tuple(v.shape)
+                   for p, v in tree_paths(state_shape["params"])}
+
+    def opt_spec(path, leaf):
+        if path == "count":
+            return part.P()
+        _, rest = path.split("/", 1)
+        suffix = None
+        if rest not in flat_specs and rest.endswith(("/q", "/scale")):
+            rest, suffix = rest.rsplit("/", 1)  # int8 moment {'q','scale'}
+        base = flat_specs[rest]
+        parts = list(base) + [None] * (len(flat_shapes[rest]) - len(base))
+        if suffix == "scale":
+            parts[-1] = None  # scale dim is size-1
+        spec = part.P(*parts)
+        return (part.zero1_spec(spec, tuple(leaf.shape), zdiv) if zero1
+                else spec)
+
+    opt_specs = tree_from_paths((p, opt_spec("/".join(p), leaf))
+                                for p, leaf in tree_paths(state_shape["opt"]))
+    return {"params": pspecs, "opt": opt_specs}
 
 
 # ---------------------------------------------------------------------------
@@ -132,3 +171,81 @@ def to_device(tree, device=None):
     """A batch or state tree moved to ``device`` (``None``: the card)."""
     dev = resolve_device(device)
     return tree_map(lambda x: x.to(dev), tree)
+
+
+# ---------------------------------------------------------------------------
+# the plan of one (arch x shape) cell on a mesh — used by the dry run
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CellPlan:
+    """One cell's step, its meta-device arguments and their specs.
+
+    ``args`` are the step's positional arguments (``index``, decode's
+    position, a Python int: the port's decode takes one); ``groups`` splits
+    them into ``params`` / ``opt`` / ``batch`` / ``cache`` trees, each with
+    its spec tree, for the per-device byte count."""
+    kind: str
+    step: Callable
+    args: tuple
+    groups: dict[str, tuple[Any, Any]]
+    rules: dict
+
+    def run(self):
+        """The step on its arguments: with gradients for a train cell,
+        under ``torch.inference_mode`` for serving, as the trainer and the
+        serving engine run it."""
+        if self.kind == "train":
+            return self.step(*self.args)
+        with torch.inference_mode():
+            return self.step(*self.args)
+
+
+def plan_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
+              ocfg: OptConfig | None = None, zero1: bool = True,
+              grad_accum: int = 1) -> CellPlan:
+    """The counterpart of the JAX package's ``lower_cell``: the arguments
+    ``lower_cell`` would lower the cell's step on (from
+    ``abstract_train_state`` or a meta ``init_params``, ``input_specs``, and
+    for decode the cache), as meta tensors, their specs on ``mesh``, and
+    the step (``make_train_step`` / ``make_serve_prefill`` /
+    ``make_serve_decode``).  Nothing is lowered or run."""
+    ocfg = ocfg or OptConfig()
+    specs = input_specs(cfg, shape)
+    rules = part.activation_rules(cfg, mesh, shape.global_batch)
+    if shape.kind == "train":
+        state = abstract_train_state(cfg, ocfg)
+        state_specs = train_state_pspecs(cfg, ocfg, mesh, state, zero1=zero1)
+        batch = specs["batch"]
+        return CellPlan(
+            "train", make_train_step(cfg, ocfg, grad_accum=grad_accum),
+            (state, batch),
+            {"params": (state["params"], state_specs["params"]),
+             "opt": (state["opt"], state_specs["opt"]),
+             "batch": (batch, part.batch_pspecs(cfg, mesh, batch))}, rules)
+
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="meta")
+    groups = {"params": (params, part.param_pspecs(cfg, mesh, params))}
+    inputs = {k: specs[k] for k in ("inputs", "position_ids") if k in specs}
+    binp = part.batch_axes(mesh, shape.global_batch)
+    if shape.kind == "prefill":
+        groups["batch"] = (inputs, part.batch_pspecs(cfg, mesh, inputs))
+        return CellPlan(
+            "prefill", make_serve_prefill(cfg, shape.seq_len),
+            (params, inputs["inputs"], inputs.get("position_ids")), groups,
+            rules)
+    if shape.kind != "decode":
+        raise ValueError(f"unknown cell kind {shape.kind!r}")
+    cache = specs["cache"]
+    groups["cache"] = (cache, part.cache_pspecs(cfg, mesh, cache))
+    in_specs = {"inputs": part.P(binp, *([None] * (inputs["inputs"].dim()
+                                                   - 1)))}
+    if "position_ids" in inputs:
+        in_specs["position_ids"] = part.P(None, binp, None)
+    groups["batch"] = (inputs, in_specs)
+    return CellPlan(
+        "decode", make_serve_decode(cfg),
+        (params, cache, inputs["inputs"], shape.seq_len - 1,
+         inputs.get("position_ids")), groups, rules)

@@ -14,7 +14,9 @@ Full-sequence attention takes one of three routes:
 * on a CUDA tensor, the hand-written flash-attention kernel
   (``repro_torch.kernels.flash_attention``), whose mask is causal on
   positions ``arange(S)``: other positions on the card raise.  M-RoPE ids
-  only rotate q and k before attention, so any ids go through it.
+  only rotate q and k before attention, so any ids go through it.  Meta
+  tensors (the dry run's plan of the card's path) take the same route;
+  the kernel's wrapper allocates its outputs and reports its work.
 
 Decode (``attn_decode``) is a single-token query against a KV cache laid
 out ``[B, kvH, S_cache, Dh]``; sliding-window layers use a ring buffer
@@ -29,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.ctx import constrain
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import Params, dense_init
@@ -190,7 +193,9 @@ def attend(spec: AttnSpec, q, k, v, positions):
         raise NotImplementedError(
             "attention logit soft-capping on the card is not ported: the "
             "flash-attention kernel has no soft cap (a later slice H item)")
-    if not _is_arange(positions):
+    # meta positions (the dry run's) have no values to read: they stand
+    # for the arange the card path requires, and go to K4's wrapper
+    if positions.device.type != "meta" and not _is_arange(positions):
         raise NotImplementedError(
             "custom positions on the card are not ported: the flash-"
             "attention kernel takes causal positions arange(S) only (a "
@@ -212,6 +217,11 @@ def attn_full(
     x = x.to(compute_dtype)
     q, k, v = _project_qkv(p, spec, x, compute_dtype)
     q, k = _apply_positional(spec, q, k, positions, position_ids)
+    # context-parallel fallback: where heads do not divide the TP axis the
+    # planner's activation rules shard the *query sequence* instead (the
+    # identity on one device; recorded inside an activation_sharding context)
+    q = constrain(q, ("batch", "seq", None, None, None))
+    positions = constrain(positions, ("batch", "seq"))
     out = attend(spec, q, k, v, positions)
     return _out_proj(p, out, compute_dtype)
 

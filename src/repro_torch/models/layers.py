@@ -36,7 +36,10 @@ INIT_CHUNK = 1 << 26
 def trunc_normal_(out: torch.Tensor, gen: torch.Generator, *,
                   scale: float = 1.0) -> torch.Tensor:
     """Fill ``out`` in place with ``scale`` times a standard normal
-    truncated to [-2, 2] (inverse-CDF sampling, as ``jax.random``)."""
+    truncated to [-2, 2] (inverse-CDF sampling, as ``jax.random``).  A
+    meta tensor has no values to draw and is returned as it is."""
+    if out.device.type == "meta":
+        return out
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     flat = out.view(-1)
     for start in range(0, flat.numel(), INIT_CHUNK):

@@ -19,8 +19,10 @@ The JAX package's design, on one device:
   of the top-k logits (Llama-4), kept in float32; an optional always-on
   shared expert.  Dropped tokens fall through on the residual path.
 
-The JAX package's sharding hints (``distributed.ctx.constrain``) are the
-identity on one device and are not carried over.
+The JAX package's sharding hints are kept where it makes them:
+``distributed.ctx.constrain`` on the dispatch tables and buffers, the
+identity on one device, which records the specs a mesh would give them
+inside the dry run's ``activation_sharding`` context.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models.layers import ACTIVATIONS, Params, dense_init
 
 
@@ -161,13 +164,20 @@ def apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, *,
 
     weights, ids = _route(p["router"], xg, spec)
     src, wtab = _routing_tables(ids, weights, spec, cap)
+    # capacity-slot parallelism (non-divisible expert counts): the slot
+    # axis of the dispatch buffers over 'model' (the identity on one
+    # device; recorded inside an activation_sharding context)
+    src = constrain(src, ("batch", None, "moe_cap"))
+    wtab = constrain(wtab, ("batch", None, "moe_cap"))
 
     x_pad = torch.cat([xg.to(compute_dtype),
                        xg.new_zeros((g, 1, d), dtype=compute_dtype)], dim=1)
     g_idx = torch.arange(g, device=x.device)[:, None, None]
     xe = x_pad[g_idx, src]                            # [G, E, C, d] gather
+    xe = constrain(xe, ("batch", None, "moe_cap", None))
     ye = _expert_ffn(p, spec, xe, compute_dtype)
     ye = ye * wtab[..., None].to(compute_dtype)
+    ye = constrain(ye, ("batch", None, "moe_cap", None))
 
     # combine: each token's rows, summed in ascending expert order
     rows = torch.cat([ye.reshape(g, -1, d), ye.new_zeros((g, 1, d))], dim=1)

@@ -51,9 +51,9 @@ def apply_mrope(x: torch.Tensor, position_ids: torch.Tensor,
         raise ValueError(f"M-RoPE sections {sections} do not sum to {d_half}")
     freqs = rope_freqs(x.shape[-1], theta, x.device)        # [D/2]
     angles = position_ids.float()[..., None] * freqs          # [3, B, S, D/2]
-    sec_id = torch.repeat_interleave(
+    sec_id = torch.repeat_interleave(                        # [D/2]
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))           # [D/2]
+        torch.as_tensor(sections, device=x.device), output_size=d_half)
     angles = torch.gather(
         angles.movedim(0, -1),                                 # [B, S, D/2, 3]
         -1, sec_id[None, None, :, None].expand(

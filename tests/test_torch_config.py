@@ -48,9 +48,11 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.train, repro_torch.train.optimizer\n"
             "import repro_torch.train.schedules, repro_torch.train.trainer\n"
             "import repro_torch.launch, repro_torch.launch.steps\n"
-            "import repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
             "import repro_torch.distributed, repro_torch.distributed.fault\n"
             "import repro_torch.distributed.compression\n"
+            "import repro_torch.distributed.partitioning\n"
+            "import repro_torch.distributed.ctx, repro_torch.kernels.work\n"
             "import repro_torch.configs.base\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
@@ -199,7 +201,11 @@ def test_card_attention_path_raises_on_what_the_kernel_lacks():
     naming the later slice instead of taking a plain branch.  Non-text
     M-RoPE ids rotate q and k before ``attend`` and pass its checks to the
     kernel's wrapper.  (Meta tensors stand in for the card's: the checks
-    run before any data, and the wrapper then refuses the meta device.)"""
+    run before any data; on meta the wrapper then allocates its output and
+    reports the launch's work without launching, as the dry run plans
+    it.)"""
+    from repro_torch.kernels import work
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.models import attention
 
     spec = attention.AttnSpec(n_heads=4, n_kv_heads=1, head_dim=16, window=8)
@@ -213,8 +219,10 @@ def test_card_attention_path_raises_on_what_the_kernel_lacks():
                                 mrope_sections=(2, 3, 3))
     mq, mk = attention._apply_positional(
         mspec, torch.ones(q.shape), torch.ones(k.shape), text, ids)
-    with pytest.raises(ValueError, match="cuda or cpu tensors, got meta"):
-        attention.attend(mspec, mq.to("meta"), mk.to("meta"), v, text)
+    with work.recording() as log:
+        out = attention.attend(mspec, mq.to("meta"), mk.to("meta"), v, text)
+    assert out.device.type == "meta" and out.shape == mq.shape
+    assert log.calls == {flash_kernel.route(mq.dtype): 1}
     capped = dataclasses.replace(spec, softcap=30.0)
     with pytest.raises(NotImplementedError, match="soft-capping"):
         attention.attend(capped, q, k, v, text)

@@ -11,6 +11,7 @@ Without a card every test skips: a CUDA kernel has no CPU mode."""
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import maxplus_form as mf
 from repro_torch.core import sim, trace
@@ -1453,3 +1454,54 @@ def test_rglru_gradient_through_the_op(card):
                                          gg))
     for got, want in zip(*grads):
         assert torch.equal(got.cpu(), want)
+
+
+class _Allocs(TorchDispatchMode):
+    """(shape, dtype) of every fresh allocation (``empty*``) made."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in (torch.ops.aten.empty.memory_format,
+                    torch.ops.aten.empty_like.default,
+                    torch.ops.aten.empty_strided.default):
+            self.made.append((tuple(out.shape), out.dtype))
+        return out
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_meta_twins_allocate_what_the_card_allocates(card, case):
+    """The K4 and K5 wrappers on meta tensors (the dry run's plan) make
+    the allocations they make on the card — K4's output and lse, the
+    backward's gradients and its delta / lse / split-sum scratch, K5's h
+    and da / db — in shapes, dtypes and order."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+
+    b, h, kvh, s, d, causal, window, dtype = case
+    q, k, v, do = flash_bwd_inputs(card, case)
+    o, lse = FK.flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                     with_lse=True)
+    a = torch.rand((b, s, 4 * d), device=card).to(dtype)
+    hs = RK.rglru_scan_kernel(a, a)
+    made = {}
+    for dev in (card, torch.device("meta")):
+        args = [x.to(dev) for x in (q, k, v, o, do, lse, a, hs)]
+        with _Allocs() as allocs:
+            out = FK.flash_attention_bhsd(*args[:3], causal=causal,
+                                          window=window, with_lse=True)
+            grads = FK.flash_attention_bwd_bhsd(*args[:6], causal=causal,
+                                                window=window)
+            scan = RK.rglru_scan_kernel(args[6], args[6])
+            dscan = RK.rglru_scan_backward(args[6], args[7], args[7])
+        made[dev.type] = allocs.made
+        outs = [(tuple(x.shape), x.dtype) for x in (*out, *grads, scan,
+                                                    *dscan)]
+        made[dev.type + "/outs"] = outs
+    torch.cuda.synchronize()
+    assert made["meta"] == made["cuda"]
+    assert made["meta/outs"] == made["cuda/outs"]
