@@ -257,6 +257,25 @@ Phases, one report line each (every check raises on failure):
    group (a ``FileStore`` in a temporary directory) over 14b's gradients,
    compressed and not, bit-equal to the int8 quantise / dequantise done
    leaf by leaf in plain torch.
+16. caller positions and the logit soft cap (``phase_positions``): (16a)
+   K4's EXT instantiations (the positions' pre-pass, then the forward
+   with and without lse and the backward) on both routes against their
+   plain versions at the slice's shape, q [1, 14, 4096, 64] with two kv
+   heads on packed documents (lengths drawn uniform in 256-2048 from
+   LM_SEED, positions restarting at each) and a cap of 50.0, q scaled by
+   8 so that the scores reach about +-36 and the cap's tanh is far from
+   linear; the backward's bar is shown to fail the same backward without
+   the cap's factor 1 - t^2 (the plain version with it dropped); timed
+   beside their bound (the operations of the kept pairs), the index path
+   on the same inputs and SDPA with the positions' boolean mask (no
+   PyTorch call computes the cap); (16b) qwen2-0.5b at full width and
+   depth with ``attn_softcap=50.0`` (Gemma 2's published logit cap) on a
+   2 x 4096 packed batch (``batch["positions"]``, remat full, two
+   microbatches): the step's loss, gradient norm and leaves against the
+   same step with the plain attention, then one train step and one
+   scoring ``forward`` (no gradient, against the plain attention's),
+   every K4 launch of both on the tensor-core route's EXT
+   instantiation.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -265,8 +284,9 @@ entry), phase 6 that
 of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5 (and
 the prefills of 13b-13d, each reported as its own K4 entry),
 ``Trainer.run()`` in 14c that of K4's backward and 14d's two steps that
-of K5's: the launch counts are reset just before each and read just
-after.  The
+of K5's, 16b's train step and scoring forward that of K4's EXT
+instantiations: the launch counts are reset just before each and read
+just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
 read once, the dense dictionary by the pre-pass; per step the add/max
 pairs of the kept entries and the side operations of the rows the op
@@ -4465,7 +4485,9 @@ class plain_kernels:
             b, s, kvh, g, d = q.shape
             o = attention_reference(q.reshape(b, s, kvh * g, d).transpose(1, 2),
                                     k.transpose(1, 2), v.transpose(1, 2),
-                                    causal=True, window=spec.window)
+                                    causal=True, window=spec.window,
+                                    q_pos=positions, k_pos=positions,
+                                    softcap=spec.softcap)
             return o.transpose(1, 2).reshape(q.shape)
 
         self.saved = (attn_mod, attn_mod.attend, rglru_ops,
@@ -5145,6 +5167,344 @@ def phase_dryrun(device, measured: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: caller positions and the logit soft cap (K4's EXT kernels)
+# ---------------------------------------------------------------------------
+
+#: Gemma 2's published attn_logit_softcapping, set on qwen2-0.5b
+POS_SOFTCAP = 50.0
+#: document lengths of the packed batches, drawn uniform from LM_SEED
+POS_DOC_LENS = (256, 2048)
+#: q's scale in 16a: scores of std 8 that reach about +-36, where the cap's
+#: tanh is far from linear (unit q keeps them under 6, where 1 - t^2 >
+#: 0.98 and a backward without that factor is within the bf16 bar)
+POS_Q_SCALE = 8.0
+
+
+def packed_positions(b: int, s: int, seed: int, device):
+    """[b, s] int32: documents of POS_DOC_LENS tokens drawn uniform from
+    ``seed`` until s is filled (the last one cut), positions restarting
+    at 0 in each; and the documents' lengths."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = np.zeros((b, s), np.int32)
+    lens = []
+    for i in range(b):
+        j = 0
+        while j < s:
+            n = int(rng.integers(POS_DOC_LENS[0], POS_DOC_LENS[1] + 1))
+            out[i, j:j + n] = np.arange(min(n, s - j))
+            lens.append(min(n, s - j))
+            j += n
+    return torch.as_tensor(out, device=device), lens
+
+
+def kept_pairs(q_pos, k_pos, causal: bool, window) -> int:
+    """(query, key) pairs the positional mask keeps, over the batch: for
+    each query the keys at positions (q - window, q] (or <= q)."""
+    import torch
+    n = 0
+    for qp, kp in zip(q_pos.long(), k_pos.long()):
+        ks = torch.sort(kp).values
+        hi = (torch.searchsorted(ks, qp, right=True) if causal
+              else torch.full_like(qp, ks.numel()))
+        lo = (torch.searchsorted(ks, qp - window, right=True) if window
+              else torch.zeros_like(qp))
+        n += int((hi - lo).clamp_min(0).sum())
+    return n
+
+
+def check_k4_ext(q, k, v, do, pos, cap) -> dict:
+    """16a on one route: forward (output and lse) and backward of the EXT
+    instantiation against the plain versions, the dtype's route and EXT
+    counters moving by one each (these comparison launches are not the
+    main path's).  The plain backward without the cap's factor 1 - t^2
+    (what a kernel that dropped it would give) must lie further from the
+    right one than the bar and the kernel's own error together, so that
+    the bar fails such a kernel."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference,
+        attention_reference)
+    kw = dict(q_pos=pos, k_pos=pos, softcap=cap)
+    name = FK.route(q.dtype)
+    fwd, bwd = FK.EXT_KEYS[name], FK.EXT_KEYS[FK.BWD_ROUTES[name]]
+    before = dict(FK.EXT_LAUNCHES)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    grads = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    if FK.EXT_LAUNCHES != {**before, fwd: before[fwd] + 1,
+                           bwd: before[bwd] + 1}:
+        raise AssertionError(f"16a {name}: EXT launches {before} -> "
+                             f"{FK.EXT_LAUNCHES}")
+    want = attention_reference(q, k, v, **kw)
+    err = float((o.float() - want.float()).abs().max())
+    fwd_rel = flash_err(o, want)
+    del want
+    lse_rel = rel_max(lse, attention_lse_reference(q, k, **kw))
+    want_g = attention_backward_reference(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    bwd_err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(grads, want_g))
+    bwd_rel = max(rel_max(x, y) for x, y in zip(grads, want_g))
+    del grads
+    scores = FR._masked_scores
+    with mock.patch.object(FR, "_masked_scores",
+                           lambda *a, **k_: scores(*a, **k_)[:2] + (None,)):
+        no_factor = attention_backward_reference(q, k, v, o, do, **kw)
+    cap_factor_rel = max(rel_max(x, y) for x, y in zip(no_factor, want_g))
+    del want_g, no_factor
+    out = {"max_abs_err": err, "rel_err": fwd_rel, "lse_rel_err": lse_rel,
+           "bwd_max_abs_err": bwd_err, "bwd_rel_err": bwd_rel,
+           "no_cap_factor_rel_err": cap_factor_rel}
+    tol = str(q.dtype)
+    if (fwd_rel > FLASH_TOL[tol] or lse_rel > LSE_TOL
+            or bwd_rel > FLASH_BWD_TOL[tol]):
+        raise AssertionError(f"16a {name} against the plain versions: {out}"
+                             f" (bars {FLASH_TOL[tol]}, {LSE_TOL}, "
+                             f"{FLASH_BWD_TOL[tol]})")
+    if cap_factor_rel <= FLASH_BWD_TOL[tol] + bwd_rel:
+        raise AssertionError(f"16a {name}: a backward without the cap's "
+                             f"factor is within {cap_factor_rel:.2e}, which "
+                             f"the bar {FLASH_BWD_TOL[tol]} would not fail")
+    return out
+
+
+def time_k4_ext(q, k, v, do, pos, cap) -> dict:
+    """16a's times at the slice's shape (bf16): the EXT forward (without
+    and with lse) and backward, each one call between CUDA events (median
+    of 3), their plain versions, the index path on the same q, k, v
+    (causal on arange, no cap), SDPA with the positions' boolean mask
+    (kv heads repeated; no cap: no PyTorch call computes it), forward and
+    forward + backward - forward; the bounds from the kept pairs: 4 D
+    flops a pair forward, 10 D backward, each input read and output
+    written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_reference)
+    kw = dict(q_pos=pos, k_pos=pos, softcap=cap)
+    b, h, s, d = q.shape
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    t = {"shape": list(q.shape), "kv_shape": list(k.shape), "softcap": cap,
+         "ms": cuda_ms(lambda: FK.flash_attention_bhsd(q, k, v, **kw)),
+         "fwd_lse_ms": cuda_ms(lambda: FK.flash_attention_bhsd(
+             q, k, v, with_lse=True, **kw)),
+         "bwd_ms": cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
+             q, k, v, o, do, lse, **kw)),
+         "index_path_ms": cuda_ms(lambda: FK.flash_attention_bhsd(q, k, v)),
+         "index_path_bwd_ms": None,
+         "plain_ms": cuda_ms(lambda: attention_reference(q, k, v, **kw),
+                             warmup=False),
+         "bwd_plain_ms": cuda_ms(lambda: attention_backward_reference(
+             q, k, v, o, do, **kw), warmup=False)}
+    io, ilse = FK.flash_attention_bhsd(q, k, v, with_lse=True)
+    t["index_path_bwd_ms"] = cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
+        q, k, v, io, do, ilse))
+    del io, ilse
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    of, lsef = FK.flash_attention_bhsd(qf, kf, vf, with_lse=True, **kw)
+    t["f32_route_ms"] = cuda_ms(lambda: FK.flash_attention_bhsd(
+        qf, kf, vf, **kw))
+    t["f32_route_bwd_ms"] = cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
+        qf, kf, vf, of, dof, lsef, **kw))
+    del qf, kf, vf, dof, of, lsef
+    group = h // k.shape[1]
+    xs = [x.detach().requires_grad_(True) for x in (
+        q, k.repeat_interleave(group, dim=1), v.repeat_interleave(group, 1))]
+    mask = pos[:, None, :, None] >= pos[:, None, None, :]
+    t["library_ms"] = t["library_bwd_ms"] = None
+    try:             # the yardstick only, never the path
+        t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *xs, attn_mask=mask))
+        both = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*xs, attn_mask=mask), xs, do))
+        t["library_bwd_ms"] = both - t["library_ms"]
+    except RuntimeError as exc:
+        log(f"SDPA mask yardstick failed: {exc}")
+    del xs, mask
+    t["pairs"] = kept_pairs(pos, pos, True, None)
+    t["causal_pairs"] = b * s * (s + 1) // 2
+    pos_bytes = 2 * pos.numel() * 4
+    t["bytes"] = sum(x.numel() * x.element_size()
+                     for x in (q, k, v, o)) + pos_bytes
+    t["ops"] = 4.0 * d * t["pairs"] * h
+    t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"],
+                                            ops_per_s=BF16_OPS_PER_S)
+    t["bwd_bytes"] = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + lse.numel() * 4 + pos_bytes
+    t["bwd_ops"] = 10.0 * d * t["pairs"] * h
+    t["bwd_bound_ms"], t["bwd_bound_by"] = bound_ms(
+        t["bwd_bytes"], t["bwd_ops"], ops_per_s=BF16_OPS_PER_S)
+    return t
+
+
+def phase_positions(device) -> dict:
+    """16: caller positions and the logit soft cap (see the module
+    docstring)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
+                                          to_device as batch_to)
+    from repro_torch.models import transformer
+    from repro_torch.storage.datapipe import SyntheticTokens
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.schedules import wsd
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).config,
+                              attn_softcap=POS_SOFTCAP)
+    out = {"softcap": POS_SOFTCAP, "doc_lens": list(POS_DOC_LENS)}
+
+    # -- 16a: the EXT kernels at the slice's shape, both routes -----------
+    g = torch.Generator(device=device).manual_seed(16)
+    hd, kvh, h = cfg.hd, cfg.n_kv_heads, cfg.n_heads
+    q, k, v, do = (torch.randn(shape, generator=g, device=device).bfloat16()
+                   for shape in ((1, h, TRAIN_SEQ, hd), (1, kvh, TRAIN_SEQ, hd),
+                                 (1, kvh, TRAIN_SEQ, hd), (1, h, TRAIN_SEQ, hd)))
+    q = q * POS_Q_SCALE
+    pos, lens = packed_positions(1, TRAIN_SEQ, LM_SEED, device)
+    out["16a"] = {"tc": check_k4_ext(q, k, v, do, pos, POS_SOFTCAP),
+                  "f32": check_k4_ext(q.float(), k.float(), v.float(),
+                                      do.float(), pos, POS_SOFTCAP),
+                  "doc_lens": lens}
+    out["k4_ext"] = time_k4_ext(q, k, v, do, pos, POS_SOFTCAP)
+    del q, k, v, do
+    t = out["k4_ext"]
+    for route, r in (("tc", out["16a"]["tc"]), ("f32", out["16a"]["f32"])):
+        log(f"[16a] K4 EXT ({route}) at q {tuple(t['shape'])} k/v "
+            f"{tuple(t['kv_shape'])}, packed documents {lens}, cap "
+            f"{POS_SOFTCAP}: forward within {r['rel_err']:.2e} (bar "
+            f"{FLASH_TOL['torch.bfloat16' if route == 'tc' else 'torch.float32']}"
+            f"), lse within {r['lse_rel_err']:.2e}, dq/dk/dv within "
+            f"{r['bwd_rel_err']:.2e} of the plain versions (without the "
+            f"cap's factor 1 - t^2: {r['no_cap_factor_rel_err']:.2e})")
+    log(f"[16a] K4 EXT bf16 times: forward {t['ms']:.3f} ms (with lse "
+        f"{t['fwd_lse_ms']:.3f}; bound {t['bound_ms']:.4f} ms, "
+        f"{t['bound_by']}, {t['pairs']} kept pairs of {t['causal_pairs']} "
+        f"index-causal ones; {100 * t['bound_ms'] / t['ms']:.1f} % of it), "
+        f"backward {t['bwd_ms']:.3f} ms (bound {t['bwd_bound_ms']:.4f} ms, "
+        f"{t['bwd_bound_by']}); the index path on the same inputs "
+        f"{t['index_path_ms']:.3f} / {t['index_path_bwd_ms']:.3f} ms; plain "
+        f"{t['plain_ms']:.3f} / {t['bwd_plain_ms']:.3f} ms; CUDA-core route "
+        f"on f32 copies {t['f32_route_ms']:.3f} / {t['f32_route_bwd_ms']:.3f}"
+        f" ms; SDPA with the positions' mask (no cap) {t['library_ms']} / "
+        f"{t['library_bwd_ms']} ms")
+
+    # -- 16b: the packed, soft-capped qwen2-0.5b step and scoring --------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, OptConfig(), torch.Generator(
+        device=device).manual_seed(LM_SEED), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = batch_to(next(iter(SyntheticTokens(
+        cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=LM_SEED + 16))),
+        device)
+    batch["positions"], blens = packed_positions(TRAIN_BATCH, TRAIN_SEQ,
+                                                 LM_SEED + 1, device)
+    out["16b"] = grads_against_plain("16b", cfg, state["params"], batch,
+                                     TRAIN_ACCUM)
+    step = make_train_step(cfg, OptConfig(), wsd(*TRAIN_WSD),
+                           grad_accum=TRAIN_ACCUM)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    new_state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts, step_ext = kernel_counts(), dict(FK.EXT_LAUNCHES)
+    del new_state
+    want = TRAIN_ACCUM * cfg.num_units
+    tc_fwd, tc_bwd = FK.EXT_KEYS[FK.TC], FK.EXT_KEYS[FK.BWD_ROUTES[FK.TC]]
+    if (step_counts[FK.TC] != 2 * want or step_counts[FK.F32] != 0
+            or step_counts[FK.BWD_ROUTES[FK.TC]] != want
+            or step_ext != {**{k_: 0 for k_ in step_ext},
+                            tc_fwd: 2 * want, tc_bwd: want}):
+        raise AssertionError(f"16b: a step launched {step_counts}, EXT "
+                             f"{step_ext}: expected {2 * want} forward and "
+                             f"{want} backward EXT launches, all on the "
+                             "tensor cores")
+    # one scoring forward (no gradient) of the first row, then the same
+    # with the plain attention
+    inputs, spos = batch["inputs"][:1], batch["positions"][:1]
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = transformer.forward(cfg, state["params"], inputs, spos,
+                                        mode="eval")
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        score_counts, score_ext = kernel_counts(), dict(FK.EXT_LAUNCHES)
+        with plain_kernels():
+            plain_logits, _ = transformer.forward(
+                cfg, state["params"], inputs, spos, mode="eval")
+    torch.cuda.synchronize()
+    if (score_counts[FK.TC] != cfg.num_units or score_counts[FK.F32] != 0
+            or score_ext[tc_fwd] != cfg.num_units
+            or score_counts[FK.BWD] != 0):
+        raise AssertionError(f"16b scoring: launches {score_counts}, EXT "
+                             f"{score_ext}")
+    if not (tuple(logits.shape[:2]) == (1, TRAIN_SEQ)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"16b scoring: logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    # the scores' next-token cross entropy against the plain attention's
+    # (the step's loss bar); the logits' largest difference and the
+    # argmax agreement reported beside
+    labels = batch["labels"][:1].long()
+    ce, plain_ce = (float((torch.logsumexp(x, -1) - torch.gather(
+        x, -1, labels[..., None])[..., 0]).mean())
+        for x in (logits, plain_logits))
+    vocab = cfg.vocab_size      # the padded columns hold -1e30
+    score_rel = flash_err(logits[..., :vocab], plain_logits[..., :vocab])
+    agree = float((logits.argmax(-1) == plain_logits.argmax(-1)).float()
+                  .mean())
+    del logits, plain_logits
+    ce_rel = abs(ce - plain_ce) / abs(plain_ce)
+    if ce_rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"16b scoring: cross entropy {ce} against the "
+                             f"plain attention's {plain_ce} ({ce_rel:.2e}, "
+                             f"bar {TRAIN_LOSS_TOL})")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, batch
+    torch.cuda.empty_cache()
+    out["16b"].update(
+        init_s=init_s, step_s=step_s, step_launches=step_counts,
+        step_ext_launches=step_ext, doc_lens=blens,
+        metrics={k_: float(v_) for k_, v_ in metrics.items()},
+        score_s=score_s, score_launches=score_counts,
+        score_ext_launches=score_ext, score_ce=ce, score_plain_ce=plain_ce,
+        score_ce_rel=ce_rel, score_rel_err=score_rel,
+        score_argmax_agree=agree, peak_gb=peak,
+        ext_launches=step_ext[tc_fwd] + score_ext[tc_fwd])
+    log(f"[16b] {cfg.name} with attn_softcap {POS_SOFTCAP}, full width and "
+        f"depth ({cfg.n_layers} layers), {TRAIN_BATCH} x {TRAIN_SEQ} packed "
+        f"tokens (documents {blens}) in {TRAIN_ACCUM} microbatches, remat "
+        f"{cfg.remat}: one step {step_s:.2f} s (the first), K4 EXT "
+        f"{step_ext[tc_fwd]} forward and {step_ext[tc_bwd]} backward "
+        f"launches, all tensor-core; metrics {out['16b']['metrics']}; "
+        f"scoring forward of 1 x {TRAIN_SEQ} {score_s:.2f} s ({score_ext[tc_fwd]}"
+        f" EXT launches): cross entropy {ce:.6f} against the plain "
+        f"attention's {plain_ce:.6f} ({ce_rel:.2e}, bar {TRAIN_LOSS_TOL}), "
+        f"logits within {score_rel:.2e} of the largest, argmax agreeing on "
+        f"{100 * agree:.2f} % of positions; peak {peak:.2f} GB; state "
+        f"initialised in {init_s:.1f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[16] phase 16 in {out['seconds']:.1f} s")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -5412,6 +5772,9 @@ def main() -> int:
         "13b": lm_configs["qwen2-0.5b"]["prefill_memory"],
         "14b": train["14b"]["memory"], "14d": train["14d"]["memory"]})
 
+    # -- 16: caller positions and the soft cap through K4's EXT kernels --
+    positions = phase_positions(dev)
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -5436,7 +5799,7 @@ def main() -> int:
         "lm_configs": {arch: ({k: v for k, v in r.items() if k != "k4"}
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
-        "train": train, "dryrun": dry,
+        "train": train, "dryrun": dry, "positions": positions,
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))
@@ -5542,7 +5905,38 @@ def main() -> int:
          "max_abs_err": 0.0, "library_ms": None,
          **{k: train["k5_bwd"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "scan_ms", "route",
-             "shape")}}]}))
+             "shape")}},
+        {"name": "flash_attention EXT (K4 with caller positions and the "
+                 "logit soft cap: flash_pos_prep, then flash_fwd_tc's EXT "
+                 "instantiation; phase 16b's step and scoring forward)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         "launches": positions["16b"]["ext_launches"],
+         "max_abs_err": positions["16a"]["tc"]["max_abs_err"],
+         "f32_route_max_abs_err": positions["16a"]["f32"]["max_abs_err"],
+         **{k: positions["k4_ext"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "fwd_lse_ms", "index_path_ms", "f32_route_ms", "pairs",
+             "shape", "kv_shape", "softcap")}},
+        {"name": "flash_attention_bwd EXT (K4 backward with caller "
+                 "positions and the soft cap: flash_pos_prep, "
+                 "flash_bwd_prep, flash_bwd_dkdv_tc and flash_bwd_dq_tc's "
+                 "EXT instantiations, flash_bwd_sum; phase 16b's step)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         "launches": positions["16b"]["step_ext_launches"][
+             FK.EXT_KEYS[FK.BWD_ROUTES[FK.TC]]],
+         "max_abs_err": positions["16a"]["tc"]["bwd_max_abs_err"],
+         "f32_route_max_abs_err": positions["16a"]["f32"]["bwd_max_abs_err"],
+         "rel_err": positions["16a"]["tc"]["bwd_rel_err"],
+         "no_cap_factor_rel_err": positions["16a"]["tc"][
+             "no_cap_factor_rel_err"],
+         **{k: positions["k4_ext"]["bwd_" + k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": positions["k4_ext"]["library_bwd_ms"],
+         **{k: positions["k4_ext"][k] for k in (
+             "index_path_bwd_ms", "f32_route_bwd_ms", "pairs", "shape",
+             "kv_shape", "softcap")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,9 @@
 // Causal / sliding-window GQA flash attention for Hopper: the forward in two
 // routes picked by dtype (a tensor-core kernel for bf16 and a CUDA-core kernel
 // for f32), each writing the rows' log-sum-exp when asked, and the backward
-// (see "backward" below).
+// (see "backward" below).  Every kernel has an EXT instantiation that reads
+// caller positions and may soft-cap the scores (see "caller positions"
+// below); without either the index instantiations run as before.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_bhsd, body _kernel): o = softmax(q k^T / sqrt(D) + mask) v
@@ -127,6 +129,253 @@ __device__ __forceinline__ bool tile_masked(const KvRange& r, int k0,
 }
 
 // ---------------------------------------------------------------------------
+// caller positions and the logit soft cap (the EXT instantiations)
+// ---------------------------------------------------------------------------
+//
+// The EXT instantiation of every kernel reads per-row positions q_pos [B, Sq]
+// and k_pos [B, Sk] (one row a batch entry, shared by every head) in place
+// of q_offset + i and j, and may soft-cap the scores: s = cap tanh(q.k
+// scale / cap) before the mask, as the JAX package's _softcap; the backward
+// multiplies dS by 1 - tanh^2 before its products for dq and dk.  A pair is
+// kept iff q_pos >= k_pos (causal) and q_pos - k_pos < window (a window).
+// With packed documents the positions restart, so a query keeps keys of
+// later index whose positions are smaller: the tiles to visit are not a
+// band around the diagonal.
+//
+// flash_pos_prep runs first, one warp a chunk of POS_CHUNK rows (keys) of a
+// batch entry: it copies the positions into a scratch padded to a multiple
+// of POS_PAD (a tile's positions are then one aligned bulk copy, in
+// bounds), and writes per chunk the least and greatest position of its
+// real rows (keys) and whether one of its rows keeps no key at all (the
+// row's own index tried first, which finds the diagonal of self-attention
+// at once; else every key).  A block reads the summaries of its tiles (a
+// few cached loads a tile) and walks the positional schedule of tiles.py:
+// a (query tile, key tile) pair is visited unless all its keys lie after
+// all its queries (min k_pos > max q_pos, causal) or all left of the
+// window (max k_pos <= min q_pos - window); a query tile holding a row
+// without a kept key visits every tile (that row averages v over every
+// key, as the reference); a visited tile takes the mask unless every pair
+// is kept.  For positions arange the walk is the index schedule's.  A
+// tile's key positions (query positions for the dk/dv blocks) are staged
+// in shared memory with its K (Q) tile; a thread's own rows' positions sit
+// in registers.
+//
+// The bf16 route computes tanh as 1 - 2 / (2^(2 x log2 e) + 1) with
+// ex2.approx and rcp.approx (absolute error a few 1e-7, so a score capped
+// at 50 is off by about 1e-5; tanh.approx.f32 would be off by up to 2.5e-2
+// there); the f32 route calls tanhf.
+
+constexpr int POS_CHUNK = 32;
+constexpr int POS_PAD = 128;
+constexpr int INT_BIG = 0x7fffffff;
+
+__host__ __device__ __forceinline__ int pos_padded(int n) {
+  return (n + POS_PAD - 1) / POS_PAD * POS_PAD;
+}
+
+// Where the pre-pass leaves its results, in one int32 scratch: the padded
+// copies [B, sqp] and [B, skp], then per chunk (nqc = ceil(Sq / POS_CHUNK)
+// query chunks, nkc key chunks) q_min, q_max, q_keyless [B, nqc] and k_min,
+// k_max [B, nkc].
+struct Pos {
+  int *q, *k, *q_min, *q_max, *q_keyless, *k_min, *k_max;
+  int sqp, skp, nqc, nkc;
+};
+
+__host__ __device__ inline Pos make_pos(int* scratch, int b, int sq, int sk) {
+  Pos p;
+  p.sqp = pos_padded(sq);
+  p.skp = pos_padded(sk);
+  p.nqc = (sq + POS_CHUNK - 1) / POS_CHUNK;
+  p.nkc = (sk + POS_CHUNK - 1) / POS_CHUNK;
+  p.q = scratch;
+  p.k = p.q + static_cast<long long>(b) * p.sqp;
+  p.q_min = p.k + static_cast<long long>(b) * p.skp;
+  p.q_max = p.q_min + static_cast<long long>(b) * p.nqc;
+  p.q_keyless = p.q_max + static_cast<long long>(b) * p.nqc;
+  p.k_min = p.q_keyless + static_cast<long long>(b) * p.nqc;
+  p.k_max = p.k_min + static_cast<long long>(b) * p.nkc;
+  return p;
+}
+
+__device__ __forceinline__ bool pos_kept(int qp, int kp, int causal,
+                                         int window) {
+  return (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
+}
+
+__global__ void __launch_bounds__(32)
+flash_pos_prep(const int* __restrict__ q_pos, long long qsb,
+               const int* __restrict__ k_pos, long long ksb, int sq, int sk,
+               int causal, int window, Pos p) {
+  const int c = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  const int i = c * POS_CHUNK + lane;
+  const int* qb = q_pos + b * qsb;
+  const int* kb = k_pos + b * ksb;
+  if (i < p.sqp) p.q[static_cast<long long>(b) * p.sqp + i] =
+      i < sq ? qb[i] : 0;
+  if (i < p.skp) p.k[static_cast<long long>(b) * p.skp + i] =
+      i < sk ? kb[i] : 0;
+  if (c < p.nqc) {
+    const bool real = i < sq;
+    const int qp = real ? qb[i] : 0;
+    int mn = real ? qp : INT_BIG, mx = real ? qp : -INT_BIG;
+    bool has = !real || (i < sk && pos_kept(qp, kb[i], causal, window));
+    for (int j = 0; j < sk && !has; ++j)
+      has = pos_kept(qp, kb[j], causal, window);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = min(mn, __shfl_xor_sync(FULL, mn, off));
+      mx = max(mx, __shfl_xor_sync(FULL, mx, off));
+    }
+    const int keyless = __any_sync(FULL, !has);
+    if (lane == 0) {
+      const long long o = static_cast<long long>(b) * p.nqc + c;
+      p.q_min[o] = mn;
+      p.q_max[o] = mx;
+      p.q_keyless[o] = keyless;
+    }
+  }
+  if (c < p.nkc) {
+    const bool real = i < sk;
+    const int kp = real ? kb[i] : 0;
+    int mn = real ? kp : INT_BIG, mx = real ? kp : -INT_BIG;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = min(mn, __shfl_xor_sync(FULL, mn, off));
+      mx = max(mx, __shfl_xor_sync(FULL, mx, off));
+    }
+    if (lane == 0) {
+      const long long o = static_cast<long long>(b) * p.nkc + c;
+      p.k_min[o] = mn;
+      p.k_max[o] = mx;
+    }
+  }
+}
+
+int launch_pos_prep(const void* q_pos, long long qsb, const void* k_pos,
+                    long long ksb, void* scratch, int b, int sq, int sk,
+                    int causal, int window, Pos* p, cudaStream_t stream) {
+  *p = make_pos(static_cast<int*>(scratch), b, sq, sk);
+  const int chunks = (p->sqp > p->skp ? p->sqp : p->skp) / POS_CHUNK;
+  flash_pos_prep<<<dim3(chunks, b), 32, 0, stream>>>(
+      static_cast<const int*>(q_pos), qsb, static_cast<const int*>(k_pos),
+      ksb, sq, sk, causal, window, *p);
+  return cudaGetLastError();
+}
+
+// Least and greatest position of rows [lo, lo + n) of one batch entry, from
+// its chunk summaries (nc chunks).
+__device__ __forceinline__ int2 pos_span(const int* mn, const int* mx,
+                                         int nc, int lo, int n) {
+  const int c1 = min(nc, (lo + n + POS_CHUNK - 1) / POS_CHUNK);
+  int a = INT_BIG, z = -INT_BIG;
+  for (int c = lo / POS_CHUNK; c < c1; ++c) {
+    a = min(a, __ldg(mn + c));
+    z = max(z, __ldg(mx + c));
+  }
+  return make_int2(a, z);
+}
+
+__device__ __forceinline__ bool pos_any(const int* flags, int nc, int lo,
+                                        int n) {
+  const int c1 = min(nc, (lo + n + POS_CHUNK - 1) / POS_CHUNK);
+  bool any = false;
+  for (int c = lo / POS_CHUNK; c < c1; ++c) any = any || __ldg(flags + c);
+  return any;
+}
+
+// Can a (query tile, key tile) pair with these spans hold a kept pair?
+__device__ __forceinline__ bool pos_visit(int2 q, int2 k, int causal,
+                                          int window) {
+  return (!causal || k.x <= q.y)
+         && (window <= 0 || static_cast<long long>(k.y)
+                            > static_cast<long long>(q.x) - window);
+}
+
+// Is every pair of the two tiles kept?
+__device__ __forceinline__ bool pos_full(int2 q, int2 k, int causal,
+                                         int window) {
+  return (!causal || k.y <= q.x)
+         && (window <= 0 || static_cast<long long>(q.y) - k.x < window);
+}
+
+// The positional walk of one block of query rows [q0, q0 + bq) over key
+// tiles of bk keys (the forward, and the backward's dq blocks).
+struct KvWalk {
+  const int *kmn, *kmx;   // this batch entry's key chunks
+  int nkc, sk, bk, causal, window;
+  int2 q;
+  bool keyless;
+
+  __device__ KvWalk() {}
+  __device__ KvWalk(const Pos& p, int b, int q0, int bq, int bk_, int sk_,
+                    int causal_, int window_)
+      : kmn(p.k_min + static_cast<long long>(b) * p.nkc),
+        kmx(p.k_max + static_cast<long long>(b) * p.nkc), nkc(p.nkc),
+        sk(sk_), bk(bk_), causal(causal_), window(window_) {
+    const long long o = static_cast<long long>(b) * p.nqc;
+    q = pos_span(p.q_min + o, p.q_max + o, p.nqc, q0, bq);
+    keyless = pos_any(p.q_keyless + o, p.nqc, q0, bq);
+  }
+  __device__ bool visit(int k0) const {
+    return keyless
+           || pos_visit(q, pos_span(kmn, kmx, nkc, k0, bk), causal, window);
+  }
+  // the first visited tile at or after k0 (sk when none)
+  __device__ int next(int k0) const {
+    while (k0 < sk && !visit(k0)) k0 += bk;
+    return min(k0, sk);
+  }
+  __device__ int count() const {
+    int n = 0;
+    for (int k0 = next(0); k0 < sk; k0 = next(k0 + bk)) ++n;
+    return n;
+  }
+  __device__ bool masked(int k0) const {
+    return !(k0 + bk <= sk
+             && pos_full(q, pos_span(kmn, kmx, nkc, k0, bk), causal,
+                         window));
+  }
+};
+
+// The positional walk of one key tile [k0, k0 + bk) of a dk/dv block over
+// query tiles of bq rows (self-attention: S queries and keys).
+struct QWalk {
+  const int *qmn, *qmx, *qkl;   // this batch entry's query chunks
+  int nqc, s, bq, k0, bk, causal, window;
+  int2 k;
+
+  __device__ QWalk() {}
+  __device__ QWalk(const Pos& p, int b, int k0_, int bk_, int bq_, int s_,
+                   int causal_, int window_)
+      : qmn(p.q_min + static_cast<long long>(b) * p.nqc),
+        qmx(p.q_max + static_cast<long long>(b) * p.nqc),
+        qkl(p.q_keyless + static_cast<long long>(b) * p.nqc), nqc(p.nqc),
+        s(s_), bq(bq_), k0(k0_), bk(bk_), causal(causal_), window(window_) {
+    const long long o = static_cast<long long>(b) * p.nkc;
+    k = pos_span(p.k_min + o, p.k_max + o, p.nkc, k0, bk);
+  }
+  __device__ bool visit(int q0) const {
+    return pos_any(qkl, nqc, q0, bq)
+           || pos_visit(pos_span(qmn, qmx, nqc, q0, bq), k, causal, window);
+  }
+  __device__ int next(int q0) const {
+    while (q0 < s && !visit(q0)) q0 += bq;
+    return min(q0, s);
+  }
+  __device__ int count() const {
+    int n = 0;
+    for (int q0 = next(0); q0 < s; q0 = next(q0 + bq)) ++n;
+    return n;
+  }
+  __device__ bool masked(int q0) const {
+    return !(q0 + bq <= s && k0 + bk <= s
+             && pos_full(pos_span(qmn, qmx, nqc, q0, bq), k, causal,
+                         window));
+  }
+};
+
+// ---------------------------------------------------------------------------
 // tensor-core route (bf16)
 // ---------------------------------------------------------------------------
 
@@ -196,6 +445,15 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// tanh x = 1 - 2 / (2^(2 x log2 e) + 1) (see "caller positions" above);
+// 1 at x = +inf (rcp.approx of inf is 0), -1 at x = -inf
+__device__ __forceinline__ float tanh_fast(float x) {
+  const float e = ex2(x * 2.8853900817779268f);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(e + 1.f));
+  return 1.f - 2.f * r;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -420,26 +678,50 @@ struct RowState {
   float m0, m1, l0, l1;   // running max and sum of rows r and r + 8
 };
 
+// The EXT instantiations' part of a softmax step: the soft cap (cap_out =
+// cap log2 e, cap_in = scale / cap; none when cap_out is 0), and the
+// positions of the thread's rows (qpa, qpb) and of the tile's keys (kp_s,
+// in shared memory).
+struct Ext {
+  float cap_in, cap_out;
+  int qpa, qpb;
+  const int* kp_s;
+};
+
 // Online-softmax step on the f32 scores of one tile, in place: scale (with
-// log2 e, for exp2), mask (edge tiles only), new running max, p = 2^(s - m)
-// left in sc, and the factors alpha by which the old sums are rescaled.  A
-// thread holds rows r and r + 8 of the tile at keys 8 j + col, + 1.
-template <int NS>
+// log2 e, for exp2; the EXT instantiation soft-caps first), mask (edge
+// tiles only), new running max, p = 2^(s - m) left in sc, and the factors
+// alpha by which the old sums are rescaled.  A thread holds rows r and
+// r + 8 of the tile at keys 8 j + col, + 1.
+template <bool EXT = false, int NS>
 __device__ __forceinline__ void softmax(float (&sc)[NS], RowState& st,
                                         float& alpha0, float& alpha1,
                                         bool masked, int k0, int col,
                                         int qp0, int sk, int causal,
-                                        int window, float scale_log2) {
+                                        int window, float scale_log2,
+                                        const Ext& ext = Ext()) {
+  if (EXT && ext.cap_out != 0.f) {
 #pragma unroll
-  for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
+    for (int i = 0; i < NS; ++i)
+      sc[i] = ext.cap_out * tanh_fast(sc[i] * ext.cap_in);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] *= scale_log2;
+  }
   if (masked) {
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
-      const int kp = k0 + 8 * (i / 4) + col + (i & 1);
-      const int qp = qp0 + ((i & 2) ? 8 : 0);
+      const int kj = 8 * (i / 4) + col + (i & 1);
+      const int kp = k0 + kj;
       bool ok = true;
-      if (causal) ok = ok && qp >= kp;
-      if (window > 0) ok = ok && qp - kp < window;
+      if constexpr (EXT) {
+        ok = pos_kept((i & 2) ? ext.qpb : ext.qpa, ext.kp_s[kj], causal,
+                      window);
+      } else {
+        const int qp = qp0 + ((i & 2) ? 8 : 0);
+        if (causal) ok = ok && qp >= kp;
+        if (window > 0) ok = ok && qp - kp < window;
+      }
       // keys past Sk: -inf, so p = 0 even for a row without a valid key
       sc[i] = kp >= sk ? -CUDART_INF_F : ok ? sc[i] : NEG_INF;
     }
@@ -498,7 +780,7 @@ __device__ __forceinline__ void rescale(float (&acc)[NA], float a0,
   }
 }
 
-template <int D>
+template <int D, bool EXT>
 __global__ void __launch_bounds__(Cfg<D>::NTHREADS, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
@@ -506,7 +788,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              __nv_bfloat16* __restrict__ o, int group, int sq, int sk,
              int causal, int window, int q_offset, float scale_log2,
              long long osb, long long osh, long long oss,
-             float* __restrict__ lse) {
+             float* __restrict__ lse, Pos pos, float cap_in, float cap_out) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ;
   extern __shared__ uint8_t smem_raw[];
@@ -515,6 +797,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t full_k[STAGES], empty_k[STAGES];
   __shared__ __align__(8) uint64_t full_v[STAGES], empty_v[STAGES];
   __shared__ __align__(8) uint64_t q_bar;
+  // EXT: each K stage's key positions, loaded with it
+  __shared__ __align__(16) int s_kp[EXT ? STAGES * BK : 1];
   // swizzle atoms need 1024-byte alignment
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -527,7 +811,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const KvRange r = kv_range(q0, BQ, BK, sq, sk, causal, window, q_offset);
-  const int n_tiles = (r.end - r.begin + BK - 1) / BK;
+  // EXT: the positional walk (r.begin unused; tiles come from walk.next)
+  const KvWalk walk = EXT ? KvWalk(pos, b, q0, BQ, BK, sk, causal, window)
+                          : KvWalk();
+  const int n_tiles =
+      EXT ? walk.count() : (r.end - r.begin + BK - 1) / BK;
   // warpgroup index, uniform across the warp by construction (a shuffle),
   // so the compiler gives each role's branch its own register count
   const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
@@ -554,15 +842,20 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int bx = 0; bx < C::NB; ++bx)
         tma_load_4d(s_q + bx * C::Q_BOX, &tq, &q_bar, bx * C::CH, q0, h, b);
+      int k0 = EXT ? walk.next(0) : r.begin;
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
-        const int k0 = r.begin + t * BK;
+        if (t > 0) k0 = EXT ? walk.next(k0 + BK) : k0 + BK;
         if (t >= STAGES) mbar_wait(&empty_k[s], (t / STAGES - 1) & 1);
-        mbar_expect_tx(&full_k[s], C::KV_BYTES);
+        mbar_expect_tx(&full_k[s], C::KV_BYTES + (EXT ? BK * 4 : 0));
 #pragma unroll
         for (int bx = 0; bx < C::NB; ++bx)
           tma_load_4d(s_k + s * C::KV_BYTES + bx * C::KV_BOX, &tk,
                       &full_k[s], bx * C::CH, k0, kvh, b);
+        if constexpr (EXT)
+          bulk_load(s_kp + s * BK,
+                    pos.k + static_cast<long long>(b) * pos.skp + k0,
+                    BK * 4, &full_k[s]);
         if (t >= STAGES) mbar_wait(&empty_v[s], (t / STAGES - 1) & 1);
         mbar_expect_tx(&full_v[s], C::KV_BYTES);
 #pragma unroll
@@ -597,26 +890,38 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     float sc[BK / 2];
     uint32_t pa[BK / 4];
     float alpha0, alpha1;
+    Ext ext{cap_in, cap_out, 0, 0, s_kp};
+    if constexpr (EXT) {
+      const int* qb = pos.q + static_cast<long long>(b) * pos.sqp + q0 + row;
+      ext.qpa = qb[0];
+      ext.qpb = qb[8];
+    }
 
     mbar_wait(&q_bar, 0);
     // tile 0: scores only
+    int k0 = EXT ? walk.next(0) : r.begin;
     mbar_wait(&full_k[0], 0);
     wg_fence();
     issue_qk<D>(sc, dq, dk);
     wg_commit();
     wg_wait<0>();
     fence_regs(sc);
-    if (lane == 0) mbar_arrive(&empty_k[0]);
-    softmax(sc, st, alpha0, alpha1,
-            tile_masked(r, r.begin, BK, sk, causal, window), r.begin, col,
-            qp0, sk, causal, window, scale_log2);
+    // K's stage is released once the scores are in (EXT: and the
+    // softmax has read the stage's key positions)
+    if (!EXT && lane == 0) mbar_arrive(&empty_k[0]);
+    softmax<EXT>(sc, st, alpha0, alpha1,
+                 EXT ? walk.masked(k0)
+                     : tile_masked(r, k0, BK, sk, causal, window),
+                 k0, col, qp0, sk, causal, window, scale_log2, ext);
+    if (EXT && lane == 0) mbar_arrive(&empty_k[0]);
     pack_p(sc, pa);
     // tile t: its scores, then the products of tile t - 1 (after O is
     // rescaled to tile t - 1's running max); the softmax of t runs while
     // those products do, and its P is packed once they are done
     for (int t = 1; t < n_tiles; ++t) {
       const int s = t % STAGES, sp = (t - 1) % STAGES;
-      const int k0 = r.begin + t * BK;
+      k0 = EXT ? walk.next(k0 + BK) : k0 + BK;
+      ext.kp_s = s_kp + (EXT ? s * BK : 0);
       mbar_wait(&full_k[s], (t / STAGES) & 1);
       mbar_wait(&full_v[sp], ((t - 1) / STAGES) & 1);
       fence_regs(sc);
@@ -631,10 +936,12 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       wg_commit();
       wg_wait<1>();               // the scores
       fence_regs(sc);
-      if (lane == 0) mbar_arrive(&empty_k[s]);
-      softmax(sc, st, alpha0, alpha1,
-              tile_masked(r, k0, BK, sk, causal, window), k0, col, qp0, sk,
-              causal, window, scale_log2);
+      if (!EXT && lane == 0) mbar_arrive(&empty_k[s]);
+      softmax<EXT>(sc, st, alpha0, alpha1,
+                   EXT ? walk.masked(k0)
+                       : tile_masked(r, k0, BK, sk, causal, window),
+                   k0, col, qp0, sk, causal, window, scale_log2, ext);
+      if (EXT && lane == 0) mbar_arrive(&empty_k[s]);
       wg_wait<0>();               // the products of tile t - 1
       fence_regs(acc);
       fence_regs(pa);
@@ -703,11 +1010,11 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
                     const_cast<void*>(ptr), dims, strides, box, estride, swz);
 }
 
-template <int D>
+template <int D, bool EXT>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int kvh, int sq, int sk, int causal, int window,
            int q_offset, float scale, const long long* st, int n_q_tiles,
-           float* lse, cudaStream_t stream) {
+           float* lse, const Pos& pos, float softcap, cudaStream_t stream) {
   using C = Cfg<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return ERR_NO_ENCODER;
@@ -717,14 +1024,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       || make_map<D>(&tv, encode, v, b, kvh, sk, st + 6, BK) != CUDA_SUCCESS)
     return ERR_TENSOR_MAP;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tc<D, EXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid(n_q_tiles, h, b);
-  flash_fwd_tc<D><<<grid, C::NTHREADS, C::SMEM, stream>>>(
+  const float log2e = 1.4426950408889634f;
+  flash_fwd_tc<D, EXT><<<grid, C::NTHREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), h / kvh, sq, sk, causal,
-      window, q_offset, scale * 1.4426950408889634f, st[9], st[10], st[11],
-      lse);
+      window, q_offset, scale * log2e, st[9], st[10], st[11], lse, pos,
+      softcap > 0.f ? scale / softcap : 0.f, softcap * log2e);
   return cudaGetLastError();
 }
 
@@ -753,7 +1061,7 @@ constexpr size_t smem_bytes() {
                           + size_t(BK) * D);
 }
 
-template <int D>
+template <int D, bool EXT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int group,
@@ -761,9 +1069,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               float scale, long long qsb, long long qsh, long long qss,
               long long ksb, long long ksh, long long kss, long long vsb,
               long long vsh, long long vss, long long osb, long long osh,
-              long long oss, float* __restrict__ lse) {
+              long long oss, float* __restrict__ lse, Pos pos,
+              float softcap) {
   constexpr int DP = D + PAD;
   constexpr int NC = (D + 31) / 32;  // accumulator columns per lane
+  // EXT: the positions of the block's rows and of the tile's keys
+  __shared__ int s_qp[EXT ? BQ : 1], s_kp[EXT ? BK : 1];
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);
   float* s_k = s_q + BQ * DP;
@@ -786,6 +1097,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (q0 + r < sq) x = qb[(q0 + r) * qss + d] * scale;
     s_q[r * DP + d] = x;
   }
+  if constexpr (EXT) {
+    for (int i = tid; i < BQ; i += NTHREADS)
+      s_qp[i] = pos.q[static_cast<long long>(b) * pos.sqp + q0 + i];
+  }
 
   float m_run[RPW], l_run[RPW], acc[RPW][NC];
 #pragma unroll
@@ -798,7 +1113,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const KvRange rng = kv_range(q0, BQ, BK, sq, sk, causal, window, q_offset);
   const int q_lo = rng.q_lo;
-  for (int k0 = rng.begin; k0 < rng.end; k0 += BK) {
+  // EXT: the positional walk over kv tiles
+  const KvWalk walk = EXT ? KvWalk(pos, b, q0, BQ, BK, sk, causal, window)
+                          : KvWalk();
+  const int k_end = EXT ? sk : rng.end;
+  for (int k0 = EXT ? walk.next(0) : rng.begin; k0 < k_end;
+       k0 = EXT ? walk.next(k0 + BK) : k0 + BK) {
     __syncthreads();  // the previous tile's K/V (and, first, Q) are settled
     for (int i = tid; i < BK * D; i += NTHREADS) {
       const int j = i / D, d = i % D;
@@ -809,6 +1129,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
       s_k[j * DP + d] = kx;
       s_v[j * D + d] = vx;
+    }
+    if constexpr (EXT) {
+      if (tid < BK)
+        s_kp[tid] = pos.k[static_cast<long long>(b) * pos.skp + k0 + tid];
     }
     __syncthreads();
 
@@ -831,16 +1155,23 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    // mask, online softmax update; p[i] is row i's probability of key lane
+    // (EXT) soft cap, mask, online softmax update; p[i] is row i's
+    // probability of key lane
     const int k_pos = k0 + lane;
     const bool in_range = k_pos < sk;
     float p[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const int q_pos = q_lo + warp + NWARPS * i;
       bool ok = in_range;
-      if (causal) ok = ok && q_pos >= k_pos;
-      if (window > 0) ok = ok && q_pos - k_pos < window;
+      if constexpr (EXT) {
+        if (softcap > 0.f) s[i] = softcap * tanhf(s[i] / softcap);
+        ok = ok && pos_kept(s_qp[warp + NWARPS * i], s_kp[lane], causal,
+                            window);
+      } else {
+        const int q_pos = q_lo + warp + NWARPS * i;
+        if (causal) ok = ok && q_pos >= k_pos;
+        if (window > 0) ok = ok && q_pos - k_pos < window;
+      }
       const float x = ok ? s[i] : NEG_INF;
       float mx = x;
 #pragma unroll
@@ -893,22 +1224,22 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool EXT>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int h, int kvh, int sq, int sk, int causal, int window,
            int q_offset, float scale, const long long* st, int n_q_tiles,
-           float* lse, cudaStream_t stream) {
+           float* lse, const Pos& pos, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D, EXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n_q_tiles, h, b);
-  flash_fwd_f32<D><<<grid, NTHREADS, smem, stream>>>(
+  flash_fwd_f32<D, EXT><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), h / kvh, sq, sk,
       causal, window, q_offset, scale, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], lse);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], lse, pos, softcap);
   return cudaGetLastError();
 }
 
@@ -1091,17 +1422,20 @@ __device__ __forceinline__ void scores(const float* s_q, const float* s_g,
   }
 }
 
-template <int D>
+template <int D, bool EXT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int h,
                int group,
-               int s, int causal, int window, float scale, Strides st) {
+               int s, int causal, int window, float scale, Strides st,
+               Pos pos, float softcap) {
   using Sh = Shape<D>;
   constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
   constexpr int NCOL = D / 8;     // columns of dk and dv a thread holds
+  // EXT: the positions of the query tile's rows
+  __shared__ int s_qp[EXT ? BQ : 1];
   extern __shared__ float4 smem4[];
   float* s_k = reinterpret_cast<float*>(smem4);
   float* s_v = s_k + BK * DP;
@@ -1125,22 +1459,30 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int m = 0; m < NCOL; ++m) acc_k[m] = acc_v[m] = 0.f;
 
-  // the query rows that can see a key of this tile
+  // the query rows that can see a key of this tile (EXT: the query
+  // tiles of the positional walk)
   const int q_begin = causal ? k0 / BQ * BQ : 0;
   const int q_end = window > 0 ? min(s, k0 + BK - 1 + window) : s;
   const int kp = k0 + lane;
+  const QWalk walk = EXT ? QWalk(pos, b, k0, BK, BQ, s, causal, window)
+                         : QWalk();
+  const int kpp =
+      EXT ? pos.k[static_cast<long long>(b) * pos.skp + k0 + lane] : 0;
   for (int hg = 0; hg < group; ++hg) {
     const int hh = kvh * group + hg;
     const float* qb = q + b * st.q[0] + hh * st.q[1];
     const float* gb = g + b * st.g[0] + hh * st.g[1];
     const long long rb = (static_cast<long long>(b) * h + hh) * s;
-    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
+    for (int q0 = EXT ? walk.next(0) : q_begin; q0 < (EXT ? s : q_end);
+         q0 = EXT ? walk.next(q0 + BQ) : q0 + BQ) {
       __syncthreads();   // the previous tile is read (first: K, V loaded)
       load_tile<D>(s_q, qb, st.q[2], q0, BQ, s);
       load_tile<D>(s_g, gb, st.g[2], q0, BQ, s);
       for (int r = tid; r < BQ; r += NTHREADS) {
         s_lse[r] = q0 + r < s ? lse[rb + q0 + r] : 0.f;
         s_dl[r] = q0 + r < s ? delta[rb + q0 + r] : 0.f;
+        if constexpr (EXT)
+          s_qp[r] = pos.q[static_cast<long long>(b) * pos.sqp + q0 + r];
       }
       __syncthreads();
       float sc[RPW], dp[RPW];
@@ -1148,10 +1490,27 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
         const int r = warp + NWARPS * i;
-        const bool ok = pair_ok(q0 + r, kp, s, causal, window);
-        const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
-        s_p[r * PS + lane] = p;
-        s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
+        if constexpr (EXT) {
+          // a row without a kept key (lse at NEG_INF) averages v over
+          // every key: P = 1 / S there, and dS = 0
+          const bool ok = q0 + r < s && kp < s
+                          && pos_kept(s_qp[r], kpp, causal, window);
+          float u = sc[i] * scale, f = 1.f;
+          if (softcap > 0.f) {
+            const float t = tanhf(u / softcap);
+            u = softcap * t;
+            f = 1.f - t * t;
+          }
+          float p = ok ? expf(u - s_lse[r]) : 0.f;
+          s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) * f : 0.f;
+          if (s_lse[r] < 0.5f * NEG_INF && kp < s) p = 1.f / s;
+          s_p[r * PS + lane] = p;
+        } else {
+          const bool ok = pair_ok(q0 + r, kp, s, causal, window);
+          const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
+          s_p[r * PS + lane] = p;
+          s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
+        }
       }
       __syncthreads();
       // dv += P^T dO, dk += dS^T Q over the tile's rows, in row order
@@ -1178,17 +1537,19 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool EXT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ g,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dq, int h, int group, int s, int causal,
-             int window, float scale, Strides st) {
+             int window, float scale, Strides st, Pos pos, float softcap) {
   using Sh = Shape<D>;
   constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
   constexpr int TPR = NTHREADS / BQ;   // threads a row of dq
   constexpr int NCOL = D / TPR;        // columns of dq a thread holds
+  // EXT: the positions of the block's rows and of the tile's keys
+  __shared__ int s_qp[EXT ? BQ : 1], s_kp[EXT ? BK : 1];
   extern __shared__ float4 smem4[];
   float* s_k = reinterpret_cast<float*>(smem4);
   float* s_v = s_k + BK * DP;
@@ -1210,6 +1571,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = tid; r < BQ; r += NTHREADS) {
     s_lse[r] = q0 + r < s ? lse[rb + q0 + r] : 0.f;
     s_dl[r] = q0 + r < s ? delta[rb + q0 + r] : 0.f;
+    if constexpr (EXT)
+      s_qp[r] = pos.q[static_cast<long long>(b) * pos.sqp + q0 + r];
   }
   const float* kb = k + b * st.k[0] + kvh * st.k[1];
   const float* vb = v + b * st.v[0] + kvh * st.v[1];
@@ -1221,19 +1584,39 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   for (int m = 0; m < NCOL; ++m) acc[m] = 0.f;
 
   const KvRange rng = kv_range(q0, BQ, BK, s, s, causal, window, 0);
-  for (int k0 = rng.begin; k0 < rng.end; k0 += BK) {
+  const KvWalk walk = EXT ? KvWalk(pos, b, q0, BQ, BK, s, causal, window)
+                          : KvWalk();
+  for (int k0 = EXT ? walk.next(0) : rng.begin; k0 < (EXT ? s : rng.end);
+       k0 = EXT ? walk.next(k0 + BK) : k0 + BK) {
     __syncthreads();   // the previous tile is read (first: Q, dO loaded)
     load_tile<D>(s_k, kb, st.k[2], k0, BK, s);
     load_tile<D>(s_v, vb, st.v[2], k0, BK, s);
+    if constexpr (EXT) {
+      if (tid < BK)
+        s_kp[tid] = pos.k[static_cast<long long>(b) * pos.skp + k0 + tid];
+    }
     __syncthreads();
     float sc[RPW], dp[RPW];
     scores<D, RPW>(s_q, s_g, s_k, s_v, sc, dp);
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = warp + NWARPS * i;
-      const bool ok = pair_ok(q0 + r, k0 + lane, s, causal, window);
-      const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
-      s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
+      if constexpr (EXT) {
+        const bool ok = q0 + r < s && k0 + lane < s
+                        && pos_kept(s_qp[r], s_kp[lane], causal, window);
+        float u = sc[i] * scale, f = 1.f;
+        if (softcap > 0.f) {
+          const float t = tanhf(u / softcap);
+          u = softcap * t;
+          f = 1.f - t * t;
+        }
+        s_ds[r * PS + lane] =
+            ok ? expf(u - s_lse[r]) * (dp[i] - s_dl[r]) * f : 0.f;
+      } else {
+        const bool ok = pair_ok(q0 + r, k0 + lane, s, causal, window);
+        const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
+        s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
+      }
     }
     __syncthreads();
     // dq += dS K over the tile's keys, in key order
@@ -1252,11 +1635,12 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool EXT>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* g, const float* lse, float* delta, void* dq, void* dk,
            void* dv, int b, int h, int kvh, int s, int causal, int window,
-           float scale, const Strides& st, cudaStream_t stream) {
+           float scale, const Strides& st, const Pos& pos, float softcap,
+           cudaStream_t stream) {
   using Sh = Shape<D>;
   const float* tq = static_cast<const float*>(q);
   const float* tk = static_cast<const float*>(k);
@@ -1268,41 +1652,42 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const float*>(o), tg, delta, h, s, D, rows, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<D, EXT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Sh::SMEM_KV));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq<D, EXT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Sh::SMEM_Q));
   if (err != cudaSuccess) return err;
   const int group = h / kvh;
-  flash_bwd_dkdv<D><<<dim3((s + BK - 1) / BK, kvh, b), NTHREADS,
-                         Sh::SMEM_KV, stream>>>(
+  flash_bwd_dkdv<D, EXT><<<dim3((s + BK - 1) / BK, kvh, b), NTHREADS,
+                              Sh::SMEM_KV, stream>>>(
       tq, tk, tv, tg, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv),
-      h, group, s, causal, window, scale, st);
+      h, group, s, causal, window, scale, st, pos, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<D><<<dim3((s + Sh::BQ - 1) / Sh::BQ, h, b), NTHREADS,
-                       Sh::SMEM_Q, stream>>>(
+  flash_bwd_dq<D, EXT><<<dim3((s + Sh::BQ - 1) / Sh::BQ, h, b), NTHREADS,
+                            Sh::SMEM_Q, stream>>>(
       tq, tk, tv, tg, lse, delta, static_cast<float*>(dq), h, group, s, causal,
-      window, scale, st);
+      window, scale, st, pos, softcap);
   return cudaGetLastError();
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       const void*, const float*, float*, void*, void*, void*,
                       int, int, int, int, int, int, float, const Strides&,
-                      cudaStream_t);
+                      const Pos&, float, cudaStream_t);
 
+template <bool EXT>
 Launch pick(int d) {
   switch (d) {
-    case 16: return launch<16>;
-    case 32: return launch<32>;
-    case 64: return launch<64>;
-    case 128: return launch<128>;
-    case 256: return launch<256>;
+    case 16: return launch<16, EXT>;
+    case 32: return launch<32, EXT>;
+    case 64: return launch<64, EXT>;
+    case 128: return launch<128, EXT>;
+    case 256: return launch<256, EXT>;
   }
   return nullptr;
 }
@@ -1325,6 +1710,7 @@ using tc::issue_pv;
 using tc::issue_ss;
 using tc::make_desc;
 using tc::pack_p;
+using tc::tanh_fast;
 using tc::wg_commit;
 using tc::wg_fence;
 using tc::wg_wait;
@@ -1427,7 +1813,7 @@ flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
 // block, and each block writes its f32 sums into `part`
 // ([splits, 2 (dk, dv), B, KVH, S, D]) for flash_bwd_sum; else it writes
 // dk and dv.
-template <int D>
+template <int D, bool EXT>
 __global__ void __launch_bounds__(Bwd<D>::KV_THREADS, Bwd<D>::KV_MIN_BLOCKS)
 flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -1439,7 +1825,7 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                   __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
                   int h, int group, int splits, int s, int sp, int causal,
                   int window, float scale_log2, float scale,
-                  bwd::Strides st) {
+                  bwd::Strides st, Pos pos, float cap_in, float cap_out) {
   using C = Cfg<D>;
   using G = Bwd<D>;
   constexpr int QN = G::QN;
@@ -1448,6 +1834,8 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t kv_bar, full[STAGES], empty[STAGES];
   // P^T from warpgroup 0 to warpgroup 1, double-buffered
   __shared__ __align__(8) uint64_t ex_full[2], ex_empty[2];
+  // EXT: each ring stage's query positions, loaded with it
+  __shared__ __align__(16) int s_qp[EXT ? STAGES * BQ_KV : 1];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* s_k = base;
@@ -1464,7 +1852,10 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
   const int hg0 = split * per;
   const int n_heads = min(group, hg0 + per) - hg0;
   const QRange qr = dkdv_range(k0, s, causal, window);
-  const int nq = (qr.end - qr.begin + BQ_KV - 1) / BQ_KV;
+  // EXT: the positional walk over query tiles (qr unused)
+  const QWalk walk = EXT ? QWalk(pos, b, k0, BK, BQ_KV, s, causal, window)
+                         : QWalk();
+  const int nq = EXT ? walk.count() : (qr.end - qr.begin + BQ_KV - 1) / BQ_KV;
   const int n_tiles = nq * n_heads;   // heads in order, then query tiles
   const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
 
@@ -1491,12 +1882,17 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
         tma_load_4d(s_k + bx * G::BOX, &tk, &kv_bar, bx * C::CH, k0, kvh, b);
         tma_load_4d(s_v + bx * G::BOX, &tv, &kv_bar, bx * C::CH, k0, kvh, b);
       }
+      int q0 = 0;
       for (int n = 0; n < n_tiles; ++n) {
         const int hh = kvh * group + hg0 + n / nq;
-        const int q0 = qr.begin + (n % nq) * BQ_KV;
+        if constexpr (EXT)
+          q0 = walk.next(n % nq == 0 ? 0 : q0 + BQ_KV);
+        else
+          q0 = qr.begin + (n % nq) * BQ_KV;
         const int i = n % STAGES;
         if (n >= STAGES) mbar_wait(&empty[i], (n / STAGES - 1) & 1);
-        mbar_expect_tx(&full[i], 2 * G::TILE + 2 * G::VEC);
+        mbar_expect_tx(&full[i],
+                       2 * G::TILE + 2 * G::VEC + (EXT ? BQ_KV * 4 : 0));
         uint8_t* sq = s_ring + i * 2 * G::TILE;
 #pragma unroll
         for (int bx = 0; bx < C::NB; ++bx) {
@@ -1508,6 +1904,10 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
         bulk_load(s_vec + i * 2 * BQ_KV, lse2 + row, G::VEC, &full[i]);
         bulk_load(s_vec + i * 2 * BQ_KV + BQ_KV, delta + row, G::VEC,
                   &full[i]);
+        if constexpr (EXT)
+          bulk_load(s_qp + i * BQ_KV,
+                    pos.q + static_cast<long long>(b) * pos.sqp + q0,
+                    BQ_KV * 4, &full[i]);
       }
     }
     return;
@@ -1535,10 +1935,22 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
     const uint64_t dqb = make_desc(ring, 16, 8 * C::SW, C::LAYOUT);
     const uint64_t dgmn =
         make_desc(ring + G::TILE, G::BOX, 8 * C::SW, C::LAYOUT);
+    // EXT: the positions of this thread's key rows kr, kr + 8
+    int kpa = 0, kpb = 0;
+    if constexpr (EXT) {
+      const int* kb = pos.k + static_cast<long long>(b) * pos.skp + k0 + kr;
+      kpa = kb[0];
+      kpb = kb[8];
+    }
+    int q0 = 0;
     for (int n = 0; n < n_tiles; ++n) {
       const int i = n % STAGES;
-      const int q0 = qr.begin + (n % nq) * BQ_KV;
-      const bool masked = dkdv_masked(k0, q0, s, causal, window);
+      if constexpr (EXT)
+        q0 = walk.next(n % nq == 0 ? 0 : q0 + BQ_KV);
+      else
+        q0 = qr.begin + (n % nq) * BQ_KV;
+      const bool masked = EXT ? walk.masked(q0)
+                              : dkdv_masked(k0, q0, s, causal, window);
       mbar_wait(&full[i], (n / STAGES) & 1);
 #pragma unroll
       for (int pt = 0; pt < PARTS; ++pt) {
@@ -1550,27 +1962,69 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
         fence_regs(sc);
         const int c0 = pt * QN;           // first column of the part
         const float* ls = s_vec + i * 2 * BQ_KV + c0;
-#pragma unroll
-        for (int j = 0; j < QN / 8; ++j) {
-          const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + col);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float& x = sc[4 * j + e];
-            x = ex2(x * scale_log2 - ((e & 1) ? l.y : l.x));
-            if (masked && !kept(q0 + c0 + 8 * j + col + (e & 1),
-                                k0 + kr + ((e & 2) ? 8 : 0), s, causal,
-                                window))
-              x = 0.f;
-          }
-        }
-        // hand P^T to warpgroup 1: thread t's values go to thread t
         const int xi = n * PARTS + pt;
         const int xb = xi & 1;
-        if (xi >= 2) mbar_wait(&ex_empty[xb], ((xi >> 1) - 1) & 1);
-        float* ex = s_ex + xb * 32 * 128 + tid;
+        if constexpr (EXT) {
+          // P^T for dv stays in sc; P^T (1 - t^2), 0 where the pair is
+          // dropped, goes straight to warpgroup 1 for dS^T.  A query
+          // without a kept key (lse at NEG_INF) takes P = 1 / S from
+          // every key and gives dS = 0.
+          if (xi >= 2) mbar_wait(&ex_empty[xb], ((xi >> 1) - 1) & 1);
+          float* ex = s_ex + xb * 32 * 128 + tid;
+          const int* qp = s_qp + i * BQ_KV + c0;
 #pragma unroll
-        for (int x = 0; x < QN / 2; ++x) ex[x * 128] = sc[x];
-        mbar_arrive(&ex_full[xb]);
+          for (int j = 0; j < QN / 8; ++j) {
+            const float2 l =
+                *reinterpret_cast<const float2*>(ls + 8 * j + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float& x = sc[4 * j + e];
+              const float lj = (e & 1) ? l.y : l.x;
+              float f = 1.f;
+              if (cap_out != 0.f) {
+                const float t = tanh_fast(x * cap_in);
+                x = ex2(cap_out * t - lj);
+                f = 1.f - t * t;
+              } else {
+                x = ex2(x * scale_log2 - lj);
+              }
+              if (masked) {
+                const int qj = 8 * j + col + (e & 1);
+                const int kk = k0 + kr + ((e & 2) ? 8 : 0);
+                if (!(q0 + c0 + qj < s && kk < s
+                      && pos_kept(qp[qj], (e & 2) ? kpb : kpa, causal,
+                                  window)))
+                  x = 0.f;
+                ex[(4 * j + e) * 128] = x * f;
+                if (lj < 0.5f * NEG_INF && kk < s) x = 1.f / s;
+              } else {
+                ex[(4 * j + e) * 128] = x * f;
+              }
+            }
+          }
+          mbar_arrive(&ex_full[xb]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < QN / 8; ++j) {
+            const float2 l =
+                *reinterpret_cast<const float2*>(ls + 8 * j + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float& x = sc[4 * j + e];
+              x = ex2(x * scale_log2 - ((e & 1) ? l.y : l.x));
+              if (masked && !kept(q0 + c0 + 8 * j + col + (e & 1),
+                                  k0 + kr + ((e & 2) ? 8 : 0), s, causal,
+                                  window))
+                x = 0.f;
+            }
+          }
+          // hand P^T to warpgroup 1: thread t's values go to thread t
+          if (xi >= 2) mbar_wait(&ex_empty[xb], ((xi >> 1) - 1) & 1);
+          float* ex = s_ex + xb * 32 * 128 + tid;
+#pragma unroll
+          for (int x = 0; x < QN / 2; ++x) ex[x * 128] = sc[x];
+          mbar_arrive(&ex_full[xb]);
+        }
         pack_p(sc, pa);
         fence_regs(acc);
         fence_regs(pa);
@@ -1693,7 +2147,7 @@ flash_bwd_sum(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
 
 // One block a (query tile, head, batch): consumer warpgroup w owns query
 // rows q0 + 64 w .. + 63; the last warp loads.
-template <int D>
+template <int D, bool EXT>
 __global__ void __launch_bounds__(Bwd<D>::Q_THREADS, 1)
 flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -1703,12 +2157,15 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dq, int group, int s, int sp,
                 int causal, int window, float scale_log2, float scale,
-                long long dsb, long long dsh, long long dss) {
+                long long dsb, long long dsh, long long dss, Pos pos,
+                float cap_in, float cap_out) {
   using C = Cfg<D>;
   using G = Bwd<D>;
   constexpr int BQ = C::BQ;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_bar, full[STAGES], empty[STAGES];
+  // EXT: each (K, V) stage's key positions, loaded with it
+  __shared__ __align__(16) int s_kp[EXT ? STAGES * BK : 1];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* s_q = base;
@@ -1721,7 +2178,10 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const KvRange r = kv_range(q0, BQ, BK, s, s, causal, window, 0);
-  const int n_tiles = (r.end - r.begin + BK - 1) / BK;
+  // EXT: the positional walk over kv tiles (r.begin unused)
+  const KvWalk walk = EXT ? KvWalk(pos, b, q0, BQ, BK, s, causal, window)
+                          : KvWalk();
+  const int n_tiles = EXT ? walk.count() : (r.end - r.begin + BK - 1) / BK;
   const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
 
   if (threadIdx.x == 0) {
@@ -1744,11 +2204,12 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
         tma_load_4d(s_q + bx * C::Q_BOX, &tq, &q_bar, bx * C::CH, q0, h, b);
         tma_load_4d(s_g + bx * C::Q_BOX, &tg, &q_bar, bx * C::CH, q0, h, b);
       }
+      int k0 = EXT ? walk.next(0) : r.begin;
       for (int t = 0; t < n_tiles; ++t) {
         const int i = t % STAGES;
-        const int k0 = r.begin + t * BK;
+        if (t > 0) k0 = EXT ? walk.next(k0 + BK) : k0 + BK;
         if (t >= STAGES) mbar_wait(&empty[i], (t / STAGES - 1) & 1);
-        mbar_expect_tx(&full[i], 2 * G::TILE);
+        mbar_expect_tx(&full[i], 2 * G::TILE + (EXT ? BK * 4 : 0));
 #pragma unroll
         for (int bx = 0; bx < C::NB; ++bx) {
           tma_load_4d(s_k + i * G::TILE + bx * G::BOX, &tk, &full[i],
@@ -1756,6 +2217,10 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
           tma_load_4d(s_v + i * G::TILE + bx * G::BOX, &tv, &full[i],
                       bx * C::CH, k0, kvh, b);
         }
+        if constexpr (EXT)
+          bulk_load(s_kp + i * BK,
+                    pos.k + static_cast<long long>(b) * pos.skp + k0,
+                    BK * 4, &full[i]);
       }
     }
     return;
@@ -1787,10 +2252,18 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float sc[BK / 2], dp[BK / 2];
   uint32_t pa[BK / 4];
+  // EXT: the positions of this thread's rows
+  int qpa = 0, qpb = 0;
+  if constexpr (EXT) {
+    const int* qb = pos.q + static_cast<long long>(b) * pos.sqp + qp0;
+    qpa = qb[0];
+    qpb = qb[8];
+  }
   mbar_wait(&q_bar, 0);
+  int k0 = EXT ? walk.next(0) : r.begin;
   for (int t = 0; t < n_tiles; ++t) {
     const int i = t % STAGES;
-    const int k0 = r.begin + t * BK;
+    if (t > 0) k0 = EXT ? walk.next(k0 + BK) : k0 + BK;
     mbar_wait(&full[i], (t / STAGES) & 1);
     fence_regs(sc);
     fence_regs(dp);
@@ -1801,16 +2274,41 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     wg_commit();
     wg_wait<1>();                 // S; P on the CUDA cores while dP runs
     fence_regs(sc);
-    const bool masked = tile_masked(r, k0, BK, s, causal, window);
+    if constexpr (EXT) {
+      // P (1 - t^2) of the soft cap: dq needs P only within dS
+      const bool masked = walk.masked(k0);
+      const int* kp = s_kp + i * BK;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float& x = sc[4 * j + e];
-        x = ex2(x * scale_log2 - ((e & 2) ? l1 : l0));
-        if (masked && !kept(qp0 + ((e & 2) ? 8 : 0),
-                            k0 + 8 * j + col + (e & 1), s, causal, window))
-          x = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          float& x = sc[4 * j + e];
+          const float l = (e & 2) ? l1 : l0;
+          if (cap_out != 0.f) {
+            const float th = tanh_fast(x * cap_in);
+            x = ex2(cap_out * th - l) * (1.f - th * th);
+          } else {
+            x = ex2(x * scale_log2 - l);
+          }
+          const int kj = 8 * j + col + (e & 1);
+          if (masked && !(qp0 + ((e & 2) ? 8 : 0) < s && k0 + kj < s
+                          && pos_kept((e & 2) ? qpb : qpa, kp[kj], causal,
+                                      window)))
+            x = 0.f;
+        }
+      }
+    } else {
+      const bool masked = tile_masked(r, k0, BK, s, causal, window);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& x = sc[4 * j + e];
+          x = ex2(x * scale_log2 - ((e & 2) ? l1 : l0));
+          if (masked && !kept(qp0 + ((e & 2) ? 8 : 0),
+                              k0 + 8 * j + col + (e & 1), s, causal, window))
+            x = 0.f;
+        }
       }
     }
     wg_wait<0>();                 // dP
@@ -1847,12 +2345,13 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int D, bool EXT>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* g, const float* lse, float* scratch, void* dq,
            void* dk, void* dv, int b, int h, int kvh, int s, int sp,
            int splits, int causal, int window, float scale,
-           const bwd::Strides& st, cudaStream_t stream) {
+           const bwd::Strides& st, const Pos& pos, float softcap,
+           cudaStream_t stream) {
   using C = Cfg<D>;
   using G = Bwd<D>;
   EncodeTiled encode = encode_tiled();
@@ -1880,19 +2379,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       rows, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<D, EXT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(G::KV_SMEM));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_tc<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc<D, EXT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(G::Q_SMEM));
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_dkdv_tc<D><<<dim3((s + BK - 1) / BK, kvh, b * splits),
-                         G::KV_THREADS, G::KV_SMEM, stream>>>(
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  const float cap_out = softcap * LOG2E;
+  flash_bwd_dkdv_tc<D, EXT><<<dim3((s + BK - 1) / BK, kvh, b * splits),
+                              G::KV_THREADS, G::KV_SMEM, stream>>>(
       tq, tk, tv, tg, lse2, delta, dk_, dv_, part, h, h / kvh, splits, s, sp,
-      causal, window, scale_log2, scale, st);
+      causal, window, scale_log2, scale, st, pos, cap_in, cap_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
@@ -1902,26 +2403,27 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq_tc<D><<<dim3((s + C::BQ - 1) / C::BQ, h, b), G::Q_THREADS,
-                       G::Q_SMEM, stream>>>(
+  flash_bwd_dq_tc<D, EXT><<<dim3((s + C::BQ - 1) / C::BQ, h, b),
+                            G::Q_THREADS, G::Q_SMEM, stream>>>(
       tqb, tk, tv, tgb, lse2, delta, static_cast<__nv_bfloat16*>(dq),
       h / kvh, s, sp, causal, window, scale_log2, scale, st.dq[0], st.dq[1],
-      st.dq[2]);
+      st.dq[2], pos, cap_in, cap_out);
   return cudaGetLastError();
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       const void*, const float*, float*, void*, void*, void*,
                       int, int, int, int, int, int, int, int, float,
-                      const bwd::Strides&, cudaStream_t);
+                      const bwd::Strides&, const Pos&, float, cudaStream_t);
 
+template <bool EXT>
 Launch pick(int d) {
   switch (d) {
-    case 16: return launch<16>;
-    case 32: return launch<32>;
-    case 64: return launch<64>;
-    case 128: return launch<128>;
-    case 256: return launch<256>;
+    case 16: return launch<16, EXT>;
+    case 32: return launch<32, EXT>;
+    case 64: return launch<64, EXT>;
+    case 128: return launch<128, EXT>;
+    case 256: return launch<256, EXT>;
   }
   return nullptr;
 }
@@ -1942,24 +2444,25 @@ int smem_bytes(int which, int d) {
 
 typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
                       int, int, int, int, int, int, float, const long long*,
-                      int, float*, cudaStream_t);
+                      int, float*, const Pos&, float, cudaStream_t);
 
+template <bool EXT>
 Launch pick(int route, int d) {
   if (route == 0) {
     switch (d) {
-      case 16: return f32::launch<16>;
-      case 32: return f32::launch<32>;
-      case 64: return f32::launch<64>;
-      case 128: return f32::launch<128>;
-      case 256: return f32::launch<256>;
+      case 16: return f32::launch<16, EXT>;
+      case 32: return f32::launch<32, EXT>;
+      case 64: return f32::launch<64, EXT>;
+      case 128: return f32::launch<128, EXT>;
+      case 256: return f32::launch<256, EXT>;
     }
   } else if (route == 1) {
     switch (d) {
-      case 16: return tc::launch<16>;
-      case 32: return tc::launch<32>;
-      case 64: return tc::launch<64>;
-      case 128: return tc::launch<128>;
-      case 256: return tc::launch<256>;
+      case 16: return tc::launch<16, EXT>;
+      case 32: return tc::launch<32, EXT>;
+      case 64: return tc::launch<64, EXT>;
+      case 128: return tc::launch<128, EXT>;
+      case 256: return tc::launch<256, EXT>;
     }
   }
   return nullptr;
@@ -1975,23 +2478,52 @@ extern "C" {
 // axis.  strides: 12 element strides, (batch, head, sequence) of q, k, v and o
 // in turn; the head-dim stride is 1.  window <= 0 means none.  lse: null, or
 // a contiguous float32 [B, H, Sq] that receives m + log l of each query row
-// (natural units; the backward's input).  Returns 0 on success, else a CUDA
-// error code (or one past them: see flash_attention_error_string).
+// (natural units; the backward's input).  q_pos, k_pos: null (positions
+// q_offset + i and j, softcap 0), or int32 [B, Sq] and [B, Sk] with batch
+// strides q_pos_sb, k_pos_sb and a contiguous sequence (q_offset 0): the
+// EXT instantiation, after flash_pos_prep has summarised them into
+// pos_scratch (int32, flash_attention_pos_scratch_ints of them).  softcap:
+// the logit soft cap, 0 for none.  Returns 0 on success, else a CUDA error
+// code (or one past them: see flash_attention_error_string).
 int flash_attention_fwd(int route, const void* q, const void* k,
                         const void* v, void* o, int b, int h, int kvh, int sq,
                         int sk, int d, int causal, int window, int q_offset,
                         float scale, const long long* strides, int bq, int bk,
-                        int n_q_tiles, void* lse, void* stream) {
+                        int n_q_tiles, void* lse, const void* q_pos,
+                        long long q_pos_sb, const void* k_pos,
+                        long long k_pos_sb, void* pos_scratch, float softcap,
+                        void* stream) {
   if (kvh <= 0 || h % kvh != 0) return cudaErrorInvalidValue;
   const bool tiles_ok =
       route == 0 ? bq == f32::BQ && bk == f32::BK
                  : bq == (d == 256 ? 64 : 128) && bk == tc::BK;
   if (!tiles_ok || n_q_tiles != (sq + bq - 1) / bq) return cudaErrorInvalidValue;
-  Launch fn = pick(route, d);
+  const bool ext = q_pos != nullptr;
+  if ((ext && (k_pos == nullptr || pos_scratch == nullptr || q_offset != 0))
+      || (!ext && softcap != 0.f) || softcap < 0.f)
+    return cudaErrorInvalidValue;
+  Launch fn = ext ? pick<true>(route, d) : pick<false>(route, d);
   if (fn == nullptr) return cudaErrorInvalidValue;
+  cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  Pos pos{};
+  if (ext) {
+    const int err = launch_pos_prep(q_pos, q_pos_sb, k_pos, k_pos_sb,
+                                    pos_scratch, b, sq, sk, causal, window,
+                                    &pos, stream_);
+    if (err != cudaSuccess) return err;
+  }
   return fn(q, k, v, o, b, h, kvh, sq, sk, causal, window, q_offset, scale,
-            strides, n_q_tiles, static_cast<float*>(lse),
-            static_cast<cudaStream_t>(stream));
+            strides, n_q_tiles, static_cast<float*>(lse), pos, softcap,
+            stream_);
+}
+
+// int32 elements of the scratch flash_pos_prep fills for B batch entries
+// of Sq queries and Sk keys.
+long long flash_attention_pos_scratch_ints(int b, int sq, int sk) {
+  const long long nqc = (sq + POS_CHUNK - 1) / POS_CHUNK;
+  const long long nkc = (sk + POS_CHUNK - 1) / POS_CHUNK;
+  return static_cast<long long>(b)
+         * (pos_padded(sq) + pos_padded(sk) + 3 * nqc + 2 * nkc);
 }
 
 // Dynamic shared memory a block of the route takes at head dim d (bytes;
@@ -2026,46 +2558,59 @@ int flash_attention_smem_bytes(int route, int d) {
 // (batch, head, sequence) of q, k, v, o, do, dq, dk and dv in turn; the
 // head-dim stride is 1.  tiles: the (query rows, keys) of a dq block and the
 // (keys, query rows) of a dk/dv block's tiles the caller planned with,
-// checked against the route's own.  Sq = Sk = s, q_offset 0.  Launches the
-// three kernels on `stream`; returns 0 or an error code.
+// checked against the route's own.  Sq = Sk = s, q_offset 0.  q_pos,
+// k_pos, pos_scratch and softcap as flash_attention_fwd's (k_pos [B, S]
+// too).  Launches the kernels on `stream`; returns 0 or an error code.
 int flash_attention_bwd(int route, const void* q, const void* k,
                         const void* v, const void* o, const void* g,
                         const void* lse, void* scratch, void* dq, void* dk,
                         void* dv, int b, int h, int kvh, int s, int d,
                         int causal, int window, float scale,
                         const long long* strides, const int* tiles,
-                        int s_pad, int splits, void* stream) {
+                        int s_pad, int splits, const void* q_pos,
+                        long long q_pos_sb, const void* k_pos,
+                        long long k_pos_sb, void* pos_scratch, float softcap,
+                        void* stream) {
   if (kvh <= 0 || h % kvh != 0 || s <= 0) return cudaErrorInvalidValue;
+  const bool ext = q_pos != nullptr;
+  if ((ext && (k_pos == nullptr || pos_scratch == nullptr))
+      || (!ext && softcap != 0.f) || softcap < 0.f)
+    return cudaErrorInvalidValue;
   bwd::Strides st;
   static_assert(sizeof(st) == 24 * sizeof(long long), "24 strides");
   memcpy(&st, strides, sizeof(st));
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
+  bool tiles_ok = false;
   if (route == 0) {
     const int bq = bwd::bq_rows(d);
-    bwd::Launch fn = bwd::pick(d);
-    if (fn == nullptr || tiles[0] != bq || tiles[1] != bwd::BK
-        || tiles[2] != bwd::BK || tiles[3] != bq || s_pad != s
-        || splits != 1)
-      return cudaErrorInvalidValue;
-    return fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, causal, window,
-              scale, st, stream_);
-  }
-  if (route == 1) {
-    tcb::Launch fn = tcb::pick(d);
+    tiles_ok = tiles[0] == bq && tiles[1] == bwd::BK && tiles[2] == bwd::BK
+               && tiles[3] == bq && s_pad == s && splits == 1;
+  } else if (route == 1) {
     const int group = h / kvh;
     const int per = splits > 0 ? (group + splits - 1) / splits : 0;
-    if (fn == nullptr || tiles[0] != (d == 256 ? 64 : 128)
-        || tiles[1] != tc::BK || tiles[2] != tc::BK
-        || tiles[3] != tcb::BQ_KV || s_pad < s
-        || s_pad % tcb::PAD_ROWS != 0 || splits < 1 || splits > group
-        || (splits - 1) * per >= group)
-      return cudaErrorInvalidValue;
-    return fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, s_pad, splits,
-              causal, window, scale, st, stream_);
+    tiles_ok = tiles[0] == (d == 256 ? 64 : 128) && tiles[1] == tc::BK
+               && tiles[2] == tc::BK && tiles[3] == tcb::BQ_KV && s_pad >= s
+               && s_pad % tcb::PAD_ROWS == 0 && splits >= 1
+               && splits <= group && (splits - 1) * per < group;
   }
-  return cudaErrorInvalidValue;
+  bwd::Launch f32_fn = ext ? bwd::pick<true>(d) : bwd::pick<false>(d);
+  tcb::Launch tc_fn = ext ? tcb::pick<true>(d) : tcb::pick<false>(d);
+  if (!tiles_ok || f32_fn == nullptr || tc_fn == nullptr)
+    return cudaErrorInvalidValue;
+  Pos pos{};
+  if (ext) {
+    const int err = launch_pos_prep(q_pos, q_pos_sb, k_pos, k_pos_sb,
+                                    pos_scratch, b, s, s, causal, window,
+                                    &pos, stream_);
+    if (err != cudaSuccess) return err;
+  }
+  if (route == 0)
+    return f32_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, causal,
+                  window, scale, st, pos, softcap, stream_);
+  return tc_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, s_pad, splits,
+               causal, window, scale, st, pos, softcap, stream_);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -31,12 +31,24 @@ float32 through the CUDA-core one.  ``BACKWARD_LAUNCHES`` counts its
 calls in all (``BWD``) and per route; on the CPU it runs
 ``ref.attention_backward_reference``.
 
+Both wrappers also take caller positions ``q_pos`` [B, Sq] and ``k_pos``
+[B, Sk] (integer tensors, one row a batch entry; the mask then reads
+them in place of ``q_offset + i`` and ``j``) and a logit ``softcap``
+(``cap tanh(s / cap)`` on the scaled scores, as the JAX package's
+``AttnSpec.softcap``).  Either sends the call to the kernels' EXT
+instantiations (a cap alone with positions ``q_offset + arange`` /
+``arange`` built on the device), after a pre-pass over the positions
+into an int32 scratch; ``EXT_LAUNCHES`` counts those calls per route
+beside the route totals.
+
 On meta tensors (the dry run's plan of the card's path) both wrappers
 check their arguments and make the allocations they make on the card —
 the output, the lse when asked, the backward's delta / lse scratch and
-its per-split dk / dv partial sums — then skip the launch and report its
-flops and bytes to ``kernels.work``: the forward ``tiles.computed_flops``,
-the backward ``bwd_flops``.  No launch is counted.
+its per-split dk / dv partial sums, the positions' scratch — then skip
+the launch and report its flops and bytes to ``kernels.work``: the
+forward ``tiles.computed_flops``, the backward ``bwd_flops``, both of
+the index schedule (meta positions have no values).  No launch is
+counted.
 """
 
 from __future__ import annotations
@@ -69,10 +81,14 @@ LAUNCHES = {TC: 0, F32: 0}
 #: Calls of the backward kernels (a row pass, dk/dv, on the tensor cores
 #: the sum of a split group's partials, dq), in all and per route.
 BACKWARD_LAUNCHES = {BWD: 0, **{key: 0 for key in BWD_ROUTES.values()}}
+#: Of those, the calls of the EXT instantiations (positions, soft cap),
+#: per forward and backward route.
+EXT_KEYS = {name: f"{name}/ext" for name in (TC, F32, *BWD_ROUTES.values())}
+EXT_LAUNCHES = {key: 0 for key in EXT_KEYS.values()}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKWARD_LAUNCHES):
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES, EXT_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -96,14 +112,21 @@ def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_repro_bound", False):
         ptr = ctypes.c_void_p
+        # positions, their batch strides, their scratch, the soft cap
+        ext = [ptr, ctypes.c_longlong, ptr, ctypes.c_longlong, ptr,
+               ctypes.c_float]
         lib.flash_attention_fwd.argtypes = (
             [ctypes.c_int] + [ptr] * 4 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ptr] + [ctypes.c_int] * 3 + [ptr, ptr])
+            + [ctypes.c_float, ptr] + [ctypes.c_int] * 3 + [ptr] + ext
+            + [ptr])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = (
             [ctypes.c_int] + [ptr] * 10 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ptr, ptr, ctypes.c_int, ctypes.c_int, ptr])
+            + [ctypes.c_float, ptr, ptr, ctypes.c_int, ctypes.c_int] + ext
+            + [ptr])
         lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_pos_scratch_ints.argtypes = [ctypes.c_int] * 3
+        lib.flash_attention_pos_scratch_ints.restype = ctypes.c_longlong
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -112,11 +135,48 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _check_softcap(softcap) -> None:
+    if softcap is not None and not (math.isfinite(softcap) and softcap > 0):
+        raise ValueError(f"softcap must be a finite positive float or None, "
+                         f"got {softcap}")
+
+
+def _positions(q_pos, k_pos, softcap, b: int, sq: int, sk: int,
+               q_offset: int, device):
+    """The EXT instantiations' positions: int32 [B, Sq] and [B, Sk] views
+    with a contiguous sequence on ``device`` (converted or built there,
+    never read by the host), or (None, None) for the index path (no
+    positions, no cap).  A missing one of the two is ``q_offset + arange``
+    / ``arange``."""
+    if q_pos is None and k_pos is None and softcap is None:
+        return None, None
+    out = []
+    for arg, x, n, off in (("q_pos", q_pos, sq, q_offset),
+                           ("k_pos", k_pos, sk, 0)):
+        if x is None:
+            x = (off + torch.arange(n, dtype=torch.int32, device=device)
+                 )[None].expand(b, n)
+        if x.dtype.is_floating_point or x.dtype.is_complex or \
+                x.dtype == torch.bool:
+            raise TypeError(f"{arg} must be an integer tensor, got {x.dtype}")
+        if tuple(x.shape) != (b, n):
+            raise ValueError(f"{arg} has shape {tuple(x.shape)}, expected "
+                             f"{(b, n)}")
+        if x.device != device:
+            raise ValueError(f"{arg} is on {x.device}, q on {device}")
+        x = x.to(torch.int32)
+        if n > 1 and x.stride(1) != 1:
+            x = x.contiguous()
+        out.append(x)
+    return tuple(out)
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          q_offset: int = 0,
                          out: torch.Tensor | None = None,
-                         with_lse: bool = False):
+                         with_lse: bool = False, q_pos=None, k_pos=None,
+                         softcap: float | None = None):
     """[B, H, Sq, D] attention output in q.dtype; with ``with_lse`` the
     pair (output, lse [B, H, Sq] float32).
 
@@ -124,17 +184,19 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     place) as long as the head dimension is contiguous; ``out`` is an
     optional [B, H, Sq, D] destination view of the same kind.  D is one
     of ``HEAD_DIMS``, or below the first of them (then zero-padded to
-    it, in copies)."""
+    it, in copies).  ``q_pos`` [B, Sq], ``k_pos`` [B, Sk] (integers) and
+    ``softcap``: see the module docstring; positions take q_offset 0."""
+    _check_softcap(softcap)
     if q.device.type == "cpu":
-        o = attention_reference(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  q_pos=q_pos, k_pos=k_pos, softcap=softcap)
+        o = attention_reference(q, k, v, **kw)
         if out is not None:
             out.copy_(o)
             o = out
         if not with_lse:
             return o
-        return o, attention_lse_reference(q, k, causal=causal, window=window,
-                                          q_offset=q_offset)
+        return o, attention_lse_reference(q, k, **kw)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bhsd runs on cuda, cpu or meta "
                          f"tensors, got {q.device}")
@@ -156,6 +218,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if q_pos is not None and q_offset:
+        raise ValueError("q_pos replaces q_offset, which must then be 0")
+    qp, kp = _positions(q_pos, k_pos, softcap, b, sq, sk, q_offset,
+                        q.device)
     if out is None:
         out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     for arg, x in (("k", k), ("v", v), ("out", out)):
@@ -178,22 +244,43 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     if d < HEAD_DIMS[0]:
         pad = HEAD_DIMS[0] - d
-        qp, kp, vp = (F.pad(x, (0, pad)) for x in (q, k, v))
-        op = torch.empty(qp.shape, dtype=q.dtype, device=q.device)
-        _launch(name, qp, kp, vp, op, causal, window, q_offset, scale, lse)
+        qp_, kp_, vp_ = (F.pad(x, (0, pad)) for x in (q, k, v))
+        op = torch.empty(qp_.shape, dtype=q.dtype, device=q.device)
+        _launch(name, qp_, kp_, vp_, op, causal, window, q_offset, scale,
+                lse, qp, kp, softcap)
         out.copy_(op[..., :d])
     else:
-        _launch(name, q, k, v, out, causal, window, q_offset, scale, lse)
+        _launch(name, q, k, v, out, causal, window, q_offset, scale, lse,
+                qp, kp, softcap)
     return (out, lse) if with_lse else out
 
 
+def _pos_scratch(qp, b: int, sq: int, sk: int, device):
+    """The int32 scratch the pre-pass fills (None on the index path)."""
+    if qp is None:
+        return None
+    return torch.empty((tiles.pos_scratch_ints(b, sq, sk),),
+                       dtype=torch.int32, device=device)
+
+
+def _ext_args(qp, kp, scratch, softcap) -> list:
+    """The C entry points' trailing EXT arguments: positions, their batch
+    strides, the scratch and the cap; null / 0 on the index path."""
+    if qp is None:
+        return [None, 0, None, 0, None, 0.0]
+    return [qp.data_ptr(), qp.stride(0), kp.data_ptr(), kp.stride(0),
+            scratch.data_ptr(), float(softcap or 0.0)]
+
+
 def _launch(name, q, k, v, out, causal, window, q_offset, scale,
-            lse=None) -> None:
+            lse=None, qp=None, kp=None, softcap=None) -> None:
     """One launch of route ``name``'s kernel on checked tensors (on meta
-    tensors: its work reported, no launch)."""
+    tensors: its work reported, no launch); ``qp``, ``kp`` (int32, from
+    ``_positions``) and ``softcap`` select the EXT instantiation."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     bq, bk = tile(name, d)
+    scratch = _pos_scratch(qp, b, sq, sk, q.device)
     if q.device.type == "meta":
         work.report(name, tiles.computed_flops(
             b, h, d, sq=sq, sk=sk, causal=causal, window=window,
@@ -209,15 +296,18 @@ def _launch(name, q, k, v, out, causal, window, q_offset, scale,
         rc = lib.flash_attention_fwd(
             _KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, h, kvh, sq, sk, d, int(causal),
-            0 if window is None else int(window), int(q_offset),
+            0 if window is None else int(window),
+            0 if qp is not None else int(q_offset),   # positions carry it
             scale, (ctypes.c_longlong * 12)(*strides), bq, bk,
             tiles.n_q_tiles(sq, bq), None if lse is None else lse.data_ptr(),
-            stream)
+            *_ext_args(qp, kp, scratch, softcap), stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: error {rc} "
                            f"({msg})")
     LAUNCHES[name] += 1
+    if qp is not None:
+        EXT_LAUNCHES[EXT_KEYS[name]] += 1
 
 
 def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
@@ -226,7 +316,8 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: int | None = None,
                              dq: torch.Tensor | None = None,
                              dk: torch.Tensor | None = None,
-                             dv: torch.Tensor | None = None):
+                             dv: torch.Tensor | None = None, q_pos=None,
+                             k_pos=None, softcap: float | None = None):
     """(dq, dk, dv) of ``flash_attention_bhsd`` for the output gradient
     ``do``, from its output ``o`` and ``lse`` (``with_lse=True``).
 
@@ -236,10 +327,13 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     destination views of the same kind).  Self-attention only: queries
     at positions 0..S-1 over as many keys (Sq == Sk); anything else
     raises.  bfloat16 takes the tensor-core kernels, which read q, k, v
-    and do through TMA: a layout TMA cannot read raises."""
+    and do through TMA: a layout TMA cannot read raises.  ``q_pos``,
+    ``k_pos`` ([B, S] each) and ``softcap`` as the forward's."""
+    _check_softcap(softcap)
     if q.device.type == "cpu":
-        grads = attention_backward_reference(q, k, v, o, do, lse,
-                                             causal=causal, window=window)
+        grads = attention_backward_reference(
+            q, k, v, o, do, lse, causal=causal, window=window, q_pos=q_pos,
+            k_pos=k_pos, softcap=softcap)
         return tuple(g if dst is None else dst.copy_(g)
                      for g, dst in zip(grads, (dq, dk, dv)))
     if q.device.type not in ("cuda", "meta"):
@@ -261,6 +355,7 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                          f"or below {HEAD_DIMS[0]}, zero-padded to it)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    qp, kp = _positions(q_pos, k_pos, softcap, b, s, s, 0, q.device)
     if dq is None:
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dk is None:
@@ -294,19 +389,22 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
         padded = [F.pad(x, (0, pad)) for x in (q, k, v, o, do)]
         outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
                 for x in padded[:3]]
-        _launch_bwd(*padded, lse, *outs, causal, window, scale)
+        _launch_bwd(*padded, lse, *outs, causal, window, scale, qp, kp,
+                    softcap)
         for dst, src in zip((dq, dk, dv), outs):
             dst.copy_(src[..., :d])
     else:
-        _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window, scale)
+        _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window, scale,
+                    qp, kp, softcap)
     return dq, dk, dv
 
 
 def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
-                scale) -> None:
+                scale, qp=None, kp=None, softcap=None) -> None:
     """One call of the route's backward kernels on checked tensors (on
     meta tensors: the scratch allocated and the work reported, no
-    launch)."""
+    launch); ``qp``, ``kp`` and ``softcap`` select the EXT
+    instantiations."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     name = route(q.dtype)
@@ -322,6 +420,7 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
     if splits > 1:
         n += splits * 2 * b * kvh * s * d
     scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
+    pos_scratch = _pos_scratch(qp, b, s, s, q.device)
     if q.device.type == "meta":
         work.report(BWD_ROUTES[name], bwd_flops(b, h, s, d, causal, window,
                                                 tensor_cores),
@@ -338,13 +437,15 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
             int(causal), 0 if window is None else int(window), scale,
             (ctypes.c_longlong * 24)(*strides),
             (ctypes.c_int * 4)(*tiles.bwd_tiles(tensor_cores, d)), s_pad,
-            splits, stream)
+            splits, *_ext_args(qp, kp, pos_scratch, softcap), stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"{BWD_ROUTES[name]} kernel launch failed: error "
                            f"{rc} ({msg})")
     BACKWARD_LAUNCHES[BWD] += 1
     BACKWARD_LAUNCHES[BWD_ROUTES[name]] += 1
+    if qp is not None:
+        EXT_LAUNCHES[EXT_KEYS[BWD_ROUTES[name]]] += 1
 
 
 def bwd_flops(b: int, h: int, s: int, d: int, causal: bool,

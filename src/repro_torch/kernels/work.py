@@ -7,7 +7,9 @@ to compute) and ``report`` the launch's matrix-product flops and the bytes
 it reads and writes.  The dry run (``launch.dryrun``) installs a
 ``WorkLog`` with ``recording()`` and adds the reports to what its
 dispatch-level counters see, since a launch runs no aten op.  Outside a
-``recording()`` context a report is dropped.
+``recording()`` context a report is dropped.  K4's reports count the
+tiles of its index schedule even where the call has caller positions
+(its EXT path): meta positions have no values to walk.
 """
 
 from __future__ import annotations

@@ -12,11 +12,13 @@ Full-sequence attention takes one of three routes:
   from ``blockwise_threshold`` keys on; the flash-attention recurrence in
   plain torch;
 * on a CUDA tensor, the hand-written flash-attention kernel
-  (``repro_torch.kernels.flash_attention``), whose mask is causal on
-  positions ``arange(S)``: other positions on the card raise.  M-RoPE ids
-  only rotate q and k before attention, so any ids go through it.  Meta
-  tensors (the dry run's plan of the card's path) take the same route;
-  the kernel's wrapper allocates its outputs and reports its work.
+  (``repro_torch.kernels.flash_attention``): its index path where the
+  caller gave no positions (``positions`` None: ``arange(S)`` in every
+  row), its EXT path for caller positions (packed documents, shifted
+  rows) and for the logit soft cap.  M-RoPE ids only rotate q and k
+  before attention, so any ids go through it.  Meta tensors (the dry
+  run's plan of the card's path) take the same route; the kernel's
+  wrapper allocates its outputs and reports its work.
 
 Decode (``attn_decode``) is a single-token query against a KV cache laid
 out ``[B, kvH, S_cache, Dh]``; sliding-window layers use a ring buffer
@@ -169,60 +171,57 @@ def _attn_blockwise(spec: AttnSpec, q, k, v, q_pos, k_pos):
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)           # [B, Sq, kvH, G, Dh]
 
 
-def _is_arange(positions: torch.Tensor) -> bool:
-    s = positions.shape[-1]
-    want = torch.arange(s, device=positions.device)
-    return bool((positions == want).all())
+def default_positions(b: int, s: int, device) -> torch.Tensor:
+    """Positions ``arange(s)`` in each of b rows: [b, s] int32."""
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
 def attend(spec: AttnSpec, q, k, v, positions):
     """Causal self-attention of projected, rotated q [B, S, kvH, G, Dh]
-    against k, v [B, S, kvH, Dh] at ``positions`` [B, S].
+    against k, v [B, S, kvH, Dh] at ``positions`` [B, S], or at
+    ``arange(S)`` in every row where ``positions`` is None (the caller
+    gave none).
 
     On the CPU: the plain or blockwise path, as the JAX package picks them.
-    On the card: the flash-attention kernel, which needs positions
-    ``arange(S)`` in every row (prefill's and ``forward``'s default) and
-    no logit soft cap; anything else raises.  M-RoPE ids have rotated q
-    and k already and play no part in the mask, which reads ``positions``
-    alone, as in the JAX package."""
+    On the card: the flash-attention kernel, on its index path for None
+    (no read of positions) and its EXT path for caller positions or a
+    soft cap.  M-RoPE ids have rotated q and k already and play no part
+    in the mask, which reads ``positions`` alone, as in the JAX
+    package."""
     if q.device.type == "cpu":
+        if positions is None:
+            positions = default_positions(q.shape[0], q.shape[1], q.device)
         if k.shape[1] >= spec.blockwise_threshold:
             return _attn_blockwise(spec, q, k, v, positions, positions)
         return _attn_plain(spec, q, k, v, positions, positions)
-    if spec.softcap is not None:
-        raise NotImplementedError(
-            "attention logit soft-capping on the card is not ported: the "
-            "flash-attention kernel has no soft cap (a later slice H item)")
-    # meta positions (the dry run's) have no values to read: they stand
-    # for the arange the card path requires, and go to K4's wrapper
-    if positions.device.type != "meta" and not _is_arange(positions):
-        raise NotImplementedError(
-            "custom positions on the card are not ported: the flash-"
-            "attention kernel takes causal positions arange(S) only (a "
-            "later slice H item)")
     return flash_ops.flash_attention(q, k, v, causal=True, window=spec.window,
-                                     q_offset=0)
+                                     q_offset=0, q_pos=positions,
+                                     k_pos=positions, softcap=spec.softcap)
 
 
 def attn_full(
     p: Params,
     spec: AttnSpec,
     x: torch.Tensor,
-    positions: torch.Tensor,
+    positions: torch.Tensor | None,
     *,
     position_ids: torch.Tensor | None = None,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """Full-sequence (scoring / prefill) attention. x: [B, S, d]."""
+    """Full-sequence (scoring / prefill) attention. x: [B, S, d];
+    positions [B, S], or None for ``arange(S)`` in every row (built here
+    for RoPE; the mask then takes the kernel's index path)."""
     x = x.to(compute_dtype)
     q, k, v = _project_qkv(p, spec, x, compute_dtype)
-    q, k = _apply_positional(spec, q, k, positions, position_ids)
+    pos = (default_positions(x.shape[0], x.shape[1], x.device)
+           if positions is None else positions)
+    q, k = _apply_positional(spec, q, k, pos, position_ids)
     # context-parallel fallback: where heads do not divide the TP axis the
     # planner's activation rules shard the *query sequence* instead (the
     # identity on one device; recorded inside an activation_sharding context)
     q = constrain(q, ("batch", "seq", None, None, None))
-    positions = constrain(positions, ("batch", "seq"))
-    out = attend(spec, q, k, v, positions)
+    pos = constrain(pos, ("batch", "seq"))
+    out = attend(spec, q, k, v, None if positions is None else pos)
     return _out_proj(p, out, compute_dtype)
 
 

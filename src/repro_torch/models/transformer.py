@@ -333,10 +333,6 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _default_positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
-
-
 #: the products whose outputs ``remat="dots"`` keeps (JAX's
 #: ``checkpoint_dots`` keeps the outputs of its dot products)
 _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -373,12 +369,15 @@ def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     """Full-sequence forward. Returns (logits [B,S,V] fp32, moe_aux scalar).
 
     ``mode="train"`` (JAX's default) sums the MoE load-balance loss into
-    moe_aux; ``"eval"`` scores without it."""
+    moe_aux; ``"eval"`` scores without it.  ``positions`` None stands for
+    ``arange(S)`` in every row, as in the JAX package; it stays None down
+    to the attention layers, which build it only for RoPE, so that the
+    card's attention takes its index path without reading positions."""
     b, s = inputs.shape[:2]
-    if positions is None:
-        positions = _default_positions(b, s, inputs.device)
     if cfg.rope_kind == "mrope" and position_ids is None:
-        position_ids = text_mrope_positions(positions)
+        position_ids = text_mrope_positions(
+            attn_mod.default_positions(b, s, inputs.device)
+            if positions is None else positions)
     x = _embed_inputs(cfg, params, inputs)
 
     def unit_fn(x, aux, unit_p):
@@ -499,7 +498,7 @@ def prefill(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     windowed layers), recurrent layers keep their final state."""
     b, s = inputs.shape[:2]
     max_seq = max_seq or s
-    positions = _default_positions(b, s, inputs.device)
+    positions = attn_mod.default_positions(b, s, inputs.device)
     if cfg.rope_kind == "mrope" and position_ids is None:
         position_ids = text_mrope_positions(positions)
     x = _embed_inputs(cfg, params, inputs)
@@ -552,7 +551,9 @@ def _prefill_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
         q, k, v = attn_mod._project_qkv(p, aspec, h.to(cd), cd)
         q, k = attn_mod._apply_positional(aspec, q, k, positions,
                                           position_ids)
-        out = attn_mod.attend(aspec, q, k, v, positions)
+        # prefill's positions are arange(S): None sends the card's
+        # attention down its index path, with no read of them
+        out = attn_mod.attend(aspec, q, k, v, None)
         y = attn_mod._out_proj(p, out, cd)
         slots = min(max_seq, aspec.window) if aspec.window else max_seq
         kr, vr, pr = _ring_align(k, v, positions, slots)

@@ -196,14 +196,15 @@ def _meta_qkv(spec, s):
 
 
 def test_card_attention_path_raises_on_what_the_kernel_lacks():
-    """Off the CPU, attention goes to the flash-attention kernel, which
-    takes causal positions arange(S) and no soft cap: anything else raises
-    naming the later slice instead of taking a plain branch.  Non-text
-    M-RoPE ids rotate q and k before ``attend`` and pass its checks to the
-    kernel's wrapper.  (Meta tensors stand in for the card's: the checks
-    run before any data; on meta the wrapper then allocates its output and
-    reports the launch's work without launching, as the dry run plans
-    it.)"""
+    """Off the CPU, attention goes to the flash-attention kernel: its index
+    path for positions None, its EXT path for caller positions (shifted,
+    or non-text M-RoPE ids, which rotate q and k before ``attend``) and
+    for the soft cap.  What the kernel lacks raises instead of taking a
+    plain branch: positions on another device than q, a cap that is not a
+    positive finite float.  (Meta tensors stand in for the card's: the
+    checks run before any data; on meta the wrapper then allocates its
+    output and reports the launch's work without launching, as the dry
+    run plans it.)"""
     from repro_torch.kernels import work
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.models import attention
@@ -211,7 +212,7 @@ def test_card_attention_path_raises_on_what_the_kernel_lacks():
     spec = attention.AttnSpec(n_heads=4, n_kv_heads=1, head_dim=16, window=8)
     q, k, v = _meta_qkv(spec, 6)
     shifted = torch.arange(6, dtype=torch.int32)[None] + 3
-    with pytest.raises(NotImplementedError, match="custom positions"):
+    with pytest.raises(ValueError, match="is on cpu"):
         attention.attend(spec, q, k, v, shifted)
     text = torch.arange(6, dtype=torch.int32)[None]
     ids = torch.stack([text, text, text + 1])
@@ -219,13 +220,18 @@ def test_card_attention_path_raises_on_what_the_kernel_lacks():
                                 mrope_sections=(2, 3, 3))
     mq, mk = attention._apply_positional(
         mspec, torch.ones(q.shape), torch.ones(k.shape), text, ids)
-    with work.recording() as log:
-        out = attention.attend(mspec, mq.to("meta"), mk.to("meta"), v, text)
-    assert out.device.type == "meta" and out.shape == mq.shape
-    assert log.calls == {flash_kernel.route(mq.dtype): 1}
     capped = dataclasses.replace(spec, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="soft-capping"):
-        attention.attend(capped, q, k, v, text)
+    with work.recording() as log:
+        out = attention.attend(mspec, mq.to("meta"), mk.to("meta"), v, None)
+        assert out.device.type == "meta" and out.shape == mq.shape
+        for sp, pos in ((spec, shifted), (mspec, text), (capped, None)):
+            out = attention.attend(sp, q, k, v, None if pos is None
+                                   else pos.to("meta"))
+            assert out.device.type == "meta" and out.shape == q.shape
+    assert log.calls == {flash_kernel.route(mq.dtype): 4}
+    with pytest.raises(ValueError, match="softcap"):
+        attention.attend(dataclasses.replace(spec, softcap=0.0), q, k, v,
+                         None)
 
 
 def test_lm_entry_points_default_to_the_card():

@@ -693,7 +693,8 @@ def test_smoke_model_on_the_card_runs_the_kernels(card):
     attention and four RG-LRU layers, all through the kernels) and
     decode against the CPU's plain path on the same parameters (bar 1e-4
     of the largest logit: f32 sums in another order), and the card's
-    attention raising where the kernel has no branch."""
+    attention on shifted positions and with a soft cap (K4's EXT
+    instantiation) against the CPU's."""
     import dataclasses
 
     from repro_torch.configs.recurrentgemma_9b import SMOKE
@@ -723,13 +724,20 @@ def test_smoke_model_on_the_card_runs_the_kernels(card):
         spec = cfg.attn_spec(8)
         x = torch.randn((1, 6, cfg.d_model), device=card)
         p = _unit(card_p["unit"]["layer2"]["mixer"], 0)
+        cpu_attn = _unit(cpu_p["unit"]["layer2"]["mixer"], 0)
         shifted = torch.arange(6, device=card, dtype=torch.int32)[None] + 2
-        with pytest.raises(NotImplementedError, match="custom positions"):
-            attention.attn_full(p, spec, x, shifted,
-                                compute_dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="soft-capping"):
-            attention.attn_full(p, dataclasses.replace(spec, softcap=5.0), x,
-                                shifted - 2, compute_dtype=torch.float32)
+        for sp, pos in ((spec, shifted),
+                        (dataclasses.replace(spec, softcap=5.0),
+                         shifted - 2)):
+            before = dict(FK.EXT_LAUNCHES)
+            got = attention.attn_full(p, sp, x, pos,
+                                      compute_dtype=torch.float32)
+            want = attention.attn_full(cpu_attn, sp, x.cpu(), pos.cpu(),
+                                       compute_dtype=torch.float32)
+            key = FK.EXT_KEYS[FK.F32]
+            assert FK.EXT_LAUNCHES == {**before, key: before[key] + 1}
+            assert float((got.cpu() - want).abs().max()) <= 1e-4 * max(
+                1.0, float(want.abs().max()))
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
@@ -1505,3 +1513,188 @@ def test_meta_twins_allocate_what_the_card_allocates(card, case):
     torch.cuda.synchronize()
     assert made["meta"] == made["cuda"]
     assert made["meta/outs"] == made["cuda/outs"]
+
+
+# --- K4 with caller positions and the soft cap (the EXT instantiations) ----
+
+def packed(b, s, seed, lo=30, hi=200, device="cuda"):
+    """[b, s] int32 positions of documents of lo..hi tokens, restarting at
+    0 in each (the last one cut)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((b, s), np.int32)
+    for i in range(b):
+        j = 0
+        while j < s:
+            n = int(rng.integers(lo, hi + 1))
+            out[i, j:j + n] = np.arange(min(n, s - j))
+            j += n
+    return torch.as_tensor(out, device=device)
+
+
+EXT_CASES = [(dt, d, g, window, cap)
+             for dt in (torch.float32, torch.bfloat16)
+             for d in (16, 64, 128, 256) for g in (1, 7)
+             for window, cap in ((None, None), (90, 2.0), (None, 50.0))]
+
+
+@pytest.mark.parametrize("case", EXT_CASES, ids=[
+    f"{str(c[0])[6:]}-d{c[1]}-g{c[2]}-w{c[3]}-cap{c[4]}" for c in EXT_CASES])
+def test_flash_positions_and_softcap_match_plain(card, case):
+    """Packed documents (positions restarting, so queries keep keys of
+    later index) with and without a window and a soft cap: the forward,
+    its lse and the backward of the dtype's route against the plain
+    versions, each call counted on the route and as EXT."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference,
+        attention_reference)
+
+    dtype, d, g, window, cap = case
+    kvh = 2 if g == 1 else 1
+    q, k, v, do = flash_bwd_inputs(card, (2, kvh * g, kvh, 333, d, True,
+                                          window, dtype), seed=d + g)
+    pos = packed(2, 333, seed=d)
+    kw = dict(causal=True, window=window, q_pos=pos, k_pos=pos, softcap=cap)
+    name = FK.route(dtype)
+    before = dict(FK.EXT_LAUNCHES)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    again = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    want = attention_reference(q, k, v, **kw)
+    want_lse = attention_lse_reference(q, k, **kw)
+    want_g = attention_backward_reference(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    fwd, bwd = FK.EXT_KEYS[name], FK.EXT_KEYS[FK.BWD_ROUTES[name]]
+    assert FK.EXT_LAUNCHES == {**before, fwd: before[fwd] + 1,
+                               bwd: before[bwd] + 2}
+    err = float((o.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * max(1.0, float(want.float().abs().max()))
+    assert rel_err(lse, want_lse) < 1e-5
+    for x, y, z in zip(got, again, want_g):
+        assert torch.equal(x, y)
+        assert rel_err(x, z) < FLASH_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_rows_without_a_kept_key_under_positions(card, dtype):
+    """Keys shifted 40 positions past some queries: those rows keep no key
+    and average v over every key (their block visits every tile); their
+    lse lies below -5e29 (the backward's test for such a row: P = 1 / S,
+    dS = 0), the other rows' within 1e-5."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference,
+        attention_reference)
+
+    q, k, v, do = flash_bwd_inputs(card, (2, 4, 2, 300, 64, True, 50,
+                                          dtype))
+    k_pos = torch.arange(300, device=card, dtype=torch.int32)[None].expand(
+        2, 300) + 7
+    q_pos = k_pos - 40 * (torch.arange(300, device=card) % 5 == 0)
+    kw = dict(window=50, q_pos=q_pos, k_pos=k_pos, softcap=3.0)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    want_lse = attention_lse_reference(q, k, **kw)
+    keyless = want_lse < -1e29
+    assert bool(keyless.any())
+    want = attention_reference(q, k, v, **kw)
+    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    want_g = attention_backward_reference(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    err = float((o.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * max(1.0, float(want.float().abs().max()))
+    assert bool((lse[keyless] < -5e29).all())
+    assert rel_err(lse[~keyless], want_lse[~keyless]) < 1e-5
+    for x, z in zip(got, want_g):
+        assert rel_err(x, z) < FLASH_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_softcap_alone_and_arange_positions(card, dtype):
+    """A cap alone runs the EXT instantiation on positions ``q_offset +
+    arange`` / ``arange`` built on the card (with and without an offset);
+    positions ``arange`` without a cap give the index path's output (f32:
+    equal up to the sums' order)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    q, k, v = flash_inputs(card, (2, 6, 2, 200, 200, 64, True, 30, dtype))
+    before = FK.EXT_LAUNCHES[FK.EXT_KEYS[FK.route(dtype)]]
+    for off in (0, 50):
+        kw = dict(window=30, softcap=4.0, q_offset=off)
+        got = FK.flash_attention_bhsd(q[:, :, off:], k, v, **kw)
+        want = attention_reference(q[:, :, off:], k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= FLASH_TOL[dtype] * max(1.0,
+                                             float(want.float().abs().max()))
+    ar = torch.arange(200, device=card, dtype=torch.int64)[None].expand(2, 200)
+    by_pos = FK.flash_attention_bhsd(q, k, v, window=30, q_pos=ar, k_pos=ar)
+    index = FK.flash_attention_bhsd(q, k, v, window=30)
+    torch.cuda.synchronize()
+    assert FK.EXT_LAUNCHES[FK.EXT_KEYS[FK.route(dtype)]] == before + 3
+    err = float((by_pos.float() - index.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * max(1.0, float(index.float().abs().max()))
+
+
+def test_flash_positions_at_the_windowed_training_shape(card):
+    """Phase 14d's shape (q [1, 16, 4096, 256] bf16, one kv head, window
+    2048) on packed documents, where the window and the positions
+    interact: forward, lse and backward against the plain versions."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference,
+        attention_reference)
+
+    q, k, v, do = flash_bwd_inputs(card, (1, 16, 1, 4096, 256, True, 2048,
+                                          torch.bfloat16), seed=14)
+    pos = packed(1, 4096, seed=4, lo=256, hi=2048)
+    kw = dict(window=2048, q_pos=pos, k_pos=pos)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    want = attention_reference(q, k, v, **kw)
+    err = float((o.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[torch.bfloat16] * max(
+        1.0, float(want.float().abs().max()))
+    del want
+    assert rel_err(lse, attention_lse_reference(q, k, **kw)) < 1e-5
+    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    want_g = attention_backward_reference(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for x, z in zip(got, want_g):
+        assert rel_err(x, z) < FLASH_BWD_TOL[torch.bfloat16]
+
+
+def test_flash_pos_scratch_size_is_the_kernels(card):
+    """The wrapper's pre-pass scratch (``tiles.pos_scratch_ints``) is the
+    size the C side lays out."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import tiles
+
+    lib = FK._library()
+    for b, sq, sk in ((1, 1, 1), (2, 100, 300), (3, 4096, 4096),
+                      (1, 129, 65)):
+        assert lib.flash_attention_pos_scratch_ints(b, sq, sk) == \
+            tiles.pos_scratch_ints(b, sq, sk)
+
+
+def test_flash_ext_gradient_through_the_grouped_layout(card):
+    """``ops.flash_attention`` with autograd, positions and a cap on the
+    model's grouped layout: the Function's gradients on the card against
+    the CPU's plain ones."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=card).bfloat16()
+               for shape in ((2, 150, 2, 3, 64), (2, 150, 2, 64),
+                             (2, 150, 2, 64)))
+    do = torch.randn(q.shape, generator=g, device=card).bfloat16()
+    pos = packed(2, 150, seed=9, lo=20, hi=60)
+    grads = []
+    for xs, ps in (((q, k, v), pos),
+                   (tuple(x.cpu().float() for x in (q, k, v)), pos.cpu())):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        out = flash_attention(*xs, window=70, q_pos=ps, k_pos=ps,
+                              softcap=5.0)
+        grads.append(torch.autograd.grad(out, xs, do.to(out)))
+    torch.cuda.synchronize()
+    for x, y in zip(*grads):
+        assert rel_err(x.cpu(), y) < FLASH_BWD_TOL[torch.bfloat16]
