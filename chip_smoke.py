@@ -10,8 +10,9 @@ Phases, one report line each (every check raises on failure):
 
 1. versions, and the card's name and power limit from ``nvidia-smi``;
 2. build of every kernel source under ``src/repro_torch/csrc``
-   (``maxplus_fold.cu``, ``flash_attention.cu``, ``rglru_scan.cu``) for
-   ``sm_90a``, one ``nvcc`` each, all started together;
+   (``maxplus_fold.cu``, ``flash_attention.cu``, ``flash_attention_ext.cu``,
+   ``rglru_scan.cu``) for ``sm_90a``, one ``nvcc`` each, all started
+   together, each one's seconds logged;
 3. the (max,+) fold kernel against ``maxplus_fold_ref`` on the card,
    required equal by ``torch.equal``, in five variants (periodic,
    periodic+energy, indexed, indexed+arrivals+extras,
@@ -258,24 +259,30 @@ Phases, one report line each (every check raises on failure):
    compressed and not, bit-equal to the int8 quantise / dequantise done
    leaf by leaf in plain torch.
 16. caller positions and the logit soft cap (``phase_positions``): (16a)
-   K4's EXT instantiations (the positions' pre-pass, then the forward
+   K4's EXT instantiations, which work in position order (the plan's
+   stable sort, its band pre-pass ``flash_pos_band`` and, on the tensor
+   cores, the sorted copies of ``flash_pos_gather``; then the forward
    with and without lse and the backward) on both routes against their
    plain versions at the slice's shape, q [1, 14, 4096, 64] with two kv
    heads on packed documents (lengths drawn uniform in 256-2048 from
    LM_SEED, positions restarting at each) and a cap of 50.0, q scaled by
    8 so that the scores reach about +-36 and the cap's tanh is far from
    linear; the backward's bar is shown to fail the same backward without
-   the cap's factor 1 - t^2 (the plain version with it dropped); timed
-   beside their bound (the operations of the kept pairs), the index path
-   on the same inputs and SDPA with the positions' boolean mask (no
-   PyTorch call computes the cap); (16b) qwen2-0.5b at full width and
-   depth with ``attn_softcap=50.0`` (Gemma 2's published logit cap) on a
-   2 x 4096 packed batch (``batch["positions"]``, remat full, two
-   microbatches): the step's loss, gradient norm and leaves against the
-   same step with the plain attention, then one train step and one
-   scoring ``forward`` (no gradient, against the plain attention's),
-   every K4 launch of both on the tensor-core route's EXT
-   instantiation.
+   the cap's factor 1 - t^2 (the plain version with it dropped); the two
+   pre-passes against their twins (``tiles.pos_band``, ``index_select``);
+   timed beside their bound (the operations of the kept pairs), the index
+   path on the same inputs, the cap alone on ``arange`` positions (the
+   identity plan: the index band with the cap) and SDPA with the
+   positions' boolean mask (no PyTorch call computes the cap); the tiles
+   each schedule visits (the sorted band, PR 25's positional rule, the
+   index path); (16b) qwen2-0.5b at full width and depth with
+   ``attn_softcap=50.0`` (Gemma 2's published logit cap) on a 2 x 4096
+   packed batch (``batch["positions"]``, remat full, two microbatches):
+   the step's loss, gradient norm and leaves against the same step with
+   the plain attention, then one train step and one scoring ``forward``
+   (no gradient, against the plain attention's), every K4 launch of both
+   on the tensor-core route's EXT instantiation, one plan and one band
+   pre-pass a forward.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -4481,7 +4488,7 @@ class plain_kernels:
                 return rglru_scan_backward_ref(*ctx.saved_tensors,
                                                dh.contiguous())
 
-        def attend(spec, q, k, v, positions):
+        def attend(spec, q, k, v, positions, plan=None):
             b, s, kvh, g, d = q.shape
             o = attention_reference(q.reshape(b, s, kvh * g, d).transpose(1, 2),
                                     k.transpose(1, 2), v.transpose(1, 2),
@@ -5275,30 +5282,134 @@ def check_k4_ext(q, k, v, do, pos, cap) -> dict:
     return out
 
 
+def plain_band(plan, causal: bool, window) -> "torch.Tensor":
+    """The plain PyTorch version of ``flash_pos_band`` on the card: the
+    plan's band from its sorted positions by ``torch.searchsorted``, in the
+    kernel's layout (``tiles.pos_scratch_ints``; pads 0)."""
+    import torch
+    from repro_torch.kernels.flash_attention import tiles
+    rows = []
+    for i in range(plan.b):
+        qs = plan.q_sorted[min(i, plan.q_sorted.shape[0] - 1)].long()
+        ks = plan.k_sorted[min(i, plan.k_sorted.shape[0] - 1)].long()
+        sq, sk = qs.numel(), ks.numel()
+        lo, hi, qlo, qhi, keyless = tiles.band_of_sorted(
+            qs, ks, causal=causal, window=window)
+        keyless = torch.nonzero(keyless).flatten()
+        # the kernel keeps the hull as sq - first, last + 1 (0, 0: none)
+        hull = (torch.stack([sq - keyless.min(), keyless.max() + 1])
+                if keyless.numel() else torch.zeros(2, dtype=torch.int64,
+                                                    device=qs.device))
+        pad = [lambda x, n=n: torch.nn.functional.pad(x, (0, n - x.numel()))
+               for n in (tiles.pos_pad(sq), tiles.pos_pad(sk))]
+        rows.append(torch.cat([pad[0](lo), pad[0](hi), pad[1](qlo),
+                               pad[1](qhi), hull, hull.new_zeros(2)]))
+    return torch.cat(rows).int()
+
+
+def old_rule_tiles(pos, bq: int, bk: int) -> int:
+    """Tiles PR 25's positional rule visited on one row of positions
+    (causal, no window): a (query tile, key tile) pair unless every key
+    lies after every query (min k_pos > max q_pos), in index order."""
+    import torch
+    p = pos.long()
+    s = p.numel()
+
+    def spans(n):
+        t = torch.nn.functional.pad(p, (0, -s % n), value=p.max())
+        return t.view(-1, n).amin(1), torch.nn.functional.pad(
+            p, (0, -s % n), value=p.min()).view(-1, n).amax(1)
+    _, q_max = spans(bq)
+    k_min, _ = spans(bk)
+    return int((k_min[None, :] <= q_max[:, None]).sum())
+
+
+def check_k4_prepasses(q, k, v, pos) -> dict:
+    """16a: the EXT path's pre-passes against their plain versions on the
+    card, the band (``flash_pos_band``) equal to ``plain_band``, the sorted
+    copies (``flash_pos_gather``) equal to ``index_select``; each timed on
+    the device (``queued_ms``: the host's work hidden; the band made
+    afresh, its zeroing included), with its bound: the band reads the
+    sorted positions and writes the band (its binary searches are a few
+    compares a row), the gather reads and writes q, k and v once; the
+    plan's sort (``torch.sort``) beside."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.plan import PosPlan
+    plan = PosPlan.build(pos)
+    band = FK.pos_band(plan, True, None)
+    want = plain_band(plan, True, None)
+    sorted_ = FK.gather_sorted(plan, q, k, v)
+    perm = plan.q_perm[0].long()
+    plain = [x.index_select(2, perm) for x in (q, k, v)]
+    torch.cuda.synchronize()
+    band_err = int((band - want).abs().max())
+    gather_err = max(float((x.float() - y.float()).abs().max())
+                     for x, y in zip(sorted_, plain))
+    if band_err != 0 or gather_err != 0.0:
+        raise AssertionError(f"16a pre-passes against their plain versions: "
+                             f"band {band_err}, gather {gather_err}")
+
+    def fresh_band():
+        plan.bands.clear()
+        FK.pos_band(plan, True, None)
+    out = {"band_max_abs_err": band_err, "gather_max_abs_err": gather_err,
+           "sort_ms": queued_ms(lambda: PosPlan.build(pos)),
+           "band_ms": queued_ms(fresh_band),
+           "band_plain_ms": queued_ms(lambda: plain_band(plan, True, None)),
+           "gather_ms": queued_ms(lambda: FK.gather_sorted(plan, q, k, v)),
+           "gather_plain_ms": queued_ms(lambda: [
+               x.index_select(2, perm) for x in (q, k, v)])}
+    n = pos.numel()
+    band_bytes = 2 * n * 4 + band.numel() * 4
+    out["band_bound_ms"], out["band_bound_by"] = bound_ms(
+        band_bytes, 4.0 * n * math.log2(max(n, 2)))
+    gather_bytes = 2 * sum(x.numel() * x.element_size() for x in (q, k, v))
+    out["gather_bound_ms"], out["gather_bound_by"] = bound_ms(gather_bytes,
+                                                              0.0)
+    return out
+
+
 def time_k4_ext(q, k, v, do, pos, cap) -> dict:
     """16a's times at the slice's shape (bf16): the EXT forward (without
-    and with lse) and backward, each one call between CUDA events (median
-    of 3), their plain versions, the index path on the same q, k, v
-    (causal on arange, no cap), SDPA with the positions' boolean mask
-    (kv heads repeated; no cap: no PyTorch call computes it), forward and
-    forward + backward - forward; the bounds from the kept pairs: 4 D
-    flops a pair forward, 10 D backward, each input read and output
-    written once."""
+    and with lse) and backward on the positions' plan, made once as a
+    model forward makes it (so a call is the sorted copies and the
+    kernels), and the forward from the positions alone (the plan made in
+    the call), each one call between CUDA events (median of 3), their
+    plain versions, the index path on the same q, k, v (causal on arange,
+    no cap), the cap alone on ``arange`` (the identity plan: the index
+    band with the cap), SDPA with the positions' boolean mask (kv heads
+    repeated; no cap: no PyTorch call computes it), forward and forward +
+    backward - forward; the same on the device alone (``queued_ms``, the
+    host's work of a call hidden: ``*_device_ms``); the tiles each
+    schedule visits (the tensor-core forward's and dk/dv blocks'; PR 25's
+    positional rule beside); the bounds from the kept pairs: 4 D flops a
+    pair forward, 10 D backward, each input read and output written
+    once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import tiles
+    from repro_torch.kernels.flash_attention.plan import PosPlan
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_reference, attention_reference)
     kw = dict(q_pos=pos, k_pos=pos, softcap=cap)
     b, h, s, d = q.shape
-    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    plan = PosPlan.build(pos)
+    pk = dict(plan=plan, softcap=cap)
+    ident = PosPlan.identity(b, s, s, 0, q.device)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **pk)
     t = {"shape": list(q.shape), "kv_shape": list(k.shape), "softcap": cap,
-         "ms": cuda_ms(lambda: FK.flash_attention_bhsd(q, k, v, **kw)),
+         "ms": cuda_ms(lambda: FK.flash_attention_bhsd(q, k, v, **pk)),
          "fwd_lse_ms": cuda_ms(lambda: FK.flash_attention_bhsd(
-             q, k, v, with_lse=True, **kw)),
+             q, k, v, with_lse=True, **pk)),
+         "from_positions_ms": cuda_ms(lambda: FK.flash_attention_bhsd(
+             q, k, v, **kw)),
          "bwd_ms": cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
-             q, k, v, o, do, lse, **kw)),
+             q, k, v, o, do, lse, **pk)),
          "index_path_ms": cuda_ms(lambda: FK.flash_attention_bhsd(q, k, v)),
+         "cap_alone_ms": cuda_ms(lambda: FK.flash_attention_bhsd(
+             q, k, v, plan=ident, softcap=cap)),
          "index_path_bwd_ms": None,
          "plain_ms": cuda_ms(lambda: attention_reference(q, k, v, **kw),
                              warmup=False),
@@ -5307,13 +5418,44 @@ def time_k4_ext(q, k, v, do, pos, cap) -> dict:
     io, ilse = FK.flash_attention_bhsd(q, k, v, with_lse=True)
     t["index_path_bwd_ms"] = cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
         q, k, v, io, do, ilse))
-    del io, ilse
+    t["cap_alone_bwd_ms"] = cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
+        q, k, v, io, do, ilse, plan=ident, softcap=cap))
+    t["device"] = {
+        "ms": queued_ms(lambda: FK.flash_attention_bhsd(q, k, v, **pk)),
+        "bwd_ms": queued_ms(lambda: FK.flash_attention_bwd_bhsd(
+            q, k, v, o, do, lse, **pk)),
+        "index_path_ms": queued_ms(lambda: FK.flash_attention_bhsd(q, k, v)),
+        "index_path_bwd_ms": queued_ms(lambda: FK.flash_attention_bwd_bhsd(
+            q, k, v, io, do, ilse)),
+        "cap_alone_ms": queued_ms(lambda: FK.flash_attention_bhsd(
+            q, k, v, plan=ident, softcap=cap)),
+        "cap_alone_bwd_ms": queued_ms(lambda: FK.flash_attention_bwd_bhsd(
+            q, k, v, io, do, ilse, plan=ident, softcap=cap)),
+        "positions_no_cap_ms": queued_ms(lambda: FK.flash_attention_bhsd(
+            q, k, v, plan=plan))}
+    po, plse = FK.flash_attention_bhsd(q, k, v, with_lse=True, plan=plan)
+    t["device"]["positions_no_cap_bwd_ms"] = queued_ms(
+        lambda: FK.flash_attention_bwd_bhsd(q, k, v, po, do, plse, plan=plan))
+    del io, ilse, po, plse
+    (bq, bk), (bk2, bq2) = tiles.tc_tile(d), tiles.BWD_KV_TILE
+    band = tiles.pos_band(pos[0].cpu(), pos[0].cpu(), causal=True,
+                          window=None)
+    t["tiles"] = {
+        "fwd": sum(len(r) for r in tiles.pos_schedule(band, bq=bq, bk=bk)),
+        "fwd_pr25": old_rule_tiles(pos[0], bq, bk),
+        "fwd_index": sum(len(r) for r in tiles.schedule(
+            sq=s, sk=s, causal=True, window=None, q_offset=0, bq=bq, bk=bk)),
+        "dkdv": sum(len(r) for r in tiles.pos_dkdv_schedule(band, bk=bk2,
+                                                            bq=bq2)),
+        "dkdv_pr25": old_rule_tiles(pos[0], bq2, bk2),
+        "dkdv_index": sum(len(r) for r in tiles.dkdv_schedule(
+            s=s, causal=True, window=None, bk=bk2, bq=bq2))}
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    of, lsef = FK.flash_attention_bhsd(qf, kf, vf, with_lse=True, **kw)
+    of, lsef = FK.flash_attention_bhsd(qf, kf, vf, with_lse=True, **pk)
     t["f32_route_ms"] = cuda_ms(lambda: FK.flash_attention_bhsd(
-        qf, kf, vf, **kw))
+        qf, kf, vf, **pk))
     t["f32_route_bwd_ms"] = cuda_ms(lambda: FK.flash_attention_bwd_bhsd(
-        qf, kf, vf, of, dof, lsef, **kw))
+        qf, kf, vf, of, dof, lsef, **pk))
     del qf, kf, vf, dof, of, lsef
     group = h // k.shape[1]
     xs = [x.detach().requires_grad_(True) for x in (
@@ -5326,6 +5468,11 @@ def time_k4_ext(q, k, v, do, pos, cap) -> dict:
         both = cuda_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(*xs, attn_mask=mask), xs, do))
         t["library_bwd_ms"] = both - t["library_ms"]
+        t["device"]["library_ms"] = queued_ms(
+            lambda: F.scaled_dot_product_attention(*xs, attn_mask=mask))
+        t["device"]["library_bwd_ms"] = queued_ms(
+            lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+                *xs, attn_mask=mask), xs, do)) - t["device"]["library_ms"]
     except RuntimeError as exc:
         log(f"SDPA mask yardstick failed: {exc}")
     del xs, mask
@@ -5379,9 +5526,10 @@ def phase_positions(device) -> dict:
                   "f32": check_k4_ext(q.float(), k.float(), v.float(),
                                       do.float(), pos, POS_SOFTCAP),
                   "doc_lens": lens}
+    out["prepasses"] = check_k4_prepasses(q, k, v, pos)
     out["k4_ext"] = time_k4_ext(q, k, v, do, pos, POS_SOFTCAP)
     del q, k, v, do
-    t = out["k4_ext"]
+    t, pp, tl = out["k4_ext"], out["prepasses"], out["k4_ext"]["tiles"]
     for route, r in (("tc", out["16a"]["tc"]), ("f32", out["16a"]["f32"])):
         log(f"[16a] K4 EXT ({route}) at q {tuple(t['shape'])} k/v "
             f"{tuple(t['kv_shape'])}, packed documents {lens}, cap "
@@ -5390,17 +5538,45 @@ def phase_positions(device) -> dict:
             f"), lse within {r['lse_rel_err']:.2e}, dq/dk/dv within "
             f"{r['bwd_rel_err']:.2e} of the plain versions (without the "
             f"cap's factor 1 - t^2: {r['no_cap_factor_rel_err']:.2e})")
-    log(f"[16a] K4 EXT bf16 times: forward {t['ms']:.3f} ms (with lse "
-        f"{t['fwd_lse_ms']:.3f}; bound {t['bound_ms']:.4f} ms, "
+    log(f"[16a] K4 EXT bf16 times on the positions' plan: forward "
+        f"{t['ms']:.3f} ms (with lse {t['fwd_lse_ms']:.3f}; from the "
+        f"positions alone, the plan made in the call, "
+        f"{t['from_positions_ms']:.3f}; bound {t['bound_ms']:.4f} ms, "
         f"{t['bound_by']}, {t['pairs']} kept pairs of {t['causal_pairs']} "
         f"index-causal ones; {100 * t['bound_ms'] / t['ms']:.1f} % of it), "
         f"backward {t['bwd_ms']:.3f} ms (bound {t['bwd_bound_ms']:.4f} ms, "
         f"{t['bwd_bound_by']}); the index path on the same inputs "
-        f"{t['index_path_ms']:.3f} / {t['index_path_bwd_ms']:.3f} ms; plain "
+        f"{t['index_path_ms']:.3f} / {t['index_path_bwd_ms']:.3f} ms; the "
+        f"cap alone on arange (the index band) {t['cap_alone_ms']:.3f} / "
+        f"{t['cap_alone_bwd_ms']:.3f} ms; plain "
         f"{t['plain_ms']:.3f} / {t['bwd_plain_ms']:.3f} ms; CUDA-core route "
         f"on f32 copies {t['f32_route_ms']:.3f} / {t['f32_route_bwd_ms']:.3f}"
         f" ms; SDPA with the positions' mask (no cap) {t['library_ms']} / "
         f"{t['library_bwd_ms']} ms")
+    dv_ = t["device"]
+    log(f"[16a] the same on the device alone (queued calls): EXT forward "
+        f"{dv_['ms']:.4f} / backward {dv_['bwd_ms']:.4f} ms; positions "
+        f"without the cap {dv_['positions_no_cap_ms']:.4f} / "
+        f"{dv_['positions_no_cap_bwd_ms']:.4f}; the cap alone "
+        f"{dv_['cap_alone_ms']:.4f} / {dv_['cap_alone_bwd_ms']:.4f}; the "
+        f"index path {dv_['index_path_ms']:.4f} / "
+        f"{dv_['index_path_bwd_ms']:.4f}; SDPA with the mask "
+        f"{dv_.get('library_ms')} / {dv_.get('library_bwd_ms')} ms")
+    log(f"[16a] tiles visited, forward blocks: {tl['fwd']} sorted "
+        f"({tl['fwd'] / tl['fwd_index']:.4f}x the index path's "
+        f"{tl['fwd_index']}; PR 25's rule {tl['fwd_pr25']}); dk/dv blocks: "
+        f"{tl['dkdv']} ({tl['dkdv'] / tl['dkdv_index']:.4f}x of "
+        f"{tl['dkdv_index']}; PR 25's {tl['dkdv_pr25']})")
+    log(f"[16a] pre-passes: the plan's sort {pp['sort_ms']:.4f} ms; "
+        f"flash_pos_band {pp['band_ms']:.4f} ms (plain {pp['band_plain_ms']:.4f}"
+        f", bound {pp['band_bound_ms']:.5f}, {pp['band_bound_by']}), equal to "
+        f"its plain version; flash_pos_gather {pp['gather_ms']:.4f} ms "
+        f"(index_select {pp['gather_plain_ms']:.4f}, bound "
+        f"{pp['gather_bound_ms']:.5f}, {pp['gather_bound_by']}), equal")
+    if tl["fwd"] > 1.05 * tl["fwd_index"] or \
+            tl["dkdv"] > 1.05 * tl["dkdv_index"]:
+        raise AssertionError(f"16a: the sorted schedules visit {tl}, more "
+                             "than 1.05x the index path's tiles")
 
     # -- 16b: the packed, soft-capped qwen2-0.5b step and scoring --------
     torch.cuda.reset_peak_memory_stats()
@@ -5424,6 +5600,7 @@ def phase_positions(device) -> dict:
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     step_counts, step_ext = kernel_counts(), dict(FK.EXT_LAUNCHES)
+    step_prep = dict(FK.PREP_LAUNCHES)
     del new_state
     want = TRAIN_ACCUM * cfg.num_units
     tc_fwd, tc_bwd = FK.EXT_KEYS[FK.TC], FK.EXT_KEYS[FK.BWD_ROUTES[FK.TC]]
@@ -5435,6 +5612,12 @@ def phase_positions(device) -> dict:
                              f"{step_ext}: expected {2 * want} forward and "
                              f"{want} backward EXT launches, all on the "
                              "tensor cores")
+    # one plan a forward (a microbatch; remat replays reuse it), so one
+    # band pre-pass each; sorted copies for every EXT call
+    if step_prep != {FK.BAND: TRAIN_ACCUM, FK.GATHER: 3 * want}:
+        raise AssertionError(f"16b: a step ran the pre-passes {step_prep}: "
+                             f"expected {TRAIN_ACCUM} band pre-passes (one a "
+                             f"forward) and {3 * want} gathers")
     # one scoring forward (no gradient) of the first row, then the same
     # with the plain attention
     inputs, spos = batch["inputs"][:1], batch["positions"][:1]
@@ -5446,15 +5629,17 @@ def phase_positions(device) -> dict:
         torch.cuda.synchronize()
         score_s = time.perf_counter() - t0
         score_counts, score_ext = kernel_counts(), dict(FK.EXT_LAUNCHES)
+        score_prep = dict(FK.PREP_LAUNCHES)
         with plain_kernels():
             plain_logits, _ = transformer.forward(
                 cfg, state["params"], inputs, spos, mode="eval")
     torch.cuda.synchronize()
     if (score_counts[FK.TC] != cfg.num_units or score_counts[FK.F32] != 0
             or score_ext[tc_fwd] != cfg.num_units
-            or score_counts[FK.BWD] != 0):
+            or score_counts[FK.BWD] != 0
+            or score_prep != {FK.BAND: 1, FK.GATHER: cfg.num_units}):
         raise AssertionError(f"16b scoring: launches {score_counts}, EXT "
-                             f"{score_ext}")
+                             f"{score_ext}, pre-passes {score_prep}")
     if not (tuple(logits.shape[:2]) == (1, TRAIN_SEQ)
             and bool(torch.isfinite(logits).all())):
         raise AssertionError(f"16b scoring: logits {tuple(logits.shape)} "
@@ -5481,7 +5666,8 @@ def phase_positions(device) -> dict:
     torch.cuda.empty_cache()
     out["16b"].update(
         init_s=init_s, step_s=step_s, step_launches=step_counts,
-        step_ext_launches=step_ext, doc_lens=blens,
+        step_ext_launches=step_ext, step_prep_launches=step_prep,
+        score_prep_launches=score_prep, doc_lens=blens,
         metrics={k_: float(v_) for k_, v_ in metrics.items()},
         score_s=score_s, score_launches=score_counts,
         score_ext_launches=score_ext, score_ce=ce, score_plain_ce=plain_ce,
@@ -5493,9 +5679,10 @@ def phase_positions(device) -> dict:
         f"tokens (documents {blens}) in {TRAIN_ACCUM} microbatches, remat "
         f"{cfg.remat}: one step {step_s:.2f} s (the first), K4 EXT "
         f"{step_ext[tc_fwd]} forward and {step_ext[tc_bwd]} backward "
-        f"launches, all tensor-core; metrics {out['16b']['metrics']}; "
-        f"scoring forward of 1 x {TRAIN_SEQ} {score_s:.2f} s ({score_ext[tc_fwd]}"
-        f" EXT launches): cross entropy {ce:.6f} against the plain "
+        f"launches, all tensor-core, pre-passes {step_prep}; metrics "
+        f"{out['16b']['metrics']}; scoring forward of 1 x {TRAIN_SEQ} "
+        f"{score_s:.2f} s ({score_ext[tc_fwd]} EXT launches, pre-passes "
+        f"{score_prep}): cross entropy {ce:.6f} against the plain "
         f"attention's {plain_ce:.6f} ({ce_rel:.2e}, bar {TRAIN_LOSS_TOL}), "
         f"logits within {score_rel:.2e} of the largest, argmax agreeing on "
         f"{100 * agree:.2f} % of positions; peak {peak:.2f} GB; state "
@@ -5546,19 +5733,24 @@ def main() -> int:
 
     # -- 2: build every kernel source, one nvcc each, all at once -------
     t0 = time.perf_counter()
-    sources = (K.SOURCE, FK.SOURCE, RK.SOURCE)
+    sources = (K.SOURCE, FK.SOURCE, FK.EXT_SOURCE, RK.SOURCE)
+
+    def timed_build(source):
+        t = time.perf_counter()
+        return (*build.build(source), time.perf_counter() - t)
     with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(build.build, sources))
-    for lib_path, ptxas in built:
+        built = list(pool.map(timed_build, sources))
+    for lib_path, ptxas, secs in built:
         regs = [ln.strip() for ln in ptxas.splitlines()
                 if "registers" in ln or "spill" in ln]
-        log(f"[2] built {lib_path.name} for sm_90a; ptxas: "
+        log(f"[2] built {lib_path.name} for sm_90a in {secs:.1f} s; ptxas: "
             f"{' | '.join(regs)}")
     K._library()
     FK._library()
+    FK._ext_library()
     RK._library()
-    log(f"[2] {len(sources)} sources built in parallel in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"[2] {len(sources)} sources built in parallel in {build_s:.1f} s")
 
     # -- 3: kernels == plain at a small shape ----------------------------
     phase_small_variants(dev)
@@ -5742,7 +5934,7 @@ def main() -> int:
 
     # -- 8: LM serving through K4 and K5 ---------------------------------
     lm_small = phase_lm_small(dev)
-    lm = phase_lm_serve(dev, built[1][1], built[2][1])
+    lm = phase_lm_serve(dev, built[1][1], built[3][1])
 
     # -- 9: request-level workloads; K1's main path grows by its launches
     wl = phase_workloads(dev)
@@ -5800,6 +5992,8 @@ def main() -> int:
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
         "train": train, "dryrun": dry, "positions": positions,
+        "build_s": build_s,
+        "build_source_s": {lib.name: secs for lib, _, secs in built},
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))
@@ -5907,22 +6101,27 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "scan_ms", "route",
              "shape")}},
         {"name": "flash_attention EXT (K4 with caller positions and the "
-                 "logit soft cap: flash_pos_prep, then flash_fwd_tc's EXT "
-                 "instantiation; phase 16b's step and scoring forward)",
-         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "logit soft cap in position order: flash_pos_gather's "
+                 "sorted copies, then flash_fwd_tc's EXT instantiation on "
+                 "the plan's band; phase 16b's step and scoring forward)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_ext.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
          "launches": positions["16b"]["ext_launches"],
          "max_abs_err": positions["16a"]["tc"]["max_abs_err"],
          "f32_route_max_abs_err": positions["16a"]["f32"]["max_abs_err"],
          **{k: positions["k4_ext"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "fwd_lse_ms", "index_path_ms", "f32_route_ms", "pairs",
+             "fwd_lse_ms", "from_positions_ms", "index_path_ms",
+             "cap_alone_ms", "f32_route_ms", "pairs", "tiles", "device",
              "shape", "kv_shape", "softcap")}},
         {"name": "flash_attention_bwd EXT (K4 backward with caller "
-                 "positions and the soft cap: flash_pos_prep, "
-                 "flash_bwd_prep, flash_bwd_dkdv_tc and flash_bwd_dq_tc's "
-                 "EXT instantiations, flash_bwd_sum; phase 16b's step)",
-         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "positions and the soft cap in position order: "
+                 "flash_pos_gather, flash_bwd_prep (delta, lse and dO "
+                 "sorted), flash_bwd_dkdv_tc and flash_bwd_dq_tc's EXT "
+                 "instantiations, flash_bwd_sum; phase 16b's step)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_ext.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
          "launches": positions["16b"]["step_ext_launches"][
              FK.EXT_KEYS[FK.BWD_ROUTES[FK.TC]]],
@@ -5935,8 +6134,36 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": positions["k4_ext"]["library_bwd_ms"],
          **{k: positions["k4_ext"][k] for k in (
-             "index_path_bwd_ms", "f32_route_bwd_ms", "pairs", "shape",
-             "kv_shape", "softcap")}}]}))
+             "index_path_bwd_ms", "cap_alone_bwd_ms", "f32_route_bwd_ms",
+             "pairs", "shape", "kv_shape", "softcap")}},
+        {"name": "flash_pos_band (the K4 EXT plan's pre-pass: each sorted "
+                 "row's and key's band by binary search; one a forward, "
+                 "phase 16b's step and scoring)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_ext.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         "launches": (positions["16b"]["step_prep_launches"][FK.BAND]
+                      + positions["16b"]["score_prep_launches"][FK.BAND]),
+         "max_abs_err": positions["prepasses"]["band_max_abs_err"],
+         "ms": positions["prepasses"]["band_ms"],
+         "plain_ms": positions["prepasses"]["band_plain_ms"],
+         "bound_ms": positions["prepasses"]["band_bound_ms"],
+         "bound_by": positions["prepasses"]["band_bound_by"],
+         "library_ms": None, "sort_ms": positions["prepasses"]["sort_ms"]},
+        {"name": "flash_pos_gather (K4 EXT: q, k, v copied in position "
+                 "order for the tensor-core kernels; phase 16b's step and "
+                 "scoring)",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_ext.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         "launches": (positions["16b"]["step_prep_launches"][FK.GATHER]
+                      + positions["16b"]["score_prep_launches"][FK.GATHER]),
+         "max_abs_err": positions["prepasses"]["gather_max_abs_err"],
+         "ms": positions["prepasses"]["gather_ms"],
+         "plain_ms": positions["prepasses"]["gather_plain_ms"],
+         "bound_ms": positions["prepasses"]["gather_bound_ms"],
+         "bound_by": positions["prepasses"]["gather_bound_by"],
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,8 @@ kernels' wrapper.
 q [B, H, Sq, D] and k, v [B, KVH, Sk, D] (query head h reads kv head
 ``h // (H // KVH)``), with the causal mask on positions ``q_offset + i``
 against ``j`` and an optional sliding window.  The kernels, in
-``src/repro_torch/csrc/flash_attention.cu``, say which TPU kernel they
+``src/repro_torch/csrc/flash_attention.cuh`` (built by ``flash_attention.cu``
+and ``flash_attention_ext.cu``), say which TPU kernel they
 replace and what bounds them.
 
 Head dims below 16 (granite-3-2b's SMOKE config has 8) are zero-padded
@@ -33,22 +34,26 @@ calls in all (``BWD``) and per route; on the CPU it runs
 
 Both wrappers also take caller positions ``q_pos`` [B, Sq] and ``k_pos``
 [B, Sk] (integer tensors, one row a batch entry; the mask then reads
-them in place of ``q_offset + i`` and ``j``) and a logit ``softcap``
+them in place of ``q_offset + i`` and ``j``), or their ``plan``
+(``plan.PosPlan``, made once a model forward), and a logit ``softcap``
 (``cap tanh(s / cap)`` on the scaled scores, as the JAX package's
 ``AttnSpec.softcap``).  Either sends the call to the kernels' EXT
-instantiations (a cap alone with positions ``q_offset + arange`` /
-``arange`` built on the device), after a pre-pass over the positions
-into an int32 scratch; ``EXT_LAUNCHES`` counts those calls per route
-beside the route totals.
+instantiations (``csrc/flash_attention_ext.cu``), which work in position
+order: positions without a plan get one built here, a cap alone the
+identity plan.  The band the kernels walk is made once a (plan, causal,
+window) by the pre-pass ``flash_pos_band`` (``pos_band``); on the
+tensor-core route a plan with permutations has ``flash_pos_gather`` write
+sorted copies of q, k and v first.  ``EXT_LAUNCHES`` counts the EXT calls
+per route beside the route totals, ``PREP_LAUNCHES`` the two pre-passes.
 
 On meta tensors (the dry run's plan of the card's path) both wrappers
 check their arguments and make the allocations they make on the card —
 the output, the lse when asked, the backward's delta / lse scratch and
-its per-split dk / dv partial sums, the positions' scratch — then skip
-the launch and report its flops and bytes to ``kernels.work``: the
-forward ``tiles.computed_flops``, the backward ``bwd_flops``, both of
-the index schedule (meta positions have no values).  No launch is
-counted.
+its per-split dk / dv partial sums, the plan's sort and band, the sorted
+copies — then skip the launch and report its flops and bytes to
+``kernels.work``: the forward ``tiles.computed_flops``, the backward
+``bwd_flops``, both of the index schedule (meta positions have no
+values).  No launch is counted.
 """
 
 from __future__ import annotations
@@ -62,11 +67,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import work
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention import tiles
+from repro_torch.kernels.flash_attention.plan import PosPlan
 from repro_torch.kernels.flash_attention.ref import (
     attention_backward_reference, attention_lse_reference,
     attention_reference)
 
 SOURCE = "flash_attention.cu"
+#: the EXT instantiations and the plan's pre-pass, built beside SOURCE
+EXT_SOURCE = "flash_attention_ext.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC, F32 = "flash_attention_tc", "flash_attention_f32"
 _KERNEL_IDS = {F32: 0, TC: 1}     # the route's number in the C interface
@@ -85,10 +93,14 @@ BACKWARD_LAUNCHES = {BWD: 0, **{key: 0 for key in BWD_ROUTES.values()}}
 #: per forward and backward route.
 EXT_KEYS = {name: f"{name}/ext" for name in (TC, F32, *BWD_ROUTES.values())}
 EXT_LAUNCHES = {key: 0 for key in EXT_KEYS.values()}
+#: Launches of the EXT path's pre-passes: the plan's band (once a plan,
+#: causal and window) and the sorted copies of the tensor-core route.
+BAND, GATHER = "flash_pos_band", "flash_pos_gather"
+PREP_LAUNCHES = {BAND: 0, GATHER: 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKWARD_LAUNCHES, EXT_LAUNCHES):
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES, EXT_LAUNCHES, PREP_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -108,25 +120,24 @@ def route(dtype: torch.dtype) -> str:
     raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
 
 
+_PTR = ctypes.c_void_p
+#: the index entry points' arguments
+_FWD_ARGS = ([ctypes.c_int] + [_PTR] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_float, _PTR] + [ctypes.c_int] * 3 + [_PTR])
+_BWD_ARGS = ([ctypes.c_int] + [_PTR] * 10 + [ctypes.c_int] * 7
+             + [ctypes.c_float, _PTR, _PTR, ctypes.c_int, ctypes.c_int])
+#: the EXT entry points': q_perm, k_perm, band, the sorted copies, the cap
+_PLAN_ARGS = [_PTR] * 4 + [ctypes.c_float]
+
+
 def _library() -> ctypes.CDLL:
+    """The index kernels' library (``SOURCE``)."""
     lib = load(SOURCE)
     if not getattr(lib, "_repro_bound", False):
-        ptr = ctypes.c_void_p
-        # positions, their batch strides, their scratch, the soft cap
-        ext = [ptr, ctypes.c_longlong, ptr, ctypes.c_longlong, ptr,
-               ctypes.c_float]
-        lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_int] + [ptr] * 4 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ptr] + [ctypes.c_int] * 3 + [ptr] + ext
-            + [ptr])
+        lib.flash_attention_fwd.argtypes = _FWD_ARGS + [_PTR]
         lib.flash_attention_fwd.restype = ctypes.c_int
-        lib.flash_attention_bwd.argtypes = (
-            [ctypes.c_int] + [ptr] * 10 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ptr, ptr, ctypes.c_int, ctypes.c_int] + ext
-            + [ptr])
+        lib.flash_attention_bwd.argtypes = _BWD_ARGS + [_PTR]
         lib.flash_attention_bwd.restype = ctypes.c_int
-        lib.flash_attention_pos_scratch_ints.argtypes = [ctypes.c_int] * 3
-        lib.flash_attention_pos_scratch_ints.restype = ctypes.c_longlong
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -135,40 +146,94 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _ext_library() -> ctypes.CDLL:
+    """The EXT instantiations' library (``EXT_SOURCE``)."""
+    lib = load(EXT_SOURCE)
+    if not getattr(lib, "_repro_bound", False):
+        # the forward's arguments without q_offset
+        fwd = _FWD_ARGS[:13] + _FWD_ARGS[14:]
+        lib.flash_attention_ext_fwd.argtypes = fwd + _PLAN_ARGS + [_PTR]
+        lib.flash_attention_ext_fwd.restype = ctypes.c_int
+        lib.flash_attention_ext_bwd.argtypes = _BWD_ARGS + _PLAN_ARGS + [_PTR]
+        lib.flash_attention_ext_bwd.restype = ctypes.c_int
+        lib.flash_attention_pos_band.argtypes = (
+            [_PTR, ctypes.c_longlong, _PTR, ctypes.c_longlong]
+            + [ctypes.c_int] * 5 + [_PTR, _PTR])
+        lib.flash_attention_pos_band.restype = ctypes.c_int
+        lib.flash_attention_pos_gather.argtypes = (
+            [ctypes.c_int] + [_PTR] * 6 + [ctypes.c_int] * 3 + [_PTR])
+        lib.flash_attention_pos_gather.restype = ctypes.c_int
+        lib.flash_attention_pos_scratch_ints.argtypes = [ctypes.c_int] * 3
+        lib.flash_attention_pos_scratch_ints.restype = ctypes.c_longlong
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib._repro_bound = True
+    return lib
+
+
+def _check_rc(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: error {rc} "
+                           f"({msg})")
+
+
 def _check_softcap(softcap) -> None:
     if softcap is not None and not (math.isfinite(softcap) and softcap > 0):
         raise ValueError(f"softcap must be a finite positive float or None, "
                          f"got {softcap}")
 
 
-def _positions(q_pos, k_pos, softcap, b: int, sq: int, sk: int,
-               q_offset: int, device):
-    """The EXT instantiations' positions: int32 [B, Sq] and [B, Sk] views
-    with a contiguous sequence on ``device`` (converted or built there,
-    never read by the host), or (None, None) for the index path (no
-    positions, no cap).  A missing one of the two is ``q_offset + arange``
-    / ``arange``."""
-    if q_pos is None and k_pos is None and softcap is None:
-        return None, None
-    out = []
-    for arg, x, n, off in (("q_pos", q_pos, sq, q_offset),
-                           ("k_pos", k_pos, sk, 0)):
-        if x is None:
-            x = (off + torch.arange(n, dtype=torch.int32, device=device)
-                 )[None].expand(b, n)
-        if x.dtype.is_floating_point or x.dtype.is_complex or \
-                x.dtype == torch.bool:
-            raise TypeError(f"{arg} must be an integer tensor, got {x.dtype}")
-        if tuple(x.shape) != (b, n):
-            raise ValueError(f"{arg} has shape {tuple(x.shape)}, expected "
-                             f"{(b, n)}")
-        if x.device != device:
-            raise ValueError(f"{arg} is on {x.device}, q on {device}")
-        x = x.to(torch.int32)
-        if n > 1 and x.stride(1) != 1:
-            x = x.contiguous()
-        out.append(x)
-    return tuple(out)
+def _plan(plan, q_pos, k_pos, softcap, b: int, sq: int, sk: int,
+          q_offset: int, device):
+    """The EXT instantiations' plan, or None for the index path (no
+    positions, no cap): the caller's (checked against the call), one built
+    from q_pos / k_pos (a missing one of the two is ``q_offset + arange``
+    / ``arange``), or for a cap alone the identity plan."""
+    if plan is not None:
+        if q_pos is not None or k_pos is not None:
+            raise ValueError("give positions or their plan, not both")
+        if q_offset:
+            raise ValueError("a plan's positions replace q_offset, which "
+                             "must then be 0")
+        if (plan.b, plan.sq, plan.sk) != (b, sq, sk) or plan.device != device:
+            raise ValueError(f"the plan is of [{plan.b}, {plan.sq}] queries "
+                             f"and {plan.sk} keys on {plan.device}, the call "
+                             f"[{b}, {sq}] and {sk} on {device}")
+        return plan
+    if q_pos is None and k_pos is None:
+        return None if softcap is None else PosPlan.identity(
+            b, sq, sk, q_offset, device)
+    return PosPlan.build(q_pos, k_pos, b=b, sq=sq, sk=sk, q_offset=q_offset,
+                         device=device)
+
+
+def pos_band(plan: PosPlan, causal: bool, window: int | None
+             ) -> torch.Tensor:
+    """The plan's band for (causal, window): int32, ``tiles.
+    pos_scratch_ints(B, Sq, Sk)`` of them, made by ``flash_pos_band`` on
+    the first call and kept in ``plan.bands`` (on meta tensors allocated
+    only)."""
+    key = (bool(causal), int(window or 0))
+    band = plan.bands.get(key)
+    if band is not None:
+        return band
+    # zeroed: the pre-pass's blocks add the hull to it by atomicMax
+    band = torch.zeros((tiles.pos_scratch_ints(plan.b, plan.sq, plan.sk),),
+                       dtype=torch.int32, device=plan.device)
+    if plan.device.type != "meta":
+        lib = _ext_library()
+        qs, ks = plan.q_sorted, plan.k_sorted
+        with torch.cuda.device(plan.device):
+            rc = lib.flash_attention_pos_band(
+                qs.data_ptr(), qs.stride(0) if qs.shape[0] > 1 else 0,
+                ks.data_ptr(), ks.stride(0) if ks.shape[0] > 1 else 0,
+                plan.b, plan.sq, plan.sk, key[0], key[1], band.data_ptr(),
+                torch.cuda.current_stream(plan.device).cuda_stream)
+        _check_rc(lib, rc, BAND)
+        PREP_LAUNCHES[BAND] += 1
+    plan.bands[key] = band
+    return band
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -176,7 +241,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int = 0,
                          out: torch.Tensor | None = None,
                          with_lse: bool = False, q_pos=None, k_pos=None,
-                         softcap: float | None = None):
+                         softcap: float | None = None,
+                         plan: PosPlan | None = None):
     """[B, H, Sq, D] attention output in q.dtype; with ``with_lse`` the
     pair (output, lse [B, H, Sq] float32).
 
@@ -184,10 +250,13 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     place) as long as the head dimension is contiguous; ``out`` is an
     optional [B, H, Sq, D] destination view of the same kind.  D is one
     of ``HEAD_DIMS``, or below the first of them (then zero-padded to
-    it, in copies).  ``q_pos`` [B, Sq], ``k_pos`` [B, Sk] (integers) and
-    ``softcap``: see the module docstring; positions take q_offset 0."""
+    it, in copies).  ``q_pos`` [B, Sq], ``k_pos`` [B, Sk] (integers) or
+    their ``plan``, and ``softcap``: see the module docstring; positions
+    take q_offset 0."""
     _check_softcap(softcap)
     if q.device.type == "cpu":
+        if plan is not None:
+            q_pos, k_pos = plan.q_pos, plan.k_pos
         kw = dict(causal=causal, window=window, q_offset=q_offset,
                   q_pos=q_pos, k_pos=k_pos, softcap=softcap)
         o = attention_reference(q, k, v, **kw)
@@ -220,8 +289,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q_pos is not None and q_offset:
         raise ValueError("q_pos replaces q_offset, which must then be 0")
-    qp, kp = _positions(q_pos, k_pos, softcap, b, sq, sk, q_offset,
-                        q.device)
+    plan = _plan(plan, q_pos, k_pos, softcap, b, sq, sk, q_offset, q.device)
     if out is None:
         out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     for arg, x in (("k", k), ("v", v), ("out", out)):
@@ -247,40 +315,75 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qp_, kp_, vp_ = (F.pad(x, (0, pad)) for x in (q, k, v))
         op = torch.empty(qp_.shape, dtype=q.dtype, device=q.device)
         _launch(name, qp_, kp_, vp_, op, causal, window, q_offset, scale,
-                lse, qp, kp, softcap)
+                lse, plan, softcap)
         out.copy_(op[..., :d])
     else:
         _launch(name, q, k, v, out, causal, window, q_offset, scale, lse,
-                qp, kp, softcap)
+                plan, softcap)
     return (out, lse) if with_lse else out
 
 
-def _pos_scratch(qp, b: int, sq: int, sk: int, device):
-    """The int32 scratch the pre-pass fills (None on the index path)."""
-    if qp is None:
+def _sorted_copies(plan, tensor_cores: bool, q, k, backward: bool):
+    """Room for the sorted copies the C entry point writes before the
+    tensor-core kernels (``flash_pos_gather``: q [B, H, Sq, D] and k, v
+    [B, KVH, Sk, D]; the backward's row pass adds dO [B, H, S, D]), or None
+    where the kernels read the operands in place: the CUDA-core route
+    gathers in its loads, and an identity plan needs no copy."""
+    if plan is None or not tensor_cores or plan.sorted_in_place:
         return None
-    return torch.empty((tiles.pos_scratch_ints(b, sq, sk),),
-                       dtype=torch.int32, device=device)
+    n = (2 if backward else 1) * q.numel() + 2 * k.numel()
+    return torch.empty((n,), dtype=q.dtype, device=q.device)
 
 
-def _ext_args(qp, kp, scratch, softcap) -> list:
-    """The C entry points' trailing EXT arguments: positions, their batch
-    strides, the scratch and the cap; null / 0 on the index path."""
-    if qp is None:
-        return [None, 0, None, 0, None, 0.0]
-    return [qp.data_ptr(), qp.stride(0), kp.data_ptr(), kp.stride(0),
-            scratch.data_ptr(), float(softcap or 0.0)]
+def gather_sorted(plan: PosPlan, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Contiguous copies of q [B, H, Sq, D] and k, v [B, KVH, Sk, D] with
+    their rows in the plan's sorted order (row r of batch b is row
+    ``q_perm[b, r]``, ``k_perm[b, r]``): one launch of
+    ``flash_pos_gather``, the kernel the tensor-core EXT calls run first
+    (on meta tensors the copies only)."""
+    outs = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                 for x in (q, k, v))
+    if q.device.type == "meta":
+        return outs
+    xs = (q, k, v)
+    perms = (plan.q_perm, plan.k_perm, plan.k_perm)
+    ptrs = ctypes.c_void_p * 3
+    lib = _ext_library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_pos_gather(
+            3, ptrs(*(x.data_ptr() for x in xs)),
+            ptrs(*(x.data_ptr() for x in outs)),
+            ptrs(*(x.data_ptr() for x in perms)),
+            (ctypes.c_longlong * 9)(*(st for x in xs for st in _strides(x))),
+            (ctypes.c_int * 3)(*(x.shape[1] for x in xs)),
+            (ctypes.c_int * 3)(*(x.shape[2] for x in xs)), q.shape[0],
+            q.shape[3] * q.element_size(), q.element_size(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(lib, rc, GATHER)
+    PREP_LAUNCHES[GATHER] += 1
+    return outs
+
+
+def _plan_args(plan, band, sorted_, softcap) -> list:
+    """The EXT entry points' trailing arguments."""
+    return [None if plan.q_perm is None else plan.q_perm.data_ptr(),
+            None if plan.k_perm is None else plan.k_perm.data_ptr(),
+            band.data_ptr(), None if sorted_ is None else sorted_.data_ptr(),
+            float(softcap or 0.0)]
 
 
 def _launch(name, q, k, v, out, causal, window, q_offset, scale,
-            lse=None, qp=None, kp=None, softcap=None) -> None:
+            lse=None, plan=None, softcap=None) -> None:
     """One launch of route ``name``'s kernel on checked tensors (on meta
-    tensors: its work reported, no launch); ``qp``, ``kp`` (int32, from
-    ``_positions``) and ``softcap`` select the EXT instantiation."""
+    tensors: its work reported, no launch); a ``plan`` (from ``_plan``)
+    selects the EXT instantiation."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     bq, bk = tile(name, d)
-    scratch = _pos_scratch(qp, b, sq, sk, q.device)
+    if plan is not None:
+        band = pos_band(plan, causal, window)
+        sorted_ = _sorted_copies(plan, name == TC, q, k, False)
     if q.device.type == "meta":
         work.report(name, tiles.computed_flops(
             b, h, d, sq=sq, sk=sk, causal=causal, window=window,
@@ -290,24 +393,26 @@ def _launch(name, q, k, v, out, causal, window, q_offset, scale,
     strides = [s for x in (q, k, v, out) for s in _strides(x)]
     if name == TC:
         _check_tma((("q", q), ("k", k), ("v", v)), (("out", out),))
-    lib = _library()
+    lib = _library() if plan is None else _ext_library()
+    args = [_KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, h, kvh, sq, sk, d, int(causal),
+            0 if window is None else int(window), int(q_offset), scale,
+            (ctypes.c_longlong * 12)(*strides), bq, bk,
+            tiles.n_q_tiles(sq, bq), None if lse is None else lse.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            _KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, h, kvh, sq, sk, d, int(causal),
-            0 if window is None else int(window),
-            0 if qp is not None else int(q_offset),   # positions carry it
-            scale, (ctypes.c_longlong * 12)(*strides), bq, bk,
-            tiles.n_q_tiles(sq, bq), None if lse is None else lse.data_ptr(),
-            *_ext_args(qp, kp, scratch, softcap), stream)
-    if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: error {rc} "
-                           f"({msg})")
+        if plan is None:
+            rc = lib.flash_attention_fwd(*args, stream)
+        else:
+            del args[13]                   # the positions carry q_offset
+            rc = lib.flash_attention_ext_fwd(
+                *args, *_plan_args(plan, band, sorted_, softcap), stream)
+    _check_rc(lib, rc, name)
     LAUNCHES[name] += 1
-    if qp is not None:
+    if plan is not None:
         EXT_LAUNCHES[EXT_KEYS[name]] += 1
+        if sorted_ is not None:
+            PREP_LAUNCHES[GATHER] += 1
 
 
 def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
@@ -317,7 +422,8 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                              dq: torch.Tensor | None = None,
                              dk: torch.Tensor | None = None,
                              dv: torch.Tensor | None = None, q_pos=None,
-                             k_pos=None, softcap: float | None = None):
+                             k_pos=None, softcap: float | None = None,
+                             plan: PosPlan | None = None):
     """(dq, dk, dv) of ``flash_attention_bhsd`` for the output gradient
     ``do``, from its output ``o`` and ``lse`` (``with_lse=True``).
 
@@ -328,9 +434,12 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     at positions 0..S-1 over as many keys (Sq == Sk); anything else
     raises.  bfloat16 takes the tensor-core kernels, which read q, k, v
     and do through TMA: a layout TMA cannot read raises.  ``q_pos``,
-    ``k_pos`` ([B, S] each) and ``softcap`` as the forward's."""
+    ``k_pos`` ([B, S] each) or their ``plan``, and ``softcap``, as the
+    forward's."""
     _check_softcap(softcap)
     if q.device.type == "cpu":
+        if plan is not None:
+            q_pos, k_pos = plan.q_pos, plan.k_pos
         grads = attention_backward_reference(
             q, k, v, o, do, lse, causal=causal, window=window, q_pos=q_pos,
             k_pos=k_pos, softcap=softcap)
@@ -355,7 +464,7 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                          f"or below {HEAD_DIMS[0]}, zero-padded to it)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    qp, kp = _positions(q_pos, k_pos, softcap, b, s, s, 0, q.device)
+    plan = _plan(plan, q_pos, k_pos, softcap, b, s, s, 0, q.device)
     if dq is None:
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dk is None:
@@ -389,22 +498,21 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
         padded = [F.pad(x, (0, pad)) for x in (q, k, v, o, do)]
         outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
                 for x in padded[:3]]
-        _launch_bwd(*padded, lse, *outs, causal, window, scale, qp, kp,
+        _launch_bwd(*padded, lse, *outs, causal, window, scale, plan,
                     softcap)
         for dst, src in zip((dq, dk, dv), outs):
             dst.copy_(src[..., :d])
     else:
         _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window, scale,
-                    qp, kp, softcap)
+                    plan, softcap)
     return dq, dk, dv
 
 
 def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
-                scale, qp=None, kp=None, softcap=None) -> None:
+                scale, plan=None, softcap=None) -> None:
     """One call of the route's backward kernels on checked tensors (on
     meta tensors: the scratch allocated and the work reported, no
-    launch); ``qp``, ``kp`` and ``softcap`` select the EXT
-    instantiations."""
+    launch); a ``plan`` selects the EXT instantiations."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     name = route(q.dtype)
@@ -420,32 +528,37 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
     if splits > 1:
         n += splits * 2 * b * kvh * s * d
     scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
-    pos_scratch = _pos_scratch(qp, b, s, s, q.device)
+    if plan is not None:
+        band = pos_band(plan, causal, window)
+        sorted_ = _sorted_copies(plan, tensor_cores, q, k, True)
     if q.device.type == "meta":
         work.report(BWD_ROUTES[name], bwd_flops(b, h, s, d, causal, window,
                                                 tensor_cores),
                     work.tensor_bytes(q, k, v, o, do, lse, dq, dk, dv))
         return
     strides = [st for x in (q, k, v, o, do, dq, dk, dv) for st in _strides(x)]
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_bwd(
-            _KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    lib = _library() if plan is None else _ext_library()
+    args = [_KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d,
             int(causal), 0 if window is None else int(window), scale,
             (ctypes.c_longlong * 24)(*strides),
             (ctypes.c_int * 4)(*tiles.bwd_tiles(tensor_cores, d)), s_pad,
-            splits, *_ext_args(qp, kp, pos_scratch, softcap), stream)
-    if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"{BWD_ROUTES[name]} kernel launch failed: error "
-                           f"{rc} ({msg})")
+            splits]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if plan is None:
+            rc = lib.flash_attention_bwd(*args, stream)
+        else:
+            rc = lib.flash_attention_ext_bwd(
+                *args, *_plan_args(plan, band, sorted_, softcap), stream)
+    _check_rc(lib, rc, BWD_ROUTES[name])
     BACKWARD_LAUNCHES[BWD] += 1
     BACKWARD_LAUNCHES[BWD_ROUTES[name]] += 1
-    if qp is not None:
+    if plan is not None:
         EXT_LAUNCHES[EXT_KEYS[BWD_ROUTES[name]]] += 1
+        if sorted_ is not None:
+            PREP_LAUNCHES[GATHER] += 1
 
 
 def bwd_flops(b: int, h: int, s: int, d: int, causal: bool,

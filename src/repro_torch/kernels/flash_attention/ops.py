@@ -9,12 +9,14 @@ memory.  The tensor's device picks the CUDA kernel or its plain version.
 Where a gradient is wanted (grad mode on and q, k or v requiring it) the
 call goes through ``FlashAttention``, a ``torch.autograd.Function``: its
 forward launches the kernel with the rows' log-sum-exp and saves q, k, v,
-the output and lse (and the positions, which take no gradient); its
-backward launches the backward kernels (the plain backward on the CPU) and
-hands back dq, dk, dv in the layout it was given.
+the output and lse, and keeps the position plan (which takes no
+gradient); its backward launches the backward kernels on that plan (the
+plain backward on the CPU) and hands back dq, dk, dv in the layout it was
+given.
 
-``q_pos`` / ``k_pos`` ([B, Sq] / [B, Sk]) and ``softcap`` pass through
-to the kernels (see ``kernel.py``).
+``q_pos`` / ``k_pos`` ([B, Sq] / [B, Sk]) or their ``plan`` (made once a
+model forward; built here from the positions otherwise) and ``softcap``
+pass through to the kernels (see ``kernel.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bhsd, flash_attention_bwd_bhsd)
+from repro_torch.kernels.flash_attention.plan import PosPlan
 
 
 def _bhsd(q: torch.Tensor, k: torch.Tensor):
@@ -32,8 +35,15 @@ def _bhsd(q: torch.Tensor, k: torch.Tensor):
     return q.view(b, s, kvh * g, d).transpose(1, 2), k.transpose(1, 2)
 
 
+def _ext(plan, softcap) -> dict:
+    """The kernels' EXT arguments: the cap, and the plan where there is one
+    (the index path's call then reads as it did without positions)."""
+    return {"softcap": softcap} if plan is None else {"plan": plan,
+                                                      "softcap": softcap}
+
+
 def _forward(q, k, v, causal, window, q_offset, with_lse, ext):
-    """``ext``: the kernels' q_pos, k_pos and softcap arguments."""
+    """``ext``: the kernels' plan and softcap arguments (``_ext``)."""
     if q.dim() != 5:
         return flash_attention_bhsd(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, with_lse=with_lse,
@@ -52,20 +62,21 @@ class FlashAttention(torch.autograd.Function):
     layout."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_pos, k_pos, softcap):
-        ext = dict(q_pos=q_pos, k_pos=k_pos, softcap=softcap)
-        out, lse = _forward(q, k, v, causal, window, 0, True, ext)
-        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
-        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
+    def forward(ctx, q, k, v, causal, window, plan, softcap):
+        out, lse = _forward(q, k, v, causal, window, 0, True,
+                            _ext(plan, softcap))
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.plan, ctx.softcap = plan, softcap
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        kw = dict(causal=ctx.causal, window=ctx.window, q_pos=q_pos,
-                  k_pos=k_pos, softcap=ctx.softcap)
-        none = (None,) * 5        # causal, window and the ext arguments
+        kw = dict(causal=ctx.causal, window=ctx.window, plan=ctx.plan,
+                  softcap=ctx.softcap)
+        none = (None,) * 4        # causal, window, plan and softcap
         if q.dim() != 5:
             dq, dk, dv = flash_attention_bwd_bhsd(q, k, v, out, do, lse, **kw)
             return dq, dk, dv, *none
@@ -82,17 +93,28 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0, q_pos=None, k_pos=None,
-                    softcap: float | None = None) -> torch.Tensor:
+                    softcap: float | None = None,
+                    plan: PosPlan | None = None) -> torch.Tensor:
     """q: [B,S,kvH,G,D] or [B,H,S,D]; k/v: [B,S,kvH,D] or [B,KVH,S,D];
-    q_pos / k_pos: None or [B, Sq] / [B, Sk] integer positions."""
+    q_pos / k_pos: None or [B, Sq] / [B, Sk] integer positions, or their
+    ``plan``."""
+    grouped = q.dim() == 5
+    if plan is None and (q_pos is not None or k_pos is not None):
+        b, sq = q.shape[0], q.shape[1 if grouped else 2]
+        plan = PosPlan.build(q_pos, k_pos, b=b, sq=sq,
+                             sk=k.shape[1 if grouped else 2],
+                             q_offset=q_offset, device=q.device)
+        q_offset = 0
+    elif plan is not None and (q_pos is not None or k_pos is not None):
+        raise ValueError("give positions or their plan, not both")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         if q_offset != 0:
             raise NotImplementedError("the attention gradient takes "
                                       "q_offset 0 (self-attention) only")
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal, window, q_pos,
-                                    k_pos, softcap)
-    if q.dim() == 5:
+                                    v.contiguous(), causal, window, plan,
+                                    softcap)
+    if grouped:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _forward(q, k, v, causal, window, q_offset, False,
-                    dict(q_pos=q_pos, k_pos=k_pos, softcap=softcap))
+                    _ext(plan, softcap))

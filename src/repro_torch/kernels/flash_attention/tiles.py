@@ -9,7 +9,7 @@ reference then averages v over every key, so the block visits every tile.
 (real row, key) pair the mask drops; interior tiles take none.
 
 ``kv_range`` and ``tile_masked`` are the twins of the functions of the same
-names in ``src/repro_torch/csrc/flash_attention.cu``.  The wrapper takes
+names in ``src/repro_torch/csrc/flash_attention.cuh``.  The wrapper takes
 its tile sizes and grid from here, ``chip_smoke.py`` counts the flops the
 kernel computes with ``computed_flops``, and
 ``tests/test_torch_flash_tile_plan.py`` holds the schedule against the
@@ -25,15 +25,17 @@ twin of ``dkdv_masked``) says which of those tiles take the mask.
 ``tc_bwd_smem_bytes`` the tensor-core kernels' shared memory.
 
 With caller positions (``q_pos`` / ``k_pos``, one row a batch entry) the
-walks follow a positional rule instead, read from per-chunk summaries of
-the positions (``pos_summary``, the twin of the kernels' pre-pass
-``flash_pos_prep``): a (query tile, key tile) pair is visited unless it can
-hold no kept pair — all its keys after all its queries (``min k_pos >
-max q_pos``, causal) or all left of the window (``max k_pos <= min q_pos -
-window``) — and every tile is visited for a query tile holding a row with
-no kept key at all; a visited tile takes no mask only when every pair is
-kept.  For positions ``q_offset + arange`` / ``arange`` the rule visits
-and masks exactly the tiles of the index schedule.
+EXT kernels work in position order (``csrc/flash_attention.cuh``, "caller
+positions"), and this module holds the plan's plain twin: ``pos_sort``
+(the stable sort of ``plan.PosPlan``) and ``pos_band`` (``searchsorted``,
+the twin of the pre-pass ``flash_pos_band``): sorted row r keeps the
+sorted keys [lo_r, hi_r), sorted key j is kept by the rows [qlo_j,
+qhi_j), and the hull spans the rows that keep no key.  ``pos_schedule``
+walks a query block's band (every tile, masked, for a block meeting the
+hull), ``pos_dkdv_schedule`` a key block's band of query tiles and the
+hull's; a visited tile takes no mask only when every pair is kept.  For
+positions ``q_offset + arange`` / ``arange`` they visit and mask exactly
+the tiles of the index schedules.
 """
 
 from __future__ import annotations
@@ -159,7 +161,7 @@ def computed_flops(b: int, h: int, d: int, *, sq: int, sk: int, causal: bool,
                    bk: int, q_pos=None, k_pos=None) -> float:
     """Flops the kernel computes: 4 bq bk d for every visited tile pair
     (q.k and p.v, ragged tiles counted whole), over batch and heads; with
-    positions ([B, Sq] / [B, Sk]) the positional schedule of each batch
+    positions ([B, Sq] / [B, Sk]) the sorted schedule of each batch
     entry."""
     if q_pos is None:
         tiles = b * sum(len(row) for row in schedule(
@@ -167,8 +169,8 @@ def computed_flops(b: int, h: int, d: int, *, sq: int, sk: int, causal: bool,
             bq=bq, bk=bk))
     else:
         tiles = sum(len(row) for i in range(b) for row in pos_schedule(
-            pos_summary(q_pos[i], k_pos[i], causal=causal, window=window),
-            causal=causal, window=window, bq=bq, bk=bk))
+            pos_band(q_pos[i], k_pos[i], causal=causal, window=window),
+            bq=bq, bk=bk))
     return 4.0 * bq * bk * d * tiles * h
 
 
@@ -207,137 +209,154 @@ def dkdv_schedule(*, s: int, causal: bool, window: int | None, bk: int,
 
 
 # ---------------------------------------------------------------------------
-# the positional rule (caller positions)
+# the position plan (caller positions)
 # ---------------------------------------------------------------------------
 
-#: positions are summarised in chunks of this many rows or keys; every
-#: tile of every kernel is a whole number of chunks
-POS_CHUNK = 32
-#: the pre-pass pads its copies of the positions to a multiple of this
-#: (the largest tile), so that a tile's positions are one aligned copy
+#: the band's row and key arrays are padded to a multiple of this
 POS_PAD = 128
 
 
 def pos_pad(n: int) -> int:
-    """Length of a padded copy of n positions."""
+    """Length of a padded array of n rows or keys."""
     return -(-n // POS_PAD) * POS_PAD
 
 
 def pos_scratch_ints(b: int, sq: int, sk: int) -> int:
-    """int32 elements of the pre-pass's scratch (``flash_pos_prep``): the
-    padded copies of q_pos and k_pos, then q_min, q_max and q_keyless per
-    chunk of rows and k_min, k_max per chunk of keys, for b entries."""
-    nqc, nkc = -(-sq // POS_CHUNK), -(-sk // POS_CHUNK)
-    return b * (pos_pad(sq) + pos_pad(sk) + 3 * nqc + 2 * nkc)
+    """int32 elements of the plan's band for b batch entries (the pre-pass
+    ``flash_pos_band``'s output): per entry lo, hi [pos_pad(sq)], qlo, qhi
+    [pos_pad(sk)], the hull (as sq - first, last + 1) and two pad ints."""
+    return b * (2 * pos_pad(sq) + 2 * pos_pad(sk) + 4)
+
+
+def pos_sort(pos) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batch entry's positions [S]: (the stable sort permutation, the
+    sorted positions), int64."""
+    values, perm = torch.sort(torch.as_tensor(pos).to(torch.int64)
+                              .reshape(-1), stable=True)
+    return perm, values
 
 
 @dataclass(frozen=True)
-class PosSummary:
-    """One batch entry's positions as the pre-pass reduces them: per chunk
-    of POS_CHUNK real rows (keys) their least and greatest position, and
-    per chunk of rows whether one of them keeps no key at all."""
-    sq: int
-    sk: int
-    q_min: tuple
-    q_max: tuple
-    q_keyless: tuple
-    k_min: tuple
-    k_max: tuple
+class PosBand:
+    """One batch entry's band in sorted order: sorted row r keeps the
+    sorted keys [lo[r], hi[r]); sorted key j is kept by the rows [qlo[j],
+    qhi[j]); the hull (first, last) spans the rows keeping no key ((sq,
+    -1) when every row keeps one)."""
+    lo: tuple
+    hi: tuple
+    qlo: tuple
+    qhi: tuple
+    hull: tuple
+
+    @property
+    def sq(self) -> int:
+        return len(self.lo)
+
+    @property
+    def sk(self) -> int:
+        return len(self.qlo)
 
 
-def _chunks(pos: torch.Tensor):
-    n = pos.shape[0]
-    pad = -n % POS_CHUNK
-    big = torch.iinfo(torch.int64).max
-    lo = torch.cat([pos, pos.new_full((pad,), big)]).view(-1, POS_CHUNK)
-    hi = torch.cat([pos, pos.new_full((pad,), -big)]).view(-1, POS_CHUNK)
-    return tuple(lo.amin(1).tolist()), tuple(hi.amax(1).tolist())
+def band_of_sorted(qs: torch.Tensor, ks: torch.Tensor, *, causal: bool,
+                   window: int | None) -> tuple[torch.Tensor, ...]:
+    """(lo, hi, qlo, qhi, keyless) of one batch entry from its sorted
+    positions qs [Sq], ks [Sk] (int64, on any device): the plain version
+    of ``flash_pos_band``, by ``searchsorted``; ``keyless`` [Sq] marks the
+    rows that keep no key."""
+    sq, sk = qs.numel(), ks.numel()
+    hi = (torch.searchsorted(ks, qs, right=True) if causal
+          else torch.full_like(qs, sk))
+    lo = (torch.searchsorted(ks, qs - window, right=True) if window
+          else torch.zeros_like(qs))
+    qlo = torch.searchsorted(qs, ks) if causal else torch.zeros_like(ks)
+    qhi = (torch.searchsorted(qs, ks + window) if window
+           else torch.full_like(ks, sq))
+    return lo, hi, qlo, qhi, hi <= lo
 
 
-def keyless_rows(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-                 window: int | None) -> torch.Tensor:
-    """[Sq] bool: the rows of q_pos that keep no key of k_pos."""
-    q = torch.as_tensor(q_pos).to(torch.int64)
-    k = torch.as_tensor(k_pos).to(torch.int64)
-    ok = torch.ones((q.shape[0], k.shape[0]), dtype=torch.bool)
-    if causal:
-        ok &= q[:, None] >= k[None, :]
-    if window:
-        ok &= q[:, None] - k[None, :] < window
-    return ~ok.any(1)
+def pos_band(q_pos, k_pos, *, causal: bool,
+             window: int | None) -> PosBand:
+    """The band of one batch entry's q_pos [Sq], k_pos [Sk] (sorted here),
+    as ``flash_pos_band`` computes it from the sorted positions."""
+    lo, hi, qlo, qhi, keyless = band_of_sorted(
+        pos_sort(q_pos)[1], pos_sort(k_pos)[1], causal=causal, window=window)
+    rows = torch.nonzero(keyless).flatten().tolist()
+    hull = (rows[0], rows[-1]) if rows else (lo.numel(), -1)
+    return PosBand(tuple(lo.tolist()), tuple(hi.tolist()),
+                   tuple(qlo.tolist()), tuple(qhi.tolist()), hull)
 
 
-def pos_summary(q_pos, k_pos, *, causal: bool,
-                window: int | None) -> PosSummary:
-    """The pre-pass's summary of one batch entry's q_pos [Sq], k_pos [Sk]."""
-    q = torch.as_tensor(q_pos).to(torch.int64).reshape(-1)
-    k = torch.as_tensor(k_pos).to(torch.int64).reshape(-1)
-    keyless = keyless_rows(q, k, causal, window)
-    pad = -q.shape[0] % POS_CHUNK
-    flags = torch.cat([keyless, keyless.new_zeros(pad)]).view(-1, POS_CHUNK)
-    return PosSummary(q.shape[0], k.shape[0], *_chunks(q),
-                      tuple(flags.any(1).tolist()), *_chunks(k))
+@dataclass(frozen=True)
+class BandRange:
+    begin: int        # first key of the first visited tile (a multiple of bk)
+    end: int          # sorted keys [begin, end) are visited, in tiles of bk
+    keyless: bool     # the block meets the hull: every tile, masked
+    lo_last: int      # the band of the block's last and first real rows
+    hi_first: int
 
 
-def _span(mins, maxs, lo: int, n: int) -> tuple[int, int]:
-    """Least and greatest position of rows [lo, lo + n) (real rows only)."""
-    c0, c1 = lo // POS_CHUNK, min(len(mins), -(-(lo + n) // POS_CHUNK))
-    return min(mins[c0:c1]), max(maxs[c0:c1])
+def band_range(p: PosBand, q0: int, *, bq: int, bk: int) -> BandRange:
+    """The sorted keys a block of sorted rows [q0, q0 + bq) visits (the
+    twin of the kernels' ``band_range``)."""
+    r1 = min(q0 + bq, p.sq) - 1
+    keyless = p.hull[0] <= r1 and p.hull[1] >= q0
+    begin = 0 if keyless else p.lo[q0] // bk * bk
+    end = p.sk if keyless else p.hi[r1]
+    return BandRange(begin, end, keyless, p.lo[r1], p.hi[q0])
 
 
-def _any(flags, lo: int, n: int) -> bool:
-    return any(flags[lo // POS_CHUNK:min(len(flags),
-                                         -(-(lo + n) // POS_CHUNK))])
+def band_masked(r: BandRange, k0: int, *, bk: int, sk: int) -> bool:
+    """Whether the key tile at k0 holds a pair the mask drops."""
+    return r.keyless or not (k0 + bk <= sk and r.lo_last <= k0
+                             and k0 + bk <= r.hi_first)
 
 
-def pos_visit(qmn: int, qmx: int, keyless: bool, kmn: int, kmx: int,
-              causal: bool, window: int | None) -> bool:
-    """Is the (query tile, key tile) pair visited: can it hold a kept
-    pair, or does the query tile hold a row without a kept key?"""
-    return keyless or ((not causal or kmn <= qmx)
-                       and (not window or kmx > qmn - window))
+def band_runs(p: PosBand, k0: int, *, bk: int,
+              bq: int) -> list[tuple[int, int]]:
+    """The query tiles a dk/dv block of sorted keys [k0, k0 + bk) walks,
+    as runs (first row, tiles): the band of rows keeping one of its keys
+    and the hull's tiles, merged where they meet (the twin of the kernels'
+    ``band_runs``)."""
+    kl = min(k0 + bk, p.sk) - 1
+    runs = []
+    for a0, a1 in ((p.qlo[k0] // bq * bq, p.qhi[kl]),
+                   (p.hull[0] // bq * bq, p.hull[1] + 1)):
+        if a1 > a0:
+            runs.append((a0, a0 + -(-(a1 - a0) // bq) * bq))
+    runs.sort()
+    if len(runs) == 2 and runs[1][0] <= runs[0][1]:
+        runs = [(runs[0][0], max(runs[0][1], runs[1][1]))]
+    return [(a0, (a1 - a0) // bq) for a0, a1 in runs]
 
 
-def pos_full(qmn: int, qmx: int, kmn: int, kmx: int, causal: bool,
-             window: int | None) -> bool:
-    """Is every (query, key) pair of the two tiles kept?"""
-    return (not causal or kmx <= qmn) and (not window or qmx - kmn < window)
+def band_tile_masked(p: PosBand, q0: int, k0: int, *, bq: int,
+                     bk: int) -> bool:
+    """Whether the (query tile q0, key tile k0) pair holds a pair the mask
+    drops, or a row or key past the end."""
+    return not (q0 + bq <= p.sq and k0 + bk <= p.sk
+                and p.lo[q0 + bq - 1] <= k0 and k0 + bk <= p.hi[q0])
 
 
-def pos_schedule(p: PosSummary, *, causal: bool, window: int | None, bq: int,
+def pos_schedule(p: PosBand, *, bq: int,
                  bk: int) -> list[list[tuple[int, bool]]]:
-    """``schedule`` under the positional rule: for each query tile, its
-    visited kv tiles as (first key, masked)."""
+    """``schedule`` in sorted order: for each query tile of sorted rows,
+    its visited tiles of sorted keys as (first key, masked)."""
     out = []
     for q0 in range(0, p.sq, bq):
-        qmn, qmx = _span(p.q_min, p.q_max, q0, bq)
-        keyless = _any(p.q_keyless, q0, bq)
-        row = []
-        for k0 in range(0, p.sk, bk):
-            kmn, kmx = _span(p.k_min, p.k_max, k0, bk)
-            if pos_visit(qmn, qmx, keyless, kmn, kmx, causal, window):
-                full = k0 + bk <= p.sk and pos_full(qmn, qmx, kmn, kmx,
-                                                    causal, window)
-                row.append((k0, not full))
-        out.append(row)
+        r = band_range(p, q0, bq=bq, bk=bk)
+        out.append([(k0, band_masked(r, k0, bk=bk, sk=p.sk))
+                    for k0 in range(r.begin, r.end, bk)])
     return out
 
 
-def pos_dkdv_schedule(p: PosSummary, *, causal: bool, window: int | None,
-                      bk: int, bq: int) -> list[list[tuple[int, bool]]]:
-    """``dkdv_schedule`` under the positional rule (Sq = Sk): for each key
-    tile, its visited query tiles as (first row, masked)."""
-    s = p.sk
+def pos_dkdv_schedule(p: PosBand, *, bk: int,
+                      bq: int) -> list[list[tuple[int, bool]]]:
+    """``dkdv_schedule`` in sorted order (Sq = Sk): for each tile of
+    sorted keys, its visited tiles of sorted rows as (first row,
+    masked)."""
     out = []
-    for k0 in range(0, s, bk):
-        kmn, kmx = _span(p.k_min, p.k_max, k0, bk)
-        row = []
-        for q0 in range(0, s, bq):
-            qmn, qmx = _span(p.q_min, p.q_max, q0, bq)
-            if pos_visit(qmn, qmx, _any(p.q_keyless, q0, bq), kmn, kmx,
-                         causal, window):
-                full = (q0 + bq <= s and k0 + bk <= s
-                        and pos_full(qmn, qmx, kmn, kmx, causal, window))
-                row.append((q0, not full))
-        out.append(row)
+    for k0 in range(0, p.sk, bk):
+        out.append([(q0, band_tile_masked(p, q0, k0, bq=bq, bk=bk))
+                    for a0, n in band_runs(p, k0, bk=bk, bq=bq)
+                    for q0 in range(a0, a0 + n * bq, bq)])
     return out

@@ -176,7 +176,7 @@ def default_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def attend(spec: AttnSpec, q, k, v, positions):
+def attend(spec: AttnSpec, q, k, v, positions, plan=None):
     """Causal self-attention of projected, rotated q [B, S, kvH, G, Dh]
     against k, v [B, S, kvH, Dh] at ``positions`` [B, S], or at
     ``arange(S)`` in every row where ``positions`` is None (the caller
@@ -185,18 +185,22 @@ def attend(spec: AttnSpec, q, k, v, positions):
     On the CPU: the plain or blockwise path, as the JAX package picks them.
     On the card: the flash-attention kernel, on its index path for None
     (no read of positions) and its EXT path for caller positions or a
-    soft cap.  M-RoPE ids have rotated q and k already and play no part
-    in the mask, which reads ``positions`` alone, as in the JAX
-    package."""
+    soft cap, on ``plan`` (the positions' ``PosPlan``, made once a
+    forward) when given.  M-RoPE ids have rotated q and k already and
+    play no part in the mask, which reads ``positions`` alone, as in the
+    JAX package."""
     if q.device.type == "cpu":
         if positions is None:
             positions = default_positions(q.shape[0], q.shape[1], q.device)
         if k.shape[1] >= spec.blockwise_threshold:
             return _attn_blockwise(spec, q, k, v, positions, positions)
         return _attn_plain(spec, q, k, v, positions, positions)
+    if positions is None or plan is None:
+        return flash_ops.flash_attention(
+            q, k, v, causal=True, window=spec.window, q_pos=positions,
+            k_pos=positions, softcap=spec.softcap)
     return flash_ops.flash_attention(q, k, v, causal=True, window=spec.window,
-                                     q_offset=0, q_pos=positions,
-                                     k_pos=positions, softcap=spec.softcap)
+                                     plan=plan, softcap=spec.softcap)
 
 
 def attn_full(
@@ -207,10 +211,12 @@ def attn_full(
     *,
     position_ids: torch.Tensor | None = None,
     compute_dtype=torch.bfloat16,
+    plan=None,
 ) -> torch.Tensor:
     """Full-sequence (scoring / prefill) attention. x: [B, S, d];
     positions [B, S], or None for ``arange(S)`` in every row (built here
-    for RoPE; the mask then takes the kernel's index path)."""
+    for RoPE; the mask then takes the kernel's index path); ``plan``:
+    the positions' ``PosPlan`` for the card's kernels, if made."""
     x = x.to(compute_dtype)
     q, k, v = _project_qkv(p, spec, x, compute_dtype)
     pos = (default_positions(x.shape[0], x.shape[1], x.device)
@@ -221,7 +227,7 @@ def attn_full(
     # identity on one device; recorded inside an activation_sharding context)
     q = constrain(q, ("batch", "seq", None, None, None))
     pos = constrain(pos, ("batch", "seq"))
-    out = attend(spec, q, k, v, None if positions is None else pos)
+    out = attend(spec, q, k, v, None if positions is None else pos, plan)
     return _out_proj(p, out, compute_dtype)
 
 

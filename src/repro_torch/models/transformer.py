@@ -35,6 +35,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention.plan import PosPlan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -254,7 +255,7 @@ def _unit_slice(tree, u: int):
 
 def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                  h: torch.Tensor, positions, position_ids, mode: str, cache,
-                 index, max_seq):
+                 index, max_seq, plan=None):
     cd = cfg.cdtype
     _check_layer(spec)
     if mode == "prefill":
@@ -267,7 +268,8 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                                         position_ids=position_ids,
                                         compute_dtype=cd)
         out = attn_mod.attn_full(p, aspec, h, positions,
-                                 position_ids=position_ids, compute_dtype=cd)
+                                 position_ids=position_ids, compute_dtype=cd,
+                                 plan=plan)
         return out, None
     block, step, sp = {
         "rglru": (rglru_mod.rglru_block, rglru_mod.rglru_block_step,
@@ -283,15 +285,17 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                  x: torch.Tensor, positions, position_ids, mode: str, cache,
-                 index, max_seq=None):
+                 index, max_seq=None, plan=None):
     """One residual layer.  Returns (x, the layer's cache, aux): the
     updated cache in ``decode`` mode, the filled one in ``prefill`` mode,
     None otherwise; aux the MoE load-balance loss of a MoE layer in
-    ``train`` mode, None otherwise (JAX's zero, which adds nothing)."""
+    ``train`` mode, None otherwise (JAX's zero, which adds nothing).
+    ``plan``: the positions' ``PosPlan`` for the attention kernels."""
     rs = cfg.residual_scale if cfg.residual_scale is not None else 1.0
     h = apply_norm(cfg.norm, p["norm1"], x)
     h, new_cache = _apply_mixer(cfg, spec, p["mixer"], h, positions,
-                                position_ids, mode, cache, index, max_seq)
+                                position_ids, mode, cache, index, max_seq,
+                                plan)
     x = x + rs * h
     aux = None
     if spec.ffn != "none":
@@ -372,8 +376,12 @@ def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     moe_aux; ``"eval"`` scores without it.  ``positions`` None stands for
     ``arange(S)`` in every row, as in the JAX package; it stays None down
     to the attention layers, which build it only for RoPE, so that the
-    card's attention takes its index path without reading positions."""
+    card's attention takes its index path without reading positions.
+    Caller positions are sorted once here (``PosPlan``) for every
+    attention layer's kernels, forward and backward (remat replays
+    too)."""
     b, s = inputs.shape[:2]
+    plan = None if positions is None else PosPlan.build(positions)
     if cfg.rope_kind == "mrope" and position_ids is None:
         position_ids = text_mrope_positions(
             attn_mod.default_positions(b, s, inputs.device)
@@ -383,7 +391,8 @@ def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     def unit_fn(x, aux, unit_p):
         for i, spec in enumerate(cfg.pattern):
             x, _, a = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x,
-                                   positions, position_ids, mode, None, None)
+                                   positions, position_ids, mode, None, None,
+                                   plan=plan)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -394,7 +403,8 @@ def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
         x, aux = unit_fn(x, aux, _unit_slice(params["unit"], u))
     for i, spec in enumerate(cfg.tail):
         x, _, a = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x,
-                               positions, position_ids, mode, None, None)
+                               positions, position_ids, mode, None, None,
+                               plan=plan)
         if a is not None:
             aux = aux + a
     x = apply_norm(cfg.norm, params["final_norm"], x)

@@ -14,10 +14,14 @@ mask it must cover.
   with ``batch["positions"]`` and ``attn_softcap``, against JAX's
   ``loss_fn`` and ``jax.value_and_grad``, parameters carried across by
   ``models.convert``.
-* ``tiles.pos_schedule`` / ``pos_dkdv_schedule`` (the kernels' positional
-  walks): every skipped tile holds no kept pair, every tile taken without
-  the mask holds only kept pairs, every kept pair lies in a visited tile;
-  for positions ``arange`` the schedules are the index schedules.
+* ``tiles.pos_band`` (the twin of the plan's pre-pass) and
+  ``pos_schedule`` / ``pos_dkdv_schedule`` (the kernels' walks in
+  position order): the band is the mask in sorted order; every skipped
+  tile holds no kept pair, every tile taken without the mask holds only
+  kept pairs, every kept pair lies in a visited tile (once, for dk/dv);
+  for positions ``arange`` the schedules are the index schedules; on
+  phase 16's packed documents they visit at most 1.05x the index
+  schedule's tiles.  ``PosPlan`` on the CPU and on meta tensors.
 
 Bars: f32 outputs within 1e-5 of the largest magnitude compared, bf16
 within 2^-5 (as ``test_torch_models.py``: both packages round the same
@@ -56,6 +60,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import tiles
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.plan import PosPlan
 from repro_torch.kernels.flash_attention.ref import (
     attention_backward_reference, attention_lse_reference,
     attention_reference)
@@ -293,22 +298,22 @@ def test_wrapper_checks_positions_and_cap():
 
 
 def test_pos_scratch_matches_the_kernel_source():
-    """The pre-pass's chunk and pad sizes and its scratch layout, from the
-    constants of ``csrc/flash_attention.cu``."""
-    src = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    """The plan's band: its pad and layout, from the constants and
+    ``band_ints`` of ``csrc/flash_attention.cuh``."""
+    src = (build.CSRC_DIR / "flash_attention.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-    assert (tiles.POS_CHUNK, tiles.POS_PAD) == (const("POS_CHUNK"),
-                                                const("POS_PAD"))
-    # every tile of every kernel is a whole number of chunks, none longer
-    # than the pad
+    assert tiles.POS_PAD == const("POS_PAD") == 128
+    assert re.search(r"return 2LL \* pos_padded\(sq\) \+ 2LL \* "
+                     r"pos_padded\(sk\) \+ 4;", src)
+    # every tile of every kernel lies within the pad, so a block's rows
+    # and keys are in bounds
     for d in FK.HEAD_DIMS:
         for n in (*tiles.tc_tile(d), *tiles.F32_TILE, *tiles.bwd_tiles(True, d),
                   *tiles.bwd_tiles(False, d)):
-            assert n % tiles.POS_CHUNK == 0 and n <= tiles.POS_PAD
-    assert tiles.pos_scratch_ints(2, 100, 300) == 2 * (128 + 384 + 3 * 4
-                                                       + 2 * 10)
+            assert tiles.POS_PAD % n == 0
+    assert tiles.pos_scratch_ints(2, 100, 300) == 2 * (2 * 128 + 2 * 384 + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -384,40 +389,69 @@ def kept_pairs(q_pos, k_pos, causal, window) -> torch.Tensor:
 @st.composite
 def position_rows(draw):
     """(q_pos, k_pos, causal, window): self-attention on packed documents
-    (shared positions), or two rows of random positions."""
+    (shared positions), or two rows of random positions (unsorted,
+    negative, with ties; heavy ties in a span of a few positions)."""
     sq = draw(st.integers(1, 200))
     causal = draw(st.booleans())
     window = draw(st.sampled_from((None, 1, 3, 17, 64, 150)))
-    if draw(st.booleans()):
+    kind = draw(st.sampled_from(("packed", "random", "ties")))
+    if kind == "packed":
         seed = draw(st.integers(0, 2 ** 16))
         lo = draw(st.integers(1, 40))
         pos = packed_positions(1, sq, seed, lo=lo, hi=lo + draw(
             st.integers(0, 60)))[0]
         return pos, pos, causal, window
     sk = draw(st.integers(1, 200))
-    q = np.asarray(draw(st.lists(st.integers(-50, 300), min_size=sq,
+    lo, hi = (-50, 300) if kind == "random" else (-3, draw(st.integers(-2, 5)))
+    q = np.asarray(draw(st.lists(st.integers(lo, hi), min_size=sq,
                                  max_size=sq)), np.int32)
-    k = np.asarray(draw(st.lists(st.integers(-50, 300), min_size=sk,
+    k = np.asarray(draw(st.lists(st.integers(lo, hi), min_size=sk,
                                  max_size=sk)), np.int32)
     return q, k, causal, window
+
+
+def sorted_mask(q_pos, k_pos, causal, window) -> torch.Tensor:
+    """The kept pairs with rows and keys in the plan's sorted order."""
+    ok = kept_pairs(q_pos, k_pos, causal, window)
+    return ok[tiles.pos_sort(q_pos)[0]][:, tiles.pos_sort(k_pos)[0]]
+
+
+def band_mask(p: tiles.PosBand) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pairs the band keeps, seen from the rows ([lo, hi)) and from
+    the keys ([qlo, qhi))."""
+    r = torch.arange(p.sq)[:, None]
+    j = torch.arange(p.sk)[None, :]
+    lo, hi, qlo, qhi = (torch.as_tensor(x) for x in (p.lo, p.hi, p.qlo,
+                                                      p.qhi))
+    return ((j >= lo[:, None]) & (j < hi[:, None]),
+            (r >= qlo[None, :]) & (r < qhi[None, :]))
 
 
 @settings(max_examples=60, deadline=None)
 @given(rows=position_rows(), tile=st.sampled_from(FWD_TILES))
 def test_positional_schedule_covers_the_mask(rows, tile):
+    """In sorted order the band is the mask (rows [lo, hi), keys [qlo,
+    qhi)), the hull spans the rows keeping no key, and each query block's
+    tiles cover its kept pairs with the right tiles masked."""
     q_pos, k_pos, causal, window = rows
     bq, bk = tile
     sq, sk = len(q_pos), len(k_pos)
-    ok = kept_pairs(q_pos, k_pos, causal, window)
+    ok = sorted_mask(q_pos, k_pos, causal, window)
     keyless = ~ok.any(1)
-    p = tiles.pos_summary(q_pos, k_pos, causal=causal, window=window)
-    plan = tiles.pos_schedule(p, causal=causal, window=window, bq=bq, bk=bk)
+    p = tiles.pos_band(q_pos, k_pos, causal=causal, window=window)
+    by_row, by_key = band_mask(p)
+    assert torch.equal(by_row, ok) and torch.equal(by_key, ok)
+    rows_without = torch.nonzero(keyless).flatten().tolist()
+    assert p.hull == ((rows_without[0], rows_without[-1]) if rows_without
+                      else (sq, -1))
+    plan = tiles.pos_schedule(p, bq=bq, bk=bk)
     assert len(plan) == tiles.n_q_tiles(sq, bq)
     for t, row in enumerate(plan):
         rows_ = slice(t * bq, min(t * bq + bq, sq))
         visited = dict(row)
         if bool(keyless[rows_].any()):      # such a block visits every tile
             assert list(visited) == list(range(0, sk, bk))
+            assert all(visited.values())
         for k0 in range(0, sk, bk):
             pairs = ok[rows_, k0:k0 + bk]
             if k0 not in visited:
@@ -431,14 +465,18 @@ def test_positional_schedule_covers_the_mask(rows, tile):
 @settings(max_examples=60, deadline=None)
 @given(rows=position_rows(), tile=st.sampled_from(DKDV_TILES))
 def test_positional_dkdv_schedule_covers_the_mask(rows, tile):
+    """Each key block's query tiles (its band and the hull's) cover every
+    kept pair once, in sorted order, and every row keeping no key (P = 1 /
+    S there) for every key block; a tile is masked unless every pair is
+    kept."""
     q_pos, _, causal, window = rows      # self-attention: shared positions
     bk, bq = tile
     s = len(q_pos)
-    ok = kept_pairs(q_pos, q_pos, causal, window)
+    ok = sorted_mask(q_pos, q_pos, causal, window)
+    keyless = ~ok.any(1)
     visits = torch.zeros((s, s), dtype=torch.int64)
-    p = tiles.pos_summary(q_pos, q_pos, causal=causal, window=window)
-    for t, row in enumerate(tiles.pos_dkdv_schedule(
-            p, causal=causal, window=window, bk=bk, bq=bq)):
+    p = tiles.pos_band(q_pos, q_pos, causal=causal, window=window)
+    for t, row in enumerate(tiles.pos_dkdv_schedule(p, bk=bk, bq=bq)):
         k0 = t * bk
         for q0, masked in row:
             block = ok[q0:q0 + bq, k0:k0 + bk]
@@ -446,6 +484,7 @@ def test_positional_dkdv_schedule_covers_the_mask(rows, tile):
             assert masked == (not full), (k0, q0)
             visits[q0:q0 + bq, k0:k0 + bk] += 1
     assert bool((visits[ok] == 1).all())
+    assert bool((visits[keyless] == 1).all())
     assert int(visits.max()) <= 1
 
 
@@ -457,31 +496,79 @@ def test_positional_dkdv_schedule_covers_the_mask(rows, tile):
 def test_positional_schedule_on_arange_is_the_index_schedule(
         sq, sk, causal, window, offset, tile):
     bq, bk = tile
-    p = tiles.pos_summary(offset + np.arange(sq), np.arange(sk),
-                          causal=causal, window=window)
-    assert tiles.pos_schedule(p, causal=causal, window=window, bq=bq,
-                              bk=bk) == tiles.schedule(
+    p = tiles.pos_band(offset + np.arange(sq), np.arange(sk), causal=causal,
+                       window=window)
+    assert tiles.pos_schedule(p, bq=bq, bk=bk) == tiles.schedule(
         sq=sq, sk=sk, causal=causal, window=window, q_offset=offset, bq=bq,
         bk=bk)
     if sq == sk and offset == 0:
         for bk2, bq2 in DKDV_TILES:
-            assert tiles.pos_dkdv_schedule(
-                p, causal=causal, window=window, bk=bk2,
-                bq=bq2) == tiles.dkdv_schedule(s=sq, causal=causal,
-                                               window=window, bk=bk2, bq=bq2)
+            assert tiles.pos_dkdv_schedule(p, bk=bk2, bq=bq2) == \
+                tiles.dkdv_schedule(s=sq, causal=causal, window=window,
+                                    bk=bk2, bq=bq2)
 
 
 def test_computed_flops_with_positions():
-    """Packed documents visit the tiles of the positional schedule; arange
+    """Packed documents visit the tiles of the sorted schedule; arange
     positions count as the index schedule."""
     s, (bq, bk) = 300, tiles.tc_tile(64)
     pos = torch.as_tensor(packed_positions(2, s, 3, lo=40, hi=90))
     kw = dict(sq=s, sk=s, causal=True, window=None, q_offset=0, bq=bq, bk=bk)
     n = sum(len(r) for i in range(2) for r in tiles.pos_schedule(
-        tiles.pos_summary(pos[i], pos[i], causal=True, window=None),
-        causal=True, window=None, bq=bq, bk=bk))
+        tiles.pos_band(pos[i], pos[i], causal=True, window=None), bq=bq,
+        bk=bk))
     assert tiles.computed_flops(2, 3, 64, q_pos=pos, k_pos=pos, **kw) == (
         4.0 * bq * bk * 64 * n * 3)
     ar = torch.arange(s)[None].expand(2, s)
     assert tiles.computed_flops(2, 3, 64, q_pos=ar, k_pos=ar, **kw) == \
         tiles.computed_flops(2, 3, 64, **kw)
+
+
+#: phase 16's packed documents: 16a's row, then 16b's two rows
+PHASE16_DOCS = ((1781, 1398, 917), (1104, 1173, 1610, 209),
+                (318, 514, 1731, 1533))
+
+
+@pytest.mark.parametrize("docs", PHASE16_DOCS,
+                         ids=["16a", "16b-row0", "16b-row1"])
+def test_sorted_schedule_visits_about_the_index_tiles(docs):
+    """On phase 16's documents (S = 4096, causal, no window) the sorted
+    schedules of the tensor-core forward / dq blocks and of the dk/dv
+    blocks visit at most 1.05x the index schedules' tiles."""
+    pos = np.concatenate([np.arange(n) for n in docs])
+    s = pos.size
+    assert s == 4096
+    p = tiles.pos_band(pos, pos, causal=True, window=None)
+    (bq, bk), (bk2, bq2) = tiles.tc_tile(64), tiles.BWD_KV_TILE
+    fwd = sum(len(r) for r in tiles.pos_schedule(p, bq=bq, bk=bk))
+    fwd_index = sum(len(r) for r in tiles.schedule(
+        sq=s, sk=s, causal=True, window=None, q_offset=0, bq=bq, bk=bk))
+    dkdv = sum(len(r) for r in tiles.pos_dkdv_schedule(p, bk=bk2, bq=bq2))
+    dkdv_index = sum(len(r) for r in tiles.dkdv_schedule(
+        s=s, causal=True, window=None, bk=bk2, bq=bq2))
+    assert fwd <= 1.05 * fwd_index and dkdv <= 1.05 * dkdv_index
+
+
+def test_pos_plan_sorts_once_and_allocates_on_meta():
+    """``PosPlan.build``: the stable sort of the twin (one sort where the
+    keys share the queries' positions), int32 on the positions' device;
+    the identity plan has no permutation; on meta tensors the same
+    allocations, no values."""
+    pos = torch.as_tensor(packed_positions(2, 37, 4, lo=3, hi=9))
+    plan = PosPlan.build(pos)
+    assert plan.k_perm is plan.q_perm and plan.k_sorted is plan.q_sorted
+    for i in range(2):
+        perm, values = tiles.pos_sort(pos[i])
+        assert torch.equal(plan.q_perm[i].long(), perm)
+        assert torch.equal(plan.q_sorted[i].long(), values)
+    assert plan.q_perm.dtype == plan.q_sorted.dtype == torch.int32
+    other = PosPlan.build(pos, pos.flip(1), sk=37)
+    assert other.k_perm is not other.q_perm
+    assert torch.equal(other.k_perm[0].long(), tiles.pos_sort(
+        pos[0].flip(0))[0])
+    ident = PosPlan.identity(2, 10, 30, 20, "cpu")
+    assert ident.sorted_in_place and ident.q_sorted.tolist() == [
+        list(range(20, 30))]
+    meta = PosPlan.build(pos.to("meta"))
+    assert meta.q_perm.device.type == "meta"
+    assert meta.q_perm.shape == (2, 37)

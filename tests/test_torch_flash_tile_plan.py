@@ -124,7 +124,8 @@ def test_route_by_dtype():
 # --- the backward's schedule (``dkdv_range`` / ``dkdv_tile_masked`` and the
 # dq blocks' ``kv_range``), tiles and shared memory -----------------------
 
-FLASH_SOURCE = (build.CSRC_DIR / "flash_attention.cu").read_text()
+#: the kernels' templates and constants (both K4 sources include them)
+FLASH_SOURCE = (build.CSRC_DIR / "flash_attention.cuh").read_text()
 # shared memory a block of the H100 may take (bytes)
 SMEM_LIMIT = 232_448
 
@@ -209,7 +210,7 @@ def test_dkdv_splits_cover_the_group(b, kvh, s, group):
 def test_backward_tiles_and_shared_memory(d):
     """Both routes' backward tiles, and the tensor-core kernels' shared
     memory within the H100's 232,448 bytes a block (less the static
-    barriers), from the constants of ``csrc/flash_attention.cu``."""
+    barriers), from the constants of ``csrc/flash_attention.cuh``."""
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);",
                              FLASH_SOURCE)[1])

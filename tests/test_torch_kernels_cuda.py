@@ -1664,16 +1664,158 @@ def test_flash_positions_at_the_windowed_training_shape(card):
 
 
 def test_flash_pos_scratch_size_is_the_kernels(card):
-    """The wrapper's pre-pass scratch (``tiles.pos_scratch_ints``) is the
-    size the C side lays out."""
+    """The plan's band the wrapper allocates (``tiles.pos_scratch_ints``)
+    is the size the C side lays out."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import tiles
 
-    lib = FK._library()
+    lib = FK._ext_library()
     for b, sq, sk in ((1, 1, 1), (2, 100, 300), (3, 4096, 4096),
                       (1, 129, 65)):
         assert lib.flash_attention_pos_scratch_ints(b, sq, sk) == \
             tiles.pos_scratch_ints(b, sq, sk)
+
+
+PLAN_CASES = [(kind, causal, window) for kind in ("packed", "ties", "random")
+              for causal, window in ((True, None), (True, 5), (False, 40))]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=["-".join(map(str, c)) for c in PLAN_CASES])
+def test_flash_pos_band_matches_its_twin(card, case):
+    """The pre-pass ``flash_pos_band`` on the card against ``tiles.
+    pos_band`` (searchsorted on the CPU): every row's and key's band and
+    the hull, for each batch entry; made once a (plan, causal, window)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import tiles
+    from repro_torch.kernels.flash_attention.plan import PosPlan
+
+    kind, causal, window = case
+    b, sq, sk = 3, 300, 250
+    g = torch.Generator().manual_seed(len(kind) + sq)
+    if kind == "packed":
+        q_pos = packed(b, sq, seed=3, lo=10, hi=90)
+        k_pos = packed(b, sk, seed=4, lo=10, hi=90)
+    else:
+        span = 4 if kind == "ties" else 400
+        q_pos, k_pos = (torch.randint(-span // 2, span, (b, n), generator=g)
+                        .int().to(card) for n in (sq, sk))
+    plan = PosPlan.build(q_pos, k_pos, sk=sk)
+    before = FK.PREP_LAUNCHES[FK.BAND]
+    band = FK.pos_band(plan, causal, window)
+    assert FK.pos_band(plan, causal, window) is band
+    assert FK.PREP_LAUNCHES[FK.BAND] == before + 1
+    rows = band.view(b, -1).cpu()
+    sqp, skp = tiles.pos_pad(sq), tiles.pos_pad(sk)
+    for i in range(b):
+        want = tiles.pos_band(q_pos[i].cpu(), k_pos[i].cpu(), causal=causal,
+                              window=window)
+        got = rows[i]
+        assert got[:sq].tolist() == list(want.lo)
+        assert got[sqp:sqp + sq].tolist() == list(want.hi)
+        assert got[2 * sqp:2 * sqp + sk].tolist() == list(want.qlo)
+        assert got[2 * sqp + skp:2 * sqp + skp + sk].tolist() == \
+            list(want.qhi)
+        first, last = got[2 * sqp + 2 * skp:][:2].tolist()
+        assert (sq - first, last - 1) == want.hull   # kept as Sq - first,
+        #                                              last + 1
+
+
+TIE_CASES = [(dt, kind, window, cap) for dt in (torch.float32, torch.bfloat16)
+             for kind in ("ties", "permuted")
+             for window, cap in ((None, None), (60, 3.0), (None, 50.0))]
+
+
+@pytest.mark.parametrize("case", TIE_CASES, ids=[
+    f"{str(c[0])[6:]}-{c[1]}-w{c[2]}-cap{c[3]}" for c in TIE_CASES])
+def test_flash_positions_with_ties_and_a_permutation(card, case):
+    """Positions with heavy ties (a few distinct values, so the sorted
+    band's edges fall inside runs of equal positions) and a random
+    permutation of arange (the sorted order far from the index order):
+    the EXT forward, its lse and backward against the plain versions, the
+    backward deterministic."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_lse_reference,
+        attention_reference)
+
+    dtype, kind, window, cap = case
+    b, s = 2, 301
+    q, k, v, do = flash_bwd_inputs(card, (b, 6, 2, s, 64, True, window,
+                                          dtype), seed=7)
+    g = torch.Generator().manual_seed(11)
+    if kind == "ties":
+        pos = torch.randint(0, 6, (b, s), generator=g)
+    else:
+        pos = torch.stack([torch.randperm(s, generator=g) for _ in range(b)])
+    pos = pos.int().to(card)
+    kw = dict(window=window, q_pos=pos, k_pos=pos, softcap=cap)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+    got = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    again = FK.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    want = attention_reference(q, k, v, **kw)
+    want_g = attention_backward_reference(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    err = float((o.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * max(1.0, float(want.float().abs().max()))
+    assert rel_err(lse, attention_lse_reference(q, k, **kw)) < 1e-5
+    for x, y, z in zip(got, again, want_g):
+        assert torch.equal(x, y)
+        assert rel_err(x, z) < FLASH_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("window", (None, 40))
+def test_flash_positions_with_their_own_key_positions(card, dtype, window):
+    """Queries and keys with positions of their own (Sq 150, Sk 260, each
+    unsorted with ties, two sorts) and only keys given (queries at
+    ``arange``): the EXT forward and its lse against the plain versions,
+    rows without a kept key included."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_reference, attention_reference)
+
+    q, k, v = flash_inputs(card, (2, 6, 2, 150, 260, 64, True, window,
+                                  dtype))
+    g = torch.Generator().manual_seed(21)
+    q_pos = torch.randint(0, 200, (2, 150), generator=g).int().to(card)
+    k_pos = torch.randint(-20, 220, (2, 260), generator=g).int().to(card)
+    for kw in (dict(q_pos=q_pos, k_pos=k_pos), dict(k_pos=k_pos)):
+        kw.update(window=window, softcap=4.0)
+        o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
+        want = attention_reference(q, k, v, **kw)
+        want_lse = attention_lse_reference(q, k, **kw)
+        torch.cuda.synchronize()
+        err = float((o.float() - want.float()).abs().max())
+        assert err <= FLASH_TOL[dtype] * max(
+            1.0, float(want.float().abs().max()))
+        kept = want_lse > -1e29
+        assert rel_err(lse[kept], want_lse[kept]) < 1e-5
+        assert bool((lse[~kept] < -5e29).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_meta_twins_allocate_what_the_card_allocates_with_positions(
+        card, dtype):
+    """The EXT path on meta tensors makes the card's allocations: the
+    plan's sort and band, the sorted copies, the outputs and scratch."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v, do = flash_bwd_inputs(card, (2, 6, 2, 200, 64, True, None,
+                                          dtype))
+    pos = packed(2, 200, seed=2, lo=20, hi=80)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, q_pos=pos,
+                                     k_pos=pos, softcap=5.0)
+    made = {}
+    for dev in (card, torch.device("meta")):
+        args = [x.to(dev) for x in (q, k, v, o, do, lse, pos)]
+        kw = dict(q_pos=args[6], k_pos=args[6], softcap=5.0)
+        with _Allocs() as allocs:
+            FK.flash_attention_bhsd(*args[:3], with_lse=True, **kw)
+            FK.flash_attention_bwd_bhsd(*args[:6], **kw)
+        made[dev.type] = allocs.made
+    torch.cuda.synchronize()
+    assert made["meta"] == made["cuda"]
 
 
 def test_flash_ext_gradient_through_the_grouped_layout(card):

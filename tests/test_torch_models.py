@@ -1,7 +1,9 @@
 """The port's LM modules against the JAX package's, on the same inputs:
-layers, rope, attention (plain, blockwise, decode through a ring wrap),
-the RG-LRU block, and the whole RecurrentGemma SMOKE model (forward,
-prefill, decode), with parameters carried across by ``params_from_jax``.
+layers, rope, attention (plain, blockwise, decode through a ring wrap,
+with and without the soft cap), the RG-LRU block, and the whole
+RecurrentGemma SMOKE model (forward, prefill, decode; decode with the
+attention and logit soft caps too), with parameters carried across by
+``params_from_jax``.
 
 Bars: at float32 compute, 1e-5 of the largest magnitude compared (sums in
 another order; the port's RG-LRU scan steps in order where JAX's
@@ -197,6 +199,26 @@ def test_attn_decode_through_a_ring_wrap(dt):
     assert_close(tc, to_np(jc), dt)
 
 
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+@pytest.mark.parametrize("softcap", (2.0, 3.0))
+def test_capped_attn_decode_through_a_ring_wrap(softcap, dt):
+    """The soft cap on the decode path: caps 2 and 3, window 6 and a qkv
+    bias, through a ring of 6 slots filled over 15 steps."""
+    jspec, tspec, p = attn_case(6, False, softcap=softcap, qkv_bias=True)
+    tp = port(p)
+    jc = j_attn.init_attn_cache(2, jspec, 32, JDT[dt])
+    tc = cache_from_jax(to_np(jc), "cpu")
+    for i in range(15):
+        jx, tx = rand((2, 1, 64), 300 + i)
+        want, jc = j_attn.attn_decode(p, jspec, jx, jc,
+                                      jnp.asarray(i, jnp.int32),
+                                      compute_dtype=JDT[dt])
+        got, tc = attention.attn_decode(tp, tspec, tx, tc, i,
+                                        compute_dtype=TDT[dt])
+        assert_close(got, want, dt)
+    assert_close(tc, to_np(jc), dt)
+
+
 # ---------------------------------------------------------------------------
 # RG-LRU block
 # ---------------------------------------------------------------------------
@@ -318,6 +340,31 @@ def test_prefill_then_decode(smoke_models, dt):
     assert got.shape == (2, 1, tcfg.padded_vocab)
     assert_close(got, want, dt)
     assert_close(tc, to_np(jc), dt)
+    for pos in range(14, 20):
+        want, jc = j_tf.decode_step(jcfg, jp, jc,
+                                    jnp.asarray(toks[:, pos:pos + 1]),
+                                    jnp.asarray(pos, jnp.int32))
+        got, tc = transformer.decode_step(
+            tcfg, tp, tc, torch.as_tensor(toks[:, pos:pos + 1]), pos)
+        assert_close(got, want, dt)
+    assert_close(tc, to_np(jc), dt)
+
+
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_capped_prefill_then_decode_step(dt):
+    """The SMOKE model with ``attn_softcap=3.0`` and ``logit_softcap=20.0``:
+    prefill of 14 tokens into its 8-slot rings, then 6 ``decode_step``s,
+    logits and caches against JAX's."""
+    kw = dict(compute_dtype=dt, attn_softcap=3.0, logit_softcap=20.0)
+    jcfg = dataclasses.replace(J_SMOKE, **kw)
+    tcfg = dataclasses.replace(SMOKE, **kw)
+    jp = j_tf.init_params(jcfg, KEY)
+    tp = port(jp)
+    toks = tokens(2, 20, 19)
+    want, jc = j_tf.prefill(jcfg, jp, jnp.asarray(toks[:, :14]), max_seq=24)
+    got, tc = transformer.prefill(tcfg, tp, torch.as_tensor(toks[:, :14]),
+                                  max_seq=24)
+    assert_close(got, want, dt)
     for pos in range(14, 20):
         want, jc = j_tf.decode_step(jcfg, jp, jc,
                                     jnp.asarray(toks[:, pos:pos + 1]),
