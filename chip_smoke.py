@@ -52,7 +52,8 @@ Phases, one report line each (every check raises on failure):
    ``Simulator.run_many(engine="cuda")`` (one many-trace launch per
    geometry): the kernel bit-equal to its plain version on the whole
    fleet, bit-equal to per-trace ``run(engine="cuda")`` on 8 lanes, the
-   ``scan`` engine's ``run_many`` within T * 2^-24, 2 lanes exact against
+   ``scan`` engine's ``run_many`` within T * 2^-24 on the traces of at
+   most 8192 ops (``FLEET_SCAN_OPS``), 2 lanes exact against
    the numpy oracle on 0.25 us-dyadic timing; both launches must take the
    compact route; the dense route bit-equal to the plain version on the
    whole fleet too; kernel (both routes, the pre-pass alone), plain and
@@ -62,7 +63,7 @@ Phases, one report line each (every check raises on failure):
    per-point channel bandwidth on the 15 Table 3 SLC write cells;
    ``fit_slc`` equal to the JAX package's fit; the stripe exponents; a
    65536-op ``mixed_trace_chunks`` stream on 4 x 8 MLC bit-equal to the
-   scan engine on the materialised trace, and a 262144-op stream timed,
+   scan engine on the materialised trace, and a 131072-op stream timed,
    with host and device memory peaks against the shorter stream's;
 8. LM serving on RecurrentGemma-9B: (8a) the flash-attention kernels
    against ``attention_reference`` on 13 small shapes (the JAX package's
@@ -101,14 +102,16 @@ Phases, one report line each (every check raises on failure):
    with zero arrivals on ``engine="cuda"``, ops over ``end_us``): (9a) a
    65536-request, 4-page Poisson stream (70 % reads) with a
    ``FaultSpec`` of read retries, jitter, program faults and 10 % hedged
-   reads through ``Simulator.run(..., objective="all")`` on ``cuda`` and
-   ``scan``: end times within T * 2^-24, energies within 1e-3, the
-   query's first K1 launch recorded and held bit-equal to
+   reads through ``Simulator.run(..., objective="all")`` on ``cuda``:
+   the query's first K1 launch recorded and held bit-equal to
    ``maxplus_fold_ref`` (its end time the query's), every K1 launch on
    the compact route, ``n_remap_ops > 0``, ``retry_hist`` summing to the
-   read ops, scan's p50/p99/p99.9 within 1e-3 of the ``oracle``'s, and a
-   4096-request prefix's latencies on the card bit-equal to the CPU's;
-   (9b) a 16384-request, 2-page stream under the retry-storm spec plus
+   read ops; on the stream's first 8192 requests (``WL_SCAN_REQUESTS``,
+   cut for time) ``scan`` against ``cuda``: end times within T * 2^-24,
+   energies within 1e-3, the same remaps and retries, scan's
+   p50/p99/p99.9 within 1e-3 of the ``oracle``'s; and a 4096-request
+   prefix's latencies on the card bit-equal to the CPU's;
+   (9b) an 8192-request, 2-page stream under the retry-storm spec plus
    program and erase faults through both dynamic policies on ``scan``,
    the card's placements, parities, completions and latencies bit-equal
    to the CPU's and no op on a retired way.  Each query's wall and ops/s,
@@ -118,7 +121,7 @@ Phases, one report line each (every check raises on failure):
    none may launch): (10a) phase 5's sweep through ``sweep_tables`` on
    its default engine, ``prefix`` (chain combine, segment_len 64), within
    T * 2^-24 of phase 5's ``cuda`` ends and bit-equal to the CPU on 2
-   points, ``combine="assoc"`` on 4 points bit-equal to the CPU; its wall
+   points, ``combine="assoc"`` on 2 points bit-equal to the CPU; its wall
    (median of 3) beside phase 5's, the staging of its inputs apart, the
    device time of its kernels by ``torch.profiler``, its peak memory;
    (10b) ``sweep_steady_bandwidth_mb_s(engine="squaring")`` on the 30
@@ -136,7 +139,7 @@ Phases, one report line each (every check raises on failure):
 11. the FTL (slice E) on 8 channels x 16 ways (SLC, PROPOSED): (11a) the
    JAX package's default ``FTLSpec`` with 512 blocks of 64 pages (OP
    0.25, greedy, preconditioned: 78642 silent writes) under a
-   saturating 32768-request overwrite stream (30 % reads) over 90 % of
+   saturating 16384-request overwrite stream (30 % reads) over 90 % of
    the logical space: the card's ``translate_scan`` op-for-op equal to
    the numpy ``ftl.translate`` (classes, payloads, request ids, GC flags,
    arrivals, ``FTLStats`` and the final drive state), its steps, steps/s,
@@ -156,8 +159,9 @@ Phases, one report line each (every check raises on failure):
    4096-request prefix in chunks of 2048 equal to the one-shot query with
    that spec;
    (11d) the 16-point aged sweep (``ftl_bench._scan_vs_host``'s points)
-   within 1e-3 of per-point ``run`` (scan) on 4 points, bit-equal to the
-   CPU on 2, a warm second sweep equal to the first; (11e) greedy's WAF
+   within 1e-3 of per-point ``run`` (prefix) on its first and last points,
+   bit-equal to the CPU on one, a warm second sweep equal to the first;
+   (11e) greedy's WAF
    on ``ftl_bench._waf_sweep``'s full-size spec within 10 % of
    ``analytic_waf``.  Every translation, scan and sweep fold of the
    phase is checked to have run on the card.
@@ -283,6 +287,26 @@ Phases, one report line each (every check raises on failure):
    (no gradient, against the plain attention's), every K4 launch of both
    on the tensor-core route's EXT instantiation, one plan and one band
    pre-pass a forward.
+17. the multi-device paths (``phase_multi``): (17a) over a points mesh
+   of two shards of ``cuda:0`` (and one over every card where the host
+   has two or more): phase 5's 64-point sweep through ``sweep_tables``
+   on ``prefix``, phase 10b's 30 write points through
+   ``sweep_steady_bandwidth_mb_s`` on ``scan`` and ``squaring``,
+   ``run_many(engine="scan")`` on 5 traces of 1000-2000 ops on 8 x 16,
+   and an aged ``sweep(ftl=)`` of 2 points at phase 11a's spec over its
+   stream's first 1024 requests, each bit-equal to the same call with
+   ``shard=False`` and every block counted on its device, both walls
+   printed; (17b) qwen2-0.5b ``CONFIG`` at full width and depth on a
+   one-rank NCCL group: 3 ``Trainer`` steps on phase 14's batches
+   mesh-less and on a ``(1, 1)`` data mesh with ZeRO-1, the histories,
+   the kernel launches and every leaf of the final state bit-equal, the
+   step's seconds and peak beside 14c's; (17c) two gloo ranks sharing
+   ``cuda:0`` (spawned processes) run the data-parallel ``Trainer`` on
+   qwen2-0.5b SMOKE (f32, ragged masks, two microbatches, ZeRO-1) and
+   recurrentgemma-9b SMOKE (int8 moments), held against the mesh-less
+   ``Trainer`` on the card at the bars of
+   ``tests/test_torch_train_step.py``.  Phase 17 adds no kernel; the
+   data-parallel steps launch K4 and K5 forwards and backwards.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -301,12 +325,16 @@ writes, read off the pre-pass's records); the dense count, 2*N^2 max/add
 operations a step, is printed beside them.  The
 line before the last is the JSON kernel report, the last line the JSON
 device summary.  Exits non-zero without a result when no CUDA device is
-present.
+present.  Each phase's wall is logged to both streams as it ends
+(``[clock]``), and a run still going after ``WATCHDOG_S`` prints every
+thread's stack to standard error and exits 1.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
+import faulthandler
 import json
 import math
 import statistics
@@ -324,6 +352,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # (non-tensor-core) rate; the bound is the larger of bytes/rate and
 # operations/rate.
 HBM_BYTES_PER_S = 3.35e12
+# the script's own limit is 1200 s: past WATCHDOG_S it dumps the stacks of
+# its threads to standard error and exits, so a stall shows where it is
+WATCHDOG_S = 1140
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
 
@@ -346,12 +377,17 @@ SWEEP_OPS, SWEEP_CHANNELS, SWEEP_WAYS, SWEEP_POINTS = 65536, 8, 16, 64
 FLEET_LANES, FLEET_CHANNELS, FLEET_WAYS = 512, 8, 16
 FLEET_SMALL_LANES, FLEET_SMALL_CHANNELS, FLEET_SMALL_WAYS = 32, 4, 8
 FLEET_LOG2_OPS = (12.0, 16.0)
+# the scan engine steps every op from the host (some 0.9 ms a step): it is
+# held to cuda on the fleet's traces of at most FLEET_SCAN_OPS ops (the
+# whole fleet's longest trace took it 56.6 s)
+FLEET_SCAN_OPS = 8192
 OFFERED_LOAD = 0.8          # arrival rate / the drive's rate on the trace
 FAULT_SHARE, FAULT_US = 0.02, (30.0, 120.0)
 # phase 7: streams on scale_bench's 4 x 8 MLC geometry
 STREAM_CHANNELS, STREAM_WAYS = 4, 8
 STREAM_CHECK_OPS, STREAM_CHECK_CHUNK = 65536, 8192
-STREAM_OPS, STREAM_CHUNK = 262144, 32768
+# (STREAM_OPS was 262144 until the script neared its time limit: 32.0 s)
+STREAM_OPS, STREAM_CHUNK = 131072, 32768
 # what the JAX package's calibrate.fit_slc() returns (t_prog us, t_poll
 # cycles, write MAE); its frozen nand.SLC holds t_prog = 218 us
 REFERENCE_FIT_SLC = (217.0, 0.0, 0.026098169557506812)
@@ -412,16 +448,25 @@ L2_BYTES, L2_ROTATE = 50 * 2 ** 20, 4
 # bench's retry-storm spec plus program and erase faults (retired ways)
 WL_CHANNELS, WL_WAYS, WL_READ_FRACTION = 8, 16, 0.7
 WL_REQUESTS, WL_PAGES, WL_SEED, WL_PREFIX = 65536, 4, 0, 4096
+# 9a's scan query (and the cuda and oracle runs it is held to) folds the
+# stream's first WL_SCAN_REQUESTS requests: the whole stream's scan took
+# 98.6 s of the script's 1200 s, its first 32768 requests 47.4 s, and
+# the script passed its 1100 s margin once phase 17 came
+WL_SCAN_REQUESTS = 8192
 WL_STATIC_FAULTS = dict(wear=0.95, jitter_us=2.0, prog_fail_prob=0.02,
                         hedge_fraction=0.1, seed=17)
-WL_DYN_REQUESTS, WL_DYN_PAGES, WL_DYN_SEED = 16384, 2, 1
+# (9b's stream had 16384 requests, 23.7 s on the card and the CPU, until
+# the script neared its time limit; 8192 still retire 3 ways)
+WL_DYN_REQUESTS, WL_DYN_PAGES, WL_DYN_SEED = 8192, 2, 1
 WL_DYN_FAULTS = dict(wear=1.0, rber_worn=3e-5, max_retries=4,
                      retry_step_us=(500.0, 1000.0, 2000.0, 4000.0),
                      prog_fail_prob=0.02, erase_fail_prob=0.05, seed=7)
 PERCENTILE_TOL = 1e-3       # scan vs oracle request-latency percentiles
 # phase 10: the prefix sweep held bit-equal to the CPU on these points,
 # combine="assoc" run on these
-PREFIX_CPU_POINTS, PREFIX_ASSOC_POINTS = (0, 37), (0, 13, 37, 63)
+# (assoc ran on 4 points, 16.9 s on the CPU, until the script neared its
+# time limit)
+PREFIX_CPU_POINTS, PREFIX_ASSOC_POINTS = (0, 37), (0, 63)
 # phase 11: the FTL on 8 x 16 SLC.  11a: the JAX package's default spec
 # with blocks raised to FTL_BLOCKS (32768 pages: 1024 blocks took phase 11
 # past its 150 s, the time going to sequential translation steps and the
@@ -432,7 +477,9 @@ PREFIX_CPU_POINTS, PREFIX_ASSOC_POINTS = (0, 37), (0, 13, 37, 63)
 # the first FTL_FAULT_CHUNKED requests, chunks of FTL_FAULT_CHUNK); 11d ftl_bench._scan_vs_host's 16
 # points; 11e ftl_bench._waf_sweep's full-size greedy point
 FTL_BLOCKS, FTL_PPB, FTL_OP = 512, 64, 0.25
-FTL_REQUESTS, FTL_READ_FRACTION, FTL_SEED = 32768, 0.3, 5
+# (FTL_REQUESTS was 32768 until the script neared its time limit: 11a's
+# scan query took 28.7 s and 11c's chunked one 23.5 s)
+FTL_REQUESTS, FTL_READ_FRACTION, FTL_SEED = 16384, 0.3, 5
 FTL_PREFIX, FTL_CHUNK, FTL_FAULT_CHUNKED, FTL_FAULT_CHUNK = \
     4096, 4096, 4096, 2048
 # program failures at 1e-4, not 1e-3: at 1e-3 the preconditioning's
@@ -446,7 +493,9 @@ FTL_OP_FAULTS = dict(wear=0.6, jitter_us=0.4, seed=13)
 FTL_AGREEMENT = 1e-3        # ftl_bench's engine agreement gate
 FTL_SWEEP_OPS = (0.12, 0.5, 16)      # np.linspace arguments
 FTL_SWEEP_REQUESTS, FTL_SWEEP_SEED = 6000, 7
-FTL_SWEEP_RUN_POINTS, FTL_SWEEP_CPU_POINTS = (0, 5, 10, 15), (0, 9)
+# (4 run points and 2 CPU points, 16.3 s together, until the script
+# neared its time limit)
+FTL_SWEEP_RUN_POINTS, FTL_SWEEP_CPU_POINTS = (0, 15), (9,)
 FTL_WAF_BLOCKS, FTL_WAF_REQUESTS, FTL_WAF_SEED, WAF_PIN_TOL = \
     256, 60000, 11, 0.10
 # phase 12: the storage tier.  12a checkpoints phase 8b's full model
@@ -488,6 +537,25 @@ TIMING_COLUMNS = ("cmd_us", "pre_us", "slot_us", "post_lo_us", "post_hi_us",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """Wall seconds of each phase, logged as it ends to standard output
+    and to standard error, so that the end of either shows how far a run
+    got and where its time went."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.walls: dict[str, float] = {}
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.walls[label] = now - self.last
+        self.last = now
+        msg = (f"[clock] phase {label} took {self.walls[label]:.1f} s; "
+               f"{now - self.start:.1f} s since the start")
+        log(msg)
+        print(msg, file=sys.stderr, flush=True)
 
 
 def cuda_ms(fn, reps: int = 3, warmup: bool = True) -> float:
@@ -1171,7 +1239,7 @@ def phase_fleet(device) -> dict:
                             for a in setups])
     plain = []
     p_ms = cuda_ms(lambda: plain.append(
-        [maxplus_fold_many_ref(**a) for a in setups]), warmup=False)
+        [maxplus_fold_many_ref(**a) for a in setups]), reps=1, warmup=False)
     plain_dense = [maxplus_fold_many_ref(**a) for a in dense_setups]
     for route, got, want in (("compact", kern, plain[0]),
                              ("dense", kern_dense, plain_dense)):
@@ -1212,13 +1280,17 @@ def phase_fleet(device) -> dict:
     if per != [ends[i] for i in lanes]:
         raise AssertionError(f"run_many(cuda) != per-trace run(cuda) on 8 "
                              f"lanes: {per} vs {[ends[i] for i in lanes]}")
+    short = [i for i, t in enumerate(fleet) if t.n_ops <= FLEET_SCAN_OPS]
+    if not (short[0] < len(groups[0]) <= short[-1]):
+        raise AssertionError("the scan check's traces miss a geometry group")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scan_res = sim.run_many(fleet, engine="scan")
+    scan_res = sim.run_many([fleet[i] for i in short], engine="scan")
     torch.cuda.synchronize()
     scan_wall = time.perf_counter() - t0
-    shares = [abs(s_.end_us - e) / e / (t.n_ops * F32_DRIFT_PER_OP)
-              for s_, e, t in zip(scan_res, ends, fleet)]
+    shares = [abs(s_.end_us - ends[i]) / ends[i]
+              / (fleet[i].n_ops * F32_DRIFT_PER_OP)
+              for s_, i in zip(scan_res, short)]
     if max(shares) > 1.0:
         raise AssertionError(f"run_many scan vs cuda: {max(shares):.2f} of "
                              "the T*2^-24 bar")
@@ -1235,7 +1307,8 @@ def phase_fleet(device) -> dict:
     if oracle_err > REL_TOL_ORACLE:
         raise AssertionError(f"fleet lanes vs oracle: {oracle_err:.2e}")
     log(f"[6] run_many(cuda) bit-equal to per-trace run(cuda) on lanes "
-        f"{lanes}; run_many(scan) {scan_wall:.1f} s wall, at most "
+        f"{lanes}; run_many(scan) on the {len(short)} traces of at most "
+        f"{FLEET_SCAN_OPS} ops {scan_wall:.1f} s wall, at most "
         f"{max(shares):.2f} of the T*2^-24 bar from cuda; lanes 0 (arrivals)"
         f" and 1 (surcharges) vs the numpy oracle on {DYADIC_US} us-dyadic "
         f"timing: {oracle_err:.2e} (< {REL_TOL_ORACLE})")
@@ -1256,6 +1329,7 @@ def phase_fleet(device) -> dict:
             "groups": [{k: v for k, v in g.items()} for g in groups_t],
             "group_ms": group_ms,
             "cuda_wall_s": cuda_wall, "scan_wall_s": scan_wall,
+            "scan_traces": len(short),
             "n_traces": len(fleet), "n_ops": total_ops,
             "oracle_rel_err_dyadic": oracle_err}
 
@@ -2342,34 +2416,44 @@ def phase_workloads(device) -> dict:
     k1 = time_fold(mats, s0, kw, dense=False)
     del k1_plain, k1["out"]
 
+    if not (res_cuda.n_ops == faulty.n_ops
+            and res_cuda.n_remap_ops == sampler.n_remap_ops > 0
+            and int(res_cuda.retry_hist.sum()) == n_reads
+            and np.array_equal(res_cuda.retry_hist, sampler.retry_hist)):
+        raise AssertionError(f"[cuda] {res_cuda.n_ops} ops, n_remap_ops "
+                             f"{res_cuda.n_remap_ops}, retry_hist "
+                             f"{res_cuda.retry_hist} over {n_reads} reads")
+    # scan, cuda and the oracle on the stream's first WL_SCAN_REQUESTS
+    cut = dataclasses.replace(stream, **{
+        f: getattr(stream, f)[:WL_SCAN_REQUESTS]
+        for f in ("arrival_us", "op_cls", "n_pages", "stream")})
+    res_cut = sim.run(cut, faults=spec, objective="all", engine="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res_scan = sim.run(stream, faults=spec, objective="all", engine="scan")
+    res_scan = sim.run(cut, faults=spec, objective="all", engine="scan")
     torch.cuda.synchronize()
     scan_wall = time.perf_counter() - t0
     n_ops = res_scan.n_ops
-    drift = rel(res_scan.end_us, res_cuda.end_us)
-    e_err = max(rel(getattr(res_scan.energy, f), getattr(res_cuda.energy, f))
+    drift = rel(res_scan.end_us, res_cut.end_us)
+    e_err = max(rel(getattr(res_scan.energy, f), getattr(res_cut.energy, f))
                 for f in ENERGY_FIELDS)
-    if not (n_ops == res_cuda.n_ops == faulty.n_ops
+    if not (n_ops == res_cut.n_ops
             and drift <= n_ops * F32_DRIFT_PER_OP and e_err <= ENERGY_TOL):
         raise AssertionError(f"scan vs cuda on the workload: {n_ops} / "
-                             f"{res_cuda.n_ops} ops, end {drift:.2e} (bar "
+                             f"{res_cut.n_ops} ops, end {drift:.2e} (bar "
                              f"{n_ops * F32_DRIFT_PER_OP:.2e}), energy "
                              f"{e_err:.2e}")
-    for r in (res_scan, res_cuda):
-        if not (r.n_remap_ops == sampler.n_remap_ops > 0
-                and int(r.retry_hist.sum()) == n_reads
-                and np.array_equal(r.retry_hist, sampler.retry_hist)):
-            raise AssertionError(f"[{r.engine}] n_remap_ops {r.n_remap_ops},"
-                                 f" retry_hist {r.retry_hist} over "
-                                 f"{n_reads} reads")
+    if not (res_scan.n_remap_ops == res_cut.n_remap_ops > 0
+            and np.array_equal(res_scan.retry_hist, res_cut.retry_hist)):
+        raise AssertionError(f"[scan] n_remap_ops {res_scan.n_remap_ops}, "
+                             f"retry_hist {res_scan.retry_hist} against "
+                             f"cuda's {res_cut.retry_hist}")
     lat = res_scan.request_lat_us
-    if not (len(lat) == WL_REQUESTS and np.all(np.isfinite(lat))
+    if not (len(lat) == WL_SCAN_REQUESTS and np.all(np.isfinite(lat))
             and np.all(lat > 0)):
         raise AssertionError("scan's request latencies malformed")
     t0 = time.perf_counter()
-    res_oracle = sim.run(stream, faults=spec, engine="oracle")
+    res_oracle = sim.run(cut, faults=spec, engine="oracle")
     oracle_wall = time.perf_counter() - t0
     pct, pct_oracle = percentiles(res_scan), percentiles(res_oracle)
     pct_err = max(rel(pct[q], pct_oracle[q]) for q in pct)
@@ -2392,17 +2476,19 @@ def phase_workloads(device) -> dict:
         raise AssertionError(f"scan on the card != the CPU on the "
                              f"{WL_PREFIX}-request prefix")
     log(f"[9a] Simulator.run(stream, faults, objective='all'): cuda "
-        f"{cuda_wall:.2f} s wall ({n_ops / cuda_wall:.0f} ops/s; K1 "
-        f"{launches['indexed']} launches, all on the compact route), scan "
+        f"{cuda_wall:.2f} s wall ({res_cuda.n_ops / cuda_wall:.0f} ops/s; K1 "
+        f"{launches['indexed']} launches, all on the compact route); on its "
+        f"first {WL_SCAN_REQUESTS} requests ({n_ops} ops) scan "
         f"{scan_wall:.1f} s ({n_ops / scan_wall:.0f} ops/s: the completions "
         f"and the energy folds), oracle {oracle_wall:.1f} s; scan vs cuda "
         f"end {drift:.2e} (< T*2^-24 = {n_ops * F32_DRIFT_PER_OP:.2e}), "
         f"energy {e_err:.2e} (< {ENERGY_TOL}); scan vs oracle percentiles "
         f"{pct_err:.2e} (< {PERCENTILE_TOL}); {res_scan.describe()}")
     log(f"[9a] p50 / p99 / p99.9 {pct['p50_us']:.2f} / {pct['p99_us']:.2f}"
-        f" / {pct['p99_9_us']:.2f} us; retry_hist "
-        f"{res_scan.retry_hist.tolist()} over {n_reads} reads; n_remap_ops "
-        f"{res_scan.n_remap_ops}; {WL_PREFIX}-request prefix "
+        f" / {pct['p99_9_us']:.2f} us (scan, first {WL_SCAN_REQUESTS} "
+        f"requests); the whole query's retry_hist "
+        f"{res_cuda.retry_hist.tolist()} over {n_reads} reads, n_remap_ops "
+        f"{res_cuda.n_remap_ops}; {WL_PREFIX}-request prefix "
         f"({pre_card.n_ops} ops): card {prefix_wall:.2f} s, CPU "
         f"{prefix_cpu_wall:.2f} s, latencies bit-equal")
     log(f"[9a] first K1 launch of the query (B={mats.shape[0]} "
@@ -2504,14 +2590,17 @@ def phase_workloads(device) -> dict:
     return {"launches": launches,
             "query": (stream, spec, res_cuda, faulty),
             "k1": k1, "seconds": seconds,
-            "rate_ops_per_us": rate, "n_ops": n_ops, "host": host,
+            "rate_ops_per_us": rate, "n_ops": res_cuda.n_ops,
+            "scan_requests": WL_SCAN_REQUESTS, "scan_n_ops": n_ops,
+            "host": host,
             "cuda_wall_s": cuda_wall, "scan_wall_s": scan_wall,
             "oracle_wall_s": oracle_wall, "plain_s": plain_s,
             "scan_ops_per_s": n_ops / scan_wall,
             "percentiles": pct, "percentiles_oracle": pct_oracle,
-            "retry_hist": res_scan.retry_hist.tolist(),
-            "n_remap_ops": res_scan.n_remap_ops,
-            "end_us": {"cuda": res_cuda.end_us, "scan": res_scan.end_us},
+            "retry_hist": res_cuda.retry_hist.tolist(),
+            "n_remap_ops": res_cuda.n_remap_ops,
+            "end_us": {"cuda": res_cuda.end_us, "cuda_cut": res_cut.end_us,
+                       "scan_cut": res_scan.end_us},
             "prefix_wall_s": [prefix_wall, prefix_cpu_wall],
             "dynamic": {
                 rule: {"wall_s": d["wall_s"], "cpu_wall_s": d["cpu_wall_s"],
@@ -5692,6 +5781,440 @@ def phase_positions(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the multi-device paths (sweeps on a points mesh, the Trainer on
+# a data-parallel mesh with ZeRO-1)
+# ---------------------------------------------------------------------------
+
+#: 17a: the points mesh is MULTI_SHARDS shards of cuda:0 (and every card
+#: where the host has two or more); phase 5's 64-point sweep on prefix,
+#: phase 10b's 30 write points on scan and squaring, a fleet of
+#: MULTI_FLEET[0] traces of MULTI_FLEET[1]-MULTI_FLEET[2] ops on 8 x 16 on
+#: scan, and an aged sweep of the points MULTI_FTL_OPS at phase 11a's spec
+#: over the first MULTI_FTL_REQUESTS requests of its stream
+MULTI_SHARDS = 2
+MULTI_FLEET = (5, 1000, 2000)
+MULTI_FTL_OPS = (0.2, 0.3)
+MULTI_FTL_REQUESTS = 1024
+#: 17b: Trainer steps on phase 14's batches, mesh-less and on a one-rank
+#: NCCL mesh with ZeRO-1
+MULTI_STEPS = 3
+#: 17c: two gloo ranks sharing cuda:0, each case (arch, grad_accum, moment
+#: dtype) at SMOKE size and f32 compute for MULTI_SMOKE_STEPS steps of
+#: MULTI_SMOKE_BATCH x MULTI_SMOKE_SEQ tokens with ragged masks, held to
+#: the bars of tests/test_torch_train_step.py: metrics 1e-5 relative,
+#: updates 1e-3 of the leaf's largest (1/127 with int8 moments), moments
+#: 1e-4 of the leaf's largest (int8 codes one step)
+MULTI_RANKS = 2
+MULTI_TIMEOUT_S = 300
+MULTI_SMOKES = (("qwen2-0.5b", 2, "f32"), ("recurrentgemma-9b", 1, "int8"))
+MULTI_SMOKE_BATCH, MULTI_SMOKE_SEQ, MULTI_SMOKE_STEPS = 4, 64, 2
+MULTI_METRIC_TOL, MULTI_UPDATE_TOL, MULTI_MOMENT_TOL = 1e-5, 1e-3, 1e-4
+
+
+class ShardCounter:
+    """Counts the blocks each sharded call runs, by device, through
+    ``core.api._shard_points``."""
+
+    def __init__(self):
+        from repro_torch.core import api as core_api
+        self.api, self.real = core_api, core_api._shard_points
+        self.blocks: list = []
+
+        def counted(mesh, fn, *, n_sharded):
+            def block(*args, device):
+                self.blocks.append(str(device))
+                return fn(*args, device=device)
+            return self.real(mesh, block, n_sharded=n_sharded)
+        core_api._shard_points = counted
+
+    def take(self) -> list:
+        out, self.blocks = self.blocks, []
+        return out
+
+    def restore(self) -> None:
+        self.api._shard_points = self.real
+
+
+def multi_sweeps(device, mesh, trace, tables) -> dict:
+    """17a on one points mesh: each call sharded (every block counted on
+    its device) and with ``shard=False``, bit-equal, both walls."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import calibrate, ftl
+    from repro_torch.core.interface import InterfaceKind, make_interface
+    from repro_torch.core.nand import CellType, chip as nand_chip
+    from repro_torch.core.paper_tables import INTERFACE_ORDER
+    from repro_torch.core.sim import SSDConfig, page_op_params
+    from repro_torch.core.trace import mixed_trace
+    from repro_torch.core.workload import overwrite_stream
+
+    cells = [(c, k, w) for c in ("slc", "mlc") for k in INTERFACE_ORDER
+             for w in (1, 2, 4, 8, 16)]
+    ops = [page_op_params(make_interface(InterfaceKind(k)),
+                          nand_chip(CellType(c)), "write", w)
+           for c, k, w in cells]
+    cols = [np.asarray([float(getattr(op, f)) for op in ops])
+            for f in calibrate._OP_FIELDS]
+    ways = np.asarray([w for *_, w in cells], np.int32)
+    n, lo, hi = MULTI_FLEET
+    lengths = np.linspace(lo, hi, n).astype(int)
+    fleet = [mixed_trace(int(t), SWEEP_CHANNELS, SWEEP_WAYS, 0.7, seed=70 + i)
+             for i, t in enumerate(lengths)]
+    cfg = SSDConfig(interface=InterfaceKind.PROPOSED, cell=CellType.SLC,
+                    channels=SWEEP_CHANNELS, ways=SWEEP_WAYS)
+    specs = [ftl.FTLSpec(blocks=FTL_BLOCKS, pages_per_block=FTL_PPB,
+                         overprovision=op, precondition=True)
+             for op in MULTI_FTL_OPS]
+    whole = overwrite_stream(FTL_REQUESTS, int(0.9 * specs[-1].logical_pages),
+                             read_fraction=FTL_READ_FRACTION, seed=FTL_SEED)
+    stream = dataclasses.replace(whole, **{
+        f: getattr(whole, f)[:MULTI_FTL_REQUESTS]
+        for f in ("arrival_us", "op_cls", "n_pages", "stream", "lpn")})
+    calls = {
+        "sweep_tables(prefix)": lambda shard: api.sweep_tables(
+            tables, trace, engine="prefix", shard=shard, device=device),
+        "sweep_steady(scan)": lambda shard: api.sweep_steady_bandwidth_mb_s(
+            *cols, ways, engine="scan", shard=shard, device=device),
+        "sweep_steady(squaring)": lambda shard:
+            api.sweep_steady_bandwidth_mb_s(*cols, ways, engine="squaring",
+                                            shard=shard, device=device),
+        "run_many(scan)": lambda shard: np.asarray([
+            r.end_us for r in api.Simulator(cfg, device=device).run_many(
+                fleet, engine="scan", shard=shard)]),
+        "sweep(ftl=)": lambda shard: api.Simulator(
+            cfg, device=device).sweep(None, stream, ftl=specs, shard=shard),
+    }
+    out = {}
+    counter = ShardCounter()
+    try:
+        with api.points_mesh(mesh):
+            for label, call in calls.items():
+                one_s, want = timed(lambda: call(False))
+                if counter.take():
+                    raise AssertionError(f"17a {label}: shard=False sharded")
+                shard_s, got = timed(lambda: call(None))
+                # one block a device for each sharded fold (run_many: one
+                # fold a length bucket)
+                blocks = counter.take()
+                folds = len(blocks) // mesh.size
+                if not blocks or sorted(blocks) != sorted(
+                        str(d) for d in mesh.devices * folds):
+                    raise AssertionError(f"17a {label}: blocks ran on "
+                                         f"{blocks}, mesh {mesh.devices}")
+                if not (got.shape == want.shape and np.array_equal(got, want)):
+                    raise AssertionError(
+                        f"17a {label}: sharded != shard=False (max abs "
+                        f"{float(np.max(np.abs(got - want)))})")
+                out[label] = {"points": int(got.shape[0]), "folds": folds,
+                              "sharded_s": shard_s, "one_device_s": one_s}
+    finally:
+        counter.restore()
+    return out
+
+
+class SmokeBatches:
+    """MULTI_SMOKE_STEPS seeded batches with ragged masks (row 0 two
+    tokens, row 1 all, row 2 none, row 3 about 70 %) as a resumable
+    pipeline."""
+
+    def __init__(self, vocab: int):
+        import numpy as np
+        self.items, self.cursor = [], 0
+        b, s = MULTI_SMOKE_BATCH, MULTI_SMOKE_SEQ
+        for i in range(MULTI_SMOKE_STEPS):
+            rng = np.random.default_rng(40 + i)
+            mask = np.zeros((b, s), np.float32)
+            mask[0, :2] = 1.0
+            mask[1] = 1.0
+            mask[3] = rng.random(s) < 0.7
+            self.items.append({
+                "inputs": rng.integers(0, vocab, (b, s)).astype(np.int32),
+                "labels": rng.integers(0, vocab, (b, s)).astype(np.int32),
+                "mask": mask})
+
+    def state(self):
+        from repro_torch.storage.datapipe import PipeState
+        return PipeState(self.cursor)
+
+    def restore(self, st) -> None:
+        self.cursor = st.cursor
+
+    def __iter__(self):
+        import torch
+        while True:
+            b = self.items[self.cursor % len(self.items)]
+            self.cursor += 1
+            yield {k: torch.tensor(v) for k, v in b.items()}
+
+
+def smoke_trainer(arch, accum, moments, ckpt_dir, device=None, mesh=None):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_arch(arch).smoke, compute_dtype="f32")
+    return Trainer(cfg, TrainerConfig(
+        steps=MULTI_SMOKE_STEPS, log_every=1, ckpt_every=MULTI_SMOKE_STEPS,
+        ckpt_dir=str(ckpt_dir), grad_accum=accum, zero1=True),
+        SmokeBatches(cfg.vocab_size), ocfg=OptConfig(moment_dtype=moments),
+        device=device, mesh=mesh)
+
+
+def multi_rank(rank: int, tmp: str) -> None:
+    """17c: one of MULTI_RANKS gloo ranks sharing cuda:0 (a spawned
+    process): every SMOKE case through the data-parallel Trainer, its
+    launches counted; rank 0 writes the histories and gathered states."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.storage.checkpoint import gather_from_mesh
+    from repro_torch.train.optimizer import tree_paths
+
+    # a collective that waits longer than MULTI_TIMEOUT_S raises, so a
+    # rank that dies cannot hold its peer past the script's limit
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), MULTI_RANKS), rank=rank,
+        world_size=MULTI_RANKS,
+        timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+    try:
+        mesh = make_data_mesh(device="cuda:0")
+        out = {}
+        for arch, accum, moments in MULTI_SMOKES:
+            tr = smoke_trainer(arch, accum, moments,
+                               os.path.join(tmp, arch), mesh=mesh)
+            reset_kernel_counts()
+            res = tr.run()
+            counts = kernel_counts()
+            whole = gather_from_mesh(tr.state, tr.state_shardings)
+            out[arch] = {"history": res["history"], "launches": counts,
+                         "restarts": res["restarts"],
+                         "state": {"/".join(p): x.cpu() for p, x in
+                                   tree_paths(whole)}}
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "ranks.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def updates_close(start, got, want, grad, rel, noise) -> float:
+    """The largest error of the update ``got - start`` against ``want -
+    start`` over the elements whose gradient is above 1e-3 of the leaf's
+    largest, relative to the leaf's largest such update; raises where an
+    element with a smaller gradient moved more than ``noise`` apart or the
+    relative error passes ``rel``."""
+    worst = 0.0
+    for path in start:
+        dg, dw = got[path] - start[path], want[path] - start[path]
+        gr = grad[path].abs()
+        big = gr > 1e-3 * gr.max()
+        if bool(big.any()):
+            err = float((dg - dw).abs()[big].max()
+                        / max(float(dw.abs()[big].max()), 1e-30))
+            worst = max(worst, err)
+            if err > rel:
+                raise AssertionError(f"17c {path}: update {err:.2e} > {rel}")
+        small = (dg - dw).abs()[~big]
+        if small.numel() and float(small.max()) > noise:
+            raise AssertionError(f"17c {path}: noise update "
+                                 f"{float(small.max()):.2e} > {noise}")
+    return worst
+
+
+def multi_two_ranks(device) -> dict:
+    """17c: MULTI_RANKS gloo ranks sharing the card against the mesh-less
+    Trainer on the card, case by case."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.train.optimizer import tree_paths
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(multi_rank, args=(tmp,), nprocs=MULTI_RANKS,
+                           join=True, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = torch.load(os.path.join(tmp, "ranks.pt"))
+        for arch, accum, moments in MULTI_SMOKES:
+            tr = smoke_trainer(arch, accum, moments,
+                               os.path.join(tmp, f"{arch}-one"),
+                               device=device)
+            start = tr._fresh_state()
+            first = next(iter(SmokeBatches(tr.cfg.vocab_size)))
+            _, _, grad = loss_and_grads(tr.cfg, start["params"], {
+                k: v.to(device) for k, v in first.items()}, accum)
+            res = tr.run()
+            got = ranks[arch]
+            lr_sum = sum(h["lr"] for h in res["history"])
+            for h, w in zip(got["history"], res["history"]):
+                for k in ("loss", "ce", "grad_norm", "lr", "moe_aux"):
+                    if abs(h[k] - w[k]) > MULTI_METRIC_TOL * max(abs(w[k]),
+                                                                 1e-30):
+                        raise AssertionError(f"17c {arch} step {w['step']} "
+                                             f"{k}: {h[k]} vs {w[k]}")
+                if h["tokens"] != w["tokens"]:
+                    raise AssertionError(f"17c {arch} tokens {h} vs {w}")
+            want = {"/".join(p): x.cpu() for p, x in tree_paths(tr.state)}
+            st = got["state"]
+            if sorted(st) != sorted(want) or got["restarts"]:
+                raise AssertionError(f"17c {arch}: leaves or restarts differ")
+            pick = {"/".join(p): x.float().cpu()
+                    for p, x in tree_paths(start["params"])}
+            g = {"/".join(p): x.float().cpu() for p, x in tree_paths(grad)}
+            int8 = moments == "int8"
+            worst = {}
+            for tree in ("params", "opt/master"):
+                worst[tree] = updates_close(
+                    {f"{tree}/{k}": v for k, v in pick.items()},
+                    {k: v.float() for k, v in st.items()},
+                    {k: v.float() for k, v in want.items()},
+                    {f"{tree}/{k}": v for k, v in g.items()},
+                    1.0 / 127 if int8 else MULTI_UPDATE_TOL, 2 * lr_sum)
+            mom = 0.0
+            for k, w in want.items():
+                if not k.startswith(("opt/m/", "opt/v/")):
+                    continue
+                err = float((st[k].float() - w.float()).abs().max()
+                            / max(float(w.float().abs().max()), 1e-30))
+                mom = max(mom, err)
+                if err > (1.0 / 127 if int8 else MULTI_MOMENT_TOL):
+                    raise AssertionError(f"17c {arch} {k}: {err:.2e}")
+            out[arch] = {"grad_accum": accum, "moments": moments,
+                         "update_rel": worst, "moment_rel": mom,
+                         "launches": {k: v for k, v in got["launches"].items()
+                                      if v}}
+            del tr, start, grad
+        out["spawn_s"] = spawn_s
+    return out
+
+
+def phase_multi(device, trace, tables, smi, train14c) -> dict:
+    """17 (see the module docstring)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_data_mesh, make_points_mesh
+    from repro_torch.storage.datapipe import SyntheticTokens
+    from repro_torch.train.optimizer import OptConfig, tree_paths
+    from repro_torch.train.schedules import wsd
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    out = {"17a": {}}
+    # -- 17a: the sweeps over points meshes -----------------------------
+    meshes = [make_points_mesh(("cuda:0",) * MULTI_SHARDS)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(make_points_mesh())
+    for mesh in meshes:
+        key = ", ".join(str(d) for d in mesh.devices)
+        res = out["17a"][key] = multi_sweeps(device, mesh, trace, tables)
+        log(f"[17a] points mesh ({key}): every call bit-equal to shard=False; "
+            "walls sharded / one device: " + "; ".join(
+                f"{k} ({v['points']} points) {v['sharded_s']:.2f} / "
+                f"{v['one_device_s']:.2f} s" for k, v in res.items()))
+
+    # -- 17b: the Trainer on a one-rank NCCL mesh, ZeRO-1 ---------------
+    cfg = get_arch(TRAIN_ARCH).config
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = make_data_mesh()
+            for label, m in (("mesh-less", None), ("data=1, ZeRO-1", mesh)):
+                tr = Trainer(cfg, TrainerConfig(
+                    steps=MULTI_STEPS, log_every=1, ckpt_every=10 ** 9,
+                    ckpt_dir=os.path.join(tmp, str(len(runs))),
+                    grad_accum=TRAIN_ACCUM, zero1=True),
+                    SyntheticTokens(cfg.vocab_size, batch=TRAIN_BATCH,
+                                    seq=TRAIN_SEQ, seed=LM_SEED),
+                    ocfg=OptConfig(), schedule=wsd(*TRAIN_WSD),
+                    device=None if m is not None else device, mesh=m)
+                saved, steps = [], []
+                # the final save is recorded, not written (14c writes)
+                tr.ckpt.save = lambda step, *a, **kw: saved.append(step)
+                step_fn = tr._step
+
+                def timed_step(st, batch, step_fn=step_fn, steps=steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = step_fn(st, batch)
+                    torch.cuda.synchronize()
+                    steps.append(time.perf_counter() - t0)
+                    return res
+                tr._step = timed_step
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                reset_kernel_counts()
+                res = tr.run()
+                counts = kernel_counts()
+                runs[label] = {
+                    "history": res["history"], "state": tr.state,
+                    "step_s": steps, "saved": saved,
+                    "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                    "launches": {k: v for k, v in counts.items() if v}}
+                del tr
+        finally:
+            dist.destroy_process_group()
+    a, b = runs["mesh-less"], runs["data=1, ZeRO-1"]
+    unequal = [("/".join(p)) for (p, x), (_, y) in zip(
+        tree_paths(a["state"]), tree_paths(b["state"]))
+        if not (x.dtype == y.dtype and torch.equal(x, y))]
+    if a["history"] != b["history"] or unequal or a["saved"] != b["saved"]:
+        raise AssertionError(f"17b: the one-rank mesh differs from the "
+                             f"mesh-less Trainer: leaves {unequal[:5]}, "
+                             f"histories {a['history']} / {b['history']}")
+    if b["launches"] != a["launches"]:
+        raise AssertionError(f"17b: launches {b['launches']} vs "
+                             f"{a['launches']}")
+    out["17b"] = {label: {k: v for k, v in r.items() if k != "state"}
+                  for label, r in runs.items()}
+    del runs, a, b
+    torch.cuda.empty_cache()
+    for label, r in out["17b"].items():
+        log(f"[17b] {TRAIN_ARCH} CONFIG, {MULTI_STEPS} Trainer steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} ({TRAIN_ACCUM} microbatches), "
+            f"{label}: step s {[round(s, 3) for s in r['step_s']]} (14c: "
+            f"{train14c['step_s']:.3f} alone), peak {r['peak_gb']:.2f} GB "
+            f"above the start (14c: {train14c['peak_gb']:.2f} GB); launches "
+            f"{r['launches']}; {smi}")
+    log(f"[17b] the one-rank NCCL mesh with ZeRO-1 bit-equal to the "
+        f"mesh-less Trainer: losses, norms and every leaf of the final "
+        f"state; losses {[round(h['loss'], 4) for h in out['17b']['mesh-less']['history']]}")
+
+    # -- 17c: two gloo ranks sharing the card ----------------------------
+    out["17c"] = multi_two_ranks(device)
+    for arch, r in out["17c"].items():
+        if arch == "spawn_s":
+            continue
+        log(f"[17c] {arch} SMOKE (f32, grad_accum {r['grad_accum']}, "
+            f"{r['moments']} moments, ZeRO-1) on {MULTI_RANKS} gloo ranks "
+            f"sharing cuda:0 against the mesh-less Trainer on the card: "
+            f"metrics within {MULTI_METRIC_TOL}, updates within "
+            f"{max(r['update_rel'].values()):.2e} of the leaf's largest, "
+            f"moments {r['moment_rel']:.2e}; rank 0's launches "
+            f"{r['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[17] phase 17 in {out['seconds']:.1f} s (17c's spawn, run and "
+        f"join {out['17c']['spawn_s']:.1f} s)")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -5721,7 +6244,9 @@ def main() -> int:
     from repro_torch.kernels.maxplus.ref import maxplus_fold_ref
 
     dev = resolve_device()
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
+    clock = PhaseClock()
 
     # -- 1: versions and the card --------------------------------------
     smi = subprocess.run(
@@ -5751,6 +6276,7 @@ def main() -> int:
     RK._library()
     build_s = time.perf_counter() - t0
     log(f"[2] {len(sources)} sources built in parallel in {build_s:.1f} s")
+    clock("1-2")
 
     # -- 3: kernels == plain at a small shape ----------------------------
     phase_small_variants(dev)
@@ -5795,7 +6321,11 @@ def main() -> int:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     b, m, n, _ = mats.shape
-    plain_state = maxplus_fold_ref(mats, s0, t_steps=trace.n_ops, idx=idx)
+    # the plain fold takes seconds here: it is timed on its one run
+    plain_run = []
+    p_ms = cuda_ms(lambda: plain_run.append(maxplus_fold_ref(
+        mats, s0, t_steps=trace.n_ops, idx=idx)), reps=1, warmup=False)
+    plain_state = plain_run.pop()
     plain_ends = end_time_from_state(plain_state.cpu().numpy(), layout)
     if not np.array_equal(plain_ends, ends):
         raise AssertionError("sweep end times differ from the plain "
@@ -5847,8 +6377,6 @@ def main() -> int:
     # -- timing: both routes, pre-pass, plain version, bound -------------
     sweep_t = time_fold(mats, s0, dict(t_steps=trace.n_ops, idx=idx))
     k_ms, b_ms, b_by = (sweep_t[k] for k in ("ms", "bound_ms", "bound_by"))
-    p_ms = cuda_ms(lambda: maxplus_fold_ref(mats, s0, t_steps=trace.n_ops,
-                                            idx=idx), warmup=False)
     log(f"[5] indexed fold at real size: compact route {k_ms:.3f} ms "
         f"(pre-pass {sweep_t['prepass_ms']:.3f} ms, fold alone "
         f"{sweep_t['fold_ms']:.3f} ms, {sweep_t['ns_per_step']:.1f} ns a "
@@ -5928,44 +6456,61 @@ def main() -> int:
     log(f"[5] the sweep launch apart: 1 x {k_ms:.3f} ms, bound {b_ms:.4f} "
         "ms")
 
+    clock("3-5")
+
     # -- 6: the fleet; 7: sweeps, streaming, calibration ----------------
     fleet = phase_fleet(dev)
+    clock("6")
     streams = phase_sweeps_streams(tables, trace, ends)
+    clock("7")
 
     # -- 8: LM serving through K4 and K5 ---------------------------------
     lm_small = phase_lm_small(dev)
     lm = phase_lm_serve(dev, built[1][1], built[3][1])
+    clock("8")
 
     # -- 9: request-level workloads; K1's main path grows by its launches
     wl = phase_workloads(dev)
     phase9_launches = wl.pop("launches")
     for key, n_wl in phase9_launches.items():
         launches[key] += n_wl
+    clock("9")
 
     # -- 10: the log-depth engines (plain torch, no kernel) --------------
     logdepth = phase_logdepth(dev, trace, tables, ends, sweep_s, setup_s,
                               wl.pop("query"))
+    clock("10")
 
     # -- 11: the FTL; its K1 launches are their own report entry ---------
     ftl_report = phase_ftl(dev)
+    clock("11")
 
     # -- 12: the storage tier; K1's storage launches are their own entry --
     storage = phase_storage(dev, smi)
+    clock("12")
 
     # -- 13: the rest of slice H; K4's launches of 13b-13d are entries ---
     lm_configs = phase_lm_configs(dev)
+    clock("13")
 
     # -- 14: training through K4 and K5, forwards and backwards ---------
     train = phase_train(dev)
+    clock("14")
 
     # -- 15: the dry run's plan against the card -------------------------
     dry = phase_dryrun(dev, {
         "8b": lm["prefill_memory"],
         "13b": lm_configs["qwen2-0.5b"]["prefill_memory"],
         "14b": train["14b"]["memory"], "14d": train["14d"]["memory"]})
+    clock("15")
 
     # -- 16: caller positions and the soft cap through K4's EXT kernels --
     positions = phase_positions(dev)
+    clock("16")
+
+    # -- 17: the multi-device paths (points mesh, data-parallel Trainer) --
+    multi = phase_multi(dev, trace, tables, smi, train["14c"])
+    clock("17")
 
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
@@ -5992,8 +6537,10 @@ def main() -> int:
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
         "train": train, "dryrun": dry, "positions": positions,
+        "multi": multi,
         "build_s": build_s,
         "build_source_s": {lib.name: secs for lib, _, secs in built},
+        "phase_s": clock.walls,
         "seconds": time.perf_counter() - t_start,
     }
     log("[summary] " + json.dumps(summary))
@@ -6164,6 +6711,7 @@ def main() -> int:
          "bound_ms": positions["prepasses"]["gather_bound_ms"],
          "bound_by": positions["prepasses"]["gather_bound_by"],
          "library_ms": None}]}))
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -43,6 +43,14 @@ engine but ``squaring``::
               for op in (0.12, 0.25, 0.5) for g in ("greedy", "lru")]
     ends = sim.sweep(None, overwrite_stream(4096, 2048), ftl=points)
 
+Design points split over a points mesh of two shards of one card (or
+of every card, where a host has two or more) unless ``shard=False``::
+
+    from repro_torch.launch.mesh import make_points_mesh
+
+    with points_mesh(make_points_mesh(("cuda:0", "cuda:0"))):
+        ends = sim.sweep(tables, trace, engine="scan")
+
 Engine names follow the JAX package's ``repro.api`` except that its
 ``pallas`` engine is ``cuda`` here; ``sweep_tables`` and
 ``Simulator.sweep`` default to the log-depth ``prefix`` engine, as there.
@@ -52,7 +60,7 @@ from repro_torch.core.api import (CacheInfo, CapabilityError, Engine,
                                   EngineCaps,
                                   OBJECTIVES, Objective, Policy, SimRequest,
                                   SimResult, Simulator, engine_capabilities,
-                                  get_engine, register_engine,
+                                  get_engine, points_mesh, register_engine,
                                   registered_engines,
                                   simulator_for, steady_bandwidth_mb_s,
                                   steady_channel_bandwidth_mb_s,
@@ -90,8 +98,8 @@ __all__ = [
     # the session API proper
     "CacheInfo", "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
     "Policy", "SimRequest", "SimResult", "Simulator", "engine_capabilities",
-    "get_engine", "register_engine", "registered_engines", "simulator_for",
-    "steady_bandwidth_mb_s", "steady_channel_bandwidth_mb_s",
+    "get_engine", "points_mesh", "register_engine", "registered_engines",
+    "simulator_for", "steady_bandwidth_mb_s", "steady_channel_bandwidth_mb_s",
     "sweep_steady_bandwidth_mb_s", "sweep_tables",
     # the request-level workload + scheduler layer
     "DYNAMIC_POLICIES", "LoweredWorkload", "RequestStream",

@@ -54,6 +54,15 @@ surface over every simulation engine.
   :func:`sweep_tables` (one trace, many design points),
   :func:`sweep_steady_bandwidth_mb_s` (homogeneous single-channel design
   points) and :meth:`Simulator.run_stream` (a trace as chunks).
+  With ``shard`` not False, ``run_many(engine="scan")``, the sweeps on
+  ``scan`` / ``prefix`` / ``squaring`` and the aged FTL sweep split their
+  design points (or traces) over the 1-D ``("points",)`` mesh
+  (``distributed.partitioning.shard_points``): every card where the host
+  has two or more and the call runs on the card, or the mesh a
+  :func:`points_mesh` block installs (three CPU "devices", two shards of
+  ``cuda:0``).  ``shard=False`` keeps one device; ``cuda`` and
+  ``oracle`` never shard, as the JAX package's ``pallas`` and
+  ``oracle`` do not.
 
 * the **FTL stage** (DESIGN.md §2.10-§2.11) — a workload request may
   carry an ``FTLSpec``: the stream runs through the L2P map and garbage
@@ -74,8 +83,11 @@ engine here except ``squaring``, whose fixed period they would break.
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import dataclasses
 import functools
+import threading
 import warnings
 from typing import Literal, Protocol, runtime_checkable
 
@@ -135,6 +147,7 @@ class EngineCaps:
     dispatch: bool = False  # joint dispatch+simulate (dynamic sched policies)
     heterogeneous: bool = True  # arbitrary OpTrace (vs homogeneous periodic)
     ftl: bool = False       # FTL-translated streams (GC/erase op classes)
+    shard: bool = False     # its design-point batches split over a points mesh
 
     def describe(self) -> str:
         flags = [k for k in ("batched_tables", "energy", "arrivals",
@@ -162,7 +175,8 @@ _REGISTRY: dict[str, Engine] = {}
 
 def register_engine(name: str, *, batched_tables: bool, energy: bool,
                     arrivals: bool = False, dispatch: bool = False,
-                    heterogeneous: bool = True, ftl: bool = False):
+                    heterogeneous: bool = True, ftl: bool = False,
+                    shard: bool = False):
     """Class decorator: instantiate and register an engine under ``name``
     with its declared capability row.  Names are unique."""
 
@@ -173,7 +187,7 @@ def register_engine(name: str, *, batched_tables: bool, energy: bool,
         inst.caps = EngineCaps(name=name, batched_tables=batched_tables,
                                energy=energy, arrivals=arrivals,
                                dispatch=dispatch, heterogeneous=heterogeneous,
-                               ftl=ftl)
+                               ftl=ftl, shard=shard)
         _REGISTRY[name] = inst
         return cls
 
@@ -357,7 +371,7 @@ class _EngineBase:
 
 
 @register_engine("scan", batched_tables=True, energy=True, arrivals=True,
-                 dispatch=True, ftl=True)
+                 dispatch=True, ftl=True, shard=True)
 class ScanEngine(_EngineBase):
     """O(T) step loop over device state tensors — the default engine."""
 
@@ -405,7 +419,7 @@ class ScanEngine(_EngineBase):
 
 
 @register_engine("prefix", batched_tables=True, energy=True, arrivals=True,
-                 ftl=True)
+                 ftl=True, shard=True)
 class PrefixEngine(_EngineBase):
     """Segmented parallel-prefix (max,+) fold, O(L + log T) depth; energy
     rides the same chunking as segment sums.  ``segment_len`` is the
@@ -439,7 +453,7 @@ class PrefixEngine(_EngineBase):
 
 
 @register_engine("squaring", batched_tables=False, energy=True,
-                 heterogeneous=False)
+                 heterogeneous=False, shard=True)
 class SquaringEngine(_EngineBase):
     """Periodic (max,+) matrix squaring, O(log T) matmuls.  Homogeneous
     only: the trace must be a single-class, single-channel round-robin
@@ -843,10 +857,14 @@ class Simulator:
             collections.OrderedDict()
         self._ftl_hits = self._ftl_misses = self._ftl_evictions = 0
         # preconditioned drives per spec batch (a pure function of the
-        # specs: aged once, reused across calls), for the translation of
-        # single queries and streams (one-spec keys) and the aged sweep
+        # specs: aged once, reused across calls), one cache a device, for
+        # the translation of single queries and streams (one-spec keys)
+        # and the aged sweep; the session device's is ``_ftl_pre_states``,
+        # and the blocks of a sharded sweep share a device's under the lock
         self._ftl_pre_states: collections.OrderedDict[tuple, object] = \
             collections.OrderedDict()
+        self._ftl_pre_by_device = {str(self.device): self._ftl_pre_states}
+        self._ftl_pre_lock = threading.Lock()
 
     @classmethod
     def for_config(cls, config: SSDConfig,
@@ -1264,8 +1282,10 @@ class Simulator:
         (``kernels.maxplus.ops.run_many_end_time_maxplus``).  Other
         engines go through :meth:`run` trace by trace.  Energies are
         summed per op on the host (energy is (+,+)-linear), exactly as
-        the JAX package does.  ``shard`` is accepted for the JAX
-        package's signature; the port runs on one device."""
+        the JAX package does.  With ``shard`` not False and a points mesh
+        (:func:`points_mesh`), each scan group's lanes split over the
+        mesh's devices, the group padded to whole rows a device by
+        repeating its first trace."""
         if objective not in OBJECTIVES:
             raise ValueError(f"unknown objective {objective!r} "
                              f"(one of {', '.join(OBJECTIVES)})")
@@ -1288,6 +1308,9 @@ class Simulator:
                 "energy query on a Simulator with no interface kind "
                 "(pass kind= or bind an SSDConfig)")
         ends = np.empty(len(traces), np.float64)
+        mesh = (_points_mesh(self.device)
+                if shard is not False and get_engine(name).caps.shard
+                else None)
         groups: dict[tuple[int, int], list[int]] = {}
         for i, t in enumerate(traces):
             key = ((t.channels, t.ways) if name == "cuda"
@@ -1301,9 +1324,16 @@ class Simulator:
                 continue
             rows = [_pad_trace_np(traces[i], t_b) for i in idxs]
             stacked = [np.stack(cols) for cols in zip(*rows)]
-            ends[idxs] = _sim.trace_end_time_masked_many(
-                *self._targs, *stacked, n_channels=channels,
-                batched=batched).cpu().numpy()
+
+            def fold(*args, device, channels=channels):
+                """The lanes ``args[:7]`` under the table ``args[7:]``."""
+                return _sim.trace_end_time_masked_many(
+                    *args[7:], *args[:7], n_channels=channels,
+                    batched=batched).cpu().numpy()
+            ends[idxs] = (fold(*stacked, *self._targs, device=self.device)
+                          if mesh is None else
+                          _shard_points(mesh, fold, n_sharded=7)(
+                              *stacked, *self._targs))
         return self._many_results(traces, ends, name, objective)
 
     def _linear_energy_sums(self, trace: OpTrace,
@@ -1484,8 +1514,8 @@ class Simulator:
         tables (``tables=None`` sweeps the bound table alone) — the
         design-space fan-out direction of the serving path, through
         :func:`sweep_tables` on the session's device (default engine
-        ``prefix``, as in the JAX package).  ``shard`` is accepted for
-        the JAX package's signature and means one device.
+        ``prefix``, as in the JAX package), sharded over a points mesh
+        as :func:`sweep_tables` is unless ``shard=False``.
 
         ``ftl=`` switches to the *aged* design-space direction (DESIGN.md
         §2.11): ``trace`` is then a host :class:`RequestStream` and
@@ -1504,14 +1534,16 @@ class Simulator:
                     "None")
             return self._sweep_ftl(trace, ftl,
                                    policy=policy or self.default_policy,
-                                   sched_policy=sched_policy)
+                                   sched_policy=sched_policy, shard=shard)
         return sweep_tables(
             [self.table] if tables is None else tables, trace,
             policy=policy or self.default_policy, engine=engine,
-            segment_len=segment_len, combine=combine, device=self.device)
+            segment_len=segment_len, combine=combine, shard=shard,
+            device=self.device)
 
     def _sweep_ftl(self, stream: RequestStream, specs, *, policy: Policy,
-                   sched_policy: str) -> np.ndarray:
+                   sched_policy: str, shard: bool | None = None
+                   ) -> np.ndarray:
         """Fused aged sweep: precondition fold → window reset →
         translation fold → compaction → closed-form static lowering →
         masked end-time fold, the FTL design points as the lanes of each
@@ -1523,10 +1555,16 @@ class Simulator:
 
         The preconditioned states are a pure function of the spec batch,
         so they fold once and are reused across calls
-        (``_ftl_pre_states``, at most 4 batches).  Emission rows compact
+        (one cache a device, at most 4 batches).  Emission rows compact
         into each lane's op sequence (``ftl_scan.translate_lanes``), so
         the end-time fold runs over the longest lane's op count rather
-        than the raw emission buffer."""
+        than the raw emission buffer.
+
+        With ``shard`` not False and a points mesh, the design points
+        split over the mesh's devices, both stages (preconditioning and
+        translation) run on each block's device, and each device keeps
+        its own preconditioned states.  Sharding is unmeasured across
+        cards (``points_mesh``)."""
         if self.config is None:
             raise ValueError(
                 "workload queries need a Simulator bound to an SSDConfig "
@@ -1558,24 +1596,39 @@ class Simulator:
                 "FTL translation consumes host READ/WRITE streams only "
                 f"(got op class {int(np.max(stream.op_cls))})")
         C, W = self.config.channels, self.config.ways
-        b = len(specs)
-        state = _ftl_scan.preconditioned_lanes(specs, self.device,
-                                               self._ftl_pre_states)
-        op_cls, arrival, n_ops = _ftl_scan.translate_lanes(specs, stream,
-                                                           state)
-        # compacted op i sits at slot i, so the closed-form static
-        # placement (`lower_ops` field-for-field) is shared by the lanes
-        slot = torch.arange(op_cls.shape[1], dtype=torch.int64,
-                            device=self.device)
-        if sched_policy == "stripe":
-            chan, way = slot % C, (slot // C) % W
-        else:                       # "round_robin": way-first
-            way, chan = slot % W, (slot // W) % C
-        par = (slot // (C * W)) % 2
-        end = _sim._trace_end_time_masked_impl(
-            *sess._targs, op_cls, chan.expand(b, -1), way.expand(b, -1),
-            par.expand(b, -1), arrival, torch.zeros_like(arrival),
-            slot < n_ops[:, None], C, batched)
+        mesh = _points_mesh(self.device) if shard is not False else None
+
+        def lanes(idx, *targs, device):
+            """The end times of the points ``idx`` on ``device``."""
+            pts = [specs[i] for i in idx.tolist()]
+            with self._ftl_pre_lock:
+                cache = self._ftl_pre_by_device.setdefault(
+                    str(device), collections.OrderedDict())
+            state = _ftl_scan.preconditioned_lanes(pts, device, cache,
+                                                   self._ftl_pre_lock)
+            op_cls, arrival, n_ops = _ftl_scan.translate_lanes(pts, stream,
+                                                               state)
+            # compacted op i sits at slot i, so the closed-form static
+            # placement (`lower_ops` field-for-field) is shared by the
+            # lanes
+            b = len(pts)
+            slot = torch.arange(op_cls.shape[1], dtype=torch.int64,
+                                device=device)
+            if sched_policy == "stripe":
+                chan, way = slot % C, (slot // C) % W
+            else:                       # "round_robin": way-first
+                way, chan = slot % W, (slot // W) % C
+            par = (slot // (C * W)) % 2
+            return _sim._trace_end_time_masked_impl(
+                *targs, op_cls, chan.expand(b, -1), way.expand(b, -1),
+                par.expand(b, -1), arrival, torch.zeros_like(arrival),
+                slot < n_ops[:, None], C, batched)
+
+        idx = torch.arange(len(specs))
+        if mesh is None:
+            end = lanes(idx, *sess._targs, device=self.device)
+        else:
+            end = _shard_points(mesh, lanes, n_sharded=1)(idx, *sess._targs)
         return end.cpu().numpy().astype(np.float64)
 
 
@@ -1589,10 +1642,69 @@ def simulator_for(config: SSDConfig, device: torch.device) -> Simulator:
 # Module-level query functions
 # ---------------------------------------------------------------------------
 
+_UNSET = object()
+_POINTS_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "points_mesh", default=_UNSET)
+
+
+@contextlib.contextmanager
+def points_mesh(mesh):
+    """Inside the block, the sharded entry points split their design
+    points over ``mesh`` (``launch.mesh.make_points_mesh(devices)``;
+    ``None``: one device) wherever ``shard`` is not False, whatever the
+    call's device: the port's counterpart of forcing the JAX package's
+    host device count.  Outside one they shard over every card where the
+    host has two or more and the call runs on the card, as the JAX
+    package shards over every device.  That default is unmeasured across
+    cards: each block steps the whole trace, so the launch-bound ``scan``
+    and ``prefix`` folds launch once a block, from threads that share the
+    interpreter lock, and on one H100 two blocks ran 1.8-5.4x slower than
+    one device (``chip_smoke.py`` phase 17a); ``shard=False`` keeps one
+    device."""
+    token = _POINTS_MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _POINTS_MESH.reset(token)
+
+
+@functools.lru_cache(maxsize=1)
+def _card_points_mesh():
+    from repro_torch.launch.mesh import make_points_mesh
+    return make_points_mesh()
+
+
+def _points_mesh(device: torch.device):
+    """The points mesh a call on ``device`` shards over: the installed
+    one, else every card (``None`` under two, or off the card)."""
+    mesh = _POINTS_MESH.get()
+    if mesh is not _UNSET:
+        return mesh
+    return _card_points_mesh() if device.type == "cuda" else None
+
+
+def _shard_points(mesh, fn, *, n_sharded: int):
+    from repro_torch.distributed.partitioning import shard_points
+    return shard_points(mesh, fn, n_sharded=n_sharded)
+
+
+def _sharded_batch_fn(mesh, eng: Engine, trace: OpTrace, **kw):
+    """``eng.end_time_batch`` over ``mesh``: the tables split over the
+    devices, the trace goes whole to each."""
+    return _shard_points(mesh, lambda tables, *, device: eng.end_time_batch(
+        tables, trace, device=device, **kw), n_sharded=1)
+
+
+def _sharded_sweep_steady_fn(mesh, eng: Engine, **kw):
+    """``eng.sweep_steady`` over ``mesh``: all 8 per-point arrays split
+    their leading axis."""
+    return _shard_points(mesh, lambda *a, device: eng.sweep_steady(
+        a[:6], a[6], a[7], device=device, **kw), n_sharded=8)
+
 
 def sweep_tables(tables, trace: OpTrace, *, policy: Policy = "eager",
                  engine: str = "prefix", segment_len: int | None = 64,
-                 combine: str = "chain",
+                 combine: str = "chain", shard: bool | None = None,
                  device: torch.device | str | None = None) -> np.ndarray:
     """[B] completion times (us) of one trace under a batch of
     design-point tables, through an engine with the batched-tables
@@ -1601,7 +1713,12 @@ def sweep_tables(tables, trace: OpTrace, *, policy: Policy = "eager",
     ``cuda`` (one kernel launch folds every design point).  On
     ``prefix``, ``segment_len=None`` holds one [N, N] product per op: at
     64 design points x a 65536-op trace on 8 x 16 that is about 360 GB,
-    beyond one card (the default 64 holds 5.6 GB)."""
+    beyond one card (the default 64 holds 5.6 GB).  On ``scan`` and
+    ``prefix`` with ``shard`` not False, a points mesh (:func:`points_mesh`;
+    every card where there are two or more) splits the tables over its
+    devices, the batch padded to a multiple of the mesh and sliced back;
+    ``shard=False`` keeps one device.  Whether that pays across cards is
+    unmeasured (:func:`points_mesh`)."""
     dev = resolve_device(device)
     batched = policy_is_batched(policy)
     eng = get_engine(engine)
@@ -1610,8 +1727,11 @@ def sweep_tables(tables, trace: OpTrace, *, policy: Policy = "eager",
     tables = list(tables)
     for t in tables:
         trace.validate_against(t)
-    return eng.end_time_batch(tables, trace, batched=batched, device=dev,
-                              segment_len=segment_len, combine=combine)
+    kw = dict(batched=batched, segment_len=segment_len, combine=combine)
+    mesh = _points_mesh(dev) if shard is not False else None
+    if mesh is not None and len(tables) > 1 and eng.caps.shard:
+        return _sharded_batch_fn(mesh, eng, trace, **kw)(tables)
+    return eng.end_time_batch(tables, trace, device=dev, **kw)
 
 
 @functools.lru_cache(maxsize=256)
@@ -1660,18 +1780,28 @@ def sweep_steady_bandwidth_mb_s(cmd_us, pre_us, slot_us, post_lo_us,
     points given as arrays of op-class scalars, payload bytes and way
     counts, via an engine with the sweep capability (``scan`` /
     ``squaring``) — the fan-out the ``calibrate`` fitting grids ride.
-    ``shard`` is accepted for the JAX package's signature and means one
-    device."""
+    With ``shard`` not False and a points mesh (:func:`points_mesh`;
+    every card where there are two or more), more than one point splits
+    over the mesh's devices; ``shard=False`` keeps one device (whether
+    sharding pays across cards is unmeasured: :func:`points_mesh`)."""
+    dev = resolve_device(device)
     scalars = (cmd_us, pre_us, slot_us, post_lo_us, post_hi_us, ctrl_us)
-    return get_engine(engine).sweep_steady(
-        scalars, data_bytes, ways, n_pages=n_pages, batched=batched,
-        device=resolve_device(device))
+    eng = get_engine(engine)
+    mesh = _points_mesh(dev) if shard is not False else None
+    if mesh is not None and eng.caps.shard:
+        args = tuple(np.asarray(x) for x in scalars + (data_bytes, ways))
+        if args[0].ndim == 1 and int(args[0].shape[0]) > 1:
+            return _sharded_sweep_steady_fn(
+                mesh, eng, n_pages=n_pages, batched=batched)(*args)
+    return eng.sweep_steady(scalars, data_bytes, ways, n_pages=n_pages,
+                            batched=batched, device=dev)
 
 
 __all__ = [
     "CacheInfo", "CapabilityError", "Engine", "EngineCaps", "OBJECTIVES", "Objective",
     "Policy", "SimRequest", "SimResult", "Simulator", "engine_capabilities",
-    "get_engine", "register_engine", "registered_engines", "simulator_for",
+    "get_engine", "points_mesh", "register_engine", "registered_engines",
+    "simulator_for",
     "steady_bandwidth_mb_s",
     "steady_channel_bandwidth_mb_s", "sweep_steady_bandwidth_mb_s",
     "sweep_tables",

@@ -54,7 +54,9 @@ caller raises the host translator's ``RuntimeError`` verbatim.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 import typing
 
 import numpy as np
@@ -84,6 +86,9 @@ _CHUNK = 256
 _GRAPH = 64
 #: Eager steps on the card before the capture (they load every kernel).
 _WARM = 32
+#: One capture at a time in a process: the blocks of a sharded sweep each
+#: capture their own graph from their own thread.
+_CAPTURE_LOCK = threading.Lock()
 
 _I64 = torch.int64
 
@@ -459,7 +464,10 @@ class _GraphChunk:
     """``_GRAPH`` steps of ``m`` captured as one CUDA graph over the state
     ``fs`` (its arrays are updated in place; its registers are copied
     back at the end of the chunk, so replays chain), and over a
-    ``[B, _GRAPH]`` record buffer when ``want_rows``."""
+    ``[B, _GRAPH]`` record buffer when ``want_rows``.  Captured on a
+    stream of the state's card under ``_CAPTURE_LOCK``, in thread-local
+    mode: other threads (the other blocks of a sharded sweep) go on
+    launching on their own streams meanwhile."""
 
     def __init__(self, m: _Machine, fs: ScanFTLState, want_rows: bool):
         b = fs.h.shape[0]
@@ -467,7 +475,9 @@ class _GraphChunk:
                                     for f in _REGISTERS})
         self.rec = _records(b, _GRAPH, fs.h.device) if want_rows else None
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with _CAPTURE_LOCK, torch.cuda.graph(
+                self.graph, stream=torch.cuda.Stream(fs.h.device),
+                capture_error_mode="thread_local"):
             out = self.state
             for i in range(_GRAPH):
                 out = m.step(out, self.rec, i)
@@ -727,16 +737,23 @@ def _reset_window(fs: ScanFTLState, ppb: int) -> ScanFTLState:
 PRE_STATES_MAX = 4
 
 
-def preconditioned_lanes(specs, device, cache=None) -> ScanFTLState:
+def preconditioned_lanes(specs, device, cache=None,
+                         lock=None) -> ScanFTLState:
     """Fresh drives of ``specs`` (one lane each, one geometry), each
     aged by its preconditioning stream (``precondition_lpns``) where the
     spec asks, their window counters reset.  A pure function of the
     specs: with ``cache`` (an ``OrderedDict`` of one device, keyed on
     ``tuple(specs)``, at most ``PRE_STATES_MAX`` batches, least recently
-    used first out) the batch ages once and later calls get copies."""
+    used first out) the batch ages once and later calls get copies.
+    ``lock`` guards the cache where threads share it (the blocks of a
+    sharded sweep on one device); the ageing itself runs outside it."""
     specs = list(specs)
     key = tuple(specs)
-    hit = None if cache is None else cache.get(key)
+    guard = lock if lock is not None else contextlib.nullcontext()
+    with guard:
+        hit = None if cache is None else cache.get(key)
+        if hit is not None:
+            cache.move_to_end(key)
     if hit is None:
         b = len(specs)
         blocks, ppb = specs[0].blocks, specs[0].pages_per_block
@@ -760,11 +777,10 @@ def preconditioned_lanes(specs, device, cache=None) -> ScanFTLState:
             _raise_lane_errors(hit, specs)
             hit = _reset_window(hit, ppb)
         if cache is not None:
-            cache[key] = hit
-            while len(cache) > PRE_STATES_MAX:
-                cache.popitem(last=False)
-    else:
-        cache.move_to_end(key)
+            with guard:
+                cache[key] = hit
+                while len(cache) > PRE_STATES_MAX:
+                    cache.popitem(last=False)
     return _clone(hit)
 
 

@@ -6,7 +6,9 @@ rules, giving the same specs path by path, over a ``launch.mesh.MeshSpec``
 card).  A spec is a ``PartitionSpec``: one entry per tensor dim, ``None``
 (replicated), a mesh axis name, or a tuple of them.  ``to_placements``
 turns a spec into ``torch.distributed.tensor`` placements, one per mesh
-dim, and ``local_shape`` / ``local_nbytes`` give what one device holds.
+dim, ``local_shape`` / ``local_nbytes`` give what one device holds, and
+``shardings`` pairs each spec with its mesh (``NamedSharding``), which
+names the slice of a leaf that one rank holds.
 
 **Divisibility-first**: a sharded dim must divide exactly (no padding),
 and the assigned archs have awkward head / expert / vocab counts, so
@@ -31,15 +33,20 @@ documented chain:
   dim over ``data``.
 * xLSTM mixers — replicated (pure data parallel); ZeRO-1 still applies.
 
-The JAX package's ``shard_points`` (``shard_map`` of a sweep over several
-devices) is not ported: it needs more than one card.
+``shard_points`` is the sweeps' counterpart of JAX's ``shard_map`` over
+the 1-D ``("points",)`` mesh: the design points split into one block a
+device, each block run from a host thread of its own.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
+from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Any
+
+import numpy as np
 
 import torch
 
@@ -243,6 +250,11 @@ def zero1_spec(spec: P, shape: tuple[int, ...], divisor: int) -> P:
     return _insert_axis(spec, shape, FSDP_AXIS, divisor)
 
 
+def sharded_dim(spec: P, axis: str) -> int | None:
+    """The dim of ``spec`` that ``axis`` splits, or None."""
+    return next((d for d, e in enumerate(spec) if axis in _axes(e)), None)
+
+
 # ---------------------------------------------------------------------------
 # activations / batches / caches
 # ---------------------------------------------------------------------------
@@ -274,12 +286,18 @@ def activation_rules(cfg: ModelConfig, mesh, batch_size: int) -> dict:
             "moe_cap": MODEL_AXIS if moe_slot else None}
 
 
+def batch_dim(path: str) -> int:
+    """The batch dim of a train / prefill batch leaf: ``position_ids`` is
+    [3, B, S], every other leaf batch-first."""
+    return 1 if path.endswith("position_ids") else 0
+
+
 def batch_pspecs(cfg: ModelConfig, mesh, batch: Any) -> Any:
     """Specs for a train/prefill batch dict (leading batch dim sharded).
     ``position_ids`` has layout [3, B, S] — batch on axis 1."""
 
     def spec_of(path, leaf):
-        bdim = 1 if path.endswith("position_ids") else 0
+        bdim = batch_dim(path)
         parts: list = [None] * leaf.dim()
         parts[bdim] = batch_axes(mesh, leaf.shape[bdim])
         return P(*parts)
@@ -319,6 +337,170 @@ def cache_pspecs(cfg: ModelConfig, mesh, cache_shape: Any) -> Any:
 def points_spec(ndim: int) -> P:
     """Leading axis over ``points``, everything else replicated."""
     return P(POINTS_AXIS, *([None] * (ndim - 1)))
+
+
+# ---------------------------------------------------------------------------
+# design-point sweep sharding (simulator batches)
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(a, pad: int):
+    """``a`` with ``pad`` copies of its row 0 appended."""
+    if pad == 0:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))])
+    if isinstance(a, np.ndarray):
+        return np.concatenate([a, np.repeat(a[:1], pad, axis=0)])
+    return list(a) + [a[0]] * pad
+
+
+def _to(x, device):
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def _gather(outs: list, device, n: int):
+    """The blocks' results joined along their first axis on ``device``,
+    the padding sliced off; tuples joined field by field."""
+    first = outs[0]
+    if isinstance(first, tuple):
+        return tuple(_gather([o[i] for o in outs], device, n)
+                     for i in range(len(first)))
+    if isinstance(first, torch.Tensor):
+        return torch.cat([o.to(device) for o in outs])[:n]
+    return np.concatenate([np.asarray(o) for o in outs])[:n]
+
+
+def _tensors(out):
+    if isinstance(out, tuple):
+        return [t for o in out for t in _tensors(o)]
+    return [out] if isinstance(out, torch.Tensor) else []
+
+
+def _on_stream(fn, device, caller):
+    """``fn()`` on a side stream of ``device`` that starts after the
+    caller's stream ``caller`` and hands its results back to it (the
+    caller's stream waits for the side stream; the results' memory is
+    recorded on it)."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            out = fn()
+        caller.wait_stream(side)
+        for t in _tensors(out):
+            if t.device.type == "cuda":
+                t.record_stream(caller)
+    return out
+
+
+def shard_points(mesh, fn, *, n_sharded: int):
+    """``fn`` (batched over its arguments' leading axis) run over the 1-D
+    ``("points",)`` mesh (``launch.mesh.make_points_mesh``): the first
+    ``n_sharded`` arguments split their leading axis into contiguous
+    blocks, one a device; the rest are handed whole to each device; the
+    blocks' results gather back on the first device.
+
+    The batch pads to a multiple of the mesh size by repeating row 0; the
+    padded rows simulate harmless copies that are sliced off, so callers
+    see exactly their B results.  Arguments may be tensors (moved to the
+    block's device), numpy arrays or sequences (split, left on the host);
+    ``fn`` gets the block's device as ``device=`` and returns a tensor, a
+    numpy array or a tuple of them.  Each block runs from a host thread of
+    its own, on the card on a side stream of its own: the folds the sweeps
+    run are bound by the host's launches, so one thread would run the
+    blocks one after another.  The points are independent, so no
+    collective is needed and each block's rows are the rows the whole
+    batch gives."""
+    devices = mesh.devices
+    if devices is None:
+        raise ValueError("shard_points needs a mesh with devices "
+                         "(launch.mesh.make_points_mesh)")
+    size = axis_size(mesh, POINTS_AXIS)
+
+    def call(*args):
+        n = len(args[0])
+        pad = -n % size
+        head = [_pad_rows(a, pad) for a in args[:n_sharded]]
+        rest = args[n_sharded:]
+        per = (n + pad) // size
+
+        def block(i):
+            dev = devices[i]
+            return fn(*(_to(a[i * per:(i + 1) * per], dev) for a in head),
+                      *(_to(a, dev) for a in rest), device=dev)
+
+        if size == 1:
+            outs = [block(0)]
+        else:
+            callers = {d: torch.cuda.current_stream(d)
+                       for d in set(devices) if d.type == "cuda"}
+
+            def run(i):
+                dev = devices[i]
+                if dev.type != "cuda":
+                    return block(i)
+                return _on_stream(lambda: block(i), dev, callers[dev])
+
+            with ThreadPoolExecutor(size) as pool:
+                outs = list(pool.map(run, range(size)))
+        return _gather(outs, devices[0], n)
+
+    return call
+
+
+# ---------------------------------------------------------------------------
+# what one rank holds
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh, the port's ``jax.sharding.NamedSharding``: which
+    slice of a leaf each mesh position (a rank) holds, and on which
+    device."""
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def blocks(self) -> tuple[int, ...]:
+        """The number of blocks each dim of the spec is cut into."""
+        return tuple(math.prod(self.mesh.shape[a] for a in _axes(e))
+                     for e in self.spec)
+
+    def index(self, shape, position: int) -> tuple[slice, ...]:
+        """The slice of a ``shape`` leaf held at mesh position
+        ``position``: each sharded dim cut into equal blocks, the block
+        numbered row-major over the dim's axes (the first the major)."""
+        local = local_shape(shape, self.spec, self.mesh)
+        coords = self.mesh.coords(position)
+        out = []
+        for d, n in enumerate(local):
+            block = 0
+            for a in _axes(self.spec[d] if d < len(self.spec) else None):
+                block = block * self.mesh.shape[a] + coords[a]
+            out.append(slice(block * n, (block + 1) * n))
+        return tuple(out)
+
+    def shard(self, x: torch.Tensor, position: int) -> torch.Tensor:
+        """Position ``position``'s slice of the whole leaf ``x``."""
+        return x[self.index(x.shape, position)]
+
+    def device(self, position: int) -> torch.device:
+        if self.mesh.devices is None:
+            raise ValueError("the mesh names no devices")
+        return self.mesh.devices[position]
+
+
+def shardings(mesh, pspecs: Any) -> Any:
+    """The tree of ``NamedSharding`` of a tree of specs on ``mesh``."""
+    return _map_specs(lambda s: NamedSharding(mesh, s), pspecs)
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,24 @@
-"""Device meshes for planning: the production meshes, the host's cards and
-one H100.
+"""Device meshes: the production meshes, the host's cards, one H100, the
+sweeps' points mesh and a data-parallel mesh over a process group.
 
 The port's counterpart of the JAX package's ``repro.launch.mesh``.  A
 ``MeshSpec`` names the mesh's axes and their sizes, and, where known, the
-memory of one of its devices; it stands in for ``jax.sharding.Mesh`` /
-``AbstractMesh`` in the partition rules (``distributed.partitioning``)
-and the dry run (``launch.dryrun``), and needs no process group: a plan is
-made without the devices it describes.
+memory of one of its devices and the devices along its axes (in mesh
+order); it stands in for ``jax.sharding.Mesh`` / ``AbstractMesh`` in the
+partition rules (``distributed.partitioning``) and the dry run
+(``launch.dryrun``).  A plan needs no process group: it is made without
+the devices it describes.
 
 * ``make_production_mesh``: the 16 x 16 ``("data", "model")`` pod, or
   2 x 16 x 16 ``("pod", "data", "model")``;
 * ``make_host_mesh``: ``(cards // model, model)`` over this host's cards;
-* ``make_points_mesh``: the 1-D ``("points",)`` sweep mesh, ``None`` with
-  fewer than two cards (the sweeps then stay on their one-device path);
+* ``make_points_mesh``: the 1-D ``("points",)`` sweep mesh, over every
+  card (``None`` with fewer than two: the sweeps then stay on their
+  one-device path) or over the devices the caller names, such as three
+  CPU "devices" or two shards of ``cuda:0`` (the counterpart of JAX's
+  ``--xla_force_host_platform_device_count``);
+* ``make_data_mesh``: ``(world // model, model)`` over an initialised
+  ``torch.distributed`` process group, one device a rank;
 * ``make_card_mesh``: one card, 1 x 1, with its memory.
 
 Nothing here touches the card when the module is imported.
@@ -47,6 +53,9 @@ class MeshSpec:
     sizes: tuple[int, ...]
     device_memory: int | None = None
     memory_source: str = ""
+    #: the device of each mesh position, row-major over ``sizes`` (a data
+    #: mesh: rank r's device at r); ``None`` for a mesh only planned on
+    devices: tuple[torch.device, ...] | None = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes):
@@ -54,6 +63,20 @@ class MeshSpec:
                              f"{len(self.sizes)} sizes")
         if any(n < 1 for n in self.sizes):
             raise ValueError(f"mesh sizes must be >= 1, got {self.sizes}")
+        if self.devices is not None and len(self.devices) != self.size:
+            raise ValueError(f"{len(self.devices)} devices for a mesh of "
+                             f"{self.size}")
+
+    def coords(self, index: int) -> dict[str, int]:
+        """Axis name -> coordinate of mesh position ``index`` (a rank),
+        row-major over the axes as ``jax.make_mesh`` lays devices out."""
+        if not 0 <= index < self.size:
+            raise ValueError(f"position {index} outside a mesh of "
+                             f"{self.size}")
+        out = {}
+        for name, n in reversed(tuple(zip(self.axis_names, self.sizes))):
+            index, out[name] = divmod(index, n)
+        return {name: out[name] for name in self.axis_names}
 
     @property
     def shape(self) -> dict[str, int]:
@@ -83,14 +106,57 @@ def make_host_mesh(model: int = 1, device=None) -> MeshSpec:
     return MeshSpec(("data", "model"), (n // model, model))
 
 
-def make_points_mesh() -> MeshSpec | None:
-    """1-D ``("points",)`` mesh over every card, the design-point axis of
-    the simulator sweeps; ``None`` with fewer than two cards, so that the
-    sweeps keep their one-device path."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n < 2:
-        return None
-    return MeshSpec(("points",), (n,))
+def make_points_mesh(devices=None) -> MeshSpec | None:
+    """1-D ``("points",)`` mesh, the design-point axis of the simulator
+    sweeps.  With no argument it spans every card, and is ``None`` with
+    fewer than two, so that the sweeps keep their one-device path.  Given
+    ``devices`` (names or ``torch.device``s, repeats allowed: ``("cpu",)
+    * 3``, ``("cuda:0", "cuda:0")``) it spans those, one shard each."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < 2:
+            return None
+        devices = [f"cuda:{i}" for i in range(n)]
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("a points mesh needs at least one device")
+    for d in devs:
+        resolve_device(d)       # raises on a card that is not there
+    return MeshSpec(("points",), (len(devs),), devices=devs)
+
+
+def make_data_mesh(model: int = 1, device=None) -> MeshSpec:
+    """``(world // model, model)`` over ``("data", "model")`` on the
+    initialised default process group, rank r at mesh position r: each
+    rank on ``cuda:{local rank}`` (``LOCAL_RANK``, else the rank modulo
+    the host's cards; made the rank's current card), on the card the
+    caller names (``device="cuda:0"``: ranks sharing one card), or every
+    rank on the CPU when the caller asks for it (``device="cpu"``).
+    Raises without a process group."""
+    import os
+
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("a data mesh needs an initialised "
+                           "torch.distributed process group")
+    world = dist.get_world_size()
+    if model < 1 or world % model:
+        raise ValueError(f"{world} ranks do not split into model={model}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = os.environ.get("LOCAL_RANK")
+            dev = torch.device("cuda", int(local) if local is not None else
+                               dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        devs = [None] * world
+        dist.all_gather_object(devs, str(dev))
+    elif dev.type == "cpu":
+        devs = ["cpu"] * world
+    else:
+        raise ValueError(f"a data mesh runs on cuda or cpu, not {dev}")
+    return MeshSpec(("data", "model"), (world // model, model),
+                    devices=tuple(torch.device(d) for d in devs))
 
 
 def make_card_mesh(device=None) -> MeshSpec:

@@ -14,6 +14,17 @@ dry run, ``launch.dryrun``, runs the step on meta).
 Gradients come from ``torch.autograd``; on the card they run through the
 hand-written attention and RG-LRU kernels forwards and backwards.  The
 step returns a new state; the state it was given is left as it was.
+
+On a data-parallel mesh (``group``: the ``torch.distributed`` data
+group) the step computes what JAX's jit of the same step over a
+``(data, model)`` mesh computes: each rank takes its rows of every
+microbatch (``rank_rows``: the global batch split ``grad_accum`` ways,
+each part split over the data ranks as ``batch_pspecs`` shards it), the
+model sums over the global batch (``distributed.ctx.data_parallel``), the
+ranks' gradients are all-reduced as an exact f32 SUM, and the global norm
+and the clip are taken on the whole gradient.  With ZeRO-1
+(``zero1_shard``) each rank updates its slice of the moments and the
+parameters are all-gathered.
 """
 
 from __future__ import annotations
@@ -22,13 +33,16 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ShapeSpec, input_specs
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partitioning as part
+from repro_torch.distributed.ctx import data_parallel
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_params, loss_fn, prefill)
-from repro_torch.train.optimizer import (OptConfig, adamw_init, adamw_update,
+from repro_torch.train.optimizer import (OptConfig, ShardedUpdate,
+                                         adamw_init, adamw_update,
                                          tree_from_paths, tree_map,
                                          tree_paths)
 from repro_torch.train.schedules import constant
@@ -105,12 +119,80 @@ def value_and_grad(cfg: ModelConfig, params: Params, batch
             grads)
 
 
+def rank_rows(batch: dict, grad_accum: int, rank: int, world: int) -> dict:
+    """Rank ``rank``'s rows of a global batch, in microbatch order: the
+    batch cut into ``grad_accum`` microbatches as ``loss_and_grads``
+    cuts it, each cut into ``world`` contiguous blocks (``batch_pspecs``'
+    split over the data axis), block ``rank`` of each kept."""
+    out = {}
+    for k, v in batch.items():
+        d = part.batch_dim(k)
+        b = v.shape[d]
+        if b % (grad_accum * world):
+            raise ValueError(
+                f"batch {k!r} of {b} rows does not split into "
+                f"{grad_accum} microbatches over {world} data ranks")
+        mb, per = b // grad_accum, b // (grad_accum * world)
+        out[k] = torch.cat([v.narrow(d, i * mb + rank * per, per)
+                            for i in range(grad_accum)], dim=d)
+    return out
+
+
+#: Elements a gradient's segment of the all-reduce buffer is padded to:
+#: each segment starts 512-byte aligned, as a tensor of its own would, so
+#: the reductions that read it (the global norm) take the same path.
+_SEGMENT = 128
+
+
+def _sum_over(grads: Params, group) -> Params:
+    """The gradients summed over ``group`` in f32, one all-reduce over one
+    buffer holding them all (each an aligned segment of it)."""
+    paths, leaves = zip(*tree_paths(grads))
+    sizes = [-(-g.numel() // _SEGMENT) * _SEGMENT for g in leaves]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32,
+                       device=leaves[0].device)
+    out, at = [], 0
+    for g, n in zip(leaves, sizes):
+        seg = flat[at:at + g.numel()].view(g.shape)
+        seg.copy_(g)
+        out.append(seg)
+        at += n
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return tree_from_paths(zip(paths, out))
+
+
 def loss_and_grads(cfg: ModelConfig, params: Params, batch,
-                   grad_accum: int = 1) -> tuple[torch.Tensor, dict, Params]:
+                   grad_accum: int = 1, group=None
+                   ) -> tuple[torch.Tensor, dict, Params]:
     """The train step's (loss, metrics, grads) before the update.  With
     ``grad_accum > 1`` the batch is split along its first axis into
     microbatches run in turn; gradients accumulate in f32 in order, as
-    JAX's ``lax.scan`` does, and loss, ce and gradients are their means."""
+    JAX's ``lax.scan`` does, and loss, ce and gradients are their means.
+
+    With a data ``group``, ``batch`` is the global batch: this rank runs
+    its rows of each microbatch (``rank_rows``) with the model's sums
+    taken over the group, and the gradients (f32) are the SUM of the
+    ranks' parts before the mean over microbatches."""
+    if group is None:
+        return _loss_and_grads(cfg, params, batch, grad_accum)
+    local = rank_rows(batch, grad_accum, dist.get_rank(group),
+                      dist.get_world_size(group))
+    with data_parallel(group):
+        loss, metrics, grads = _loss_and_grads(cfg, params, local,
+                                               grad_accum, mean=False)
+    grads = _sum_over(grads, group)
+    if grad_accum > 1:
+        grads = tree_map(lambda g: g / grad_accum, grads)
+        metrics["tokens"] = torch.tensor(batch["labels"].numel(),
+                                         dtype=torch.int32,
+                                         device=loss.device)
+    return loss, metrics, grads
+
+
+def _loss_and_grads(cfg: ModelConfig, params: Params, batch,
+                    grad_accum: int, mean: bool = True):
+    """``loss_and_grads`` on one rank's rows; without ``mean`` the
+    accumulated gradients are left as sums over the microbatches."""
     if grad_accum == 1:
         return value_and_grad(cfg, params, batch)
     micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
@@ -125,7 +207,7 @@ def loss_and_grads(cfg: ModelConfig, params: Params, batch,
         gacc = tree_map(lambda a, b: a + b.to(torch.float32), gacc, g)
         del g
         lacc, ceacc = lacc + loss, ceacc + m["ce"]
-    grads = tree_map(lambda g: g / grad_accum, gacc)
+    grads = tree_map(lambda g: g / grad_accum, gacc) if mean else gacc
     metrics = {"ce": ceacc / grad_accum,
                "moe_aux": torch.zeros((), dtype=torch.float32,
                                       device=lacc.device),
@@ -136,22 +218,46 @@ def loss_and_grads(cfg: ModelConfig, params: Params, batch,
 
 def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
                     schedule: Callable[[torch.Tensor], torch.Tensor]
-                    | None = None, grad_accum: int = 1):
+                    | None = None, grad_accum: int = 1, *, group=None,
+                    shard: ShardedUpdate | None = None):
     """forward+backward (+ microbatch accumulation) + AdamW update:
-    ``train_step(state, batch) -> (new_state, metrics)``."""
+    ``train_step(state, batch) -> (new_state, metrics)``.  With a data
+    ``group`` the step takes the global batch on every rank and reduces
+    over the group (``loss_and_grads``); ``shard`` (``zero1_shard``) is
+    this rank's ZeRO-1 share of the update."""
     schedule = schedule or constant(3e-4)
 
     def train_step(state: Params, batch: dict[str, torch.Tensor]):
         loss, metrics, grads = loss_and_grads(cfg, state["params"], batch,
-                                              grad_accum)
+                                              grad_accum, group)
         new_params, new_opt, info = adamw_update(
-            ocfg, schedule, state["params"], grads, state["opt"])
+            ocfg, schedule, state["params"], grads, state["opt"], shard)
         metrics = dict(metrics)
         metrics.update(info)
         metrics["loss"] = loss
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def zero1_shard(state_specs: Params, params: Params, mesh, position: int,
+                group) -> ShardedUpdate:
+    """Mesh position ``position``'s ZeRO-1 share of the update under the
+    train state's specs (``train_state_pspecs(..., zero1=True)``): for
+    each parameter of ``params`` (any tensors of its shapes), the slice
+    its moment shard covers (an int8 moment's codes ``q``) and the dim
+    the data axis cuts (None where no dim divides and the moment is
+    whole); ``group`` is the data group."""
+    index, dims = {}, {}
+    for path, p in tree_paths(params):
+        spec = state_specs["opt"]["m"]
+        for k in path:
+            spec = spec[k]
+        if isinstance(spec, dict):          # int8 {'q', 'scale'}
+            spec = spec["q"]
+        index[path] = part.NamedSharding(mesh, spec).index(p.shape, position)
+        dims[path] = part.sharded_dim(spec, part.FSDP_AXIS)
+    return ShardedUpdate(group, index, dims)
 
 
 def make_serve_decode(cfg: ModelConfig):

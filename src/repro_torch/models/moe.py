@@ -33,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.ctx import constrain
+from repro_torch.distributed.ctx import constrain, dp_size, dp_sum
 from repro_torch.models.layers import ACTIVATIONS, Params, dense_init
 
 
@@ -198,9 +198,15 @@ def apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, *,
 
 def aux_load_balance_loss(router_w: torch.Tensor, x: torch.Tensor,
                           spec: MoESpec) -> torch.Tensor:
-    """Switch-style load-balance auxiliary loss (fraction · probability)."""
+    """Switch-style load-balance auxiliary loss (fraction · probability).
+    Inside a ``ctx.data_parallel`` context, ``x`` is this rank's rows and
+    the means are the global batch's: sums over the data group's ranks
+    (the importance's gradient carried to this rank's rows)."""
     probs = torch.softmax(router_logits(router_w, x), dim=-1)
     top1 = probs.argmax(dim=-1)
-    frac = F.one_hot(top1, spec.n_experts).float().mean(dim=(0, 1))
-    imp = probs.mean(dim=(0, 1))
+    # the ranks hold equal row counts, so the mean of their means is the
+    # global mean; on one rank (or none) it is the local mean bit for bit
+    frac = dp_sum(F.one_hot(top1, spec.n_experts).float().mean(
+        dim=(0, 1))) / dp_size()
+    imp = dp_sum(probs.mean(dim=(0, 1))) / dp_size()
     return spec.n_experts * (frac * imp).sum()

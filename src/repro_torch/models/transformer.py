@@ -35,6 +35,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.ctx import dp_sum
 from repro_torch.kernels.flash_attention.plan import PosPlan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -413,7 +414,11 @@ def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Params, batch
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Next-token cross entropy (+ MoE aux). batch: inputs, labels[, mask]."""
+    """Next-token cross entropy (+ MoE aux). batch: inputs, labels[, mask].
+    Inside a ``ctx.data_parallel`` context ``batch`` is this rank's rows,
+    and the loss is the global batch's: the masked ``nll`` sum and the
+    token count are summed over the data group (the gradient carried to
+    this rank's rows), not averaged from rank-local means."""
     logits, aux = forward(cfg, params, batch["inputs"],
                           batch.get("positions"), batch.get("position_ids"),
                           mode="train")
@@ -425,11 +430,12 @@ def loss_fn(cfg: ModelConfig, params: Params, batch
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.to(torch.float32)
-    denom = torch.clamp_min(torch.sum(mask), 1.0)
-    ce = torch.sum(nll * mask) / denom
+    tokens = dp_sum(torch.sum(mask))
+    denom = torch.clamp_min(tokens, 1.0)
+    ce = dp_sum(torch.sum(nll * mask)) / denom
     total = ce + cfg.moe_aux_weight * aux
     return total, {"ce": ce, "moe_aux": aux,
-                   "tokens": torch.sum(mask).to(torch.int32)}
+                   "tokens": tokens.to(torch.int32)}
 
 
 # ---------------------------------------------------------------------------

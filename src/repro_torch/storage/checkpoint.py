@@ -26,7 +26,11 @@ Trees are nested dicts, lists and tuples of tensors (or numpy arrays);
 channel striping.  bfloat16 has no numpy type here: it is written as its
 16-bit pattern under the ``.npy`` descr ``'<V2'`` that numpy gives an
 ``ml_dtypes`` bfloat16 array, with the manifest dtype ``"bfloat16"``.
-Restore returns CPU tensors; :func:`place_on_device` moves them.
+Restore returns CPU tensors; :func:`place_on_device` moves them to one
+device, :func:`place_on_mesh` gives each rank of a mesh its slice of
+them, and :func:`gather_from_mesh` puts a sharded state (ZeRO-1
+moments) back together before a save, so its files and manifest are the
+ones a one-device save of the same state writes.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import concurrent.futures as cf
 import dataclasses
 import functools
 import json
+import math
 import pathlib
 import re
 import threading
@@ -43,6 +48,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.sched import lower_static
 from repro_torch.core.sim import SSDConfig
@@ -277,3 +283,54 @@ def place_on_device(host_state: Any,
     if isinstance(host_state, (list, tuple)):
         return type(host_state)(place_on_device(v, dev) for v in host_state)
     return torch.as_tensor(host_state).to(dev)
+
+
+def _map_leaves(fn, tree: Any, shardings: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, s)
+                          for v, s in zip(tree, shardings))
+    return None if tree is None else fn(tree, shardings)
+
+
+def _this_rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def place_on_mesh(host_state: Any, shardings: Any,
+                  position: int | None = None) -> Any:
+    """Elastic re-placement: mesh position ``position`` (this process's
+    rank by default) takes its slice of each whole leaf of ``host_state``
+    under the matching ``distributed.partitioning.NamedSharding`` of
+    ``shardings``, copied onto the position's device.  Any mesh shape or
+    sharding: ZeRO-1 moments split over ``data``, replicated parameters
+    whole."""
+    pos = _this_rank() if position is None else position
+
+    def one(x, sh):
+        return sh.shard(torch.as_tensor(x), pos).to(sh.device(pos),
+                                                    copy=True)
+    return _map_leaves(one, host_state, shardings)
+
+
+def gather_from_mesh(state: Any, shardings: Any, group=None) -> Any:
+    """The whole tree from every rank's slices (each rank of the mesh
+    calls it; ``group``: the mesh's process group, the default one if
+    None): a leaf that a mesh axis of more than one device splits is
+    all-gathered and each rank's slice put back in its place; the others
+    are returned as they are."""
+    def one(x, sh):
+        blocks = sh.blocks
+        if math.prod(blocks) == 1:
+            return x
+        parts = [torch.empty_like(x) for _ in range(sh.mesh.size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        shape = tuple(n * (blocks[d] if d < len(blocks) else 1)
+                      for d, n in enumerate(x.shape))
+        whole = x.new_empty(shape)
+        for r, piece in enumerate(parts):
+            whole[sh.index(shape, r)] = piece
+        return whole
+    return _map_leaves(one, state, shardings)
+

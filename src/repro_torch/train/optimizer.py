@@ -11,6 +11,11 @@ layout, so a JAX train state carries across
   stateless (re-quantised each step).
 * Global-norm clipping, decoupled weight decay, bias correction; the step
   ``count`` is int32, as in JAX.
+* **ZeRO-1** — on a data-parallel mesh a rank may hold only a slice of
+  each moment and master (``ShardedUpdate``): it updates the slice of the
+  parameter that its shard covers and the parameters are all-gathered;
+  where the slice splits an int8 moment's rows, a row's absmax is an
+  all-reduce MAX, so the shard quantises as the whole leaf would.
 
 Trees are nested dicts of tensors; leaves are visited in the JAX
 package's order (dict keys sorted), which fixes the order of the
@@ -26,6 +31,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 Params = Any
 
@@ -83,14 +89,18 @@ def _get(tree, path):
 # --- int8 per-row quantisation ---------------------------------------------
 
 
-def _quantize(x: torch.Tensor) -> dict[str, torch.Tensor]:
+def _quantize(x: torch.Tensor, row_group=None) -> dict[str, torch.Tensor]:
+    """Per-row int8 codes and scales; ``row_group``: the ranks that hold
+    the other parts of each row, whose absmax is their all-reduce MAX."""
     xf = x.to(torch.float32)
     if xf.dim() == 0:
         xf = xf[None]
         scale = torch.clamp_min(xf.abs(), 1e-20) / 127.0
     else:
-        scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True),
-                                1e-20) / 127.0
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        if row_group is not None:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=row_group)
+        scale = torch.clamp_min(amax, 1e-20) / 127.0
     return {"q": torch.round(xf / scale).to(torch.int8), "scale": scale}
 
 
@@ -98,9 +108,9 @@ def _dequantize(d: dict[str, torch.Tensor]) -> torch.Tensor:
     return d["q"].to(torch.float32) * d["scale"]
 
 
-def _store_moment(x: torch.Tensor, dtype: str):
+def _store_moment(x: torch.Tensor, dtype: str, row_group=None):
     if dtype == "int8":
-        return _quantize(x)
+        return _quantize(x, row_group)
     return x.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
 
 
@@ -129,6 +139,28 @@ def adamw_init(cfg: OptConfig, params: Params) -> Params:
     return state
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedUpdate:
+    """One rank's share of a ZeRO-1 update: per parameter path, the slice
+    of the parameter its moments and master cover (``index``) and the dim
+    that slice cuts over the data group (``dim``; None: the whole leaf,
+    which every rank updates alike).  ``group`` is the data group that
+    all-gathers the updated slices."""
+    group: Any
+    index: dict[tuple, tuple[slice, ...]]
+    dim: dict[tuple, int | None]
+
+    def gather(self, path: tuple, x: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from this rank's slice ``x`` of it."""
+        d = self.dim[path]
+        if d is None:
+            return x
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=d)
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.to(torch.float32)))
               for _, x in tree_paths(tree)]
@@ -141,8 +173,11 @@ def adamw_update(
     params: Params,
     grads: Params,
     state: Params,
+    shard: ShardedUpdate | None = None,
 ) -> tuple[Params, Params, dict[str, torch.Tensor]]:
-    """Returns (new_params, new_state, info)."""
+    """Returns (new_params, new_state, info).  With ``shard`` (ZeRO-1) the
+    state's moments and master are this rank's slices, ``params`` and
+    ``grads`` whole; the new parameters are whole again."""
     count = state["count"] + 1
     lr = schedule(count)
 
@@ -160,19 +195,28 @@ def adamw_update(
                                        device=countf.device), countf)
     md = cfg.moment_dtype
 
-    def upd(p, g, m, v, master):
+    def upd(path, p, g, m, v, master):
+        rows = None
+        if shard is not None:
+            idx = shard.index[path]
+            p, g = p[idx], g[idx]
+            if shard.dim[path] is not None and shard.dim[path] == p.dim() - 1:
+                rows = shard.group     # the slice splits each moment row
         g = g.to(torch.float32) * scale
         mf = cfg.b1 * _load_moment(m, md) + (1 - cfg.b1) * g
         vf = cfg.b2 * _load_moment(v, md) + (1 - cfg.b2) * torch.square(g)
         step = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
         base = master if master is not None else p.to(torch.float32)
         new_master = base - lr * (step + cfg.weight_decay * base)
-        return (new_master.to(p.dtype), _store_moment(mf, md),
-                _store_moment(vf, md), new_master)
+        new_p = new_master.to(p.dtype)
+        if shard is not None:
+            new_p = shard.gather(path, new_p)
+        return (new_p, _store_moment(mf, md, rows),
+                _store_moment(vf, md, rows), new_master)
 
     paths = [path for path, _ in tree_paths(params)]
-    out = [upd(_get(params, path), _get(grads, path), _get(state["m"], path),
-               _get(state["v"], path),
+    out = [upd(path, _get(params, path), _get(grads, path),
+               _get(state["m"], path), _get(state["v"], path),
                _get(state["master"], path) if cfg.master else None)
            for path in paths]
     new_params = tree_from_paths((path, o[0]) for path, o in zip(paths, out))

@@ -65,6 +65,48 @@ def test_import_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == ""
 
 
+def test_sharded_paths_load_neither_jax_nor_repro(tmp_path):
+    """The multi-device paths too: a sweep sharded over a points mesh of
+    two CPU devices, and two data-parallel ZeRO-1 Trainer steps on a
+    one-rank gloo group."""
+    code = ("import sys, dataclasses\n"
+            "import numpy as np, torch.distributed as dist\n"
+            "import repro_torch\n"
+            "from repro_torch import api\n"
+            "from repro_torch.core import sim, trace\n"
+            "from repro_torch.launch.mesh import make_data_mesh, "
+            "make_points_mesh\n"
+            "from repro_torch.configs import registry\n"
+            "from repro_torch.storage.datapipe import SyntheticTokens\n"
+            "from repro_torch.train.trainer import Trainer, TrainerConfig\n"
+            "t = trace.mixed_trace(64, 2, 4, 0.7, seed=1)\n"
+            "tables = [trace.op_class_table(sim.SSDConfig(channels=2, "
+            "ways=4, cell=c)) for c in ('slc', 'mlc', 'slc')]\n"
+            "with api.points_mesh(make_points_mesh(('cpu', 'cpu'))):\n"
+            "    ends = api.sweep_tables(tables, t, engine='scan', "
+            "device='cpu')\n"
+            "assert np.array_equal(ends, api.sweep_tables(tables, t, "
+            "engine='scan', device='cpu', shard=False))\n"
+            f"dist.init_process_group('gloo', init_method="
+            f"'file://{tmp_path}/store', rank=0, world_size=1)\n"
+            "cfg = dataclasses.replace(registry.get_arch('qwen2-0.5b')"
+            ".smoke, compute_dtype='f32')\n"
+            "tr = Trainer(cfg, TrainerConfig(steps=2, ckpt_every=100, "
+            f"ckpt_dir='{tmp_path}/ckpt'), SyntheticTokens(cfg.vocab_size, "
+            "batch=2, seq=6), mesh=make_data_mesh(device='cpu'))\n"
+            "assert tr.run()['final_step'] == 2\n"
+            "dist.destroy_process_group()\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+            "or m == 'ml_dtypes')\n"
+            "print(','.join(bad))\n")
+    src = str(PORT_SRC.parent)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == ""
+
+
 IMPORT_RE = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)"
     r"|from\s+repro(\.|\s)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
