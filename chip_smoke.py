@@ -307,6 +307,27 @@ Phases, one report line each (every check raises on failure):
    ``Trainer`` on the card at the bars of
    ``tests/test_torch_train_step.py``.  Phase 17 adds no kernel; the
    data-parallel steps launch K4 and K5 forwards and backwards.
+18. tensor parallelism over ``model`` (``phase_tp``), on gloo ranks
+   sharing ``cuda:0`` (NCCL refuses two ranks on one card; spawned
+   processes, each set once): (18a) qwen2-0.5b ``CONFIG`` at full width,
+   ``TP_QWEN_LAYERS`` deep, on a ``(1, 2)`` mesh (kv heads, FFN and the
+   tied vocabulary split) on 14b's batches, and (18b) 14d's recurrentgemma-9b cut (query
+   groups at D = 256, the RG-LRU's 2048 channels a rank, int8 moments):
+   the first batch's loss, global norm and every gradient leaf against
+   the mesh-less ones at 14b's bars, ``TP_STEPS`` ``Trainer`` steps
+   against the mesh-less ``Trainer``'s in the same call, each rank's
+   step seconds, peak, K4 / K5 launches and all-reduces; (18c) qwen2-0.5b
+   cut to ``TP_SEQ_LAYERS`` layers on ``(1, 4)``: neither heads nor
+   groups divide, so each rank's S / 4 queries attend at their
+   ``q_offset`` to every key through K4's forward and its backward over
+   a query chunk, the step against the mesh-less one; that chunk
+   backward alone against its plain version on each of the four chunks
+   (unseen keys' dk / dv exactly 0), timed beside its bound and SDPA
+   with the chunk's mask; (18d) the same four ranks as ``(2, 2)`` on
+   qwen2-0.5b SMOKE (ZeRO-1, int8 moments, two microbatches) and
+   granite-moe-3b-a800m SMOKE (experts split) against the mesh-less
+   ``Trainer``, 17c's bars.  Times of ranks sharing one card measure
+   correctness, not a speed-up.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -316,8 +337,8 @@ of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5 (and
 the prefills of 13b-13d, each reported as its own K4 entry),
 ``Trainer.run()`` in 14c that of K4's backward and 14d's two steps that
 of K5's, 16b's train step and scoring forward that of K4's EXT
-instantiations: the launch counts are reset just before each and read
-just after.  The
+instantiations, 18c's step on rank 0 that of K4's chunk backward: the
+launch counts are reset just before each and read just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
 read once, the dense dictionary by the pre-pass; per step the add/max
 pairs of the kept entries and the side operations of the rows the op
@@ -335,6 +356,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import faulthandler
+import gc
 import json
 import math
 import statistics
@@ -5538,7 +5560,7 @@ def time_k4_ext(q, k, v, do, pos, cap) -> dict:
                                                             bq=bq2)),
         "dkdv_pr25": old_rule_tiles(pos[0], bq2, bk2),
         "dkdv_index": sum(len(r) for r in tiles.dkdv_schedule(
-            s=s, causal=True, window=None, bk=bk2, bq=bq2))}
+            sq=s, causal=True, window=None, bk=bk2, bq=bq2))}
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     of, lsef = FK.flash_attention_bhsd(qf, kf, vf, with_lse=True, **pk)
     t["f32_route_ms"] = cuda_ms(lambda: FK.flash_attention_bhsd(
@@ -6002,7 +6024,8 @@ def multi_rank(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def updates_close(start, got, want, grad, rel, noise) -> float:
+def updates_close(start, got, want, grad, rel, noise,
+                  label: str = "17c") -> float:
     """The largest error of the update ``got - start`` against ``want -
     start`` over the elements whose gradient is above 1e-3 of the leaf's
     largest, relative to the leaf's largest such update; raises where an
@@ -6018,10 +6041,11 @@ def updates_close(start, got, want, grad, rel, noise) -> float:
                         / max(float(dw.abs()[big].max()), 1e-30))
             worst = max(worst, err)
             if err > rel:
-                raise AssertionError(f"17c {path}: update {err:.2e} > {rel}")
+                raise AssertionError(f"{label} {path}: update {err:.2e} > "
+                                     f"{rel}")
         small = (dg - dw).abs()[~big]
         if small.numel() and float(small.max()) > noise:
-            raise AssertionError(f"17c {path}: noise update "
+            raise AssertionError(f"{label} {path}: noise update "
                                  f"{float(small.max()):.2e} > {noise}")
     return worst
 
@@ -6034,8 +6058,6 @@ def multi_two_ranks(device) -> dict:
 
     import torch
     import torch.multiprocessing as mp
-    from repro_torch.launch.steps import loss_and_grads
-    from repro_torch.train.optimizer import tree_paths
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -6045,56 +6067,66 @@ def multi_two_ranks(device) -> dict:
         spawn_s = time.perf_counter() - t0
         ranks = torch.load(os.path.join(tmp, "ranks.pt"))
         for arch, accum, moments in MULTI_SMOKES:
-            tr = smoke_trainer(arch, accum, moments,
-                               os.path.join(tmp, f"{arch}-one"),
-                               device=device)
-            start = tr._fresh_state()
-            first = next(iter(SmokeBatches(tr.cfg.vocab_size)))
-            _, _, grad = loss_and_grads(tr.cfg, start["params"], {
-                k: v.to(device) for k, v in first.items()}, accum)
-            res = tr.run()
-            got = ranks[arch]
-            lr_sum = sum(h["lr"] for h in res["history"])
-            for h, w in zip(got["history"], res["history"]):
-                for k in ("loss", "ce", "grad_norm", "lr", "moe_aux"):
-                    if abs(h[k] - w[k]) > MULTI_METRIC_TOL * max(abs(w[k]),
-                                                                 1e-30):
-                        raise AssertionError(f"17c {arch} step {w['step']} "
-                                             f"{k}: {h[k]} vs {w[k]}")
-                if h["tokens"] != w["tokens"]:
-                    raise AssertionError(f"17c {arch} tokens {h} vs {w}")
-            want = {"/".join(p): x.cpu() for p, x in tree_paths(tr.state)}
-            st = got["state"]
-            if sorted(st) != sorted(want) or got["restarts"]:
-                raise AssertionError(f"17c {arch}: leaves or restarts differ")
-            pick = {"/".join(p): x.float().cpu()
-                    for p, x in tree_paths(start["params"])}
-            g = {"/".join(p): x.float().cpu() for p, x in tree_paths(grad)}
-            int8 = moments == "int8"
-            worst = {}
-            for tree in ("params", "opt/master"):
-                worst[tree] = updates_close(
-                    {f"{tree}/{k}": v for k, v in pick.items()},
-                    {k: v.float() for k, v in st.items()},
-                    {k: v.float() for k, v in want.items()},
-                    {f"{tree}/{k}": v for k, v in g.items()},
-                    1.0 / 127 if int8 else MULTI_UPDATE_TOL, 2 * lr_sum)
-            mom = 0.0
-            for k, w in want.items():
-                if not k.startswith(("opt/m/", "opt/v/")):
-                    continue
-                err = float((st[k].float() - w.float()).abs().max()
-                            / max(float(w.float().abs().max()), 1e-30))
-                mom = max(mom, err)
-                if err > (1.0 / 127 if int8 else MULTI_MOMENT_TOL):
-                    raise AssertionError(f"17c {arch} {k}: {err:.2e}")
-            out[arch] = {"grad_accum": accum, "moments": moments,
-                         "update_rel": worst, "moment_rel": mom,
-                         "launches": {k: v for k, v in got["launches"].items()
-                                      if v}}
-            del tr, start, grad
+            out[arch] = smoke_against_meshless("17c", arch, accum, moments,
+                                               ranks[arch], device)
         out["spawn_s"] = spawn_s
     return out
+
+
+def smoke_against_meshless(label, arch, accum, moments, got, device) -> dict:
+    """A SMOKE case's multi-rank run (``got``: rank 0's history, gathered
+    state and launches) against the mesh-less Trainer on the card from the
+    same fresh state: metrics within MULTI_METRIC_TOL, tokens exact, the
+    parameters' and masters' updates by ``updates_close`` and the moments
+    leaf by leaf (17c's bars)."""
+    import tempfile
+
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.train.optimizer import tree_paths
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = smoke_trainer(arch, accum, moments, tmp, device=device)
+        start = tr._fresh_state()
+        first = next(iter(SmokeBatches(tr.cfg.vocab_size)))
+        _, _, grad = loss_and_grads(tr.cfg, start["params"], {
+            k: v.to(device) for k, v in first.items()}, accum)
+        res = tr.run()
+    lr_sum = sum(h["lr"] for h in res["history"])
+    for h, w in zip(got["history"], res["history"]):
+        for k in ("loss", "ce", "grad_norm", "lr", "moe_aux"):
+            if abs(h[k] - w[k]) > MULTI_METRIC_TOL * max(abs(w[k]), 1e-30):
+                raise AssertionError(f"{label} {arch} step {w['step']} {k}: "
+                                     f"{h[k]} vs {w[k]}")
+        if h["tokens"] != w["tokens"]:
+            raise AssertionError(f"{label} {arch} tokens {h} vs {w}")
+    want = {"/".join(p): x.cpu() for p, x in tree_paths(tr.state)}
+    st = got["state"]
+    if sorted(st) != sorted(want) or got["restarts"]:
+        raise AssertionError(f"{label} {arch}: leaves or restarts differ")
+    pick = {"/".join(p): x.float().cpu()
+            for p, x in tree_paths(start["params"])}
+    g = {"/".join(p): x.float().cpu() for p, x in tree_paths(grad)}
+    int8 = moments == "int8"
+    worst = {}
+    for tree in ("params", "opt/master"):
+        worst[tree] = updates_close(
+            {f"{tree}/{k}": v for k, v in pick.items()},
+            {k: v.float() for k, v in st.items()},
+            {k: v.float() for k, v in want.items()},
+            {f"{tree}/{k}": v for k, v in g.items()},
+            1.0 / 127 if int8 else MULTI_UPDATE_TOL, 2 * lr_sum, label)
+    mom = 0.0
+    for k, w in want.items():
+        if not k.startswith(("opt/m/", "opt/v/")):
+            continue
+        err = float((st[k].float() - w.float()).abs().max()
+                    / max(float(w.float().abs().max()), 1e-30))
+        mom = max(mom, err)
+        if err > (1.0 / 127 if int8 else MULTI_MOMENT_TOL):
+            raise AssertionError(f"{label} {arch} {k}: {err:.2e}")
+    return {"grad_accum": accum, "moments": moments, "update_rel": worst,
+            "moment_rel": mom, "launches": {k: v for k, v in
+                                            got["launches"].items() if v}}
 
 
 def phase_multi(device, trace, tables, smi, train14c) -> dict:
@@ -6212,6 +6244,641 @@ def phase_multi(device, trace, tables, smi, train14c) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[17] phase 17 in {out['seconds']:.1f} s (17c's spawn, run and "
         f"join {out['17c']['spawn_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tensor parallelism over ``model`` (gloo ranks sharing cuda:0)
+# ---------------------------------------------------------------------------
+
+#: 18a / 18b: two gloo ranks sharing cuda:0 as a (1, 2) mesh (NCCL refuses
+#: two ranks on one card); TP_STEPS Trainer steps against the mesh-less
+#: Trainer's from the same fresh state in the same call, and the first
+#: batch's loss and gradients against the mesh-less ones, with 14b's bars
+#: (TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_LEAF_TOL).  18a: 14b's qwen2-0.5b
+#: CONFIG at full width, its 24 layers cut to TP_QWEN_LAYERS for the
+#: script's time (its 2 x 4096 steps take 5–6 s a step on the two ranks,
+#: most of it gloo's all-reduces through the host), and 14b's batches;
+#: 18b: 14d's recurrentgemma-9b cut (RG_LAYERS, RG_BATCH, int8 moments)
+TP_STEPS = 2
+TP_QWEN_LAYERS = 12
+TP_TIMEOUT_S = 300
+#: 18c: qwen2-0.5b cut to TP_SEQ_LAYERS layers on four ranks as (1, 4):
+#: neither its 2 kv heads nor its query groups of 7 divide, so each rank
+#: attends from its S / 4 queries to every key; one step of TP_SEQ_BATCH x
+#: TRAIN_SEQ against the mesh-less step at the same depth
+TP_SEQ_LAYERS, TP_SEQ_BATCH = 4, 1
+#: 18d: the same four ranks as (2, 2), SMOKE size at f32 (17c's batches and
+#: bars): (arch, grad_accum, moment dtype)
+TP_SMOKES = (("qwen2-0.5b", 2, "int8"), ("granite-moe-3b-a800m", 1, "f32"))
+
+
+class CollectiveLog:
+    """Counts the all-reduces and all-gathers this process issues (calls
+    and bytes) while installed, by wrapping ``torch.distributed``'s two
+    functions, which ``distributed.ctx`` and the optimizer look up at each
+    call."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist = dist
+        self.real = {k: getattr(dist, k) for k in ("all_reduce",
+                                                  "all_gather")}
+        self.calls = {k: 0 for k in self.real}
+        self.bytes = {k: 0 for k in self.real}
+
+        def wrap(kind):
+            def call(x, *args, **kwargs):
+                t = x if kind == "all_reduce" else args[0]
+                self.calls[kind] += 1
+                self.bytes[kind] += t.numel() * t.element_size()
+                return self.real[kind](x, *args, **kwargs)
+            return call
+        for k in self.real:
+            setattr(dist, k, wrap(k))
+
+    def restore(self) -> dict:
+        for k, fn in self.real.items():
+            setattr(self.dist, k, fn)
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes)}
+
+
+def tp_configs() -> dict:
+    """The configs, optimizer configs, grad_accum and batch sources of
+    18a, 18b and 18c."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.storage.datapipe import SyntheticTokens
+    from repro_torch.train.optimizer import OptConfig
+    qwen = get_arch(TRAIN_ARCH).config
+    rg = dataclasses.replace(get_arch("recurrentgemma-9b").config,
+                             n_layers=RG_LAYERS)
+    return {
+        "18a": (dataclasses.replace(qwen, n_layers=TP_QWEN_LAYERS),
+                OptConfig(), TRAIN_ACCUM, lambda: SyntheticTokens(
+                    qwen.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    seed=LM_SEED)),
+        "18b": (rg, OptConfig(moment_dtype="int8"), 1, lambda: SyntheticTokens(
+            rg.vocab_size, batch=RG_BATCH, seq=TRAIN_SEQ, seed=LM_SEED + 1)),
+        "18c": (dataclasses.replace(qwen, n_layers=TP_SEQ_LAYERS),
+                OptConfig(), 1, lambda: SyntheticTokens(
+                    qwen.vocab_size, batch=TP_SEQ_BATCH, seq=TRAIN_SEQ,
+                    seed=LM_SEED + 2))}
+
+
+def tp_trainer(label, ckpt_dir, device=None, mesh=None):
+    """A Trainer of TP_STEPS steps of ``label``'s config on its batches;
+    its saves recorded, not written, and each step timed."""
+    import torch
+    from repro_torch.train.schedules import wsd
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg, ocfg, accum, data = tp_configs()[label]
+    tr = Trainer(cfg, TrainerConfig(
+        steps=TP_STEPS, log_every=1, ckpt_every=10 ** 9,
+        ckpt_dir=str(ckpt_dir), grad_accum=accum, zero1=True), data(),
+        ocfg=ocfg, schedule=wsd(*TRAIN_WSD), device=device, mesh=mesh)
+    tr.saved, tr.step_s = [], []
+    tr.ckpt.save = lambda step, *a, **kw: tr.saved.append(step)
+    step_fn = tr._step
+
+    def timed_step(st, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step_fn(st, batch)
+        torch.cuda.synchronize()
+        tr.step_s.append(time.perf_counter() - t0)
+        return res
+    tr._step = timed_step
+    return tr
+
+
+#: the cases whose whole parameters (the reference step's, with its
+#: gradients and activations, and the Trainer's fresh state) do not fit
+#: the card once for every rank: drawn one rank at a time
+TP_ONE_AT_A_TIME = ("18b",)
+
+
+def tp_reference(label, mesh, position) -> dict:
+    """The mesh-less loss and gradients of ``label``'s first batch on the
+    parameters the Trainer draws from its seed, and this rank's slices of
+    the parameters and the gradients on ``mesh``.  The ranks share the
+    card: where the whole step does not fit it once a rank
+    (TP_ONE_AT_A_TIME), one rank at a time draws the whole parameters and
+    takes the step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.launch.steps import loss_and_grads, to_device
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import (global_norm, tree_from_paths,
+                                             tree_paths)
+    cfg, _, accum, data = tp_configs()[label]
+    dev = resolve_device("cuda:0")
+    batch = to_device(next(iter(data())), dev)
+    t0 = time.perf_counter()
+    turns = (range(dist.get_world_size()) if label in TP_ONE_AT_A_TIME
+             else (position,))
+    for turn in turns:
+        if turn == position:
+            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                0), device=dev)
+            loss, _, grads = loss_and_grads(cfg, whole, batch, accum)
+            leaves = dict(tree_paths(whole))
+            index = {p: part.NamedSharding(mesh, s).index(leaves[p].shape,
+                                                          position)
+                     for p, s in tree_paths(part.param_pspecs(cfg, mesh,
+                                                              whole))}
+            out = {"loss": float(loss), "norm": float(global_norm(grads)),
+                   "batch": batch,
+                   "params": tree_from_paths((p, x[index[p]].clone())
+                                             for p, x in leaves.items()),
+                   "grads": {p: g[index[p]].clone()
+                             for p, g in tree_paths(grads)}}
+            del whole, leaves, grads
+            torch.cuda.empty_cache()
+        if len(turns) > 1:
+            dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def leaf_errors(ref, grads, mesh, shards, all_reduce) -> tuple:
+    """(the worst, its path) of each whole gradient leaf's relative L2
+    distance from the mesh-less one (14b's measure), from this rank's
+    slices (``tp_reference``): each leaf's two sums over the slices are
+    summed over the model group (``all_reduce``) where ``model`` splits
+    the leaf."""
+    import torch
+    from repro_torch.train.optimizer import tree_paths
+    paths = [p for p, _ in tree_paths(grads)]
+    sums = torch.stack([torch.stack([
+        (g.float() - ref["grads"][p].float()).square().sum(),
+        ref["grads"][p].float().square().sum()])
+        for p, g in tree_paths(grads)])
+    split = torch.tensor([p in shards.sharded for p in paths],
+                         device=sums.device)[:, None]
+    total = torch.where(split, sums, torch.zeros_like(sums))
+    all_reduce(total, group=mesh.model_group)
+    total = torch.where(split, total, sums)
+    worst = (0.0, None)
+    for p, (d, w) in zip(paths, total.tolist()):
+        e = math.sqrt(d) / max(math.sqrt(w), LEAF_FLOOR * ref["norm"])
+        if e > worst[0]:
+            worst = (e, "/".join(p))
+    return worst
+
+
+def grads_against(ref, loss, norm, leaf) -> dict:
+    """The loss, the global norm and ``leaf_errors``' worst leaf against
+    the mesh-less step's."""
+    pnorm = ref["norm"]
+    return {"loss": loss, "plain_loss": ref["loss"], "grad_norm": norm,
+            "plain_grad_norm": pnorm,
+            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+            "norm_rel": abs(norm - pnorm) / pnorm, "leaf_rel": leaf[0],
+            "worst_leaf": leaf[1]}
+
+
+def tp_seq_step(mesh, position) -> dict:
+    """18c on this rank of the (1, 4) mesh: the first batch's loss and
+    gradients on its slices against the mesh-less ones, each K4 launch's
+    (kind, Sq, Sk, q_offset) recorded, the kernels and collectives
+    counted."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.steps import loss_and_grads, model_shards
+    from repro_torch.train.optimizer import global_norm
+    cfg, _, accum, _ = tp_configs()["18c"]
+    ref = tp_reference("18c", mesh, position)
+    reset_kernel_counts()
+    calls = []
+    real_fwd, real_bwd = FK._launch, FK._launch_bwd
+
+    def fwd(name, q, k, *a, **kw):       # a[4]: q_offset
+        calls.append(("fwd", q.shape[2], k.shape[2], a[4]))
+        return real_fwd(name, q, k, *a, **kw)
+
+    def bwd(q, k, *a, **kw):             # a[9]: q_offset
+        calls.append(("bwd", q.shape[2], k.shape[2], a[9]))
+        return real_bwd(q, k, *a, **kw)
+    FK._launch, FK._launch_bwd = fwd, bwd
+    coll = CollectiveLog()
+    try:
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(cfg, ref["params"], ref["batch"],
+                                        accum, mesh.data_group,
+                                        mesh.model_group)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    finally:
+        FK._launch, FK._launch_bwd = real_fwd, real_bwd
+        collectives = coll.restore()
+    counts = {**kernel_counts(), **FK.CHUNK_LAUNCHES}
+    shards = model_shards(cfg, mesh, mesh.model_group)
+    out = grads_against(ref, float(loss), float(global_norm(grads, shards)),
+                        leaf_errors(ref, grads, mesh, shards,
+                                    torch.distributed.all_reduce))
+    out.update(step_s=step_s, reference_s=ref["seconds"],
+               launches={k: v for k, v in counts.items() if v},
+               k4_calls=sorted(set(calls)), collectives=collectives)
+    return out
+
+
+def tp_trainer_run(label, mesh, position, ckpt_dir) -> dict:
+    """18a / 18b on this rank of the (1, 2) mesh: TP_STEPS Trainer steps,
+    the first step's gradients (taken as the optimizer receives them)
+    against the mesh-less ones on the same parameters and batch; each
+    step timed, the peak, the kernels and the collectives counted.  The
+    final save is recorded and not gathered (17b writes saves; the CPU
+    tests hold a tensor-parallel save's files)."""
+    import torch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.steps import model_shards
+    from repro_torch.train import trainer as trainer_mod
+    cfg = tp_configs()[label][0]
+    ref = tp_reference(label, mesh, position)
+    del ref["params"], ref["batch"]     # the Trainer draws its own
+    shards = model_shards(cfg, mesh, mesh.model_group)
+    first = {}
+    real_update, real_gather = steps_mod.adamw_update, \
+        trainer_mod.gather_from_mesh
+
+    def update(ocfg, schedule, params, grads, state, *a, **kw):
+        if not first:       # the first step's gradients, then drop the ref's
+            first["leaf"] = leaf_errors(ref, grads, mesh, shards,
+                                        coll.real["all_reduce"])
+            del ref["grads"]
+            torch.cuda.empty_cache()
+        return real_update(ocfg, schedule, params, grads, state, *a, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = tp_trainer(label, ckpt_dir, mesh=mesh)
+    if label in TP_ONE_AT_A_TIME:       # one rank at a time draws it whole
+        draw = tr._fresh_state
+
+        def fresh():
+            for turn in range(torch.distributed.get_world_size()):
+                if turn == position:
+                    state = draw()
+                    torch.cuda.empty_cache()
+                torch.distributed.barrier()
+            return state
+        tr._fresh_state = fresh
+    steps_mod.adamw_update = update
+    trainer_mod.gather_from_mesh = lambda state, *a, **kw: state
+    reset_kernel_counts()
+    coll = CollectiveLog()
+    t0 = time.perf_counter()
+    try:
+        run = tr.run()
+    finally:
+        collectives = coll.restore()
+        steps_mod.adamw_update = real_update
+        trainer_mod.gather_from_mesh = real_gather
+    out = {"run_s": time.perf_counter() - t0, "history": run["history"],
+           "step_s": tr.step_s, "saved": tr.saved,
+           "restarts": run["restarts"],
+           "launches": {k: v for k, v in kernel_counts().items() if v},
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "collectives": collectives, "reference_s": ref["seconds"]}
+    h = run["history"][0]
+    out["grads"] = grads_against(ref, h["loss"], h["grad_norm"],
+                                 first["leaf"])
+    del tr, run
+    gc.collect()                # the timed step's closure holds tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, tmp: str, world: int) -> None:
+    """One of ``world`` gloo ranks sharing cuda:0 (a spawned process):
+    two ranks run 18a and 18b on (1, 2), four 18c on (1, 4) and 18d on
+    (2, 2); each writes what it measured."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.storage.checkpoint import gather_from_mesh
+    from repro_torch.train.optimizer import tree_paths
+
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, f"store{world}"), world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {"walls": {}}
+    try:
+        if world == 2:
+            mesh = make_data_mesh(model=2, device="cuda:0")
+            out["walls"]["start"] = time.perf_counter() - t0
+            for label in ("18a", "18b"):
+                t1 = time.perf_counter()
+                out[label] = tp_trainer_run(label, mesh, rank,
+                                            os.path.join(tmp, label))
+                out["walls"][label] = time.perf_counter() - t1
+        else:
+            mesh = make_data_mesh(model=4, device="cuda:0")
+            out["walls"]["start"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            out["18c"] = tp_seq_step(mesh, rank)
+            torch.cuda.empty_cache()
+            out["walls"]["18c"] = time.perf_counter() - t1
+            mesh = make_data_mesh(model=2, device="cuda:0")
+            for arch, accum, moments in TP_SMOKES:
+                t1 = time.perf_counter()
+                tr = smoke_trainer(arch, accum, moments,
+                                   os.path.join(tmp, f"18d-{arch}"),
+                                   mesh=mesh)
+                reset_kernel_counts()
+                res = tr.run()
+                counts = kernel_counts()
+                whole = gather_from_mesh(tr.state, tr.state_shardings)
+                out[f"18d/{arch}"] = {
+                    "history": res["history"], "restarts": res["restarts"],
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "state": {"/".join(p): x.cpu()
+                              for p, x in tree_paths(whole)}}
+                out["walls"][f"18d/{arch}"] = time.perf_counter() - t1
+        torch.save(out, os.path.join(tmp, f"tp{world}-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_spawn(tmp, world: int) -> tuple[list, float]:
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    # the ranks share the card: growable segments keep their freed blocks
+    # from stranding memory the other ranks need (the ranks inherit it)
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        mp.start_processes(tp_rank, args=(tmp, world), nprocs=world,
+                           join=True, start_method="spawn")
+    finally:
+        if prev is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    spawn_s = time.perf_counter() - t0
+    return [torch.load(os.path.join(tmp, f"tp{world}-rank{r}.pt"))
+            for r in range(world)], spawn_s
+
+
+def check_tp_grads(label, r) -> None:
+    if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+        raise AssertionError(f"{label}: loss {r['loss']} / norm "
+                             f"{r['grad_norm']}")
+    if (r["loss_rel"] > TRAIN_LOSS_TOL or r["norm_rel"] > TRAIN_NORM_TOL
+            or r["leaf_rel"] > TRAIN_LEAF_TOL):
+        raise AssertionError(f"{label}: the tensor-parallel gradients vs the "
+                             f"mesh-less ones: {r}")
+
+
+def time_chunk_bwd(device) -> dict:
+    """18c's chunk backward alone, at the main path's shape (q [1, 14,
+    S / 4, 64] at q_offset r S / 4, k, v [1, 2, S, 64], causal) on each of
+    the four chunks: bf16 against the plain version within
+    FLASH_BWD_TOL, the keys no row sees exactly 0, the f32 route on the
+    last chunk within its bar; the last chunk (the most pairs) timed as
+    one call between CUDA events, beside its plain version, its
+    operations bound (10 D flops a kept pair at the bf16 tensor-core
+    rate) and SDPA's backward with the chunk's boolean mask (forward plus
+    backward minus forward, kv heads repeated)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference)
+    cfg = tp_configs()["18c"][0]
+    h, kvh, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.hd, TRAIN_SEQ
+    n = s // 4
+    g = torch.Generator(device=device).manual_seed(18)
+    k, v = (torch.randn((1, kvh, s, d), generator=g, device=device).bfloat16()
+            for _ in range(2))
+    out = {"chunks": []}
+    for r in range(4):
+        off = r * n
+        q, do = (torch.randn((1, h, n, d), generator=g,
+                             device=device).bfloat16() for _ in range(2))
+        routes = [(torch.bfloat16, q, k, v, do)]
+        if r == 3:
+            routes.append((torch.float32, *(x.float() for x in (q, k, v,
+                                                                 do))))
+        for dt, qq, kk, vv, dd in routes:
+            o, lse = FK.flash_attention_bhsd(qq, kk, vv, q_offset=off,
+                                             with_lse=True)
+            got = FK.flash_attention_bwd_bhsd(qq, kk, vv, o, dd, lse,
+                                              q_offset=off)
+            want = attention_backward_reference(qq, kk, vv, o, dd,
+                                                q_offset=off)
+            torch.cuda.synchronize()
+            rel = max(rel_max(x, y) for x, y in zip(got, want))
+            err = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(got, want))
+            unseen = torch.arange(s, device=device) > off + n - 1
+            zero = all(not bool(x[:, :, unseen].any()) for x in got[1:])
+            if rel > FLASH_BWD_TOL[str(dt)] or not zero:
+                raise AssertionError(f"18c chunk backward at q_offset {off} "
+                                     f"({dt}): {rel:.2e}, unseen keys zero "
+                                     f"{zero}")
+            out["chunks"].append({"q_offset": off, "dtype": str(dt),
+                                  "rel_err": rel, "max_abs_err": err,
+                                  "unseen_keys": int(unseen.sum())})
+            if dt == torch.bfloat16:
+                out.setdefault("ms_by_offset", {})[off] = cuda_ms(
+                    lambda: FK.flash_attention_bwd_bhsd(
+                        qq, kk, vv, o, dd, lse, q_offset=off))
+    # the last chunk: time, plain, bound, SDPA
+    last = 3 * n
+    t = {"shape": [1, h, n, d], "kv_shape": [1, kvh, s, d], "q_offset": last,
+         "ms": out["ms_by_offset"][last],
+         "max_abs_err": max(c["max_abs_err"] for c in out["chunks"]
+                            if c["dtype"] == str(torch.bfloat16)),
+         "f32_max_abs_err": out["chunks"][-1]["max_abs_err"]}
+    t["fwd_lse_ms"] = cuda_ms(lambda: FK.flash_attention_bhsd(
+        q, k, v, q_offset=last, with_lse=True))
+    t["plain_ms"] = cuda_ms(lambda: attention_backward_reference(
+        q, k, v, o, do, q_offset=last), warmup=False)
+    t["pairs"] = valid_pairs(n, s, True, None, last)
+    t["ops"] = 10.0 * d * t["pairs"] * h
+    t["bytes"] = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+    t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"],
+                                            ops_per_s=BF16_OPS_PER_S)
+    group = h // kvh
+    xs = [x.detach().requires_grad_(True) for x in (
+        q, k.repeat_interleave(group, dim=1),
+        v.repeat_interleave(group, dim=1))]
+    qp = last + torch.arange(n, device=device)
+    mask = qp[:, None] >= torch.arange(s, device=device)[None, :]
+    t["library_ms"] = None
+    try:             # the yardstick only, never the path
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *xs, attn_mask=mask))
+        both = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*xs, attn_mask=mask), xs, do))
+        t["library_ms"], t["library_fwd_ms"] = both - fwd, fwd
+    except RuntimeError as exc:
+        log(f"SDPA chunk backward yardstick failed: {exc}")
+    out["k4_chunk_bwd"] = t
+    return out
+
+
+def phase_tp(device, smi) -> dict:
+    """18 (see the module docstring)."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"main_gb": torch.cuda.memory_allocated() / 1e9}
+    # -- the mesh-less Trainer's steps, the references of 18a / 18b ------
+    t0 = time.perf_counter()
+    history = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("18a", "18b"):
+            tr = tp_trainer(label, f"{tmp}/{label}", device=device)
+            run = tr.run()
+            history[label] = {"history": run["history"], "step_s": tr.step_s,
+                              "saved": tr.saved}
+            del tr, run
+            gc.collect()            # the timed step's closure holds tr
+            torch.cuda.empty_cache()
+    out["reference_s"] = time.perf_counter() - t0
+    # -- 18c's chunk backward alone -------------------------------------
+    t0 = time.perf_counter()
+    out["chunk"] = time_chunk_bwd(device)
+    torch.cuda.empty_cache()
+    out["chunk_s"] = time.perf_counter() - t0
+    t = out["chunk"]["k4_chunk_bwd"]
+    log(f"[18c] K4's backward over a query chunk: q {tuple(t['shape'])} at "
+        f"q_offset {' / '.join(map(str, out['chunk']['ms_by_offset']))} "
+        f"against k/v {tuple(t['kv_shape'])} "
+        f"bf16 (and f32 at {t['q_offset']}) within the plain version's bars, "
+        f"unseen keys' dk/dv exactly 0; the last chunk {t['ms']:.3f} ms "
+        f"(by offset {out['chunk']['ms_by_offset']}), "
+        f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['pairs']} kept pairs "
+        f"a head), plain {t['plain_ms']:.2f} ms, SDPA with the chunk's mask "
+        f"{t['library_ms']} ms; the forward with lse {t['fwd_lse_ms']:.3f} ms")
+    # -- 18a / 18b on two ranks, 18c / 18d on four ------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        two, out["spawn2_s"] = tp_spawn(tmp, 2)
+        four, out["spawn4_s"] = tp_spawn(tmp, 4)
+    for label in ("18a", "18b"):
+        ref = history[label]
+        for r, got in enumerate(two):
+            res = got[label]
+            check_tp_grads(f"{label} rank {r}", res["grads"])
+            # rank 0 alone saves
+            if res["restarts"] or res["saved"] != (ref["saved"] if r == 0
+                                                   else []):
+                raise AssertionError(f"{label} rank {r}: restarts "
+                                     f"{res['restarts']}, saves "
+                                     f"{res['saved']} ({ref['saved']})")
+            for h, w in zip(res["history"], ref["history"]):
+                lr = abs(h["loss"] - w["loss"]) / abs(w["loss"])
+                nr = abs(h["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                if lr > TRAIN_LOSS_TOL or nr > TRAIN_NORM_TOL:
+                    raise AssertionError(f"{label} rank {r} step {w['step']}: "
+                                         f"loss {lr:.2e}, norm {nr:.2e}")
+        if two[0][label]["history"] != two[1][label]["history"]:
+            raise AssertionError(f"{label}: the ranks log other metrics")
+        cnt = two[0][label]["launches"]
+        if not (cnt.get(FK.TC) and cnt.get(FK.BWD_ROUTES[FK.TC])):
+            raise AssertionError(f"{label}: K4 did not run: {cnt}")
+        out[label] = {"reference": ref, "ranks": [
+            {k: v for k, v in g[label].items()} for g in two]}
+    cfg18 = tp_configs()
+    for label in ("18a", "18b"):
+        ranks = out[label]["ranks"]
+        coll = ranks[0]["collectives"]
+        g = ranks[0]["grads"]
+        log(f"[{label}] {cfg18[label][0].name} ({cfg18[label][0].n_layers} "
+            f"layers) on a (1, 2) mesh of gloo ranks sharing cuda:0: the "
+            f"first batch's loss {g['loss']:.6f} vs mesh-less "
+            f"{g['plain_loss']:.6f} ({g['loss_rel']:.2e}, bar "
+            f"{TRAIN_LOSS_TOL}), grad norm {g['norm_rel']:.2e} (bar "
+            f"{TRAIN_NORM_TOL}), worst leaf {g['leaf_rel']:.2e} "
+            f"({g['worst_leaf']}; bar {TRAIN_LEAF_TOL}; rank 1 "
+            f"{ranks[1]['grads']['leaf_rel']:.2e}); {TP_STEPS} Trainer steps' "
+            f"losses {[round(h['loss'], 5) for h in ranks[0]['history']]} vs "
+            f"{[round(h['loss'], 5) for h in out[label]['reference']['history']]}"
+            f"; step s by rank "
+            f"{[[round(x, 3) for x in r['step_s']] for r in ranks]} (mesh-less "
+            f"{[round(x, 3) for x in out[label]['reference']['step_s']]}; "
+            f"two ranks on one card: correctness, not a speed-up); peak by "
+            f"rank {[round(r['peak_gb'], 2) for r in ranks]} GB; rank 0's "
+            f"launches in the run {ranks[0]['launches']}; all-reduces a step "
+            f"{coll['calls']['all_reduce'] / TP_STEPS:.0f} of "
+            f"{coll['bytes']['all_reduce'] / TP_STEPS / 1e9:.3f} GB, "
+            f"all-gathers {coll['calls']['all_gather'] / TP_STEPS:.0f} of "
+            f"{coll['bytes']['all_gather'] / TP_STEPS / 1e9:.3f} GB; {smi}")
+    # 18c: every rank's attention on its own chunk, forward and backward
+    n = TRAIN_SEQ // 4
+    cfg = cfg18["18c"][0]
+    out["18c"] = []
+    for r, got in enumerate(four):
+        g = got["18c"]
+        check_tp_grads(f"18c rank {r}", g)
+        want = [(kind, n, TRAIN_SEQ, r * n) for kind in ("bwd", "fwd")]
+        if g["k4_calls"] != want:
+            raise AssertionError(f"18c rank {r}: K4 calls {g['k4_calls']}, "
+                                 f"expected {want}")
+        cnt = g["launches"]
+        if (cnt.get(FK.CHUNK_BWD, 0) != cfg.num_units
+                or cnt.get(FK.BWD_ROUTES[FK.TC], 0) != cfg.num_units
+                or cnt.get(FK.CHUNK_FWD, 0) != 2 * cfg.num_units
+                or cnt.get(FK.TC, 0) != 2 * cfg.num_units):
+            raise AssertionError(f"18c rank {r}: launches {cnt}")
+        out["18c"].append(g)
+    g = out["18c"][0]
+    log(f"[18c] {cfg.name} cut to {TP_SEQ_LAYERS} layers on a (1, 4) mesh: "
+        f"sequence-sharded attention, each rank's {n} queries at q_offset "
+        f"r x {n} against {TRAIN_SEQ} keys (K4 calls by rank "
+        f"{[x['k4_calls'] for x in out['18c']]}); one step of "
+        f"{TP_SEQ_BATCH} x {TRAIN_SEQ}: loss {g['loss']:.6f} vs mesh-less "
+        f"{g['plain_loss']:.6f}, worst leaf by rank "
+        f"{[round(x['leaf_rel'], 4) for x in out['18c']]}, norm "
+        f"{g['norm_rel']:.2e}; rank 0's launches {g['launches']}; its "
+        f"collectives {g['collectives']}; the step {g['step_s']:.2f} s")
+    # 18d: the (2, 2) SMOKE runs against the mesh-less Trainer on the card
+    out["18d"] = {}
+    for arch, accum, moments in TP_SMOKES:
+        out["18d"][arch] = smoke_against_meshless(
+            "18d", arch, accum, moments, four[0][f"18d/{arch}"], device)
+        for other in four[1:]:
+            if other[f"18d/{arch}"]["history"] != \
+                    four[0][f"18d/{arch}"]["history"]:
+                raise AssertionError(f"18d {arch}: the ranks log other "
+                                     "metrics")
+        r = out["18d"][arch]
+        log(f"[18d] {arch} SMOKE (f32, grad_accum {accum}, {moments} "
+            f"moments, ZeRO-1) on a (2, 2) mesh of four gloo ranks sharing "
+            f"cuda:0 against the mesh-less Trainer on the card: metrics "
+            f"within {MULTI_METRIC_TOL}, updates within "
+            f"{max(r['update_rel'].values()):.2e} of the leaf's largest, "
+            f"moments {r['moment_rel']:.2e}; rank 0's launches "
+            f"{r['launches']}")
+    out["rank_walls"] = {"2": two[0]["walls"], "4": four[0]["walls"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[18] phase 18 in {out['seconds']:.1f} s (this process held "
+        f"{out['main_gb']:.2f} GB of the card at its start; the mesh-less "
+        f"references "
+        f"{out['reference_s']:.1f} s, the chunk backward alone "
+        f"{out['chunk_s']:.1f} s; spawn, run and join of two ranks "
+        f"{out['spawn2_s']:.1f} s, of four {out['spawn4_s']:.1f} s; rank 0's "
+        f"walls {out['rank_walls']})")
     return out
 
 
@@ -6512,6 +7179,10 @@ def main() -> int:
     multi = phase_multi(dev, trace, tables, smi, train["14c"])
     clock("17")
 
+    # -- 18: tensor parallelism over model (gloo ranks sharing the card) --
+    tp = phase_tp(dev, smi)
+    clock("18")
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -6537,7 +7208,7 @@ def main() -> int:
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
         "train": train, "dryrun": dry, "positions": positions,
-        "multi": multi,
+        "multi": multi, "tp": tp,
         "build_s": build_s,
         "build_source_s": {lib.name: secs for lib, _, secs in built},
         "phase_s": clock.walls,
@@ -6683,6 +7354,21 @@ def main() -> int:
          **{k: positions["k4_ext"][k] for k in (
              "index_path_bwd_ms", "cap_alone_bwd_ms", "f32_route_bwd_ms",
              "pairs", "shape", "kv_shape", "softcap")}},
+        {"name": "flash_attention_bwd chunk (K4 backward over a query "
+                 "chunk at q_offset, Sq < Sk: the sequence-sharded "
+                 "attention of phase 18c, rank 0's step; flash_bwd_prep, "
+                 "flash_bwd_dkdv_tc (keys no row sees: zeros), "
+                 "flash_bwd_sum, flash_bwd_dq_tc)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
+         "launches": tp["18c"][0]["launches"][FK.CHUNK_BWD],
+         "launches_by_rank": [g["launches"][FK.CHUNK_BWD]
+                              for g in tp["18c"]],
+         **{k: tp["chunk"]["k4_chunk_bwd"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "f32_max_abs_err", "fwd_lse_ms", "shape",
+             "kv_shape", "q_offset", "pairs")},
+         "ms_by_offset": tp["chunk"]["ms_by_offset"]},
         {"name": "flash_pos_band (the K4 EXT plan's pre-pass: each sorted "
                  "row's and key's band by binary search; one a forward, "
                  "phase 16b's step and scoring)",

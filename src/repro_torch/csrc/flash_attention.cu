@@ -63,16 +63,23 @@ int flash_attention_smem_bytes(int route, int d) {
 // (batch, head, sequence) of q, k, v, o, do, dq, dk and dv in turn; the
 // head-dim stride is 1.  tiles: the (query rows, keys) of a dq block and the
 // (keys, query rows) of a dk/dv block's tiles the caller planned with,
-// checked against the route's own.  Sq = Sk = s, q_offset 0.  Launches the
-// kernels on `stream`; returns 0 or an error code.
+// checked against the route's own.  q, o, do and dq are [B, H, sq, D], k, v,
+// dk and dv [B, KVH, sk, D], query row i at position q_offset + i, with
+// q_offset + sq <= sk (self-attention: q_offset 0, sq = sk; a query chunk
+// otherwise), so that every row has a valid key; lse and the scratch's rows
+// are sq a head, the partial sums' sk.  Launches the kernels on `stream`;
+// returns 0 or an error code.
 int flash_attention_bwd(int route, const void* q, const void* k,
                         const void* v, const void* o, const void* g,
                         const void* lse, void* scratch, void* dq, void* dk,
-                        void* dv, int b, int h, int kvh, int s, int d,
-                        int causal, int window, float scale,
-                        const long long* strides, const int* tiles,
-                        int s_pad, int splits, void* stream) {
-  if (kvh <= 0 || h % kvh != 0 || s <= 0) return cudaErrorInvalidValue;
+                        void* dv, int b, int h, int kvh, int sq, int sk,
+                        int q_offset, int d, int causal, int window,
+                        float scale, const long long* strides,
+                        const int* tiles, int s_pad, int splits,
+                        void* stream) {
+  if (kvh <= 0 || h % kvh != 0 || sq <= 0 || sk <= 0 || q_offset < 0
+      || q_offset > sk - sq)
+    return cudaErrorInvalidValue;
   bwd::Strides st;
   static_assert(sizeof(st) == 24 * sizeof(long long), "24 strides");
   memcpy(&st, strides, sizeof(st));
@@ -81,14 +88,16 @@ int flash_attention_bwd(int route, const void* q, const void* k,
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   bwd::Launch f32_fn = bwd::pick<false>(d);
   tcb::Launch tc_fn = tcb::pick<false>(d);
-  if (!bwd_tiles_ok(route, d, h, kvh, s, tiles, s_pad, splits)
+  if (!bwd_tiles_ok(route, d, h, kvh, sq, tiles, s_pad, splits)
       || f32_fn == nullptr || tc_fn == nullptr)
     return cudaErrorInvalidValue;
   if (route == 0)
-    return f32_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, causal,
-                  window, scale, st, PosPlan{}, nullptr, 0.f, stream_);
-  return tc_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, s_pad, splits,
-               causal, window, scale, st, PosPlan{}, nullptr, 0.f, stream_);
+    return f32_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, sq, sk,
+                  q_offset, causal, window, scale, st, PosPlan{}, nullptr,
+                  0.f, stream_);
+  return tc_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, sq, sk, q_offset,
+               s_pad, splits, causal, window, scale, st, PosPlan{}, nullptr,
+               0.f, stream_);
 }
 
 const char* flash_attention_error_string(int code) {

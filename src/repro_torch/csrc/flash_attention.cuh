@@ -1185,8 +1185,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 // recomputes P from lse.  Every output element is summed in one fixed order
 // (the GQA sum over the group inside one block, heads then query tiles in
 // order): no atomics, so two calls give the same bits.  Causal masks and
-// windows as the forward's, with q_offset 0 and Sq = Sk (the wrapper refuses
-// the rest), so every row has a valid key.
+// windows as the forward's: queries at positions q_offset + i (i < Sq)
+// against keys j < Sk, with q_offset + Sq <= Sk (the wrapper refuses the
+// rest), so every row has a valid key.  Sq < Sk is the query chunk of the
+// sequence-sharded attention of tensor parallelism (one rank's rows
+// q_offset .. q_offset + Sq - 1 against every key).  A dk/dv block whose
+// keys no query of the chunk sees (past its last row, or left of its
+// window) walks no query tile and writes dk = dv = 0.
 //
 // Bound: five products over the kept pairs (q.k and do.v recomputed, P^T do,
 // dS^T q, dS k: 10 D flops a pair); at qwen2-0.5b's shape (H 14, KVH 2,
@@ -1269,9 +1274,13 @@ struct Strides {
 };
 
 
-__device__ __forceinline__ bool pair_ok(int qp, int kp, int s, int causal,
+// Is (query row i at position q_offset + i, key kp) a kept pair of real
+// rows and keys?
+__device__ __forceinline__ bool pair_ok(int i, int kp, int sq, int sk,
+                                        int q_offset, int causal,
                                         int window) {
-  return qp < s && kp < s && (!causal || qp >= kp)
+  const int qp = q_offset + i;
+  return i < sq && kp < sk && (!causal || qp >= kp)
          && (window <= 0 || qp - kp < window);
 }
 
@@ -1352,9 +1361,9 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int h,
-               int group,
-               int s, int causal, int window, float scale, Strides st,
-               PosPlan plan, float softcap) {
+               int group, int sq, int sk, int q_offset, int causal,
+               int window, float scale, Strides st, PosPlan plan,
+               float softcap) {
   using Sh = Shape<D>;
   constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
   constexpr int NCOL = D / 8;     // columns of dk and dv a thread holds
@@ -1374,15 +1383,15 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   // EXT: keys and rows in sorted order, gathered in the loads
   const int* kperm =
-      EXT && plan.k_perm ? plan.k_perm + static_cast<long long>(b) * s
+      EXT && plan.k_perm ? plan.k_perm + static_cast<long long>(b) * sk
                          : nullptr;
   const int* qperm =
-      EXT && plan.q_perm ? plan.q_perm + static_cast<long long>(b) * s
+      EXT && plan.q_perm ? plan.q_perm + static_cast<long long>(b) * sq
                          : nullptr;
   load_tile<D, EXT>(s_k, k + b * st.k[0] + kvh * st.k[1], st.k[2], k0, BK,
-                    s, kperm);
+                    sk, kperm);
   load_tile<D, EXT>(s_v, v + b * st.v[0] + kvh * st.v[1], st.v[2], k0, BK,
-                    s, kperm);
+                    sk, kperm);
 
   // this thread's share of dk and dv: key kj, columns c0 + 8 m
   const int kj = tid / 8, c0 = tid % 8;
@@ -1391,9 +1400,12 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   for (int m = 0; m < NCOL; ++m) acc_k[m] = acc_v[m] = 0.f;
 
   // the query rows that can see a key of this tile (EXT: the band's and
-  // the hull's query tiles, and the rows [qlo, qhi) keeping key `lane`)
-  const int q_begin = causal ? k0 / BQ * BQ : 0;
-  const int q_end = window > 0 ? min(s, k0 + BK - 1 + window) : s;
+  // the hull's query tiles, and the rows [qlo, qhi) keeping key `lane`);
+  // none for keys past the chunk's last row or left of its window
+  const int q_first = causal ? max(0, k0 - q_offset) : 0;
+  const int q_begin = q_first / BQ * BQ;
+  const int q_end =
+      window > 0 ? min(sq, k0 + BK - 1 + window - q_offset) : sq;
   const int kp = k0 + lane;
   QRuns runs{};
   int qlo = 0, qhi = 0;
@@ -1402,22 +1414,24 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     qlo = plan.qlo(b)[kp];
     qhi = plan.qhi(b)[kp];
   }
-  const int nq = EXT ? runs.count() : (q_end - q_begin + BQ - 1) / BQ;
+  const int nq = EXT ? runs.count()
+                     : q_first < q_end ? (q_end - q_begin + BQ - 1) / BQ
+                                       : 0;
   for (int hg = 0; hg < group; ++hg) {
     const int hh = kvh * group + hg;
     const float* qb = q + b * st.q[0] + hh * st.q[1];
     const float* gb = g + b * st.g[0] + hh * st.g[1];
-    const long long rb = (static_cast<long long>(b) * h + hh) * s;
+    const long long rb = (static_cast<long long>(b) * h + hh) * sq;
     for (int n = 0; n < nq; ++n) {
       const int q0 = EXT ? runs.at(n, BQ) : q_begin + n * BQ;
       __syncthreads();   // the previous tile is read (first: K, V loaded)
-      load_tile<D, EXT>(s_q, qb, st.q[2], q0, BQ, s, qperm);
-      load_tile<D, EXT>(s_g, gb, st.g[2], q0, BQ, s, qperm);
+      load_tile<D, EXT>(s_q, qb, st.q[2], q0, BQ, sq, qperm);
+      load_tile<D, EXT>(s_g, gb, st.g[2], q0, BQ, sq, qperm);
       for (int r = tid; r < BQ; r += NTHREADS) {
-        const int row = EXT && qperm && q0 + r < s ? __ldg(qperm + q0 + r)
-                                                   : q0 + r;
-        s_lse[r] = q0 + r < s ? lse[rb + row] : 0.f;
-        s_dl[r] = q0 + r < s ? delta[rb + row] : 0.f;
+        const int row = EXT && qperm && q0 + r < sq ? __ldg(qperm + q0 + r)
+                                                    : q0 + r;
+        s_lse[r] = q0 + r < sq ? lse[rb + row] : 0.f;
+        s_dl[r] = q0 + r < sq ? delta[rb + row] : 0.f;
       }
       __syncthreads();
       float sc[RPW], dp[RPW];
@@ -1428,7 +1442,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
         if constexpr (EXT) {
           // a row without a kept key (lse at NEG_INF) averages v over
           // every key: P = 1 / S there, and dS = 0
-          const bool ok = q0 + r < s && kp < s && q0 + r >= qlo
+          const bool ok = q0 + r < sq && kp < sk && q0 + r >= qlo
                           && q0 + r < qhi;
           float u = sc[i] * scale, f = 1.f;
           if (softcap > 0.f) {
@@ -1438,10 +1452,11 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
           }
           float p = ok ? expf(u - s_lse[r]) : 0.f;
           s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) * f : 0.f;
-          if (s_lse[r] < 0.5f * NEG_INF && kp < s) p = 1.f / s;
+          if (s_lse[r] < 0.5f * NEG_INF && kp < sk) p = 1.f / sk;
           s_p[r * PS + lane] = p;
         } else {
-          const bool ok = pair_ok(q0 + r, kp, s, causal, window);
+          const bool ok =
+              pair_ok(q0 + r, kp, sq, sk, q_offset, causal, window);
           const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
           s_p[r * PS + lane] = p;
           s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
@@ -1461,7 +1476,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
-  if (k0 + kj < s) {
+  if (k0 + kj < sk) {
     const int kr = EXT ? plan.k_row(b, k0 + kj) : k0 + kj;   // caller's key
     float* dkr = dk + b * st.dk[0] + kvh * st.dk[1] + kr * st.dk[2];
     float* dvr = dv + b * st.dv[0] + kvh * st.dv[1] + kr * st.dv[2];
@@ -1478,9 +1493,9 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ g,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, int h, int group, int s, int causal,
-             int window, float scale, Strides st, PosPlan plan,
-             float softcap) {
+             float* __restrict__ dq, int h, int group, int sq, int sk,
+             int q_offset, int causal, int window, float scale, Strides st,
+             PosPlan plan, float softcap) {
   using Sh = Shape<D>;
   constexpr int BQ = Sh::BQ, RPW = Sh::RPW, DP = Sh::DP;
   constexpr int TPR = NTHREADS / BQ;   // threads a row of dq
@@ -1504,21 +1519,21 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   // EXT: rows and keys in sorted order, gathered in the loads
   const int* kperm =
-      EXT && plan.k_perm ? plan.k_perm + static_cast<long long>(b) * s
+      EXT && plan.k_perm ? plan.k_perm + static_cast<long long>(b) * sk
                          : nullptr;
   const int* qperm =
-      EXT && plan.q_perm ? plan.q_perm + static_cast<long long>(b) * s
+      EXT && plan.q_perm ? plan.q_perm + static_cast<long long>(b) * sq
                          : nullptr;
-  load_tile<D, EXT>(s_q, q + b * st.q[0] + hh * st.q[1], st.q[2], q0, BQ, s,
+  load_tile<D, EXT>(s_q, q + b * st.q[0] + hh * st.q[1], st.q[2], q0, BQ, sq,
                     qperm);
-  load_tile<D, EXT>(s_g, g + b * st.g[0] + hh * st.g[1], st.g[2], q0, BQ, s,
+  load_tile<D, EXT>(s_g, g + b * st.g[0] + hh * st.g[1], st.g[2], q0, BQ, sq,
                     qperm);
-  const long long rb = (static_cast<long long>(b) * h + hh) * s;
+  const long long rb = (static_cast<long long>(b) * h + hh) * sq;
   for (int r = tid; r < BQ; r += NTHREADS) {
-    const int row = EXT && qperm && q0 + r < s ? __ldg(qperm + q0 + r)
-                                               : q0 + r;
-    s_lse[r] = q0 + r < s ? lse[rb + row] : 0.f;
-    s_dl[r] = q0 + r < s ? delta[rb + row] : 0.f;
+    const int row = EXT && qperm && q0 + r < sq ? __ldg(qperm + q0 + r)
+                                                : q0 + r;
+    s_lse[r] = q0 + r < sq ? lse[rb + row] : 0.f;
+    s_dl[r] = q0 + r < sq ? delta[rb + row] : 0.f;
     if constexpr (EXT) {
       s_lo[r] = plan.lo(b)[q0 + r];
       s_hi[r] = plan.hi(b)[q0 + r];
@@ -1533,14 +1548,15 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int m = 0; m < NCOL; ++m) acc[m] = 0.f;
 
-  const KvRange rng = kv_range(q0, BQ, BK, s, s, causal, window, 0);
+  const KvRange rng =
+      kv_range(q0, BQ, BK, sq, sk, causal, window, q_offset);
   BandRange br{};
   if constexpr (EXT) br = band_range(plan, b, q0, BQ, BK);
   for (int k0 = EXT ? br.begin : rng.begin; k0 < (EXT ? br.end : rng.end);
        k0 += BK) {
     __syncthreads();   // the previous tile is read (first: Q, dO loaded)
-    load_tile<D, EXT>(s_k, kb, st.k[2], k0, BK, s, kperm);
-    load_tile<D, EXT>(s_v, vb, st.v[2], k0, BK, s, kperm);
+    load_tile<D, EXT>(s_k, kb, st.k[2], k0, BK, sk, kperm);
+    load_tile<D, EXT>(s_v, vb, st.v[2], k0, BK, sk, kperm);
     __syncthreads();
     float sc[RPW], dp[RPW];
     scores<D, RPW>(s_q, s_g, s_k, s_v, sc, dp);
@@ -1548,8 +1564,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < RPW; ++i) {
       const int r = warp + NWARPS * i;
       if constexpr (EXT) {
-        const bool ok = q0 + r < s && k0 + lane < s && k0 + lane >= s_lo[r]
-                        && k0 + lane < s_hi[r];
+        const bool ok = q0 + r < sq && k0 + lane < sk
+                        && k0 + lane >= s_lo[r] && k0 + lane < s_hi[r];
         float u = sc[i] * scale, f = 1.f;
         if (softcap > 0.f) {
           const float t = tanhf(u / softcap);
@@ -1559,7 +1575,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         s_ds[r * PS + lane] =
             ok ? expf(u - s_lse[r]) * (dp[i] - s_dl[r]) * f : 0.f;
       } else {
-        const bool ok = pair_ok(q0 + r, k0 + lane, s, causal, window);
+        const bool ok =
+            pair_ok(q0 + r, k0 + lane, sq, sk, q_offset, causal, window);
         const float p = ok ? expf(sc[i] * scale - s_lse[r]) : 0.f;
         s_ds[r * PS + lane] = ok ? p * (dp[i] - s_dl[r]) : 0.f;
       }
@@ -1574,7 +1591,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         acc[m] = fmaf(dsv, kr[c0 + TPR * m], acc[m]);
     }
   }
-  if (q0 + qr < s) {
+  if (q0 + qr < sq) {
     const int row = EXT ? plan.q_row(b, q0 + qr) : q0 + qr;   // caller's row
     float* dqr = dq + b * st.dq[0] + hh * st.dq[1] + row * st.dq[2];
 #pragma unroll
@@ -1585,18 +1602,18 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, bool EXT>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* g, const float* lse, float* delta, void* dq, void* dk,
-           void* dv, int b, int h, int kvh, int s, int causal, int window,
-           float scale, const Strides& st, const PosPlan& plan, void*,
-           float softcap, cudaStream_t stream) {
+           void* dv, int b, int h, int kvh, int sq, int sk, int q_offset,
+           int causal, int window, float scale, const Strides& st,
+           const PosPlan& plan, void*, float softcap, cudaStream_t stream) {
   using Sh = Shape<D>;
   const float* tq = static_cast<const float*>(q);
   const float* tk = static_cast<const float*>(k);
   const float* tv = static_cast<const float*>(v);
   const float* tg = static_cast<const float*>(g);
-  const long long rows = static_cast<long long>(b) * h * s;
+  const long long rows = static_cast<long long>(b) * h * sq;
   flash_bwd_delta<<<static_cast<unsigned>((rows + NWARPS - 1) / NWARPS),
                        NTHREADS, 0, stream>>>(
-      static_cast<const float*>(o), tg, delta, h, s, D, rows, st);
+      static_cast<const float*>(o), tg, delta, h, sq, D, rows, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dkdv<D, EXT>,
@@ -1608,24 +1625,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                              static_cast<int>(Sh::SMEM_Q));
   if (err != cudaSuccess) return err;
   const int group = h / kvh;
-  flash_bwd_dkdv<D, EXT><<<dim3((s + BK - 1) / BK, kvh, b), NTHREADS,
+  flash_bwd_dkdv<D, EXT><<<dim3((sk + BK - 1) / BK, kvh, b), NTHREADS,
                               Sh::SMEM_KV, stream>>>(
       tq, tk, tv, tg, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv),
-      h, group, s, causal, window, scale, st, plan, softcap);
+      static_cast<float*>(dv), h, group, sq, sk, q_offset, causal, window,
+      scale, st, plan, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<D, EXT><<<dim3((s + Sh::BQ - 1) / Sh::BQ, h, b), NTHREADS,
+  flash_bwd_dq<D, EXT><<<dim3((sq + Sh::BQ - 1) / Sh::BQ, h, b), NTHREADS,
                             Sh::SMEM_Q, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<float*>(dq), h, group, s, causal,
-      window, scale, st, plan, softcap);
+      tq, tk, tv, tg, lse, delta, static_cast<float*>(dq), h, group, sq, sk,
+      q_offset, causal, window, scale, st, plan, softcap);
   return cudaGetLastError();
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       const void*, const float*, float*, void*, void*, void*,
-                      int, int, int, int, int, int, float, const Strides&,
-                      const PosPlan&, void*, float, cudaStream_t);
+                      int, int, int, int, int, int, int, int, float,
+                      const Strides&, const PosPlan&, void*, float,
+                      cudaStream_t);
 
 template <bool EXT>
 Launch pick(int d) {
@@ -1693,38 +1711,45 @@ struct Bwd {
 };
 
 // The query rows [begin, end) that can see a key of the tile at k0 (tiles
-// of BQ_KV rows from begin on).
+// of BQ_KV rows from begin on; row i at position q_offset + i).  Empty
+// (end <= begin) for keys past the chunk's last row or left of its window.
 struct QRange {
   int begin, end;
 };
 
-__device__ __forceinline__ QRange dkdv_range(int k0, int s, int causal,
-                                             int window) {
+__device__ __forceinline__ QRange dkdv_range(int k0, int sq, int q_offset,
+                                             int causal, int window) {
   QRange r;
-  r.begin = causal ? k0 / BQ_KV * BQ_KV : 0;
-  r.end = window > 0 ? min(s, k0 + BK - 1 + window) : s;
+  const int first = causal ? max(0, k0 - q_offset) : 0;
+  r.begin = first / BQ_KV * BQ_KV;
+  r.end = window > 0 ? min(sq, k0 + BK - 1 + window - q_offset) : sq;
+  if (first >= r.end) r.end = r.begin;   // no row sees these keys
   return r;
 }
 
 // Does the (key tile k0, query tile q0) pair hold a pair the mask drops, or
-// a key or query past S?
-__device__ __forceinline__ bool dkdv_masked(int k0, int q0, int s,
-                                            int causal, int window) {
-  return !(q0 + BQ_KV <= s && k0 + BK <= s
-           && (!causal || q0 >= k0 + BK - 1)
-           && (window <= 0 || q0 + BQ_KV - 1 - k0 < window));
+// a key or query past the end?
+__device__ __forceinline__ bool dkdv_masked(int k0, int q0, int sq, int sk,
+                                            int q_offset, int causal,
+                                            int window) {
+  return !(q0 + BQ_KV <= sq && k0 + BK <= sk
+           && (!causal || q_offset + q0 >= k0 + BK - 1)
+           && (window <= 0 || q_offset + q0 + BQ_KV - 1 - k0 < window));
 }
 
-__device__ __forceinline__ bool kept(int qp, int kp, int s, int causal,
-                                     int window) {
-  return qp < s && kp < s && (!causal || qp >= kp)
+// Is (query row i at position q_offset + i, key kp) a kept pair of real
+// rows and keys?
+__device__ __forceinline__ bool kept(int i, int kp, int sq, int sk,
+                                     int q_offset, int causal, int window) {
+  const int qp = q_offset + i;
+  return i < sq && kp < sk && (!causal || qp >= kp)
          && (window <= 0 || qp - kp < window);
 }
 
 // delta = rowsum(do * o) and lse log2 e, one warp a row of [B, H, sp]
-// (zeros in the rows past s).  EXT: row i of the sorted order, read at
-// the caller's row plan.q_row(i); with a permutation dO's row is also
-// copied to row i of gs ([B, H, S, d], contiguous).
+// (zeros in the rows past s, the Sq query rows).  EXT: row i of the sorted
+// order, read at the caller's row plan.q_row(i); with a permutation dO's
+// row is also copied to row i of gs ([B, H, S, d], contiguous).
 template <bool EXT>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
@@ -1769,8 +1794,9 @@ flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
 // query tile QN columns at a time; warp 8 loads.  With splits > 1 the
 // group's heads are cut into `splits` runs of consecutive heads, one a
 // block, and each block writes its f32 sums into `part`
-// ([splits, 2 (dk, dv), B, KVH, S, D]) for flash_bwd_sum; else it writes
-// dk and dv.
+// ([splits, 2 (dk, dv), B, KVH, Sk, D]) for flash_bwd_sum; else it writes
+// dk and dv.  A block whose keys no query row sees walks no tile and
+// writes zeros.
 template <int D, bool EXT>
 __global__ void __launch_bounds__(Bwd<D>::KV_THREADS, Bwd<D>::KV_MIN_BLOCKS)
 flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
@@ -1781,10 +1807,10 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
-                  int h, int group, int splits, int s, int sp, int causal,
-                  int window, float scale_log2, float scale,
-                  bwd::Strides st, PosPlan plan, float cap_in,
-                  float cap_out) {
+                  int h, int group, int splits, int sq, int sk,
+                  int q_offset, int sp, int causal, int window,
+                  float scale_log2, float scale, bwd::Strides st,
+                  PosPlan plan, float cap_in, float cap_out) {
   using C = Cfg<D>;
   using G = Bwd<D>;
   constexpr int QN = G::QN;
@@ -1808,7 +1834,7 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
   const int per = (group + splits - 1) / splits;
   const int hg0 = split * per;
   const int n_heads = min(group, hg0 + per) - hg0;
-  const QRange qr = dkdv_range(k0, s, causal, window);
+  const QRange qr = dkdv_range(k0, sq, q_offset, causal, window);
   // EXT: the query tiles of the band and the hull (qr unused)
   QRuns runs{};
   if constexpr (EXT) runs = band_runs(plan, b, k0, BK, BQ_KV);
@@ -1901,7 +1927,7 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                          : qr.begin + (n % nq) * BQ_KV;
       const bool masked =
           EXT ? band_tile_masked(plan, b, q0, BQ_KV, k0, BK)
-              : dkdv_masked(k0, q0, s, causal, window);
+              : dkdv_masked(k0, q0, sq, sk, q_offset, causal, window);
       mbar_wait(&full[i], (n / STAGES) & 1);
 #pragma unroll
       for (int pt = 0; pt < PARTS; ++pt) {
@@ -1941,11 +1967,11 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
               if (masked) {
                 const int qq = q0 + c0 + 8 * j + col + (e & 1);
                 const int kk = k0 + kr + ((e & 2) ? 8 : 0);
-                if (!(qq < s && kk < s && qq >= ((e & 2) ? qlob : qloa)
+                if (!(qq < sq && kk < sk && qq >= ((e & 2) ? qlob : qloa)
                       && qq < ((e & 2) ? qhib : qhia)))
                   x = 0.f;
                 ex[(4 * j + e) * 128] = x * f;
-                if (lj < 0.5f * NEG_INF && kk < s) x = 1.f / s;
+                if (lj < 0.5f * NEG_INF && kk < sk) x = 1.f / sk;
               } else {
                 ex[(4 * j + e) * 128] = x * f;
               }
@@ -1962,8 +1988,8 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
               float& x = sc[4 * j + e];
               x = ex2(x * scale_log2 - ((e & 1) ? l.y : l.x));
               if (masked && !kept(q0 + c0 + 8 * j + col + (e & 1),
-                                  k0 + kr + ((e & 2) ? 8 : 0), s, causal,
-                                  window))
+                                  k0 + kr + ((e & 2) ? 8 : 0), sq, sk,
+                                  q_offset, causal, window))
                 x = 0.f;
             }
           }
@@ -2029,24 +2055,24 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  // dv (warpgroup 0) or scale dk (warpgroup 1), the rows below S: in the
+  // dv (warpgroup 0) or scale dk (warpgroup 1), the keys below Sk: in the
   // dtype, or f32 sums of this block's heads into `part`; EXT: sorted keys
   // r0, r0 + 8 go back to the caller's rows oa, ob_row
   const float mul = wg == 0 ? 1.f : scale;
   const int r0 = k0 + kr;
-  const int oa = EXT && r0 < s ? plan.k_row(b, r0) : r0;
-  const int ob_row = EXT && r0 + 8 < s ? plan.k_row(b, r0 + 8) : r0 + 8;
+  const int oa = EXT && r0 < sk ? plan.k_row(b, r0) : r0;
+  const int ob_row = EXT && r0 + 8 < sk ? plan.k_row(b, r0 + 8) : r0 + 8;
   if (splits > 1) {
     const int nb = gridDim.z / splits;
     const int which = 1 - wg;        // 0 dk, 1 dv
     float* out = part + (((static_cast<long long>(split) * 2 + which) * nb + b)
-                         * gridDim.y + kvh) * s * D;
+                         * gridDim.y + kvh) * sk * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      if (r0 < s)
+      if (r0 < sk)
         *reinterpret_cast<float2*>(out + oa * D + 8 * j + col) =
             make_float2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-      if (r0 + 8 < s)
+      if (r0 + 8 < sk)
         *reinterpret_cast<float2*>(out + ob_row * D + 8 * j + col) =
             make_float2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
     }
@@ -2057,10 +2083,10 @@ flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                                : dk + b * st.dk[0] + kvh * st.dk[1];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    if (r0 < s)
+    if (r0 < sk)
       *reinterpret_cast<__nv_bfloat162*>(out + oa * os + 8 * j + col) =
           __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-    if (r0 + 8 < s)
+    if (r0 + 8 < sk)
       *reinterpret_cast<__nv_bfloat162*>(out + ob_row * os + 8 * j
                                          + col) =
           __floats2bfloat162_rn(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
@@ -2107,10 +2133,10 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tg,
                 const float* __restrict__ lse2,
                 const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, int group, int s, int sp,
-                int causal, int window, float scale_log2, float scale,
-                long long dsb, long long dsh, long long dss, PosPlan plan,
-                float cap_in, float cap_out) {
+                __nv_bfloat16* __restrict__ dq, int group, int sq, int sk,
+                int q_offset, int sp, int causal, int window,
+                float scale_log2, float scale, long long dsb, long long dsh,
+                long long dss, PosPlan plan, float cap_in, float cap_out) {
   using C = Cfg<D>;
   using G = Bwd<D>;
   constexpr int BQ = C::BQ;
@@ -2127,7 +2153,7 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const KvRange r = kv_range(q0, BQ, BK, s, s, causal, window, 0);
+  const KvRange r = kv_range(q0, BQ, BK, sq, sk, causal, window, q_offset);
   // EXT: the band of the block's sorted rows
   BandRange br{};
   if constexpr (EXT) br = band_range(plan, b, q0, BQ, BK);
@@ -2228,7 +2254,7 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
     if constexpr (EXT) {
       // P (1 - t^2) of the soft cap: dq needs P only within dS
-      const bool masked = band_masked(br, k0, BK, s);
+      const bool masked = band_masked(br, k0, BK, sk);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -2242,14 +2268,14 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
             x = ex2(x * scale_log2 - l);
           }
           const int kk = k0 + 8 * j + col + (e & 1);
-          if (masked && !(qp0 + ((e & 2) ? 8 : 0) < s && kk < s
+          if (masked && !(qp0 + ((e & 2) ? 8 : 0) < sq && kk < sk
                           && kk >= ((e & 2) ? lob : loa)
                           && kk < ((e & 2) ? hib : hia)))
             x = 0.f;
         }
       }
     } else {
-      const bool masked = tile_masked(r, k0, BK, s, causal, window);
+      const bool masked = tile_masked(r, k0, BK, sk, causal, window);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -2257,7 +2283,8 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
           float& x = sc[4 * j + e];
           x = ex2(x * scale_log2 - ((e & 2) ? l1 : l0));
           if (masked && !kept(qp0 + ((e & 2) ? 8 : 0),
-                              k0 + 8 * j + col + (e & 1), s, causal, window))
+                              k0 + 8 * j + col + (e & 1), sq, sk, q_offset,
+                              causal, window))
             x = 0.f;
         }
       }
@@ -2284,14 +2311,14 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
 
   __nv_bfloat16* ob = dq + b * dsb + h * dsh;
   // EXT: sorted rows qp0, qp0 + 8 go back to the caller's rows
-  const int oa = EXT && qp0 < s ? plan.q_row(b, qp0) : qp0;
-  const int ob_row = EXT && qp0 + 8 < s ? plan.q_row(b, qp0 + 8) : qp0 + 8;
+  const int oa = EXT && qp0 < sq ? plan.q_row(b, qp0) : qp0;
+  const int ob_row = EXT && qp0 + 8 < sq ? plan.q_row(b, qp0 + 8) : qp0 + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    if (qp0 < s)
+    if (qp0 < sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + oa * dss + 8 * j + col) =
           __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
-    if (qp0 + 8 < s)
+    if (qp0 + 8 < sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + ob_row * dss + 8 * j
                                          + col) =
           __floats2bfloat162_rn(acc[4 * j + 2] * scale,
@@ -2306,8 +2333,9 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
 template <int D, bool EXT>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* g, const float* lse, float* scratch, void* dq,
-           void* dk, void* dv, int b, int h, int kvh, int s, int sp,
-           int splits, int causal, int window, float scale,
+           void* dk, void* dv, int b, int h, int kvh, int sq, int sk,
+           int q_offset, int sp, int splits, int causal, int window,
+           float scale,
            const bwd::Strides& st, const PosPlan& plan, void* sorted,
            float softcap, cudaStream_t stream) {
   using C = Cfg<D>;
@@ -2328,26 +2356,28 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (EXT && plan.q_perm != nullptr) {
     gs = static_cast<__nv_bfloat16*>(sorted);
     mg = gs;
-    sg_[0] = static_cast<long long>(h) * s * D;
-    sg_[1] = static_cast<long long>(s) * D;
+    sg_[0] = static_cast<long long>(h) * sq * D;
+    sg_[1] = static_cast<long long>(sq) * D;
     sg_[2] = D;
   }
   // Q and dO in 64-row boxes (dk/dv) and in the dq block's rows
   CUtensorMap tq, tg, tqb, tgb, tk, tv;
-  if (tc::make_map<D>(&tq, encode, q, b, h, s, st.q, BQ_KV) != CUDA_SUCCESS
-      || tc::make_map<D>(&tg, encode, mg, b, h, s, sg_, BQ_KV)
+  if (tc::make_map<D>(&tq, encode, q, b, h, sq, st.q, BQ_KV) != CUDA_SUCCESS
+      || tc::make_map<D>(&tg, encode, mg, b, h, sq, sg_, BQ_KV)
              != CUDA_SUCCESS
-      || tc::make_map<D>(&tqb, encode, q, b, h, s, st.q, C::BQ)
+      || tc::make_map<D>(&tqb, encode, q, b, h, sq, st.q, C::BQ)
              != CUDA_SUCCESS
-      || tc::make_map<D>(&tgb, encode, mg, b, h, s, sg_, C::BQ)
+      || tc::make_map<D>(&tgb, encode, mg, b, h, sq, sg_, C::BQ)
              != CUDA_SUCCESS
-      || tc::make_map<D>(&tk, encode, k, b, kvh, s, st.k, BK) != CUDA_SUCCESS
-      || tc::make_map<D>(&tv, encode, v, b, kvh, s, st.v, BK) != CUDA_SUCCESS)
+      || tc::make_map<D>(&tk, encode, k, b, kvh, sk, st.k, BK)
+             != CUDA_SUCCESS
+      || tc::make_map<D>(&tv, encode, v, b, kvh, sk, st.v, BK)
+             != CUDA_SUCCESS)
     return ERR_TENSOR_MAP;
   flash_bwd_prep<EXT><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
                         stream>>>(
       static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(g), lse, lse2, delta, h, s, sp, D,
+      static_cast<const __nv_bfloat16*>(g), lse, lse2, delta, h, sq, sp, D,
       rows, st, plan, gs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -2362,32 +2392,33 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const float scale_log2 = scale * LOG2E;
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
   const float cap_out = softcap * LOG2E;
-  flash_bwd_dkdv_tc<D, EXT><<<dim3((s + BK - 1) / BK, kvh, b * splits),
+  flash_bwd_dkdv_tc<D, EXT><<<dim3((sk + BK - 1) / BK, kvh, b * splits),
                               G::KV_THREADS, G::KV_SMEM, stream>>>(
-      tq, tk, tv, tg, lse2, delta, dk_, dv_, part, h, h / kvh, splits, s, sp,
-      causal, window, scale_log2, scale, st, plan, cap_in, cap_out);
+      tq, tk, tv, tg, lse2, delta, dk_, dv_, part, h, h / kvh, splits, sq,
+      sk, q_offset, sp, causal, window, scale_log2, scale, st, plan, cap_in,
+      cap_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
-    const long long pairs = static_cast<long long>(b) * kvh * s * D;
+    const long long pairs = static_cast<long long>(b) * kvh * sk * D;
     flash_bwd_sum<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0,
-                    stream>>>(part, dk_, dv_, splits, kvh, s, D, pairs, st);
+                    stream>>>(part, dk_, dv_, splits, kvh, sk, D, pairs, st);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq_tc<D, EXT><<<dim3((s + C::BQ - 1) / C::BQ, h, b),
+  flash_bwd_dq_tc<D, EXT><<<dim3((sq + C::BQ - 1) / C::BQ, h, b),
                             G::Q_THREADS, G::Q_SMEM, stream>>>(
       tqb, tk, tv, tgb, lse2, delta, static_cast<__nv_bfloat16*>(dq),
-      h / kvh, s, sp, causal, window, scale_log2, scale, st.dq[0], st.dq[1],
-      st.dq[2], plan, cap_in, cap_out);
+      h / kvh, sq, sk, q_offset, sp, causal, window, scale_log2, scale,
+      st.dq[0], st.dq[1], st.dq[2], plan, cap_in, cap_out);
   return cudaGetLastError();
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       const void*, const float*, float*, void*, void*, void*,
-                      int, int, int, int, int, int, int, int, float,
-                      const bwd::Strides&, const PosPlan&, void*, float,
-                      cudaStream_t);
+                      int, int, int, int, int, int, int, int, int, int,
+                      float, const bwd::Strides&, const PosPlan&, void*,
+                      float, cudaStream_t);
 
 template <bool EXT>
 Launch pick(int d) {
@@ -2453,18 +2484,18 @@ inline bool fwd_tiles_ok(int route, int d, int sq, int bq, int bk,
   return ok && n_q_tiles == (sq + bq - 1) / bq;
 }
 
-inline bool bwd_tiles_ok(int route, int d, int h, int kvh, int s,
+inline bool bwd_tiles_ok(int route, int d, int h, int kvh, int sq,
                          const int* tiles, int s_pad, int splits) {
   if (route == 0) {
     const int bq = bwd::bq_rows(d);
     return tiles[0] == bq && tiles[1] == bwd::BK && tiles[2] == bwd::BK
-           && tiles[3] == bq && s_pad == s && splits == 1;
+           && tiles[3] == bq && s_pad == sq && splits == 1;
   }
   if (route == 1) {
     const int group = h / kvh;
     const int per = splits > 0 ? (group + splits - 1) / splits : 0;
     return tiles[0] == (d == 256 ? 64 : 128) && tiles[1] == tc::BK
-           && tiles[2] == tc::BK && tiles[3] == tcb::BQ_KV && s_pad >= s
+           && tiles[2] == tc::BK && tiles[3] == tcb::BQ_KV && s_pad >= sq
            && s_pad % tcb::PAD_ROWS == 0 && splits >= 1 && splits <= group
            && (splits - 1) * per < group;
   }

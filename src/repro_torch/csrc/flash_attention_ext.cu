@@ -265,25 +265,26 @@ int flash_attention_ext_fwd(int route, const void* q, const void* k,
             stream_);
 }
 
-// flash_attention_bwd's arguments and the plan, as flash_attention_ext_fwd:
-// on the tensor-core route with permutations `sorted` is room for sorted
-// copies of q, k, v (flash_pos_gather) and g (written by the row pass
-// flash_bwd_prep, which reads o and g at q_perm), B H S D + 2 B KVH S D +
-// B H S D bf16.
+// flash_attention_bwd's arguments without q_offset (the positions carry
+// it; any sq and sk) and the plan, as flash_attention_ext_fwd: on the
+// tensor-core route with permutations `sorted` is room for sorted copies of
+// q, k, v (flash_pos_gather) and g (written by the row pass flash_bwd_prep,
+// which reads o and g at q_perm), B H Sq D + 2 B KVH Sk D + B H Sq D bf16.
 int flash_attention_ext_bwd(int route, const void* q, const void* k,
                             const void* v, const void* o, const void* g,
                             const void* lse, void* scratch, void* dq,
-                            void* dk, void* dv, int b, int h, int kvh, int s,
-                            int d, int causal, int window, float scale,
-                            const long long* strides, const int* tiles,
-                            int s_pad, int splits, const void* q_perm,
-                            const void* k_perm, const void* band,
-                            void* sorted, float softcap, void* stream) {
-  if (kvh <= 0 || h % kvh != 0 || s <= 0 || softcap < 0.f)
+                            void* dk, void* dv, int b, int h, int kvh,
+                            int sq, int sk, int d, int causal, int window,
+                            float scale, const long long* strides,
+                            const int* tiles, int s_pad, int splits,
+                            const void* q_perm, const void* k_perm,
+                            const void* band, void* sorted, float softcap,
+                            void* stream) {
+  if (kvh <= 0 || h % kvh != 0 || sq <= 0 || sk <= 0 || softcap < 0.f)
     return cudaErrorInvalidValue;
   PosPlan plan;
   const bool gather = route == 1 && q_perm != nullptr;
-  if (!make_plan(&plan, q_perm, k_perm, band, s, s)
+  if (!make_plan(&plan, q_perm, k_perm, band, sq, sk)
       || (gather && sorted == nullptr))
     return cudaErrorInvalidValue;
   bwd::Strides st;
@@ -294,12 +295,13 @@ int flash_attention_ext_bwd(int route, const void* q, const void* k,
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   bwd::Launch f32_fn = bwd::pick<true>(d);
   tcb::Launch tc_fn = tcb::pick<true>(d);
-  if (!bwd_tiles_ok(route, d, h, kvh, s, tiles, s_pad, splits)
+  if (!bwd_tiles_ok(route, d, h, kvh, sq, tiles, s_pad, splits)
       || f32_fn == nullptr || tc_fn == nullptr)
     return cudaErrorInvalidValue;
   if (route == 0)
-    return f32_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, causal,
-                  window, scale, st, plan, nullptr, softcap, stream_);
+    return f32_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, sq, sk, 0,
+                  causal, window, scale, st, plan, nullptr, softcap,
+                  stream_);
   void* gs = nullptr;   // room for g's sorted copy, after q, k, v's
   if (gather) {
     // q, k and v are contiguous copies from here on: their strides too
@@ -307,18 +309,19 @@ int flash_attention_ext_bwd(int route, const void* q, const void* k,
     memcpy(qkv, st.q, sizeof(st.q));
     memcpy(qkv + 3, st.k, sizeof(st.k));
     memcpy(qkv + 6, st.v, sizeof(st.v));
-    const int err = gather_qkv(&q, &k, &v, qkv, plan, sorted, b, h, kvh, s,
-                               s, d, stream_);
+    const int err = gather_qkv(&q, &k, &v, qkv, plan, sorted, b, h, kvh, sq,
+                               sk, d, stream_);
     if (err != cudaSuccess) return err;
     memcpy(st.q, qkv, sizeof(st.q));
     memcpy(st.k, qkv + 3, sizeof(st.k));
     memcpy(st.v, qkv + 6, sizeof(st.v));
     gs = static_cast<__nv_bfloat16*>(sorted)
-         + (static_cast<long long>(b) * h * s * d
-            + 2LL * b * kvh * s * d);
+         + (static_cast<long long>(b) * h * sq * d
+            + 2LL * b * kvh * sk * d);
   }
-  return tc_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, s, s_pad, splits,
-               causal, window, scale, st, plan, gs, softcap, stream_);
+  return tc_fn(q, k, v, o, g, l, sc, dq, dk, dv, b, h, kvh, sq, sk, 0, s_pad,
+               splits, causal, window, scale, st, plan, gs, softcap,
+               stream_);
 }
 
 const char* flash_attention_error_string(int code) {

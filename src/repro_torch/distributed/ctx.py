@@ -17,6 +17,23 @@ loss's routing means) go through ``dp_sum``, so every rank computes the
 JAX package's function of the global batch.  The context is the
 process's, not a thread's: under remat, autograd recomputes the forward
 on its own threads, and the recomputation must sum as the forward did.
+
+The tensor-parallel train step also installs a ``model_parallel``
+context (process-wide too): each rank of the model group holds its slice
+of the parameters along ``model`` (``partitioning.param_pspecs``) and the
+whole batch of its data row.  The model's layers then go in and out of
+their sharded regions through the Megatron pair: ``to_model`` (the
+identity forward, an all-reduce SUM of the gradient: a replicated input,
+or a replicated weight used in a rank's part of a sum, gathers every
+rank's share of its gradient) and ``from_model`` (an all-reduce SUM
+forward, the identity backward: the ranks' partial outputs summed).
+``gather_seq`` joins the ranks' contiguous chunks of a sequence (the
+sequence-sharded attention), and ``model_max`` takes a MAX over the
+group (the vocabulary-parallel cross entropy's row max).  Each sum runs
+in float32 and comes back in the input's dtype.  Every rank must issue
+the group's collectives in one order: the layers call them in program
+order, and remat replays them in the backward in the same order on every
+rank.
 """
 
 from __future__ import annotations
@@ -130,3 +147,114 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
 def dp_size() -> int:
     """Ranks of the installed data group (1 without one)."""
     return 1 if _DATA_GROUP is None else dist.get_world_size(_DATA_GROUP)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the model group's collectives
+# ---------------------------------------------------------------------------
+
+_MODEL_GROUP = None
+
+
+@contextlib.contextmanager
+def model_parallel(group):
+    """Inside the block (on this process, every thread) the model's layers
+    run their parts of the tensor-parallel program over ``group`` (a
+    ``torch.distributed`` process group of the ranks of one data row;
+    ``None``: the one-device model, unchanged bit for bit)."""
+    global _MODEL_GROUP
+    prev, _MODEL_GROUP = _MODEL_GROUP, group
+    try:
+        yield group
+    finally:
+        _MODEL_GROUP = prev
+
+
+def mp_size() -> int:
+    """Ranks of the installed model group (1 without one)."""
+    return 1 if _MODEL_GROUP is None else dist.get_world_size(_MODEL_GROUP)
+
+
+def mp_rank() -> int:
+    """This rank's coordinate along ``model`` (0 without a group)."""
+    return 0 if _MODEL_GROUP is None else dist.get_rank(_MODEL_GROUP)
+
+
+def _all_reduce_f32(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    """``x`` reduced over ``group`` in float32, back in its dtype."""
+    y = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(y, op=op, group=group)
+    return y.to(x.dtype)
+
+
+class _ToModel(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced (SUM) over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(g, ctx.group), None
+
+
+class _FromModel(torch.autograd.Function):
+    """All-reduce SUM forward; the gradient handed on as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The ranks' equal contiguous chunks along ``dim`` joined in rank
+    order; the gradient is this rank's chunk of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.rank = dim, dist.get_rank(group)
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        ctx.n = x.shape[dim]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering a sharded region: itself, its gradient summed over
+    the installed model group (``x`` itself without one)."""
+    group = _MODEL_GROUP
+    return x if group is None else _ToModel.apply(x, group)
+
+
+def from_model(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial ``x`` summed over the installed model group, the
+    gradient handed to each rank's part (``x`` itself without one)."""
+    group = _MODEL_GROUP
+    return x if group is None else _FromModel.apply(x, group)
+
+
+def gather_seq(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's chunks of a sequence joined along ``dim``, rank r
+    the r-th (``x`` itself without a group)."""
+    group = _MODEL_GROUP
+    return x if group is None else _GatherSeq.apply(x, dim, group)
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise MAX of ``x`` over the installed model group, no
+    gradient (``x`` detached without one)."""
+    group = _MODEL_GROUP
+    x = x.detach()
+    return x if group is None else _all_reduce_f32(x, group,
+                                                   dist.ReduceOp.MAX)

@@ -41,6 +41,7 @@ device, each block run from a host thread of its own.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from concurrent.futures import ThreadPoolExecutor
@@ -85,10 +86,12 @@ def dp_axes(mesh) -> tuple[str, ...]:
     return tuple(n for n in mesh.axis_names if n != MODEL_AXIS)
 
 
-def _axes(entry) -> tuple[str, ...]:
+def axes_of(entry) -> tuple[str, ...]:
+    """The mesh axes one entry of a spec names (none for ``None``)."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
 
 
 def _layer_spec_for(cfg: ModelConfig, path: str) -> LayerSpec | None:
@@ -101,14 +104,22 @@ def _layer_spec_for(cfg: ModelConfig, path: str) -> LayerSpec | None:
     return None
 
 
+def attn_mode(n_heads: int, n_kv_heads: int, tp: int) -> str:
+    """How attention splits over ``tp`` model ranks: ``"kv"`` (kv heads,
+    with their query groups), ``"group"`` (each group's query heads, the
+    kv heads replicated), or ``"seq"`` (neither divides: the weights
+    replicate and the attention activations' sequence is sharded)."""
+    if n_kv_heads % tp == 0:
+        return "kv"
+    if (n_heads // n_kv_heads) % tp == 0:
+        return "group"
+    return "seq"
+
+
 def _attn_param_spec(cfg: ModelConfig, name: str, tp: int) -> P:
-    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    if kvh % tp == 0:
-        kv, gq = MODEL_AXIS, None
-    elif g % tp == 0:
-        kv, gq = None, MODEL_AXIS
-    else:  # replicated weights; sequence-sharded activations instead
-        kv = gq = None
+    mode = attn_mode(cfg.n_heads, cfg.n_kv_heads, tp)
+    kv = MODEL_AXIS if mode == "kv" else None
+    gq = MODEL_AXIS if mode == "group" else None
     return {
         "wq": P(None, kv, gq, None),
         "wk": P(None, kv, None),
@@ -207,7 +218,7 @@ def _insert_axis(spec: P, shape: tuple[int, ...], axis: str, divisor: int,
     No-op if the axis already shards some dim (a mesh axis may appear in
     at most one position of a spec)."""
     parts = list(spec) + [None] * (len(shape) - len(spec))
-    if any(axis in _axes(e) for e in parts):
+    if any(axis in axes_of(e) for e in parts):
         return P(*parts)
     for i in range(start_dim, len(shape)):
         if parts[i] is None and shape[i] % divisor == 0 and shape[i] > 1:
@@ -252,7 +263,74 @@ def zero1_spec(spec: P, shape: tuple[int, ...], divisor: int) -> P:
 
 def sharded_dim(spec: P, axis: str) -> int | None:
     """The dim of ``spec`` that ``axis`` splits, or None."""
-    return next((d for d, e in enumerate(spec) if axis in _axes(e)), None)
+    return next((d for d, e in enumerate(spec) if axis in axes_of(e)), None)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel program the rules give a config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """What each kind of layer of a config does on ``tp`` model ranks under
+    ``param_pspecs`` / ``activation_rules`` (the model's layers read it
+    inside a ``ctx.model_parallel`` context)."""
+    tp: int
+    attn: str            # attn_mode: "kv", "group" or "seq"
+    ffn: bool            # the dense FFN column / row split
+    rglru: bool          # the RG-LRU's channels and gate heads split
+    moe: str | None      # "expert", "slot" (capacity slots) or None
+    moe_shared: bool     # the shared expert column / row split
+
+
+def tp_plan(cfg: ModelConfig, mesh) -> TPPlan:
+    """The tensor-parallel program of ``cfg`` on ``mesh``.  Raises
+    ``NotImplementedError`` naming its ROADMAP item for a rule the port's
+    multi-device step does not take: ``fsdp_units`` over more than one
+    data rank, a ``moe_shard_mode`` other than ``"auto"`` on more than
+    one device, and (``tp_layout``) an RG-LRU whose width divides
+    ``model`` while its head count does not."""
+    if cfg.fsdp_units and axis_size(mesh, FSDP_AXIS) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: fsdp_units (parameters sharded over 'data') is not "
+            "ported (ROADMAP item 30)")
+    if cfg.moe_shard_mode != "auto" and mesh.size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_shard_mode {cfg.moe_shard_mode!r} is not "
+            "ported (ROADMAP item 31)")
+    return tp_layout(cfg, axis_size(mesh, MODEL_AXIS))
+
+
+@functools.lru_cache(maxsize=None)
+def tp_layout(cfg: ModelConfig, tp: int) -> TPPlan:
+    """What each kind of layer of ``cfg`` does on ``tp`` model ranks; an
+    RG-LRU whose width divides ``tp`` while its head count does not (its
+    gate heads would straddle ranks) raises ``NotImplementedError``."""
+    rglru = False
+    if cfg.rglru is not None and tp > 1:
+        rm = _rglru_spec(cfg, "wx", tp)[1] == MODEL_AXIS
+        hm = _rglru_spec(cfg, "a_gate", tp)[0] == MODEL_AXIS
+        if rm and not hm:
+            raise NotImplementedError(
+                f"{cfg.name}: an RG-LRU of {cfg.rglru.d_rnn} channels over "
+                f"model = {tp} with {cfg.rglru.n_heads} gate heads, which do "
+                "not divide, is not ported (ROADMAP item 32)")
+        rglru = rm
+    moe = shared = None
+    if cfg.moe is not None:
+        moe = ("expert" if _moe_spec(cfg, "wi", tp)[0] == MODEL_AXIS
+               else "slot")
+        shared = _moe_spec(cfg, "shared_wi", tp)[1] == MODEL_AXIS
+    return TPPlan(tp, attn_mode(cfg.n_heads, cfg.n_kv_heads, tp),
+                  _ffn_spec(cfg, "wi", tp)[1] == MODEL_AXIS, rglru, moe,
+                  bool(shared))
+
+
+def model_sharded_paths(specs: Any) -> frozenset:
+    """The paths (tuples) of a spec tree whose leaves ``model`` splits."""
+    return frozenset(p for p, spec in tree_paths(specs)
+                     if any(MODEL_AXIS in axes_of(e) for e in spec))
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +356,7 @@ def activation_rules(cfg: ModelConfig, mesh, batch_size: int) -> dict:
     sequence would conflict with head parallelism.
     """
     tp = axis_size(mesh, MODEL_AXIS)
-    g = cfg.n_heads // cfg.n_kv_heads
-    head_tp = (cfg.n_kv_heads % tp == 0) or (g % tp == 0)
+    head_tp = attn_mode(cfg.n_heads, cfg.n_kv_heads, tp) != "seq"
     moe_slot = cfg.moe is not None and cfg.moe.n_experts % tp != 0
     return {"batch": batch_axes(mesh, batch_size),
             "seq": None if head_tp else MODEL_AXIS,
@@ -465,7 +542,7 @@ class NamedSharding:
     @property
     def blocks(self) -> tuple[int, ...]:
         """The number of blocks each dim of the spec is cut into."""
-        return tuple(math.prod(self.mesh.shape[a] for a in _axes(e))
+        return tuple(math.prod(self.mesh.shape[a] for a in axes_of(e))
                      for e in self.spec)
 
     def index(self, shape, position: int) -> tuple[slice, ...]:
@@ -477,7 +554,7 @@ class NamedSharding:
         out = []
         for d, n in enumerate(local):
             block = 0
-            for a in _axes(self.spec[d] if d < len(self.spec) else None):
+            for a in axes_of(self.spec[d] if d < len(self.spec) else None):
                 block = block * self.mesh.shape[a] + coords[a]
             out.append(slice(block * n, (block + 1) * n))
         return tuple(out)
@@ -509,7 +586,7 @@ def _map_specs(fn, specs):
 
 
 def _check_axes(spec: P, mesh) -> None:
-    used = [a for e in spec for a in _axes(e)]
+    used = [a for e in spec for a in axes_of(e)]
     unknown = [a for a in used if a not in mesh.shape]
     if unknown or len(used) != len(set(used)):
         raise ValueError(f"spec {spec} does not fit mesh axes "
@@ -523,9 +600,9 @@ def to_placements(spec: P, mesh) -> tuple:
     each, the major axis first (the order of the mesh's dims)."""
     from torch.distributed.tensor import Replicate, Shard
     _check_axes(spec, mesh)
-    owner = {a: d for d, e in enumerate(spec) for a in _axes(e)}
+    owner = {a: d for d, e in enumerate(spec) for a in axes_of(e)}
     for d, e in enumerate(spec):
-        order = [mesh.axis_names.index(a) for a in _axes(e)]
+        order = [mesh.axis_names.index(a) for a in axes_of(e)]
         if order != sorted(order):
             raise ValueError(f"dim {d} of {spec} splits over {e}, not in "
                              f"the mesh's axis order {mesh.axis_names}")
@@ -542,7 +619,7 @@ def local_shape(shape, spec: P, mesh) -> tuple[int, ...]:
     _check_axes(spec, mesh)
     out = list(shape)
     for d, e in enumerate(spec):
-        div = math.prod(mesh.shape[a] for a in _axes(e))
+        div = math.prod(mesh.shape[a] for a in axes_of(e))
         if shape[d] % div:
             raise ValueError(f"dim {d} of {shape} ({shape[d]}) does not "
                              f"divide over {e} ({div} devices)")

@@ -44,7 +44,9 @@ identity plan.  The band the kernels walk is made once a (plan, causal,
 window) by the pre-pass ``flash_pos_band`` (``pos_band``); on the
 tensor-core route a plan with permutations has ``flash_pos_gather`` write
 sorted copies of q, k and v first.  ``EXT_LAUNCHES`` counts the EXT calls
-per route beside the route totals, ``PREP_LAUNCHES`` the two pre-passes.
+per route beside the route totals, ``PREP_LAUNCHES`` the two pre-passes,
+``CHUNK_LAUNCHES`` the index path's forward and backward calls on a query
+chunk (``q_offset`` > 0 or Sq < Sk).
 
 On meta tensors (the dry run's plan of the card's path) both wrappers
 check their arguments and make the allocations they make on the card —
@@ -97,10 +99,16 @@ EXT_LAUNCHES = {key: 0 for key in EXT_KEYS.values()}
 #: causal and window) and the sorted copies of the tensor-core route.
 BAND, GATHER = "flash_pos_band", "flash_pos_gather"
 PREP_LAUNCHES = {BAND: 0, GATHER: 0}
+#: Of the index path's launches, those on a query chunk (q_offset > 0 or
+#: Sq < Sk: the sequence-sharded attention of tensor parallelism), forward
+#: and backward.
+CHUNK_FWD, CHUNK_BWD = "flash_attention/chunk", "flash_attention_bwd/chunk"
+CHUNK_LAUNCHES = {CHUNK_FWD: 0, CHUNK_BWD: 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKWARD_LAUNCHES, EXT_LAUNCHES, PREP_LAUNCHES):
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES, EXT_LAUNCHES, PREP_LAUNCHES,
+                   CHUNK_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -124,8 +132,11 @@ _PTR = ctypes.c_void_p
 #: the index entry points' arguments
 _FWD_ARGS = ([ctypes.c_int] + [_PTR] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, _PTR] + [ctypes.c_int] * 3 + [_PTR])
-_BWD_ARGS = ([ctypes.c_int] + [_PTR] * 10 + [ctypes.c_int] * 7
+_BWD_ARGS = ([ctypes.c_int] + [_PTR] * 10 + [ctypes.c_int] * 9
              + [ctypes.c_float, _PTR, _PTR, ctypes.c_int, ctypes.c_int])
+#: the position of the backward's q_offset among them (the EXT entry point
+#: takes none: the positions carry it)
+_BWD_Q_OFFSET = 16
 #: the EXT entry points': q_perm, k_perm, band, the sorted copies, the cap
 _PLAN_ARGS = [_PTR] * 4 + [ctypes.c_float]
 
@@ -154,7 +165,8 @@ def _ext_library() -> ctypes.CDLL:
         fwd = _FWD_ARGS[:13] + _FWD_ARGS[14:]
         lib.flash_attention_ext_fwd.argtypes = fwd + _PLAN_ARGS + [_PTR]
         lib.flash_attention_ext_fwd.restype = ctypes.c_int
-        lib.flash_attention_ext_bwd.argtypes = _BWD_ARGS + _PLAN_ARGS + [_PTR]
+        bwd = _BWD_ARGS[:_BWD_Q_OFFSET] + _BWD_ARGS[_BWD_Q_OFFSET + 1:]
+        lib.flash_attention_ext_bwd.argtypes = bwd + _PLAN_ARGS + [_PTR]
         lib.flash_attention_ext_bwd.restype = ctypes.c_int
         lib.flash_attention_pos_band.argtypes = (
             [_PTR, ctypes.c_longlong, _PTR, ctypes.c_longlong]
@@ -409,6 +421,8 @@ def _launch(name, q, k, v, out, causal, window, q_offset, scale,
                 *args, *_plan_args(plan, band, sorted_, softcap), stream)
     _check_rc(lib, rc, name)
     LAUNCHES[name] += 1
+    if plan is None and (q_offset or sq < sk):
+        CHUNK_LAUNCHES[CHUNK_FWD] += 1
     if plan is not None:
         EXT_LAUNCHES[EXT_KEYS[name]] += 1
         if sorted_ is not None:
@@ -419,6 +433,7 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int | None = None,
+                             q_offset: int = 0,
                              dq: torch.Tensor | None = None,
                              dk: torch.Tensor | None = None,
                              dv: torch.Tensor | None = None, q_pos=None,
@@ -427,22 +442,26 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention_bhsd`` for the output gradient
     ``do``, from its output ``o`` and ``lse`` (``with_lse=True``).
 
-    q, o, do [B, H, S, D]; k, v [B, KVH, S, D]; lse [B, H, S] float32;
-    all one dtype (float32 or bfloat16), strided views allowed as long as
-    the head dimension is contiguous (``dq``, ``dk``, ``dv``: optional
-    destination views of the same kind).  Self-attention only: queries
-    at positions 0..S-1 over as many keys (Sq == Sk); anything else
-    raises.  bfloat16 takes the tensor-core kernels, which read q, k, v
-    and do through TMA: a layout TMA cannot read raises.  ``q_pos``,
-    ``k_pos`` ([B, S] each) or their ``plan``, and ``softcap``, as the
-    forward's."""
+    q, o, do [B, H, Sq, D]; k, v [B, KVH, Sk, D]; lse [B, H, Sq]
+    float32; all one dtype (float32 or bfloat16), strided views allowed
+    as long as the head dimension is contiguous (``dq``, ``dk``, ``dv``:
+    optional destination views of the same kind).  Queries at positions
+    ``q_offset .. q_offset + Sq - 1`` over keys 0..Sk-1 with
+    ``q_offset + Sq <= Sk``: self-attention (q_offset 0, Sq == Sk) or
+    one chunk of its queries against every key (the sequence-sharded
+    attention of tensor parallelism), where the keys no query of the
+    chunk sees get dk = dv = 0; anything else raises.  bfloat16 takes
+    the tensor-core kernels, which read q, k, v and do through TMA: a
+    layout TMA cannot read raises.  ``q_pos`` [B, Sq], ``k_pos`` [B, Sk]
+    or their ``plan``, and ``softcap``, as the forward's (positions take
+    q_offset 0, and any Sq, Sk)."""
     _check_softcap(softcap)
     if q.device.type == "cpu":
         if plan is not None:
             q_pos, k_pos = plan.q_pos, plan.k_pos
         grads = attention_backward_reference(
-            q, k, v, o, do, lse, causal=causal, window=window, q_pos=q_pos,
-            k_pos=k_pos, softcap=softcap)
+            q, k, v, o, do, lse, causal=causal, window=window,
+            q_offset=q_offset, q_pos=q_pos, k_pos=k_pos, softcap=softcap)
         return tuple(g if dst is None else dst.copy_(g)
                      for g, dst in zip(grads, (dq, dk, dv)))
     if q.device.type not in ("cuda", "meta"):
@@ -450,11 +469,14 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                          f"meta tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q, k, v, o, do must be [B, H, S, D]")
-    b, h, s, d = q.shape
-    kvh = k.shape[1]
-    if k.shape[2] != s:
-        raise ValueError(f"the backward takes self-attention only (Sq == "
-                         f"Sk), got Sq {s}, Sk {k.shape[2]}")
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    positions = plan is not None or q_pos is not None or k_pos is not None
+    if q_offset < 0 or (not positions and q_offset + sq > sk):
+        raise ValueError(f"the backward takes queries at q_offset .. "
+                         f"q_offset + Sq - 1 within the Sk keys (q_offset "
+                         f">= 0, q_offset + Sq <= Sk), got q_offset "
+                         f"{q_offset}, Sq {sq}, Sk {sk}")
     if kvh == 0 or h % kvh:
         raise ValueError(f"{h} query heads are not a multiple of {kvh} kv "
                          "heads")
@@ -464,17 +486,21 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                          f"or below {HEAD_DIMS[0]}, zero-padded to it)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    plan = _plan(plan, q_pos, k_pos, softcap, b, s, s, 0, q.device)
+    if q_pos is not None and q_offset:
+        raise ValueError("q_pos replaces q_offset, which must then be 0")
+    plan = _plan(plan, q_pos, k_pos, softcap, b, sq, sk, q_offset, q.device)
+    if plan is not None:
+        q_offset = 0                  # the plan's positions carry it
     if dq is None:
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dk is None:
         dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     if dv is None:
         dv = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-    for arg, x, shape in (("k", k, (b, kvh, s, d)), ("v", v, (b, kvh, s, d)),
-                          ("o", o, (b, h, s, d)), ("do", do, (b, h, s, d)),
-                          ("dq", dq, (b, h, s, d)), ("dk", dk, (b, kvh, s, d)),
-                          ("dv", dv, (b, kvh, s, d))):
+    qs, ks = (b, h, sq, d), (b, kvh, sk, d)
+    for arg, x, shape in (("k", k, ks), ("v", v, ks), ("o", o, qs),
+                          ("do", do, qs), ("dq", dq, qs), ("dk", dk, ks),
+                          ("dv", dv, ks)):
         if tuple(x.shape) != shape:
             raise ValueError(f"{arg} has shape {tuple(x.shape)}, expected "
                              f"{shape}")
@@ -486,11 +512,11 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                    ("dq", dq), ("dk", dk), ("dv", dv)):
         if x.stride(3) != 1:
             raise ValueError(f"{arg} needs a contiguous head dimension")
-    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq)
             or not lse.is_contiguous() or lse.device != q.device):
-        raise ValueError(f"lse must be a contiguous float32 {(b, h, s)} "
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, sq)} "
                          f"tensor on {q.device}")
-    if b == 0 or h == 0 or s == 0:
+    if b == 0 or h == 0 or sq == 0:
         return dq, dk, dv
     scale = 1.0 / math.sqrt(d)
     if d < HEAD_DIMS[0]:
@@ -498,50 +524,53 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
         padded = [F.pad(x, (0, pad)) for x in (q, k, v, o, do)]
         outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
                 for x in padded[:3]]
-        _launch_bwd(*padded, lse, *outs, causal, window, scale, plan,
-                    softcap)
+        _launch_bwd(*padded, lse, *outs, causal, window, q_offset, scale,
+                    plan, softcap)
         for dst, src in zip((dq, dk, dv), outs):
             dst.copy_(src[..., :d])
     else:
-        _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window, scale,
-                    plan, softcap)
+        _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
+                    q_offset, scale, plan, softcap)
     return dq, dk, dv
 
 
-def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
+def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window, q_offset,
                 scale, plan=None, softcap=None) -> None:
     """One call of the route's backward kernels on checked tensors (on
     meta tensors: the scratch allocated and the work reported, no
     launch); a ``plan`` selects the EXT instantiations."""
-    b, h, s, d = q.shape
-    kvh = k.shape[1]
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
     name = route(q.dtype)
     tensor_cores = name == TC
     if tensor_cores and q.device.type != "meta":
         _check_tma((("q", q), ("k", k), ("v", v), ("do", do)),
                    (("dq", dq), ("dk", dk), ("dv", dv)))
-    s_pad = tiles.bwd_pad_rows(s) if tensor_cores else s
-    splits = tiles.dkdv_splits(b, kvh, s, h // kvh) if tensor_cores else 1
-    # delta (and, for the tensor cores, lse log2 e before it; then the
-    # dk/dv blocks' partial sums when a group is split)
+    s_pad = tiles.bwd_pad_rows(sq) if tensor_cores else sq
+    splits = tiles.dkdv_splits(b, kvh, sk, h // kvh) if tensor_cores else 1
+    # delta (and, for the tensor cores, lse log2 e before it) over the
+    # query rows; then the dk/dv blocks' partial sums over the keys when a
+    # group is split
     n = (2 if tensor_cores else 1) * b * h * s_pad
     if splits > 1:
-        n += splits * 2 * b * kvh * s * d
+        n += splits * 2 * b * kvh * sk * d
     scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
     if plan is not None:
         band = pos_band(plan, causal, window)
         sorted_ = _sorted_copies(plan, tensor_cores, q, k, True)
     if q.device.type == "meta":
-        work.report(BWD_ROUTES[name], bwd_flops(b, h, s, d, causal, window,
-                                                tensor_cores),
+        work.report(BWD_ROUTES[name], bwd_flops(
+            b, h, sq, d, causal, window, tensor_cores, sk=sk,
+            q_offset=q_offset),
                     work.tensor_bytes(q, k, v, o, do, lse, dq, dk, dv))
         return
     strides = [st for x in (q, k, v, o, do, dq, dk, dv) for st in _strides(x)]
     lib = _library() if plan is None else _ext_library()
     args = [_KERNEL_IDS[name], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d,
-            int(causal), 0 if window is None else int(window), scale,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq, sk,
+            int(q_offset), d, int(causal),
+            0 if window is None else int(window), scale,
             (ctypes.c_longlong * 24)(*strides),
             (ctypes.c_int * 4)(*tiles.bwd_tiles(tensor_cores, d)), s_pad,
             splits]
@@ -550,11 +579,14 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
         if plan is None:
             rc = lib.flash_attention_bwd(*args, stream)
         else:
+            del args[_BWD_Q_OFFSET]        # the positions carry q_offset
             rc = lib.flash_attention_ext_bwd(
                 *args, *_plan_args(plan, band, sorted_, softcap), stream)
     _check_rc(lib, rc, BWD_ROUTES[name])
     BACKWARD_LAUNCHES[BWD] += 1
     BACKWARD_LAUNCHES[BWD_ROUTES[name]] += 1
+    if plan is None and (q_offset or sq < sk):
+        CHUNK_LAUNCHES[CHUNK_BWD] += 1
     if plan is not None:
         EXT_LAUNCHES[EXT_KEYS[BWD_ROUTES[name]]] += 1
         if sorted_ is not None:
@@ -562,13 +594,16 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, window,
 
 
 def bwd_flops(b: int, h: int, s: int, d: int, causal: bool,
-              window: int | None, tensor_cores: bool) -> float:
-    """Matrix-product flops of one backward call: 10 d for every (query,
-    key) pair of the dk/dv blocks' visited tiles (q·kᵀ again, dO·vᵀ, pᵀ·dO,
-    dsᵀ·q and ds·k), over batch and heads."""
+              window: int | None, tensor_cores: bool, *,
+              sk: int | None = None, q_offset: int = 0) -> float:
+    """Matrix-product flops of one backward call of ``s`` query rows at
+    ``q_offset`` over ``sk`` keys (``s``: self-attention): 10 d for every
+    (query, key) pair of the dk/dv blocks' visited tiles (q·kᵀ again,
+    dO·vᵀ, pᵀ·dO, dsᵀ·q and ds·k), over batch and heads."""
     _, _, bk, bq = tiles.bwd_tiles(tensor_cores, d)
     visited = sum(len(row) for row in tiles.dkdv_schedule(
-        s=s, causal=causal, window=window, bk=bk, bq=bq))
+        sq=s, sk=s if sk is None else sk, q_offset=q_offset, causal=causal,
+        window=window, bk=bk, bq=bq))
     return 10.0 * d * bk * bq * visited * b * h
 
 

@@ -10,9 +10,11 @@ Where a gradient is wanted (grad mode on and q, k or v requiring it) the
 call goes through ``FlashAttention``, a ``torch.autograd.Function``: its
 forward launches the kernel with the rows' log-sum-exp and saves q, k, v,
 the output and lse, and keeps the position plan (which takes no
-gradient); its backward launches the backward kernels on that plan (the
-plain backward on the CPU) and hands back dq, dk, dv in the layout it was
-given.
+gradient) and ``q_offset``; its backward launches the backward kernels on
+that plan (the plain backward on the CPU) and hands back dq, dk, dv in
+the layout it was given.  A query chunk (Sq < Sk at ``q_offset``, the
+sequence-sharded attention of tensor parallelism) takes the gradient too:
+the keys no query of the chunk sees get zeros.
 
 ``q_pos`` / ``k_pos`` ([B, Sq] / [B, Sk]) or their ``plan`` (made once a
 model forward; built here from the positions otherwise) and ``softcap``
@@ -62,11 +64,11 @@ class FlashAttention(torch.autograd.Function):
     layout."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, plan, softcap):
-        out, lse = _forward(q, k, v, causal, window, 0, True,
+    def forward(ctx, q, k, v, causal, window, q_offset, plan, softcap):
+        out, lse = _forward(q, k, v, causal, window, q_offset, True,
                             _ext(plan, softcap))
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         ctx.plan, ctx.softcap = plan, softcap
         return out
 
@@ -74,9 +76,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        kw = dict(causal=ctx.causal, window=ctx.window, plan=ctx.plan,
-                  softcap=ctx.softcap)
-        none = (None,) * 4        # causal, window, plan and softcap
+        kw = dict(causal=ctx.causal, window=ctx.window,
+                  q_offset=ctx.q_offset, plan=ctx.plan, softcap=ctx.softcap)
+        none = (None,) * 5   # causal, window, q_offset, plan and softcap
         if q.dim() != 5:
             dq, dk, dv = flash_attention_bwd_bhsd(q, k, v, out, do, lse, **kw)
             return dq, dk, dv, *none
@@ -108,12 +110,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif plan is not None and (q_pos is not None or k_pos is not None):
         raise ValueError("give positions or their plan, not both")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        if q_offset != 0:
-            raise NotImplementedError("the attention gradient takes "
-                                      "q_offset 0 (self-attention) only")
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal, window, plan,
-                                    softcap)
+                                    v.contiguous(), causal, window, q_offset,
+                                    plan, softcap)
     if grouped:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _forward(q, k, v, causal, window, q_offset, False,

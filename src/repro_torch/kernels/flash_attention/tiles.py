@@ -15,12 +15,15 @@ kernel computes with ``computed_flops``, and
 ``tests/test_torch_flash_tile_plan.py`` holds the schedule against the
 mask of ``attention_reference``.
 
-The backward walks the same pairs twice.  Its dq kernel is a block of
-query rows over ``kv_range`` (as the forward, with q_offset 0 and Sq =
-Sk); its dk/dv kernel is a block of keys over the query tiles that can
-see them (``dkdv_range``), for every head of its run of the kv head's
-group (``dkdv_splits``, ``split_heads``), and ``dkdv_tile_masked`` (the
-twin of ``dkdv_masked``) says which of those tiles take the mask.
+The backward walks the same pairs twice, for queries at ``q_offset +
+i`` (i < Sq) over keys j < Sk with ``q_offset + Sq <= Sk``
+(self-attention, or one chunk of its queries).  Its dq kernel is a block
+of query rows over ``kv_range``, as the forward; its dk/dv kernel is a
+block of keys over the query tiles that can see them (``dkdv_range``:
+none for keys past the chunk's last row or left of its window, whose dk
+and dv are then zeros), for every head of its run of the kv head's group
+(``dkdv_splits``, ``split_heads``), and ``dkdv_tile_masked`` (the twin
+of ``dkdv_masked``) says which of those tiles take the mask.
 ``bwd_tiles`` gives both kernels' tiles per route and
 ``tc_bwd_smem_bytes`` the tensor-core kernels' shared memory.
 
@@ -80,11 +83,12 @@ def bwd_pad_rows(s: int) -> int:
     return -(-s // BWD_PAD_ROWS) * BWD_PAD_ROWS
 
 
-def dkdv_splits(b: int, kvh: int, s: int, group: int) -> int:
+def dkdv_splits(b: int, kvh: int, sk: int, group: int) -> int:
     """Runs of consecutive heads the tensor-core backward cuts a group
     into, one dk/dv block each (their f32 sums are then added in run
-    order): enough for about BWD_TARGET_BLOCKS blocks, none empty."""
-    blocks = -(-s // BWD_KV_TILE[0]) * kvh * b
+    order): enough for about BWD_TARGET_BLOCKS blocks of ``sk`` keys'
+    tiles, none empty."""
+    blocks = -(-sk // BWD_KV_TILE[0]) * kvh * b
     want = min(group, max(1, -(-BWD_TARGET_BLOCKS // blocks)))
     return -(-group // -(-group // want))
 
@@ -174,37 +178,42 @@ def computed_flops(b: int, h: int, d: int, *, sq: int, sk: int, causal: bool,
     return 4.0 * bq * bk * d * tiles * h
 
 
-def dkdv_range(k0: int, *, bk: int, bq: int, s: int, causal: bool,
-               window: int | None) -> tuple[int, int]:
+def dkdv_range(k0: int, *, bk: int, bq: int, sq: int, q_offset: int = 0,
+               causal: bool, window: int | None) -> tuple[int, int]:
     """Query rows [begin, end) a dk/dv block of keys [k0, k0 + bk) walks
-    (in tiles of bq rows from begin): those that can see one of its keys
-    (self-attention, every row with a valid key)."""
-    begin = k0 // bq * bq if causal else 0
-    end = min(s, k0 + bk - 1 + window) if window else s
-    return begin, end
+    (in tiles of bq rows from begin; row i at position q_offset + i):
+    those that can see one of its keys, every row with a valid key; empty
+    (end <= begin) where none can."""
+    first = max(0, k0 - q_offset) if causal else 0
+    begin = first // bq * bq
+    end = min(sq, k0 + bk - 1 + window - q_offset) if window else sq
+    return (begin, end) if first < end else (begin, begin)
 
 
-def dkdv_tile_masked(k0: int, q0: int, *, bk: int, bq: int, s: int,
-                     causal: bool, window: int | None) -> bool:
+def dkdv_tile_masked(k0: int, q0: int, *, bk: int, bq: int, sq: int,
+                     sk: int, q_offset: int = 0, causal: bool,
+                     window: int | None) -> bool:
     """Whether the (key tile k0, query tile q0) pair holds a pair the mask
-    drops, or a key or query past S."""
-    return not (q0 + bq <= s and k0 + bk <= s
-                and (not causal or q0 >= k0 + bk - 1)
-                and (not window or q0 + bq - 1 - k0 < window))
+    drops, or a key or query past the end."""
+    return not (q0 + bq <= sq and k0 + bk <= sk
+                and (not causal or q_offset + q0 >= k0 + bk - 1)
+                and (not window or q_offset + q0 + bq - 1 - k0 < window))
 
 
-def dkdv_schedule(*, s: int, causal: bool, window: int | None, bk: int,
+def dkdv_schedule(*, sq: int, sk: int | None = None, q_offset: int = 0,
+                  causal: bool, window: int | None, bk: int,
                   bq: int) -> list[list[tuple[int, bool]]]:
-    """For each key tile of a dk/dv kernel, its visited query tiles as
-    (first row, masked); the block walks them once for each head of its
-    group."""
+    """For each key tile of a dk/dv kernel (``sk`` keys; None: ``sq``),
+    its visited query tiles as (first row, masked); the block walks them
+    once for each head of its group."""
+    sk = sq if sk is None else sk
     out = []
-    for k0 in range(0, s, bk):
-        begin, end = dkdv_range(k0, bk=bk, bq=bq, s=s, causal=causal,
-                                window=window)
-        out.append([(q0, dkdv_tile_masked(k0, q0, bk=bk, bq=bq, s=s,
-                                          causal=causal, window=window))
-                    for q0 in range(begin, end, bq)])
+    for k0 in range(0, sk, bk):
+        begin, end = dkdv_range(k0, bk=bk, bq=bq, sq=sq, q_offset=q_offset,
+                                causal=causal, window=window)
+        out.append([(q0, dkdv_tile_masked(
+            k0, q0, bk=bk, bq=bq, sq=sq, sk=sk, q_offset=q_offset,
+            causal=causal, window=window)) for q0 in range(begin, end, bq)])
     return out
 
 
@@ -351,7 +360,7 @@ def pos_schedule(p: PosBand, *, bq: int,
 
 def pos_dkdv_schedule(p: PosBand, *, bk: int,
                       bq: int) -> list[list[tuple[int, bool]]]:
-    """``dkdv_schedule`` in sorted order (Sq = Sk): for each tile of
+    """``dkdv_schedule`` in sorted order (any Sq, Sk): for each tile of
     sorted keys, its visited tiles of sorted rows as (first row,
     masked)."""
     out = []

@@ -18,7 +18,9 @@ the devices it describes.
   CPU "devices" or two shards of ``cuda:0`` (the counterpart of JAX's
   ``--xla_force_host_platform_device_count``);
 * ``make_data_mesh``: ``(world // model, model)`` over an initialised
-  ``torch.distributed`` process group, one device a rank;
+  ``torch.distributed`` process group, one device a rank, with this
+  rank's data group (the ranks of its model index) and, for
+  ``model > 1``, its model group (the ranks of its data row);
 * ``make_card_mesh``: one card, 1 x 1, with its memory.
 
 Nothing here touches the card when the module is imported.
@@ -56,6 +58,11 @@ class MeshSpec:
     #: the device of each mesh position, row-major over ``sizes`` (a data
     #: mesh: rank r's device at r); ``None`` for a mesh only planned on
     devices: tuple[torch.device, ...] | None = None
+    #: a data mesh's process groups of this rank: the ranks sharing its
+    #: ``model`` coordinate (the default group for ``model = 1``) and the
+    #: ranks of its data row (None for ``model = 1``)
+    data_group: object = dataclasses.field(default=None, compare=False)
+    model_group: object = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes):
@@ -132,7 +139,10 @@ def make_data_mesh(model: int = 1, device=None) -> MeshSpec:
     the host's cards; made the rank's current card), on the card the
     caller names (``device="cuda:0"``: ranks sharing one card), or every
     rank on the CPU when the caller asks for it (``device="cpu"``).
-    Raises without a process group."""
+    For ``model > 1`` every rank makes the mesh's data groups (one a
+    model index) and model groups (one a data row) with
+    ``dist.new_group``, in that order, and keeps its own two.  Raises
+    without a process group."""
     import os
 
     import torch.distributed as dist
@@ -155,8 +165,20 @@ def make_data_mesh(model: int = 1, device=None) -> MeshSpec:
         devs = ["cpu"] * world
     else:
         raise ValueError(f"a data mesh runs on cuda or cpu, not {dev}")
-    return MeshSpec(("data", "model"), (world // model, model),
-                    devices=tuple(torch.device(d) for d in devs))
+    rows, rank = world // model, dist.get_rank()
+    data_group, model_group = dist.group.WORLD, None
+    if model > 1:
+        for j in range(model):
+            g = dist.new_group([i * model + j for i in range(rows)])
+            if rank % model == j:
+                data_group = g
+        for i in range(rows):
+            g = dist.new_group([i * model + j for j in range(model)])
+            if rank // model == i:
+                model_group = g
+    return MeshSpec(("data", "model"), (rows, model),
+                    devices=tuple(torch.device(d) for d in devs),
+                    data_group=data_group, model_group=model_group)
 
 
 def make_card_mesh(device=None) -> MeshSpec:

@@ -25,6 +25,15 @@ ranks' gradients are all-reduced as an exact f32 SUM, and the global norm
 and the clip are taken on the whole gradient.  With ZeRO-1
 (``zero1_shard``) each rank updates its slice of the moments and the
 parameters are all-gathered.
+
+On a ``(data, model)`` mesh with ``model > 1`` (``model_group``: the
+ranks of this rank's data row) each rank holds its slices of the train
+state along ``model`` (``train_state_pspecs``) and runs the whole
+batch of its data row through the tensor-parallel model
+(``distributed.ctx.model_parallel``; ``partitioning.tp_layout``): the
+gradients are this rank's slices, whole and equal on every model rank
+for the replicated leaves, summed over the data group only;
+``model_shards`` tells the optimizer which leaves ``model`` splits.
 """
 
 from __future__ import annotations
@@ -38,13 +47,13 @@ import torch.distributed as dist
 from repro_torch.configs.base import ShapeSpec, input_specs
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partitioning as part
-from repro_torch.distributed.ctx import data_parallel
+from repro_torch.distributed.ctx import data_parallel, model_parallel
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_params, loss_fn, prefill)
-from repro_torch.train.optimizer import (OptConfig, ShardedUpdate,
-                                         adamw_init, adamw_update,
-                                         tree_from_paths, tree_map,
-                                         tree_paths)
+from repro_torch.train.optimizer import (ModelShards, OptConfig,
+                                         ShardedUpdate, adamw_init,
+                                         adamw_update, tree_from_paths,
+                                         tree_map, tree_paths)
 from repro_torch.train.schedules import constant
 
 Params = Any
@@ -162,7 +171,7 @@ def _sum_over(grads: Params, group) -> Params:
 
 
 def loss_and_grads(cfg: ModelConfig, params: Params, batch,
-                   grad_accum: int = 1, group=None
+                   grad_accum: int = 1, group=None, model_group=None
                    ) -> tuple[torch.Tensor, dict, Params]:
     """The train step's (loss, metrics, grads) before the update.  With
     ``grad_accum > 1`` the batch is split along its first axis into
@@ -172,15 +181,20 @@ def loss_and_grads(cfg: ModelConfig, params: Params, batch,
     With a data ``group``, ``batch`` is the global batch: this rank runs
     its rows of each microbatch (``rank_rows``) with the model's sums
     taken over the group, and the gradients (f32) are the SUM of the
-    ranks' parts before the mean over microbatches."""
+    ranks' parts before the mean over microbatches.  With a
+    ``model_group`` (needs a data ``group``) ``params`` are this rank's
+    slices along ``model`` and so are the gradients."""
     if group is None:
+        if model_group is not None:
+            raise ValueError("a model group needs its data group")
         return _loss_and_grads(cfg, params, batch, grad_accum)
     local = rank_rows(batch, grad_accum, dist.get_rank(group),
                       dist.get_world_size(group))
-    with data_parallel(group):
+    with data_parallel(group), model_parallel(model_group):
         loss, metrics, grads = _loss_and_grads(cfg, params, local,
                                                grad_accum, mean=False)
-    grads = _sum_over(grads, group)
+    if dist.get_world_size(group) > 1:     # a sum over one rank is itself
+        grads = _sum_over(grads, group)
     if grad_accum > 1:
         grads = tree_map(lambda g: g / grad_accum, grads)
         metrics["tokens"] = torch.tensor(batch["labels"].numel(),
@@ -219,19 +233,23 @@ def _loss_and_grads(cfg: ModelConfig, params: Params, batch,
 def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
                     schedule: Callable[[torch.Tensor], torch.Tensor]
                     | None = None, grad_accum: int = 1, *, group=None,
-                    shard: ShardedUpdate | None = None):
+                    shard: ShardedUpdate | None = None,
+                    model: ModelShards | None = None):
     """forward+backward (+ microbatch accumulation) + AdamW update:
     ``train_step(state, batch) -> (new_state, metrics)``.  With a data
     ``group`` the step takes the global batch on every rank and reduces
     over the group (``loss_and_grads``); ``shard`` (``zero1_shard``) is
-    this rank's ZeRO-1 share of the update."""
+    this rank's ZeRO-1 share of the update; ``model`` (``model_shards``)
+    its place on a ``model`` axis of more than one rank."""
     schedule = schedule or constant(3e-4)
+    model_group = None if model is None else model.group
 
     def train_step(state: Params, batch: dict[str, torch.Tensor]):
         loss, metrics, grads = loss_and_grads(cfg, state["params"], batch,
-                                              grad_accum, group)
+                                              grad_accum, group, model_group)
         new_params, new_opt, info = adamw_update(
-            ocfg, schedule, state["params"], grads, state["opt"], shard)
+            ocfg, schedule, state["params"], grads, state["opt"], shard,
+            model)
         metrics = dict(metrics)
         metrics.update(info)
         metrics["loss"] = loss
@@ -247,7 +265,8 @@ def zero1_shard(state_specs: Params, params: Params, mesh, position: int,
     each parameter of ``params`` (any tensors of its shapes), the slice
     its moment shard covers (an int8 moment's codes ``q``) and the dim
     the data axis cuts (None where no dim divides and the moment is
-    whole); ``group`` is the data group."""
+    whole); ``group`` is the data group.  On a ``model`` axis the slice is
+    of the rank's own slice of the parameter along ``model``."""
     index, dims = {}, {}
     for path, p in tree_paths(params):
         spec = state_specs["opt"]["m"]
@@ -255,9 +274,33 @@ def zero1_shard(state_specs: Params, params: Params, mesh, position: int,
             spec = spec[k]
         if isinstance(spec, dict):          # int8 {'q', 'scale'}
             spec = spec["q"]
-        index[path] = part.NamedSharding(mesh, spec).index(p.shape, position)
+        on = [part.axes_of(e) for e in spec]
+        local = part.local_shape(p.shape, part.P(*(
+            e if part.MODEL_AXIS in a else None for e, a in zip(spec, on))),
+            mesh)
+        data = part.P(*(None if part.MODEL_AXIS in a else e
+                        for e, a in zip(spec, on)))
+        index[path] = part.NamedSharding(mesh, data).index(local, position)
         dims[path] = part.sharded_dim(spec, part.FSDP_AXIS)
     return ShardedUpdate(group, index, dims)
+
+
+def model_shards(cfg: ModelConfig, mesh, group) -> ModelShards | None:
+    """This rank's place on ``mesh``'s ``model`` axis for the optimizer
+    (``group``: its model group), or None for ``model = 1``: the
+    parameter paths ``param_pspecs`` splits over ``model``, and those it
+    splits along their last dim."""
+    if part.axis_size(mesh, part.MODEL_AXIS) == 1:
+        return None
+    shape = init_params(cfg, torch.Generator().manual_seed(0),
+                        device="meta")
+    dims = {p: x.dim() for p, x in tree_paths(shape)}
+    specs = part.param_pspecs(cfg, mesh, shape)
+    sharded = part.model_sharded_paths(specs)
+    rows = frozenset(p for p, spec in tree_paths(specs)
+                     if p in sharded and len(spec) == dims[p]
+                     and part.MODEL_AXIS in part.axes_of(spec[-1]))
+    return ModelShards(group, sharded, rows)
 
 
 def make_serve_decode(cfg: ModelConfig):

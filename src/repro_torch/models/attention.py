@@ -20,6 +20,18 @@ Full-sequence attention takes one of three routes:
   run's plan of the card's path) take the same route; the kernel's
   wrapper allocates its outputs and reports its work.
 
+Under tensor parallelism (a ``distributed.ctx.model_parallel`` context)
+``attn_full`` runs the split ``partitioning.attn_mode`` gives the heads:
+``"kv"``, this rank's kv heads with their groups; ``"group"``, this
+rank's query heads of every group, the kv projections replicated (their
+gradient summed over the group); ``"seq"``, every weight replicated and
+this rank's contiguous chunk of the queries (rows ``r S / tp`` on)
+attending to every key — K4 at that ``q_offset``, or on its EXT path at
+the chunk's caller positions — the chunks' outputs gathered back.  A
+sequence that does not divide runs whole on every rank, as JAX's
+``constrain`` then drops the axis.  ``wo`` is row-parallel: the ranks'
+outputs are summed (``from_model``), the replicated ``bo`` added once.
+
 Decode (``attn_decode``) is a single-token query against a KV cache laid
 out ``[B, kvH, S_cache, Dh]``; sliding-window layers use a ring buffer
 with an explicit per-slot absolute-position array so RoPE and masking
@@ -33,7 +45,9 @@ import math
 
 import torch
 
-from repro_torch.distributed.ctx import constrain
+from repro_torch.distributed import partitioning as part
+from repro_torch.distributed.ctx import (constrain, from_model, gather_seq,
+                                         mp_rank, mp_size, to_model)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import Params, dense_init
@@ -216,8 +230,23 @@ def attn_full(
     """Full-sequence (scoring / prefill) attention. x: [B, S, d];
     positions [B, S], or None for ``arange(S)`` in every row (built here
     for RoPE; the mask then takes the kernel's index path); ``plan``:
-    the positions' ``PosPlan`` for the card's kernels, if made."""
+    the positions' ``PosPlan`` for the card's kernels, if made.  Inside a
+    model group, this rank's part of the split (see the module's
+    docstring)."""
+    tp = mp_size()
+    mode = part.attn_mode(spec.n_heads, spec.n_kv_heads, tp) if tp > 1 \
+        else None
+    if mode == "seq":
+        if x.shape[1] % tp == 0:
+            return _attn_seq_chunk(p, spec, x, positions, position_ids,
+                                   compute_dtype)
+        mode = None        # JAX's constrain drops the axis: whole everywhere
     x = x.to(compute_dtype)
+    if mode is not None:       # this rank's heads
+        x = to_model(x)
+        if mode == "group":    # replicated kv projections: sum their grads
+            p = {k: to_model(v) if k in ("wk", "wv", "bk", "bv") else v
+                 for k, v in p.items()}
     q, k, v = _project_qkv(p, spec, x, compute_dtype)
     pos = (default_positions(x.shape[0], x.shape[1], x.device)
            if positions is None else positions)
@@ -228,7 +257,55 @@ def attn_full(
     q = constrain(q, ("batch", "seq", None, None, None))
     pos = constrain(pos, ("batch", "seq"))
     out = attend(spec, q, k, v, None if positions is None else pos, plan)
-    return _out_proj(p, out, compute_dtype)
+    if mode is None:
+        return _out_proj(p, out, compute_dtype)
+    # wo's rows of this rank's heads: the ranks' outputs summed, bo once
+    y = from_model(_out_proj({"wo": p["wo"]}, out, compute_dtype))
+    return y + p["bo"].to(compute_dtype) if "bo" in p else y
+
+
+def _attn_seq_chunk(p: Params, spec: AttnSpec, x, positions, position_ids,
+                    compute_dtype) -> torch.Tensor:
+    """The sequence-sharded fallback: every weight replicated (its
+    gradient summed over the group), this rank's chunk of S / tp queries
+    against every key, the chunks' outputs gathered back in order."""
+    b, s, _ = x.shape
+    n = s // mp_size()
+    c0 = mp_rank() * n
+    x = to_model(x.to(compute_dtype))
+    p = {k: to_model(v) for k, v in p.items()}
+    xq = x[:, c0:c0 + n]
+    q = torch.einsum("bsd,dhgk->bshgk", xq, p["wq"].to(compute_dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(compute_dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(compute_dtype))
+    if spec.qkv_bias:
+        q = q + p["bq"].to(compute_dtype)
+        k = k + p["bk"].to(compute_dtype)
+        v = v + p["bv"].to(compute_dtype)
+    pos = (default_positions(b, s, x.device) if positions is None
+           else positions)
+    q_pos = pos[:, c0:c0 + n]
+    if spec.rope_kind == "rope":
+        q = rope_mod.apply_rope(q, q_pos, theta=spec.rope_theta)
+        k = rope_mod.apply_rope(k, pos, theta=spec.rope_theta)
+    elif spec.rope_kind == "mrope":
+        q = rope_mod.apply_mrope(q, position_ids[:, :, c0:c0 + n],
+                                 spec.mrope_sections, theta=spec.rope_theta)
+        k = rope_mod.apply_mrope(k, position_ids, spec.mrope_sections,
+                                 theta=spec.rope_theta)
+    if q.device.type == "cpu":
+        attn = (_attn_blockwise if s >= spec.blockwise_threshold
+                else _attn_plain)
+        out = attn(spec, q, k, v, q_pos, pos)
+    elif positions is None:
+        out = flash_ops.flash_attention(
+            q, k, v, causal=True, window=spec.window, q_offset=c0,
+            softcap=spec.softcap)
+    else:
+        out = flash_ops.flash_attention(
+            q, k, v, causal=True, window=spec.window, q_pos=q_pos,
+            k_pos=pos, softcap=spec.softcap)
+    return gather_seq(_out_proj(p, out, compute_dtype), 1)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,14 @@ plain function on tensors.  All matmul-bearing layers take an explicit
 ``compute_dtype`` so the stack runs mixed precision (bf16 compute,
 configurable param dtype) as the JAX package does.
 
+Under tensor parallelism (a ``distributed.ctx.model_parallel`` context)
+a rank holds its slice of each parameter along ``model``: ``mlp`` with
+``model_sharded`` is Megatron's column / row pair (its ``wi`` / ``wg``
+columns and ``wo`` rows, ``to_model`` in and ``from_model`` out, the
+replicated ``bo`` added once after the sum), ``embed`` looks up the
+rank's rows of the vocabulary and sums the ranks' rows (the one nonzero
+row of each token: exact), and ``logits_head`` gives the rank's columns.
+
 Initialization follows the JAX package's distributions — fan-in scaled
 truncated normal on [-2, 2] for projections, ones for norm scales, zeros
 for biases — drawn from an explicit ``torch.Generator`` (the numbers differ
@@ -22,6 +30,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.ctx import from_model, mp_rank, mp_size, to_model
 
 Params = dict[str, Any]
 
@@ -140,8 +150,13 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, *, gated: bool,
 
 
 def mlp(p: Params, x: torch.Tensor, *, act: str,
-        compute_dtype=torch.bfloat16) -> torch.Tensor:
+        compute_dtype=torch.bfloat16,
+        model_sharded: bool = False) -> torch.Tensor:
+    """``model_sharded``: ``p`` holds this rank's columns of ``wi`` /
+    ``wg`` / ``bi`` and rows of ``wo`` (the ranks' outputs are summed)."""
     x = x.to(compute_dtype)
+    if model_sharded:
+        x = to_model(x)
     h = x @ p["wi"].to(compute_dtype)
     if "bi" in p:
         h = h + p["bi"].to(compute_dtype)
@@ -149,6 +164,8 @@ def mlp(p: Params, x: torch.Tensor, *, act: str,
     if "wg" in p:
         h = h * (x @ p["wg"].to(compute_dtype))
     out = h @ p["wo"].to(compute_dtype)
+    if model_sharded:
+        out = from_model(out)
     if "bo" in p:
         out = out + p["bo"].to(compute_dtype)
     return out
@@ -166,7 +183,18 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def embed(p: Params, ids: torch.Tensor, *,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return p["table"][ids.long()].to(compute_dtype)
+    """Inside a model group the table is this rank's rows [r n, (r + 1) n)
+    of the padded vocabulary: ids outside them give zero rows, and the
+    ranks' rows are summed."""
+    table = p["table"]
+    if mp_size() == 1:
+        return table[ids.long()].to(compute_dtype)
+    n = table.shape[0]
+    local = ids.long() - mp_rank() * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(compute_dtype)
+    return from_model(torch.where(inside[..., None], rows,
+                                  rows.new_zeros(())))
 
 
 def init_head(gen: torch.Generator, d: int, vocab: int, dtype=torch.float32,
@@ -176,11 +204,13 @@ def init_head(gen: torch.Generator, d: int, vocab: int, dtype=torch.float32,
 
 def logits_head(w: torch.Tensor, x: torch.Tensor, *,
                 softcap: float | None = None, compute_dtype=torch.bfloat16,
-                valid_vocab: int | None = None) -> torch.Tensor:
+                valid_vocab: int | None = None,
+                vocab_start: int = 0) -> torch.Tensor:
     """``w`` is ``[V, d]`` (tied-embedding layout) or ``[d, V]``.
 
     ``valid_vocab`` masks Megatron-style vocab-padding columns to -1e30 so
-    padded entries never receive probability mass."""
+    padded entries never receive probability mass.  ``vocab_start``: the
+    vocabulary index of ``w``'s first column (a rank's slice of it)."""
     w = w.to(compute_dtype)
     if w.shape[0] != x.shape[-1]:  # [V, d] tied layout
         logits = x.to(compute_dtype) @ w.T
@@ -189,6 +219,8 @@ def logits_head(w: torch.Tensor, x: torch.Tensor, *,
     logits = logits.float()
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
-        logits[..., valid_vocab:] = -1e30
+    if valid_vocab is not None:
+        valid = max(valid_vocab - vocab_start, 0)
+        if valid < logits.shape[-1]:
+            logits[..., valid:] = -1e30
     return logits

@@ -19,6 +19,18 @@ The JAX package's design, on one device:
   of the top-k logits (Llama-4), kept in float32; an optional always-on
   shared expert.  Dropped tokens fall through on the residual path.
 
+Under tensor parallelism (``apply_moe(tp=...)`` inside a
+``distributed.ctx.model_parallel`` context) the routing runs whole on
+every rank (tokens are replicated over ``model``), and a rank runs its
+part of the experts' slots: its E / tp experts on every token's slots
+(expert-parallel), or, where E does not divide, every expert on its
+contiguous C / tp capacity slots with the weights replicated (their
+gradient summed over the group); where C does not divide either, the
+routed experts run whole on every rank.  The shared expert is column /
+row.  The ranks' partial outputs are summed (``from_model``), and the
+gate weights' gradient is summed over the group, so the router's
+gradient is the whole one on every rank.
+
 The JAX package's sharding hints are kept where it makes them:
 ``distributed.ctx.constrain`` on the dispatch tables and buffers, the
 identity on one device, which records the specs a mesh would give them
@@ -33,7 +45,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.ctx import constrain, dp_size, dp_sum
+from repro_torch.distributed.ctx import (constrain, dp_size, dp_sum,
+                                         from_model, mp_rank, mp_size,
+                                         to_model)
 from repro_torch.models.layers import ACTIVATIONS, Params, dense_init
 
 
@@ -155,11 +169,12 @@ def group_capacity(spec: MoESpec, b: int, s: int) -> int:
 
 
 def apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, *,
-              compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x: [B, S, d]. Groups = rows (S > 1) or the whole batch (decode)."""
+              compute_dtype=torch.bfloat16, tp=None) -> torch.Tensor:
+    """x: [B, S, d]. Groups = rows (S > 1) or the whole batch (decode).
+    ``tp``: the config's ``partitioning.TPPlan`` inside a model group
+    (``p`` then this rank's slices), else None."""
     b, s, d = x.shape
     xg = x if s > 1 else x.reshape(1, b, d)           # [G, T, d]
-    g, t, _ = xg.shape
     cap = group_capacity(spec, b, s)
 
     weights, ids = _route(p["router"], xg, spec)
@@ -169,31 +184,85 @@ def apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, *,
     # device; recorded inside an activation_sharding context)
     src = constrain(src, ("batch", None, "moe_cap"))
     wtab = constrain(wtab, ("batch", None, "moe_cap"))
+    if tp is not None:
+        return _apply_moe_tp(p, spec, xg, ids, src, wtab, cap, compute_dtype,
+                             tp).reshape(b, s, d)
+    out = _routed(p, spec, xg, ids, src, wtab, cap, compute_dtype,
+                  slice(0, spec.n_experts), slice(0, cap))
+    if spec.shared_d_ff:
+        out = out + _shared(p, spec, xg, compute_dtype)
+    return out.reshape(b, s, d)
 
+
+def _routed(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
+            compute_dtype, experts: slice, slots: slice) -> torch.Tensor:
+    """The routed experts' output [G, T, d] from the experts ``experts``
+    on their slots ``slots`` alone (``p`` holding those experts), each
+    token's rows summed in ascending expert order."""
+    g, t, d = xg.shape
+    e_n = experts.stop - experts.start
+    c_n = slots.stop - slots.start
+    src, wtab = src[:, experts, slots], wtab[:, experts, slots]
     x_pad = torch.cat([xg.to(compute_dtype),
                        xg.new_zeros((g, 1, d), dtype=compute_dtype)], dim=1)
-    g_idx = torch.arange(g, device=x.device)[:, None, None]
+    g_idx = torch.arange(g, device=xg.device)[:, None, None]
     xe = x_pad[g_idx, src]                            # [G, E, C, d] gather
     xe = constrain(xe, ("batch", None, "moe_cap", None))
     ye = _expert_ffn(p, spec, xe, compute_dtype)
     ye = ye * wtab[..., None].to(compute_dtype)
     ye = constrain(ye, ("batch", None, "moe_cap", None))
-
     # combine: each token's rows, summed in ascending expert order
     rows = torch.cat([ye.reshape(g, -1, d), ye.new_zeros((g, 1, d))], dim=1)
-    picked = rows[torch.arange(g, device=x.device)[:, None, None],
-                  _combine_index(ids, spec, cap)]     # [G, T, K, d]
+    flat = _combine_index(ids, spec, cap)
+    e, c = flat // cap, flat % cap
+    held = ((e >= experts.start) & (e < experts.stop)
+            & (c >= slots.start) & (c < slots.stop))
+    index = torch.where(held, (e - experts.start) * c_n + c - slots.start,
+                        e_n * c_n)
+    picked = rows[torch.arange(g, device=xg.device)[:, None, None], index]
     out = picked[:, :, 0]
     for j in range(1, spec.top_k):
         out = out + picked[:, :, j]
+    return out
 
+
+def _apply_moe_tp(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
+                  compute_dtype, tp) -> torch.Tensor:
+    """``apply_moe``'s output [G, T, d] on this rank of a model group."""
+    n, r = mp_size(), mp_rank()
+    e = spec.n_experts
+    partial, whole = [], []
+    if tp.moe == "expert" or cap % n == 0:
+        xs, ws = to_model(xg), to_model(wtab)
+        experts, slots = slice(0, e), slice(0, cap)
+        if tp.moe == "expert":
+            experts = slice(r * (e // n), (r + 1) * (e // n))
+            pe = p
+        else:                       # capacity slots, weights replicated
+            slots = slice(r * (cap // n), (r + 1) * (cap // n))
+            pe = {k: to_model(v) for k, v in p.items()
+                  if k in ("wi", "wg", "wo")}
+        partial.append(_routed(pe, spec, xs, ids, src, ws, cap,
+                               compute_dtype, experts, slots))
+    else:                           # neither divides: whole on every rank
+        whole.append(_routed(p, spec, xg, ids, src, wtab, cap,
+                             compute_dtype, slice(0, e), slice(0, cap)))
     if spec.shared_d_ff:
-        xc = xg.to(compute_dtype)
-        hs = ACTIVATIONS[spec.act](xc @ p["shared_wi"].to(compute_dtype))
-        hs = hs * (xc @ p["shared_wg"].to(compute_dtype))
-        out = out + hs @ p["shared_wo"].to(compute_dtype)
+        xc = to_model(xg) if tp.moe_shared else xg
+        (partial if tp.moe_shared else whole).append(
+            _shared(p, spec, xc, compute_dtype))
+    out = from_model(sum(partial[1:], partial[0])) if partial else None
+    for y in whole:
+        out = y if out is None else out + y
+    return out
 
-    return out.reshape(b, s, d)
+
+def _shared(p: Params, spec: MoESpec, xg, compute_dtype) -> torch.Tensor:
+    """The always-on shared expert's output [G, T, d]."""
+    xc = xg.to(compute_dtype)
+    hs = ACTIVATIONS[spec.act](xc @ p["shared_wi"].to(compute_dtype))
+    hs = hs * (xc @ p["shared_wg"].to(compute_dtype))
+    return hs @ p["shared_wo"].to(compute_dtype)
 
 
 def aux_load_balance_loss(router_w: torch.Tensor, x: torch.Tensor,

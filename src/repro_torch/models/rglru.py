@@ -17,6 +17,12 @@ The full-sequence path computes the gates in float32 and hands ``a`` and
 hand-written CUDA kernel on the card, its plain sequential version on the
 CPU.  Decode is the O(1) single-step update with a (state, conv-tail)
 cache, updated in place.
+
+Under tensor parallelism (``rglru_block(model_sharded=True)`` inside a
+``distributed.ctx.model_parallel`` context) a rank holds its R / tp
+channels of ``wx``, ``wy``, the conv, the biases and ``lambda``, its
+heads of the block-diagonal gates and ``wo``'s rows of them: the scan
+runs on [B, S, R / tp], and the ranks' outputs are summed.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import from_model, to_model
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models.layers import Params, dense_init, trunc_normal_
 
@@ -79,12 +86,14 @@ def _blockdiag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _gates(p: Params, spec: RGLRUSpec, x: torch.Tensor):
-    """fp32 (log_a, beta·i·x) for the recurrence; x: [..., R]."""
+    """fp32 (log_a, beta·i·x) for the recurrence; x: [..., R] (a rank's
+    channels of the heads ``p`` holds, under tensor parallelism)."""
     xf = x.float()
+    heads = p["a_gate"].shape[0]
     r_gate = torch.sigmoid(_blockdiag(xf, p["a_gate"].float(),
-                                      p["a_bias"].float(), spec.n_heads))
+                                      p["a_bias"].float(), heads))
     i_gate = torch.sigmoid(_blockdiag(xf, p["x_gate"].float(),
-                                      p["x_bias"].float(), spec.n_heads))
+                                      p["x_bias"].float(), heads))
     log_a = -RGLRU_C * F.softplus(p["lambda"]) * r_gate
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     return log_a, beta * i_gate * xf
@@ -134,15 +143,21 @@ def init_rglru_cache(batch: int, spec: RGLRUSpec, dtype=torch.bfloat16,
 
 
 def rglru_block(p: Params, spec: RGLRUSpec, x: torch.Tensor, *,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Full-sequence temporal-mixing block. x: [B, S, d] -> [B, S, d]."""
+                compute_dtype=torch.bfloat16,
+                model_sharded: bool = False) -> torch.Tensor:
+    """Full-sequence temporal-mixing block. x: [B, S, d] -> [B, S, d].
+    ``model_sharded``: ``p`` is this rank's channels (the ranks' outputs
+    are summed)."""
     x = x.to(compute_dtype)
+    if model_sharded:
+        x = to_model(x)
     xb = x @ p["wx"].to(compute_dtype)
     gb = F.gelu(x @ p["wy"].to(compute_dtype), approximate="tanh")
     xb = causal_conv(xb, p["conv_w"].to(compute_dtype),
                      p["conv_b"].to(compute_dtype))
     h = rglru_scan(p, spec, xb)
-    return (h * gb) @ p["wo"].to(compute_dtype)
+    y = (h * gb) @ p["wo"].to(compute_dtype)
+    return from_model(y) if model_sharded else y
 
 
 def rglru_block_step(p: Params, spec: RGLRUSpec, x: torch.Tensor,

@@ -19,7 +19,15 @@ Three execution modes share the same layer code:
 * ``decode_step``  — single token against the cache (serving); it updates
   the cache in place.
 
-``loss_fn`` is next-token cross entropy plus the MoE term.  Mixers:
+``loss_fn`` is next-token cross entropy plus the MoE term.
+
+Inside a ``distributed.ctx.model_parallel`` context (the tensor-parallel
+train step) the parameters are this rank's slices along ``model``
+(``partitioning.param_pspecs``), the layers run the program
+``partitioning.tp_layout`` gives them, ``forward`` returns this rank's
+columns of the logits, and ``loss_fn``'s cross entropy is
+vocabulary-parallel: the row max a MAX over the group, the sum of
+exponentials and the target's logit sums over it.  Mixers:
 ``attn``, ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``, ``moe``
 and ``none``.  On the card, attention and the RG-LRU scan run the
 hand-written kernels forwards and backwards (their ops' autograd
@@ -35,7 +43,9 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.ctx import dp_sum
+from repro_torch.distributed import partitioning as part
+from repro_torch.distributed.ctx import (dp_sum, from_model, model_max,
+                                         mp_rank, mp_size, to_model)
 from repro_torch.kernels.flash_attention.plan import PosPlan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -281,6 +291,9 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                   cfg.slstm)}[spec.mixer]
     if mode == "decode":
         return step(p, sp, h, cache, compute_dtype=cd)
+    if spec.mixer == "rglru" and mp_size() > 1:
+        return block(p, sp, h, compute_dtype=cd,
+                     model_sharded=part.tp_layout(cfg, mp_size()).rglru), None
     return block(p, sp, h, compute_dtype=cd), None
 
 
@@ -302,13 +315,17 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params,
     if spec.ffn != "none":
         h = apply_norm(cfg.norm, p["norm2"], x)
         if spec.ffn == "dense":
-            h = mlp(p["ffn"], h, act=cfg.act, compute_dtype=cfg.cdtype)
+            h = mlp(p["ffn"], h, act=cfg.act, compute_dtype=cfg.cdtype,
+                    model_sharded=mp_size() > 1
+                    and part.tp_layout(cfg, mp_size()).ffn)
         else:
             if mode == "train":
                 aux = moe_mod.aux_load_balance_loss(p["ffn"]["router"], h,
                                                     cfg.moe)
             h = moe_mod.apply_moe(p["ffn"], cfg.moe, h,
-                                  compute_dtype=cfg.cdtype)
+                                  compute_dtype=cfg.cdtype,
+                                  tp=part.tp_layout(cfg, mp_size())
+                                  if mp_size() > 1 else None)
         x = x + rs * h
     return x, new_cache, aux
 
@@ -330,9 +347,18 @@ def _embed_inputs(cfg: ModelConfig, params: Params,
 
 
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits [B, S, V] in float32; inside a model group this rank's
+    columns of them."""
     w = params["embed"]["table"] if cfg.tie_embeddings else params["head"]["w"]
+    start = 0
+    if mp_size() > 1:
+        x = to_model(x)
+        if cfg.tie_embeddings:        # [d, V / tp]: the layout is explicit
+            w = w.T
+        start = mp_rank() * w.shape[1]
     logits = logits_head(w, x, softcap=cfg.logit_softcap,
-                         compute_dtype=cfg.cdtype, valid_vocab=cfg.vocab_size)
+                         compute_dtype=cfg.cdtype, valid_vocab=cfg.vocab_size,
+                         vocab_start=start)
     if cfg.logit_scale is not None:
         logits = logits * cfg.logit_scale
     return logits
@@ -423,8 +449,11 @@ def loss_fn(cfg: ModelConfig, params: Params, batch
                           batch.get("positions"), batch.get("position_ids"),
                           mode="train")
     labels = batch["labels"]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if mp_size() == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        logz, gold = _vocab_parallel_terms(logits, labels)
     nll = logz - gold
     mask = batch.get("mask")
     if mask is None:
@@ -436,6 +465,21 @@ def loss_fn(cfg: ModelConfig, params: Params, batch
     total = ce + cfg.moe_aux_weight * aux
     return total, {"ce": ce, "moe_aux": aux,
                    "tokens": tokens.to(torch.int32)}
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(log Z, the target's logit) of each row from this rank's columns of
+    the logits [B, S, V / tp]: the row max a MAX over the model group
+    (no gradient, as in ``logsumexp``), the sum of exponentials and the
+    target's logit (zero on the ranks that do not hold it) sums over it."""
+    n = logits.shape[-1]
+    m = model_max(logits.amax(dim=-1))
+    sumexp = from_model(torch.exp(logits - m[..., None]).sum(dim=-1))
+    local = labels.long() - mp_rank() * n
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = from_model(torch.where(inside, picked, picked.new_zeros(())))
+    return m + torch.log(sumexp), gold
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,12 @@ layout, so a JAX train state carries across
   parameter that its shard covers and the parameters are all-gathered;
   where the slice splits an int8 moment's rows, a row's absmax is an
   all-reduce MAX, so the shard quantises as the whole leaf would.
+* **Tensor parallelism** — on a ``model`` axis a rank holds its slice of
+  each model-sharded parameter, gradient and moment (``ModelShards``):
+  the global norm sums the sharded leaves' squares over the model group
+  and counts each replicated leaf once (JAX's norm of the whole tree),
+  and where ``model`` splits an int8 moment's rows, their absmax is a
+  MAX over the model group.
 
 Trees are nested dicts of tensors; leaves are visited in the JAX
 package's order (dict keys sorted), which fixes the order of the
@@ -153,18 +159,41 @@ class ShardedUpdate:
     def gather(self, path: tuple, x: torch.Tensor) -> torch.Tensor:
         """The whole leaf from this rank's slice ``x`` of it."""
         d = self.dim[path]
-        if d is None:
+        world = dist.get_world_size(self.group)
+        if d is None or world == 1:        # x is the whole leaf
             return x
-        parts = [torch.empty_like(x)
-                 for _ in range(dist.get_world_size(self.group))]
+        parts = [torch.empty_like(x) for _ in range(world)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=d)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for _, x in tree_paths(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+@dataclasses.dataclass(frozen=True)
+class ModelShards:
+    """A rank's place on a ``model`` axis: the model group, the parameter
+    paths whose leaves it splits (``sharded``), and those it splits along
+    the last dim (``rows``: an int8 moment's rows, quantised over the
+    group)."""
+    group: Any
+    sharded: frozenset
+    rows: frozenset
+
+
+def global_norm(tree: Params, model: ModelShards | None = None
+                ) -> torch.Tensor:
+    """The L2 norm of every leaf; with ``model`` the norm of the whole
+    tree: the squares of the leaves ``model`` splits are summed over its
+    group, the replicated leaves (whole on every rank) counted once."""
+    paths, leaves = zip(*((p, torch.sum(torch.square(x.to(torch.float32))))
+                          for p, x in tree_paths(tree)))
+    if model is None:
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    split = [x for p, x in zip(paths, leaves) if p in model.sharded]
+    whole = [x for p, x in zip(paths, leaves) if p not in model.sharded]
+    total = torch.sum(torch.stack(split)) if split else leaves[0] * 0
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=model.group)
+    if whole:
+        total = total + torch.sum(torch.stack(whole))
+    return torch.sqrt(total)
 
 
 def adamw_update(
@@ -174,14 +203,17 @@ def adamw_update(
     grads: Params,
     state: Params,
     shard: ShardedUpdate | None = None,
+    model: ModelShards | None = None,
 ) -> tuple[Params, Params, dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, info).  With ``shard`` (ZeRO-1) the
     state's moments and master are this rank's slices, ``params`` and
-    ``grads`` whole; the new parameters are whole again."""
+    ``grads`` whole; the new parameters are whole again.  With ``model``
+    (tensor parallelism) every leaf is this rank's slice along
+    ``model``."""
     count = state["count"] + 1
     lr = schedule(count)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, model)
     if cfg.clip_norm is not None:
         scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                                 1.0)
@@ -202,6 +234,8 @@ def adamw_update(
             p, g = p[idx], g[idx]
             if shard.dim[path] is not None and shard.dim[path] == p.dim() - 1:
                 rows = shard.group     # the slice splits each moment row
+        if model is not None and path in model.rows:
+            rows = model.group         # model splits each moment row
         g = g.to(torch.float32) * scale
         mf = cfg.b1 * _load_moment(m, md) + (1 - cfg.b1) * g
         vf = cfg.b2 * _load_moment(v, md) + (1 - cfg.b2) * torch.square(g)

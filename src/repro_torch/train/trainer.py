@@ -8,17 +8,21 @@ checkpoint manifest, as in JAX.
 
 Without a mesh the state lives on one device (``device``, ``None`` = the
 card), ``place_on_device`` restores it, and batches go to the state's
-device.  With a data-parallel mesh (``launch.mesh.make_data_mesh``: one
-rank a process, over an initialised ``torch.distributed`` group) every
-rank draws the same global batches, runs its rows of them and sums over
-the group (``launch.steps``), as JAX's jit over the mesh does; with
+device.  With a ``(data, model)`` mesh (``launch.mesh.make_data_mesh``:
+one rank a process, over an initialised ``torch.distributed`` group)
+every rank draws the same global batches; each data row runs its rows of
+them and the gradients are summed over the data group (``launch.steps``),
+and along ``model`` each rank holds its slices of the state
+(``train_state_pspecs``) and runs its part of the tensor-parallel model
+over its model group, as JAX's jit over the mesh does.  With
 ``TrainerConfig.zero1`` each rank keeps its slice of the moments and the
-master weights (``train_state_pspecs``).  A fresh state is drawn whole
-from ``seed`` on every rank, the state a mesh-less run draws, and each
-rank keeps its slice; a restore goes through ``place_on_mesh``; a save
+master weights over ``data`` too.  A fresh state is drawn whole from
+``seed`` on every rank, the state a mesh-less run draws, and each rank
+keeps its slices; a restore goes through ``place_on_mesh``; a save
 gathers the slices (``gather_from_mesh``) and rank 0 writes the files a
-one-device save writes.  A failure on any rank restarts every rank.
-After ``run()``, ``state`` is this rank's share of the final state.
+one-device save writes.  A failure on any rank restarts every rank (one
+all-reduce MAX over the world).  After ``run()``, ``state`` is this
+rank's share of the final state.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ from repro_torch.distributed import partitioning as part
 from repro_torch.distributed.fault import (FailureInjector,
                                            RestartableFailure, StepWatchdog)
 from repro_torch.launch.steps import (abstract_train_state, init_train_state,
-                                      make_train_step, to_device,
-                                      train_state_pspecs, zero1_shard)
+                                      make_train_step, model_shards,
+                                      to_device, train_state_pspecs,
+                                      zero1_shard)
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.storage.checkpoint import (CheckpointEngine,
                                             gather_from_mesh, place_on_device,
@@ -66,9 +71,12 @@ class Trainer:
     """A run resumes from the latest checkpoint under ``tcfg.ckpt_dir``
     (one converted from a JAX state, say) or starts from a fresh state
     drawn from ``tcfg.seed``.  ``mesh``: a ``("data", "model")`` mesh over
-    the initialised default process group, this process at position
-    ``dist.get_rank()`` on ``mesh.devices[rank]``; ``model`` must be 1
-    (tensor parallelism is ROADMAP item 27)."""
+    the initialised default process group
+    (``launch.mesh.make_data_mesh``, whose groups the step runs over),
+    this process at position ``dist.get_rank()`` on
+    ``mesh.devices[rank]``.  A rule the multi-device step does not port
+    raises ``NotImplementedError`` naming its ROADMAP item
+    (``partitioning.tp_plan``)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, data, *,
                  ocfg: OptConfig | None = None,
@@ -83,7 +91,8 @@ class Trainer:
         self.watchdog = watchdog or StepWatchdog()
         self.restarts = 0
         self.metrics_history: list[dict] = []
-        self.rank, self.group, shard = 0, None, None
+        self.rank, self.group, shard, model = 0, None, None, None
+        self.data_group = None
         if mesh is None:
             self.device = resolve_device(device)
         else:
@@ -94,7 +103,8 @@ class Trainer:
             self.state_shardings = part.shardings(mesh, self.state_specs)
             if tcfg.zero1:
                 shard = zero1_shard(self.state_specs, state_shape["params"],
-                                    mesh, self.rank, self.group)
+                                    mesh, self.rank, self.data_group)
+            model = model_shards(cfg, mesh, mesh.model_group)
         self.shard = shard          # this rank's ZeRO-1 share, or None
         ckpt_dir = tcfg.ckpt_dir
         if ckpt_dir is None:
@@ -106,14 +116,11 @@ class Trainer:
         self.ckpt = CheckpointEngine(ckpt_dir, device=self.device)
         self._step = make_train_step(cfg, self.ocfg, self.schedule,
                                      grad_accum=tcfg.grad_accum,
-                                     group=self.group, shard=shard)
+                                     group=self.data_group, shard=shard,
+                                     model=model)
 
     def _join_mesh(self, mesh, device) -> None:
-        if mesh.shape.get(part.MODEL_AXIS, 1) > 1:
-            raise NotImplementedError(
-                f"a mesh with model = {mesh.shape[part.MODEL_AXIS]}: "
-                "tensor parallelism over 'model' is not ported yet "
-                "(ROADMAP item 27); the Trainer takes (data, 1) meshes")
+        part.tp_plan(self.cfg, mesh)      # the rules it does not port raise
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("a Trainer on a mesh needs an initialised "
                                "torch.distributed process group "
@@ -122,8 +129,13 @@ class Trainer:
             raise ValueError(f"the mesh {mesh.shape} over "
                              f"{mesh.devices} does not match the "
                              f"{dist.get_world_size()} ranks of the group")
+        tp = mesh.shape[part.MODEL_AXIS]
+        if mesh.data_group is None or (tp > 1 and mesh.model_group is None):
+            raise ValueError("the mesh has no process groups "
+                             "(launch.mesh.make_data_mesh makes them)")
         self.rank = dist.get_rank()
         self.group = dist.group.WORLD
+        self.data_group = mesh.data_group
         self.device = mesh.devices[self.rank]
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"device {device} is not this rank's mesh "

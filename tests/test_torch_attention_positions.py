@@ -504,7 +504,7 @@ def test_positional_schedule_on_arange_is_the_index_schedule(
     if sq == sk and offset == 0:
         for bk2, bq2 in DKDV_TILES:
             assert tiles.pos_dkdv_schedule(p, bk=bk2, bq=bq2) == \
-                tiles.dkdv_schedule(s=sq, causal=causal, window=window,
+                tiles.dkdv_schedule(sq=sq, causal=causal, window=window,
                                     bk=bk2, bq=bq2)
 
 
@@ -545,7 +545,7 @@ def test_sorted_schedule_visits_about_the_index_tiles(docs):
         sq=s, sk=s, causal=True, window=None, q_offset=0, bq=bq, bk=bk))
     dkdv = sum(len(r) for r in tiles.pos_dkdv_schedule(p, bk=bk2, bq=bq2))
     dkdv_index = sum(len(r) for r in tiles.dkdv_schedule(
-        s=s, causal=True, window=None, bk=bk2, bq=bq2))
+        sq=s, causal=True, window=None, bk=bk2, bq=bq2))
     assert fwd <= 1.05 * fwd_index and dkdv <= 1.05 * dkdv_index
 
 

@@ -291,6 +291,37 @@ def test_flash_meta_twin_backward(case):
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("rank", range(4))
+def test_flash_meta_twin_backward_of_a_query_chunk(rank, dtype):
+    """A query chunk (the sequence-sharded attention's rank ``rank`` of
+    four: Sq = S / 4 at q_offset rank S / 4) on meta: gradients of q's and
+    k's shapes, the scratch sized by Sq rows and Sk keys, and the work of
+    the chunk's own schedule reported (no launch counted)."""
+    b, h, kvh, s, d = 1, 6, 2, 256, 64
+    n, off = s // 4, rank * s // 4
+    q, k, v = _qkv(b, h, kvh, s, d, dtype, "cpu")
+    q = q[:, :, :n].contiguous()
+    o, lse = FK.flash_attention_bhsd(q, k, v, q_offset=off, with_lse=True)
+    meta = [x.to("meta") for x in (q, k, v, o, o, lse)]
+    before = dict(FK.CHUNK_LAUNCHES)
+    with work.recording() as log, Allocs() as allocs:
+        dq, dk, dv = FK.flash_attention_bwd_bhsd(*meta, q_offset=off)
+    assert FK.CHUNK_LAUNCHES == before
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    tc = dtype == torch.bfloat16
+    s_pad = tiles.bwd_pad_rows(n) if tc else n
+    splits = tiles.dkdv_splits(b, kvh, s, h // kvh) if tc else 1
+    scratch = (2 if tc else 1) * b * h * s_pad + (
+        splits * 2 * b * kvh * s * d if splits > 1 else 0)
+    assert ((scratch,), torch.float32) in allocs.made
+    route = FK.BWD_ROUTES[FK.route(dtype)]
+    assert log.flops[route] == FK.bwd_flops(b, h, n, d, True, None, tc,
+                                            sk=s, q_offset=off)
+    # the later chunks see more keys: their work grows with the offset
+    assert log.flops[route] <= FK.bwd_flops(b, h, s, d, True, None, tc)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("shape", ((1, 7, 3), (2, 130, 256)))
 def test_rglru_meta_twin(shape, dtype):
     g = torch.Generator().manual_seed(2)

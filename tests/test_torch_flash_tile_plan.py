@@ -148,7 +148,7 @@ def test_dkdv_schedule_visits_every_kept_pair_once(window, causal):
         attended = reference_weights(s, s, causal, window, 0) > 0
         assert torch.equal(attended, ok)   # every row keeps a key
         visits = torch.zeros((s, s), dtype=torch.int64)
-        plan = tiles.dkdv_schedule(s=s, causal=causal, window=window, bk=bk,
+        plan = tiles.dkdv_schedule(sq=s, causal=causal, window=window, bk=bk,
                                    bq=bq)
         assert len(plan) == -(-s // bk)
         for t, row in enumerate(plan):
@@ -163,6 +163,72 @@ def test_dkdv_schedule_visits_every_kept_pair_once(window, causal):
         assert torch.equal(visits[ok], torch.ones(int(ok.sum()),
                                                   dtype=torch.int64))
         assert int(visits.max()) <= 1
+
+
+#: (Sq, Sk, q_offset) of query chunks: the sequence-sharded attention's
+#: ranks (a quarter or a half of S at each offset), ragged chunks and keys,
+#: a chunk of one row, and chunks whose keys past their last row (or left
+#: of their window) no row sees
+CHUNKS = ([(s // n, s, r * s // n) for s in (128, 200, 256) for n in (2, 4)
+           for r in range(n)]
+          + [(63, 129, 66), (1, 65, 0), (1, 65, 64), (100, 200, 37),
+             (65, 300, 130), (127, 129, 0)])
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("tile", (tiles.BWD_KV_TILE, (32, 64), (32, 32)),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_dkdv_schedule_of_a_query_chunk_visits_every_kept_pair_once(
+        tile, window, causal):
+    """A query chunk (rows at q_offset + i, Sq < Sk): by brute force over
+    every (row, key), the dk/dv blocks' query tiles hold each kept pair
+    once and nothing else, only the tiles with a dropped pair (or a row or
+    key past the end) take the mask, no visited tile is idle, and a key
+    tile that no row sees walks no tile (its dk and dv are zeros)."""
+    bk, bq = tile
+    for sq, sk, q_offset in CHUNKS:
+        assert q_offset + sq <= sk
+        ok = valid_pairs(sq, sk, causal, window, q_offset)
+        plan = tiles.dkdv_schedule(sq=sq, sk=sk, q_offset=q_offset,
+                                   causal=causal, window=window, bk=bk,
+                                   bq=bq)
+        assert len(plan) == -(-sk // bk)
+        visits = torch.zeros((sq, sk), dtype=torch.int64)
+        for t, row in enumerate(plan):
+            k0 = t * bk
+            seen = bool(ok[:, k0:k0 + bk].any())
+            assert bool(row) == seen, (sq, sk, q_offset, k0)
+            for q0, masked in row:
+                pad = torch.zeros((bq, bk), dtype=torch.bool)
+                pad[:min(bq, sq - q0), :min(bk, sk - k0)] = ok[q0:q0 + bq,
+                                                              k0:k0 + bk]
+                assert masked == (not bool(pad.all())), (sq, k0, q0)
+                assert bool(pad.any()), (sq, sk, q_offset, k0, q0)
+                visits[q0:q0 + bq, k0:k0 + bk] += 1
+        assert bool((visits[ok] == 1).all()), (sq, sk, q_offset)
+        assert int(visits.max()) <= 1
+        # the self-attention schedule is the chunk schedule at offset 0
+        if sq == sk:
+            assert plan == tiles.dkdv_schedule(sq=sq, causal=causal,
+                                               window=window, bk=bk, bq=bq)
+
+
+def test_bwd_flops_of_a_query_chunk():
+    """The chunks of one sequence split four ways count the tiles of their
+    own schedules, which add up to at most the whole sequence's, and the
+    last chunk's dk/dv blocks walk every key tile."""
+    d, bk, bq = 64, *tiles.BWD_KV_TILE
+    whole = K.bwd_flops(1, 2, 4096, d, True, None, True)
+    parts = [K.bwd_flops(1, 2, 1024, d, True, None, True, sk=4096,
+                         q_offset=r * 1024) for r in range(4)]
+    for r, f in enumerate(parts):
+        n = sum(len(row) for row in tiles.dkdv_schedule(
+            sq=1024, sk=4096, q_offset=r * 1024, causal=True, window=None,
+            bk=bk, bq=bq))
+        assert f == 10.0 * d * bk * bq * n * 2
+    assert parts == sorted(parts) and sum(parts) == whole
+    assert K.bwd_flops(1, 2, 4096, d, True, None, True, sk=4096) == whole
 
 
 @pytest.mark.parametrize("causal", (True, False))

@@ -1235,6 +1235,19 @@ FLASH_BWD_CASES = [
     (1, 2, 2, 300, 128, False, None, torch.bfloat16),
     (1, 4, 1, 65, 256, True, None, torch.bfloat16),
     (2, 2, 1, 200, 256, False, 64, torch.bfloat16),
+    # query chunks (a ninth field: Sq rows at q_offset, s the keys Sk), the
+    # sequence-sharded attention's: both dtypes, D 64 and 256, causal and
+    # window, GQA; the last chunk of four, a middle one whose later keys
+    # no row sees, the first, and ragged chunks
+    (1, 14, 2, 1024, 64, True, None, torch.bfloat16, (256, 768)),
+    (1, 14, 2, 1024, 64, True, None, torch.bfloat16, (256, 256)),
+    (1, 14, 2, 1024, 64, True, None, torch.float32, (256, 512)),
+    (2, 4, 2, 300, 64, True, 50, torch.bfloat16, (100, 137)),
+    (1, 6, 3, 257, 64, True, 37, torch.float32, (65, 0)),
+    (1, 16, 1, 1024, 256, True, 300, torch.bfloat16, (256, 512)),
+    (1, 16, 1, 512, 256, True, None, torch.float32, (128, 128)),
+    (1, 4, 1, 200, 256, False, 64, torch.bfloat16, (50, 150)),
+    (1, 8, 2, 130, 64, False, None, torch.float32, (33, 90)),
 ]
 # relative to each output's largest magnitude.  float32: sums in another
 # order; bfloat16: every output rounded to bf16 (half an ulp is 2^-9 of an
@@ -1243,12 +1256,38 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def flash_bwd_inputs(card, case, seed=0):
-    b, h, kvh, s, d, _, _, dtype = case
+    """q, k, v, do of a case; a chunk case's q and do hold its Sq rows."""
+    b, h, kvh, s, d, *_, dtype = case[:8]
+    sq = case[8][0] if len(case) > 8 else s
     g = torch.Generator(device=card).manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dtype)
-                   for shape in ((b, h, s, d), (b, kvh, s, d), (b, kvh, s, d),
-                                 (b, h, s, d)))
+                   for shape in ((b, h, sq, d), (b, kvh, s, d),
+                                 (b, kvh, s, d), (b, h, sq, d)))
     return q, k, v, do
+
+
+def flash_bwd_kw(case) -> dict:
+    """The mask arguments of a case: causal, window and q_offset."""
+    return dict(causal=case[5], window=case[6],
+                q_offset=case[8][1] if len(case) > 8 else 0)
+
+
+def unseen_keys(case) -> torch.Tensor:
+    """[Sk] bool: the keys no query row of the case keeps."""
+    kw = flash_bwd_kw(case)
+    sq, sk = q_rows(case), case[3]
+    qp = kw["q_offset"] + torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None]
+    ok = torch.ones((sq, sk), dtype=torch.bool)
+    if kw["causal"]:
+        ok &= qp >= kp
+    if kw["window"] is not None:
+        ok &= qp - kp < kw["window"]
+    return ~ok.any(0)
+
+
+def q_rows(case) -> int:
+    return case[8][0] if len(case) > 8 else case[3]
 
 
 def rel_err(got, want) -> float:
@@ -1262,13 +1301,14 @@ def rel_err(got, want) -> float:
 def test_flash_backward_matches_plain(card, case):
     """lse and dq, dk, dv of the backward kernels against the plain
     versions (lse from q and k alone), two calls bit-equal, each through
-    the dtype's route."""
+    the dtype's route; a query chunk's keys that no row sees get dk and
+    dv exactly 0."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_reference, attention_lse_reference)
 
-    *_, causal, window, dtype = case
-    kw = dict(causal=causal, window=window)
+    dtype = case[7]
+    kw = flash_bwd_kw(case)
     q, k, v, do = flash_bwd_inputs(card, case)
     o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
     assert torch.equal(o, FK.flash_attention_bhsd(q, k, v, **kw))
@@ -1285,6 +1325,11 @@ def test_flash_backward_matches_plain(card, case):
         assert x.dtype == dtype and x.shape == z.shape
         assert torch.equal(x, y), name
         assert rel_err(x, z) < FLASH_BWD_TOL[dtype], (name, rel_err(x, z))
+    unseen = unseen_keys(case).to(card)
+    if len(case) > 8 and case[8][1] + case[8][0] < case[3] and kw["causal"]:
+        assert bool(unseen.any())        # the chunk leaves keys unseen
+    for x in got[1:]:
+        assert not bool(x[:, :, unseen].any())
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
@@ -1355,12 +1400,28 @@ def test_flash_backward_tc_rejects_strides_tma_cannot_take(card):
 def test_flash_backward_rejects_what_it_does_not_take(card):
     from repro_torch.kernels.flash_attention import kernel as FK
 
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference)
+
     q, k, v, do = flash_bwd_inputs(card, (1, 2, 1, 64, 64, True, None,
                                           torch.float32))
     o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True)
-    with pytest.raises(ValueError, match="self-attention"):
-        FK.flash_attention_bwd_bhsd(q[:, :, :32], k, v, o[:, :, :32],
-                                    do[:, :, :32], lse[:, :, :32])
+    # Sq < Sk is a query chunk: at q_offset 32 it matches the plain version
+    args = (q[:, :, :32], k, v)
+    oc, lc = FK.flash_attention_bhsd(*args, q_offset=32, with_lse=True)
+    got = FK.flash_attention_bwd_bhsd(*args, oc, do[:, :, :32], lc,
+                                      q_offset=32)
+    want = attention_backward_reference(*args, oc, do[:, :, :32],
+                                        q_offset=32)
+    for x, z in zip(got, want):
+        assert rel_err(x, z) < FLASH_BWD_TOL[torch.float32]
+    for off in (33, -1):                   # past the keys, or before them
+        with pytest.raises(ValueError, match="q_offset"):
+            FK.flash_attention_bwd_bhsd(*args, oc, do[:, :, :32], lc,
+                                        q_offset=off)
+    with pytest.raises(ValueError, match="q_offset"):   # Sq > Sk
+        FK.flash_attention_bwd_bhsd(q, k[:, :, :32], v[:, :, :32], o, do,
+                                    lse)
     with pytest.raises(TypeError, match="is torch.bfloat16"):
         FK.flash_attention_bwd_bhsd(q, k, v, o, do.bfloat16(), lse)
     with pytest.raises(ValueError, match="lse"):
@@ -1490,20 +1551,18 @@ def test_meta_twins_allocate_what_the_card_allocates(card, case):
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.rglru import kernel as RK
 
-    b, h, kvh, s, d, causal, window, dtype = case
+    b, h, kvh, s, d, causal, window, dtype = case[:8]
+    kw = flash_bwd_kw(case)
     q, k, v, do = flash_bwd_inputs(card, case)
-    o, lse = FK.flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                                     with_lse=True)
+    o, lse = FK.flash_attention_bhsd(q, k, v, with_lse=True, **kw)
     a = torch.rand((b, s, 4 * d), device=card).to(dtype)
     hs = RK.rglru_scan_kernel(a, a)
     made = {}
     for dev in (card, torch.device("meta")):
         args = [x.to(dev) for x in (q, k, v, o, do, lse, a, hs)]
         with _Allocs() as allocs:
-            out = FK.flash_attention_bhsd(*args[:3], causal=causal,
-                                          window=window, with_lse=True)
-            grads = FK.flash_attention_bwd_bhsd(*args[:6], causal=causal,
-                                                window=window)
+            out = FK.flash_attention_bhsd(*args[:3], with_lse=True, **kw)
+            grads = FK.flash_attention_bwd_bhsd(*args[:6], **kw)
             scan = RK.rglru_scan_kernel(args[6], args[6])
             dscan = RK.rglru_scan_backward(args[6], args[7], args[7])
         made[dev.type] = allocs.made
@@ -1792,6 +1851,43 @@ def test_flash_positions_with_their_own_key_positions(card, dtype, window):
         kept = want_lse > -1e29
         assert rel_err(lse[kept], want_lse[kept]) < 1e-5
         assert bool((lse[~kept] < -5e29).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("window", (None, 40))
+def test_flash_backward_with_their_own_key_positions(card, dtype, window):
+    """The EXT backward on a plan with Sq != Sk: queries and keys with
+    positions of their own (Sq 150, Sk 260, unsorted with ties, rows
+    without a kept key included), and a query chunk of packed documents
+    (the sequence-sharded attention's rows 64..127 of 256 at their own
+    positions against every key), against the plain backward."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference)
+
+    g = torch.Generator().manual_seed(23)
+    q, k, v = flash_inputs(card, (2, 6, 2, 150, 260, 64, True, window,
+                                  dtype))
+    own = dict(q_pos=torch.randint(0, 200, (2, 150), generator=g),
+               k_pos=torch.randint(-20, 220, (2, 260), generator=g))
+    docs = torch.cat([torch.arange(n) for n in (90, 120, 46)])[None]
+    docs = docs.expand(2, 256)
+    cq, ck, cv = flash_inputs(card, (2, 6, 2, 64, 256, 64, True, window,
+                                     dtype))
+    chunk = dict(q_pos=docs[:, 64:128], k_pos=docs)
+    for (qq, kk, vv), pos in (((q, k, v), own), ((cq, ck, cv), chunk)):
+        kw = dict(window=window, softcap=4.0,
+                  **{name: x.int().to(card) for name, x in pos.items()})
+        o, lse = FK.flash_attention_bhsd(qq, kk, vv, with_lse=True, **kw)
+        do = torch.randn(o.shape, generator=torch.Generator(
+            device=card).manual_seed(5), device=card).to(dtype)
+        got = FK.flash_attention_bwd_bhsd(qq, kk, vv, o, do, lse, **kw)
+        want = attention_backward_reference(qq, kk, vv, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        for name, x, z in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == z.shape
+            assert rel_err(x, z) < FLASH_BWD_TOL[dtype], (name,
+                                                          rel_err(x, z))
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))

@@ -420,8 +420,19 @@ def test_mesh_refusals(tmp_path):
     with pytest.raises(RuntimeError, match="process group"):
         make_data_mesh(device="cpu")
     tp = MeshSpec(("data", "model"), (1, 2), devices=(CPU, CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 27"):
+    with pytest.raises(RuntimeError, match="process group"):
         trainer(case, tmp_path, tp)
+    # the rules the multi-device step does not port are refused by name,
+    # before the process group is asked for
+    _, moe = configs("granite-moe-3b-a800m")
+    for mesh in (tp, MeshSpec(("data", "model"), (2, 1), devices=(CPU, CPU))):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 31"):
+            Trainer(dataclasses.replace(moe, moe_shard_mode="f_model"),
+                    TrainerConfig(ckpt_dir=str(tmp_path)), [], mesh=mesh)
+    llama = registry.get_arch("llama4-maverick-400b-a17b").config
+    with pytest.raises(NotImplementedError, match="ROADMAP item 30"):
+        Trainer(llama, TrainerConfig(ckpt_dir=str(tmp_path)), [],
+                mesh=MeshSpec(("data", "model"), (2, 1), devices=(CPU, CPU)))
     dp = MeshSpec(("data", "model"), (2, 1), devices=(CPU, CPU))
     with pytest.raises(RuntimeError, match="process group"):
         trainer(case, tmp_path, dp)
