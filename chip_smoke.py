@@ -106,7 +106,7 @@ Phases, one report line each (every check raises on failure):
    the query's first K1 launch recorded and held bit-equal to
    ``maxplus_fold_ref`` (its end time the query's), every K1 launch on
    the compact route, ``n_remap_ops > 0``, ``retry_hist`` summing to the
-   read ops; on the stream's first 8192 requests (``WL_SCAN_REQUESTS``,
+   read ops; on the stream's first 4096 requests (``WL_SCAN_REQUESTS``,
    cut for time) ``scan`` against ``cuda``: end times within T * 2^-24,
    energies within 1e-3, the same remaps and retries, scan's
    p50/p99/p99.9 within 1e-3 of the ``oracle``'s; and a 4096-request
@@ -139,7 +139,7 @@ Phases, one report line each (every check raises on failure):
 11. the FTL (slice E) on 8 channels x 16 ways (SLC, PROPOSED): (11a) the
    JAX package's default ``FTLSpec`` with 512 blocks of 64 pages (OP
    0.25, greedy, preconditioned: 78642 silent writes) under a
-   saturating 16384-request overwrite stream (30 % reads) over 90 % of
+   saturating 8192-request overwrite stream (30 % reads) over 90 % of
    the logical space: the card's ``translate_scan`` op-for-op equal to
    the numpy ``ftl.translate`` (classes, payloads, request ids, GC flags,
    arrivals, ``FTLStats`` and the final drive state), its steps, steps/s,
@@ -186,7 +186,8 @@ Phases, one report line each (every check raises on failure):
    is windowed) and for the same config with every window removed,
    equal to the CPU; (12d) the planning flows of
    ``examples/ssd_design_space.py`` (its KV-offload loop over qwen2-0.5b,
-   recurrentgemma-9b and xlstm-350m, checkpoint-stall plans, the 10 GiB
+   recurrentgemma-9b and xlstm-350m, checkpoint-stall plans (the three
+   budgets share their estimates of a geometry), the 10 GiB
    dataloader refill planned by trace, by bytes and by energy,
    ``compare_interfaces``), one plan and every comparison row equal to
    a CPU session's, with the scan engine's ops/s and one estimate's
@@ -328,6 +329,26 @@ Phases, one report line each (every check raises on failure):
    granite-moe-3b-a800m SMOKE (experts split) against the mesh-less
    ``Trainer``, 17c's bars.  Times of ranks sharing one card measure
    correctness, not a speed-up.
+19. serving under ``model`` (``phase_serve_tp``): four gloo ranks
+   sharing ``cuda:0`` (one spawn) run ``launch.steps.make_serve_prefill``
+   / ``make_serve_decode`` on their slices of the parameters and the
+   cache against the mesh-less ``prefill`` + ``decode_step`` at the same
+   depth in the same call, on two left-padded prompts of 4096 and 2560
+   tokens and 32 decode steps fed the mesh-less greedy tokens: (19a)
+   qwen2-0.5b at 18a's 12 layers on ``(1, 2)`` (kv heads) on ranks 0-1
+   while (19c) recurrentgemma-9b at 14d's 5 layers runs on ``(1, 2)``
+   (query groups over one kv head, the RG-LRU's channels; the window's
+   ring wraps, 1024 slots a rank) on ranks 2-3, then (19b) qwen2-0.5b at
+   18c's 4 layers on ``(1, 4)`` (the sequence-sharded prefill: K4 on each
+   rank's queries at its ``q_offset``): every call's logits within the
+   bf16 bar of the largest, greedy tokens equal (or the mesh-less top-2
+   gap under the bar), the final norm's outputs bit-equal across the
+   ranks, K4 / K5 launches and collectives a rank, the prefill's seconds
+   and decode tokens/s; (19d) the dry run's plan of one rank's program
+   (``plan_cell(rank=)`` on meta) against the pairs: 19a's prefill and
+   first decode step on ranks 0-1 and 18a's train step on ranks 2-3 log
+   exactly the collectives the rank issued (kind, calls, bytes), the
+   predicted peak within ``DRYRUN_PEAK_TOL`` of the call's measured rise.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -337,7 +358,8 @@ of the many-trace kernel, ``generate`` in phase 8 that of K4 and K5 (and
 the prefills of 13b-13d, each reported as its own K4 entry),
 ``Trainer.run()`` in 14c that of K4's backward and 14d's two steps that
 of K5's, 16b's train step and scoring forward that of K4's EXT
-instantiations, 18c's step on rank 0 that of K4's chunk backward: the
+instantiations, 18c's step on rank 0 that of K4's chunk backward, each
+rank's serving in 19a-19c (K4's and K5's ``phase19_launches``): the
 launch counts are reset just before each and read just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
 read once, the dense dictionary by the pre-pass; per step the add/max
@@ -450,7 +472,12 @@ LEAF_FLOOR = 1e-3
 REPLAY_TOL = 1e-3
 # phase 15a: the dry run's predicted peak (the meta run's storages, charged
 # as the caching allocator charges a block) against the rise a call of
-# phases 8b, 13b, 14b and 14d measured, relative to the measured rise
+# phases 8b, 13b, 14b and 14d measured, relative to the measured rise;
+# 19d holds its rank plans to it too.  A plan counts the step's own
+# storages, not cuBLAS's workspace (32 MiB a stream, taken from the
+# caching allocator at the stream's first product and kept): 19d's ranks
+# make it before any measured call, as phase 15's calls come after
+# earlier products
 DRYRUN_PEAK_TOL = 0.15
 # the flash-attention kernel against its plain version, relative to
 # max(1, max |plain|): float32 sums in another order; bfloat16 outputs
@@ -473,8 +500,9 @@ WL_REQUESTS, WL_PAGES, WL_SEED, WL_PREFIX = 65536, 4, 0, 4096
 # 9a's scan query (and the cuda and oracle runs it is held to) folds the
 # stream's first WL_SCAN_REQUESTS requests: the whole stream's scan took
 # 98.6 s of the script's 1200 s, its first 32768 requests 47.4 s, and
-# the script passed its 1100 s margin once phase 17 came
-WL_SCAN_REQUESTS = 8192
+# the script passed its 1100 s margin once phase 17 came; 8192 took 12.4 s
+# until phase 19 came
+WL_SCAN_REQUESTS = 4096
 WL_STATIC_FAULTS = dict(wear=0.95, jitter_us=2.0, prog_fail_prob=0.02,
                         hedge_fraction=0.1, seed=17)
 # (9b's stream had 16384 requests, 23.7 s on the card and the CPU, until
@@ -499,9 +527,10 @@ PREFIX_CPU_POINTS, PREFIX_ASSOC_POINTS = (0, 37), (0, 63)
 # the first FTL_FAULT_CHUNKED requests, chunks of FTL_FAULT_CHUNK); 11d ftl_bench._scan_vs_host's 16
 # points; 11e ftl_bench._waf_sweep's full-size greedy point
 FTL_BLOCKS, FTL_PPB, FTL_OP = 512, 64, 0.25
-# (FTL_REQUESTS was 32768 until the script neared its time limit: 11a's
-# scan query took 28.7 s and 11c's chunked one 23.5 s)
-FTL_REQUESTS, FTL_READ_FRACTION, FTL_SEED = 16384, 0.3, 5
+# (FTL_REQUESTS was 32768, then 16384, until the script neared its time
+# limit: at 16384 11a's scan query took 18.1 s and 11c's chunked one
+# 14.6 s)
+FTL_REQUESTS, FTL_READ_FRACTION, FTL_SEED = 8192, 0.3, 5
 FTL_PREFIX, FTL_CHUNK, FTL_FAULT_CHUNKED, FTL_FAULT_CHUNK = \
     4096, 4096, 4096, 2048
 # program failures at 1e-4, not 1e-3: at 1e-3 the preconditioning's
@@ -537,6 +566,8 @@ KV_FIELDS = ("applicable", "state_bytes_per_seq", "hot_bytes_per_seq",
              "note")
 OVERLAP_BYTES, OVERLAP_DIM, OVERLAP_STEPS = 1 << 30, 2048, 200
 PLAN_CKPT_BYTES = int(2.7e9 * 2 * 3)    # 2.7B params, bf16 + optimizer
+# 150 s: an MLC geometry; 95 s: the SLC tier after every MLC geometry
+# misses; 30 s: no geometry meets it (plan_checkpoint_tier's None)
 PLAN_BUDGETS, PLAN_CPU_BUDGET = (150.0, 95.0, 30.0), 150.0
 REFILL_BYTES = 10 << 30
 # phase 13: the rest of slice H.  13a the SMOKE models of the nine other
@@ -3509,6 +3540,30 @@ def card_steps(x, w, n: int, until=None) -> tuple[int, float]:
     return steps, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def estimates_shared(module):
+    """Inside, ``module.estimate_trace`` prices each (trace, config,
+    options) once and hands that estimate back on a repeat: the planning
+    loops of several budgets walk the same geometries."""
+    real, memo = module.estimate_trace, {}
+
+    def once(trace, cfg, **kw):
+        key = (cfg, tuple(sorted(kw.items())), trace.channels, trace.ways,
+               *(None if a is None else a.tobytes()
+                 for a in (trace.cls, trace.channel, trace.way,
+                           trace.parity, trace.payload, trace.arrival_us,
+                           trace.extra_us)))
+        if key not in memo:
+            memo[key] = real(trace, cfg, **kw)
+        return memo[key]
+
+    module.estimate_trace = once
+    try:
+        yield memo
+    finally:
+        module.estimate_trace = real
+
+
 def phase_storage(device, smi: str) -> dict:
     import dataclasses
     import shutil
@@ -3812,15 +3867,17 @@ def phase_storage(device, smi: str) -> dict:
     out["kv_offload_loop"] = kv_loop
     ssd_model.reset_estimates()
     t0 = time.perf_counter()
-    stall = {b: plan_checkpoint_tier(PLAN_CKPT_BYTES, b, device=device)
-             for b in PLAN_BUDGETS}
+    with estimates_shared(ssd_model):
+        stall = {b: plan_checkpoint_tier(PLAN_CKPT_BYTES, b, device=device)
+                 for b in PLAN_BUDGETS}
     stall_s = time.perf_counter() - t0
     stall_n = dict(ssd_model.ESTIMATES)
     ssd_model.reset_estimates()
     t0 = time.perf_counter()
-    refill = {**plan_refill(REFILL_BYTES, 60.0, device=device),
-              "compare": compare_interfaces(REFILL_BYTES, "read",
-                                            device=device)}
+    with estimates_shared(ssd_model):
+        refill = {**plan_refill(REFILL_BYTES, 60.0, device=device),
+                  "compare": compare_interfaces(REFILL_BYTES, "read",
+                                                device=device)}
     refill_s = time.perf_counter() - t0
     refill_n = dict(ssd_model.ESTIMATES)
     ests, ops_, est_s = (stall_n[k] + refill_n[k]
@@ -3840,6 +3897,10 @@ def phase_storage(device, smi: str) -> dict:
             and refill["compare"] == cpu_compare):
         raise AssertionError(f"12d on the card != the CPU: "
                              f"{stall[PLAN_CPU_BUDGET]} vs {cpu_stall}")
+    tiers = [p and p.config.cell for p in stall.values()]
+    if tiers != [CellType.MLC, CellType.SLC, None]:
+        raise AssertionError(f"12d checkpoint tiers {tiers} for the budgets "
+                             f"{PLAN_BUDGETS}: not MLC, SLC, none")
     if not (refill["trace"] and refill["bytes"] and refill["energy"]
             and refill["energy"].energy_joules
             <= refill["trace"].energy_joules):
@@ -5135,13 +5196,13 @@ def phase_dryrun(device, measured: dict) -> dict:
     phases 8b, 13b, 14b and 14d on the ``card`` mesh: argument bytes equal
     to the real tensors', the predicted peak within DRYRUN_PEAK_TOL of
     the call's measured rise; (15b) the per-device argument bytes of all
-    ten ids' ``train_4k`` on the production meshes through ``run_cell``
-    (every sharded dim divides, or the plan raises); (15c)
+    ten ids' ``train_4k`` on the production meshes (``dryrun.arg_bytes``:
+    every sharded dim divides, or the plan raises; the rank plans of
+    those cells are the CLI's, hours of meta runs for all ten); (15c)
     ``make_dp_grad_sync`` on a one-rank NCCL group (a ``FileStore`` in a
     temporary directory) over 14b's gradients, bit-equal to the int8
     quantise / dequantise done leaf by leaf in plain torch on the card."""
     import os
-    import pathlib
     import tempfile
 
     import torch
@@ -5149,7 +5210,8 @@ def phase_dryrun(device, measured: dict) -> dict:
     from repro_torch.configs.registry import ARCH_IDS, get_arch
     from repro_torch.distributed.compression import make_dp_grad_sync
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import H100_TOTAL_MEMORY, make_card_mesh
+    from repro_torch.launch.mesh import (H100_TOTAL_MEMORY, make_card_mesh,
+                                         make_mesh)
     from repro_torch.launch.steps import (init_train_state, loss_and_grads,
                                           plan_cell, to_device as batch_to)
     from repro_torch.storage.datapipe import SyntheticTokens
@@ -5205,15 +5267,13 @@ def phase_dryrun(device, measured: dict) -> dict:
     # -- 15b: the production meshes -------------------------------------
     t0 = time.perf_counter()
     prod = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for arch in ARCH_IDS:
-            for mesh_name in ("single", "multi"):
-                rec = dryrun.run_cell(arch, "train_4k", mesh_name,
-                                      pathlib.Path(tmp), force=True)
-                if rec["status"] != "ok":
-                    raise AssertionError(f"15b {arch} {mesh_name}: "
-                                         f"{rec.get('error')}")
-                prod[f"{arch}/{mesh_name}"] = rec["arg_bytes_per_device"]
+    for arch in ARCH_IDS:
+        a = get_arch(arch)
+        for mesh_name in ("single", "multi"):
+            prod_mesh = make_mesh(mesh_name)
+            prod[f"{arch}/{mesh_name}"] = dryrun.arg_bytes(plan_cell(
+                a.config, a.shape("train_4k"), prod_mesh,
+                ocfg=dryrun.opt_config_for(a.config)), prod_mesh)
     out["production"] = prod
     out["production_s"] = time.perf_counter() - t0
     llama = "llama4-maverick-400b-a17b"
@@ -6882,6 +6942,483 @@ def phase_tp(device, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving under ``model`` (gloo ranks sharing cuda:0)
+# ---------------------------------------------------------------------------
+
+#: 19a-19c: ``launch.steps.make_serve_prefill`` / ``make_serve_decode`` on a
+#: (data, model) mesh of gloo ranks sharing cuda:0, each rank on its slices
+#: of the parameters (``serve_params``) and of the cache, against the
+#: mesh-less ``prefill`` + ``decode_step`` at the same depth in the same
+#: call: two prompts of SERVE_TP_PROMPTS tokens left-padded into one wave
+#: (as ``ServingEngine`` pads them), then SERVE_TP_STEPS greedy decode steps,
+#: the mesh fed the mesh-less run's tokens; a cache of SERVE_TP_MAX_SEQ
+#: positions, which 2 and 4 divide.  19a: 14b's qwen2-0.5b CONFIG at 18a's
+#: cut on (1, 2) (kv heads, FFN, tied vocabulary); 19b: at 18c's cut on
+#: (1, 4) (neither heads nor groups divide: the prefill's attention runs
+#: each rank's S / 4 queries through K4 at their q_offset); 19c: 14d's
+#: recurrentgemma-9b cut on (1, 2) (query groups over one kv head, the
+#: RG-LRU's channels; the 2048-token window's ring wraps, 1024 slots a
+#: rank).  Each step's logits within SERVE_TP_TOL of the largest (the bf16
+#: bar of tests/test_torch_models.py), and a greedy token that differs only
+#: where the mesh-less top-2 gap is under the same bar.  19a and 19c run
+#: at once on two pairs of the four ranks, 19b after on all four
+SERVE_TP_PROMPTS, SERVE_TP_STEPS, SERVE_TP_MAX_SEQ = (4096, 2560), 32, 4128
+SERVE_TP_TOL = 2.0 ** -5
+SERVE_TP_DEVICE = "cuda:0"
+#: 19d: the dry run's plan of one rank's program (``plan_cell(rank=)`` on
+#: the meta device) against what the ranks did: for 18a's train step on
+#: (1, 2) (ranks 2-3, after 19c) and for 19a's prefill and first decode
+#: step, the collectives the plan logs (kind, calls, bytes) equal to
+#: CollectiveLog's on that rank, the predicted peak within DRYRUN_PEAK_TOL
+#: of the call's measured rise
+
+
+def serve_tp_configs() -> dict:
+    """label -> (config, model ranks) of 19a, 19b and 19c."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    qwen = get_arch(TRAIN_ARCH).config
+    rg = get_arch("recurrentgemma-9b").config
+    return {"19a": (dataclasses.replace(qwen, n_layers=TP_QWEN_LAYERS), 2),
+            "19b": (dataclasses.replace(qwen, n_layers=TP_SEQ_LAYERS), 4),
+            "19c": (dataclasses.replace(rg, n_layers=RG_LAYERS), 2)}
+
+
+def serve_tp_wave(cfg, device):
+    """SERVE_TP_PROMPTS' prompts from LM_SEED, left-padded: [B, S]."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(LM_SEED + 3)
+    width = max(SERVE_TP_PROMPTS)
+    toks = np.zeros((len(SERVE_TP_PROMPTS), width), np.int32)
+    for r, n in enumerate(SERVE_TP_PROMPTS):
+        toks[r, width - n:] = rng.integers(0, cfg.vocab_size, n)
+    return torch.as_tensor(toks, device=device)
+
+
+def serve_tp_run(cfg, params, toks, prefill_fn, decode_fn, feed=None):
+    """``prefill_fn`` on ``toks``, then SERVE_TP_STEPS decode steps, each
+    fed its column of ``feed`` (None: the previous call's argmax, the
+    greedy run): each call's last logits (float32, on the CPU), the final
+    norm's outputs (``transformer._head``'s input), the tokens fed, the
+    prefill's and the decode's seconds."""
+    import torch
+    from repro_torch.models import transformer
+    heads, real = [], transformer._head
+
+    def spy(cfg_, params_, h):
+        heads.append(h.detach().cpu())
+        return real(cfg_, params_, h)
+
+    transformer._head = spy
+    s, logits, fed = toks.shape[1], [], []
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = prefill_fn(toks)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            logits.append(out[:, -1].float().cpu())
+            t0 = time.perf_counter()
+            for i in range(SERVE_TP_STEPS):
+                tok = (logits[-1][:, :cfg.vocab_size].argmax(-1) if feed is None
+                       else feed[:, i]).to(torch.int32)
+                fed.append(tok)
+                out, cache = decode_fn(cache, tok[:, None].to(toks.device),
+                                       s + i)
+                logits.append(out[:, -1].float().cpu())
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+    finally:
+        transformer._head = real
+    return {"logits": torch.stack(logits), "heads": heads,
+            "fed": torch.stack(fed, 1), "prefill_s": prefill_s,
+            "decode_s": decode_s, "cache": cache}
+
+
+def serve_tp_reference(label, device) -> dict:
+    """The mesh-less greedy run of ``label``'s config on its wave."""
+    import torch
+    from repro_torch.models.transformer import decode_step, prefill
+    cfg, _ = serve_tp_configs()[label]
+    params, *_ = lm_params(cfg, device)
+    toks = serve_tp_wave(cfg, device)
+    run = serve_tp_run(
+        cfg, params, toks,
+        lambda x: prefill(cfg, params, x, max_seq=SERVE_TP_MAX_SEQ),
+        lambda c, x, i: decode_step(cfg, params, c, x, i))
+    del params, run["cache"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def measured_call(fn, seen: dict, name: str):
+    """``fn`` whose first call is measured into ``seen[name]``: its
+    arguments' bytes and its rise (``CallMemory``) and its collectives
+    (``CollectiveLog``)."""
+    def call(*args):
+        if name in seen:
+            return fn(*args)
+        mem = CallMemory(*args)
+        coll = CollectiveLog()
+        try:
+            out = fn(*args)
+        finally:
+            c = coll.restore()
+        seen[name] = {"memory": mem.done(), "collectives": c}
+        return out
+    return call
+
+
+def planned(cfg, shape, tp, position, **kw) -> dict:
+    """``plan_cell(rank=position)`` on a (1, tp) mesh run on meta: its
+    collectives, its predicted peak and the meta run's seconds."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.steps import plan_cell
+    mesh = MeshSpec(("data", "model"), (1, tp))
+    m = dryrun.run_meta(plan_cell(cfg, shape, mesh, rank=position, **kw),
+                        mesh)
+    return {"collectives": m.collectives,
+            "peak_alloc_bytes": m.peak_alloc_bytes, "seconds": m.seconds}
+
+
+def serve_tp_case(label, mesh, position, feed, plan=False) -> dict:
+    """``label`` on this rank: its slices of the parameters drawn whole
+    from LM_SEED, the serving steps on the wave fed the mesh-less tokens,
+    the first prefill and decode calls measured; with ``plan``, the plans
+    of those two calls (19d)."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import (make_serve_decode,
+                                          make_serve_prefill, serve_params)
+    from repro_torch.models.transformer import init_params
+    cfg, tp = serve_tp_configs()[label]
+    dev = torch.device(SERVE_TP_DEVICE)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_SEED), device=dev)
+    params = serve_params(cfg, mesh, whole, position)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups = {"group": mesh.data_group, "model_group": mesh.model_group}
+    pf = make_serve_prefill(cfg, SERVE_TP_MAX_SEQ, **groups)
+    dc = make_serve_decode(cfg, SERVE_TP_MAX_SEQ, **groups)
+    seen = {}
+    toks = serve_tp_wave(cfg, dev)
+    reset_kernel_counts()
+    run = serve_tp_run(cfg, params, toks,
+                       measured_call(lambda x: pf(params, x), seen,
+                                     "prefill"),
+                       measured_call(lambda c, x, i: dc(params, c, x, i),
+                                     seen, "decode"), feed)
+    launches = {k: v for k, v in kernel_counts().items() if v}
+    from repro_torch.kernels.flash_attention import kernel as FK
+    launches.update({k: v for k, v in FK.CHUNK_LAUNCHES.items() if v})
+    out = {**{k: v for k, v in run.items() if k != "cache"},
+           "launches": launches, "measured": seen,
+           "cache_shapes": {k: tuple(v.shape) for k, v in _flat(run["cache"])}}
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    if plan:
+        b, s = toks.shape
+        out["plans"] = {
+            "prefill": planned(cfg, ShapeSpec(label, "prefill", s, b), tp,
+                               position, max_seq=SERVE_TP_MAX_SEQ),
+            "decode": planned(cfg, ShapeSpec(label, "decode", s, b), tp,
+                              position, max_seq=SERVE_TP_MAX_SEQ, index=s)}
+    return out
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def serve_tp_train(mesh, position) -> dict:
+    """19d's train step: 18a's step on this rank of (1, 2), as the
+    ``Trainer`` builds it (``mesh_train_step``), on its slices of a state
+    drawn whole from seed 0, measured; beside it the plan of the same."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.launch.steps import (abstract_train_state,
+                                          init_train_state, mesh_train_step,
+                                          to_device, train_state_pspecs)
+    from repro_torch.storage.checkpoint import place_on_mesh
+    cfg, ocfg, accum, data = tp_configs()["18a"]
+    dev = torch.device(SERVE_TP_DEVICE)
+    whole = init_train_state(cfg, ocfg, torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    specs = train_state_pspecs(cfg, ocfg, mesh,
+                               abstract_train_state(cfg, ocfg))
+    state = place_on_mesh(whole, part.shardings(mesh, specs), position)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = to_device(next(iter(data())), dev)
+    seen = {}
+    step = measured_call(mesh_train_step(cfg, ocfg, mesh, position,
+                                         grad_accum=accum)[0], seen,
+                         "train")
+    t0 = time.perf_counter()
+    new_state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    del state, new_state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "step_s": step_s, "measured": seen["train"],
+            "plan": planned(cfg, ShapeSpec("18a", "train", TRAIN_SEQ,
+                                           TRAIN_BATCH), 2, position,
+                            ocfg=ocfg, grad_accum=accum)}
+
+
+def serve_tp_rank(rank: int, tmp: str) -> None:
+    """One of four gloo ranks sharing cuda:0 (a spawned process): ranks 0
+    and 1 run 19a on their pair's (1, 2) mesh while ranks 2 and 3 run 19c
+    and 19d's train step on theirs; then the four run 19b on (1, 4)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import MeshSpec, make_data_mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 4), rank=rank, world_size=4,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {"walls": {}}
+    try:
+        refs = torch.load(os.path.join(tmp, "feed.pt"))
+        wide = make_data_mesh(model=4, device=SERVE_TP_DEVICE)
+        # cuBLAS takes its workspace (32 MiB) from the caching allocator at a
+        # stream's first product; made here, it is no measured call's rise,
+        # which the plans (without it) are held to (DRYRUN_PEAK_TOL)
+        warm = torch.ones((16, 16), device=SERVE_TP_DEVICE)
+        warm = warm @ warm
+        del warm
+        alone = [dist.new_group([r]) for r in range(4)]
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        pair = MeshSpec(("data", "model"), (1, 2),
+                        devices=wide.devices[:2], data_group=alone[rank],
+                        model_group=pairs[rank // 2])
+        out["walls"]["start"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        if rank < 2:
+            out["19a"] = serve_tp_case("19a", pair, rank % 2, refs["19a"],
+                                       plan=True)
+            out["walls"]["19a"] = time.perf_counter() - t1
+        else:
+            out["19c"] = serve_tp_case("19c", pair, rank % 2, refs["19c"])
+            out["walls"]["19c"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            out["19d"] = serve_tp_train(pair, rank % 2)
+            out["walls"]["19d"] = time.perf_counter() - t1
+        dist.barrier()
+        t1 = time.perf_counter()
+        out["19b"] = serve_tp_case("19b", wide, rank, refs["19b"])
+        out["walls"]["19b"] = time.perf_counter() - t1
+        torch.save(out, os.path.join(tmp, f"serve{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_tp_spawn(tmp) -> tuple[list, float]:
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        mp.start_processes(serve_tp_rank, args=(tmp,), nprocs=4, join=True,
+                           start_method="spawn")
+    finally:
+        if prev is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    spawn_s = time.perf_counter() - t0
+    return [torch.load(os.path.join(tmp, f"serve{r}.pt"))
+            for r in range(4)], spawn_s
+
+
+def serve_tp_check(label, ref, ranks, cfg) -> dict:
+    """19a-19c's ranks against the mesh-less run: every call's logits
+    (each rank's columns joined) within SERVE_TP_TOL of the largest, the
+    greedy tokens equal or the mesh-less top-2 gap under the bar, the
+    final norm's outputs bit-equal across the ranks."""
+    import torch
+    v = cfg.vocab_size
+    got = torch.cat([r["logits"] for r in ranks], dim=-1)[..., :v]
+    want = ref["logits"][..., :v]
+    scale = max(1.0, float(want.abs().max()))
+    errs = [float((g - w).abs().max()) / scale for g, w in zip(got, want)]
+    if max(errs) > SERVE_TP_TOL:
+        raise AssertionError(f"{label}: logits {max(errs):.3e} of the "
+                             f"largest from the mesh-less ones (bar "
+                             f"{SERVE_TP_TOL}), by call {errs}")
+    top2 = want.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]) / scale
+    differ = got.argmax(-1) != want.argmax(-1)
+    if bool((differ & (gaps >= SERVE_TP_TOL)).any()):
+        raise AssertionError(f"{label}: greedy tokens differ where the "
+                             f"mesh-less top-2 gap is over the bar: calls "
+                             f"{differ.nonzero().tolist()}")
+    for r in ranks[1:]:
+        if len(r["heads"]) != len(ranks[0]["heads"]) or not all(
+                torch.equal(a, b) for a, b in zip(ranks[0]["heads"],
+                                                  r["heads"])):
+            raise AssertionError(f"{label}: the final norm's outputs differ "
+                                 "across the model ranks")
+    return {"logit_err": errs, "prefill_err": errs[0],
+            "decode_err": max(errs[1:]), "scale": scale,
+            "tokens_differ": int(differ.sum()),
+            "tokens_differ_gaps": gaps[differ].tolist(),
+            "min_gap": float(gaps.min())}
+
+
+def plan_vs_measured(label, plan, seen) -> dict:
+    """19d: the plan's collectives equal the measured ones; its peak
+    within DRYRUN_PEAK_TOL of the measured rise."""
+    coll = {k: {"calls": seen["collectives"]["calls"][k],
+                "bytes": seen["collectives"]["bytes"][k]}
+            for k in seen["collectives"]["calls"]
+            if seen["collectives"]["calls"][k]}
+    if plan["collectives"] != coll:
+        raise AssertionError(f"19d {label}: the plan's collectives "
+                             f"{plan['collectives']} != the rank's {coll}")
+    rise = seen["memory"]["rise"]
+    ratio = plan["peak_alloc_bytes"] / rise
+    if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"19d {label}: predicted peak "
+                             f"{plan['peak_alloc_bytes']} vs the measured rise "
+                             f"{rise}: {ratio:.4f} (bar {DRYRUN_PEAK_TOL})")
+    return {"collectives": coll, "predicted_peak": plan["peak_alloc_bytes"],
+            "measured_rise": rise, "ratio": ratio,
+            "meta_run_s": plan["seconds"]}
+
+
+def phase_serve_tp(device, smi) -> dict:
+    """19 (see the module docstring)."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfgs = serve_tp_configs()
+    t0 = time.perf_counter()
+    refs = {label: serve_tp_reference(label, device) for label in cfgs}
+    out = {"reference_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({k: r["fed"] for k, r in refs.items()},
+                   f"{tmp}/feed.pt")
+        ranks, out["spawn_s"] = serve_tp_spawn(tmp)
+    who = {"19a": ranks[:2], "19b": ranks, "19c": ranks[2:]}
+    for label, (cfg, tp) in cfgs.items():
+        got = [r[label] for r in who[label]]
+        res = serve_tp_check(label, refs[label], got, cfg)
+        n_attn = cfg.num_units * sum(sp.mixer == "attn" for sp in cfg.pattern)
+        n_rg = (cfg.num_units * sum(sp.mixer == "rglru" for sp in cfg.pattern)
+                + sum(sp.mixer == "rglru" for sp in cfg.tail))
+        for r, g in enumerate(got):
+            cnt = g["launches"]
+            want = {FK.TC: n_attn}
+            if label == "19b":
+                want[FK.CHUNK_FWD] = n_attn
+            if n_rg:                       # K5's routes, as the data gives
+                want[RK.TOTAL] = n_rg
+                want.update({k: cnt[k] for k in RK.ROUTE_KEYS.values()
+                             if k in cnt})
+            if cnt != want or sum(cnt.get(k, 0) for k in
+                                  RK.ROUTE_KEYS.values()) != want.get(
+                                      RK.TOTAL, 0):
+                raise AssertionError(f"{label} rank {r}: the prefill launched "
+                                     f"{cnt}, expected {want}")
+        b = len(SERVE_TP_PROMPTS)
+        res.update(
+            launches=[g["launches"] for g in got],
+            prefill_s=[g["prefill_s"] for g in got],
+            decode_tokens_per_s=[b * SERVE_TP_STEPS / g["decode_s"]
+                                 for g in got],
+            reference_prefill_s=refs[label]["prefill_s"],
+            reference_decode_tokens_per_s=b * SERVE_TP_STEPS
+            / refs[label]["decode_s"],
+            collectives={k: g_["collectives"]
+                         for k, g_ in got[0]["measured"].items()},
+            rises={k: [g["measured"][k]["memory"]["rise"] for g in got]
+                   for k in ("prefill", "decode")},
+            cache_shapes=got[0]["cache_shapes"])
+        out[label] = res
+        coll = res["collectives"]
+        log(f"[{label}] {cfg.name} ({cfg.n_layers} layers) served on a "
+            f"(1, {tp}) mesh of gloo ranks sharing cuda:0 (make_serve_prefill "
+            f"/ make_serve_decode, each rank on its slices): "
+            f"{len(SERVE_TP_PROMPTS)} prompts of "
+            f"{'/'.join(map(str, SERVE_TP_PROMPTS))} tokens left-padded + "
+            f"{SERVE_TP_STEPS} decode steps fed the mesh-less greedy tokens; "
+            f"logits vs the mesh-less prefill + decode_step: prefill "
+            f"{res['prefill_err']:.3e}, worst decode step "
+            f"{res['decode_err']:.3e} of the largest {res['scale']:.2f} (bar "
+            f"{SERVE_TP_TOL}); greedy tokens differing "
+            f"{res['tokens_differ']} (their mesh-less top-2 gaps "
+            f"{res['tokens_differ_gaps']}, bar {SERVE_TP_TOL}); final-norm "
+            f"outputs bit-equal across the ranks; launches by rank "
+            f"{res['launches']}; rank 0's collectives, prefill "
+            f"{coll['prefill']}, a decode step {coll['decode']}; prefill s "
+            f"by rank {[round(x, 3) for x in res['prefill_s']]} (mesh-less "
+            f"{res['reference_prefill_s']:.3f}); decode tokens/s by rank "
+            f"{[round(x, 1) for x in res['decode_tokens_per_s']]} (mesh-less "
+            f"{res['reference_decode_tokens_per_s']:.1f}); gloo goes through "
+            f"host copies: correctness, not speed; rank 0's cache "
+            f"{res['cache_shapes']}")
+    # 19d: the plans against what the pairs' ranks did (position r of a
+    # pair: 19a on rank r, 18a's step on rank 2 + r)
+    out["19d"] = {}
+    for r in (0, 1):
+        d = {k: plan_vs_measured(f"19a {k} position {r}",
+                                 ranks[r]["19a"]["plans"][k],
+                                 ranks[r]["19a"]["measured"][k])
+             for k in ("prefill", "decode")}
+        train = ranks[2 + r]["19d"]
+        d["train"] = plan_vs_measured(f"18a train position {r}",
+                                      train["plan"], train["measured"])
+        d["train"]["step_s"] = train["step_s"]
+        d["train"]["loss"] = train["loss"]
+        out["19d"][r] = d
+        log(f"[19d] position {r} of a (1, 2) pair: the meta plan of its "
+            f"program (plan_cell(rank={r})) against the card: "
+            + "; ".join(f"{k}: collectives {v['collectives']} equal, "
+                        f"predicted peak {v['predicted_peak'] / 1e9:.4f} GB "
+                        f"vs measured rise {v['measured_rise'] / 1e9:.4f} GB "
+                        f"(ratio {v['ratio']:.4f}, bar {DRYRUN_PEAK_TOL}; "
+                        f"meta run {v['meta_run_s']:.1f} s)"
+                        for k, v in d.items())
+            + f"; 18a's step {d['train']['step_s']:.2f} s, loss "
+            f"{d['train']['loss']:.5f}")
+    out["rank_walls"] = [r["walls"] for r in ranks]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[19] phase 19 in {out['seconds']:.1f} s (the mesh-less references "
+        f"{out['reference_s']:.1f} s; spawn, run and join of four ranks "
+        f"{out['spawn_s']:.1f} s; rank walls {out['rank_walls']}); {smi}")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -7183,6 +7720,11 @@ def main() -> int:
     tp = phase_tp(dev, smi)
     clock("18")
 
+    # -- 19: serving under model (gloo ranks sharing the card); the dry
+    # run's plan of one rank's program against them -----------------------
+    serve_tp = phase_serve_tp(dev, smi)
+    clock("19")
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -7208,7 +7750,7 @@ def main() -> int:
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
         "train": train, "dryrun": dry, "positions": positions,
-        "multi": multi, "tp": tp,
+        "multi": multi, "tp": tp, "serve_tp": serve_tp,
         "build_s": build_s,
         "build_source_s": {lib.name: secs for lib, _, secs in built},
         "phase_s": clock.walls,
@@ -7274,10 +7816,15 @@ def main() -> int:
         {"name": "flash_attention (causal / sliding-window GQA, K4)",
          "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:112",
-         **lm["k4"]},
+         **lm["k4"],
+         "phase19_launches": {label: [g[FK.TC] for g in
+                                      serve_tp[label]["launches"]]
+                              for label in ("19a", "19b", "19c")}},
         {"name": "rglru_scan (RG-LRU linear recurrence, K5)",
          "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
-         "replaces": "src/repro/kernels/rglru/kernel.py:66", **lm["k5"]},
+         "replaces": "src/repro/kernels/rglru/kernel.py:66", **lm["k5"],
+         "phase19_launches": {"19c": [g[RK.TOTAL] for g in
+                                      serve_tp["19c"]["launches"]]}},
     ] + [
         {"name": f"flash_attention (K4, {arch} prefill, phase {label})",
          "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",

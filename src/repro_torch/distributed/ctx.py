@@ -27,13 +27,29 @@ identity forward, an all-reduce SUM of the gradient: a replicated input,
 or a replicated weight used in a rank's part of a sum, gathers every
 rank's share of its gradient) and ``from_model`` (an all-reduce SUM
 forward, the identity backward: the ranks' partial outputs summed).
-``gather_seq`` joins the ranks' contiguous chunks of a sequence (the
-sequence-sharded attention), and ``model_max`` takes a MAX over the
-group (the vocabulary-parallel cross entropy's row max).  Each sum runs
-in float32 and comes back in the input's dtype.  Every rank must issue
-the group's collectives in one order: the layers call them in program
-order, and remat replays them in the backward in the same order on every
-rank.
+``gather_model`` joins the ranks' equal contiguous chunks along a dim (a
+sequence in the sequence-sharded attention, heads in serving), and
+``model_max`` takes a MAX over the group (the vocabulary-parallel cross
+entropy's row max).  Each sum runs in float32 and comes back in the
+input's dtype.  Every rank must issue the group's collectives in one
+order: the layers call them in program order, and remat replays them in
+the backward in the same order on every rank.
+
+Serving under ``model`` (the prefill and decode steps of
+``launch.steps`` on a ``(data, model)`` mesh) adds the decode's
+log-sum-exp join of the ranks' partial softmaxes over their slots of the
+KV cache (``combine_partials``: one all-gather, then the sums in f32 in
+rank order, the same on every rank, so the joined output is bit-equal
+across them) and ``gather_data``, the data group's rows joined (a decode
+MoE layer groups the whole global batch).
+
+Every collective goes through ``all_reduce`` / ``all_gather`` here, which
+call ``torch.distributed``'s functions, looked up at each call, on a real
+process group, and only log the call on a ``PlanGroup``: the stand-in
+the dry run gives one rank of a production mesh (``launch.mesh.
+plan_mesh``), which moves no data (its tensors are meta tensors) and
+counts every collective by kind, calls and bytes (an all-reduce's
+tensor, an all-gather's input).
 """
 
 from __future__ import annotations
@@ -127,7 +143,7 @@ class _SumOverData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        all_reduce(y, op=dist.ReduceOp.SUM, group=group)
         return y
 
     @staticmethod
@@ -146,7 +162,19 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
 
 def dp_size() -> int:
     """Ranks of the installed data group (1 without one)."""
-    return 1 if _DATA_GROUP is None else dist.get_world_size(_DATA_GROUP)
+    return 1 if _DATA_GROUP is None else group_size(_DATA_GROUP)
+
+
+def dp_rank() -> int:
+    """This rank's place in the installed data group (0 without one)."""
+    return 0 if _DATA_GROUP is None else group_rank(_DATA_GROUP)
+
+
+def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The data group's equal parts of ``x`` joined along ``dim`` in rank
+    order (``x`` itself without a group); forward only (serving)."""
+    group = _DATA_GROUP
+    return x if group is None else _gather(x, dim, group)
 
 
 # ---------------------------------------------------------------------------
@@ -172,19 +200,25 @@ def model_parallel(group):
 
 def mp_size() -> int:
     """Ranks of the installed model group (1 without one)."""
-    return 1 if _MODEL_GROUP is None else dist.get_world_size(_MODEL_GROUP)
+    return 1 if _MODEL_GROUP is None else group_size(_MODEL_GROUP)
 
 
 def mp_rank() -> int:
     """This rank's coordinate along ``model`` (0 without a group)."""
-    return 0 if _MODEL_GROUP is None else dist.get_rank(_MODEL_GROUP)
+    return 0 if _MODEL_GROUP is None else group_rank(_MODEL_GROUP)
 
 
 def _all_reduce_f32(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
     """``x`` reduced over ``group`` in float32, back in its dtype."""
     y = x.to(torch.float32, copy=True).contiguous()
-    dist.all_reduce(y, op=op, group=group)
+    all_reduce(y, op=op, group=group)
     return y.to(x.dtype)
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(group_size(group))]
+    all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 class _ToModel(torch.autograd.Function):
@@ -212,18 +246,14 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
-class _GatherSeq(torch.autograd.Function):
+class _GatherModel(torch.autograd.Function):
     """The ranks' equal contiguous chunks along ``dim`` joined in rank
     order; the gradient is this rank's chunk of it."""
 
     @staticmethod
     def forward(ctx, x, dim, group):
-        ctx.dim, ctx.rank = dim, dist.get_rank(group)
-        parts = [torch.empty_like(x)
-                 for _ in range(dist.get_world_size(group))]
-        ctx.n = x.shape[dim]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
+        ctx.dim, ctx.rank, ctx.n = dim, group_rank(group), x.shape[dim]
+        return _gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -244,11 +274,12 @@ def from_model(x: torch.Tensor) -> torch.Tensor:
     return x if group is None else _FromModel.apply(x, group)
 
 
-def gather_seq(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The model group's chunks of a sequence joined along ``dim``, rank r
-    the r-th (``x`` itself without a group)."""
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's chunks of ``x`` (of a sequence, or of the heads)
+    joined along ``dim``, rank r's the r-th (``x`` itself without a
+    group)."""
     group = _MODEL_GROUP
-    return x if group is None else _GatherSeq.apply(x, dim, group)
+    return x if group is None else _GatherModel.apply(x, dim, group)
 
 
 def model_max(x: torch.Tensor) -> torch.Tensor:
@@ -258,3 +289,80 @@ def model_max(x: torch.Tensor) -> torch.Tensor:
     x = x.detach()
     return x if group is None else _all_reduce_f32(x, group,
                                                    dist.ReduceOp.MAX)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor,
+                     acc: torch.Tensor) -> torch.Tensor:
+    """The softmax-weighted sum [..., D] from the model group's partial
+    ones, each over its own keys: its row max ``m`` [...], its sum of
+    ``exp(s - m)`` ``l`` [...] and of ``exp(s - m) v`` ``acc`` [..., D],
+    all float32.  One all-gather of the three; then, on every rank in
+    rank order, the global max M, each part weighted by ``exp(m - M)``
+    and summed.  A rank with no kept key gives ``l = acc = 0`` and
+    ``m = -1e30``: its weight is 0, so it adds nothing.  Without a group,
+    ``acc / l``."""
+    group = _MODEL_GROUP
+    if group is None:
+        return acc / l.clamp_min(1e-37)[..., None]
+    packed = torch.cat([m[..., None], l[..., None], acc], dim=-1)
+    parts = [torch.empty_like(packed) for _ in range(group_size(group))]
+    all_gather(parts, packed.contiguous(), group=group)
+    big = parts[0][..., 0]
+    for part in parts[1:]:
+        big = torch.maximum(big, part[..., 0])
+    lsum = asum = None
+    for part in parts:
+        w = torch.exp(part[..., 0] - big)
+        lw, aw = w * part[..., 1], w[..., None] * part[..., 2:]
+        lsum = lw if lsum is None else lsum + lw
+        asum = aw if asum is None else asum + aw
+    return asum / lsum.clamp_min(1e-37)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# collectives over a process group or a plan's stand-in
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class PlanGroup:
+    """A stand-in for a process group in a plan of one rank's program on
+    meta tensors: the rank's place in the group and its size.  It moves
+    no data: every collective issued on it is only logged, by kind, into
+    ``log`` (``{kind: {"calls", "bytes"}}``), which the groups of one
+    plan share."""
+    rank: int
+    size: int
+    log: dict = dataclasses.field(default_factory=dict)
+
+    def record(self, kind: str, t: torch.Tensor) -> None:
+        entry = self.log.setdefault(kind, {"calls": 0, "bytes": 0})
+        entry["calls"] += 1
+        entry["bytes"] += t.numel() * t.element_size()
+
+
+def group_size(group) -> int:
+    return (group.size if isinstance(group, PlanGroup)
+            else dist.get_world_size(group))
+
+
+def group_rank(group) -> int:
+    return (group.rank if isinstance(group, PlanGroup)
+            else dist.get_rank(group))
+
+
+def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> None:
+    """``x`` reduced in place over ``group``; logged on a ``PlanGroup``."""
+    if isinstance(group, PlanGroup):
+        group.record("all_reduce", x)
+    else:
+        dist.all_reduce(x, op=op, group=group)
+
+
+def all_gather(parts: list, x: torch.Tensor, group=None) -> None:
+    """Every rank's ``x`` into ``parts`` in rank order; logged on a
+    ``PlanGroup``."""
+    if isinstance(group, PlanGroup):
+        group.record("all_gather", x)
+    else:
+        dist.all_gather(parts, x, group=group)

@@ -22,20 +22,33 @@ counters:
 * the same mode follows the storages the step creates (``StorageWeakRef``)
   and records ``peak_bytes``, the step's own rise above its arguments —
   the counterpart of ``memory_analysis()`` — both as raw storage bytes and
-  rounded as the CUDA caching allocator charges a block (512 B).
+  rounded as the CUDA caching allocator charges a block (512 B).  Under a
+  dispatch mode the backward takes the functional op for two sums it does
+  in place on the card (a second gradient into its buffer, ``gather``'s
+  scatter into zeros); the mode counts each in its first operand's bytes
+  (``MetaRun._in_place_on_card``).
 
 On the ``card`` mesh (one H100) a record also says whether the cell
 ``fits``: its arguments plus the peak within the card's memory.  On the
 production meshes (``single``, ``multi``) a record holds the per-device
 argument bytes from the partition specs (``distributed.partitioning``;
-every sharded dim must divide); the activation peak there is ``"not
-planned"``, since no SPMD partitioner exists on the torch side.
-``collective_bytes_per_device`` is 0 on one card and not planned on the
-production meshes.
+every sharded dim must divide) and the same counts of one rank's
+program: ``plan_cell(rank=)`` gives the rank its slices of the state,
+the parameters and the cache and the step the port runs there (the
+``Trainer``'s step, or the serving steps inside ``ctx.model_parallel``),
+whose groups are stand-ins (``launch.mesh.plan_mesh``) that move no data
+and log each collective, so the record adds ``collective_bytes_per_device``
+and the bytes and calls by kind.  Rank 0 is planned, and the last
+``model`` rank too where the programs differ (``planned_ranks``); the
+larger peak is the record's.  No device memory is named for those
+meshes, so they say nothing of ``fits``.  A cell whose rules the port
+refuses by name (llama4's ``fsdp_units``) keeps its argument bytes and
+says ``"not planned (ROADMAP item N)"``.  ``collective_bytes_per_device``
+is 0 on one card.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh card
-    python -m repro_torch.launch.dryrun --all [--mesh all] [--force]
+    python -m repro_torch.launch.dryrun --all [--mesh all] [--force] [--jobs N]
 
 Records go to ``build/dryrun/<arch>__<shape>__<mesh><tag>.json``.
 """
@@ -74,6 +87,9 @@ RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 ALLOC_ROUND = 512
 #: the products ``dot_flops_per_device`` counts
 DOT_OPS = ("mm", "bmm", "addmm", "baddbmm")
+#: the backward's functional sums that the card runs in place
+_IN_PLACE_ON_CARD = frozenset({torch.ops.aten.add.Tensor,
+                               torch.ops.aten.scatter_add.default})
 #: ops that allocate without reading or writing data
 _NO_TRAFFIC = frozenset({torch.ops.aten.empty.memory_format,
                          torch.ops.aten.empty_strided.default,
@@ -138,7 +154,11 @@ class MetaRun(TorchDispatchMode):
     (``StorageWeakRef.expired``) only when the live sum would raise a
     peak, so the peaks are exact.  Inside ``saved_tensors()`` autograd
     keeps a ``detach()`` of each tensor it saves, so that the tensors it
-    holds are seen too."""
+    holds are seen too.  A sum of the backward that the card may do in
+    place (``_in_place_on_card``) is charged without its left operand,
+    and charged whole at the next op (or the end) if the operand is
+    still held then: the card's autograd adds in place only into a
+    gradient nothing else holds."""
 
     def __init__(self, held=()):
         super().__init__()
@@ -149,6 +169,9 @@ class MetaRun(TorchDispatchMode):
         self._watch: dict[int, tuple] = {}     # id(weakref) -> (it, id, ref)
         self._seen: set[int] = set()           # ids of live tensors seen
         self._suspects: set[StorageWeakRef] = set()
+        self._made_in_backward: set[StorageWeakRef] = set()
+        # left operands of in-place sums, with the live sums beside them
+        self._pending: list[tuple[StorageWeakRef, int, int]] = []
         self._raw = self._alloc = 0
         self.peak_bytes = self.peak_alloc_bytes = 0
         self.traffic_bytes = 0
@@ -175,6 +198,7 @@ class MetaRun(TorchDispatchMode):
                 self._suspects.discard(ref)
                 raw, alloc = self._size.pop(ref)
                 del self._tensors[ref]
+                self._made_in_backward.discard(ref)
                 self._raw -= raw
                 self._alloc -= alloc
 
@@ -188,6 +212,8 @@ class MetaRun(TorchDispatchMode):
         if new:
             n = st.nbytes()
             self._size[ref] = (n, _alloc_bytes(n))
+            if _in_backward():
+                self._made_in_backward.add(ref)
             self._tensors[ref] = 0
             self._raw += n
             self._alloc += _alloc_bytes(n)
@@ -198,8 +224,43 @@ class MetaRun(TorchDispatchMode):
             self._watch[id(wr)] = (wr, id(t), ref)
         return new
 
+    def _in_place_on_card(self, func, args, kwargs) -> bool:
+        """Whether ``func`` is one of the backward's sums that the card
+        does in place and a dispatch mode does not: the autograd engine
+        adding a second gradient into a buffer it owns (``InputBuffer``),
+        and ``gather``'s backward scattering into its fresh zeros — C++
+        takes the functional op wherever a tensor may be a subclass, which
+        every tensor under a dispatch mode may be.  The first argument
+        must be a dense tensor, the whole of a storage the backward made."""
+        if func not in _IN_PLACE_ON_CARD or not _in_backward():
+            return False
+        a = args[0]
+        if func is torch.ops.aten.add.Tensor:
+            b = args[1] if len(args) > 1 else None
+            if not (isinstance(b, torch.Tensor) and not kwargs
+                    and a.shape == b.shape and a.dtype == b.dtype):
+                return False
+        return (a.is_contiguous() and StorageWeakRef(a.untyped_storage())
+                in self._made_in_backward
+                and a.untyped_storage().nbytes()
+                == a.numel() * a.element_size())
+
+    def _settle(self) -> None:
+        """Charge whole each pending sum whose left operand is still held:
+        it was not summed in place."""
+        for ref, raw, alloc in self._pending:
+            if not ref.expired():
+                self.peak_bytes = max(self.peak_bytes, raw)
+                self.peak_alloc_bytes = max(self.peak_alloc_bytes, alloc)
+        self._pending.clear()
+
+    def __exit__(self, *exc):
+        self._settle()
+        return super().__exit__(*exc)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        self._settle()
         # a composite op (einsum, matmul, reshape under inference_mode) runs
         # as its parts, whose intermediates the card's backend allocates too
         if _composite(func):
@@ -219,9 +280,22 @@ class MetaRun(TorchDispatchMode):
         if grew and (self._raw > self.peak_bytes
                      or self._alloc > self.peak_alloc_bytes):
             self._sweep()
-            self.peak_bytes = max(self.peak_bytes, self._raw)
-            self.peak_alloc_bytes = max(self.peak_alloc_bytes, self._alloc)
+            raw, alloc = 0, 0           # the left operand, if in place
+            if self._in_place_on_card(func, args, kwargs):
+                ref = StorageWeakRef(args[0].untyped_storage())
+                raw, alloc = self._size[ref]
+                self._pending.append((ref, self._raw, self._alloc))
+            self.peak_bytes = max(self.peak_bytes, self._raw - raw)
+            self.peak_alloc_bytes = max(self.peak_alloc_bytes,
+                                        self._alloc - alloc)
         return out
+
+
+def _in_backward() -> bool:
+    """Whether the autograd engine is running a backward now (with the
+    gradient off: not remat's recomputation)."""
+    return (torch._C._current_graph_task_id() != -1
+            and not torch.is_grad_enabled())
 
 
 @functools.cache
@@ -241,6 +315,8 @@ class MetaCounts:
     kernels: dict
     constraints: list
     seconds: float
+    #: a rank's plan: its collectives by kind, {"calls", "bytes"}
+    collectives: dict = dataclasses.field(default_factory=dict)
 
 
 def run_meta(plan: CellPlan, mesh) -> MetaCounts:
@@ -267,7 +343,8 @@ def run_meta(plan: CellPlan, mesh) -> MetaCounts:
                      "bytes": log.nbytes[k]} for k in log.calls},
         constraints=[{"dims": list(d), "spec": list(s), "calls": n}
                      for (d, s), n in seen.items()],
-        seconds=time.perf_counter() - t0)
+        seconds=time.perf_counter() - t0,
+        collectives={k: dict(v) for k, v in (plan.collectives or {}).items()})
 
 
 def arg_bytes(plan: CellPlan, mesh) -> dict[str, int]:
@@ -277,6 +354,68 @@ def arg_bytes(plan: CellPlan, mesh) -> dict[str, int]:
            for name, (tree, specs) in plan.groups.items()}
     out["total"] = sum(out.values())
     return out
+
+
+# ---------------------------------------------------------------------------
+# one rank's program on a production mesh
+# ---------------------------------------------------------------------------
+
+
+def planned_ranks(cfg: ModelConfig, shape, mesh) -> tuple[int, ...]:
+    """The mesh positions whose programs the dry run plans: rank 0, and
+    the last ``model`` rank where the ranks' programs differ — the
+    sequence-sharded attention of a train or prefill cell, whose last
+    query chunk does the most work.  Elsewhere every model rank runs the
+    same shapes on its own slices, and rank 0 stands for them all."""
+    tp = part.axis_size(mesh, part.MODEL_AXIS)
+    layers = cfg.pattern + cfg.tail
+    seq = (tp > 1 and shape.kind != "decode" and shape.seq_len % tp == 0
+           and any(sp.mixer == "attn" for sp in layers)
+           and part.attn_mode(cfg.n_heads, cfg.n_kv_heads, tp) == "seq")
+    return (0, tp - 1) if seq else (0,)
+
+
+def plan_ranks(cfg: ModelConfig, shape, mesh, **kw) -> dict:
+    """The record of a cell on a production mesh from the meta runs of
+    its ``planned_ranks``' programs (``plan_cell(rank=)``): per device,
+    the larger rank's peak and its dot flops, traffic and collectives
+    (calls and bytes by kind), each rank's beside.  A cell whose rules the
+    port refuses by name (``partitioning.tp_plan``) records
+    ``"not planned (ROADMAP item N)"`` instead."""
+    try:
+        part.tp_plan(cfg, mesh)
+    except NotImplementedError as e:
+        item = re.search(r"ROADMAP item \d+", str(e))
+        why = f"not planned ({item.group(0) if item else e})"
+        return {"activation_peak": why, "peak_bytes": why,
+                "dot_flops_per_device": why, "traffic_bytes_per_device": why,
+                "collective_bytes_per_device": why, "refused": str(e)}
+    runs = {r: run_meta(plan_cell(cfg, shape, mesh, rank=r, **kw), mesh)
+            for r in planned_ranks(cfg, shape, mesh)}
+    top = max(runs, key=lambda r: (runs[r].peak_alloc_bytes, r))
+    m = runs[top]
+    return {
+        "planned_ranks": list(runs), "peak_rank": top,
+        "meta_run_s": sum(x.seconds for x in runs.values()),
+        "aten_ops": m.ops,
+        "dot_flops_per_device": max(x.dot_flops for x in runs.values()),
+        "traffic_bytes_per_device": max(x.traffic_bytes
+                                        for x in runs.values()),
+        "peak_bytes": m.peak_bytes, "peak_alloc_bytes": m.peak_alloc_bytes,
+        "collective_bytes_per_device": sum(
+            v["bytes"] for v in m.collectives.values()),
+        "collective_bytes_by_kind": {k: v["bytes"]
+                                     for k, v in m.collectives.items()},
+        "collective_counts": {k: v["calls"]
+                              for k, v in m.collectives.items()},
+        "kernels": m.kernels, "activation_constraints": m.constraints,
+        "ranks": {str(r): {"dot_flops": x.dot_flops,
+                           "traffic_bytes": x.traffic_bytes,
+                           "peak_bytes": x.peak_bytes,
+                           "peak_alloc_bytes": x.peak_alloc_bytes,
+                           "collectives": x.collectives,
+                           "kernels": x.kernels, "meta_run_s": x.seconds}
+                  for r, x in runs.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +468,12 @@ def run_cell(arch_name: str, shape_name: str, mesh_name: str,
                    arg_bytes_per_device=args,
                    activation_rules={k: v for k, v in plan.rules.items()})
         if mesh_name != "card":
-            rec.update(status="ok", activation_peak="not planned",
-                       collective_bytes_per_device="not planned")
+            rec.update(status="ok", **plan_ranks(
+                cfg, shape, mesh, ocfg=opt_config_for(cfg),
+                grad_accum=grad_accum), useful_flops_ratio=None)
+            if isinstance(rec["dot_flops_per_device"], float):
+                rec["useful_flops_ratio"] = rec["model_flops_global"] / max(
+                    rec["dot_flops_per_device"] * chips, 1.0)
         else:
             m = run_meta(plan, mesh)
             rec.update(
@@ -359,14 +502,23 @@ def _line(rec: dict) -> str:
            f"{rec['mesh']:6s}")
     if rec["status"] == "ok":
         msg += f" args={rec['arg_bytes_per_device']['total'] / 2**30:8.2f}GiB"
-        if "peak_bytes" in rec:
+        if isinstance(rec.get("peak_alloc_bytes"), int):
             msg += (f" peak={rec['peak_alloc_bytes'] / 2**30:8.2f}GiB "
-                    f"fits={str(rec['fits']):5s} "
-                    f"useful={rec['useful_flops_ratio']:5.2f} "
+                    f"fits={str(rec.get('fits', '-')):5s} "
+                    f"coll={rec['collective_bytes_per_device'] / 2**30:8.3f}"
+                    f"GiB useful={rec['useful_flops_ratio']:5.2f} "
                     f"meta={rec['meta_run_s']:7.1f}s")
+        elif "activation_peak" in rec:
+            msg += " " + rec["activation_peak"]
     elif rec["status"] == "error":
         msg += " " + rec["error"][:120]
     return msg
+
+
+def _run_job(job) -> dict:
+    arch, shape, mesh, outdir, force, accum, remat, moe_mode, tag = job
+    return run_cell(arch, shape, mesh, outdir, force=force, grad_accum=accum,
+                    remat=remat, moe_mode=moe_mode, tag=tag)
 
 
 def main(argv=None) -> None:
@@ -382,6 +534,8 @@ def main(argv=None) -> None:
     ap.add_argument("--moe-mode", default=None,
                     choices=("auto", "e_data_f_model", "f_model"))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells planned at once, one process each")
     args = ap.parse_args(argv)
 
     outdir = pathlib.Path(args.outdir)
@@ -396,14 +550,23 @@ def main(argv=None) -> None:
         ap.error("give --arch and --shape, or --all")
 
     n = {"ok": 0, "skipped": 0, "error": 0}
-    for arch_name, shape_name in cells:
-        for mesh_name in meshes:
-            rec = run_cell(arch_name, shape_name, mesh_name, outdir,
-                           force=args.force, grad_accum=args.grad_accum,
-                           remat=args.remat, moe_mode=args.moe_mode,
-                           tag=args.tag)
+    jobs = [(a, s, m, outdir, args.force, args.grad_accum, args.remat,
+             args.moe_mode, args.tag) for a, s in cells for m in meshes]
+    t0 = time.perf_counter()
+    if args.jobs > 1:
+        import multiprocessing
+        with multiprocessing.get_context("spawn").Pool(args.jobs) as pool:
+            recs = pool.imap(_run_job, jobs)
+            for rec in recs:
+                n[rec["status"]] += 1
+                print(_line(rec), flush=True)
+    else:
+        for job in jobs:
+            rec = _run_job(job)
             n[rec["status"]] += 1
             print(_line(rec), flush=True)
+    print(f"dry-run: {len(jobs)} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"dry-run: ok={n['ok']} skipped={n['skipped']} "
           f"error={n['error']}", flush=True)
     if n["error"]:

@@ -21,7 +21,9 @@ the devices it describes.
   ``torch.distributed`` process group, one device a rank, with this
   rank's data group (the ranks of its model index) and, for
   ``model > 1``, its model group (the ranks of its data row);
-* ``make_card_mesh``: one card, 1 x 1, with its memory.
+* ``make_card_mesh``: one card, 1 x 1, with its memory;
+* ``plan_mesh``: a mesh as one of its positions sees it in the dry
+  run's plan, with stand-in groups that log their collectives.
 
 Nothing here touches the card when the module is imported.
 """
@@ -63,6 +65,10 @@ class MeshSpec:
     #: ranks of its data row (None for ``model = 1``)
     data_group: object = dataclasses.field(default=None, compare=False)
     model_group: object = dataclasses.field(default=None, compare=False)
+    #: with a ``pod`` axis, the ranks of this rank's pod and model
+    #: coordinates, which ZeRO-1's ``data`` split spans (the data group
+    #: without one)
+    zero1_group: object = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes):
@@ -179,6 +185,33 @@ def make_data_mesh(model: int = 1, device=None) -> MeshSpec:
     return MeshSpec(("data", "model"), (rows, model),
                     devices=tuple(torch.device(d) for d in devs),
                     data_group=data_group, model_group=model_group)
+
+
+def plan_mesh(mesh: MeshSpec, position: int,
+              log: dict | None = None) -> MeshSpec:
+    """``mesh`` as its position ``position`` runs on it in a plan, with
+    ``distributed.ctx.PlanGroup`` stand-ins for that rank's groups, which
+    move no data and log their collectives into ``log`` (shared): its
+    data group, the ranks of its ``model`` coordinate (the other axes,
+    ``pod`` and ``data``, joined row-major, as ``dp_axes`` joins them),
+    and, for ``model > 1``, its model group (the ranks of its data row);
+    with a ``pod`` axis also its ZeRO-1 group (the ranks of its pod and
+    model coordinates: ``zero1_spec`` splits over ``data`` alone, so the
+    pods hold the same moments).  ``model`` is the last axis of every
+    mesh here."""
+    from repro_torch.distributed.ctx import PlanGroup
+    tp = mesh.shape.get("model", 1)
+    if mesh.axis_names[-1] != "model" and tp > 1:
+        raise ValueError(f"model is not the last axis of {mesh.axis_names}")
+    coords = mesh.coords(position)       # raises outside the mesh
+    log = {} if log is None else log
+    zero1 = None
+    if "pod" in mesh.shape:
+        zero1 = PlanGroup(coords["data"], mesh.shape["data"], log)
+    return dataclasses.replace(
+        mesh, data_group=PlanGroup(position // tp, mesh.size // tp, log),
+        model_group=(PlanGroup(coords["model"], tp, log) if tp > 1
+                     else None), zero1_group=zero1)
 
 
 def make_card_mesh(device=None) -> MeshSpec:

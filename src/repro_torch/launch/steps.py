@@ -34,6 +34,15 @@ batch of its data row through the tensor-parallel model
 gradients are this rank's slices, whole and equal on every model rank
 for the replicated leaves, summed over the data group only;
 ``model_shards`` tells the optimizer which leaves ``model`` splits.
+
+Serving on such a mesh (``make_serve_prefill`` / ``make_serve_decode``
+with the rank's groups) is this rank's part of the prefill and decode
+cells JAX's ``lower_cell`` jits: the global batch in, the rank's rows
+run on its slices of the parameters (``serve_params``) and of the cache
+inside ``ctx.model_parallel``, its columns of the logits out.
+``plan_cell(rank=)`` gives one rank's program of a cell on any mesh,
+its groups stand-ins that log their collectives (``launch.mesh.
+plan_mesh``), for the dry run.
 """
 
 from __future__ import annotations
@@ -47,9 +56,14 @@ import torch.distributed as dist
 from repro_torch.configs.base import ShapeSpec, input_specs
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partitioning as part
-from repro_torch.distributed.ctx import data_parallel, model_parallel
+from repro_torch.distributed.ctx import (all_reduce, data_parallel,
+                                         group_rank, group_size,
+                                         model_parallel)
+from repro_torch.launch.mesh import plan_mesh
 from repro_torch.models.transformer import (ModelConfig, decode_step,
-                                            init_params, loss_fn, prefill)
+                                            init_cache, init_params,
+                                            loss_fn, prefill)
+from repro_torch.storage.checkpoint import place_on_mesh
 from repro_torch.train.optimizer import (ModelShards, OptConfig,
                                          ShardedUpdate, adamw_init,
                                          adamw_update, tree_from_paths,
@@ -166,7 +180,7 @@ def _sum_over(grads: Params, group) -> Params:
         seg.copy_(g)
         out.append(seg)
         at += n
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     return tree_from_paths(zip(paths, out))
 
 
@@ -188,12 +202,12 @@ def loss_and_grads(cfg: ModelConfig, params: Params, batch,
         if model_group is not None:
             raise ValueError("a model group needs its data group")
         return _loss_and_grads(cfg, params, batch, grad_accum)
-    local = rank_rows(batch, grad_accum, dist.get_rank(group),
-                      dist.get_world_size(group))
+    local = rank_rows(batch, grad_accum, group_rank(group),
+                      group_size(group))
     with data_parallel(group), model_parallel(model_group):
         loss, metrics, grads = _loss_and_grads(cfg, params, local,
                                                grad_accum, mean=False)
-    if dist.get_world_size(group) > 1:     # a sum over one rank is itself
+    if group_size(group) > 1:     # a sum over one rank is itself
         grads = _sum_over(grads, group)
     if grad_accum > 1:
         grads = tree_map(lambda g: g / grad_accum, grads)
@@ -303,17 +317,113 @@ def model_shards(cfg: ModelConfig, mesh, group) -> ModelShards | None:
     return ModelShards(group, sharded, rows)
 
 
-def make_serve_decode(cfg: ModelConfig):
+def mesh_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh, position: int,
+                    schedule=None, *, grad_accum: int = 1,
+                    zero1: bool = True):
+    """(the train step, this rank's ZeRO-1 share or None) of mesh
+    position ``position`` on a ``(data, model)`` mesh with its groups
+    (``launch.mesh.make_data_mesh``, or ``plan_mesh``'s stand-ins), the
+    ``Trainer``'s step: the data group's sums, the rank's ZeRO-1 share
+    (``zero1_shard``) and its place on ``model`` (``model_shards``).
+    The rules the port does not take raise by name
+    (``partitioning.tp_plan``)."""
+    part.tp_plan(cfg, mesh)
+    state_shape = abstract_train_state(cfg, ocfg)
+    shard = None
+    if zero1:
+        shard = zero1_shard(train_state_pspecs(cfg, ocfg, mesh, state_shape,
+                                               zero1=True),
+                            state_shape["params"], mesh, position,
+                            mesh.zero1_group or mesh.data_group)
+    return make_train_step(cfg, ocfg, schedule, grad_accum,
+                           group=mesh.data_group, shard=shard,
+                           model=model_shards(cfg, mesh, mesh.model_group)
+                           ), shard
+
+
+def _rank_batch(group, rows: int) -> tuple[Any, slice]:
+    """The data group a serving step sums over (None: no sum) and this
+    rank's rows of a global batch of ``rows``: a contiguous block of them
+    where the group divides them (``batch_pspecs``), every row where it
+    does not (JAX's fallback: the batch replicates)."""
+    if group is None:
+        return None, slice(0, rows)
+    n, r = group_size(group), group_rank(group)
+    if n == 1 or rows % n:
+        return None, slice(0, rows)
+    return group, slice(r * (rows // n), (r + 1) * (rows // n))
+
+
+def _on_mesh(fn, group, model_group, inputs, position_ids):
+    """``fn(inputs, position_ids)`` on this rank's rows, inside its data
+    and model groups (``fn`` itself without either)."""
+    if group is None and model_group is None:
+        return fn(inputs, position_ids)
+    data, rows = _rank_batch(group, inputs.shape[0])
+    if position_ids is not None:        # [3, B, S]
+        position_ids = position_ids[:, rows]
+    with data_parallel(data), model_parallel(model_group):
+        return fn(inputs[rows], position_ids)
+
+
+def make_serve_decode(cfg: ModelConfig, max_seq: int | None = None, *,
+                      group=None, model_group=None):
+    """``serve_decode(params, cache, inputs, index, position_ids=None)``:
+    one token against the cache.  With ``group`` / ``model_group`` (a
+    ``(data, model)`` mesh's groups of this rank) it is this rank's part
+    of JAX's decode cell: it takes the global inputs and runs its rows
+    (``_rank_batch``) on its slices of the parameters (``param_pspecs``)
+    and its cache (``cache_pspecs`` of a cache of ``max_seq``
+    positions), inside ``ctx.model_parallel``; the logits are its
+    columns of the vocabulary."""
     def serve_decode(params, cache, inputs, index, position_ids=None):
-        return decode_step(cfg, params, cache, inputs, index, position_ids)
+        return _on_mesh(lambda x, ids: decode_step(
+            cfg, params, cache, x, index, ids, max_seq=max_seq), group,
+            model_group, inputs, position_ids)
     return serve_decode
 
 
-def make_serve_prefill(cfg: ModelConfig, max_seq: int):
+def make_serve_prefill(cfg: ModelConfig, max_seq: int, *, group=None,
+                       model_group=None):
+    """``serve_prefill(params, inputs, position_ids=None)``: the batched
+    prompt pass, (last logits, cache).  With ``group`` / ``model_group``
+    it is this rank's part of JAX's prefill cell, as
+    ``make_serve_decode``'s: its rows, its slices of the parameters, its
+    slices of the cache, its columns of the logits."""
     def serve_prefill(params, inputs, position_ids=None):
-        return prefill(cfg, params, inputs, max_seq=max_seq,
-                       position_ids=position_ids)
+        return _on_mesh(lambda x, ids: prefill(
+            cfg, params, x, max_seq=max_seq, position_ids=ids), group,
+            model_group, inputs, position_ids)
     return serve_prefill
+
+
+def serve_params(cfg: ModelConfig, mesh, params: Params,
+                 position: int | None = None) -> Params:
+    """Mesh position ``position``'s slices (this rank's by default) of
+    the whole ``params`` under ``param_pspecs``, on its device
+    (``storage.checkpoint.place_on_mesh``)."""
+    return place_on_mesh(params, part.shardings(
+        mesh, part.param_pspecs(cfg, mesh, params)), position)
+
+
+def serve_cache(cfg: ModelConfig, mesh, batch: int, max_seq: int,
+                device=None) -> Params:
+    """This rank's empty cache on ``mesh`` for a global batch of
+    ``batch`` rows: its rows (``_rank_batch``), its slices of the slots
+    and states (``cache_pspecs``)."""
+    rows = _rank_batch(mesh.data_group, batch)[1]
+    with model_parallel(mesh.model_group):
+        return init_cache(cfg, rows.stop - rows.start, max_seq, device)
+
+
+def local_meta(tree: Params, specs: Params, mesh) -> Params:
+    """Meta tensors of the shapes one position of ``mesh`` holds of each
+    leaf of ``tree`` under ``specs`` (``partitioning.local_shape``)."""
+    spec_of = dict(tree_paths(specs))
+    return tree_from_paths(
+        (p, torch.empty(part.local_shape(x.shape, spec_of[p], mesh),
+                        dtype=x.dtype, device="meta"))
+        for p, x in tree_paths(tree))
 
 
 def to_device(tree, device=None):
@@ -334,17 +444,24 @@ class CellPlan:
     ``args`` are the step's positional arguments (``index``, decode's
     position, a Python int: the port's decode takes one); ``groups`` splits
     them into ``params`` / ``opt`` / ``batch`` / ``cache`` trees, each with
-    its spec tree, for the per-device byte count."""
+    its spec tree, for the per-device byte count.  A plan of one rank
+    (``rank``) holds that rank's slices of the state and the cache, and
+    ``collectives`` is the log its stand-in groups fill while the step
+    runs (``{kind: {"calls", "bytes"}}``); None for the whole program."""
     kind: str
     step: Callable
     args: tuple
     groups: dict[str, tuple[Any, Any]]
     rules: dict
+    rank: int | None = None
+    collectives: dict | None = None
 
     def run(self):
         """The step on its arguments: with gradients for a train cell,
         under ``torch.inference_mode`` for serving, as the trainer and the
         serving engine run it."""
+        if self.collectives is not None:
+            self.collectives.clear()
         if self.kind == "train":
             return self.step(*self.args)
         with torch.inference_mode():
@@ -353,48 +470,86 @@ class CellPlan:
 
 def plan_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
               ocfg: OptConfig | None = None, zero1: bool = True,
-              grad_accum: int = 1) -> CellPlan:
+              grad_accum: int = 1, rank: int | None = None,
+              max_seq: int | None = None,
+              index: int | None = None) -> CellPlan:
     """The counterpart of the JAX package's ``lower_cell``: the arguments
     ``lower_cell`` would lower the cell's step on (from
     ``abstract_train_state`` or a meta ``init_params``, ``input_specs``, and
     for decode the cache), as meta tensors, their specs on ``mesh``, and
     the step (``make_train_step`` / ``make_serve_prefill`` /
-    ``make_serve_decode``).  Nothing is lowered or run."""
+    ``make_serve_decode``).  Nothing is lowered or run.
+
+    With ``rank`` the plan is that mesh position's program (``plan_mesh``'s
+    stand-in groups): its slices of the state, parameters and cache as
+    its arguments, the global batch (the steps take their rows), and the
+    step the ``Trainer`` / the serving steps run there
+    (``mesh_train_step``, ``make_serve_*(group=, model_group=)``); the
+    rules the port does not take raise by name.  ``max_seq`` (a serving
+    cell's cache length, ``shape.seq_len`` by default) and ``index`` (the
+    decode position, ``shape.seq_len - 1`` by default) plan a serving
+    call other than the cell's own."""
     ocfg = ocfg or OptConfig()
     specs = input_specs(cfg, shape)
     rules = part.activation_rules(cfg, mesh, shape.global_batch)
+    log = None
+    if rank is not None:
+        log = {}
+        mesh = plan_mesh(mesh, rank, log)
+        part.tp_plan(cfg, mesh)
+        if part.batch_axes(mesh, shape.global_batch) not in (
+                None, part.dp_axes(mesh)):
+            raise NotImplementedError(
+                f"a batch of {shape.global_batch} split over part of the "
+                f"data axes {part.dp_axes(mesh)} is not planned")
+
+    def local(tree, tree_specs):
+        return tree if rank is None else local_meta(tree, tree_specs, mesh)
+
+    groups = {} if rank is None else {"group": mesh.data_group,
+                                      "model_group": mesh.model_group}
     if shape.kind == "train":
         state = abstract_train_state(cfg, ocfg)
         state_specs = train_state_pspecs(cfg, ocfg, mesh, state, zero1=zero1)
         batch = specs["batch"]
+        step = (make_train_step(cfg, ocfg, grad_accum=grad_accum)
+                if rank is None else
+                mesh_train_step(cfg, ocfg, mesh, rank, grad_accum=grad_accum,
+                                zero1=zero1)[0])
         return CellPlan(
-            "train", make_train_step(cfg, ocfg, grad_accum=grad_accum),
-            (state, batch),
+            "train", step, (local(state, state_specs), batch),
             {"params": (state["params"], state_specs["params"]),
              "opt": (state["opt"], state_specs["opt"]),
-             "batch": (batch, part.batch_pspecs(cfg, mesh, batch))}, rules)
+             "batch": (batch, part.batch_pspecs(cfg, mesh, batch))}, rules,
+            rank, log)
 
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          device="meta")
-    groups = {"params": (params, part.param_pspecs(cfg, mesh, params))}
+    param_specs = part.param_pspecs(cfg, mesh, params)
+    arg_groups = {"params": (params, param_specs)}
     inputs = {k: specs[k] for k in ("inputs", "position_ids") if k in specs}
     binp = part.batch_axes(mesh, shape.global_batch)
+    max_seq = shape.seq_len if max_seq is None else max_seq
     if shape.kind == "prefill":
-        groups["batch"] = (inputs, part.batch_pspecs(cfg, mesh, inputs))
+        arg_groups["batch"] = (inputs, part.batch_pspecs(cfg, mesh, inputs))
         return CellPlan(
-            "prefill", make_serve_prefill(cfg, shape.seq_len),
-            (params, inputs["inputs"], inputs.get("position_ids")), groups,
-            rules)
+            "prefill", make_serve_prefill(cfg, max_seq, **groups),
+            (local(params, param_specs), inputs["inputs"],
+             inputs.get("position_ids")), arg_groups, rules, rank, log)
     if shape.kind != "decode":
         raise ValueError(f"unknown cell kind {shape.kind!r}")
     cache = specs["cache"]
-    groups["cache"] = (cache, part.cache_pspecs(cfg, mesh, cache))
+    if max_seq != shape.seq_len:
+        cache = init_cache(cfg, shape.global_batch, max_seq, device="meta")
+    cache_specs = part.cache_pspecs(cfg, mesh, cache)
+    arg_groups["cache"] = (cache, cache_specs)
     in_specs = {"inputs": part.P(binp, *([None] * (inputs["inputs"].dim()
                                                    - 1)))}
     if "position_ids" in inputs:
         in_specs["position_ids"] = part.P(None, binp, None)
-    groups["batch"] = (inputs, in_specs)
+    arg_groups["batch"] = (inputs, in_specs)
     return CellPlan(
-        "decode", make_serve_decode(cfg),
-        (params, cache, inputs["inputs"], shape.seq_len - 1,
-         inputs.get("position_ids")), groups, rules)
+        "decode", make_serve_decode(cfg, max_seq, **groups),
+        (local(params, param_specs), local(cache, cache_specs),
+         inputs["inputs"], shape.seq_len - 1 if index is None else index,
+         inputs.get("position_ids")), arg_groups, rules, rank, log)

@@ -36,6 +36,13 @@ Decode (``attn_decode``) is a single-token query against a KV cache laid
 out ``[B, kvH, S_cache, Dh]``; sliding-window layers use a ring buffer
 with an explicit per-slot absolute-position array so RoPE and masking
 stay correct after wrap-around.  It updates the cache in place.
+
+Serving inside a model group follows JAX's ``cache_pspecs``: a rank
+holds every kv head of its contiguous share of the slots (all of them
+where the group does not divide the slots).  ``attn_prefill`` gathers
+the kv split's heads and keeps the rank's slots; a decode step gathers
+the heads' queries, attends over the rank's slots and joins the ranks'
+partial softmaxes (``ctx.combine_partials``).
 """
 
 from __future__ import annotations
@@ -46,8 +53,9 @@ import math
 import torch
 
 from repro_torch.distributed import partitioning as part
-from repro_torch.distributed.ctx import (constrain, from_model, gather_seq,
-                                         mp_rank, mp_size, to_model)
+from repro_torch.distributed.ctx import (combine_partials, constrain,
+                                         from_model, gather_model, mp_rank,
+                                         mp_size, to_model)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import Params, dense_init
@@ -233,6 +241,15 @@ def attn_full(
     the positions' ``PosPlan`` for the card's kernels, if made.  Inside a
     model group, this rank's part of the split (see the module's
     docstring)."""
+    return _attn_full(p, spec, x, positions, position_ids, compute_dtype,
+                      plan)[0]
+
+
+def _attn_full(p: Params, spec: AttnSpec, x, positions, position_ids,
+               compute_dtype, plan=None, want_kv: bool = False):
+    """``attn_full``'s output and, with ``want_kv``, the rotated k and v
+    of every kv head at every position, [B, S, kvH, Dh] each (the kv
+    split's heads gathered over the model group), else None, None."""
     tp = mp_size()
     mode = part.attn_mode(spec.n_heads, spec.n_kv_heads, tp) if tp > 1 \
         else None
@@ -257,18 +274,24 @@ def attn_full(
     q = constrain(q, ("batch", "seq", None, None, None))
     pos = constrain(pos, ("batch", "seq"))
     out = attend(spec, q, k, v, None if positions is None else pos, plan)
+    if not want_kv:
+        k = v = None
+    elif mode == "kv":         # every rank's kv heads, one all-gather
+        k, v = gather_model(torch.cat([k, v], dim=-1), 2).split(
+            spec.head_dim, dim=-1)
     if mode is None:
-        return _out_proj(p, out, compute_dtype)
+        return _out_proj(p, out, compute_dtype), k, v
     # wo's rows of this rank's heads: the ranks' outputs summed, bo once
     y = from_model(_out_proj({"wo": p["wo"]}, out, compute_dtype))
-    return y + p["bo"].to(compute_dtype) if "bo" in p else y
+    return (y + p["bo"].to(compute_dtype) if "bo" in p else y), k, v
 
 
 def _attn_seq_chunk(p: Params, spec: AttnSpec, x, positions, position_ids,
-                    compute_dtype) -> torch.Tensor:
+                    compute_dtype):
     """The sequence-sharded fallback: every weight replicated (its
     gradient summed over the group), this rank's chunk of S / tp queries
-    against every key, the chunks' outputs gathered back in order."""
+    against every key, the chunks' outputs gathered back in order.
+    Returns (output, k, v), k and v whole on every rank."""
     b, s, _ = x.shape
     n = s // mp_size()
     c0 = mp_rank() * n
@@ -305,7 +328,58 @@ def _attn_seq_chunk(p: Params, spec: AttnSpec, x, positions, position_ids,
         out = flash_ops.flash_attention(
             q, k, v, causal=True, window=spec.window, q_pos=q_pos,
             k_pos=pos, softcap=spec.softcap)
-    return gather_seq(_out_proj(p, out, compute_dtype), 1)
+    return gather_model(_out_proj(p, out, compute_dtype), 1), k, v
+
+
+def cache_slots(spec: AttnSpec, max_seq: int) -> int:
+    """Slots of a layer's KV cache: ``max_seq``, or a ring of ``window``."""
+    return min(max_seq, spec.window) if spec.window is not None else max_seq
+
+
+def slot_range(spec: AttnSpec, max_seq: int) -> tuple[int, int]:
+    """(first slot, slots) of the cache this rank holds: its contiguous
+    share where the model group divides the slots (``cache_pspecs``),
+    every slot where it does not (JAX's fallback: replicated); all of
+    them without a group."""
+    slots, tp = cache_slots(spec, max_seq), mp_size()
+    if tp == 1 or slots % tp:
+        return 0, slots
+    return mp_rank() * (slots // tp), slots // tp
+
+
+def attn_prefill(p: Params, spec: AttnSpec, x: torch.Tensor, positions,
+                 position_ids, max_seq: int, *, compute_dtype=torch.bfloat16
+                 ) -> tuple[torch.Tensor, Params]:
+    """Prefill of one attention layer: ``attn_full``'s output at
+    ``arange(S)`` (the card's kernel on its index path) and the layer's
+    cache, k / v re-laid out as ``[B, kvH, slots, Dh]``, ring-aligned for
+    windowed layers.  Inside a model group the cache is this rank's slots
+    (``slot_range``) of every kv head."""
+    y, k, v = _attn_full(p, spec, x, None, position_ids, compute_dtype,
+                         want_kv=True)
+    kr, vr, pr = _ring_align(k, v, positions, cache_slots(spec, max_seq))
+    lo, n = slot_range(spec, max_seq)
+    if n != pr.shape[1]:       # copies: no view of the whole cache kept
+        kr, vr = kr[:, lo:lo + n].clone(), vr[:, lo:lo + n].clone()
+        pr = pr[:, lo:lo + n].clone()
+    return y, {"k": kr.transpose(1, 2), "v": vr.transpose(1, 2), "pos": pr}
+
+
+def _ring_align(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                slots: int):
+    """Pack the last ≤slots (k, v) pairs into ring layout (pos % slots)."""
+    b, s = positions.shape
+    if s <= slots:
+        padk = k.new_zeros((b, slots - s) + tuple(k.shape[2:]))
+        kr = torch.cat([k, padk], dim=1)
+        vr = torch.cat([v, padk], dim=1)
+        pr = torch.cat([positions.to(torch.int32),
+                        positions.new_full((b, slots - s), -1).to(
+                            torch.int32)], dim=1)
+        return kr, vr, pr
+    ar = torch.arange(slots, device=k.device)
+    idx = s - 1 - (s - 1 - ar) % slots              # source row per slot
+    return k[:, idx], v[:, idx], positions[:, idx].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +391,7 @@ def init_attn_cache(batch: int, spec: AttnSpec, max_seq: int,
                     dtype=torch.bfloat16, device=None) -> Params:
     """KV cache. Windowed layers get a ring buffer of ``window`` slots with
     an absolute-position side array (-1 = empty)."""
-    slots = min(max_seq, spec.window) if spec.window is not None else max_seq
+    slots = cache_slots(spec, max_seq)
     shape = (batch, spec.n_kv_heads, slots, spec.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -336,33 +410,90 @@ def attn_decode(
     *,
     position_ids: torch.Tensor | None = None,
     compute_dtype=torch.bfloat16,
+    max_seq: int | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """One decode step. x: [B, 1, d]; index: absolute position (int).
-    Writes slot ``index % slots`` of ``cache`` in place and returns it."""
-    b = x.shape[0]
+    Writes slot ``index % slots`` of ``cache`` in place and returns it.
+
+    Inside a model group this is JAX's decode cell under ``param_pspecs``
+    / ``cache_pspecs``, and ``cache`` is this rank's slots
+    (``slot_range``) of a cache of ``max_seq`` positions (required
+    there): the rank projects its heads (``"kv"``: its kv heads with
+    their groups; ``"group"``: its query heads of every group, k / v
+    whole; ``"seq"``: every head), and the heads' q (with the new k / v
+    in ``"kv"`` mode) are gathered, one all-gather; the new token's k / v
+    go to its slot's owner; each rank attends every head over its own
+    slots and the partial softmaxes are joined
+    (``ctx.combine_partials``), or, where the slots replicate, each rank
+    attends over all of them; then the rank's heads go through ``wo``'s
+    rows and the ranks' outputs are summed (``bo`` added once), or, in
+    ``"seq"`` mode, the whole ``wo`` on every rank."""
+    b, tp = x.shape[0], mp_size()
+    mode = part.attn_mode(spec.n_heads, spec.n_kv_heads, tp) if tp > 1 \
+        else None
+    if mode is not None and max_seq is None:
+        raise ValueError("decode inside a model group needs the cache's "
+                         "max_seq")
     index = int(index)
     x = x.to(compute_dtype)
     q, k, v = _project_qkv(p, spec, x, compute_dtype)   # q: [B,1,kvH,G,Dh]
     positions = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
     q, k = _apply_positional(spec, q, k, positions, position_ids)
+    g_local = q.shape[3]
+    if mode == "kv":           # [B, 1, kvH / tp, G + 2, Dh]: q, k, v
+        qkv = gather_model(torch.cat([q, k[:, :, :, None], v[:, :, :, None]],
+                                     dim=3), 2)
+        q, k, v = qkv[:, :, :, :-2], qkv[:, :, :, -2], qkv[:, :, :, -1]
+    elif mode == "group":
+        q = gather_model(q, 3)
+    if mode is None:
+        slots = cache["k"].shape[2]
+        lo, n = 0, slots
+    else:
+        slots = cache_slots(spec, max_seq)
+        lo, n = slot_range(spec, max_seq)
+    slot = index % slots - lo
+    if 0 <= slot < n:          # this rank owns the new token's slot
+        cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][:, slot] = index
+    scores = _decode_scores(spec, q, cache, index)
+    vc = cache["v"].to(compute_dtype)
+    if n == slots:             # every slot on this rank
+        probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+        out = torch.einsum("bhgqs,bhsk->bqhgk", probs, vc)
+    else:
+        m = scores.amax(dim=-1)                              # [B,kvH,G,1]
+        ok = scores > 0.5 * NEG_INF
+        e = torch.where(ok, torch.exp(scores - m[..., None]),
+                        torch.zeros((), device=x.device))
+        acc = torch.einsum("bhgqs,bhsk->bhgqk", e.to(compute_dtype),
+                           vc).float()
+        out = combine_partials(torch.where(ok.any(-1), m, NEG_INF),
+                               e.sum(-1), acc)
+        out = out.permute(0, 3, 1, 2, 4).to(compute_dtype)   # [B,1,kvH,G,Dh]
+    if mode in (None, "seq"):
+        return _out_proj(p, out, compute_dtype), cache
+    r = mp_rank()
+    if mode == "kv":
+        h = spec.n_kv_heads // tp
+        out = out[:, :, r * h:(r + 1) * h]
+    else:
+        out = out[:, :, :, r * g_local:(r + 1) * g_local]
+    y = from_model(_out_proj({"wo": p["wo"]}, out, compute_dtype))
+    return (y + p["bo"].to(compute_dtype) if "bo" in p else y), cache
 
-    slots = cache["k"].shape[2]
-    slot = index % slots
-    cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][:, slot] = index
 
-    hd = spec.head_dim
+def _decode_scores(spec: AttnSpec, q, cache: Params, index: int):
+    """float32 scores [B, kvH, G, 1, slots] of the query q [B, 1, kvH, G,
+    Dh] against the cache's slots, scaled, capped, and -1e30 added on the
+    slots that are empty, in the future or out of the window."""
     scores = torch.einsum("bqhgk,bhsk->bhgqs", q, cache["k"].to(q.dtype))
-    scores = scores.float() * (1.0 / math.sqrt(hd))
+    scores = scores.float() * (1.0 / math.sqrt(spec.head_dim))
     scores = _softcap(scores, spec.softcap)
     pos = cache["pos"]
     ok = (pos >= 0) & (pos <= index)
     if spec.window is not None:
         ok &= (index - pos) < spec.window
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    scores = scores + torch.where(ok, zero, NEG_INF)[:, None, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(compute_dtype)
-    out = torch.einsum("bhgqs,bhsk->bqhgk", probs,
-                       cache["v"].to(compute_dtype))
-    return _out_proj(p, out, compute_dtype), cache
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    return scores + torch.where(ok, zero, NEG_INF)[:, None, None, None, :]

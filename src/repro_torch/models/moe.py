@@ -29,7 +29,8 @@ gradient summed over the group); where C does not divide either, the
 routed experts run whole on every rank.  The shared expert is column /
 row.  The ranks' partial outputs are summed (``from_model``), and the
 gate weights' gradient is summed over the group, so the router's
-gradient is the whole one on every rank.
+gradient is the whole one on every rank.  A decode step's group is the
+global batch: inside a data group its rows are gathered first.
 
 The JAX package's sharding hints are kept where it makes them:
 ``distributed.ctx.constrain`` on the dispatch tables and buffers, the
@@ -45,9 +46,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.ctx import (constrain, dp_size, dp_sum,
-                                         from_model, mp_rank, mp_size,
-                                         to_model)
+from repro_torch.distributed.ctx import (constrain, dp_rank, dp_size,
+                                         dp_sum, from_model, gather_data,
+                                         mp_rank, mp_size, to_model)
 from repro_torch.models.layers import ACTIVATIONS, Params, dense_init
 
 
@@ -172,7 +173,19 @@ def apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, *,
               compute_dtype=torch.bfloat16, tp=None) -> torch.Tensor:
     """x: [B, S, d]. Groups = rows (S > 1) or the whole batch (decode).
     ``tp``: the config's ``partitioning.TPPlan`` inside a model group
-    (``p`` then this rank's slices), else None."""
+    (``p`` then this rank's slices), else None.  Inside a data group a
+    decode step's group is the global batch, as in JAX's jit over the
+    mesh: the data ranks' rows are gathered (forward only: serving), the
+    layer runs on all of them, and this rank keeps its own."""
+    if x.shape[1] == 1 and dp_size() > 1:
+        n = x.shape[0]
+        out = _apply_moe(p, spec, gather_data(x, 0), compute_dtype, tp)
+        return out[dp_rank() * n:(dp_rank() + 1) * n]
+    return _apply_moe(p, spec, x, compute_dtype, tp)
+
+
+def _apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, compute_dtype,
+               tp) -> torch.Tensor:
     b, s, d = x.shape
     xg = x if s > 1 else x.reshape(1, b, d)           # [G, T, d]
     cap = group_capacity(spec, b, s)

@@ -22,7 +22,10 @@ Under tensor parallelism (``rglru_block(model_sharded=True)`` inside a
 ``distributed.ctx.model_parallel`` context) a rank holds its R / tp
 channels of ``wx``, ``wy``, the conv, the biases and ``lambda``, its
 heads of the block-diagonal gates and ``wo``'s rows of them: the scan
-runs on [B, S, R / tp], and the ranks' outputs are summed.
+runs on [B, S, R / tp], and the ranks' outputs are summed.  The decode
+step (``rglru_block_step(model_sharded=True)``) does the same on one
+token, its cache's state ``h`` and conv tail holding the rank's
+channels, as ``cache_pspecs`` splits them.
 """
 
 from __future__ import annotations
@@ -161,11 +164,15 @@ def rglru_block(p: Params, spec: RGLRUSpec, x: torch.Tensor, *,
 
 
 def rglru_block_step(p: Params, spec: RGLRUSpec, x: torch.Tensor,
-                     cache: Params, *, compute_dtype=torch.bfloat16
+                     cache: Params, *, compute_dtype=torch.bfloat16,
+                     model_sharded: bool = False
                      ) -> tuple[torch.Tensor, Params]:
     """One decode step. x: [B, 1, d].  Writes ``cache`` in place and
-    returns it."""
+    returns it.  ``model_sharded``: ``p`` and the cache's ``h`` / ``conv``
+    are this rank's channels (the ranks' outputs are summed)."""
     x = x.to(compute_dtype)
+    if model_sharded:
+        x = to_model(x)
     xb = x @ p["wx"].to(compute_dtype)
     gb = F.gelu(x @ p["wy"].to(compute_dtype), approximate="tanh")
     xb, new_tail = causal_conv_step(xb, cache["conv"],
@@ -175,4 +182,4 @@ def rglru_block_step(p: Params, spec: RGLRUSpec, x: torch.Tensor,
     y = (hseq * gb) @ p["wo"].to(compute_dtype)
     cache["h"].copy_(h_state)
     cache["conv"].copy_(new_tail)
-    return y, cache
+    return (from_model(y) if model_sharded else y), cache

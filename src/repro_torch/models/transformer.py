@@ -27,7 +27,13 @@ train step) the parameters are this rank's slices along ``model``
 ``partitioning.tp_layout`` gives them, ``forward`` returns this rank's
 columns of the logits, and ``loss_fn``'s cross entropy is
 vocabulary-parallel: the row max a MAX over the group, the sum of
-exponentials and the target's logit sums over it.  Mixers:
+exponentials and the target's logit sums over it.  Serving runs in
+such a context too (``launch.steps.make_serve_prefill`` /
+``make_serve_decode`` on a mesh): ``prefill``, ``decode_step`` and
+``init_cache`` then hold the rank's slices of the cache
+(``partitioning.cache_pspecs``), and the xLSTM mixers, whose weights
+replicate, gather their split states for a step and keep their slices.
+Mixers:
 ``attn``, ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``, ``moe``
 and ``none``.  On the card, attention and the RG-LRU scan run the
 hand-written kernels forwards and backwards (their ops' autograd
@@ -44,8 +50,9 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partitioning as part
-from repro_torch.distributed.ctx import (dp_sum, from_model, model_max,
-                                         mp_rank, mp_size, to_model)
+from repro_torch.distributed.ctx import (dp_sum, from_model, gather_model,
+                                         model_max, model_parallel, mp_rank,
+                                         mp_size, to_model)
 from repro_torch.kernels.flash_attention.plan import PosPlan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -59,6 +66,7 @@ from repro_torch.models.moe import MoESpec
 from repro_torch.models.rglru import RGLRUSpec
 from repro_torch.models.rope import text_mrope_positions
 from repro_torch.models.xlstm import MLSTMSpec, SLSTMSpec
+from repro_torch.train.optimizer import tree_from_paths, tree_paths
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f16": torch.float16}
 
@@ -277,7 +285,7 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
         if mode == "decode":
             return attn_mod.attn_decode(p, aspec, h, cache, index,
                                         position_ids=position_ids,
-                                        compute_dtype=cd)
+                                        compute_dtype=cd, max_seq=max_seq)
         out = attn_mod.attn_full(p, aspec, h, positions,
                                  position_ids=position_ids, compute_dtype=cd,
                                  plan=plan)
@@ -290,7 +298,12 @@ def _apply_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
         "slstm": (xlstm_mod.slstm_block, xlstm_mod.slstm_block_step,
                   cfg.slstm)}[spec.mixer]
     if mode == "decode":
-        return step(p, sp, h, cache, compute_dtype=cd)
+        if mp_size() == 1:
+            return step(p, sp, h, cache, compute_dtype=cd)
+        if spec.mixer == "rglru":
+            return step(p, sp, h, cache, compute_dtype=cd,
+                        model_sharded=part.tp_layout(cfg, mp_size()).rglru)
+        return _replicated_step(cfg, spec, p, h, cache)
     if spec.mixer == "rglru" and mp_size() > 1:
         return block(p, sp, h, compute_dtype=cd,
                      model_sharded=part.tp_layout(cfg, mp_size()).rglru), None
@@ -503,8 +516,13 @@ def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Params:
-    """{'unit': stacked per-unit cache, 'tail': per-tail-layer cache}."""
+    """{'unit': stacked per-unit cache, 'tail': per-tail-layer cache}.
+    Inside a model group, this rank's slices of the cache of its
+    ``batch`` rows (``partitioning.cache_pspecs``: the slots, or the
+    recurrent states' widths, that divide the group)."""
     device = resolve_device(device)
+    if mp_size() > 1:
+        return _rank_cache(cfg, batch, max_seq, device)
     one = {f"layer{i}": _init_layer_cache(cfg, spec, batch, max_seq, device)
            for i, spec in enumerate(cfg.pattern)}
     unit = _stacked_like(one, cfg.num_units)
@@ -518,13 +536,79 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
+def _rank_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                device) -> Params:
+    """``init_cache``'s leaves cut to this rank's slices under
+    ``cache_pspecs`` on a ``(1, model)`` mesh: empty slots (pos -1),
+    zero states, the xLSTM stabilisers ``m`` at -1e30."""
+    with model_parallel(None):
+        whole = init_cache(cfg, batch, max_seq, device="meta")
+    mesh = _model_mesh()
+    specs = dict(tree_paths(part.cache_pspecs(cfg, mesh, whole)))
+    fill = {"pos": -1, "m": xlstm_mod.NEG}
+    return tree_from_paths(
+        (path, torch.full(part.local_shape(x.shape, specs[path], mesh),
+                          fill.get(path[-1], 0), dtype=x.dtype,
+                          device=device))
+        for path, x in tree_paths(whole))
+
+
+def _model_mesh():
+    """The ``(1, model)`` mesh of this rank's model group."""
+    from repro_torch.launch.mesh import MeshSpec
+    return MeshSpec(("data", "model"), (1, mp_size()))
+
+
+def _state_splits(cfg: ModelConfig, spec: LayerSpec) -> dict[str, bool]:
+    """Which leaves of an xLSTM layer's cache ``cache_pspecs`` splits
+    over the model group (their last dim)."""
+    init = {"mlstm": (xlstm_mod.init_mlstm_cache, cfg.mlstm),
+            "slstm": (xlstm_mod.init_slstm_cache, cfg.slstm)}[spec.mixer]
+    layer = {"layer": init[0](1, init[1], device="meta")}
+    specs = part.cache_pspecs(cfg, _model_mesh(), layer)["layer"]
+    return {k: part.MODEL_AXIS in part.axes_of(s[-1])
+            for k, s in specs.items()}
+
+
+def _rank_states(cfg: ModelConfig, spec: LayerSpec, cache: Params
+                 ) -> Params:
+    """An xLSTM layer's whole cache cut to this rank's slices (copies)."""
+    n, r = mp_size(), mp_rank()
+    split = _state_splits(cfg, spec)
+    return {k: (v.narrow(-1, r * (v.shape[-1] // n),
+                         v.shape[-1] // n).clone() if split[k] else v)
+            for k, v in cache.items()}
+
+
+def _replicated_step(cfg: ModelConfig, spec: LayerSpec, p: Params,
+                     h: torch.Tensor, cache: Params):
+    """An xLSTM decode step inside a model group: the mixer's weights
+    replicate, while ``cache_pspecs`` splits its states' widths, so the
+    split states are gathered (one all-gather each), the whole step runs
+    on every rank, and the rank keeps its slices."""
+    step, sp = {"mlstm": (xlstm_mod.mlstm_block_step, cfg.mlstm),
+                "slstm": (xlstm_mod.slstm_block_step, cfg.slstm)}[spec.mixer]
+    split = _state_splits(cfg, spec)
+    whole = {k: gather_model(v, v.dim() - 1) if split[k] else v
+             for k, v in cache.items()}
+    y, whole = step(p, sp, h, whole, compute_dtype=cfg.cdtype)
+    for k, v in _rank_states(cfg, spec, whole).items():
+        if split[k]:
+            cache[k].copy_(v)
+    return y, cache
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 inputs: torch.Tensor, index: int,
-                position_ids: torch.Tensor | None = None
+                position_ids: torch.Tensor | None = None,
+                max_seq: int | None = None
                 ) -> tuple[torch.Tensor, Params]:
     """One decode step. inputs: [B, 1] tokens (or [B, 1, d] embeddings);
     index: absolute position. Returns (logits [B,1,V], cache), the cache
-    updated in place."""
+    updated in place.  Inside a model group ``params`` and ``cache`` are
+    this rank's slices, ``max_seq`` is the whole cache's length (which
+    says which layers' slots the group splits), and the logits are the
+    rank's columns of the vocabulary."""
     index = int(index)
     if cfg.rope_kind == "mrope" and position_ids is None:
         b = inputs.shape[0]
@@ -538,11 +622,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         for i, spec in enumerate(cfg.pattern):
             x, _, _ = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x, None,
                                    position_ids, "decode",
-                                   unit_c[f"layer{i}"], index)
+                                   unit_c[f"layer{i}"], index, max_seq)
     for i, spec in enumerate(cfg.tail):
         x, _, _ = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x,
                                None, position_ids, "decode",
-                               cache["tail"][f"tail{i}"], index)
+                               cache["tail"][f"tail{i}"], index, max_seq)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x), cache
 
@@ -554,8 +638,11 @@ def prefill(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     """Full-sequence prefill: logits for the last position + a filled cache.
 
     Implemented as forward + cache reconstruction per layer; attention
-    layers re-project K/V into the cache layout (ring-aligned for
-    windowed layers), recurrent layers keep their final state."""
+    layers lay their K/V out as the cache (ring-aligned for windowed
+    layers), recurrent layers keep their final state.  Inside a model
+    group ``params`` are this rank's slices, the cache is its slices
+    (``init_cache``'s shapes) and the logits its columns of the
+    vocabulary."""
     b, s = inputs.shape[:2]
     max_seq = max_seq or s
     positions = attn_mod.default_positions(b, s, inputs.device)
@@ -586,52 +673,33 @@ def prefill(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     return _head(cfg, params, x), cache
 
 
-def _ring_align(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
-                slots: int):
-    """Pack the last ≤slots (k, v) pairs into ring layout (pos % slots)."""
-    b, s = positions.shape
-    if s <= slots:
-        padk = k.new_zeros((b, slots - s) + tuple(k.shape[2:]))
-        kr = torch.cat([k, padk], dim=1)
-        vr = torch.cat([v, padk], dim=1)
-        pr = torch.cat([positions.to(torch.int32),
-                        positions.new_full((b, slots - s), -1).to(
-                            torch.int32)], dim=1)
-        return kr, vr, pr
-    ar = torch.arange(slots, device=k.device)
-    idx = s - 1 - (s - 1 - ar) % slots              # source row per slot
-    return k[:, idx], v[:, idx], positions[:, idx].to(torch.int32)
-
-
 def _prefill_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
                    h: torch.Tensor, positions, position_ids, max_seq: int):
     cd = cfg.cdtype
     if spec.mixer == "attn":
-        aspec = cfg.attn_spec(spec.window)
-        q, k, v = attn_mod._project_qkv(p, aspec, h.to(cd), cd)
-        q, k = attn_mod._apply_positional(aspec, q, k, positions,
-                                          position_ids)
-        # prefill's positions are arange(S): None sends the card's
-        # attention down its index path, with no read of them
-        out = attn_mod.attend(aspec, q, k, v, None)
-        y = attn_mod._out_proj(p, out, cd)
-        slots = min(max_seq, aspec.window) if aspec.window else max_seq
-        kr, vr, pr = _ring_align(k, v, positions, slots)
-        cache = {"k": kr.transpose(1, 2), "v": vr.transpose(1, 2), "pos": pr}
-        return y, cache
+        return attn_mod.attn_prefill(p, cfg.attn_spec(spec.window), h,
+                                     positions, position_ids, max_seq,
+                                     compute_dtype=cd)
     if spec.mixer == "mlstm":
         y, (C, n, m), u = xlstm_mod.mlstm_prefill(p, cfg.mlstm, h,
                                                   compute_dtype=cd)
         # decode consumes the PRE-conv inputs u
-        return y, {"C": C, "n": n, "m": m,
-                   "conv": _conv_tail(u, cfg.mlstm.conv_width).clone()}
+        cache = {"C": C, "n": n, "m": m,
+                 "conv": _conv_tail(u, cfg.mlstm.conv_width).clone()}
+        return y, (_rank_states(cfg, spec, cache) if mp_size() > 1
+                   else cache)
     if spec.mixer == "slstm":
         y, (c, n, hst, m) = xlstm_mod.slstm_prefill(p, cfg.slstm, h,
                                                     compute_dtype=cd)
-        return y, {"c": c, "n": n, "h": hst, "m": m,
-                   "conv": _conv_tail(h.to(cd), cfg.slstm.conv_width).clone()}
+        cache = {"c": c, "n": n, "h": hst, "m": m,
+                 "conv": _conv_tail(h.to(cd), cfg.slstm.conv_width).clone()}
+        return y, (_rank_states(cfg, spec, cache) if mp_size() > 1
+                   else cache)
     sp = cfg.rglru
+    sharded = mp_size() > 1 and part.tp_layout(cfg, mp_size()).rglru
     x = h.to(cd)
+    if sharded:                # this rank's channels
+        x = to_model(x)
     xb_raw = x @ p["wx"].to(cd)
     gb = torch.nn.functional.gelu(x @ p["wy"].to(cd), approximate="tanh")
     xb = rglru_mod.causal_conv(xb_raw, p["conv_w"].to(cd), p["conv_b"].to(cd))
@@ -641,8 +709,8 @@ def _prefill_mixer(cfg: ModelConfig, spec: LayerSpec, p: Params,
     # the compute-dtype-rounded output, not the f32 state: decode goes on
     # from what the JAX package stores.  Copies, so the cache holds no view
     # of the sequence-long activations.
-    return y, {"h": hs[:, -1].to(torch.float32, copy=True),
-               "conv": tail.clone()}
+    return (from_model(y) if sharded else y), {
+        "h": hs[:, -1].to(torch.float32, copy=True), "conv": tail.clone()}
 
 
 def _conv_tail(x: torch.Tensor, width: int) -> torch.Tensor:

@@ -105,7 +105,8 @@ def _quantize(x: torch.Tensor, row_group=None) -> dict[str, torch.Tensor]:
     else:
         amax = xf.abs().amax(dim=-1, keepdim=True)
         if row_group is not None:
-            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=row_group)
+            from repro_torch.distributed.ctx import all_reduce
+            all_reduce(amax, op=dist.ReduceOp.MAX, group=row_group)
         scale = torch.clamp_min(amax, 1e-20) / 127.0
     return {"q": torch.round(xf / scale).to(torch.int8), "scale": scale}
 
@@ -158,12 +159,13 @@ class ShardedUpdate:
 
     def gather(self, path: tuple, x: torch.Tensor) -> torch.Tensor:
         """The whole leaf from this rank's slice ``x`` of it."""
+        from repro_torch.distributed.ctx import all_gather, group_size
         d = self.dim[path]
-        world = dist.get_world_size(self.group)
+        world = group_size(self.group)
         if d is None or world == 1:        # x is the whole leaf
             return x
         parts = [torch.empty_like(x) for _ in range(world)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
+        all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=d)
 
 
@@ -189,8 +191,9 @@ def global_norm(tree: Params, model: ModelShards | None = None
         return torch.sqrt(torch.sum(torch.stack(leaves)))
     split = [x for p, x in zip(paths, leaves) if p in model.sharded]
     whole = [x for p, x in zip(paths, leaves) if p not in model.sharded]
+    from repro_torch.distributed.ctx import all_reduce
     total = torch.sum(torch.stack(split)) if split else leaves[0] * 0
-    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=model.group)
+    all_reduce(total, op=dist.ReduceOp.SUM, group=model.group)
     if whole:
         total = total + torch.sum(torch.stack(whole))
     return torch.sqrt(total)

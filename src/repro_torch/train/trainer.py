@@ -41,9 +41,8 @@ from repro_torch.distributed import partitioning as part
 from repro_torch.distributed.fault import (FailureInjector,
                                            RestartableFailure, StepWatchdog)
 from repro_torch.launch.steps import (abstract_train_state, init_train_state,
-                                      make_train_step, model_shards,
-                                      to_device, train_state_pspecs,
-                                      zero1_shard)
+                                      make_train_step, mesh_train_step,
+                                      to_device, train_state_pspecs)
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.storage.checkpoint import (CheckpointEngine,
                                             gather_from_mesh, place_on_device,
@@ -91,21 +90,22 @@ class Trainer:
         self.watchdog = watchdog or StepWatchdog()
         self.restarts = 0
         self.metrics_history: list[dict] = []
-        self.rank, self.group, shard, model = 0, None, None, None
+        self.rank, self.group, self.shard = 0, None, None
         self.data_group = None
         if mesh is None:
             self.device = resolve_device(device)
+            self._step = make_train_step(cfg, self.ocfg, self.schedule,
+                                         grad_accum=tcfg.grad_accum)
         else:
             self._join_mesh(mesh, device)
-            state_shape = abstract_train_state(cfg, self.ocfg)
             self.state_specs = train_state_pspecs(
-                cfg, self.ocfg, mesh, state_shape, zero1=tcfg.zero1)
+                cfg, self.ocfg, mesh, abstract_train_state(cfg, self.ocfg),
+                zero1=tcfg.zero1)
             self.state_shardings = part.shardings(mesh, self.state_specs)
-            if tcfg.zero1:
-                shard = zero1_shard(self.state_specs, state_shape["params"],
-                                    mesh, self.rank, self.data_group)
-            model = model_shards(cfg, mesh, mesh.model_group)
-        self.shard = shard          # this rank's ZeRO-1 share, or None
+            # self.shard: this rank's ZeRO-1 share, or None
+            self._step, self.shard = mesh_train_step(
+                cfg, self.ocfg, mesh, self.rank, self.schedule,
+                grad_accum=tcfg.grad_accum, zero1=tcfg.zero1)
         ckpt_dir = tcfg.ckpt_dir
         if ckpt_dir is None:
             if mesh is not None and mesh.size > 1:
@@ -114,10 +114,6 @@ class Trainer:
                                  "share")
             ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
         self.ckpt = CheckpointEngine(ckpt_dir, device=self.device)
-        self._step = make_train_step(cfg, self.ocfg, self.schedule,
-                                     grad_accum=tcfg.grad_accum,
-                                     group=self.data_group, shard=shard,
-                                     model=model)
 
     def _join_mesh(self, mesh, device) -> None:
         part.tp_plan(self.cfg, mesh)      # the rules it does not port raise

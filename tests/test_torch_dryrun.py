@@ -14,18 +14,28 @@ the CPU, where the meta device needs no card:
   versions, the card path's allocations, their reported work;
 * ``ctx.constrain``: the identity, recording specs inside a context only,
   and the model's results bit-equal inside a context and outside;
-* the CLI writes its JSON records, at full size and on a SMOKE config.
+* the CLI writes its JSON records, at full size and on a SMOKE config;
+* one rank's plan (``plan_cell(rank=)``) on ``(1, 2)`` and ``(2, 2)``:
+  every SMOKE cell of qwen2-0.5b (and granite-moe's decode, whose MoE
+  gathers the global batch over ``data``) logs the collectives — kind,
+  calls, bytes — that four gloo ranks on the CPU issue running the same
+  step; the production records of qwen2-0.5b carry the per-device peak,
+  flops, traffic and collectives, and llama4's say "not planned (ROADMAP
+  item 30)".
 """
 
 import dataclasses
 import functools
 import json
 import math
+import pickle
 
 import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import base as j_base
@@ -36,6 +46,7 @@ from repro.train.optimizer import OptConfig as JOptConfig
 from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeSpec, smoke_batch
 from repro_torch.distributed import ctx
+from repro_torch.distributed import partitioning as part
 from repro_torch.kernels import work
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import tiles
@@ -46,7 +57,9 @@ from repro_torch.kernels.rglru import kernel as RK
 from repro_torch.kernels.rglru.ref import (rglru_scan_backward_ref,
                                            rglru_scan_ref)
 from repro_torch.launch import dryrun, steps
-from repro_torch.launch.mesh import H100_TOTAL_MEMORY, make_card_mesh
+from repro_torch.launch.mesh import (H100_TOTAL_MEMORY, MeshSpec,
+                                     make_card_mesh, make_data_mesh)
+from repro_torch.storage.checkpoint import place_on_mesh
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.transformer import init_cache, init_params
@@ -381,6 +394,52 @@ def test_meta_run_peak_hand_checked():
     assert run.peak_bytes == 8000
 
 
+class _Triple(torch.autograd.Function):
+    """x * 3, with a backward that may sum its gradient and read it on."""
+
+    @staticmethod
+    def forward(ctx, x, read_on):
+        ctx.read_on = read_on
+        return x * 3
+
+    @staticmethod
+    def backward(ctx, g):
+        t = g * 2                        # a storage the backward made
+        s = t + t
+        return (s * t if ctx.read_on else s), None
+
+
+def _backward_peak(forward) -> tuple[int, int]:
+    x = torch.empty(1000, device="meta", requires_grad=True)
+    with dryrun.MetaRun((x,)) as run, run.saved_tensors():
+        forward(x).backward()
+    return run.peak_bytes, run.peak_alloc_bytes
+
+
+def test_meta_run_counts_a_gradient_sum_in_place():
+    """Two gradients into u meet in autograd's buffer, which the card
+    sums in place: 2 x 4000 bytes at most (and the loss and the seed),
+    not the 3 x 4000 of a functional sum; the forward also peaks at
+    u, one output of _Triple and the two sums."""
+    def forward(x):
+        u = x * 1
+        return (_Triple.apply(u, False).sum()
+                + _Triple.apply(u, False).sum())
+    assert _backward_peak(forward) == (2 * 4000 + 2 * 4,
+                                       2 * 4096 + 2 * 512)
+
+
+def test_meta_run_counts_a_sum_whose_operand_is_read_on():
+    """A backward that reads ``t`` after ``t + t`` holds t, s and s * t
+    at once (3 x 4000 beside the loss and the seed); the same backward
+    returning the sum frees t with it: 4000 beside them once the sum is
+    counted in place."""
+    peak = _backward_peak(lambda x: _Triple.apply(x, True).sum())
+    assert peak == (3 * 4000 + 2 * 4, 3 * 4096 + 2 * 512)
+    peak = _backward_peak(lambda x: _Triple.apply(x, False).sum())
+    assert peak == (4000 + 2 * 4, 4096 + 2 * 512)
+
+
 # -- ctx.constrain ----------------------------------------------------------
 
 
@@ -447,7 +506,11 @@ def test_cli_writes_records(tmp_path, capsys):
                 "peak_bytes", "model_flops_global", "useful_flops_ratio"):
         assert card[key] > 0, key
     single = recs["qwen2-0.5b__decode_32k__single"]
-    assert single["activation_peak"] == "not planned"
+    for key in ("peak_bytes", "peak_alloc_bytes", "dot_flops_per_device",
+                "traffic_bytes_per_device", "collective_bytes_per_device"):
+        assert single[key] > 0, key
+    assert "fits" not in single and "activation_peak" not in single
+    assert single["collective_counts"]["all_reduce"] > 0
     assert single["chips"] == 256
     assert single["arg_bytes_per_device"]["total"] < \
         card["arg_bytes_per_device"]["total"] / 16
@@ -465,3 +528,207 @@ def test_cli_on_a_smoke_cell(tmp_path, monkeypatch):
     assert rec["status"] == "ok" and rec["fits"] is True
     assert rec["kernels"]["rglru_scan"]["calls"] == 4
     assert rec["arg_bytes_per_device"]["batch"] == 2 * 256 * 4096 * 4
+
+
+# -- one rank's plan against gloo ranks --------------------------------------
+
+#: (arch, kind) of the cells held on each mesh; B and S of them
+RANK_CELLS = [("qwen2-0.5b", k) for k in KINDS] + [
+    ("granite-moe-3b-a800m", "decode")]
+RANK_B, RANK_S = 4, 8
+
+
+def rank_shape(kind: str) -> ShapeSpec:
+    return ShapeSpec(f"smoke_{kind}", kind, RANK_S, RANK_B)
+
+
+class Collectives:
+    """Counts this process's all-reduces and all-gathers (calls, and the
+    bytes of the tensor an all-reduce reduces / an all-gather sends)."""
+
+    def __init__(self):
+        self.real = {k: getattr(dist, k) for k in ("all_reduce",
+                                                  "all_gather")}
+        self.log = {}
+
+        def wrap(kind):
+            def call(x, *args, **kwargs):
+                t = x if kind == "all_reduce" else args[0]
+                e = self.log.setdefault(kind, {"calls": 0, "bytes": 0})
+                e["calls"] += 1
+                e["bytes"] += t.numel() * t.element_size()
+                return self.real[kind](x, *args, **kwargs)
+            return call
+        for k in self.real:
+            setattr(dist, k, wrap(k))
+
+    def restore(self) -> dict:
+        for k, fn in self.real.items():
+            setattr(dist, k, fn)
+        return self.log
+
+
+def run_rank_cell(arch: str, kind: str, mesh, position: int) -> dict:
+    """The cell's step on this rank's real CPU slices, its collectives
+    counted."""
+    cfg = registry.get_arch(arch).smoke
+    ocfg = dryrun.opt_config_for(cfg)
+    batch = smoke_batch(cfg, batch=RANK_B, seq=RANK_S, device="cpu")
+    groups = {"group": mesh.data_group, "model_group": mesh.model_group}
+    if kind == "train":
+        state = steps.init_train_state(cfg, ocfg, 0, device="cpu")
+        specs = steps.train_state_pspecs(cfg, ocfg, mesh,
+                                         steps.abstract_train_state(cfg,
+                                                                    ocfg))
+        args = (place_on_mesh(state, part.shardings(mesh, specs), position),
+                batch)
+        step = steps.mesh_train_step(cfg, ocfg, mesh, position)[0]
+    else:
+        params = steps.serve_params(cfg, mesh, init_params(cfg, 0,
+                                                           device="cpu"),
+                                    position)
+        if kind == "prefill":
+            step = steps.make_serve_prefill(cfg, RANK_S, **groups)
+            args = (params, batch["inputs"])
+        else:
+            step = steps.make_serve_decode(cfg, RANK_S, **groups)
+            args = (params, steps.serve_cache(cfg, mesh, RANK_B, RANK_S,
+                                              "cpu"),
+                    batch["inputs"][:, :1], RANK_S - 1)
+    log = Collectives()
+    try:
+        with torch.inference_mode(kind != "train"):
+            step(*args)
+    finally:
+        got = log.restore()
+    return got
+
+
+def _rank_cells(rank: int, tmp: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 4),
+                            rank=rank, world_size=4)
+    try:
+        wide = make_data_mesh(model=2, device="cpu")
+        alone = [dist.new_group([r]) for r in range(4)]
+        pair = MeshSpec(("data", "model"), (1, 2), devices=wide.devices[:2],
+                        data_group=alone[rank],
+                        model_group=wide.model_group)
+        out = {}
+        for label, mesh, pos in (("1x2", pair, rank % 2),
+                                 ("2x2", wide, rank)):
+            for arch, kind in RANK_CELLS:
+                out[(label, arch, kind)] = run_rank_cell(arch, kind, mesh,
+                                                         pos)
+        with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def gloo_collectives(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("rank_plans")
+    mp.start_processes(_rank_cells, args=(str(tmp),), nprocs=4, join=True,
+                       start_method="spawn")
+    out = []
+    for r in range(4):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+@pytest.mark.parametrize("label", ("1x2", "2x2"))
+@pytest.mark.parametrize("arch,kind", RANK_CELLS)
+def test_rank_plan_logs_the_collectives_of_gloo_ranks(gloo_collectives,
+                                                      label, arch, kind):
+    """``plan_cell(rank=)``'s meta run logs, on its stand-in groups,
+    exactly the collectives (kind, calls, bytes) each gloo rank issues
+    running the same step on its real slices."""
+    cfg = registry.get_arch(arch).smoke
+    data = 2 if label == "2x2" else 1
+    mesh = MeshSpec(("data", "model"), (data, 2))
+    for r, got in enumerate(gloo_collectives[:2 * data]):
+        plan = steps.plan_cell(cfg, rank_shape(kind), mesh,
+                               ocfg=dryrun.opt_config_for(cfg), rank=r)
+        assert plan.rank == r and plan.collectives is not None
+        m = dryrun.run_meta(plan, mesh)
+        assert m.collectives == got[(label, arch, kind)], (r, m.collectives)
+        assert m.collectives["all_reduce"]["calls"] > 0
+    if arch.startswith("granite") and data == 2:   # the decode MoE gather
+        assert got[(label, arch, kind)]["all_gather"]["calls"] > 0
+
+
+def test_rank_plan_meta_arguments_are_the_slices():
+    """A rank's plan holds that rank's slices: every state leaf of a
+    (2, 2) train cell has ``local_shape`` of its spec, and decode's cache
+    the shapes the serving steps allocate there."""
+    cfg = registry.get_arch("qwen2-0.5b").smoke
+    mesh = MeshSpec(("data", "model"), (2, 2))
+    plan = steps.plan_cell(cfg, rank_shape("train"), mesh, rank=3)
+    state, specs = plan.args[0], steps.train_state_pspecs(
+        cfg, OptConfig(), mesh, steps.abstract_train_state(cfg, OptConfig()))
+    spec_of = dict(tree_paths(specs))
+    whole = dict(tree_paths(steps.abstract_train_state(cfg, OptConfig())))
+    for p, x in tree_paths(state):
+        assert tuple(x.shape) == part.local_shape(whole[p].shape,
+                                                  spec_of[p], mesh), p
+    plan = steps.plan_cell(cfg, rank_shape("decode"), mesh, rank=1)
+    with ctx.model_parallel(ctx.PlanGroup(1, 2)):
+        want = init_cache(cfg, RANK_B // 2, RANK_S, device="meta")
+    assert {p: tuple(x.shape) for p, x in tree_paths(plan.args[1])} == {
+        p: tuple(x.shape) for p, x in tree_paths(want)}
+
+
+@pytest.mark.parametrize("rank", (0, 7))
+def test_multi_pod_rank_plan_keeps_each_leaf_its_slice(rank):
+    """On a (pod, data, model) mesh the gradients sum over pod x data
+    while ZeRO-1 splits the moments over ``data`` alone: the train step a
+    rank plan runs returns a state of the rank's slices' shapes (its
+    ZeRO-1 all-gathers span its pod's data ranks), and its data sums
+    span both pods."""
+    cfg = registry.get_arch("qwen2-0.5b").smoke
+    mesh = MeshSpec(("pod", "data", "model"), (2, 2, 2))
+    plan = steps.plan_cell(cfg, rank_shape("train"), mesh, rank=rank)
+    new_state, _ = plan.run()
+    got = {p: tuple(x.shape) for p, x in tree_paths(new_state)}
+    assert got == {p: tuple(x.shape) for p, x in tree_paths(plan.args[0])}
+    m = dryrun.run_meta(plan, mesh)
+    assert m.collectives["all_gather"]["calls"] > 0
+
+
+@pytest.mark.parametrize("shape", ("train_4k", "prefill_32k", "decode_32k"))
+def test_production_record_carries_the_rank_plan(tmp_path, shape):
+    """qwen2-0.5b's cells on the 16 x 16 mesh: the larger planned rank's
+    peak, dot flops, traffic and collectives by kind; no ``fits``.  Its
+    2 kv heads and groups of 7 do not divide 16, so train and prefill run
+    the sequence-sharded attention, and the last model rank is planned
+    too: its query chunk does the most attention work."""
+    rec = dryrun.run_cell("qwen2-0.5b", shape, "single", tmp_path)
+    assert rec["status"] == "ok", rec.get("error")
+    for key in ("peak_bytes", "peak_alloc_bytes", "dot_flops_per_device",
+                "traffic_bytes_per_device", "collective_bytes_per_device"):
+        assert rec[key] > 0, key
+    assert rec["collective_bytes_per_device"] == sum(
+        rec["collective_bytes_by_kind"].values())
+    assert set(rec["collective_counts"]) == set(rec["collective_bytes_by_kind"])
+    assert "fits" not in rec and rec["useful_flops_ratio"] > 0
+    ranks = [0, 15] if shape != "decode_32k" else [0]
+    assert rec["planned_ranks"] == ranks
+    if len(ranks) == 2:
+        flops = [rec["ranks"][str(r)]["kernels"][FK.TC]["flops"]
+                 for r in ranks]
+        assert flops[1] > flops[0]
+
+
+@pytest.mark.parametrize("shape", ("train_4k", "decode_32k"))
+@pytest.mark.parametrize("mesh", ("single", "multi"))
+def test_llama4_production_cells_are_not_planned(tmp_path, shape, mesh):
+    """fsdp_units over more than one data rank is refused by name: the
+    record keeps its argument bytes and says so, with no error."""
+    rec = dryrun.run_cell("llama4-maverick-400b-a17b", shape, mesh, tmp_path)
+    assert rec["status"] == "ok"
+    assert rec["arg_bytes_per_device"]["total"] > 0
+    for key in ("activation_peak", "peak_bytes",
+                "collective_bytes_per_device"):
+        assert rec[key] == "not planned (ROADMAP item 30)", key
