@@ -20,8 +20,8 @@ Phases, one report line each (every check raises on failure):
    route on a ``maxplus_form`` dictionary, the dense route on a random
    dictionary the compact route's precondition refuses), at a small shape
    here and at the real size after phase 5 (the dense route there on the
-   same dictionary with -0.0 in s0's origin row, which the precondition
-   refuses); the compact route's pre-pass against its CPU twin
+   two indexed variants of the same dictionary with -0.0 in s0's origin
+   row, which the precondition refuses); the compact route's pre-pass against its CPU twin
    (``kernels/maxplus/compact.py``), its records bit-equal;
 4. paper Tables 3/4/5 through the port's entry points on the card: each
    cell through ``steady_bandwidth_mb_s`` (``scan`` engine) and through
@@ -45,8 +45,8 @@ Phases, one report line each (every check raises on failure):
    equal by ``torch.equal``, in four variants (arrivals on/off x faults
    on/off), each through both routes, at a small shape with mixed lane
    lengths;
-6. the fleet at full width: 512 mixed traces on 8 channels x 16 ways
-   (N = 146) of 4096-65536 ops, even lanes with Poisson arrivals at 80 %
+6. the fleet at full width: 256 mixed traces on 8 channels x 16 ways
+   (N = 146) of 4096-32768 ops, even lanes with Poisson arrivals at 80 %
    of the drive's own rate, every fourth lane with read-retry-like
    surcharges, plus 32 traces on 4 x 8, through
    ``Simulator.run_many(engine="cuda")`` (one many-trace launch per
@@ -100,7 +100,7 @@ Phases, one report line each (every check raises on failure):
 9. request-level workloads on 8 channels x 16 ways (SLC, PROPOSED, N =
    146), offered at 80 % of the drive's own rate for the mix (the stream
    with zero arrivals on ``engine="cuda"``, ops over ``end_us``): (9a) a
-   65536-request, 4-page Poisson stream (70 % reads) with a
+   16384-request, 4-page Poisson stream (70 % reads) with a
    ``FaultSpec`` of read retries, jitter, program faults and 10 % hedged
    reads through ``Simulator.run(..., objective="all")`` on ``cuda``:
    the query's first K1 launch recorded and held bit-equal to
@@ -139,7 +139,7 @@ Phases, one report line each (every check raises on failure):
 11. the FTL (slice E) on 8 channels x 16 ways (SLC, PROPOSED): (11a) the
    JAX package's default ``FTLSpec`` with 512 blocks of 64 pages (OP
    0.25, greedy, preconditioned: 78642 silent writes) under a
-   saturating 8192-request overwrite stream (30 % reads) over 90 % of
+   saturating 4096-request overwrite stream (30 % reads) over 90 % of
    the logical space: the card's ``translate_scan`` op-for-op equal to
    the numpy ``ftl.translate`` (classes, payloads, request ids, GC flags,
    arrivals, ``FTLStats`` and the final drive state), its steps, steps/s,
@@ -150,23 +150,24 @@ Phases, one report line each (every check raises on failure):
    oracle's, ``gc_op_count > 0`` and ``mb_s < fresh_mb_s``, the query's
    first K1 launch held bit-equal to ``maxplus_fold_ref`` (its route
    reported, not forced), WAF beside ``analytic_waf``, and a
-   4096-request prefix priced on the card bit-equal to the CPU; (11b)
-   that prefix with program and erase failures (the host translator's
+   4096-request prefix (the whole stream) priced on the card bit-equal to
+   the CPU; (11b) that prefix with program and erase failures (the host translator's
    path) on ``cuda``: ``blocks_retired > 0``, ``retry_hist`` summing to
    the read-class ops, bit-equal to a CPU session; (11c) ``run_stream``
-   over 4096-request chunks equal to 11a's one-shot ``scan`` query (end,
+   over 1024-request chunks equal to 11a's one-shot ``scan`` query (end,
    WAF, ``ftl_stats``, ops, bytes), and with per-op faults on the
    4096-request prefix in chunks of 2048 equal to the one-shot query with
    that spec;
-   (11d) the 16-point aged sweep (``ftl_bench._scan_vs_host``'s points)
+   (11d) an 8-point aged sweep (``ftl_bench._scan_vs_host``'s OP range)
    within 1e-3 of per-point ``run`` (prefix) on its first and last points,
    bit-equal to the CPU on one, a warm second sweep equal to the first;
    (11e) greedy's WAF
    on ``ftl_bench._waf_sweep``'s full-size spec within 10 % of
    ``analytic_waf``.  Every translation, scan and sweep fold of the
    phase is checked to have run on the card.
-12. the storage tier (``repro_torch.storage``): (12a) phase 8b's full
-   model initialised on the card from the same seed, checkpointed by
+12. the storage tier (``repro_torch.storage``): (12a) phase 8b's model,
+   cut to ``CKPT_LAYERS`` of its 38 layers (10 GB), initialised on the
+   card from the same seed, checkpointed by
    ``CheckpointEngine(channels=4, ways=4)`` into a temporary directory
    (the room it needs checked first: an error, not a skip, when it is
    short), ``wait()`` returning this step's ``SaveResult``, its modeled
@@ -349,6 +350,26 @@ Phases, one report line each (every check raises on failure):
    first decode step on ranks 0-1 and 18a's train step on ranks 2-3 log
    exactly the collectives the rank issued (kind, calls, bytes), the
    predicted peak within ``DRYRUN_PEAK_TOL`` of the call's measured rise.
+20. parameters split over ``data`` (``phase_fsdp``): four gloo ranks
+   sharing ``cuda:0`` (one spawn): (20a) qwen2-0.5b at 18a's 12 layers
+   with ``fsdp_units`` (ZeRO-3: each rank a block of every unit leaf and
+   the final norm, a unit gathered where it runs, again in the remat's
+   backward, its gradients reduce-scattered) takes one
+   ``mesh_train_step`` step of 14b's batch on ``(2, 1)`` (ranks 0-1) and
+   on ``(2, 2)``, its loss, norm and every gradient leaf (each rank's
+   blocks against the mesh-less gradient's) within phase 18's bars, a
+   rank's parameter bytes under 18a's; (20b) llama4 at its published
+   widths cut to one dense + MoE unit and 8 experts, ``fsdp_units`` on
+   ``(2, 1)`` (ranks 2-3, beside 20a's pair): phase 19's wave and 8
+   decode steps fed the mesh-less greedy tokens, logits within the bf16
+   bar, the bytes gathered a decode step; (20c) granite-moe-3b-a800m at 4
+   layers on ``(2, 2)`` under ``moe_shard_mode`` ``f_model`` (each
+   expert's d_ff over ``model``) and ``e_data_f_model`` (the experts
+   over ``data``, the slots exchanged to their owners by all-to-all), one
+   step each within 20a's bars; (20d) the dry run's plans of 20a's and
+   20c's ``e_data_f_model`` (2, 2) steps on every position, their
+   collectives equal to the rank's, their peaks within
+   ``DRYRUN_PEAK_TOL`` of the step's measured rise.
 
 Phases 4 and 5 are the main path of the per-design-point kernel (with the
 workload query of 9a, whose K1 launches its report adds, and the FTL
@@ -359,7 +380,8 @@ the prefills of 13b-13d, each reported as its own K4 entry),
 ``Trainer.run()`` in 14c that of K4's backward and 14d's two steps that
 of K5's, 16b's train step and scoring forward that of K4's EXT
 instantiations, 18c's step on rank 0 that of K4's chunk backward, each
-rank's serving in 19a-19c (K4's and K5's ``phase19_launches``): the
+rank's serving in 19a-19c (K4's and K5's ``phase19_launches``) and each
+rank's step or serving in 20a-20c (K4's ``phase20_launches``): the
 launch counts are reset just before each and read just after.  The
 bounds of the (max,+) kernels count what their inputs need (each input
 read once, the dense dictionary by the pre-pass; per step the add/max
@@ -418,9 +440,13 @@ T3_MEAN_TOL, T3_WORST_TOL, T4_MEAN_TOL = 0.04, 0.16, 0.05
 
 SWEEP_OPS, SWEEP_CHANNELS, SWEEP_WAYS, SWEEP_POINTS = 65536, 8, 16, 64
 # phase 6: the fleet (lengths 2**u, u uniform on FLEET_LOG2_OPS)
-FLEET_LANES, FLEET_CHANNELS, FLEET_WAYS = 512, 8, 16
+# (FLEET_LANES was 512 until phase 20 came: the fleet's build 16.9 s, its
+# plain fold 19.7 s)
+FLEET_LANES, FLEET_CHANNELS, FLEET_WAYS = 256, 8, 16
 FLEET_SMALL_LANES, FLEET_SMALL_CHANNELS, FLEET_SMALL_WAYS = 32, 4, 8
-FLEET_LOG2_OPS = (12.0, 16.0)
+# (traces of up to 65536 ops until phase 20 came: the fleet's plain fold
+# 17.8 s at 256 lanes)
+FLEET_LOG2_OPS = (12.0, 15.0)
 # the scan engine steps every op from the host (some 0.9 ms a step): it is
 # held to cuda on the fleet's traces of at most FLEET_SCAN_OPS ops (the
 # whole fleet's longest trace took it 56.6 s)
@@ -429,9 +455,11 @@ OFFERED_LOAD = 0.8          # arrival rate / the drive's rate on the trace
 FAULT_SHARE, FAULT_US = 0.02, (30.0, 120.0)
 # phase 7: streams on scale_bench's 4 x 8 MLC geometry
 STREAM_CHANNELS, STREAM_WAYS = 4, 8
-STREAM_CHECK_OPS, STREAM_CHECK_CHUNK = 65536, 8192
-# (STREAM_OPS was 262144 until the script neared its time limit: 32.0 s)
-STREAM_OPS, STREAM_CHUNK = 131072, 32768
+# (STREAM_CHECK_OPS was 65536 and STREAM_OPS 131072 until phase 20 came,
+# 20.4 s of phase 7 at 32768 / 65536; STREAM_OPS was 262144 until the
+# script neared its time limit, 32.0 s)
+STREAM_CHECK_OPS, STREAM_CHECK_CHUNK = 16384, 4096
+STREAM_OPS, STREAM_CHUNK = 32768, 8192
 # what the JAX package's calibrate.fit_slc() returns (t_prog us, t_poll
 # cycles, write MAE); its frozen nand.SLC holds t_prog = 218 us
 REFERENCE_FIT_SLC = (217.0, 0.0, 0.026098169557506812)
@@ -496,7 +524,9 @@ L2_BYTES, L2_ROTATE = 50 * 2 ** 20, 4
 # with faults and hedges; 9b: dynamic dispatch under the reliability
 # bench's retry-storm spec plus program and erase faults (retired ways)
 WL_CHANNELS, WL_WAYS, WL_READ_FRACTION = 8, 16, 0.7
-WL_REQUESTS, WL_PAGES, WL_SEED, WL_PREFIX = 65536, 4, 0, 4096
+# (WL_REQUESTS was 65536 until phase 20 came: its K1 launch's plain fold
+# took 17.9 s)
+WL_REQUESTS, WL_PAGES, WL_SEED, WL_PREFIX = 16384, 4, 0, 4096
 # 9a's scan query (and the cuda and oracle runs it is held to) folds the
 # stream's first WL_SCAN_REQUESTS requests: the whole stream's scan took
 # 98.6 s of the script's 1200 s, its first 32768 requests 47.4 s, and
@@ -524,15 +554,16 @@ PREFIX_CPU_POINTS, PREFIX_ASSOC_POINTS = (0, 37), (0, 63)
 # overwrite stream over 90 % of the logical space (ftl_bench's
 # _bandwidth_cliff); 11b its first FTL_PREFIX requests with block
 # failures; 11c in chunks of FTL_CHUNK requests (with per-op faults on
-# the first FTL_FAULT_CHUNKED requests, chunks of FTL_FAULT_CHUNK); 11d ftl_bench._scan_vs_host's 16
-# points; 11e ftl_bench._waf_sweep's full-size greedy point
+# the first FTL_FAULT_CHUNKED requests, chunks of FTL_FAULT_CHUNK); 11d
+# ftl_bench._scan_vs_host's points (FTL_SWEEP_OPS); 11e
+# ftl_bench._waf_sweep's full-size greedy point
 FTL_BLOCKS, FTL_PPB, FTL_OP = 512, 64, 0.25
 # (FTL_REQUESTS was 32768, then 16384, until the script neared its time
 # limit: at 16384 11a's scan query took 18.1 s and 11c's chunked one
-# 14.6 s)
-FTL_REQUESTS, FTL_READ_FRACTION, FTL_SEED = 8192, 0.3, 5
+# 14.6 s; then 8192 until phase 20 came, the chunks 4096)
+FTL_REQUESTS, FTL_READ_FRACTION, FTL_SEED = 4096, 0.3, 5
 FTL_PREFIX, FTL_CHUNK, FTL_FAULT_CHUNKED, FTL_FAULT_CHUNK = \
-    4096, 4096, 4096, 2048
+    4096, 1024, 4096, 2048
 # program failures at 1e-4, not 1e-3: at 1e-3 the preconditioning's
 # ~2e5 programs (~4e5 at 1024 blocks) fail some 200 times, each marking
 # its block bad, and the retirements outrun the 102-block spare pool —
@@ -542,20 +573,25 @@ FTL_BLOCK_FAULTS = dict(wear=0.6, jitter_us=0.4, prog_fail_prob=1e-4,
                         erase_fail_prob=1e-3, seed=13)
 FTL_OP_FAULTS = dict(wear=0.6, jitter_us=0.4, seed=13)
 FTL_AGREEMENT = 1e-3        # ftl_bench's engine agreement gate
-FTL_SWEEP_OPS = (0.12, 0.5, 16)      # np.linspace arguments
-FTL_SWEEP_REQUESTS, FTL_SWEEP_SEED = 6000, 7
+# (16 points of 6000 requests until phase 20 came: cold 10.5 s, warm 8.6 s)
+FTL_SWEEP_OPS = (0.12, 0.5, 8)      # np.linspace arguments
+FTL_SWEEP_REQUESTS, FTL_SWEEP_SEED = 4000, 7
 # (4 run points and 2 CPU points, 16.3 s together, until the script
 # neared its time limit)
-FTL_SWEEP_RUN_POINTS, FTL_SWEEP_CPU_POINTS = (0, 15), (9,)
+FTL_SWEEP_RUN_POINTS, FTL_SWEEP_CPU_POINTS = (0, 7), (4,)
 FTL_WAF_BLOCKS, FTL_WAF_REQUESTS, FTL_WAF_SEED, WAF_PIN_TOL = \
     256, 60000, 11, 0.10
-# phase 12: the storage tier.  12a checkpoints phase 8b's full model
-# (RecurrentGemma-9B, 17.16 GB bf16) through CheckpointEngine; 12b feeds
+# phase 12: the storage tier.  12a checkpoints phase 8b's model
+# (RecurrentGemma-9B at CKPT_LAYERS layers, 10 GB bf16) through
+# CheckpointEngine; 12b feeds
 # the card from a 1 GiB striped token store (a real corpus is terabytes;
 # the pipeline's shapes are the training stack's); 12c plans KV offload
 # at the 500k-token decode shape; 12d runs examples/ssd_design_space.py's
 # planning flows
 CKPT_CHANNELS, CKPT_WAYS, CKPT_STEP = 4, 4, 1
+# 12a's model: RecurrentGemma-9B cut to CKPT_LAYERS of its 38 layers
+# (whole until phase 20 came: 17.16 GB, its save 10.9 s and restore 17.8 s)
+CKPT_LAYERS = 20
 PIPE_TOKENS, PIPE_SHARDS, PIPE_SEED = 1 << 28, 8, 3
 PIPE_BATCH, PIPE_SEQ, PIPE_WAYS, PIPE_BATCHES = 32, 4096, 4, 128
 PIPE_RESUME_AT, PIPE_CHECK_EVERY = 64, 16
@@ -744,9 +780,11 @@ def variant_inputs(mats, t_steps, seed, device, gvec=None, wvec=None):
     return idx, arrivals, extras, energy, gvec, wvec
 
 
-def check_variants(label, mats, s0, t_steps, inputs, route) -> float:
-    """Five kernel-vs-plain variants, each required to take ``route``;
-    returns the max abs difference (0.0: every check is torch.equal)."""
+def check_variants(label, mats, s0, t_steps, inputs, route,
+                   names=None) -> float:
+    """Five kernel-vs-plain variants (those of ``names`` alone if given),
+    each required to take ``route``; returns the max abs difference (0.0:
+    every check is torch.equal)."""
     import torch
     from repro_torch.kernels.maxplus import kernel as K
     from repro_torch.kernels.maxplus.kernel import maxplus_fold_kernel
@@ -764,6 +802,8 @@ def check_variants(label, mats, s0, t_steps, inputs, route) -> float:
     }
     worst = 0.0
     for name, kw in variants.items():
+        if names is not None and name not in names:
+            continue
         before = dict(K.LAUNCHES)
         got = maxplus_fold_kernel(mats, s0, t_steps=t_steps, **kw)
         taken = route_delta(before, "indexed" if "idx" in kw else "periodic")
@@ -781,7 +821,8 @@ def check_variants(label, mats, s0, t_steps, inputs, route) -> float:
                                      f"(max abs diff {diff})")
             worst = max(worst, float((g - w).abs().max()))
     log(f"[3] kernel == plain ({label}, B={mats.shape[0]} M={mats.shape[1]} "
-        f"N={mats.shape[2]} T={t_steps}): 5 variants torch.equal, all "
+        f"N={mats.shape[2]} T={t_steps}): "
+        f"{len(names) if names is not None else 5} variants torch.equal, all "
         f"through the {route} route")
     return worst
 
@@ -3425,7 +3466,7 @@ def phase_ftl(device) -> dict:
                                  f"{ends_cpu} vs {ends[cpts]}, per point "
                                  f"{point_err:.2e}")
         log(f"[11d] sweep(None, overwrite_stream({FTL_SWEEP_REQUESTS}), "
-            f"ftl=16 points, OP {ops_[0]:.2f}..{ops_[-1]:.2f}, 128blk x "
+            f"ftl={len(ops_)} points, OP {ops_[0]:.2f}..{ops_[-1]:.2f}, 128blk x "
             f"32pg): cold {cold_s:.2f} s ({sweep_steps} batched translation "
             f"steps in {sweep_tr_s:.2f} s), warm {warm_sweep_s:.2f} s, "
             f"equal; vs per-point run (prefix) on points "
@@ -3599,9 +3640,10 @@ def phase_storage(device, smi: str) -> dict:
     cfg = get_arch(LM_ARCH).config
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        # -- 12a: checkpoint of the full RecurrentGemma-9B ---------------
-        params = init_params(cfg, torch.Generator(device=device).manual_seed(
-            LM_SEED), device=device)
+        # -- 12a: checkpoint of RecurrentGemma-9B at CKPT_LAYERS layers -----
+        params = init_params(dataclasses.replace(cfg, n_layers=CKPT_LAYERS),
+                             torch.Generator(device=device).manual_seed(
+                                 LM_SEED), device=device)
         leaves = _flatten(params)
         nbytes = sum(x.numel() * x.element_size() for x in leaves.values())
         room = storage_room(tmp, nbytes + 2 * PIPE_TOKENS * 4 + (1 << 30),
@@ -3694,7 +3736,7 @@ def phase_storage(device, smi: str) -> dict:
                         "step_ms_alone": alone_ms, **overlap}}
         log(f"[12a] CheckpointEngine(channels={CKPT_CHANNELS}, ways="
             f"{CKPT_WAYS}, device='{device.type}').save({CKPT_STEP}, "
-            f"{LM_ARCH} params):"
+            f"{LM_ARCH} params at {CKPT_LAYERS} layers):"
             f" {nbytes} bytes ({nbytes / 1e9:.2f} GB) in "
             f"{len(manifest['leaves'])} leaves, {n_chunks} chunks over "
             f"{CKPT_CHANNELS} channel directories; snapshot card -> host "
@@ -6320,7 +6362,7 @@ def phase_multi(device, trace, tables, smi, train14c) -> dict:
 #: script's time (its 2 x 4096 steps take 5–6 s a step on the two ranks,
 #: most of it gloo's all-reduces through the host), and 14b's batches;
 #: 18b: 14d's recurrentgemma-9b cut (RG_LAYERS, RG_BATCH, int8 moments)
-TP_STEPS = 2
+TP_STEPS = 1            # (2 until phase 20 came)
 TP_QWEN_LAYERS = 12
 TP_TIMEOUT_S = 300
 #: 18c: qwen2-0.5b cut to TP_SEQ_LAYERS layers on four ranks as (1, 4):
@@ -6334,25 +6376,32 @@ TP_SMOKES = (("qwen2-0.5b", 2, "int8"), ("granite-moe-3b-a800m", 1, "f32"))
 
 
 class CollectiveLog:
-    """Counts the all-reduces and all-gathers this process issues (calls
-    and bytes) while installed, by wrapping ``torch.distributed``'s two
-    functions, which ``distributed.ctx`` and the optimizer look up at each
-    call."""
+    """Counts the collectives this process issues (calls and bytes, by the
+    kinds ``ctx.PlanGroup`` logs: an all-reduce's tensor, an all-gather's
+    input, a reduce-scatter's and an all-to-all's whole input) while
+    installed, by wrapping ``torch.distributed``'s functions, which
+    ``distributed.ctx`` and the optimizer look up at each call."""
+
+    KINDS = {"all_reduce": "all_reduce", "all_gather": "all_gather",
+             "reduce_scatter": "reduce_scatter",
+             "all_to_all_single": "all_to_all"}
 
     def __init__(self):
         import torch.distributed as dist
         self.dist = dist
-        self.real = {k: getattr(dist, k) for k in ("all_reduce",
-                                                  "all_gather")}
-        self.calls = {k: 0 for k in self.real}
-        self.bytes = {k: 0 for k in self.real}
+        self.real = {k: getattr(dist, k) for k in self.KINDS}
+        self.calls = {k: 0 for k in self.KINDS.values()}
+        self.bytes = {k: 0 for k in self.KINDS.values()}
 
-        def wrap(kind):
+        def wrap(name):
+            kind = self.KINDS[name]
+
             def call(x, *args, **kwargs):
-                t = x if kind == "all_reduce" else args[0]
+                t = x if name == "all_reduce" else args[0]
                 self.calls[kind] += 1
-                self.bytes[kind] += t.numel() * t.element_size()
-                return self.real[kind](x, *args, **kwargs)
+                self.bytes[kind] += sum(y.numel() * y.element_size() for y in
+                                        (t if isinstance(t, list) else [t]))
+                return self.real[name](x, *args, **kwargs)
             return call
         for k in self.real:
             setattr(dist, k, wrap(k))
@@ -6998,11 +7047,12 @@ def serve_tp_wave(cfg, device):
     return torch.as_tensor(toks, device=device)
 
 
-def serve_tp_run(cfg, params, toks, prefill_fn, decode_fn, feed=None):
-    """``prefill_fn`` on ``toks``, then SERVE_TP_STEPS decode steps, each
-    fed its column of ``feed`` (None: the previous call's argmax, the
-    greedy run): each call's last logits (float32, on the CPU), the final
-    norm's outputs (``transformer._head``'s input), the tokens fed, the
+def serve_tp_run(cfg, params, toks, prefill_fn, decode_fn, feed=None,
+                 steps=SERVE_TP_STEPS):
+    """``prefill_fn`` on ``toks``, then ``steps`` decode steps, each fed
+    its column of ``feed`` (None: the previous call's argmax, the greedy
+    run): each call's last logits (float32, on the CPU), the final norm's
+    outputs (``transformer._head``'s input), the tokens fed, the
     prefill's and the decode's seconds."""
     import torch
     from repro_torch.models import transformer
@@ -7023,7 +7073,7 @@ def serve_tp_run(cfg, params, toks, prefill_fn, decode_fn, feed=None):
             prefill_s = time.perf_counter() - t0
             logits.append(out[:, -1].float().cpu())
             t0 = time.perf_counter()
-            for i in range(SERVE_TP_STEPS):
+            for i in range(steps):
                 tok = (logits[-1][:, :cfg.vocab_size].argmax(-1) if feed is None
                        else feed[:, i]).to(torch.int32)
                 fed.append(tok)
@@ -7253,14 +7303,15 @@ def serve_tp_spawn(tmp) -> tuple[list, float]:
             for r in range(4)], spawn_s
 
 
-def serve_tp_check(label, ref, ranks, cfg) -> dict:
-    """19a-19c's ranks against the mesh-less run: every call's logits
-    (each rank's columns joined) within SERVE_TP_TOL of the largest, the
-    greedy tokens equal or the mesh-less top-2 gap under the bar, the
-    final norm's outputs bit-equal across the ranks."""
+def serve_tp_check(label, ref, ranks, cfg, dim: int = -1) -> dict:
+    """19a-19c's (and 20b's) ranks against the mesh-less run: every call's
+    logits (each rank's columns joined, or with ``dim=1`` each data rank's
+    rows) within SERVE_TP_TOL of the largest, the greedy tokens equal or
+    the mesh-less top-2 gap under the bar; the final norm's outputs of
+    model ranks bit-equal across them."""
     import torch
     v = cfg.vocab_size
-    got = torch.cat([r["logits"] for r in ranks], dim=-1)[..., :v]
+    got = torch.cat([r["logits"] for r in ranks], dim=dim)[..., :v]
     want = ref["logits"][..., :v]
     scale = max(1.0, float(want.abs().max()))
     errs = [float((g - w).abs().max()) / scale for g, w in zip(got, want)]
@@ -7275,7 +7326,7 @@ def serve_tp_check(label, ref, ranks, cfg) -> dict:
         raise AssertionError(f"{label}: greedy tokens differ where the "
                              f"mesh-less top-2 gap is over the bar: calls "
                              f"{differ.nonzero().tolist()}")
-    for r in ranks[1:]:
+    for r in ranks[1:] if dim == -1 else ():
         if len(r["heads"]) != len(ranks[0]["heads"]) or not all(
                 torch.equal(a, b) for a, b in zip(ranks[0]["heads"],
                                                   r["heads"])):
@@ -7416,6 +7467,451 @@ def phase_serve_tp(device, smi) -> dict:
     log(f"[19] phase 19 in {out['seconds']:.1f} s (the mesh-less references "
         f"{out['reference_s']:.1f} s; spawn, run and join of four ranks "
         f"{out['spawn_s']:.1f} s; rank walls {out['rank_walls']}); {smi}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: parameters split over ``data`` (gloo ranks sharing cuda:0)
+# ---------------------------------------------------------------------------
+
+#: one spawn of four gloo ranks sharing cuda:0.  20a: 18a's qwen2-0.5b cut
+#: (TP_QWEN_LAYERS) with ``fsdp_units`` (ZeRO-3) on 14b's batch
+#: (TRAIN_BATCH x TRAIN_SEQ, one microbatch: a row a data rank), one
+#: ``mesh_train_step`` step on (2, 1) (ranks 0-1) and on (2, 2), its loss,
+#: norm and every gradient leaf against the mesh-less step's at phase 18's
+#: bars.  20b: llama4 CONFIG at its published widths cut to
+#: FSDP_LLAMA_LAYERS layers (one dense + MoE unit) and FSDP_LLAMA_EXPERTS of
+#: its 128 experts, ``fsdp_units`` on (2, 1) (ranks 2-3, beside 20a's pair):
+#: phase 19's wave, then FSDP_DECODE_STEPS decode steps fed the mesh-less
+#: greedy tokens, at SERVE_TP_TOL.  20c: granite-moe-3b-a800m CONFIG cut to
+#: FSDP_MOE_LAYERS layers on (2, 2) under each of FSDP_MOE_MODES, one step
+#: on 14b's batch against the mesh-less step at 20a's bars.  20d: the dry
+#: run's plans of 20a's (2, 2) step and 20c's ``e_data_f_model`` step
+#: against the ranks' collectives (equal) and measured rises
+#: (DRYRUN_PEAK_TOL)
+FSDP_LLAMA_LAYERS, FSDP_LLAMA_EXPERTS, FSDP_DECODE_STEPS = 2, 8, 8
+FSDP_MOE_LAYERS = 4
+FSDP_MOE_MODES = ("f_model", "e_data_f_model")
+#: 20d's planned steps
+FSDP_PLANNED = ("20a", "20c/e_data_f_model")
+
+
+def fsdp_configs() -> dict:
+    """label -> config of 20a, 20b and 20c (one a mode)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    qwen = get_arch(TRAIN_ARCH).config
+    llama = get_arch("llama4-maverick-400b-a17b").config
+    moe = get_arch("granite-moe-3b-a800m").config
+    return {"20a": dataclasses.replace(qwen, n_layers=TP_QWEN_LAYERS,
+                                       fsdp_units=True),
+            "20b": dataclasses.replace(
+                llama, n_layers=FSDP_LLAMA_LAYERS, moe=dataclasses.replace(
+                    llama.moe, n_experts=FSDP_LLAMA_EXPERTS)),
+            **{f"20c/{m}": dataclasses.replace(moe, n_layers=FSDP_MOE_LAYERS,
+                                               moe_shard_mode=m)
+               for m in FSDP_MOE_MODES}}
+
+
+def fsdp_batch(cfg, device) -> dict:
+    """14b's first batch for ``cfg``'s vocabulary."""
+    from repro_torch.launch.steps import to_device
+    from repro_torch.storage.datapipe import SyntheticTokens
+    return to_device(next(iter(SyntheticTokens(
+        cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=LM_SEED))),
+        device)
+
+
+def fsdp_reference(label, device, path) -> float:
+    """The mesh-less loss, norm and gradients of ``label``'s first batch on
+    the parameters seed 0 draws, saved to ``path`` (rank 0 takes them
+    while 20b's pair serves); its seconds."""
+    import torch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import global_norm, tree_paths
+    t0 = time.perf_counter()
+    cfg = fsdp_configs()[label]
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    batch = fsdp_batch(cfg, device)
+    loss, _, grads = loss_and_grads(cfg, params, batch, 1)
+    torch.save({"loss": float(loss), "norm": float(global_norm(grads)),
+                "grads": {p: g for p, g in tree_paths(grads)}}, path)
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def fsdp_leaf_errors(ref, grads, specs, mesh, position, group) -> tuple:
+    """(the worst, its path) of each whole gradient leaf's relative L2
+    distance from the mesh-less one (14b's measure), from this rank's
+    blocks of them: each rank sums its block's two squares against the
+    same block of the mesh-less gradient, weighted by one over the ranks
+    holding that block, and ``group`` (the mesh's ranks) sums them."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.train.optimizer import tree_paths
+    spec_of = dict(tree_paths(specs))
+    paths, rows = [], []
+    for p, g in tree_paths(grads):
+        sh = part.NamedSharding(mesh, spec_of[p])
+        want = ref["grads"][p]
+        want = want[sh.index(want.shape, position)].float()
+        share = math.prod(sh.blocks) / mesh.size
+        rows.append(torch.stack([(g.float() - want).square().sum(),
+                                 want.square().sum()]) * share)
+        paths.append(p)
+    total = torch.stack(rows)
+    dist.all_reduce(total, group=group)
+    worst = (0.0, None)
+    for p, (d, w) in zip(paths, total.tolist()):
+        e = math.sqrt(d) / max(math.sqrt(w), LEAF_FLOOR * ref["norm"])
+        if e > worst[0]:
+            worst = (e, "/".join(p))
+    return worst
+
+
+def fsdp_train(label, mesh, position, group, ref_path, plan=False) -> dict:
+    """One ``mesh_train_step`` step of ``label`` at ``position`` of
+    ``mesh`` (``group``: its ranks) on its blocks of a state drawn whole
+    from seed 0, the call measured (its collectives, its rise); its loss,
+    norm and gradients against the mesh-less step's; with ``plan``, the
+    dry run's plan of the same step (20d)."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.steps import (abstract_train_state,
+                                          init_train_state, mesh_train_step,
+                                          train_state_pspecs)
+    from repro_torch.storage.checkpoint import place_on_mesh
+    from repro_torch.train.optimizer import OptConfig
+    cfg, ocfg = fsdp_configs()[label], OptConfig()
+    dev = torch.device(SERVE_TP_DEVICE)
+    specs = train_state_pspecs(cfg, ocfg, mesh,
+                               abstract_train_state(cfg, ocfg))
+    whole = init_train_state(cfg, ocfg, torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    state = place_on_mesh(whole, part.shardings(mesh, specs), position)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in _leaves(state["params"]))
+    batch = fsdp_batch(cfg, dev)
+    captured = {}
+    real = steps_mod.adamw_update
+
+    def update(ocfg_, schedule, params, grads, *a, **kw):
+        captured["grads"] = grads     # read after the measured call
+        return real(ocfg_, schedule, params, grads, *a, **kw)
+    seen = {}
+    step = measured_call(mesh_train_step(cfg, ocfg, mesh, position)[0], seen,
+                         "train")
+    steps_mod.adamw_update = update
+    reset_kernel_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_state, metrics = step(state, batch)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        step_s = time.perf_counter() - t0
+    finally:
+        steps_mod.adamw_update = real
+    launches = {k: v for k, v in kernel_counts().items() if v}
+    del state, new_state, metrics
+    ref = torch.load(ref_path, map_location=dev)
+    leaf = fsdp_leaf_errors(ref, captured.pop("grads"), specs["params"],
+                            mesh, position, group)
+    out = grads_against(ref, loss, norm, leaf)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(step_s=step_s, measured=seen["train"], launches=launches,
+               param_bytes=param_bytes)
+    if plan:
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import MeshSpec
+        spec_mesh = MeshSpec(("data", "model"), tuple(mesh.sizes))
+        m = dryrun.run_meta(steps_mod.plan_cell(
+            cfg, ShapeSpec(label, "train", TRAIN_SEQ, TRAIN_BATCH), spec_mesh,
+            ocfg=ocfg, rank=position), spec_mesh)
+        out["plan"] = {"collectives": m.collectives,
+                       "peak_alloc_bytes": m.peak_alloc_bytes,
+                       "seconds": m.seconds}
+    return out
+
+
+def fsdp_serve(mesh, position, feed) -> dict:
+    """20b on this rank of a (2, 1) pair: its blocks of the parameters
+    drawn whole from LM_SEED, the serving steps (a unit gathered at a
+    time) on phase 19's wave fed the mesh-less tokens, the first prefill
+    and decode calls measured."""
+    import torch
+    from repro_torch.launch.steps import (make_serve_decode,
+                                          make_serve_prefill, param_shards,
+                                          serve_params)
+    from repro_torch.models.transformer import init_params
+    cfg = fsdp_configs()["20b"]
+    dev = torch.device(SERVE_TP_DEVICE)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_SEED), device=dev)
+    params = serve_params(cfg, mesh, whole, position)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups = {"group": mesh.data_group, "model_group": None,
+              "shards": param_shards(cfg, mesh)}
+    pf = make_serve_prefill(cfg, SERVE_TP_MAX_SEQ, **groups)
+    dc = make_serve_decode(cfg, SERVE_TP_MAX_SEQ, **groups)
+    seen = {}
+    reset_kernel_counts()
+    run = serve_tp_run(cfg, params, serve_tp_wave(cfg, dev),
+                       measured_call(lambda x: pf(params, x), seen,
+                                     "prefill"),
+                       measured_call(lambda c, x, i: dc(params, c, x, i),
+                                     seen, "decode"), feed,
+                       steps=FSDP_DECODE_STEPS)
+    out = {**{k: v for k, v in run.items() if k != "cache"},
+           "launches": {k: v for k, v in kernel_counts().items() if v},
+           "measured": seen,
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in _leaves(params))}
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank(rank: int, tmp: str) -> None:
+    """One of four gloo ranks sharing cuda:0 (a spawned process): ranks 0
+    and 1 run 20a on their pair's (2, 1) mesh while ranks 2 and 3 serve
+    20b on theirs; then the four run 20a and 20c on (2, 2), and plan
+    20d's steps."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import MeshSpec, make_data_mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 4), rank=rank, world_size=4,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {"walls": {}}
+    try:
+        feed = torch.load(os.path.join(tmp, "feed.pt"))
+        wide = make_data_mesh(model=2, device=SERVE_TP_DEVICE)
+        warm = torch.ones((16, 16), device=SERVE_TP_DEVICE)  # cuBLAS's
+        warm = warm @ warm                                 # workspace (19)
+        del warm
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        pair = MeshSpec(("data", "model"), (2, 1), devices=wide.devices[:2],
+                        data_group=pairs[rank // 2])
+        out["walls"]["start"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dev = torch.device(SERVE_TP_DEVICE)
+        if rank < 2:        # rank 0 takes the mesh-less steps (20b is longer)
+            if rank == 0:
+                out["walls"]["ref-20a"] = fsdp_reference(
+                    "20a", dev, os.path.join(tmp, "ref-20a.pt"))
+            dist.barrier(group=pairs[0])
+            t1 = time.perf_counter()
+            out["20a/2x1"] = fsdp_train("20a", pair, rank % 2, pairs[0],
+                                        os.path.join(tmp, "ref-20a.pt"))
+            out["walls"]["20a/2x1"] = time.perf_counter() - t1
+            if rank == 0:
+                out["walls"]["ref-20c"] = fsdp_reference(
+                    f"20c/{FSDP_MOE_MODES[0]}", dev,
+                    os.path.join(tmp, "ref-20c.pt"))
+        else:
+            out["20b"] = fsdp_serve(pair, rank % 2, feed)
+            out["walls"]["20b"] = time.perf_counter() - t1
+        dist.barrier()
+        for label in ("20a",) + tuple(f"20c/{m}" for m in FSDP_MOE_MODES):
+            t1 = time.perf_counter()
+            out[f"{label}/2x2"] = fsdp_train(
+                label, wide, rank, None,
+                os.path.join(tmp, f"ref-{label.split('/')[0]}.pt"),
+                plan=label in FSDP_PLANNED)
+            out["walls"][f"{label}/2x2"] = time.perf_counter() - t1
+        torch.save(out, os.path.join(tmp, f"fsdp{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_spawn(tmp) -> tuple[list, float]:
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        mp.start_processes(fsdp_rank, args=(tmp,), nprocs=4, join=True,
+                           start_method="spawn")
+    finally:
+        if prev is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    spawn_s = time.perf_counter() - t0
+    return [torch.load(os.path.join(tmp, f"fsdp{r}.pt"))
+            for r in range(4)], spawn_s
+
+
+def fsdp_param_bytes(cfg, sizes) -> int:
+    """Parameter bytes one rank of a ``sizes`` (data, model) mesh holds of
+    ``cfg`` under ``param_pspecs`` (meta shapes)."""
+    import torch
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.transformer import init_params
+    mesh = MeshSpec(("data", "model"), sizes)
+    shape = init_params(cfg, torch.Generator().manual_seed(0), device="meta")
+    return part.tree_local_nbytes(shape, part.param_pspecs(cfg, mesh, shape),
+                                  mesh)
+
+
+def phase_fsdp(device, smi) -> dict:
+    """20 (see the module docstring)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models.transformer import decode_step, prefill
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfgs = fsdp_configs()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        params, *_ = lm_params(cfgs["20b"], device)
+        toks = serve_tp_wave(cfgs["20b"], device)
+        ref = serve_tp_run(
+            cfgs["20b"], params, toks,
+            lambda x: prefill(cfgs["20b"], params, x,
+                              max_seq=SERVE_TP_MAX_SEQ),
+            lambda c, x, i: decode_step(cfgs["20b"], params, c, x, i),
+            steps=FSDP_DECODE_STEPS)
+        del params, ref["cache"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve_reference_s"] = time.perf_counter() - t0
+        torch.save(ref["fed"], f"{tmp}/feed.pt")
+        ranks, out["spawn_s"] = fsdp_spawn(tmp)
+    # 20a / 20c: every rank's step against the mesh-less one
+    for key in ("20a/2x1", "20a/2x2") + tuple(f"20c/{m}/2x2"
+                                              for m in FSDP_MOE_MODES):
+        got = [r[key] for r in ranks if key in r]
+        for r, g in enumerate(got):
+            check_tp_grads(f"{key} rank {r}", g)
+            cnt = g["launches"]
+            if not (cnt.get(FK.TC) and cnt.get(FK.BWD_ROUTES[FK.TC])):
+                raise AssertionError(f"{key} rank {r}: K4 did not run: {cnt}")
+        coll = got[0]["measured"]["collectives"]
+        label = key.rsplit("/", 1)[0]
+        out[key] = {"ranks": got}
+        log(f"[{key[:3]}] {cfgs[label].name} ({cfgs[label].n_layers} layers"
+            f"{', fsdp_units' if cfgs[label].fsdp_units else ''}, moe "
+            f"{cfgs[label].moe_shard_mode if cfgs[label].moe else '-'}) on a "
+            f"{key.rsplit('/', 1)[1]} mesh of gloo ranks sharing cuda:0, one "
+            f"step of {TRAIN_BATCH} x {TRAIN_SEQ}: loss {got[0]['loss']:.6f} vs "
+            f"mesh-less {got[0]['plain_loss']:.6f} ({got[0]['loss_rel']:.2e}, "
+            f"bar {TRAIN_LOSS_TOL}), norm {got[0]['norm_rel']:.2e} (bar "
+            f"{TRAIN_NORM_TOL}), worst leaf by rank "
+            f"{[round(g['leaf_rel'], 4) for g in got]} ({got[0]['worst_leaf']};"
+            f" bar {TRAIN_LEAF_TOL}); step s by rank "
+            f"{[round(g['step_s'], 2) for g in got]}; peak by rank "
+            f"{[round(g['measured']['memory']['peak_gb'], 2) for g in got]} GB;"
+            f" parameter bytes by rank {[g['param_bytes'] for g in got]}; rank "
+            f"0's collectives a step: calls {coll['calls']}, GB "
+            f"{ {k: round(v / 1e9, 4) for k, v in coll['bytes'].items()} }; "
+            f"launches {got[0]['launches']}")
+    # a ZeRO-3 rank holds less than 18a's (1, 2) rank by its unit blocks
+    qwen18 = dataclasses.replace(cfgs["20a"], fsdp_units=False)
+    out["param_bytes_18a"] = fsdp_param_bytes(qwen18, (1, 2))
+    out["param_bytes_20a"] = fsdp_param_bytes(cfgs["20a"], (2, 2))
+    held = [r["20a/2x2"]["param_bytes"] for r in ranks]
+    if not (set(held) == {out["param_bytes_20a"]}
+            and out["param_bytes_20a"] < out["param_bytes_18a"]):
+        raise AssertionError(f"20a: ranks hold {held} parameter bytes, the "
+                             f"plan {out['param_bytes_20a']}, 18a's rank "
+                             f"{out['param_bytes_18a']}")
+    # 20b: the served pair against the mesh-less run
+    served = [r["20b"] for r in ranks[2:]]
+    res = serve_tp_check("20b", ref, served, cfgs["20b"], dim=1)
+    n_attn = cfgs["20b"].num_units * len(cfgs["20b"].pattern)
+    for r, g in enumerate(served):
+        if g["launches"].get(FK.TC) != n_attn:
+            raise AssertionError(f"20b rank {r}: the prefill launched "
+                                 f"{g['launches']}, expected {n_attn} of "
+                                 f"{FK.TC}")
+    b = len(SERVE_TP_PROMPTS)
+    coll = {k: v["collectives"] for k, v in served[0]["measured"].items()}
+    res.update(launches=[g["launches"] for g in served],
+               prefill_s=[g["prefill_s"] for g in served],
+               decode_tokens_per_s=[b * FSDP_DECODE_STEPS / g["decode_s"]
+                                    for g in served],
+               reference_prefill_s=ref["prefill_s"],
+               reference_decode_tokens_per_s=b * FSDP_DECODE_STEPS
+               / ref["decode_s"], collectives=coll,
+               param_bytes=[g["param_bytes"] for g in served],
+               rises={k: [g["measured"][k]["memory"]["rise"] for g in served]
+                      for k in ("prefill", "decode")})
+    out["20b"] = res
+    log(f"[20b] {cfgs['20b'].name} at its published widths cut to "
+        f"{cfgs['20b'].n_layers} layers and {FSDP_LLAMA_EXPERTS} experts, "
+        f"fsdp_units on a (2, 1) mesh of gloo ranks sharing cuda:0 (a row "
+        f"and a block of every unit leaf a rank, a unit gathered at a time): "
+        f"{b} prompts of {'/'.join(map(str, SERVE_TP_PROMPTS))} tokens + "
+        f"{FSDP_DECODE_STEPS} decode steps fed the mesh-less greedy tokens; "
+        f"logits vs mesh-less: prefill {res['prefill_err']:.3e}, worst decode "
+        f"step {res['decode_err']:.3e} of the largest {res['scale']:.2f} (bar "
+        f"{SERVE_TP_TOL}); greedy tokens differing {res['tokens_differ']} "
+        f"(gaps {res['tokens_differ_gaps']}); parameter bytes by rank "
+        f"{res['param_bytes']}; gathered a decode step: "
+        f"{coll['decode']['bytes']['all_gather'] / 1e9:.4f} GB in "
+        f"{coll['decode']['calls']['all_gather']} all-gathers (prefill "
+        f"{coll['prefill']['bytes']['all_gather'] / 1e9:.4f} GB); prefill s "
+        f"by rank {[round(x, 3) for x in res['prefill_s']]} (mesh-less "
+        f"{res['reference_prefill_s']:.3f}); decode tokens/s by rank "
+        f"{[round(x, 2) for x in res['decode_tokens_per_s']]} (mesh-less "
+        f"{res['reference_decode_tokens_per_s']:.1f}); rises GB "
+        f"{ {k: [round(x / 1e9, 3) for x in v] for k, v in res['rises'].items()} }"
+        f"; launches by rank {res['launches']}")
+    # 20d: the plans against what the ranks did
+    out["20d"] = {}
+    for label in FSDP_PLANNED:
+        key = f"{label}/2x2"
+        out["20d"][label] = [plan_vs_measured(
+            f"{key} position {r}", g["plan"], g["measured"])
+            for r, g in enumerate(out[key]["ranks"])]
+        d = out["20d"][label]
+        log(f"[20d] {key}: each position's meta plan (plan_cell(rank=r)) "
+            f"against the card: collectives equal "
+            f"({d[0]['collectives']}); predicted peak / measured rise by "
+            f"position "
+            f"{[(round(x['predicted_peak'] / 1e9, 4), round(x['measured_rise'] / 1e9, 4), round(x['ratio'], 4)) for x in d]}"
+            f" GB (bar {DRYRUN_PEAK_TOL}); meta runs "
+            f"{[round(x['meta_run_s'], 1) for x in d]} s")
+    out["rank_walls"] = [r["walls"] for r in ranks]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[20] phase 20 in {out['seconds']:.1f} s (the mesh-less serving "
+        f"{out['serve_reference_s']:.1f} s, the steps' on rank 0 "
+        f"{ranks[0]['walls']['ref-20a']:.1f} + "
+        f"{ranks[0]['walls']['ref-20c']:.1f} s; "
+        f"spawn, run and join of four ranks {out['spawn_s']:.1f} s; rank "
+        f"walls {out['rank_walls']}); {smi}")
     return out
 
 
@@ -7574,9 +8070,11 @@ def main() -> int:
     inputs = (idx,) + inputs[1:]
     real_err = check_variants("real size", mats, s0, trace.n_ops, inputs,
                               "compact")
+    # the dense route at real size on the two indexed variants (on all
+    # five until phase 20 came: each plain fold about 2 s)
     real_err = max(real_err, check_variants(
         "real size, -0.0 in s0", mats, refused_s0(s0), trace.n_ops, inputs,
-        "dense"))
+        "dense", names=("indexed", "indexed+energy+arrivals+extras")))
 
     # -- timing: both routes, pre-pass, plain version, bound -------------
     sweep_t = time_fold(mats, s0, dict(t_steps=trace.n_ops, idx=idx))
@@ -7725,6 +8223,11 @@ def main() -> int:
     serve_tp = phase_serve_tp(dev, smi)
     clock("19")
 
+    # -- 20: parameters split over data (ZeRO-3, the MoE shard modes; gloo
+    # ranks sharing the card); the rank plans against them ----------------
+    fsdp = phase_fsdp(dev, smi)
+    clock("20")
+
     summary = {
         "tables": tables_report, "sweep_s": sweep_s,
         "dictionary_setup_s": setup_s,
@@ -7750,7 +8253,7 @@ def main() -> int:
                               if isinstance(r, dict) else r)
                        for arch, r in lm_configs.items()},
         "train": train, "dryrun": dry, "positions": positions,
-        "multi": multi, "tp": tp, "serve_tp": serve_tp,
+        "multi": multi, "tp": tp, "serve_tp": serve_tp, "fsdp": fsdp,
         "build_s": build_s,
         "build_source_s": {lib.name: secs for lib, _, secs in built},
         "phase_s": clock.walls,
@@ -7819,7 +8322,11 @@ def main() -> int:
          **lm["k4"],
          "phase19_launches": {label: [g[FK.TC] for g in
                                       serve_tp[label]["launches"]]
-                              for label in ("19a", "19b", "19c")}},
+                              for label in ("19a", "19b", "19c")},
+         "phase20_launches": {
+             "20b": [g[FK.TC] for g in fsdp["20b"]["launches"]],
+             **{key: [g["launches"][FK.TC] for g in fsdp[key]["ranks"]]
+                for key in fsdp if key.startswith(("20a/", "20c/"))}}},
         {"name": "rglru_scan (RG-LRU linear recurrence, K5)",
          "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru/kernel.py:66", **lm["k5"],

@@ -43,13 +43,29 @@ rank order, the same on every rank, so the joined output is bit-equal
 across them) and ``gather_data``, the data group's rows joined (a decode
 MoE layer groups the whole global batch).
 
-Every collective goes through ``all_reduce`` / ``all_gather`` here, which
-call ``torch.distributed``'s functions, looked up at each call, on a real
-process group, and only log the call on a ``PlanGroup``: the stand-in
-the dry run gives one rank of a production mesh (``launch.mesh.
-plan_mesh``), which moves no data (its tensors are meta tensors) and
-counts every collective by kind, calls and bytes (an all-reduce's
-tensor, an all-gather's input).
+Parameters sharded over ``data`` (``ModelConfig.fsdp_units``, ZeRO-3, and
+the experts of ``moe_shard_mode="e_data_f_model"``) run inside a
+``param_shards`` context (process-wide too), which installs this rank's
+``ParamShards``: the shard group (the data ranks of its pod that split a
+leaf) and the leaves split along which dim.  ``gather_params`` joins a
+unit's (or a layer's) split leaves before it runs, through one flat
+buffer and one all-gather; its gradient is one reduce-scatter of the
+whole leaves' f32 gradients into this rank's shards (``_GatherShards``).
+Called inside a unit's remat boundary, the backward gathers again, so
+only one unit is whole at a time.  ``exchange`` (``_Exchange``) is the
+experts' token movement: one all-to-all over the shard group, whose
+gradient is the same all-to-all of the gradient.
+
+Every collective goes through ``all_reduce`` / ``all_gather`` /
+``reduce_scatter`` / ``all_to_all`` here, which call
+``torch.distributed``'s functions, looked up at each call, on a real
+process group (gloo takes all four on CPU and CUDA tensors:
+``reduce_scatter`` of a list, ``all_to_all_single``), and only log the
+call on a ``PlanGroup``: the stand-in the dry run gives one rank of a
+production mesh (``launch.mesh.plan_mesh``), which moves no data (its
+tensors are meta tensors) and counts every collective by kind, calls
+and bytes (an all-reduce's tensor, an all-gather's input, a
+reduce-scatter's and an all-to-all's whole input).
 """
 
 from __future__ import annotations
@@ -63,6 +79,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.partitioning import PartitionSpec
+from repro_torch.train.optimizer import tree_from_paths, tree_paths
 
 
 @dataclasses.dataclass
@@ -320,6 +337,176 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# parameters sharded over data: the unit gathers and the experts' exchange
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamShards:
+    """This rank's place in the split of the parameters over ``data``:
+    ``group``, the shard group (the ranks of its pod and model
+    coordinates, one a block of each split leaf), ``pod_group``, the ranks
+    of the other pods holding the same blocks (None on one pod), and by
+    path (tuples of the whole tree's keys) the dim ``data`` splits:
+    ``gathered``, the leaves all-gathered before they are used
+    (``fsdp_units``), and ``owned``, the experts this rank computes on
+    (``e_data_f_model``).  Their gradients come whole for the rank's
+    block from the shard group and are summed over the pods only."""
+    group: object
+    pod_group: object
+    gathered: dict
+    owned: dict
+
+    @property
+    def held(self) -> dict:
+        """Every leaf ``data`` splits: path -> dim."""
+        return {**self.gathered, **self.owned}
+
+
+_SHARDS: ParamShards | None = None
+
+
+@contextlib.contextmanager
+def param_shards(shards: ParamShards | None):
+    """Inside the block (on this process, every thread) the model gathers
+    the leaves ``shards`` splits before it uses them (``None``: every
+    leaf whole, the model unchanged)."""
+    global _SHARDS
+    prev, _SHARDS = _SHARDS, shards
+    try:
+        yield shards
+    finally:
+        _SHARDS = prev
+
+
+def installed_shards() -> ParamShards | None:
+    """The installed ``ParamShards``, or None."""
+    return _SHARDS
+
+
+#: bytes each leaf's segment of a flat gather buffer is padded to, so that
+#: every segment can be viewed as any dtype
+_ALIGN = 16
+
+
+def _padded(n: int, unit: int) -> int:
+    return -(-n // unit) * unit
+
+
+class _GatherShards(torch.autograd.Function):
+    """The whole leaves from every rank's blocks (``dims[i]`` the dim
+    leaf i is split along), through one flat byte buffer and one
+    all-gather; the gradient is one reduce-scatter (SUM) of the whole
+    leaves' gradients, in float32, into this rank's blocks, returned in
+    their dtypes."""
+
+    @staticmethod
+    def forward(ctx, group, dims, *shards):
+        ctx.group, ctx.dims = group, dims
+        ctx.meta = [(s.shape, s.dtype) for s in shards]
+        n = group_size(group)
+        sizes = [_padded(s.numel() * s.element_size(), _ALIGN)
+                 for s in shards]
+        flat = shards[0].new_zeros(sum(sizes), dtype=torch.uint8)
+        at = 0
+        for s, size in zip(shards, sizes):
+            flat[at:at + s.numel() * s.element_size()].copy_(
+                s.contiguous().view(-1).view(torch.uint8))
+            at += size
+        parts = flat.new_empty((n, flat.numel()))
+        all_gather(list(parts.unbind(0)), flat, group=group)
+        del flat
+        out, at = [], 0
+        for s, d, size in zip(shards, dims, sizes):
+            nb = s.numel() * s.element_size()
+            out.append(torch.cat([parts[r, at:at + nb].view(s.dtype).view(
+                s.shape) for r in range(n)], dim=d))
+            at += size
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = group_size(ctx.group)
+        sizes = [_padded(math.prod(shape), _ALIGN // 4)
+                 for shape, _ in ctx.meta]
+        flat = torch.zeros((n, sum(sizes)), dtype=torch.float32,
+                           device=next(g for g in grads
+                                       if g is not None).device)
+        at = 0
+        for g, (shape, _), d, size in zip(grads, ctx.meta, ctx.dims, sizes):
+            if g is not None:       # an unused leaf's gradient is zero
+                k = shape[d]
+                for i in range(n):
+                    flat[i, at:at + math.prod(shape)].view(shape).copy_(
+                        g.narrow(d, i * k, k))
+            at += size
+        out = flat.new_empty(flat.shape[1])
+        reduce_scatter(out, list(flat.unbind(0)), group=ctx.group)
+        del flat
+        shards, at = [], 0
+        for (shape, dtype), size in zip(ctx.meta, sizes):
+            shards.append(out[at:at + math.prod(shape)].view(shape).to(dtype))
+            at += size
+        return (None, None, *shards)
+
+
+def gather_params(tree, prefix: tuple = (), shift: int = 0):
+    """``tree`` (a subtree at ``prefix`` of the parameters: a unit's
+    slices, ``shift=1`` for the stacked unit axis indexed away; a tail
+    layer; the final norm) with the leaves the installed ``ParamShards``
+    gathers made whole: one all-gather for all of them, one
+    reduce-scatter in the backward.  ``tree`` itself without a context or
+    where it splits no leaf."""
+    shards = _SHARDS
+    if shards is None:
+        return tree
+    items = list(tree_paths(tree))
+    picked = [i for i, (p, _) in enumerate(items)
+              if prefix + p in shards.gathered]
+    if not picked:
+        return tree
+    dims = tuple(shards.gathered[prefix + items[i][0]] - shift
+                 for i in picked)
+    whole = _GatherShards.apply(shards.group, dims,
+                                *(items[i][1] for i in picked))
+    leaves = [x for _, x in items]
+    for i, w in zip(picked, whole):
+        leaves[i] = w
+    return tree_from_paths((p, x) for (p, _), x in zip(items, leaves))
+
+
+class _Exchange(torch.autograd.Function):
+    """``all_to_all`` over ``group`` of ``x`` [n, ...] (row i to rank i,
+    row i of the result from rank i); its own inverse, so the gradient is
+    the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchanged(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchanged(g, ctx.group), None
+
+
+def _exchanged(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    all_to_all(out, x, group=group)
+    return out
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """Row i of ``x`` [n, ...] sent to rank i of ``group`` and rank i's
+    row of its ``x`` received in its place, the gradient exchanged back
+    (``x`` itself for a group of one)."""
+    if group is None or group_size(group) == 1:
+        return x
+    return _Exchange.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
 # collectives over a process group or a plan's stand-in
 # ---------------------------------------------------------------------------
 
@@ -335,10 +522,10 @@ class PlanGroup:
     size: int
     log: dict = dataclasses.field(default_factory=dict)
 
-    def record(self, kind: str, t: torch.Tensor) -> None:
+    def record(self, kind: str, *ts: torch.Tensor) -> None:
         entry = self.log.setdefault(kind, {"calls": 0, "bytes": 0})
         entry["calls"] += 1
-        entry["bytes"] += t.numel() * t.element_size()
+        entry["bytes"] += sum(t.numel() * t.element_size() for t in ts)
 
 
 def group_size(group) -> int:
@@ -366,3 +553,21 @@ def all_gather(parts: list, x: torch.Tensor, group=None) -> None:
         group.record("all_gather", x)
     else:
         dist.all_gather(parts, x, group=group)
+
+
+def reduce_scatter(out: torch.Tensor, parts: list, group=None) -> None:
+    """``out`` = the SUM over ``group`` of every rank's ``parts[r]``, r
+    this rank's place; logged on a ``PlanGroup`` (all the parts' bytes)."""
+    if isinstance(group, PlanGroup):
+        group.record("reduce_scatter", *parts)
+    else:
+        dist.reduce_scatter(out, parts, group=group)
+
+
+def all_to_all(out: torch.Tensor, x: torch.Tensor, group=None) -> None:
+    """Row ``i`` of ``out`` (its first dim, one row a rank) = rank i's row
+    r of ``x``, r this rank's place; logged on a ``PlanGroup``."""
+    if isinstance(group, PlanGroup):
+        group.record("all_to_all", x)
+    else:
+        dist.all_to_all_single(out, x, group=group)

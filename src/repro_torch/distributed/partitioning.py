@@ -23,12 +23,17 @@ documented chain:
 * MoE — expert-parallel over ``model`` when E divides; otherwise the
   weights replicate and the dispatch buffers' capacity-slot axis shards
   over ``model`` (``"moe_cap"``); ``moe_shard_mode`` selects the
-  ``e_data_f_model`` and ``f_model`` variants.
+  ``f_model`` variant (each expert's ``d_ff`` over ``model``) and
+  ``e_data_f_model`` (the experts over ``data`` too, in storage and in
+  compute: the tokens move to their experts' owners, ``data_split``'s
+  ``owned`` leaves).
 * FFN / RG-LRU — column / row over ``model``.
 * embeddings — vocab padded to a multiple of 256 in-model
   (``ModelConfig.padded_vocab``) then vocab-sharded over ``model``.
 * ``fsdp_units`` (llama4) — parameters additionally shard their first
-  free divisible dim over ``data`` (ZeRO-3 storage).
+  free divisible dim over ``data`` (ZeRO-3 storage; ``data_split``'s
+  ``gathered`` leaves, all-gathered a unit at a time where they are
+  used).
 * ZeRO-1 — optimizer moments / master shard their first free divisible
   dim over ``data``.
 * xLSTM mixers — replicated (pure data parallel); ZeRO-1 still applies.
@@ -280,25 +285,16 @@ class TPPlan:
     attn: str            # attn_mode: "kv", "group" or "seq"
     ffn: bool            # the dense FFN column / row split
     rglru: bool          # the RG-LRU's channels and gate heads split
-    moe: str | None      # "expert", "slot" (capacity slots) or None
+    moe: str | None      # "expert", "slot" (capacity slots), "f" (each
+    #                      expert's d_ff) or None
     moe_shared: bool     # the shared expert column / row split
 
 
 def tp_plan(cfg: ModelConfig, mesh) -> TPPlan:
-    """The tensor-parallel program of ``cfg`` on ``mesh``.  Raises
-    ``NotImplementedError`` naming its ROADMAP item for a rule the port's
-    multi-device step does not take: ``fsdp_units`` over more than one
-    data rank, a ``moe_shard_mode`` other than ``"auto"`` on more than
-    one device, and (``tp_layout``) an RG-LRU whose width divides
-    ``model`` while its head count does not."""
-    if cfg.fsdp_units and axis_size(mesh, FSDP_AXIS) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: fsdp_units (parameters sharded over 'data') is not "
-            "ported (ROADMAP item 30)")
-    if cfg.moe_shard_mode != "auto" and mesh.size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_shard_mode {cfg.moe_shard_mode!r} is not "
-            "ported (ROADMAP item 31)")
+    """The tensor-parallel program of ``cfg`` on ``mesh`` (``tp_layout``
+    of its ``model`` axis); an RG-LRU whose width divides ``model`` while
+    its head count does not raises ``NotImplementedError`` naming its
+    ROADMAP item."""
     return tp_layout(cfg, axis_size(mesh, MODEL_AXIS))
 
 
@@ -319,8 +315,9 @@ def tp_layout(cfg: ModelConfig, tp: int) -> TPPlan:
         rglru = rm
     moe = shared = None
     if cfg.moe is not None:
-        moe = ("expert" if _moe_spec(cfg, "wi", tp)[0] == MODEL_AXIS
-               else "slot")
+        wi = _moe_spec(cfg, "wi", tp)
+        moe = ("expert" if wi[0] == MODEL_AXIS
+               else "f" if wi[2] == MODEL_AXIS else "slot")
         shared = _moe_spec(cfg, "shared_wi", tp)[1] == MODEL_AXIS
     return TPPlan(tp, attn_mode(cfg.n_heads, cfg.n_kv_heads, tp),
                   _ffn_spec(cfg, "wi", tp)[1] == MODEL_AXIS, rglru, moe,
@@ -331,6 +328,27 @@ def model_sharded_paths(specs: Any) -> frozenset:
     """The paths (tuples) of a spec tree whose leaves ``model`` splits."""
     return frozenset(p for p, spec in tree_paths(specs)
                      if any(MODEL_AXIS in axes_of(e) for e in spec))
+
+
+def data_split(cfg: ModelConfig, specs: Any) -> tuple[dict, dict]:
+    """(gathered, owned): the leaves of a parameter spec tree
+    (``param_pspecs``) that ``data`` splits, path (tuple) -> the dim it
+    splits.  ``owned`` are the experts of ``moe_shard_mode=
+    "e_data_f_model"``, which a rank computes on where they lie (the
+    tokens move to them); ``gathered`` every other such leaf
+    (``fsdp_units``), made whole where it is used."""
+    gathered, owned = {}, {}
+    for p, spec in tree_paths(specs):
+        d = sharded_dim(spec, FSDP_AXIS)
+        if d is None:
+            continue
+        path = "/".join(p)
+        layer = _layer_spec_for(cfg, path)
+        expert = (cfg.moe_shard_mode == "e_data_f_model" and layer is not None
+                  and layer.ffn == "moe"
+                  and re.search(r"/ffn/(wi|wg|wo)$", path) is not None)
+        (owned if expert else gathered)[p] = d
+    return gathered, owned
 
 
 # ---------------------------------------------------------------------------
@@ -637,8 +655,22 @@ def tree_local_nbytes(tree: Any, specs: Any, mesh) -> int:
     """Bytes one device holds of every tensor of ``tree`` under the
     matching tree of ``specs``."""
     leaves = dict(tree_paths(tree))
+    return sum(math.prod(local) * leaves[p].dtype.itemsize
+               for p, local in tree_local_shapes(tree, specs, mesh).items())
+
+
+def tree_local_shapes(tree: Any, specs: Any, mesh) -> dict:
+    """Path (a tuple) -> the shape one device holds of that tensor of
+    ``tree`` under the matching tree of ``specs``; a split dim that does
+    not divide raises ``ValueError`` naming the leaf."""
+    leaves = dict(tree_paths(tree))
     spec_of = dict(tree_paths(specs))
     if set(leaves) != set(spec_of):
         raise ValueError("the specs do not match the tree's paths")
-    return sum(local_nbytes(x.shape, x.dtype, spec_of[p], mesh)
-               for p, x in leaves.items())
+    out = {}
+    for p, x in leaves.items():
+        try:
+            out[p] = local_shape(x.shape, spec_of[p], mesh)
+        except ValueError as e:
+            raise ValueError(f"{'/'.join(p)}: {e}") from None
+    return out

@@ -41,13 +41,19 @@ and log each collective, so the record adds ``collective_bytes_per_device``
 and the bytes and calls by kind.  Rank 0 is planned, and the last
 ``model`` rank too where the programs differ (``planned_ranks``); the
 larger peak is the record's.  No device memory is named for those
-meshes, so they say nothing of ``fits``.  A cell whose rules the port
-refuses by name (llama4's ``fsdp_units``) keeps its argument bytes and
-says ``"not planned (ROADMAP item N)"``.  ``collective_bytes_per_device``
-is 0 on one card.
+meshes, so they say nothing of ``fits``.  llama4's ``fsdp_units``
+(ZeRO-3) plans its rank with its blocks of the parameters along
+``data``, one unit gathered at a time (the gathers and the gradients'
+reduce-scatters among its collectives).  A cell whose rules the port
+refuses by name (an RG-LRU's gate heads straddling ``model`` ranks)
+keeps its argument bytes and says ``"not planned (ROADMAP item N)"``; a
+split that does not divide (``--moe-mode e_data_f_model`` with 40
+experts over 16 data ranks) is an error naming the leaf.
+``collective_bytes_per_device`` is 0 on one card.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh card
+    python -m repro_torch.launch.dryrun --arch llama4-maverick-400b-a17b --mesh all
     python -m repro_torch.launch.dryrun --all [--mesh all] [--force] [--jobs N]
 
 Records go to ``build/dryrun/<arch>__<shape>__<mesh><tag>.json``.
@@ -546,8 +552,10 @@ def main(argv=None) -> None:
         cells = [(a, s.name) for a in ARCH_IDS for s in get_arch(a).shapes]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
+    elif args.arch:
+        cells = [(args.arch, s.name) for s in get_arch(args.arch).shapes]
     else:
-        ap.error("give --arch and --shape, or --all")
+        ap.error("give --arch (and --shape), or --all")
 
     n = {"ok": 0, "skipped": 0, "error": 0}
     jobs = [(a, s, m, outdir, args.force, args.grad_accum, args.remat,

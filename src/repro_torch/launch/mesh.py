@@ -66,9 +66,11 @@ class MeshSpec:
     data_group: object = dataclasses.field(default=None, compare=False)
     model_group: object = dataclasses.field(default=None, compare=False)
     #: with a ``pod`` axis, the ranks of this rank's pod and model
-    #: coordinates, which ZeRO-1's ``data`` split spans (the data group
-    #: without one)
+    #: coordinates, which ZeRO-1's (and ZeRO-3's) ``data`` split spans (the
+    #: data group without one), and the ranks of its data and model
+    #: coordinates, one a pod, which hold the same ``data`` blocks
     zero1_group: object = dataclasses.field(default=None, compare=False)
+    pod_group: object = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes):
@@ -196,22 +198,25 @@ def plan_mesh(mesh: MeshSpec, position: int,
     ``pod`` and ``data``, joined row-major, as ``dp_axes`` joins them),
     and, for ``model > 1``, its model group (the ranks of its data row);
     with a ``pod`` axis also its ZeRO-1 group (the ranks of its pod and
-    model coordinates: ``zero1_spec`` splits over ``data`` alone, so the
-    pods hold the same moments).  ``model`` is the last axis of every
-    mesh here."""
+    model coordinates: ``zero1_spec`` and ``fsdp_units`` split over
+    ``data`` alone, so the pods hold the same moments and parameter
+    blocks) and its pod group (the ranks of its data and model
+    coordinates, which sum those blocks' gradients).  ``model`` is the
+    last axis of every mesh here."""
     from repro_torch.distributed.ctx import PlanGroup
     tp = mesh.shape.get("model", 1)
     if mesh.axis_names[-1] != "model" and tp > 1:
         raise ValueError(f"model is not the last axis of {mesh.axis_names}")
     coords = mesh.coords(position)       # raises outside the mesh
     log = {} if log is None else log
-    zero1 = None
+    zero1 = pod = None
     if "pod" in mesh.shape:
         zero1 = PlanGroup(coords["data"], mesh.shape["data"], log)
+        pod = PlanGroup(coords["pod"], mesh.shape["pod"], log)
     return dataclasses.replace(
         mesh, data_group=PlanGroup(position // tp, mesh.size // tp, log),
         model_group=(PlanGroup(coords["model"], tp, log) if tp > 1
-                     else None), zero1_group=zero1)
+                     else None), zero1_group=zero1, pod_group=pod)
 
 
 def make_card_mesh(device=None) -> MeshSpec:

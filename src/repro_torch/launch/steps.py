@@ -35,6 +35,18 @@ gradients are this rank's slices, whole and equal on every model rank
 for the replicated leaves, summed over the data group only;
 ``model_shards`` tells the optimizer which leaves ``model`` splits.
 
+With ``fsdp_units`` (ZeRO-3) a rank holds only its block along ``data``
+of every parameter ``param_pspecs`` splits there (``param_shards``: the
+shard group, the pod group and the split leaves, from the specs): the
+model gathers a unit's blocks where it runs it (``ctx.param_shards``),
+their gradients arrive reduce-scattered over the shard group and stay
+out of the data group's all-reduce (summed over the pods only), and the
+optimizer updates each block where it lies (``ShardedUpdate.held``).
+The experts of ``moe_shard_mode="e_data_f_model"`` are split over
+``data`` the same way and are computed where they lie: their gradients
+are whole on their owner, and a sum over ``data`` would count them once
+a data rank.
+
 Serving on such a mesh (``make_serve_prefill`` / ``make_serve_decode``
 with the rank's groups) is this rank's part of the prefill and decode
 cells JAX's ``lower_cell`` jits: the global batch in, the rank's rows
@@ -56,9 +68,10 @@ import torch.distributed as dist
 from repro_torch.configs.base import ShapeSpec, input_specs
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partitioning as part
-from repro_torch.distributed.ctx import (all_reduce, data_parallel,
-                                         group_rank, group_size,
-                                         model_parallel)
+from repro_torch.distributed.ctx import (ParamShards, all_reduce,
+                                         data_parallel, group_rank,
+                                         group_size, model_parallel,
+                                         param_shards as install_shards)
 from repro_torch.launch.mesh import plan_mesh
 from repro_torch.models.transformer import (ModelConfig, decode_step,
                                             init_cache, init_params,
@@ -167,10 +180,11 @@ def rank_rows(batch: dict, grad_accum: int, rank: int, world: int) -> dict:
 _SEGMENT = 128
 
 
-def _sum_over(grads: Params, group) -> Params:
-    """The gradients summed over ``group`` in f32, one all-reduce over one
-    buffer holding them all (each an aligned segment of it)."""
-    paths, leaves = zip(*tree_paths(grads))
+def _sum_over(items: list, group) -> list:
+    """The gradients ((path, leaf) pairs) summed over ``group`` in f32,
+    one all-reduce over one buffer holding them all (each an aligned
+    segment of it)."""
+    paths, leaves = zip(*items)
     sizes = [-(-g.numel() // _SEGMENT) * _SEGMENT for g in leaves]
     flat = torch.zeros(sum(sizes), dtype=torch.float32,
                        device=leaves[0].device)
@@ -181,11 +195,30 @@ def _sum_over(grads: Params, group) -> Params:
         out.append(seg)
         at += n
     all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    return tree_from_paths(zip(paths, out))
+    return list(zip(paths, out))
+
+
+def _sync(grads: Params, group, shards: ParamShards | None) -> Params:
+    """The ranks' gradients summed: over the data ``group`` where a leaf
+    is whole on every data rank; a leaf ``shards`` splits over ``data``
+    came whole for this rank's block from the shard group (the unit
+    gathers' reduce-scatter, an expert's owner) and is summed over the
+    pods only."""
+    held = shards.held if shards is not None else {}
+    items = list(tree_paths(grads))
+    rest = [(p, g) for p, g in items if p not in held]
+    mine = [(p, g.to(torch.float32)) for p, g in items if p in held]
+    if rest and group_size(group) > 1:  # a sum over one rank is itself
+        rest = _sum_over(rest, group)
+    pods = shards.pod_group if shards is not None else None
+    if mine and pods is not None and group_size(pods) > 1:
+        mine = _sum_over(mine, pods)
+    return tree_from_paths(rest + mine)
 
 
 def loss_and_grads(cfg: ModelConfig, params: Params, batch,
-                   grad_accum: int = 1, group=None, model_group=None
+                   grad_accum: int = 1, group=None, model_group=None,
+                   shards: ParamShards | None = None
                    ) -> tuple[torch.Tensor, dict, Params]:
     """The train step's (loss, metrics, grads) before the update.  With
     ``grad_accum > 1`` the batch is split along its first axis into
@@ -197,18 +230,21 @@ def loss_and_grads(cfg: ModelConfig, params: Params, batch,
     taken over the group, and the gradients (f32) are the SUM of the
     ranks' parts before the mean over microbatches.  With a
     ``model_group`` (needs a data ``group``) ``params`` are this rank's
-    slices along ``model`` and so are the gradients."""
+    slices along ``model`` and so are the gradients; with ``shards``
+    (``param_shards``) the leaves it splits are this rank's blocks along
+    ``data``, and so are their gradients (``_sync``)."""
     if group is None:
-        if model_group is not None:
-            raise ValueError("a model group needs its data group")
+        if model_group is not None or shards is not None:
+            raise ValueError("a model group or parameter shards need "
+                             "their data group")
         return _loss_and_grads(cfg, params, batch, grad_accum)
     local = rank_rows(batch, grad_accum, group_rank(group),
                       group_size(group))
-    with data_parallel(group), model_parallel(model_group):
+    with data_parallel(group), model_parallel(model_group), \
+            install_shards(shards):
         loss, metrics, grads = _loss_and_grads(cfg, params, local,
                                                grad_accum, mean=False)
-    if group_size(group) > 1:     # a sum over one rank is itself
-        grads = _sum_over(grads, group)
+    grads = _sync(grads, group, shards)
     if grad_accum > 1:
         grads = tree_map(lambda g: g / grad_accum, grads)
         metrics["tokens"] = torch.tensor(batch["labels"].numel(),
@@ -248,22 +284,25 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
                     schedule: Callable[[torch.Tensor], torch.Tensor]
                     | None = None, grad_accum: int = 1, *, group=None,
                     shard: ShardedUpdate | None = None,
-                    model: ModelShards | None = None):
+                    model: ModelShards | None = None,
+                    data: ParamShards | None = None):
     """forward+backward (+ microbatch accumulation) + AdamW update:
     ``train_step(state, batch) -> (new_state, metrics)``.  With a data
     ``group`` the step takes the global batch on every rank and reduces
     over the group (``loss_and_grads``); ``shard`` (``zero1_shard``) is
     this rank's ZeRO-1 share of the update; ``model`` (``model_shards``)
-    its place on a ``model`` axis of more than one rank."""
+    its place on a ``model`` axis of more than one rank; ``data``
+    (``param_shards``) the parameters split over ``data``."""
     schedule = schedule or constant(3e-4)
     model_group = None if model is None else model.group
 
     def train_step(state: Params, batch: dict[str, torch.Tensor]):
         loss, metrics, grads = loss_and_grads(cfg, state["params"], batch,
-                                              grad_accum, group, model_group)
+                                              grad_accum, group, model_group,
+                                              data)
         new_params, new_opt, info = adamw_update(
             ocfg, schedule, state["params"], grads, state["opt"], shard,
-            model)
+            model, data)
         metrics = dict(metrics)
         metrics.update(info)
         metrics["loss"] = loss
@@ -273,14 +312,17 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
 
 
 def zero1_shard(state_specs: Params, params: Params, mesh, position: int,
-                group) -> ShardedUpdate:
+                group, held=()) -> ShardedUpdate:
     """Mesh position ``position``'s ZeRO-1 share of the update under the
     train state's specs (``train_state_pspecs(..., zero1=True)``): for
     each parameter of ``params`` (any tensors of its shapes), the slice
     its moment shard covers (an int8 moment's codes ``q``) and the dim
     the data axis cuts (None where no dim divides and the moment is
     whole); ``group`` is the data group.  On a ``model`` axis the slice is
-    of the rank's own slice of the parameter along ``model``."""
+    of the rank's own slice of the parameter along ``model``.  The
+    parameters of ``held`` (paths) are themselves this rank's block along
+    ``data``: the share is all of the block, and the dim the one ``data``
+    splits."""
     index, dims = {}, {}
     for path, p in tree_paths(params):
         spec = state_specs["opt"]["m"]
@@ -288,6 +330,10 @@ def zero1_shard(state_specs: Params, params: Params, mesh, position: int,
             spec = spec[k]
         if isinstance(spec, dict):          # int8 {'q', 'scale'}
             spec = spec["q"]
+        if path in held:
+            index[path] = (slice(None),) * p.dim()
+            dims[path] = part.sharded_dim(spec, part.FSDP_AXIS)
+            continue
         on = [part.axes_of(e) for e in spec]
         local = part.local_shape(p.shape, part.P(*(
             e if part.MODEL_AXIS in a else None for e, a in zip(spec, on))),
@@ -296,7 +342,7 @@ def zero1_shard(state_specs: Params, params: Params, mesh, position: int,
                         for e, a in zip(spec, on)))
         index[path] = part.NamedSharding(mesh, data).index(local, position)
         dims[path] = part.sharded_dim(spec, part.FSDP_AXIS)
-    return ShardedUpdate(group, index, dims)
+    return ShardedUpdate(group, index, dims, frozenset(held))
 
 
 def model_shards(cfg: ModelConfig, mesh, group) -> ModelShards | None:
@@ -317,6 +363,27 @@ def model_shards(cfg: ModelConfig, mesh, group) -> ModelShards | None:
     return ModelShards(group, sharded, rows)
 
 
+def param_shards(cfg: ModelConfig, mesh, params: Params | None = None
+                 ) -> ParamShards | None:
+    """This rank's ``ctx.ParamShards`` on ``mesh`` (its groups: the shard
+    group is the ZeRO-1 group, the data group on one pod), or None where
+    ``data`` splits no parameter (one data rank, no ``fsdp_units`` nor
+    ``e_data_f_model``): the leaves ``param_pspecs`` splits over ``data``
+    and along which dim (``partitioning.data_split``); ``params``: any
+    tensors of the parameters' shapes (a meta init by default)."""
+    if part.axis_size(mesh, part.FSDP_AXIS) == 1:
+        return None
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="meta")
+    gathered, owned = part.data_split(cfg, part.param_pspecs(cfg, mesh,
+                                                             params))
+    if not (gathered or owned):
+        return None
+    return ParamShards(mesh.zero1_group or mesh.data_group, mesh.pod_group,
+                       gathered, owned)
+
+
 def mesh_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh, position: int,
                     schedule=None, *, grad_accum: int = 1,
                     zero1: bool = True):
@@ -324,21 +391,25 @@ def mesh_train_step(cfg: ModelConfig, ocfg: OptConfig, mesh, position: int,
     position ``position`` on a ``(data, model)`` mesh with its groups
     (``launch.mesh.make_data_mesh``, or ``plan_mesh``'s stand-ins), the
     ``Trainer``'s step: the data group's sums, the rank's ZeRO-1 share
-    (``zero1_shard``) and its place on ``model`` (``model_shards``).
-    The rules the port does not take raise by name
+    (``zero1_shard``), its blocks of the parameters split over ``data``
+    (``param_shards``) and its place on ``model`` (``model_shards``).
+    A split that does not divide raises ``ValueError`` naming the leaf;
+    a rule the port does not take raises by name
     (``partitioning.tp_plan``)."""
     part.tp_plan(cfg, mesh)
     state_shape = abstract_train_state(cfg, ocfg)
+    specs = train_state_pspecs(cfg, ocfg, mesh, state_shape, zero1=zero1)
+    part.tree_local_shapes(state_shape, specs, mesh)
+    shards = param_shards(cfg, mesh, state_shape["params"])
     shard = None
-    if zero1:
-        shard = zero1_shard(train_state_pspecs(cfg, ocfg, mesh, state_shape,
-                                               zero1=True),
-                            state_shape["params"], mesh, position,
-                            mesh.zero1_group or mesh.data_group)
+    if zero1 or shards is not None:
+        shard = zero1_shard(specs, state_shape["params"], mesh, position,
+                            mesh.zero1_group or mesh.data_group,
+                            shards.held if shards is not None else ())
     return make_train_step(cfg, ocfg, schedule, grad_accum,
                            group=mesh.data_group, shard=shard,
-                           model=model_shards(cfg, mesh, mesh.model_group)
-                           ), shard
+                           model=model_shards(cfg, mesh, mesh.model_group),
+                           data=shards), shard
 
 
 def _rank_batch(group, rows: int) -> tuple[Any, slice]:
@@ -354,20 +425,23 @@ def _rank_batch(group, rows: int) -> tuple[Any, slice]:
     return group, slice(r * (rows // n), (r + 1) * (rows // n))
 
 
-def _on_mesh(fn, group, model_group, inputs, position_ids):
+def _on_mesh(fn, group, model_group, shards, inputs, position_ids):
     """``fn(inputs, position_ids)`` on this rank's rows, inside its data
-    and model groups (``fn`` itself without either)."""
-    if group is None and model_group is None:
+    and model groups and its parameter shards (``fn`` itself without
+    any)."""
+    if group is None and model_group is None and shards is None:
         return fn(inputs, position_ids)
     data, rows = _rank_batch(group, inputs.shape[0])
     if position_ids is not None:        # [3, B, S]
         position_ids = position_ids[:, rows]
-    with data_parallel(data), model_parallel(model_group):
+    with data_parallel(data), model_parallel(model_group), \
+            install_shards(shards):
         return fn(inputs[rows], position_ids)
 
 
 def make_serve_decode(cfg: ModelConfig, max_seq: int | None = None, *,
-                      group=None, model_group=None):
+                      group=None, model_group=None,
+                      shards: ParamShards | None = None):
     """``serve_decode(params, cache, inputs, index, position_ids=None)``:
     one token against the cache.  With ``group`` / ``model_group`` (a
     ``(data, model)`` mesh's groups of this rank) it is this rank's part
@@ -375,25 +449,26 @@ def make_serve_decode(cfg: ModelConfig, max_seq: int | None = None, *,
     (``_rank_batch``) on its slices of the parameters (``param_pspecs``)
     and its cache (``cache_pspecs`` of a cache of ``max_seq``
     positions), inside ``ctx.model_parallel``; the logits are its
-    columns of the vocabulary."""
+    columns of the vocabulary.  ``shards`` (``param_shards``): the
+    parameters split over ``data``, gathered a unit at a time."""
     def serve_decode(params, cache, inputs, index, position_ids=None):
         return _on_mesh(lambda x, ids: decode_step(
             cfg, params, cache, x, index, ids, max_seq=max_seq), group,
-            model_group, inputs, position_ids)
+            model_group, shards, inputs, position_ids)
     return serve_decode
 
 
 def make_serve_prefill(cfg: ModelConfig, max_seq: int, *, group=None,
-                       model_group=None):
+                       model_group=None, shards: ParamShards | None = None):
     """``serve_prefill(params, inputs, position_ids=None)``: the batched
     prompt pass, (last logits, cache).  With ``group`` / ``model_group``
-    it is this rank's part of JAX's prefill cell, as
+    / ``shards`` it is this rank's part of JAX's prefill cell, as
     ``make_serve_decode``'s: its rows, its slices of the parameters, its
     slices of the cache, its columns of the logits."""
     def serve_prefill(params, inputs, position_ids=None):
         return _on_mesh(lambda x, ids: prefill(
             cfg, params, x, max_seq=max_seq, position_ids=ids), group,
-            model_group, inputs, position_ids)
+            model_group, shards, inputs, position_ids)
     return serve_prefill
 
 
@@ -419,10 +494,9 @@ def serve_cache(cfg: ModelConfig, mesh, batch: int, max_seq: int,
 def local_meta(tree: Params, specs: Params, mesh) -> Params:
     """Meta tensors of the shapes one position of ``mesh`` holds of each
     leaf of ``tree`` under ``specs`` (``partitioning.local_shape``)."""
-    spec_of = dict(tree_paths(specs))
+    local = part.tree_local_shapes(tree, specs, mesh)
     return tree_from_paths(
-        (p, torch.empty(part.local_shape(x.shape, spec_of[p], mesh),
-                        dtype=x.dtype, device="meta"))
+        (p, torch.empty(local[p], dtype=x.dtype, device="meta"))
         for p, x in tree_paths(tree))
 
 
@@ -506,8 +580,6 @@ def plan_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
     def local(tree, tree_specs):
         return tree if rank is None else local_meta(tree, tree_specs, mesh)
 
-    groups = {} if rank is None else {"group": mesh.data_group,
-                                      "model_group": mesh.model_group}
     if shape.kind == "train":
         state = abstract_train_state(cfg, ocfg)
         state_specs = train_state_pspecs(cfg, ocfg, mesh, state, zero1=zero1)
@@ -527,6 +599,10 @@ def plan_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
                          device="meta")
     param_specs = part.param_pspecs(cfg, mesh, params)
     arg_groups = {"params": (params, param_specs)}
+    groups = {}
+    if rank is not None:
+        groups = {"group": mesh.data_group, "model_group": mesh.model_group,
+                  "shards": param_shards(cfg, mesh, params)}
     inputs = {k: specs[k] for k in ("inputs", "position_ids") if k in specs}
     binp = part.batch_axes(mesh, shape.global_batch)
     max_seq = shape.seq_len if max_seq is None else max_seq

@@ -26,11 +26,25 @@ part of the experts' slots: its E / tp experts on every token's slots
 (expert-parallel), or, where E does not divide, every expert on its
 contiguous C / tp capacity slots with the weights replicated (their
 gradient summed over the group); where C does not divide either, the
-routed experts run whole on every rank.  The shared expert is column /
-row.  The ranks' partial outputs are summed (``from_model``), and the
-gate weights' gradient is summed over the group, so the router's
-gradient is the whole one on every rank.  A decode step's group is the
-global batch: inside a data group its rows are gathered first.
+routed experts run whole on every rank.  Under ``moe_shard_mode=
+"f_model"`` a rank runs every expert on every slot with its d_ff / tp
+columns of each expert.  The shared expert is column / row.  The ranks'
+partial outputs are summed (``from_model``), and the gate weights'
+gradient is summed over the group, so the router's gradient is the whole
+one on every rank.  A decode step's group is the global batch: inside a
+data group its rows are gathered first.
+
+Under ``moe_shard_mode="e_data_f_model"`` on more than one data rank (a
+``ctx.param_shards`` context whose ``owned`` leaves are the experts) a
+rank holds E / n of the experts (``n`` the shard group's ranks), each on
+its d_ff / tp columns.  The dispatch buffer's expert axis goes to the
+experts' owners by one all-to-all over the shard group
+(``ctx.exchange``), each owner runs its experts on every rank's slots of
+them, the model group sums the partial outputs, and a second all-to-all
+returns the slots, which the rank weights and combines as above.  The
+experts' gradients are then whole on their owner.  Where every data rank
+holds the same rows (a decode step's gathered batch) each owner runs its
+experts on n copies of the same slots.
 
 The JAX package's sharding hints are kept where it makes them:
 ``distributed.ctx.constrain`` on the dispatch tables and buffers, the
@@ -47,8 +61,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.ctx import (constrain, dp_rank, dp_size,
-                                         dp_sum, from_model, gather_data,
-                                         mp_rank, mp_size, to_model)
+                                         dp_sum, exchange, from_model,
+                                         gather_data, group_size,
+                                         installed_shards, mp_rank, mp_size,
+                                         to_model)
 from repro_torch.models.layers import ACTIVATIONS, Params, dense_init
 
 
@@ -184,6 +200,13 @@ def apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, *,
     return _apply_moe(p, spec, x, compute_dtype, tp)
 
 
+def _owners():
+    """The shard group whose ranks own the experts (``e_data_f_model`` on
+    more than one data rank), or None."""
+    shards = installed_shards()
+    return shards.group if shards is not None and shards.owned else None
+
+
 def _apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, compute_dtype,
                tp) -> torch.Tensor:
     b, s, d = x.shape
@@ -197,9 +220,10 @@ def _apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, compute_dtype,
     # device; recorded inside an activation_sharding context)
     src = constrain(src, ("batch", None, "moe_cap"))
     wtab = constrain(wtab, ("batch", None, "moe_cap"))
-    if tp is not None:
+    owners = _owners()
+    if tp is not None or owners is not None:
         return _apply_moe_tp(p, spec, xg, ids, src, wtab, cap, compute_dtype,
-                             tp).reshape(b, s, d)
+                             tp, owners).reshape(b, s, d)
     out = _routed(p, spec, xg, ids, src, wtab, cap, compute_dtype,
                   slice(0, spec.n_experts), slice(0, cap))
     if spec.shared_d_ff:
@@ -207,24 +231,23 @@ def _apply_moe(p: Params, spec: MoESpec, x: torch.Tensor, compute_dtype,
     return out.reshape(b, s, d)
 
 
-def _routed(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
-            compute_dtype, experts: slice, slots: slice) -> torch.Tensor:
-    """The routed experts' output [G, T, d] from the experts ``experts``
-    on their slots ``slots`` alone (``p`` holding those experts), each
-    token's rows summed in ascending expert order."""
-    g, t, d = xg.shape
-    e_n = experts.stop - experts.start
-    c_n = slots.stop - slots.start
-    src, wtab = src[:, experts, slots], wtab[:, experts, slots]
+def _dispatch(xg, src, compute_dtype) -> torch.Tensor:
+    """The expert inputs [G, E, C, d] of the slots ``src`` [G, E, C]
+    (token ``T``: a zero row)."""
+    g, _, d = xg.shape
     x_pad = torch.cat([xg.to(compute_dtype),
                        xg.new_zeros((g, 1, d), dtype=compute_dtype)], dim=1)
     g_idx = torch.arange(g, device=xg.device)[:, None, None]
-    xe = x_pad[g_idx, src]                            # [G, E, C, d] gather
-    xe = constrain(xe, ("batch", None, "moe_cap", None))
-    ye = _expert_ffn(p, spec, xe, compute_dtype)
-    ye = ye * wtab[..., None].to(compute_dtype)
+    return constrain(x_pad[g_idx, src], ("batch", None, "moe_cap", None))
+
+
+def _combine(ye, ids, spec: MoESpec, cap: int, experts: slice,
+             slots: slice) -> torch.Tensor:
+    """[G, T, d]: each token's rows of the weighted expert outputs ``ye``
+    [G, E', C', d] (the experts ``experts`` on their slots ``slots``),
+    summed in ascending expert order; a pair outside them adds zeros."""
     ye = constrain(ye, ("batch", None, "moe_cap", None))
-    # combine: each token's rows, summed in ascending expert order
+    g, e_n, c_n, d = ye.shape
     rows = torch.cat([ye.reshape(g, -1, d), ye.new_zeros((g, 1, d))], dim=1)
     flat = _combine_index(ids, spec, cap)
     e, c = flat // cap, flat % cap
@@ -232,26 +255,62 @@ def _routed(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
             & (c >= slots.start) & (c < slots.stop))
     index = torch.where(held, (e - experts.start) * c_n + c - slots.start,
                         e_n * c_n)
-    picked = rows[torch.arange(g, device=xg.device)[:, None, None], index]
+    picked = rows[torch.arange(g, device=ye.device)[:, None, None], index]
     out = picked[:, :, 0]
     for j in range(1, spec.top_k):
         out = out + picked[:, :, j]
     return out
 
 
+def _routed(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
+            compute_dtype, experts: slice, slots: slice) -> torch.Tensor:
+    """The routed experts' output [G, T, d] from the experts ``experts``
+    on their slots ``slots`` alone (``p`` holding those experts), each
+    token's rows summed in ascending expert order."""
+    src, wtab = src[:, experts, slots], wtab[:, experts, slots]
+    ye = _expert_ffn(p, spec, _dispatch(xg, src, compute_dtype),
+                     compute_dtype)
+    ye = ye * wtab[..., None].to(compute_dtype)
+    return _combine(ye, ids, spec, cap, experts, slots)
+
+
+def _owned(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
+           compute_dtype, group) -> torch.Tensor:
+    """The routed experts' output [G, T, d] where the ranks of ``group``
+    own E / n experts each (``p`` holding this rank's, on its d_ff
+    columns): the slots exchanged to their owners and back."""
+    n = group_size(group)
+    g, _, d = xg.shape
+    e = spec.n_experts // n
+    xe = _dispatch(xg, src, compute_dtype)            # [G, E, C, d]
+    xe = exchange(xe.reshape(g, n, e, cap, d).transpose(0, 1), group)
+    ye = _expert_ffn(p, spec, to_model(xe.reshape(n * g, e, cap, d)),
+                     compute_dtype)
+    ye = exchange(from_model(ye).reshape(n, g, e, cap, d), group)
+    ye = ye.transpose(0, 1).reshape(g, n * e, cap, d)
+    ye = ye * wtab[..., None].to(compute_dtype)
+    return _combine(ye, ids, spec, cap, slice(0, spec.n_experts),
+                    slice(0, cap))
+
+
 def _apply_moe_tp(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
-                  compute_dtype, tp) -> torch.Tensor:
-    """``apply_moe``'s output [G, T, d] on this rank of a model group."""
+                  compute_dtype, tp, owners) -> torch.Tensor:
+    """``apply_moe``'s output [G, T, d] on this rank of a model group
+    (``tp``: its ``TPPlan``) and / or of a shard group that owns the
+    experts (``owners``)."""
     n, r = mp_size(), mp_rank()
     e = spec.n_experts
     partial, whole = [], []
-    if tp.moe == "expert" or cap % n == 0:
+    if owners is not None:
+        whole.append(_owned(p, spec, xg, ids, src, wtab, cap, compute_dtype,
+                            owners))
+    elif tp.moe in ("expert", "f") or cap % n == 0:
         xs, ws = to_model(xg), to_model(wtab)
         experts, slots = slice(0, e), slice(0, cap)
+        pe = p
         if tp.moe == "expert":
             experts = slice(r * (e // n), (r + 1) * (e // n))
-            pe = p
-        else:                       # capacity slots, weights replicated
+        elif tp.moe == "slot":      # capacity slots, weights replicated
             slots = slice(r * (cap // n), (r + 1) * (cap // n))
             pe = {k: to_model(v) for k, v in p.items()
                   if k in ("wi", "wg", "wo")}
@@ -261,9 +320,9 @@ def _apply_moe_tp(p: Params, spec: MoESpec, xg, ids, src, wtab, cap: int,
         whole.append(_routed(p, spec, xg, ids, src, wtab, cap,
                              compute_dtype, slice(0, e), slice(0, cap)))
     if spec.shared_d_ff:
-        xc = to_model(xg) if tp.moe_shared else xg
-        (partial if tp.moe_shared else whole).append(
-            _shared(p, spec, xc, compute_dtype))
+        split = tp is not None and tp.moe_shared
+        (partial if split else whole).append(
+            _shared(p, spec, to_model(xg) if split else xg, compute_dtype))
     out = from_model(sum(partial[1:], partial[0])) if partial else None
     for y in whole:
         out = y if out is None else out + y

@@ -33,6 +33,12 @@ such a context too (``launch.steps.make_serve_prefill`` /
 ``init_cache`` then hold the rank's slices of the cache
 (``partitioning.cache_pspecs``), and the xLSTM mixers, whose weights
 replicate, gather their split states for a step and keep their slices.
+Inside a ``distributed.ctx.param_shards`` context (``fsdp_units`` on
+more than one data rank, ZeRO-3) the parameters are this rank's blocks
+along ``data`` too: ``forward``, ``prefill`` and ``decode_step`` gather a
+unit's blocks (``ctx.gather_params``) right before the unit runs, inside
+its remat boundary, so the backward gathers again and one unit is whole
+at a time; the tail layers and the final norm are gathered the same way.
 Mixers:
 ``attn``, ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``, ``moe``
 and ``none``.  On the card, attention and the RG-LRU scan run the
@@ -51,8 +57,9 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.distributed import partitioning as part
 from repro_torch.distributed.ctx import (dp_sum, from_model, gather_model,
-                                         model_max, model_parallel, mp_rank,
-                                         mp_size, to_model)
+                                         gather_params, model_max,
+                                         model_parallel, mp_rank, mp_size,
+                                         to_model)
 from repro_torch.kernels.flash_attention.plan import PosPlan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -429,6 +436,7 @@ def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     x = _embed_inputs(cfg, params, inputs)
 
     def unit_fn(x, aux, unit_p):
+        unit_p = gather_params(unit_p, ("unit",), shift=1)
         for i, spec in enumerate(cfg.pattern):
             x, _, a = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x,
                                    positions, position_ids, mode, None, None,
@@ -442,13 +450,24 @@ def forward(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     for u in range(cfg.num_units):
         x, aux = unit_fn(x, aux, _unit_slice(params["unit"], u))
     for i, spec in enumerate(cfg.tail):
-        x, _, a = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x,
+        x, _, a = _apply_layer(cfg, spec, _tail_params(params, i), x,
                                positions, position_ids, mode, None, None,
                                plan=plan)
         if a is not None:
             aux = aux + a
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    x = apply_norm(cfg.norm, _final_norm(params), x)
     return _head(cfg, params, x), aux
+
+
+def _tail_params(params: Params, i: int) -> Params:
+    """Tail layer ``i``'s parameters, whole (gathered over ``data`` inside
+    a ``ctx.param_shards`` context)."""
+    name = f"tail{i}"
+    return gather_params(params["tail"][name], ("tail", name))
+
+
+def _final_norm(params: Params) -> Params:
+    return gather_params(params["final_norm"], ("final_norm",))
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch
@@ -617,17 +636,18 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         position_ids = text_mrope_positions(pos)
     x = _embed_inputs(cfg, params, inputs)
     for u in range(cfg.num_units):
-        unit_p = _unit_slice(params["unit"], u)
+        unit_p = gather_params(_unit_slice(params["unit"], u), ("unit",), 1)
         unit_c = _unit_slice(cache["unit"], u)
         for i, spec in enumerate(cfg.pattern):
             x, _, _ = _apply_layer(cfg, spec, unit_p[f"layer{i}"], x, None,
                                    position_ids, "decode",
                                    unit_c[f"layer{i}"], index, max_seq)
+        del unit_p              # gathered: one unit whole at a time
     for i, spec in enumerate(cfg.tail):
-        x, _, _ = _apply_layer(cfg, spec, params["tail"][f"tail{i}"], x,
+        x, _, _ = _apply_layer(cfg, spec, _tail_params(params, i), x,
                                None, position_ids, "decode",
                                cache["tail"][f"tail{i}"], index, max_seq)
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    x = apply_norm(cfg.norm, _final_norm(params), x)
     return _head(cfg, params, x), cache
 
 
@@ -651,13 +671,14 @@ def prefill(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
     x = _embed_inputs(cfg, params, inputs)
     unit_cache = None
     for u in range(cfg.num_units):
-        unit_p = _unit_slice(params["unit"], u)
+        unit_p = gather_params(_unit_slice(params["unit"], u), ("unit",), 1)
         caches = {}
         for i, spec in enumerate(cfg.pattern):
             name = f"layer{i}"
             x, caches[name], _ = _apply_layer(cfg, spec, unit_p[name], x,
                                               positions, position_ids,
                                               "prefill", None, None, max_seq)
+        del unit_p              # gathered: one unit whole at a time
         if unit_cache is None:
             unit_cache = _stacked_like(caches, cfg.num_units)
         _copy_into(unit_cache, caches, u)
@@ -667,9 +688,9 @@ def prefill(cfg: ModelConfig, params: Params, inputs: torch.Tensor,
         for i, spec in enumerate(cfg.tail):
             name = f"tail{i}"
             x, cache["tail"][name], _ = _apply_layer(
-                cfg, spec, params["tail"][name], x, positions, position_ids,
-                "prefill", None, None, max_seq)
-    x = apply_norm(cfg.norm, params["final_norm"], x[:, -1:])
+                cfg, spec, _tail_params(params, i), x, positions,
+                position_ids, "prefill", None, None, max_seq)
+    x = apply_norm(cfg.norm, _final_norm(params), x[:, -1:])
     return _head(cfg, params, x), cache
 
 

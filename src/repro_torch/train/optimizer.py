@@ -22,6 +22,13 @@ layout, so a JAX train state carries across
   and counts each replicated leaf once (JAX's norm of the whole tree),
   and where ``model`` splits an int8 moment's rows, their absmax is a
   MAX over the model group.
+* **Parameters split over ``data``** (``fsdp_units``' ZeRO-3 and the
+  ``e_data_f_model`` experts: ``ShardedUpdate.held``) — the rank holds
+  its block of the parameter, its gradient and its moments; it updates
+  the block where it lies and gathers nothing after the update; the
+  global norm sums those leaves' squares over the shard group
+  (``global_norm(data=)``), and where the block splits an int8 moment's
+  rows their absmax is a MAX over it, as ZeRO-1's split rows.
 
 Trees are nested dicts of tensors; leaves are visited in the JAX
 package's order (dict keys sorted), which fixes the order of the
@@ -152,17 +159,21 @@ class ShardedUpdate:
     of the parameter its moments and master cover (``index``) and the dim
     that slice cuts over the data group (``dim``; None: the whole leaf,
     which every rank updates alike).  ``group`` is the data group that
-    all-gathers the updated slices."""
+    all-gathers the updated slices.  The paths of ``held`` are parameters
+    that are themselves this rank's block along ``data`` (``index`` all of
+    it): updated where they lie, not gathered."""
     group: Any
     index: dict[tuple, tuple[slice, ...]]
     dim: dict[tuple, int | None]
+    held: frozenset = frozenset()
 
     def gather(self, path: tuple, x: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from this rank's slice ``x`` of it."""
+        """The whole leaf from this rank's slice ``x`` of it (``x`` itself
+        for a leaf of ``held``)."""
         from repro_torch.distributed.ctx import all_gather, group_size
         d = self.dim[path]
         world = group_size(self.group)
-        if d is None or world == 1:        # x is the whole leaf
+        if d is None or world == 1 or path in self.held:
             return x
         parts = [torch.empty_like(x) for _ in range(world)]
         all_gather(parts, x.contiguous(), group=self.group)
@@ -180,23 +191,36 @@ class ModelShards:
     rows: frozenset
 
 
-def global_norm(tree: Params, model: ModelShards | None = None
-                ) -> torch.Tensor:
+def global_norm(tree: Params, model: ModelShards | None = None,
+                data=None) -> torch.Tensor:
     """The L2 norm of every leaf; with ``model`` the norm of the whole
     tree: the squares of the leaves ``model`` splits are summed over its
-    group, the replicated leaves (whole on every rank) counted once."""
+    group, the replicated leaves (whole on every rank) counted once.
+    With ``data`` (a ``ctx.ParamShards``) the squares of the leaves it
+    splits are summed over its shard group first."""
     paths, leaves = zip(*((p, torch.sum(torch.square(x.to(torch.float32))))
                           for p, x in tree_paths(tree)))
-    if model is None:
+    if model is None and data is None:
         return torch.sqrt(torch.sum(torch.stack(leaves)))
-    split = [x for p, x in zip(paths, leaves) if p in model.sharded]
-    whole = [x for p, x in zip(paths, leaves) if p not in model.sharded]
     from repro_torch.distributed.ctx import all_reduce
-    total = torch.sum(torch.stack(split)) if split else leaves[0] * 0
-    all_reduce(total, op=dist.ReduceOp.SUM, group=model.group)
-    if whole:
-        total = total + torch.sum(torch.stack(whole))
-    return torch.sqrt(total)
+    on_model = model.sharded if model is not None else frozenset()
+    on_data = data.held if data is not None else {}
+
+    def total(pick):
+        picked = [x for p, x in zip(paths, leaves) if pick(p)]
+        return torch.sum(torch.stack(picked)) if picked else leaves[0] * 0
+    whole = total(lambda p: p not in on_model and p not in on_data)
+    split = total(lambda p: p in on_model and p not in on_data)
+    if data is not None:      # [data alone, data and model]
+        both = torch.stack([total(lambda p: p in on_data
+                                  and p not in on_model),
+                            total(lambda p: p in on_data and p in on_model)])
+        all_reduce(both, op=dist.ReduceOp.SUM, group=data.group)
+        whole = whole + both[0]
+        split = split + both[1]
+    if model is not None:
+        all_reduce(split, op=dist.ReduceOp.SUM, group=model.group)
+    return torch.sqrt(split + whole if model is not None else whole)
 
 
 def adamw_update(
@@ -207,16 +231,18 @@ def adamw_update(
     state: Params,
     shard: ShardedUpdate | None = None,
     model: ModelShards | None = None,
+    data=None,
 ) -> tuple[Params, Params, dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, info).  With ``shard`` (ZeRO-1) the
     state's moments and master are this rank's slices, ``params`` and
     ``grads`` whole; the new parameters are whole again.  With ``model``
     (tensor parallelism) every leaf is this rank's slice along
-    ``model``."""
+    ``model``; with ``data`` (a ``ctx.ParamShards``) the leaves it splits
+    are this rank's blocks along ``data`` (``shard.held``)."""
     count = state["count"] + 1
     lr = schedule(count)
 
-    gnorm = global_norm(grads, model)
+    gnorm = global_norm(grads, model, data)
     if cfg.clip_norm is not None:
         scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                                 1.0)

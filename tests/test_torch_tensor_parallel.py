@@ -395,20 +395,24 @@ def test_one_by_one_mesh_bit_equal_to_meshless(meshes):
 
 
 def test_unported_rules_are_refused_by_name(tmp_path):
-    """fsdp_units over more than one data rank, a moe_shard_mode other
-    than "auto", and an RG-LRU whose width divides model while its head
-    count does not raise NotImplementedError naming their ROADMAP item,
-    before any process group is asked for."""
+    """An RG-LRU whose width divides model while its head count does not
+    raises NotImplementedError naming its ROADMAP item (32), before any
+    process group is asked for.  The rules ported since plan and
+    construct: fsdp_units over more than one data rank and the MoE shard
+    modes (``f_model``: each expert's d_ff over model; the
+    ``e_data_f_model`` experts own d_ff over model too), and a Trainer on
+    such a mesh gets past them to ask for its process group."""
     cfg = registry.get_arch("llama4-maverick-400b-a17b").config
     assert cfg.fsdp_units
     two = MeshSpec(("data", "model"), (2, 1), devices=(CPU, CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 30"):
-        part.tp_plan(cfg, two)
+    assert part.tp_plan(cfg, two).tp == 1
     part.tp_plan(cfg, MeshSpec(("data", "model"), (1, 2)))   # no data axis
     moe = dataclasses.replace(configs("moe-experts")[1],
                               moe_shard_mode="f_model")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 31"):
-        part.tp_plan(moe, two)
+    wide = MeshSpec(("data", "model"), (2, 2), devices=(CPU,) * 4)
+    assert part.tp_plan(moe, wide).moe == "f"
+    assert part.tp_plan(dataclasses.replace(
+        moe, moe_shard_mode="e_data_f_model"), wide).moe == "f"
     rg = configs("rg-group-int8")[1]
     odd = dataclasses.replace(rg, rglru=dataclasses.replace(rg.rglru,
                                                             n_heads=2))
@@ -416,11 +420,13 @@ def test_unported_rules_are_refused_by_name(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP item 32"):
         part.tp_plan(odd, four)
     assert part.tp_plan(rg, four).rglru
-    for cfg_, mesh, item in ((moe, two, 31), (odd, four, 32)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 32"):
+        Trainer(odd, TrainerConfig(ckpt_dir=str(tmp_path)), [],
+                mesh=dataclasses.replace(four, devices=(CPU,) * 4))
+    for cfg_, mesh in ((moe, two), (cfg, two)):
+        with pytest.raises(RuntimeError, match="process group"):
             Trainer(cfg_, TrainerConfig(ckpt_dir=str(tmp_path)), [],
-                    mesh=dataclasses.replace(
-                        mesh, devices=(CPU,) * mesh.size))
+                    mesh=mesh)
 
 
 def test_model_sharded_paths_follow_param_pspecs():

@@ -422,17 +422,26 @@ def test_mesh_refusals(tmp_path):
     tp = MeshSpec(("data", "model"), (1, 2), devices=(CPU, CPU))
     with pytest.raises(RuntimeError, match="process group"):
         trainer(case, tmp_path, tp)
-    # the rules the multi-device step does not port are refused by name,
-    # before the process group is asked for
+    # the rules ported since (the MoE shard modes, fsdp_units over more
+    # than one data rank) get past the rules to ask for the process group;
+    # the one the multi-device step does not port (an RG-LRU's gate heads
+    # straddling model ranks) is refused by name before it
     _, moe = configs("granite-moe-3b-a800m")
     for mesh in (tp, MeshSpec(("data", "model"), (2, 1), devices=(CPU, CPU))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 31"):
-            Trainer(dataclasses.replace(moe, moe_shard_mode="f_model"),
-                    TrainerConfig(ckpt_dir=str(tmp_path)), [], mesh=mesh)
+        for mode in ("f_model", "e_data_f_model"):
+            with pytest.raises(RuntimeError, match="process group"):
+                Trainer(dataclasses.replace(moe, moe_shard_mode=mode),
+                        TrainerConfig(ckpt_dir=str(tmp_path)), [], mesh=mesh)
     llama = registry.get_arch("llama4-maverick-400b-a17b").config
-    with pytest.raises(NotImplementedError, match="ROADMAP item 30"):
+    with pytest.raises(RuntimeError, match="process group"):
         Trainer(llama, TrainerConfig(ckpt_dir=str(tmp_path)), [],
                 mesh=MeshSpec(("data", "model"), (2, 1), devices=(CPU, CPU)))
+    rg = registry.get_arch("recurrentgemma-9b").smoke
+    odd = dataclasses.replace(rg, rglru=dataclasses.replace(rg.rglru,
+                                                            n_heads=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 32"):
+        Trainer(odd, TrainerConfig(ckpt_dir=str(tmp_path)), [],
+                mesh=MeshSpec(("data", "model"), (1, 4), devices=(CPU,) * 4))
     dp = MeshSpec(("data", "model"), (2, 1), devices=(CPU, CPU))
     with pytest.raises(RuntimeError, match="process group"):
         trainer(case, tmp_path, dp)

@@ -1,15 +1,17 @@
-"""Phase 19 of ``chip_smoke.py`` alone on one CUDA card: serving under
-``model`` on four gloo ranks sharing ``cuda:0`` against the mesh-less
-prefill and decode, and the dry run's plan of one rank's program against
+"""Phase 19 or 20 of ``chip_smoke.py`` alone on one CUDA card: serving
+under ``model`` (19), or parameters split over ``data`` (20: ZeRO-3 and
+the MoE shard modes), on four gloo ranks sharing ``cuda:0`` against the
+mesh-less steps, and the dry run's plans of the ranks' programs against
 them.
 
 From the repository root:
 
-    python3 tools/serve_tp_phase.py
+    python3 tools/serve_tp_phase.py [19|20]
 
 It builds the attention and RG-LRU kernel sources, runs
-``chip_smoke.phase_serve_tp`` (its report lines go to standard output)
-and writes the phase's results to ``chiprun_out/phase19.json``; any
+``chip_smoke.phase_serve_tp`` (19, the default) or
+``chip_smoke.phase_fsdp`` (20) (its report lines go to standard output)
+and writes the phase's results to ``chiprun_out/phase<N>.json``; any
 failed check raises.
 """
 
@@ -45,11 +47,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0].strip()
-    out = chip_smoke.phase_serve_tp(torch.device("cuda"), smi)
+    phase = sys.argv[1] if len(sys.argv) > 1 else "19"
+    run = {"19": chip_smoke.phase_serve_tp, "20": chip_smoke.phase_fsdp}
+    out = run[phase](torch.device("cuda"), smi)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / "phase19.json").write_text(json.dumps(out, default=str,
-                                                  indent=1))
+    (dest / f"phase{phase}.json").write_text(json.dumps(out, default=str,
+                                                        indent=1))
     return 0
 
 
